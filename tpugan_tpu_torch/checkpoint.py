@@ -1,0 +1,171 @@
+"""Flax msgpack checkpoints carried into the port.
+
+``read_flax_msgpack`` is a small msgpack decoder of its own (the port
+imports no ``msgpack`` and no flax). It covers what ``flax.serialization``
+writes: maps, arrays, str, bin, ints, floats, nil, bool, and the extension
+types 1 (ndarray: a msgpack ``(shape, dtype_name, bytes)`` triple, flax's
+``_ndarray_to_bytes``) and 3 (a numpy scalar, packed as a 0-d ndarray).
+
+``srnet_params_from_flax`` turns the ``sr_net/params`` tree into a
+``state_dict`` of :class:`~tpugan_tpu_torch.models.generator.SRNet`: the
+torch modules carry the flax scope names, so ``a/b/Dense_0/kernel [in, out]``
+becomes ``a.b.Dense_0.weight [out, in]`` and ``.../bias`` stays ``bias``.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+class _Reader:
+    def __init__(self, data: bytes):
+        self.buf = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("msgpack: truncated input")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        size = struct.calcsize(fmt)
+        return struct.unpack(fmt, self.take(size))[0]
+
+    def value(self) -> Any:
+        t = self.unpack(">B")
+        if t <= 0x7F:
+            return t
+        if t >= 0xE0:
+            return t - 0x100
+        if 0x80 <= t <= 0x8F:
+            return self.map(t & 0x0F)
+        if 0x90 <= t <= 0x9F:
+            return self.array(t & 0x0F)
+        if 0xA0 <= t <= 0xBF:
+            return str(self.take(t & 0x1F), "utf-8")
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if t in fixed:
+            return fixed[t]
+        scalars = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I",
+                   0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+        if t in scalars:
+            return self.unpack(scalars[t])
+        lengths = {0: ">B", 1: ">H", 2: ">I"}
+        if 0xC4 <= t <= 0xC6:                                   # bin 8/16/32
+            return bytes(self.take(self.unpack(lengths[t - 0xC4])))
+        if 0xD9 <= t <= 0xDB:                                   # str 8/16/32
+            return str(self.take(self.unpack(lengths[t - 0xD9])), "utf-8")
+        if t in (0xDC, 0xDD):                                   # array 16/32
+            return self.array(self.unpack(lengths[t - 0xDB]))
+        if t in (0xDE, 0xDF):                                   # map 16/32
+            return self.map(self.unpack(lengths[t - 0xDD]))
+        if 0xD4 <= t <= 0xD8:                                   # fixext 1..16
+            return self.ext(1 << (t - 0xD4))
+        if 0xC7 <= t <= 0xC9:                                   # ext 8/16/32
+            return self.ext(self.unpack(lengths[t - 0xC7]))
+        raise ValueError(f"msgpack: unsupported type byte 0x{t:02x}")
+
+    def array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.value()
+            out[key] = self.value()
+        return out
+
+    def ext(self, n: int):
+        code = self.unpack(">b")
+        payload = self.take(n)
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack: unsupported extension type {code}")
+        shape, dtype_name, raw = _Reader(bytes(payload)).value()
+        if isinstance(dtype_name, bytes):
+            dtype_name = dtype_name.decode()
+        if dtype_name == "bfloat16":
+            # numpy has no bfloat16: widen exactly to float32
+            bits = np.frombuffer(raw, np.uint16).astype(np.uint32) << 16
+            arr = bits.view(np.float32).reshape(shape)
+        else:
+            arr = np.frombuffer(raw, dtype=np.dtype(dtype_name)).reshape(shape)
+        return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def read_flax_msgpack(path) -> Dict[str, Any]:
+    """Decode a flax msgpack file into nested dicts of numpy arrays (the tree
+    ``flax.serialization.msgpack_restore`` returns)."""
+    with open(path, "rb") as fh:
+        reader = _Reader(fh.read())
+    tree = reader.value()
+    if reader.pos != len(reader.buf):
+        raise ValueError(f"msgpack: {len(reader.buf) - reader.pos} trailing bytes")
+    return tree
+
+
+def _leaves(tree: Dict[str, Any], prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def srnet_params_from_flax(tree: Dict[str, Any],
+                           model: Optional[torch.nn.Module] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """``sr_net/params`` tree -> SRNet ``state_dict`` (CPU tensors).
+
+    With ``model``, raises if any flax leaf has no torch parameter, any
+    parameter is left unfilled, or a shape disagrees."""
+    sd = {}
+    for path, leaf in _leaves(tree):
+        arr = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "kernel":
+            sd[".".join(path[:-1] + ("weight",))] = torch.from_numpy(arr.T.copy())
+        elif path[-1] == "bias":
+            sd[".".join(path)] = torch.from_numpy(arr.copy())
+        else:
+            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
+    if model is not None:
+        want = model.state_dict()
+        extra = sorted(set(sd) - set(want))
+        missing = sorted(set(want) - set(sd))
+        if extra or missing:
+            raise ValueError(f"flax leaves without a torch parameter: {extra}; "
+                             f"torch parameters left unfilled: {missing}")
+        bad = [k for k in sd if sd[k].shape != want[k].shape]
+        if bad:
+            raise ValueError("shape mismatch: " + ", ".join(
+                f"{k} {tuple(sd[k].shape)} vs {tuple(want[k].shape)}"
+                for k in bad))
+    return sd
+
+
+def load_srnet(path, device=None, **model_kwargs):
+    """Build an :class:`SRNet` matching a trained checkpoint and load its
+    ``sr_net`` weights. in_feats, node_emb_dim, the upsample ratio and the
+    extractor depth are read off the weight shapes; ``model_kwargs`` sets the
+    rest (``compute_dtype``, ``graph_mode``, ...)."""
+    from tpugan_tpu_torch.models.generator import SRNet
+
+    params = read_flax_msgpack(path)["sr_net"]["params"]
+    fe = params["feature_extractor"]
+    in_feats, half = fe["EdgeConv_0"]["ConvLayer_0"]["Dense_0"]["kernel"].shape
+    model = SRNet(
+        in_feats=int(in_feats), node_emb_dim=2 * int(half),
+        upsample_ratio=int(params["upsampling_block"]["Dense_0"]["bias"].shape[0]) // 3,
+        feature_extractor_depth=1 + sum(k.startswith("IDGCNLayer_") for k in fe),
+        device=device, **model_kwargs)
+    sd = srnet_params_from_flax(params, model)
+    model.load_state_dict(sd, strict=True)
+    return model
