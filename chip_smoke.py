@@ -3,17 +3,20 @@
 
 Run from the root of the repository on a machine with one CUDA card:
 
-    python3 chip_smoke.py                 # the whole run, about a minute
+    python3 chip_smoke.py                 # the whole run, a few minutes
     python3 chip_smoke.py --profile DIR   # also profiles one forward of each
-                                          # serving mode, tables into DIR
+                                          # serving mode and writes the
+                                          # tables (and the train step's)
+                                          # into DIR
 
 Phases, one JSON line each (``phase`` names it):
   device   nvidia-smi name and power limit, torch and CUDA versions, the
            kernels' build time and their ptxas register / spill report;
-  kernel   each CUDA kernel against its plain PyTorch version on the card,
-           at every shape the serving path gives it: the error against the
-           stated tolerance, CUDA-event medians of the kernel, the plain
-           version and a PyTorch yardstick the port never calls, the bound;
+  kernel   each CUDA kernel of the serving path against its plain PyTorch
+           version on the card, at every shape the serving path and the
+           train step give it: the error against the stated tolerance,
+           CUDA-event medians of the kernel, the plain version and a
+           PyTorch yardstick the port never calls, the bound;
   serving  with the launch counts reset: the trained checkpoint through the
            port's loader, the f32 dynamic and the bf16 static forward of a
            10,240-point frame, the Chamfer gate between them, the launches
@@ -23,7 +26,19 @@ Phases, one JSON line each (``phase`` names it):
   timing   the card's forward against the CPU's (plain versions) at 2,048
            points, and ms per frame of both serving forwards;
   profile  with --profile only: device time by kernel and idle share of one
-           forward of each serving mode.
+           forward of each serving mode;
+  kernel   (train) the train step's kernels (fps, ball_query, the pooled
+           MLP forward and backward, interp) against their plain versions
+           at every shape one train step gives them;
+  train    with the launch counts reset: the trainer state of
+           checkpoints/fluid_vel_20k.ckpt resumed for 4 full-width
+           train_vel steps (B=4, 9,216-point patches, device sampling,
+           dense interp) on the port's synthetic fluid data; losses, the
+           adversarial gate, the critics' updates and state, the launches
+           of each step against the counts the step's code implies, ms per
+           step by CUDA events; then a profile of 2 more steps;
+  train_cpu one small step (B=2, 1,024-point patches) from the same state
+           and draws on the card and on the CPU (plain versions).
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -55,6 +70,25 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12}
 
 REPS = 10
+
+DATA_DIR = os.path.join(ROOT, "runs", "chip_smoke_fluid")   # gitignored
+TRAIN_STEPS = 4
+
+# Launches per train step, read off tpugan_tpu_torch/train/step.py (the
+# wrappers count one per call):
+#   every step: device sampling's FPS; the generator's 7 kNN graphs (one
+#     [3B] batch); the Chamfer's 2 nn1 and the masking target's 1;
+#   gate open: the spatial critic's 3 FPS, 3 ball queries and 4 pooled-MLP
+#     forwards (one per SetConv) and their 4 backwards (the gradient to the
+#     generator); the dense interp; the temporal critic's 2 stacked FPS,
+#     6 ball queries (sa1 and sa2 per frame) and 3 flow kNN;
+#   critic update (even iteration, gate open): the temporal critic twice
+#     (fake, real) and the spatial critic twice, with their backwards.
+STEP_ALWAYS = {"fps": 1, "knn": 7, "nn1": 3}
+STEP_GATE = {"fps": 5, "ball_query": 9, "pooled_mlp_fwd": 4,
+             "pooled_mlp_bwd": 4, "interp": 1, "knn": 3}
+STEP_CRITICS = {"fps": 10, "ball_query": 18, "pooled_mlp_fwd": 8,
+                "pooled_mlp_bwd": 8, "knn": 6}
 
 
 def emit(obj) -> None:
@@ -105,12 +139,24 @@ def ptxas_summary(name: str) -> dict:
 
 # ---------------------------------------------------------------- phase 2
 
-KNN_SHAPES = [   # (D, k, graphs of this shape per f32 dynamic forward)
-    (3, 20, 1),    # EdgeConv_0 on pos
-    (32, 20, 2),   # one per IDGCN layer, on the bottleneck
-    (64, 12, 2),   # upsampler and mask head, first EdgeConv
-    (64, 4, 1),    # upsampler, second EdgeConv
-    (64, 8, 1),    # mask head, second EdgeConv
+# (path, B, Nq, Nc, D, k, self graph, launches per serving forward, per
+# G+D train step)
+KNN_SHAPES = [
+    # the f32 dynamic serving forward of one 10,240-point frame
+    ("serving", 1, N_POINTS, N_POINTS, 3, 20, True, 1, 0),    # EdgeConv_0, pos
+    ("serving", 1, N_POINTS, N_POINTS, 32, 20, True, 2, 0),   # IDGCN layers
+    ("serving", 1, N_POINTS, N_POINTS, 64, 12, True, 2, 0),   # up / mask, 1st
+    ("serving", 1, N_POINTS, N_POINTS, 64, 4, True, 1, 0),    # upsampler, 2nd
+    ("serving", 1, N_POINTS, N_POINTS, 64, 8, True, 1, 0),    # mask head, 2nd
+    # the train step: the generator's graphs over its [3B] = 12 rows of
+    # 1,152 inputs, and the temporal critic's flow embeddings (k = 32 from
+    # one frame's 256 sa2 centres to the next frame's; 3 per critic call)
+    ("train", 12, 1152, 1152, 3, 20, True, 0, 1),
+    ("train", 12, 1152, 1152, 32, 20, True, 0, 2),
+    ("train", 12, 1152, 1152, 64, 12, True, 0, 2),
+    ("train", 12, 1152, 1152, 64, 4, True, 0, 1),
+    ("train", 12, 1152, 1152, 64, 8, True, 0, 1),
+    ("train", 4, 256, 256, 3, 32, False, 0, 9),
 ]
 
 EDGECONV_SHAPES = [  # (name, C, H, O, K, aggregate, mlp, launches per forward)
@@ -123,47 +169,59 @@ EDGECONV_SHAPES = [  # (name, C, H, O, K, aggregate, mlp, launches per forward)
 ]
 
 
-def exact_sqdist(q, c, qi, ci):
-    """float64 |q_i - c_j|^2 for index arrays (numpy)."""
-    return np.sum((q[qi].astype(np.float64) - c[ci].astype(np.float64)) ** 2, -1)
+def exact_sqdist(q, c, bi, qi, ci):
+    """float64 |q[b, i] - c[b, j]|^2 for index arrays (numpy)."""
+    return np.sum((q[bi, qi].astype(np.float64)
+                   - c[bi, ci].astype(np.float64)) ** 2, -1)
+
+
+def index_gaps(q_np, c_np, ik, ip):
+    """(mismatches, largest exact-distance gap between the two sides'
+    choices where their indices differ) of [B, Nq(, k)] index tensors."""
+    ik_np, ip_np = ik.cpu().numpy(), ip.cpu().numpy()
+    diff = np.nonzero(ik_np != ip_np)
+    gap = np.abs(exact_sqdist(q_np, c_np, diff[0], diff[1], ik_np[diff])
+                 - exact_sqdist(q_np, c_np, diff[0], diff[1], ip_np[diff]))
+    return int(gap.size), float(gap.max()) if gap.size else 0.0
 
 
 def check_knn(torch, dev, rng):
+    """Every kNN graph shape of the serving forward and of the train step
+    (the step's graphs are rows of one launch each). Distances to 1e-5 of
+    2 max |q|^2 (the f32 error of max(|q|^2 + |c|^2 - 2 q.c, 0)); an index
+    may differ only where the two candidates' exact distances tie within
+    twice that."""
     from tpugan_tpu_torch.ops.kernels import knn as K
 
     rows = []
-    for d, k, per_fwd in KNN_SHAPES:
+    for path, b, nq, nc, d, k, own, per_fwd, per_step in KNN_SHAPES:
         scale = 0.3 if d == 3 else 1.0
-        q_np = (rng.standard_normal((N_POINTS, d)) * scale).astype(np.float32)
-        q = torch.from_numpy(q_np)[None].to(dev)
-        bias = torch.zeros((1, N_POINTS), device=dev)
-        d2k, ik = K.knn_kernel(q, q, bias, k)
-        d2p, ip = K.knn_plain(q, q, bias, k)
+        q_np = (rng.standard_normal((b, nq, d)) * scale).astype(np.float32)
+        c_np = q_np if own else (rng.standard_normal((b, nc, d)) * scale
+                                 ).astype(np.float32)
+        q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
+        bias = torch.zeros((b, nc), device=dev)
+        d2k, ik = K.knn_kernel(q, c, bias, k)
+        d2p, ip = K.knn_plain(q, c, bias, k)
         torch.cuda.synchronize()
-        # error scale of max(|q|^2 + |c|^2 - 2 q.c, 0) in f32
-        tol = 1e-5 * 2 * float((q * q).sum(-1).max())
+        tol = 1e-5 * 2 * float(max((q * q).sum(-1).max(), (c * c).sum(-1).max()))
         err = float((d2k - d2p).abs().max())
-        ik_np, ip_np = ik[0].cpu().numpy(), ip[0].cpu().numpy()
-        diff = np.nonzero(ik_np != ip_np)
-        rows_i = diff[0]
-        # an index may differ only where the two candidates tie within tol
-        gap = np.abs(exact_sqdist(q_np, q_np, rows_i, ik_np[diff])
-                     - exact_sqdist(q_np, q_np, rows_i, ip_np[diff]))
-        ok = err <= tol and (gap.size == 0 or float(gap.max()) <= 2 * tol)
-        if not ok:
-            raise AssertionError(f"knn D={d} k={k}: err {err} tol {tol}, "
-                                 f"index gaps up to {gap.max() if gap.size else 0}")
-        ms = time_ms(lambda: K.knn_kernel(q, q, bias, k), torch)
-        plain_ms = time_ms(lambda: K.knn_plain(q, q, bias, k), torch)
-        lib_ms = time_ms(lambda: torch.topk(torch.cdist(q, q), k, largest=False),
+        bad, gap = index_gaps(q_np, c_np, ik, ip)
+        if not (err <= tol and gap <= 2 * tol):
+            raise AssertionError(f"knn {path} B={b} N={nq} D={d} k={k}: err "
+                                 f"{err} tol {tol}, index gaps up to {gap}")
+        ms = time_ms(lambda: K.knn_kernel(q, c, bias, k), torch)
+        plain_ms = time_ms(lambda: K.knn_plain(q, c, bias, k), torch)
+        lib_ms = time_ms(lambda: torch.topk(torch.cdist(q, c), k, largest=False),
                          torch)
-        flops = N_POINTS * N_POINTS * (2 * d + 3)
-        nbytes = 4 * (2 * N_POINTS * d + N_POINTS) + N_POINTS * k * 12
+        flops = b * nq * nc * (2 * d + 3)
+        nbytes = 4 * b * (nq * d + nc * d + nc) + b * nq * k * 12
         b_ms, b_by = bound(flops, nbytes, "f32")
-        rows.append(dict(D=d, k=k, per_forward=per_fwd, max_abs_err=err,
-                         tol=tol, index_mismatch=int(rows_i.size), ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
+        rows.append(dict(path=path, B=b, Nq=nq, Nc=nc, D=d, k=k,
+                         per_forward=per_fwd, per_step=per_step,
+                         max_abs_err=err, tol=tol, index_mismatch=bad,
+                         max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", "kernel": "knn", **rows[-1]})
     return rows
 
@@ -207,42 +265,58 @@ def check_edgeconv(torch, dev, rng):
     return rows
 
 
+# (path, B, Nq, M, masked candidate tail, launches per Chamfer gate, per
+# train step)
+NN1_SHAPES = [
+    # the serving gate: both directions between two 81,920-point outputs
+    ("serving", 1, N_POINTS * 8, N_POINTS * 8, 4096, 2, 0),
+    # the train step: its Chamfer (both directions between the centre
+    # frame's ground truth and prediction; the step passes no masks) and
+    # the masking target (inputs to their nearest ground-truth point)
+    ("train", 4, 9216, 9216, 0, 0, 2),
+    ("train", 4, 1152, 9216, 0, 0, 1),
+]
+
+
 def check_nn1(torch, dev, rng):
+    """Distances and the tie rule as in :func:`check_knn`; no index may
+    point into a masked tail."""
     from tpugan_tpu_torch.ops.kernels import nn1 as N1
 
-    m = N_POINTS * 8
-    q_np = (rng.standard_normal((m, 3)) * 0.3).astype(np.float32)
-    c_np = (rng.standard_normal((m, 3)) * 0.3).astype(np.float32)
-    q = torch.from_numpy(q_np)[None].to(dev)
-    c = torch.from_numpy(c_np)[None].to(dev)
-    bias = torch.zeros((1, m), device=dev)
-    bias[:, -4096:] = 1e10                              # a masked tail
-    d2k, ik = N1.nn1_kernel(q, c, bias)
-    d2p, ip = N1.nn1_plain(q, c, bias)
-    torch.cuda.synchronize()
-    tol = 1e-5 * 2 * float(max((q * q).sum(-1).max(), (c * c).sum(-1).max()))
-    err = float((d2k - d2p).abs().max())
-    ik_np, ip_np = ik[0].cpu().numpy(), ip[0].cpu().numpy()
-    rows_i = np.nonzero(ik_np != ip_np)[0]
-    gap = np.abs(exact_sqdist(q_np, c_np, rows_i, ik_np[rows_i])
-                 - exact_sqdist(q_np, c_np, rows_i, ip_np[rows_i]))
-    if not (err <= tol and (gap.size == 0 or gap.max() <= 2 * tol)
-            and int(ik_np.max()) < m - 4096):
-        raise AssertionError(f"nn1: err {err} tol {tol}")
-    ms = time_ms(lambda: N1.nn1_kernel(q, c, bias), torch)
-    plain_ms = time_ms(lambda: N1.nn1_plain(q, c, bias), torch)
+    rows = []
+    for path, b, nq, m, masked, per_gate, per_step in NN1_SHAPES:
+        q_np = (rng.standard_normal((b, nq, 3)) * 0.3).astype(np.float32)
+        c_np = (rng.standard_normal((b, m, 3)) * 0.3).astype(np.float32)
+        q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
+        bias = torch.zeros((b, m), device=dev)
+        if masked:
+            bias[:, -masked:] = 1e10
+        d2k, ik = N1.nn1_kernel(q, c, bias)
+        d2p, ip = N1.nn1_plain(q, c, bias)
+        torch.cuda.synchronize()
+        tol = 1e-5 * 2 * float(max((q * q).sum(-1).max(), (c * c).sum(-1).max()))
+        err = float((d2k - d2p).abs().max())
+        bad, gap = index_gaps(q_np, c_np, ik, ip)
+        if not (err <= tol and gap <= 2 * tol and int(ik.max()) < m - masked):
+            raise AssertionError(f"nn1 {path} B={b} Nq={nq} M={m}: err {err} "
+                                 f"tol {tol}, index gaps up to {gap}")
+        ms = time_ms(lambda: N1.nn1_kernel(q, c, bias), torch)
+        plain_ms = time_ms(lambda: N1.nn1_plain(q, c, bias), torch)
 
-    def yardstick():
-        for s in range(0, m, 8192):
-            torch.cdist(q[:, s:s + 8192], c).min(-1)
+        def yardstick():
+            for s in range(0, nq, 8192):
+                torch.cdist(q[:, s:s + 8192], c).min(-1)
 
-    lib_ms = time_ms(yardstick, torch)
-    b_ms, b_by = bound(m * m * 9.0, 4 * (3 * m + 3 * m + m) + 12 * m, "f32")
-    row = dict(Nq=m, M=m, masked=4096, per_gate=2, max_abs_err=err, tol=tol,
-               index_mismatch=int(rows_i.size), ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    emit({"phase": "kernel", "kernel": "nn1", **row})
-    return [row]
+        lib_ms = time_ms(yardstick, torch)
+        b_ms, b_by = bound(9.0 * b * nq * m,
+                           4 * b * (3 * nq + 3 * m + m) + 12 * b * nq, "f32")
+        rows.append(dict(path=path, B=b, Nq=nq, M=m, masked=masked,
+                         per_gate=per_gate, per_step=per_step,
+                         max_abs_err=err, tol=tol, index_mismatch=bad,
+                         max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "nn1", **rows[-1]})
+    return rows
 
 
 # ---------------------------------------------------------- phases 3 and 4
@@ -256,8 +330,10 @@ def delta(before, after) -> dict:
 
 
 def expect(got: dict, want: dict, what: str) -> None:
-    if got != want:
-        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    """``got`` must hold ``want``'s counts and 0 for every other kernel."""
+    full = {n: want.get(n, 0) for n in got}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, expected {full}")
 
 
 def serving(torch, dev, kernels):
@@ -329,27 +405,28 @@ class GraphReplay:
         self.own = generator.graph_knn
         self.lists, self.swaps = [], 0
 
-    def _run(self, fn, model, *args):
+    def _run(self, knn_fn, call, *args):
         for m in self.modules:
-            m.graph_knn = fn
+            m.graph_knn = knn_fn
         try:
-            return model(*args)
+            return call(*args)
         finally:
             for m in self.modules:
                 m.graph_knn = self.own
 
-    def record(self, model, *args):
+    def record(self, call, *args):
+        """``call(*args)`` (a forward or a train step), recording."""
         def recording(x, k, c_valid=None):
             d2, idx = self.own(x, k, c_valid)
             self.lists.append(idx.cpu())
             return d2, idx
-        return self._run(recording, model, *args)
+        return self._run(recording, call, *args)
 
-    def replay(self, model, *args):
+    def replay(self, call, *args):
         def replaying(x, k, c_valid=None):
             d2, own = self.own(x, k, c_valid)
             rec = self.lists.pop(0)
-            xf = x.double()
+            xf = x.detach().double()
             b, r, s = (rec != own).nonzero(as_tuple=True)
             exact = lambda idx: ((xf[b, r] - xf[b, idx[b, r, s]]) ** 2).sum(-1)
             tol = 1e-5 * 2 * float((xf * xf).sum(-1).max())
@@ -358,7 +435,7 @@ class GraphReplay:
                 raise AssertionError(f"kNN differs beyond f32 noise: {gap.max()}")
             self.swaps += int(gap.numel())
             return d2, rec
-        return self._run(replaying, model, *args)
+        return self._run(replaying, call, *args)
 
 
 def cpu_reference(torch, dev, pos_np, points=2048):
@@ -463,47 +540,554 @@ def rollout(torch, model, kernels):
           "launches": got, "wall_ms_per_frame": wall * 1e3 / ROLLOUT_FRAMES})
 
 
-def kernel_line(knn_rows, ec_rows, nn1_rows, launches):
-    """One entry per kernel: times are sums over the shapes of one f32
-    dynamic forward (knn, edgeconv) or one gate (nn1), weighted by how
-    often each shape runs there."""
-    def total(rows, key, weight):
+# ------------------------------------------------- train-step kernel checks
+
+FPS_SHAPES = [   # (stage, rows, N, m, masked, launches per G+D step)
+    ("device sampling", 4, 9216, 1152, False, 1),
+    ("spatial sa_0", 4, 9216, 1024, True, 3),
+    ("spatial sa_1", 4, 1024, 512, False, 3),
+    ("spatial sa_2", 4, 512, 128, False, 3),
+    ("tempo sa1 (3 frames stacked)", 12, 9216, 1024, True, 3),
+    ("tempo sa2 (3 frames stacked)", 12, 1024, 256, False, 3),
+]
+
+BALL_SHAPES = [  # (stage, B, Nq, Nc, radius, nsample, launches per G+D step)
+    ("spatial sa_0", 4, 1024, 9216, 0.15, 32, 3),
+    ("spatial sa_1", 4, 512, 1024, 0.30, 32, 3),
+    ("spatial sa_2", 4, 128, 512, 0.60, 16, 3),
+    ("tempo sa1 (per frame)", 4, 1024, 9216, 0.10, 32, 9),
+    ("tempo sa2 (per frame)", 4, 256, 1024, 0.20, 32, 9),
+]
+
+POOLED_SHAPES = [  # (stage, (B, M, ns, C0), widths, slope, per G+D step)
+    ("spatial sa_0", (4, 1024, 32, 6), (64, 128), 0.01, 3),
+    ("spatial sa_1", (4, 512, 32, 131), (128, 128), 0.01, 3),
+    ("spatial sa_2", (4, 128, 16, 131), (128, 256), 0.01, 3),
+    ("spatial sa_pooling", (4, 1, 128, 259), (256, 256), 0.0, 3),
+]
+
+
+def _cloud(torch, dev, rng, *shape, scale=0.3):
+    return torch.from_numpy((rng.standard_normal(shape) * scale)
+                            .astype(np.float32)).to(dev)
+
+
+def check_fps(torch, dev, rng):
+    from tpugan_tpu_torch.ops.kernels import fps as F
+
+    rows = []
+    for stage, b, n, m, masked, per in FPS_SHAPES:
+        pos = _cloud(torch, dev, rng, b, n, 3)
+        pen = torch.zeros((b, n), device=dev)
+        if masked:                      # a hard-masked tail, as the critics see
+            pen[:, -n // 8:] = -1e10
+            pos[:, -n // 8:] = 999.0
+        start = torch.from_numpy(rng.integers(0, n - n // 8, b)).to(dev)
+        ik = F.fps_kernel(pos, m, pen, start)
+        ip = F.fps_plain(pos, m, pen, start)
+        torch.cuda.synchronize()
+        # random clouds hold no distance ties: the indices must be equal
+        bad = int((ik != ip).sum())
+        if bad:
+            raise AssertionError(f"fps {stage}: {bad} indices differ")
+        ms = time_ms(lambda: F.fps_kernel(pos, m, pen, start), torch)
+        plain_ms = time_ms(lambda: F.fps_plain(pos, m, pen, start), torch,
+                           reps=3, warmup=1)
+        b_ms, b_by = bound(8.0 * b * m * n, 4 * b * n * 4 + 8 * b * (m + 1),
+                           "f32")
+        rows.append(dict(stage=stage, rows=b, N=n, m=m, per_step=per,
+                         max_abs_err=0.0, index_mismatch=bad, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "fps", **rows[-1]})
+    return rows
+
+
+def check_ball_query(torch, dev, rng):
+    from tpugan_tpu_torch.ops.kernels import ball_query as BQ
+
+    rows = []
+    for stage, b, nq, nc, r, ns, per in BALL_SHAPES:
+        cand = _cloud(torch, dev, rng, b, nc, 3)
+        query = cand[:, torch.randperm(nc, device=dev)[:nq]]
+        bias = torch.zeros((b, nc), device=dev)
+        bias[:, ::9] = 2.0                           # masked candidates
+        ik = BQ.ball_query_kernel(query, cand, r, ns, bias)
+        ip = BQ.ball_query_plain(query, cand, r, ns, bias)
+        torch.cuda.synchronize()
+        # both evaluate the same f32 expression in the same order: equal
+        bad = int((ik != ip).sum())
+        if bad:
+            raise AssertionError(f"ball_query {stage}: {bad} indices differ")
+        ms = time_ms(lambda: BQ.ball_query_kernel(query, cand, r, ns, bias),
+                     torch)
+        plain_ms = time_ms(lambda: BQ.ball_query_plain(query, cand, r, ns,
+                                                       bias), torch)
+        # the scan ends at the nsample-th hit: count the candidates this
+        # data needs (a full ball's indices rise strictly to the last slot)
+        full = ik[..., -1] > ik[..., -2]
+        scanned = float(torch.where(full, ik[..., -1] + 1, nc).sum())
+        b_ms, b_by = bound(8.0 * scanned,
+                           4 * (b * nq * 3 + b * nc * 4) + 8 * b * nq * ns,
+                           "f32")
+        rows.append(dict(stage=stage, B=b, Nq=nq, Nc=nc, radius=r, nsample=ns,
+                         per_step=per, full_balls=float(full.float().mean()),
+                         max_abs_err=0.0, index_mismatch=bad, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "ball_query", **rows[-1]})
+    return rows
+
+
+def check_pooled_mlp(torch, dev, rng):
+    """Forward (pooled, moments) and backward (dtable, dW, dgamma, dbeta)
+    against the plain versions, on tables with exact max ties (the ball
+    query's repeated first hit). Forward to 1e-5 of each tensor's scale
+    (f32 sums in another order). Backward: each gradient to 1e-2 of its
+    norm, and at most 1e-3 of dtable's elements off by more than 1e-3 of
+    its scale. The two sides sum the layers in another order, so where two
+    rows' values lie within f32 rounding of each other the max-pool can
+    send a cotangent to another row, and a leaky-ReLU pre-activation
+    within f32 noise of 0 can take the other slope: a few rows of dtable
+    move by order 1, which a norm over millions of entries hides and an
+    elementwise bound does not."""
+    from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
+
+    fwd_rows, bwd_rows = [], []
+    for stage, shape, widths, slope, per in POOLED_SHAPES:
+        b, m, ns, c0 = shape
+        tab = _cloud(torch, dev, rng, *shape, scale=1.0)
+        tab[:, :, 1] = tab[:, :, 0]
+        tab[:, :, -1] = tab[:, :, 0]
+        cs = (c0,) + widths
+        ws = [_cloud(torch, dev, rng, cs[i], cs[i + 1], scale=cs[i] ** -0.5)
+              for i in range(len(widths))]
+        gs = [1.0 + _cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+        bs = [_cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+        g = _cloud(torch, dev, rng, b, m, widths[-1], scale=1.0)
+        leaves = [x.clone().requires_grad_() for x in [tab, *ws, *gs, *bs]]
+        nl = len(widths)
+        pooled, mus, vars_ = P.pooled_mlp_bn_train(
+            leaves[0], leaves[1:1 + nl], leaves[1 + nl:1 + 2 * nl],
+            leaves[1 + 2 * nl:], slope)
+        grads = torch.autograd.grad(pooled, leaves, g, retain_graph=True)
+        fp = P.pooled_mlp_bn_forward_plain(tab, ws, gs, bs, slope)
+        gp = P.pooled_mlp_bn_backward_plain(tab, ws, fp[4], fp[5], fp[1],
+                                            fp[3], fp[0], g, slope)
+        torch.cuda.synchronize()
+        f_err = 0.0
+        for got, want in zip([pooled, *mus, *vars_], [fp[0], *fp[1], *fp[2]]):
+            e = float((got.detach() - want).abs().max())
+            f_err = max(f_err, e)
+            if e > 1e-5 * max(1.0, float(want.abs().max())):
+                raise AssertionError(f"pooled_mlp {stage} forward: err {e}")
+        b_err, b_rel = 0.0, 0.0
+        names = ["dtable"] + [f"{n}{i}" for n in ("dW", "dgamma", "dbeta")
+                              for i in range(nl)]
+        for name, got, want in zip(names, grads,
+                                   [gp[0], *gp[1], *gp[2], *gp[3]]):
+            diff = (got - want).abs()
+            b_err = max(b_err, float(diff.max()))
+            rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+            b_rel = max(b_rel, rel)
+            off = float((diff > 1e-3 * want.abs().max()).float().mean())
+            if rel > 1e-2 or (name == "dtable" and off > 1e-3):
+                raise AssertionError(f"pooled_mlp {stage} backward {name}: "
+                                     f"norm rel {rel}, share off {off}")
+            if name == "dtable":
+                dtable_off = off
+        with torch.no_grad():
+            fwd = lambda: P.pooled_mlp_bn_train(tab, ws, gs, bs, slope)
+            ms = time_ms(fwd, torch)
+            plain_ms = time_ms(lambda: P.pooled_mlp_bn_forward_plain(
+                tab, ws, gs, bs, slope), torch)
+            bwd_plain_ms = time_ms(lambda: P.pooled_mlp_bn_backward_plain(
+                tab, ws, fp[4], fp[5], fp[1], fp[3], fp[0], g, slope), torch)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(pooled, leaves, g,
+                                                     retain_graph=True), torch)
+        rows_n = b * m * ns
+        mac = sum(cs[i] * cs[i + 1] for i in range(nl))
+        nw = sum(w.numel() for w in ws) + 2 * sum(widths)
+        f_bound = bound(2.0 * rows_n * mac,
+                        4 * (rows_n * c0 + nw + b * m * widths[-1]), "f32")
+        # the backward recomputes the activations (2) and forms dX, dW (4)
+        b_bound = bound(6.0 * rows_n * mac,
+                        4 * (2 * rows_n * c0 + 2 * nw + 2 * b * m * widths[-1]),
+                        "f32")
+        common = dict(stage=stage, table=list(shape), widths=list(widths),
+                      slope=slope, per_step=per)
+        fwd_rows.append(dict(**common, max_abs_err=f_err, ms=ms,
+                             plain_ms=plain_ms, library_ms=None,
+                             bound_ms=f_bound[0], bound_by=f_bound[1]))
+        bwd_rows.append(dict(**common, max_abs_err=b_err, max_norm_rel_err=b_rel,
+                             dtable_share_off=dtable_off,
+                             ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=None,
+                             bound_ms=b_bound[0], bound_by=b_bound[1]))
+        emit({"phase": "kernel", "kernel": "pooled_mlp_fwd", **fwd_rows[-1]})
+        emit({"phase": "kernel", "kernel": "pooled_mlp_bwd", **bwd_rows[-1]})
+        if stage == "spatial sa_0":
+            # the eval-mode form (pooled_mlp_affine) through the same launch
+            with torch.no_grad():
+                aff = P.pooled_mlp_affine(tab, ws, fp[4], fp[5], slope)
+                affp = P.pooled_mlp_affine_plain(tab, ws, fp[4], fp[5], slope)
+            e = float((aff - affp).abs().max())
+            if e > 1e-5 * float(affp.abs().max()):
+                raise AssertionError(f"pooled_mlp_affine: err {e}")
+            emit({"phase": "kernel", "kernel": "pooled_mlp_affine",
+                  "stage": stage, "max_abs_err": e})
+    return fwd_rows, bwd_rows
+
+
+def check_interp(torch, dev, rng, b=12, n=9216):
+    """The velocity transfer's shape: the three predicted frames (with
+    999-sentinel rows) against the ground truth, bicubic, cutoff 1.6 R.
+    out to 1e-5 of the values' scale, den to 1e-5 relative (f32 sums)."""
+    from tpugan_tpu_torch.ops.kernels import interp as I
+
+    c, cutoff = 3, 0.16
+    cand = _cloud(torch, dev, rng, b, n, 3)
+    query = cand + _cloud(torch, dev, rng, b, n, 3, scale=0.01)
+    query[:, -n // 10:] = 999.0
+    vals = _cloud(torch, dev, rng, b, n, c, scale=0.025)
+    bias = torch.zeros((b, n), device=dev)
+    ok, dk = I.interp_kernel(query, cand, vals, cutoff, bias, "bicubic")
+    op, dp = I.interp_plain(query, cand, vals, cutoff, bias, "bicubic")
+    torch.cuda.synchronize()
+    err = float((ok - op).abs().max())
+    den_rel = float(((dk - dp).abs() / dp.abs()).max())
+    if not (err <= 1e-5 * float(vals.abs().max()) and den_rel <= 1e-5
+            and bool(torch.isfinite(ok).all())):
+        raise AssertionError(f"interp: err {err}, den rel {den_rel}")
+    ms = time_ms(lambda: I.interp_kernel(query, cand, vals, cutoff, bias),
+                 torch)
+    plain_ms = time_ms(lambda: I.interp_plain(query, cand, vals, cutoff, bias),
+                       torch, reps=3, warmup=1)
+    b_ms, b_by = bound(20.0 * b * n * n,
+                       4 * (b * n * 3 + b * n * (3 + c + 1) + b * n * (c + 1)),
+                       "f32")
+    row = dict(B=b, Nq=n, M=n, C=c, cutoff=cutoff, per_step=1,
+               max_abs_err=err, den_max_rel_err=den_rel, ms=ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by)
+    emit({"phase": "kernel", "kernel": "interp", **row})
+    return [row]
+
+
+# ---------------------------------------------------------- train phases
+
+def fluid_batches(torch, dev, patch, batch_size, count):
+    """``count`` batches of the port's synthetic fluid data (the JAX CLI's
+    --synthetic defaults: seed 1, 2 cases, 8 steps, 12,000 particles)."""
+    from tpugan_tpu_torch.data.fluid import (SiamFluidDataset,
+                                             fluid_batch_iterator)
+    from tpugan_tpu_torch.data.synthetic import make_synthetic_fluid_dataset
+
+    root = make_synthetic_fluid_dataset(DATA_DIR, case_num=2, case_steps=8,
+                                        num_particles=12000, seed=1)
+    it = fluid_batch_iterator(SiamFluidDataset(root, 2, 8, sample_num=patch),
+                              batch_size, seed=1)
+    out = []
+    for _ in range(count):
+        batch = next(it)
+        out.append({k: torch.from_numpy(batch[k]).to(dev)
+                    for k in ("highres_pos", "highres_vel")})
+    return out
+
+
+def _critic_state(state):
+    """(params, BatchNorm running moments, spectral-norm u) of both critics."""
+    snap = {}
+    for name in ("tempo", "spatial"):
+        for k, t in getattr(state, name).module.state_dict().items():
+            kind = ("u" if k.endswith(".u") else
+                    "bn" if k.endswith((".mean", ".var")) else
+                    "param" if not k.endswith(".sigma") else None)
+            if kind:
+                snap[(name, kind, k)] = t.detach().clone()
+    return snap
+
+
+def _moved(before, after, name, kind):
+    return any(bool((before[key] != after[key]).any())
+               for key in before if key[0] == name and key[1] == kind)
+
+
+def train(torch, dev, kernels, profile_dir=None, cfg=None):
+    """Resume the trainer state and run TRAIN_STEPS steps at full width
+    (``cfg`` None: the train_vel defaults, device sampling); the launch
+    counts are reset just before and read just after."""
+    from tpugan_tpu_torch.checkpoint import load_trainer_state
+    from tpugan_tpu_torch.train.step import FluidGanStep, FluidTrainConfig
+
+    cfg = cfg or FluidTrainConfig()
+    batches = fluid_batches(torch, dev, cfg.patch_size, cfg.batch_size,
+                            TRAIN_STEPS + 2)
+    state = load_trainer_state(CHECKPOINT, cfg, device=dev)
+    n0 = state.n_iter
+    step = FluidGanStep(cfg, generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+
+    for k in kernels.values():
+        k.launches = 0
+    steps = []
+    for i in range(TRAIN_STEPS):
+        before = _critic_state(state)
+        c0 = counts(kernels)
+        ev = {n: torch.cuda.Event(enable_timing=True)
+              for n in ("start", "generator", "critics")}
+        ev["start"].record()
+        t0 = time.perf_counter()
+        metrics = step(state, batches[i], mark=lambda n: ev[n].record())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = delta(c0, counts(kernels))
+        d_update = metrics["gate"] and state.n_iter % 2 == 0
+        want = dict(STEP_ALWAYS)
+        for extra in ([STEP_GATE] if metrics["gate"] else []) + (
+                [STEP_CRITICS] if d_update else []):
+            for n, v in extra.items():
+                want[n] = want.get(n, 0) + v
+        expect(got, want, f"train step {state.n_iter}")
+        after = _critic_state(state)
+        for name, v in metrics.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"step {state.n_iter}: {name} = {v}")
+        moved = {f"{name}_{kind}": _moved(before, after, name, kind)
+                 for name in ("tempo", "spatial")
+                 for kind in ("param", "bn", "u")}
+        if any(moved[f"{n}_param"] != d_update for n in ("tempo", "spatial")):
+            raise AssertionError(f"step {state.n_iter}: critic params moved "
+                                 f"{moved}, critic update {d_update}")
+        if metrics["gate"] and not all(moved[f"{n}_{k}"] for n in
+                                       ("tempo", "spatial") for k in ("bn", "u")):
+            raise AssertionError(f"step {state.n_iter}: critic state {moved}")
+        steps.append(dict(iteration=state.n_iter, **metrics,
+                          critic_update=d_update, launches=got,
+                          ms=ev["start"].elapsed_time(ev["critics"]),
+                          generator_ms=ev["start"].elapsed_time(ev["generator"]),
+                          critics_ms=ev["generator"].elapsed_time(ev["critics"]),
+                          wall_ms=wall, moved=moved))
+        emit({"phase": "train", **steps[-1]})
+    launches = counts(kernels)
+    if not any(s["critic_update"] for s in steps):
+        raise AssertionError("the adversarial gate never opened on an even "
+                             "step: the critics' path did not run")
+    emit({"phase": "train", "resumed_from": os.path.relpath(CHECKPOINT, ROOT),
+          "first_iteration": n0 + 1, "steps": TRAIN_STEPS,
+          "batch": cfg.batch_size, "patch": cfg.patch_size,
+          "gate_open": sum(s["gate"] for s in steps),
+          "critic_updates": sum(s["critic_update"] for s in steps),
+          "launches": launches,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    train_profile(torch, step, state, batches[TRAIN_STEPS:], profile_dir)
+    return launches, steps
+
+
+def train_profile(torch, step, state, batches, out_dir):
+    """torch.profiler over two more steps (one odd, one even): device time
+    by kernel and the device's idle share of the steps' wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for batch in batches:
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    table = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in p.key_averages()
+                    if e.device_type == DeviceType.CUDA),
+                   key=lambda x: -x[1])
+    kernels_ms = sum(t for _, t, _ in table)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as fh:
+            fh.write(p.key_averages().table(sort_by="self_device_time_total",
+                                            row_limit=80))
+    emit({"phase": "profile", "train_steps": len(batches),
+          "wall_ms": wall_ms, "device_kernel_ms": kernels_ms,
+          "device_idle_share": 1.0 - kernels_ms / wall_ms,
+          "top": [(n[:60], round(t, 4), c) for n, t, c in table[:20]]})
+
+
+def _bias_under_bn(module, key):
+    """A Dense bias that a batch norm follows (the critics' heads): its
+    gradient is zero in exact arithmetic, so it is f32 noise on both sides,
+    and the resumed Adam state (whose nu holds 20,000 steps of that noise)
+    turns the noise into steps of the learning rate's size."""
+    prefix, _, leaf = key.rpartition(".")
+    head, _, dense = prefix.rpartition(".")
+    if leaf != "bias" or not dense.startswith("Dense_"):
+        return False
+    bn = (head + "." if head else "") + "BatchNorm_" + dense.split("_")[1]
+    return bn in dict(module.named_modules())
+
+
+CARD_CPU_LOSS_TOL = 5e-3
+CARD_CPU_CHANGE_TOL = {"sr": 0.02, "tempo": 0.1, "spatial": 0.1}
+BIAS_GRAD_TOL = 1e-3
+
+
+def _change_over_limit(module, before, got_params, want_params, tol):
+    """(largest err / limit, its parameter) of each parameter's change in
+    ``got_params`` against ``want_params`` from ``before``: the limit is
+    ``tol`` of the wanted change's norm plus 1e-3 of the largest RMS change
+    per element. Dense biases under a batch norm are checked apart
+    (:func:`_bias_grads_over_limit`)."""
+    changes = [(k, got_params[k].detach().cpu() - before[k],
+                want_params[k].detach().cpu() - before[k])
+               for k in want_params if not _bias_under_bn(module, k)]
+    r = max(float(w.norm()) / w.numel() ** 0.5 for _, _, w in changes)
+    worst, worst_k = 0.0, None
+    for k, got, want in changes:
+        err = float((got - want).norm())
+        lim = tol * float(want.norm()) + 1e-3 * want.numel() ** 0.5 * r
+        if err / lim > worst:
+            worst, worst_k = err / lim, k
+    return worst, worst_k
+
+
+def _bias_grads_over_limit(net, mu_before):
+    """Largest max |g| of a Dense bias under a batch norm over
+    ``BIAS_GRAD_TOL`` max |g| of that Dense's weight, the step's gradients
+    recovered from Adam's first moment, g = (mu - b1 mu_before) / (1 - b1).
+    The batch norm makes such a bias's gradient zero in exact arithmetic,
+    so it is f32 noise; the resumed Adam state turns noise into steps of
+    the learning rate's size, which no comparison of the changes between
+    two devices can hold."""
+    opt, worst = net.opt, 0.0
+    g = lambda k: (opt.mu[k] - opt.b1 * mu_before[k]) / (1.0 - opt.b1)
+    for k in opt.params:
+        if _bias_under_bn(net.module, k):
+            w = k[:-len("bias")] + "weight"
+            worst = max(worst, float(g(k).abs().max())
+                        / (BIAS_GRAD_TOL * float(g(w).abs().max())))
+    return worst
+
+
+def train_card_vs_cpu(torch, dev, patch=1024):
+    """One small step (B=2, 1,024-point patches; iteration 20,002 with the
+    gate held open, so both critics update) from the same checkpoint state
+    and the same draws on the card and on the CPU, with the card's generator
+    graphs replayed on the CPU (GraphReplay). Losses to CARD_CPU_LOSS_TOL
+    relative, each parameter's change to CARD_CPU_CHANGE_TOL of its norm
+    (a few times the error measured on the H100: at B=2 the critics' heads
+    normalise over 2 items and amplify f32 noise, see
+    tests/test_torch_train_step.py), and the gradients of Dense biases
+    under a batch norm to zero on both sides. Then the card's step with
+    the gate shut (no adversarial loss reaches the generator) must fail
+    the generator's comparison: the check sees a lost adversarial path."""
+    import dataclasses
+
+    from tpugan_tpu_torch.checkpoint import load_trainer_state
+    from tpugan_tpu_torch.models.discriminator import dropout_widths
+    from tpugan_tpu_torch.train.step import (FluidGanStep, FluidTrainConfig,
+                                             StepDraws)
+
+    # the gate held open: this phase checks the wiring of every kernel
+    cfg = FluidTrainConfig(batch_size=2, patch_size=patch, ml_gate=1e9)
+    shut = dataclasses.replace(cfg, ml_gate=0.0)      # ml >= 0: never open
+    batch = fluid_batches(torch, "cpu", cfg.patch_size, cfg.batch_size, 1)[0]
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    states = {d: load_trainer_state(CHECKPOINT, cfg, device=d)
+              for d in (dev, "cpu")}
+    states["no_adv"] = load_trainer_state(CHECKPOINT, cfg, device=dev)
+    nets = ("sr", "tempo", "spatial")
+    for s in states.values():
+        s.n_iter += 1                                   # the step is even
+    before = {n: {k: v.detach().clone() for k, v in
+                  getattr(states["cpu"], n).module.named_parameters()}
+              for n in nets}
+    mu_before = {d: {n: {k: v.clone() for k, v in
+                         getattr(states[d], n).opt.mu.items()} for n in nets}
+                 for d in (dev, "cpu")}
+    draws = StepDraws.draw(torch.Generator().manual_seed(2), cfg,
+                           cfg.patch_size,
+                           dropout_widths(states["cpu"].spatial.module))
+    step = FluidGanStep(cfg)
+    replay = GraphReplay(torch)
+    t0 = time.perf_counter()
+    m_card = replay.record(step, states[dev], card_batch, draws)
+    t1 = time.perf_counter()
+    m_cpu = replay.replay(step, states["cpu"], batch, draws)
+    t2 = time.perf_counter()
+    m_shut = FluidGanStep(shut)(states["no_adv"], card_batch, draws)
+    if not (m_card["gate"] and m_cpu["gate"]) or m_shut["gate"]:
+        raise AssertionError(f"card vs CPU: gate {m_card['gate']}, "
+                             f"{m_cpu['gate']}, shut {m_shut['gate']}")
+    out = {"phase": "train_cpu", "batch": 2, "patch": patch,
+           "iteration": states["cpu"].n_iter, "knn_tie_swaps": replay.swaps,
+           "card_s": t1 - t0, "cpu_s": t2 - t1, "loss_rel_err": {},
+           "change_tol": CARD_CPU_CHANGE_TOL, "change_err_over_limit": {},
+           "bias_grad_over_limit": {}}
+    for k, v in m_cpu.items():
+        if k == "gate":
+            continue
+        rel = abs(m_card[k] - v) / max(abs(v), 1e-5)
+        out["loss_rel_err"][k] = rel
+        if rel > CARD_CPU_LOSS_TOL:
+            raise AssertionError(f"card vs CPU {k}: {m_card[k]} vs {v}")
+    for n in nets:
+        module = getattr(states["cpu"], n).module
+        cpu = dict(module.named_parameters())
+        card = dict(getattr(states[dev], n).module.named_parameters())
+        worst, k = _change_over_limit(module, before[n], card, cpu,
+                                      CARD_CPU_CHANGE_TOL[n])
+        out["change_err_over_limit"][n] = worst
+        if worst > 1.0:
+            raise AssertionError(f"card vs CPU {n} {k}: change err "
+                                 f"{worst} of the limit")
+        bias = max(_bias_grads_over_limit(getattr(states[d], n),
+                                          mu_before[d][n]) for d in (dev, "cpu"))
+        out["bias_grad_over_limit"][n] = bias
+        if bias > 1.0:
+            raise AssertionError(f"card vs CPU {n}: a Dense bias under a "
+                                 f"batch norm has a gradient ({bias})")
+    sr_cpu = dict(states["cpu"].sr.module.named_parameters())
+    lost, _ = _change_over_limit(
+        states["cpu"].sr.module, before["sr"],
+        dict(states["no_adv"].sr.module.named_parameters()), sr_cpu,
+        CARD_CPU_CHANGE_TOL["sr"])
+    out["no_adversarial_sr_change_over_limit"] = lost
+    emit(out)
+    if lost <= 1.0:
+        raise AssertionError("card vs CPU: the generator's change without "
+                             f"its adversarial losses passes the check ({lost})")
+
+
+def kernel_line(groups):
+    """One entry per kernel. ``groups``: (name, source, replaces, rows,
+    weight keys, what the times sum over, launches by path); times are sums
+    over the shapes, each weighted by the sum of its weight keys (how often
+    it runs in the unit the times are given for); launches are those of
+    every counted path."""
+    def total(rows, key, weights):
         if any(r[key] is None for r in rows):
             return None
-        return sum(r[key] * r[weight] for r in rows)
+        return sum(r[key] * sum(r.get(w, 0) for w in weights) for r in rows)
 
-    ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     entries = []
-    for name, source, replaces, rows, weight, per in (
-            ("knn", "tpugan_tpu_torch/csrc/knn.cu",
-             "tpugan_tpu/ops/pallas/knn_kernel.py:350", knn_rows,
-             "per_forward", "one f32 dynamic forward (7 graphs)"),
-            ("edgeconv", "tpugan_tpu_torch/csrc/edgeconv.cu",
-             "tpugan_tpu/ops/pallas/edgeconv_kernel.py:358", ec_f32,
-             "per_forward", "one f32 dynamic forward (9 EdgeConvs)"),
-            ("nn1", "tpugan_tpu_torch/csrc/nn1.cu",
-             "tpugan_tpu/ops/pallas/nn1_kernel.py:123", nn1_rows,
-             "per_gate", "one Chamfer gate (2 directions)")):
-        b_ms = total(rows, "bound_ms", weight)
+    for name, source, replaces, rows, weights, per, by_path in groups:
         by = {r["bound_by"] for r in rows}
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": total(rows, "ms", weight),
-            "plain_ms": total(rows, "plain_ms", weight),
-            "bound_ms": b_ms,
+            "ms": total(rows, "ms", weights),
+            "plain_ms": total(rows, "plain_ms", weights),
+            "bound_ms": total(rows, "bound_ms", weights),
             "bound_by": by.pop() if len(by) == 1 else "operations",
-            "library_ms": total(rows, "library_ms", weight),
-            "times_are": per})
+            "library_ms": total(rows, "library_ms", weights),
+            "times_are": per, "launches_by_path": by_path})
     return {"kernels": entries}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one forward of each serving mode "
-                         "into DIR")
+                    help="also profile one forward of each serving mode, and "
+                         "write the profile tables into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -513,7 +1097,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from tpugan_tpu_torch import _build
-    from tpugan_tpu_torch.ops.kernels import edgeconv, knn, nn1
+    from tpugan_tpu_torch.ops.kernels import (ball_query, edgeconv, fps,
+                                              interp, knn, nn1, pooled_mlp)
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -524,18 +1109,25 @@ def main(argv=None) -> int:
           "build_s": build_s,
           "ptxas": {n: ptxas_summary(n) for n in _build.sources()}})
 
-    kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL, "nn1": nn1.KERNEL}
+    kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL, "nn1": nn1.KERNEL,
+               "fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
+               "pooled_mlp_fwd": pooled_mlp.FWD, "pooled_mlp_bwd": pooled_mlp.BWD,
+               "interp": interp.KERNEL}
     rng = np.random.default_rng(0)
     knn_rows = check_knn(torch, dev, rng)
     ec_rows = check_edgeconv(torch, dev, rng)
     nn1_rows = check_nn1(torch, dev, rng)
+    fps_rows = check_fps(torch, dev, rng)
+    bq_rows = check_ball_query(torch, dev, rng)
+    pf_rows, pb_rows = check_pooled_mlp(torch, dev, rng)
+    ip_rows = check_interp(torch, dev, rng)
 
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
         k.launches = 0
     (f32, bf16), (feat, pos, pos_np) = serving(torch, dev, kernels)
     rollout(torch, bf16, kernels)
-    launches = counts(kernels)
+    serving_launches = counts(kernels)
 
     # checks and timings past the counted run
     result = cpu_reference(torch, dev, pos_np)
@@ -545,8 +1137,43 @@ def main(argv=None) -> int:
     if args.profile:
         profile(torch, "f32_dynamic", f32, feat, pos, args.profile)
         profile(torch, "bf16_static", bf16, feat, pos, args.profile)
+    del f32, bf16
 
-    emit(kernel_line(knn_rows, ec_rows, nn1_rows, launches))
+    # the train path: counts reset to 0 inside, read after its 4 steps
+    train_launches, _ = train(torch, dev, kernels, args.profile)
+    train_card_vs_cpu(torch, dev)
+
+    by_path = {n: {"serving": serving_launches[n], "train": train_launches[n]}
+               for n in kernels}
+    ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
+    pallas = "tpugan_tpu/ops/pallas/"
+    step = ("per_step",), "one G+D train step"
+    emit(kernel_line([
+        ("knn", "tpugan_tpu_torch/csrc/knn.cu", pallas + "knn_kernel.py:350",
+         knn_rows, ("per_forward", "per_step"),
+         "one f32 dynamic forward (7 graphs) plus one G+D train step "
+         "(7 generator graphs, 9 flow embeddings)", by_path["knn"]),
+        ("edgeconv", "tpugan_tpu_torch/csrc/edgeconv.cu",
+         pallas + "edgeconv_kernel.py:358", ec_f32, ("per_forward",),
+         "one f32 dynamic forward (9 EdgeConvs)", by_path["edgeconv"]),
+        ("nn1", "tpugan_tpu_torch/csrc/nn1.cu", pallas + "nn1_kernel.py:123",
+         nn1_rows, ("per_gate", "per_step"),
+         "one Chamfer gate (2 directions) plus one train step (Chamfer, "
+         "masking target)", by_path["nn1"]),
+        ("fps", "tpugan_tpu_torch/csrc/fps.cu", pallas + "fps_kernel.py:152",
+         fps_rows, *step, by_path["fps"]),
+        ("ball_query", "tpugan_tpu_torch/csrc/ball_query.cu",
+         pallas + "ball_query_kernel.py:57", bq_rows, *step,
+         by_path["ball_query"]),
+        ("pooled_mlp_fwd", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
+         pallas + "pooled_mlp_kernel.py:624", pf_rows, *step,
+         by_path["pooled_mlp_fwd"]),
+        ("pooled_mlp_bwd", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
+         pallas + "pooled_mlp_kernel.py:519", pb_rows, *step,
+         by_path["pooled_mlp_bwd"]),
+        ("interp", "tpugan_tpu_torch/csrc/interp.cu",
+         pallas + "interp_kernel.py:89", ip_rows, *step, by_path["interp"]),
+    ]))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,19 +2,28 @@
 
 The layout mirrors the JAX package so each counterpart is found by path:
 
-  ops/neighbors.py     kNN, graph kNN, gather / group
-  ops/metrics.py       nearest neighbor and Chamfer
-  ops/kernels/         one module per hand-written CUDA kernel (csrc/*.cu),
-                       each with its plain PyTorch version and launch count
-  nn/layers.py         bias-free norm-free ConvLayer, SharedMLP
-  nn/edgeconv.py       EdgeConv, IDGCNLayer
-  models/generator.py  SRNet, the mask-history ring
-  eval/rollout.py      the serving rollout loop
-  checkpoint.py        flax msgpack reader and the SRNet weight bridge
+  ops/neighbors.py       kNN (differentiable distances), graph kNN, FPS,
+                         ball query, grouping, radius counts
+  ops/metrics.py         nearest neighbour, Chamfer, the masking target
+  ops/interpolate.py     SPH kernels, dense SPH interpolation
+  ops/kernels/           one module per hand-written CUDA kernel (csrc/*.cu),
+                         each with its plain PyTorch version and launch count
+  nn/layers.py           BatchNorm, SpectralNorm (flax semantics), ConvLayer,
+                         SharedMLP
+  nn/edgeconv.py         EdgeConv, IDGCNLayer
+  nn/setconv.py          SetConv;  nn/flow.py  FlowEmbedding, FlowModule
+  models/generator.py    SRNet, the mask-history ring
+  models/discriminator.py  the fluid spatial and temporal critics
+  losses/                geometric and LSGAN losses
+  train/                 Adam with the staircase schedule, the fluid GAN step
+  data/                  synthetic fluid sequences, dataset, batches
+  eval/rollout.py        the serving rollout loop
+  checkpoint.py          flax msgpack reader, SRNet and trainer-state bridges
 
-The package imports torch and numpy only. Entry points run on the CUDA card
-unless the caller passes ``device="cpu"``; a wrapper around a kernel takes
-its plain PyTorch version only for a tensor that lies on the CPU.
+The package imports torch, numpy and scipy only. Entry points run on the
+CUDA card unless the caller passes ``device="cpu"``; a wrapper around a
+kernel takes its plain PyTorch version only for a tensor that lies on the
+CPU.
 """
 
 import torch

@@ -6,10 +6,14 @@ writes: maps, arrays, str, bin, ints, floats, nil, bool, and the extension
 types 1 (ndarray: a msgpack ``(shape, dtype_name, bytes)`` triple, flax's
 ``_ndarray_to_bytes``) and 3 (a numpy scalar, packed as a 0-d ndarray).
 
-``srnet_params_from_flax`` turns the ``sr_net/params`` tree into a
-``state_dict`` of :class:`~tpugan_tpu_torch.models.generator.SRNet`: the
-torch modules carry the flax scope names, so ``a/b/Dense_0/kernel [in, out]``
-becomes ``a.b.Dense_0.weight [out, in]`` and ``.../bias`` stays ``bias``.
+``state_dict_from_flax`` turns a flax ``{"params", "batch_stats"}`` tree
+into a ``state_dict``: the torch modules carry the flax scope names, so
+``a/b/Dense_0/kernel [in, out]`` becomes ``a.b.Dense_0.weight [out, in]``,
+``bias`` / ``scale`` / ``mean`` / ``var`` keep their names, and a spectral
+norm's ``a/SpectralNorm_0/Dense_0/kernel/u`` becomes ``a.SpectralNorm_0.u``.
+``load_srnet`` builds the serving generator from a checkpoint;
+``load_trainer_state`` the whole trainer (three networks, three Adam
+states, the iteration count).
 """
 
 from __future__ import annotations
@@ -120,6 +124,65 @@ def _leaves(tree: Dict[str, Any], prefix=()):
             yield prefix + (key,), value
 
 
+def _torch_key(path, collection: str):
+    """(torch state_dict key, transpose?) of a flax leaf path."""
+    *mods, leaf = path
+    if collection == "params":
+        if leaf == "kernel":
+            return ".".join(mods + ["weight"]), True
+        if leaf in ("bias", "scale"):
+            return ".".join(mods + [leaf]), False
+    elif collection == "batch_stats":
+        if leaf in ("mean", "var"):
+            return ".".join(mods + [leaf]), False
+        # a spectral norm's SpectralNorm_i/Dense_j/kernel/{u, sigma}
+        if (leaf in ("u", "sigma") and len(mods) >= 3 and mods[-1] == "kernel"
+                and mods[-3].startswith("SpectralNorm_")):
+            return ".".join(mods[:-2] + [leaf]), False
+    raise ValueError(f"unexpected flax leaf {collection}/{'/'.join(path)}")
+
+
+def _tree_to_torch(tree: Dict[str, Any], collection: str) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, leaf in _leaves(tree):
+        # a live flax tree names spectral-norm stats "Dense_0/kernel/u"
+        path = tuple(part for p in path for part in str(p).split("/"))
+        key, transpose = _torch_key(path, collection)
+        arr = np.asarray(leaf, dtype=np.float32)
+        sd[key] = torch.from_numpy((arr.T if transpose else arr).copy())
+    return sd
+
+
+def _check_against(sd: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+                   what: str) -> None:
+    """Raise if a leaf has no torch tensor, a tensor is left unfilled, or a
+    shape disagrees."""
+    extra = sorted(set(sd) - set(want))
+    missing = sorted(set(want) - set(sd))
+    if extra or missing:
+        raise ValueError(f"{what}: flax leaves without a torch parameter: "
+                         f"{extra}; torch parameters left unfilled: {missing}")
+    bad = [k for k in sd if sd[k].shape != want[k].shape]
+    if bad:
+        raise ValueError(f"{what}: shape mismatch: " + ", ".join(
+            f"{k} {tuple(sd[k].shape)} vs {tuple(want[k].shape)}" for k in bad))
+
+
+def state_dict_from_flax(variables: Dict[str, Any],
+                         model: Optional[torch.nn.Module] = None,
+                         what: str = "network") -> Dict[str, torch.Tensor]:
+    """A flax ``{"params", "batch_stats"}`` tree -> ``state_dict`` (CPU
+    tensors): Dense kernels transposed into ``weight``, BatchNorm
+    scale / bias / mean / var, spectral-norm u / sigma. With ``model``,
+    raises on any leaf or tensor left over (see :func:`_check_against`)."""
+    sd = {}
+    for collection in ("params", "batch_stats"):
+        sd.update(_tree_to_torch(variables.get(collection, {}), collection))
+    if model is not None:
+        _check_against(sd, model.state_dict(), what)
+    return sd
+
+
 def srnet_params_from_flax(tree: Dict[str, Any],
                            model: Optional[torch.nn.Module] = None
                            ) -> Dict[str, torch.Tensor]:
@@ -127,28 +190,65 @@ def srnet_params_from_flax(tree: Dict[str, Any],
 
     With ``model``, raises if any flax leaf has no torch parameter, any
     parameter is left unfilled, or a shape disagrees."""
-    sd = {}
-    for path, leaf in _leaves(tree):
-        arr = np.asarray(leaf, dtype=np.float32)
-        if path[-1] == "kernel":
-            sd[".".join(path[:-1] + ("weight",))] = torch.from_numpy(arr.T.copy())
-        elif path[-1] == "bias":
-            sd[".".join(path)] = torch.from_numpy(arr.copy())
-        else:
-            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
-    if model is not None:
-        want = model.state_dict()
-        extra = sorted(set(sd) - set(want))
-        missing = sorted(set(want) - set(sd))
-        if extra or missing:
-            raise ValueError(f"flax leaves without a torch parameter: {extra}; "
-                             f"torch parameters left unfilled: {missing}")
-        bad = [k for k in sd if sd[k].shape != want[k].shape]
-        if bad:
-            raise ValueError("shape mismatch: " + ", ".join(
-                f"{k} {tuple(sd[k].shape)} vs {tuple(want[k].shape)}"
-                for k in bad))
-    return sd
+    return state_dict_from_flax({"params": tree}, model, "sr_net")
+
+
+def adam_from_flax(opt_state: Dict[str, Any], net) -> None:
+    """Fill a :class:`~tpugan_tpu_torch.train.state.NetState`'s Adam from an
+    optax ``chain(scale_by_adam, scale_by_schedule)`` state: ``'0'`` holds
+    Adam's count / mu / nu, ``'1'`` the schedule's count. Raises on any
+    moment left over or unfilled."""
+    adam, sched = opt_state["0"], opt_state["1"]
+    if set(adam) != {"count", "mu", "nu"} or set(sched) != {"count"}:
+        raise ValueError(f"unexpected optimiser state keys {sorted(adam)}, "
+                         f"{sorted(sched)}")
+    opt = net.opt
+    for name in ("mu", "nu"):
+        sd = _tree_to_torch(adam[name], "params")
+        _check_against(sd, {k: p.detach() for k, p in opt.params.items()},
+                       f"adam {name}")
+        moments = getattr(opt, name)
+        for k, v in sd.items():
+            moments[k] = v.to(opt.params[k].device)
+    opt.count = int(adam["count"])
+    opt.sched_count = int(sched["count"])
+
+
+def load_trainer_state(path, cfg=None, device=None):
+    """The whole fluid trainer state of a flax msgpack checkpoint:
+    ``sr_net``, ``tempo_dis`` and ``spatial_dis`` (params, BatchNorm
+    running moments, spectral-norm u / sigma), their three Adam states and
+    ``n_iter``, as a :class:`~tpugan_tpu_torch.train.state.GanTrainState`
+    on ``device`` (the card when None). ``cfg`` (a
+    :class:`~tpugan_tpu_torch.train.step.FluidTrainConfig`, the train_vel
+    defaults when None) gives the learning rates and schedule. Raises on
+    any leaf left over or tensor left unfilled."""
+    from tpugan_tpu_torch import resolve_device
+    from tpugan_tpu_torch.models.discriminator import (FluidSpatialDis,
+                                                       FluidTempoDis)
+    from tpugan_tpu_torch.train.state import GanTrainState, NetState
+    from tpugan_tpu_torch.train.step import FluidTrainConfig
+
+    cfg = cfg or FluidTrainConfig()
+    device = resolve_device(device)
+    tree = read_flax_msgpack(path)
+    extra = set(tree) - {"sr_net", "tempo_dis", "spatial_dis", "sr_optim",
+                         "tempo_optim", "spatial_optim", "n_iter"}
+    if extra:
+        raise ValueError(f"unexpected trainer-state entries {sorted(extra)}")
+    sr = load_srnet(path, device=device)
+    nets = {"sr": sr, "tempo": FluidTempoDis(3, device=device),
+            "spatial": FluidSpatialDis(device=device)}
+    for name, flax_name in (("tempo", "tempo_dis"), ("spatial", "spatial_dis")):
+        nets[name].load_state_dict(state_dict_from_flax(
+            tree[flax_name], nets[name], flax_name))
+    d_lr = cfg.dis_lr_factor * cfg.lr
+    states = {}
+    for name, lr in (("sr", cfg.lr), ("tempo", d_lr), ("spatial", d_lr)):
+        states[name] = NetState.create(nets[name], lr, cfg.lr_decay_steps,
+                                       cfg.lr_decay_rate)
+        adam_from_flax(tree[f"{name}_optim"], states[name])
+    return GanTrainState(n_iter=int(tree["n_iter"]), **states)
 
 
 def load_srnet(path, device=None, **model_kwargs):

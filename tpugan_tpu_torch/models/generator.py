@@ -1,5 +1,8 @@
-"""The masked upsampling generator SRNet and its rollout mask ring (serving
-forward of ``tpugan_tpu/models/generator.py``).
+"""The masked upsampling generator SRNet and its rollout mask ring
+(``tpugan_tpu/models/generator.py``). ``train=False`` is the serving
+forward (fused EdgeConv kernels, no autograd); ``train=True`` the training
+forward (the grouped EdgeConv formulation, differentiable). The generator
+has no batch statistics, so several frames may run as one batch.
 
 Shapes are channels-last. Copies of input point i occupy output slots
 i*r .. i*r + r - 1; pruned copies are parked at the 999 sentinel and
@@ -42,11 +45,11 @@ class GCNFeatureExtractor(nn.Module):
         for name in self.idgcn:
             self.add_module(name, IDGCNLayer(node_emb_dim, node_emb_dim, **kw))
 
-    def forward(self, feature, pos=None, shared_idx=None):
-        x = self.EdgeConv_0(feature, pos=pos, idx=shared_idx)
+    def forward(self, feature, pos=None, shared_idx=None, train=False):
+        x = self.EdgeConv_0(feature, pos=pos, idx=shared_idx, train=train)
         outs = []
         for name in self.idgcn:
-            x = getattr(self, name)(x, shared_idx=shared_idx)
+            x = getattr(self, name)(x, shared_idx=shared_idx, train=train)
             outs.append(x)
         return torch.cat(outs, dim=-1)
 
@@ -68,9 +71,11 @@ class UpsamplingModule(nn.Module):
         self.SharedMLP_0 = SharedMLP(in_dim, [out_dim // 2, out_dim], **kw)
         self.Dense_0 = dense(out_dim, out_dim, True, generator, device)
 
-    def forward(self, feature, shared_idx=None):
-        feature = self.EdgeConv_0(self.ConvLayer_0(feature), idx=shared_idx)
-        feature = self.EdgeConv_1(self.ConvLayer_1(feature), idx=shared_idx)
+    def forward(self, feature, shared_idx=None, train=False):
+        feature = self.EdgeConv_0(self.ConvLayer_0(feature), idx=shared_idx,
+                                  train=train)
+        feature = self.EdgeConv_1(self.ConvLayer_1(feature), idx=shared_idx,
+                                  train=train)
         return _head(self.Dense_0, self.SharedMLP_0(feature))      # [B, N, 3r]
 
 
@@ -93,9 +98,11 @@ class BinaryMaskingModule(nn.Module):
         self.Dense_0 = dense(in_dim // 4, 1, True, generator, device,
                              scale=0.01, bias_init=0.1)
 
-    def forward(self, feature, shared_idx=None):
-        feature = self.EdgeConv_0(self.ConvLayer_0(feature), idx=shared_idx)
-        feature = self.EdgeConv_1(self.ConvLayer_1(feature), idx=shared_idx)
+    def forward(self, feature, shared_idx=None, train=False):
+        feature = self.EdgeConv_0(self.ConvLayer_0(feature), idx=shared_idx,
+                                  train=train)
+        feature = self.EdgeConv_1(self.ConvLayer_1(feature), idx=shared_idx,
+                                  train=train)
         return torch.relu(_head(self.Dense_0, self.SharedMLP_0(feature)))[..., 0]
 
 
@@ -124,7 +131,8 @@ def expand_pos_with_masking(pos: torch.Tensor, edge: torch.Tensor,
 
 
 class SRNet(nn.Module):
-    """Masked upsampling generator, serving forward.
+    """Masked upsampling generator (serving at ``train=False``, training at
+    ``train=True``).
 
     ``compute_dtype`` None keeps f32 everywhere; ``torch.bfloat16`` runs the
     inner convs, gathers and EdgeConvs in bf16 (f32 parameters; the offset
@@ -160,29 +168,32 @@ class SRNet(nn.Module):
         self.upsampling_block = UpsamplingModule(enc, upsample_ratio, **kw)
         self.filter_block = BinaryMaskingModule(enc, **kw)
 
-    def _encode(self, feature, pos):
+    def _encode(self, feature, pos, train):
         graph_pos = pos if self.in_feats > 3 else None
         shared_idx = None
         if self.graph_mode == "static":
             src = graph_pos if graph_pos is not None else feature
             _, shared_idx = graph_knn(src, k=20)
         encoding = self.feature_extractor(feature, pos=graph_pos,
-                                          shared_idx=shared_idx)
+                                          shared_idx=shared_idx, train=train)
         return encoding, shared_idx
 
-    @torch.no_grad()
-    def heads(self, feature: torch.Tensor, pos: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Raw (edge [B, N, 3r], mask [B, N]) heads, used by the rollout."""
-        encoding, shared_idx = self._encode(feature, pos)
-        return (self.upsampling_block(encoding, shared_idx=shared_idx),
-                self.filter_block(encoding, shared_idx=shared_idx))
+    def heads(self, feature: torch.Tensor, pos: torch.Tensor,
+              train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Raw (edge [B, N, 3r], mask [B, N]) heads, used by the rollout.
+        Autograd records them only at ``train=True``."""
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            encoding, shared_idx = self._encode(feature, pos, train)
+            return (self.upsampling_block(encoding, shared_idx=shared_idx,
+                                          train=train),
+                    self.filter_block(encoding, shared_idx=shared_idx,
+                                      train=train))
 
-    @torch.no_grad()
-    def forward(self, feature: torch.Tensor, pos: torch.Tensor):
+    def forward(self, feature: torch.Tensor, pos: torch.Tensor,
+                train: bool = False):
         """feature [B, N, in_feats], pos [B, N, 3] -> (expanded [B, N*r, 3],
         mask [B, N], padded [B, N*r, 3], valid [B, N*r])."""
-        edge, mask = self.heads(feature, pos)
+        edge, mask = self.heads(feature, pos, train)
         expanded, padded, valid = expand_pos_with_masking(
             pos, edge, mask, self.upsample_ratio, self.epsilon)
         return expanded, mask, padded, valid

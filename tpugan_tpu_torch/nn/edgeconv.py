@@ -1,11 +1,17 @@
-"""EdgeConv and Inception-DenseGCN layers (serving forward of
-``tpugan_tpu/nn/edgeconv.py``).
+"""EdgeConv and Inception-DenseGCN layers (``tpugan_tpu/nn/edgeconv.py``).
 
-Every EdgeConv runs through the fused kernel (``ops/kernels/edgeconv.py``),
-as every generator EdgeConv does in the JAX package at ``train=False``: the
-neighbour table is gathered neighbour-major, ``[B, K, N, C]``, and the
-kernel applies the node / edge affines, the optional SharedMLP and the
-aggregation without writing any per-neighbour intermediate.
+At ``train=False`` (serving) every EdgeConv runs through the fused kernel
+(``ops/kernels/edgeconv.py``), as every generator EdgeConv does in the JAX
+package there: the neighbour table is gathered neighbour-major,
+``[B, K, N, C]``, and the kernel applies the node / edge affines, the
+optional SharedMLP and the aggregation without writing any per-neighbour
+intermediate.
+
+At ``train=True`` the layers take the grouped plain formulation with
+autograd (a point-major ``[B, N, K, C]`` table, the affines on it, ``amax``
+or ``sum``), the path the JAX package runs in training: it enables its
+fused EdgeConv backward only with ``TPUGAN_FUSED_EDGECONV_TRAIN=1``, off by
+default, so that backward is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from tpugan_tpu_torch import resolve_device
 from tpugan_tpu_torch.nn.layers import (ConvLayer, SharedMLP, leaky_relu_02,
                                         seeded)
 from tpugan_tpu_torch.ops.kernels.edgeconv import edgeconv_fused
-from tpugan_tpu_torch.ops.neighbors import gather, graph_knn
+from tpugan_tpu_torch.ops.neighbors import gather, graph_knn, group
 
 
 def gather_neighbor_major(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -62,12 +68,17 @@ class EdgeConv(nn.Module):
 
     def forward(self, feat: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 idx: Optional[torch.Tensor] = None,
-                neighbor_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                neighbor_t: Optional[torch.Tensor] = None,
+                train: bool = False,
+                neighbor: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feat [B, N, C] -> [B, N, out]. ``idx`` [B, N, >=k] is a kNN list
         built elsewhere over the same graph source; ``neighbor_t``
-        [B, >=k, N, C] a neighbour-major table gathered elsewhere."""
+        [B, >=k, N, C] a neighbour-major table gathered elsewhere (serving),
+        ``neighbor`` [B, N, >=k, C] a point-major one (training)."""
         if self.dtype is not None:
             feat = feat.to(self.dtype)
+        if train:
+            return self._grouped(feat, pos, idx, neighbor)
         if neighbor_t is None:
             if idx is None:
                 _, idx = graph_knn(pos if pos is not None else feat, k=self.k)
@@ -86,6 +97,26 @@ class EdgeConv(nn.Module):
                            aggregate=self.aggregate,
                            compute_dtype=feat.dtype)
         return y if self.mlp_layer else self.ConvLayer_2(y)
+
+    def _grouped(self, feat, pos, idx, neighbor):
+        """The plain grouped formulation (differentiable)."""
+        if neighbor is None:
+            if idx is None:
+                _, idx = graph_knn(pos if pos is not None else feat, k=self.k)
+            neighbor = group(feat, idx[:, :, :self.k:self.dilation])
+        else:
+            neighbor = neighbor[:, :, :self.k:self.dilation]
+        edge = neighbor - feat[:, :, None, :]
+        y = self.ConvLayer_0(neighbor) + self.ConvLayer_1(edge)
+        if self.mlp_layer:
+            y = self.SharedMLP_0(y)
+            if self.aggregate == "max":
+                return y.amax(dim=2)
+            if self.aggregate == "min":
+                return y.amin(dim=2)
+            return y.sum(2) if self.aggregate == "sum" else y.mean(2)
+        y = y.sum(2) if self.aggregate == "sum" else y.mean(2)
+        return self.ConvLayer_2(y)
 
 
 class IDGCNLayer(nn.Module):
@@ -108,12 +139,18 @@ class IDGCNLayer(nn.Module):
         self.ConvLayer_2 = ConvLayer(in_features, out_features, **kw)  # skip
 
     def forward(self, feat: torch.Tensor,
-                shared_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                shared_idx: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         x = self.ConvLayer_0(feat)                                # [B, N, C/4]
         idx20 = shared_idx if shared_idx is not None else graph_knn(x, 20)[1]
-        nbr_t = gather_neighbor_major(x, idx20)                   # [B, 20, N, C/4]
-        local_max = nbr_t[:, :9].amax(dim=1)
-        y = torch.cat([local_max,
-                       self.EdgeConv_0(x, neighbor_t=nbr_t),
-                       self.EdgeConv_1(x, neighbor_t=nbr_t)], dim=-1)
+        if train:
+            nbr = group(x, idx20)                                 # [B, N, 20, C/4]
+            local_max = nbr[:, :, :9].amax(dim=2)
+            kw = dict(neighbor=nbr, train=True)
+        else:
+            nbr_t = gather_neighbor_major(x, idx20)               # [B, 20, N, C/4]
+            local_max = nbr_t[:, :9].amax(dim=1)
+            kw = dict(neighbor_t=nbr_t)
+        y = torch.cat([local_max, self.EdgeConv_0(x, **kw),
+                       self.EdgeConv_1(x, **kw)], dim=-1)
         return self.ConvLayer_1(y) + self.ConvLayer_2(feat)

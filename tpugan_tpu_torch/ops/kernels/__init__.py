@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the port, one module each (knn, edgeconv,
-nn1). A module holds the kernel's wrapper, its plain PyTorch version and
-``KERNEL``, the library handle whose ``launches`` counts the wrapper's
-launches."""
+"""Hand-written CUDA kernels of the port, one module each: knn, edgeconv and
+nn1 (the serving path); fps, ball_query, pooled_mlp and interp (the train
+step). A module holds the kernel's wrapper, its plain PyTorch version and
+the library handle (``KERNEL``; ``FWD`` and ``BWD`` for pooled_mlp) whose
+``launches`` counts the wrapper's launches."""
