@@ -38,7 +38,32 @@ Phases, one JSON line each (``phase`` names it):
            of each step against the counts the step's code implies, ms per
            step by CUDA events; then a profile of 2 more steps;
   train_cpu one small step (B=2, 1,024-point patches) from the same state
-           and draws on the card and on the CPU (plain versions).
+           and draws on the card and on the CPU (plain versions);
+  kernel   (eval) kNN at k = 32 over [1, 9,216] x [1, 9,216] (the capped
+           interpolation) and k = 64 over [1, 9,216]^2 (the capped
+           density), nn1 at the eval Chamfers' shapes (sentinel-padded
+           queries, a masked candidate tail), each against its plain
+           version (run with the kernel checks above);
+  eval     with the launch counts reset: the port's eval CLI, called as a
+           function, on the trained checkpoint at 9,216-point patches with
+           its default 2,000 auction rounds, 2 samples f32 dynamic and 1
+           bf16 static with the exact twin, on synthetic data under
+           runs/eval_fluid_synth/; every metric finite, each EMD a full
+           permutation, each sample's launches equal to EVAL_SAMPLE /
+           EVAL_SAMPLE_AGREEMENT; seconds per sample, seconds and rounds
+           of each auction;
+  density  with the launch counts reset: the trained SRNet on a whole
+           12,000-particle frame (96,000 slots), the exact density of its
+           kept points and of a 32^3 grid over it (the cell-grid kernel,
+           cutoff 0.05), the capped k = 64 density of a 9,216-point ground
+           truth (against the kNN's plain version); launches against
+           DENSITY_LAUNCHES; then the binned kernel against its plain
+           version and the dense interp kernel at both shapes, with the
+           pairs within the cutoff (the bound's work) and those its 27
+           cells hold (the walk's), its time, its bound and the dense
+           kernel's time;
+  eval_cpu position_metrics, cycle_consistency and the exact density on
+           fixed small clouds, on the card and on the CPU.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -140,23 +165,28 @@ def ptxas_summary(name: str) -> dict:
 # ---------------------------------------------------------------- phase 2
 
 # (path, B, Nq, Nc, D, k, self graph, launches per serving forward, per
-# G+D train step)
+# G+D train step, per eval sample, per density phase)
 KNN_SHAPES = [
     # the f32 dynamic serving forward of one 10,240-point frame
-    ("serving", 1, N_POINTS, N_POINTS, 3, 20, True, 1, 0),    # EdgeConv_0, pos
-    ("serving", 1, N_POINTS, N_POINTS, 32, 20, True, 2, 0),   # IDGCN layers
-    ("serving", 1, N_POINTS, N_POINTS, 64, 12, True, 2, 0),   # up / mask, 1st
-    ("serving", 1, N_POINTS, N_POINTS, 64, 4, True, 1, 0),    # upsampler, 2nd
-    ("serving", 1, N_POINTS, N_POINTS, 64, 8, True, 1, 0),    # mask head, 2nd
+    ("serving", 1, N_POINTS, N_POINTS, 3, 20, True, 1, 0, 0, 0),  # EdgeConv_0
+    ("serving", 1, N_POINTS, N_POINTS, 32, 20, True, 2, 0, 0, 0),  # IDGCN
+    ("serving", 1, N_POINTS, N_POINTS, 64, 12, True, 2, 0, 0, 0),  # up / mask
+    ("serving", 1, N_POINTS, N_POINTS, 64, 4, True, 1, 0, 0, 0),   # upsampler
+    ("serving", 1, N_POINTS, N_POINTS, 64, 8, True, 1, 0, 0, 0),   # mask head
     # the train step: the generator's graphs over its [3B] = 12 rows of
     # 1,152 inputs, and the temporal critic's flow embeddings (k = 32 from
     # one frame's 256 sa2 centres to the next frame's; 3 per critic call)
-    ("train", 12, 1152, 1152, 3, 20, True, 0, 1),
-    ("train", 12, 1152, 1152, 32, 20, True, 0, 2),
-    ("train", 12, 1152, 1152, 64, 12, True, 0, 2),
-    ("train", 12, 1152, 1152, 64, 4, True, 0, 1),
-    ("train", 12, 1152, 1152, 64, 8, True, 0, 1),
-    ("train", 4, 256, 256, 3, 32, False, 0, 9),
+    ("train", 12, 1152, 1152, 3, 20, True, 0, 1, 0, 0),
+    ("train", 12, 1152, 1152, 32, 20, True, 0, 2, 0, 0),
+    ("train", 12, 1152, 1152, 64, 12, True, 0, 2, 0, 0),
+    ("train", 12, 1152, 1152, 64, 4, True, 0, 1, 0, 0),
+    ("train", 12, 1152, 1152, 64, 8, True, 0, 1, 0, 0),
+    ("train", 4, 256, 256, 3, 32, False, 0, 9, 0, 0),
+    # eval: the capped interpolation's k = 32 radius kNN from the 9,216
+    # predicted points to the 9,216-point ground truth; the capped
+    # density's k = 64 over a 9,216-point patch
+    ("eval", 1, 9216, 9216, 3, 32, False, 0, 0, 1, 0),
+    ("density", 1, 9216, 9216, 3, 64, True, 0, 0, 0, 1),
 ]
 
 EDGECONV_SHAPES = [  # (name, C, H, O, K, aggregate, mlp, launches per forward)
@@ -194,7 +224,8 @@ def check_knn(torch, dev, rng):
     from tpugan_tpu_torch.ops.kernels import knn as K
 
     rows = []
-    for path, b, nq, nc, d, k, own, per_fwd, per_step in KNN_SHAPES:
+    for (path, b, nq, nc, d, k, own, per_fwd, per_step, per_sample,
+         per_density) in KNN_SHAPES:
         scale = 0.3 if d == 3 else 1.0
         q_np = (rng.standard_normal((b, nq, d)) * scale).astype(np.float32)
         c_np = q_np if own else (rng.standard_normal((b, nc, d)) * scale
@@ -219,6 +250,7 @@ def check_knn(torch, dev, rng):
         b_ms, b_by = bound(flops, nbytes, "f32")
         rows.append(dict(path=path, B=b, Nq=nq, Nc=nc, D=d, k=k,
                          per_forward=per_fwd, per_step=per_step,
+                         per_sample=per_sample, per_density=per_density,
                          max_abs_err=err, tol=tol, index_mismatch=bad,
                          max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
@@ -265,28 +297,39 @@ def check_edgeconv(torch, dev, rng):
     return rows
 
 
-# (path, B, Nq, M, masked candidate tail, launches per Chamfer gate, per
-# train step)
+# (path, B, Nq, M, masked candidate tail, sentinel query tail, launches per
+# Chamfer gate, per train step, per eval sample)
 NN1_SHAPES = [
     # the serving gate: both directions between two 81,920-point outputs
-    ("serving", 1, N_POINTS * 8, N_POINTS * 8, 4096, 2, 0),
+    ("serving", 1, N_POINTS * 8, N_POINTS * 8, 4096, 0, 2, 0, 0),
     # the train step: its Chamfer (both directions between the centre
     # frame's ground truth and prediction; the step passes no masks) and
     # the masking target (inputs to their nearest ground-truth point)
-    ("train", 4, 9216, 9216, 0, 0, 2),
-    ("train", 4, 1152, 9216, 0, 0, 1),
+    ("train", 4, 9216, 9216, 0, 0, 0, 2, 0),
+    ("train", 4, 1152, 9216, 0, 0, 0, 1, 0),
+    # eval: position_metrics' Chamfer between the kept prediction, padded
+    # to a 1,024 bucket with 999-sentinel rows and a mask, and the 9,216
+    # ground-truth points (both directions); cycle_consistency's between
+    # two 9,216-point predictions (both directions, no masks)
+    ("eval", 1, 9216, 9216, 0, 1024, 0, 0, 1),
+    ("eval", 1, 9216, 9216, 1024, 0, 0, 0, 1),
+    ("eval", 1, 9216, 9216, 0, 0, 0, 0, 2),
 ]
 
 
 def check_nn1(torch, dev, rng):
-    """Distances and the tie rule as in :func:`check_knn`; no index may
-    point into a masked tail."""
+    """Distances and the tie rule as in :func:`check_knn` over the live
+    queries; no index may point into a masked tail. Sentinel queries (the
+    999 rows of a padded prediction) are held to 1e-5 of their distance."""
     from tpugan_tpu_torch.ops.kernels import nn1 as N1
 
     rows = []
-    for path, b, nq, m, masked, per_gate, per_step in NN1_SHAPES:
+    for (path, b, nq, m, masked, q_tail, per_gate, per_step,
+         per_sample) in NN1_SHAPES:
         q_np = (rng.standard_normal((b, nq, 3)) * 0.3).astype(np.float32)
         c_np = (rng.standard_normal((b, m, 3)) * 0.3).astype(np.float32)
+        live = nq - q_tail
+        q_np[:, live:] = 999.0
         q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
         bias = torch.zeros((b, m), device=dev)
         if masked:
@@ -294,12 +337,17 @@ def check_nn1(torch, dev, rng):
         d2k, ik = N1.nn1_kernel(q, c, bias)
         d2p, ip = N1.nn1_plain(q, c, bias)
         torch.cuda.synchronize()
-        tol = 1e-5 * 2 * float(max((q * q).sum(-1).max(), (c * c).sum(-1).max()))
-        err = float((d2k - d2p).abs().max())
-        bad, gap = index_gaps(q_np, c_np, ik, ip)
-        if not (err <= tol and gap <= 2 * tol and int(ik.max()) < m - masked):
+        tol = 1e-5 * 2 * float(max((q[:, :live] ** 2).sum(-1).max(),
+                                   (c * c).sum(-1).max()))
+        err = float((d2k - d2p)[:, :live].abs().max())
+        bad, gap = index_gaps(q_np[:, :live], c_np, ik[:, :live], ip[:, :live])
+        tail_rel = (float(((d2k - d2p)[:, live:].abs() / d2p[:, live:]).max())
+                    if q_tail else 0.0)
+        if not (err <= tol and gap <= 2 * tol and tail_rel <= 1e-5
+                and int(ik.max()) < m - masked):
             raise AssertionError(f"nn1 {path} B={b} Nq={nq} M={m}: err {err} "
-                                 f"tol {tol}, index gaps up to {gap}")
+                                 f"tol {tol}, index gaps up to {gap}, "
+                                 f"sentinel rows {tail_rel}")
         ms = time_ms(lambda: N1.nn1_kernel(q, c, bias), torch)
         plain_ms = time_ms(lambda: N1.nn1_plain(q, c, bias), torch)
 
@@ -311,7 +359,8 @@ def check_nn1(torch, dev, rng):
         b_ms, b_by = bound(9.0 * b * nq * m,
                            4 * b * (3 * nq + 3 * m + m) + 12 * b * nq, "f32")
         rows.append(dict(path=path, B=b, Nq=nq, M=m, masked=masked,
-                         per_gate=per_gate, per_step=per_step,
+                         sentinel_queries=q_tail, per_gate=per_gate,
+                         per_step=per_step, per_sample=per_sample,
                          max_abs_err=err, tol=tol, index_mismatch=bad,
                          max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
@@ -733,8 +782,15 @@ def check_pooled_mlp(torch, dev, rng):
             e = float((aff - affp).abs().max())
             if e > 1e-5 * float(affp.abs().max()):
                 raise AssertionError(f"pooled_mlp_affine: err {e}")
+            with torch.no_grad():
+                aff_ms = time_ms(lambda: P.pooled_mlp_affine(
+                    tab, ws, fp[4], fp[5], slope), torch)
+                affp_ms = time_ms(lambda: P.pooled_mlp_affine_plain(
+                    tab, ws, fp[4], fp[5], slope), torch)
             emit({"phase": "kernel", "kernel": "pooled_mlp_affine",
-                  "stage": stage, "max_abs_err": e})
+                  **common, "max_abs_err": e, "ms": aff_ms,
+                  "plain_ms": affp_ms, "library_ms": None,
+                  "bound_ms": f_bound[0], "bound_by": f_bound[1]})
     return fwd_rows, bwd_rows
 
 
@@ -1056,6 +1112,318 @@ def train_card_vs_cpu(torch, dev, patch=1024):
                              f"its adversarial losses passes the check ({lost})")
 
 
+# ---------------------------------------------------------- eval phases
+
+EVAL_SAMPLES = 2
+# Launches per eval sample, read off tpugan_tpu_torch/cli/eval_fluid.py and
+# eval/analysis.py (the wrappers count one per call):
+#   f32 dynamic: 3 SRNet forwards of 1,152 inputs (the centre frame for
+#     position_metrics, the left and the right frame in cycle_consistency),
+#     7 kNN graphs and 9 EdgeConvs each; the capped interpolation's k = 32
+#     radius kNN; the Chamfers' 2 nn1 in position_metrics and 2 in
+#     cycle_consistency (the eps-scaled auctions end in the Hungarian
+#     repair, so no nearest-target nn1);
+#   bf16 static with --agreement_vs_exact: the bf16 static forward (1
+#     graph) and its exact f32 dynamic twin (7), the Chamfer between them
+#     (2 nn1), then as above with bf16 static forwards (1 graph each).
+EVAL_SAMPLE = {"knn": 3 * 7 + 1, "edgeconv": 3 * 9, "nn1": 2 + 2}
+EVAL_SAMPLE_AGREEMENT = {"knn": 1 + 7 + 2 * 1 + 1, "edgeconv": 4 * 9,
+                         "nn1": 2 + 2 + 2}
+# The density phase: one f32 dynamic forward of a whole 12,000-particle
+# frame (7 graphs, 9 EdgeConvs), the exact densities of its kept points and
+# of a grid over it (the cell-grid kernel, one launch each) and the capped
+# density of a 9,216-point ground-truth patch (one k = 64 radius kNN).
+DENSITY_LAUNCHES = {"knn": 7 + 1, "edgeconv": 9, "binned_interp": 2}
+DENSITY_CUTOFF = 0.05      # 2 x the reference's particle radius
+DENSITY_GRID = 32          # grid points per axis
+# card vs CPU: the nn1 kernel and the plain version round |q|^2 + |c|^2 -
+# 2 q.c in another order (about 2.4e-7 of max |p|^2 per distance), which a
+# Chamfer of near-identical clouds sums over every point; the auctions are
+# two eps-optimal assignments (near-tie bids may go another way): 5e-2
+# relative on the EMD; the MMD's exp(-|d|^2 / 2 blur^2) turns the same
+# distance rounding into 1e-3 relative at most; densities are f32 sums in
+# another order, 1e-5 relative.
+EMD_RTOL = 5e-2
+MMD_RTOL = 1e-3
+
+
+def eval_phase(torch, kernels):
+    """The port's eval CLI, called as a function, on the trained checkpoint
+    at the train_vel width (9,216-point patches, 1,152 inputs) with its
+    default 2,000 auction rounds: EVAL_SAMPLES samples f32 dynamic, then one
+    bf16 static with the exact twin. Counts are reset before each run and
+    read after each sample. Returns the launches of both runs."""
+    import warnings
+
+    import tpugan_tpu_torch.eval.analysis as analysis
+    import tpugan_tpu_torch.ops.metrics as metrics
+    from tpugan_tpu_torch.cli import eval_fluid
+
+    base = ["--ckpt", CHECKPOINT, "--in_node_feats", "6", "--use_vel",
+            "--patch_size", "9216"]
+    total = {n: 0 for n in kernels}
+    # seconds (host clock around a synchronised call) and rounds of each
+    # auction (position EMD, cycle EMD)
+    auction, emd_s, emd_rounds = analysis.auction_assignment, [], []
+
+    def timed_auction(*args, **kw):
+        torch.cuda.synchronize()
+        metrics.auction_rounds = 0
+        t0 = time.perf_counter()
+        out = auction(*args, **kw)
+        torch.cuda.synchronize()
+        emd_s.append(time.perf_counter() - t0)
+        emd_rounds.append(metrics.auction_rounds)
+        return out
+
+    for mode, extra, per in (
+            ("f32 dynamic", ["--num_samples", str(EVAL_SAMPLES)], EVAL_SAMPLE),
+            ("bf16 static + exact", ["--num_samples", "1", "--compute_dtype",
+                                     "bf16", "--graph_mode", "static",
+                                     "--agreement_vs_exact"],
+             EVAL_SAMPLE_AGREEMENT)):
+        marks = []
+
+        def mark(_=None):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), counts(kernels)))
+
+        for k in kernels.values():
+            k.launches = 0
+        emd_s.clear()
+        emd_rounds.clear()
+        mark()
+        analysis.auction_assignment = timed_auction
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = eval_fluid.evaluate(eval_fluid.parser().parse_args(
+                    base + extra), on_sample=mark)
+        finally:
+            analysis.auction_assignment = auction
+        # marks: before the call, setup done (-1), after each sample
+        expect(delta(marks[0][1], marks[1][1]), {}, f"eval {mode} setup")
+        per_sample = [delta(a[1], b[1]) for a, b in zip(marks[1:], marks[2:])]
+        seconds = [b[0] - a[0] for a, b in zip(marks[1:], marks[2:])]
+        emit({"phase": "eval", "mode": mode, "result": out,
+              "setup_s": marks[1][0] - marks[0][0],
+              "seconds_per_sample": seconds, "emd_seconds": list(emd_s),
+              "emd_rounds": list(emd_rounds),
+              "launches_per_sample": per_sample})
+        dup = [str(w.message) for w in caught
+               if "duplicate assignments" in str(w.message)]
+        if dup:
+            raise AssertionError(f"eval {mode}: the EMD assignment is not a "
+                                 f"permutation: {dup}")
+        bad = {k: v for k, v in out.items()
+               if k != "serving_mode" and not np.isfinite(v)}
+        if bad or out["samples"] != len(per_sample):
+            raise AssertionError(f"eval {mode}: {bad or out['samples']}")
+        for i, got in enumerate(per_sample):
+            expect(got, per, f"eval {mode} sample {i}")
+        for n, v in counts(kernels).items():
+            total[n] += v
+    return total
+
+
+def density_phase(torch, dev, kernels):
+    """With the counts reset: the trained SRNet (f32 dynamic) on a whole
+    12,000-particle synthetic frame with its velocities (96,000 slots), the
+    exact density of its kept points and of a DENSITY_GRID^3 grid over its
+    bounding box (cell-grid kernel), and the capped k = 64 density of an
+    eval sample's 9,216-point ground truth; then each kernel of the phase
+    against its plain version on the same inputs. Returns (launches, the
+    binned kernel's rows)."""
+    from tpugan_tpu_torch import DT
+    from tpugan_tpu_torch.checkpoint import load_srnet
+    from tpugan_tpu_torch.cli.eval_fluid import SYNTH_DIR
+    from tpugan_tpu_torch.data.fluid import SiamFluidDataset
+    from tpugan_tpu_torch.data.sampling import normalize_point_cloud
+    from tpugan_tpu_torch.eval.analysis import (get_particle_density,
+                                                particle_dns2grid_dns)
+    from tpugan_tpu_torch.ops.kernels import binned_interp as BI
+    from tpugan_tpu_torch.ops.kernels import interp as I
+
+    with np.load(os.path.join(SYNTH_DIR, "case1", "data_1.npz")) as z:
+        frame, vel = normalize_point_cloud(z["pos"].astype(np.float32))[0], \
+            z["vel"].astype(np.float32)
+    gt = SiamFluidDataset(SYNTH_DIR, 1, 8, sample_num=9216,
+                          seed=0)[0]["highres_pos"][1]
+    model = load_srnet(CHECKPOINT, device=dev)
+    pos = torch.from_numpy(frame)[None].to(dev)
+    feat = torch.cat([pos, torch.from_numpy(vel)[None].to(dev) * DT], -1)
+    cutoff = DENSITY_CUTOFF
+    torch.cuda.synchronize()
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, _, padded, valid = model(feat, pos)
+    pred = padded[0][valid[0]].cpu().numpy()
+    dns = get_particle_density(pred, cutoff, device=dev)
+    lo, hi = pred.min(0), pred.max(0)
+    axes = [np.linspace(lo[a], hi[a], DENSITY_GRID, dtype=np.float32)
+            for a in range(3)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    gdns = particle_dns2grid_dns(grid, pred, cutoff, device=dev)
+    capped = get_particle_density(gt, cutoff, dense=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels)
+    expect(launches, DENSITY_LAUNCHES, "density phase")
+    # a particle's own weight is 1: exactly in the exact form (direct
+    # differences), and to within the spline's slope times the kNN's
+    # rounding of a zero distance (2.4e-7 of |p|^2) in the capped form
+    own_capped = 1.0 - 6.0 * 2.4e-7 * float((gt ** 2).sum(-1).max()) / cutoff ** 2
+    if not (dns.shape == (pred.shape[0], 1) and gdns.shape == (len(grid), 1)
+            and capped.shape == (gt.shape[0], 1)
+            and all(np.isfinite(a).all() for a in (dns, gdns, capped))
+            and dns.min() >= 1.0 - 1e-5 and capped.min() >= own_capped):
+        raise AssertionError(
+            f"density phase: densities not finite or below a particle's own "
+            f"weight: {dns.min()}, {capped.min()} (limit {own_capped})")
+
+    # the capped form against the kNN's plain version (on the CPU): their
+    # d2 = |q|^2 + |c|^2 - 2 q.c round in another order (2.4e-7 of max
+    # |p|^2), which the spline's slope in d2 (at most 6 / cutoff^2) carries
+    # into each in-radius neighbour's weight
+    plain_capped = get_particle_density(gt, cutoff, dense=False, device="cpu")
+    gq = torch.from_numpy(gt).to(dev)
+    n_max = int((torch.cdist(gq, gq) < cutoff).sum(-1).max())
+    cap_tol = n_max * 6.0 / cutoff ** 2 * 2.4e-7 * float((gt ** 2).sum(-1).max())
+    cap_err = float(np.abs(capped - plain_capped).max())
+    summary = {"phase": "density", "slots": int(padded.shape[1]),
+               "kept": int(pred.shape[0]), "grid_points": int(len(grid)),
+               "cutoff": cutoff, "wall_s": wall, "launches": launches,
+               "density_mean": float(dns.mean()),
+               "grid_density_max": float(gdns.max()),
+               "capped_patch_points": int(gt.shape[0]),
+               "capped_in_radius_max": n_max, "capped_max_abs_err": cap_err,
+               "capped_tol": cap_tol}
+    if cap_err > cap_tol:
+        emit(summary)
+        raise AssertionError(f"capped density vs plain: {cap_err} > {cap_tol}")
+
+    rows = []
+    rng = np.random.default_rng(4)
+    cand = torch.from_numpy(pred)[None].to(dev)
+    bias = torch.zeros(cand.shape[:2], device=dev)
+    # the density calls pass zero values (C = 1); a random field makes the
+    # kernel's numerator checkable at the same shapes
+    vals = torch.from_numpy(rng.standard_normal((1, pred.shape[0], 1))
+                            .astype(np.float32)).to(dev)
+    for name, q_np in (("frame", pred), ("grid", grid)):
+        q = torch.from_numpy(q_np)[None].to(dev)
+        cells = BI.build_grid(cand, vals, bias, cutoff)
+        ok, dk = BI.binned_interp_launch(q, cells, cutoff, "spline1")
+        op, dp = BI.binned_interp_plain(q, cells, cutoff, "spline1")
+        od, dd = I.interp_kernel(q, cand, vals, cutoff, bias, "spline1")
+        torch.cuda.synchronize()
+        scale = float(vals.abs().max())
+        err = max(float((ok - op).abs().max()), float((ok - od).abs().max()))
+        den_rel = max(float(((dk - dp).abs() / dp).max()),
+                      float(((dk - dd).abs() / dd).max()))
+        walked, pairs = (t.float() for t in BI.pair_counts(q, cells, cutoff))
+        ms = time_ms(lambda: BI.binned_interp_launch(q, cells, cutoff,
+                                                     "spline1"), torch)
+        grid_ms = time_ms(lambda: BI.build_grid(cand, vals, bias, cutoff),
+                          torch)
+        plain_ms = time_ms(lambda: BI.binned_interp_plain(q, cells, cutoff,
+                                                          "spline1"),
+                           torch, reps=3, warmup=1)
+        dense_ms = time_ms(lambda: I.interp_kernel(q, cand, vals, cutoff,
+                                                   bias, "spline1"),
+                           torch, reps=3, warmup=1)
+        nq, m = q.shape[1], cand.shape[1]
+        # the function's work: about 20 f32 operations and a square root
+        # per pair within the cutoff, and one FMA per value channel; the
+        # walked pairs (the 27 cells') are the design's overhead
+        b_ms, b_by = bound(22.0 * float(pairs.sum()),
+                           4 * (3 * nq + 4 * m + m + 2 * nq), "f32")
+        rows.append(dict(call=name, Nq=nq, M=m, C=1, cutoff=cutoff,
+                         grid_dims=list(cells.dims), per_density=1,
+                         in_radius_mean=float(pairs.mean()),
+                         in_radius_max=int(pairs.max()),
+                         walked_mean=float(walked.mean()),
+                         walked_max=int(walked.max()),
+                         max_abs_err=err, den_max_rel_err=den_rel, ms=ms,
+                         grid_build_ms=grid_ms, plain_ms=plain_ms,
+                         dense_kernel_ms=dense_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "binned_interp", **rows[-1]})
+        if not (err <= 1e-5 * scale and den_rel <= 1e-5
+                and bool(torch.isfinite(ok).all())):
+            raise AssertionError(f"binned_interp {name}: err {err}, den rel "
+                                 f"{den_rel}")
+    emit(summary)
+    return launches, rows
+
+
+def eval_card_vs_cpu(torch, dev):
+    """position_metrics (a masked, padded prediction), cycle_consistency
+    (a fixed stand-in for the generator) and the exact density on fixed
+    small clouds from a seed, on the card and on the CPU."""
+    from tpugan_tpu_torch.data.sampling import pad_with_appropriate_size
+    from tpugan_tpu_torch.eval.analysis import (cycle_consistency,
+                                                get_particle_density,
+                                                position_metrics)
+
+    rng = np.random.default_rng(3)
+    cloud = lambda *s, scale=0.3: (rng.standard_normal(s) * scale
+                                   ).astype(np.float32)
+    gt = cloud(1, 2048, 3)
+    pred, valid = pad_with_appropriate_size(gt[0, :1800] + cloud(1800, 3,
+                                                                 scale=0.01))
+    low, vel = cloud(2, 1, 256, 3), cloud(2, 1, 256, 3, scale=1.0)
+    high, adv = cloud(1, 2048, 3), cloud(1, 2048, 3, scale=0.01)
+    offsets = cloud(4, 3, scale=0.02)
+    dens_pts = (rng.random((6000, 3)) * 0.4).astype(np.float32)
+
+    def run(d):
+        t = lambda a: torch.from_numpy(a).to(d)
+
+        def sr_apply(feature, p):
+            scale = 1.0 + feature[..., 3:].abs().sum(-1, keepdim=True)
+            out = p[:, :, None] + t(offsets) * scale[:, :, None]
+            return out.reshape(p.shape[0], -1, 3)
+
+        kw = dict(emd_iters=300, emd_eps=0.01)
+        pm = position_metrics(t(pred[None]), t(gt), pred_valid=t(valid[None]),
+                              **kw)
+        cc = cycle_consistency(sr_apply, t(low[0]), t(low[1]), t(adv), t(high),
+                               cutoff=0.1, use_vel=True,
+                               lowres_vel_left=t(vel[0]),
+                               lowres_vel_right=t(vel[1]), **kw)
+        return pm, cc, get_particle_density(dens_pts, 0.05, dense=True,
+                                            device=d)
+
+    (pm_g, cc_g, dn_g), (pm_c, cc_c, dn_c) = run(dev), run("cpu")
+
+    def cd_tol(n_terms, n_div, r2max):
+        # each nearest distance rounds to within 2.4e-7 of max |p|^2
+        return n_terms * 2.4e-7 * float(r2max) / n_div
+
+    out = {"phase": "eval_cpu",
+           "position": {"card": pm_g, "cpu": pm_c},
+           "cycle": {"card": cc_g, "cpu": cc_c},
+           "density_max_rel_err": float(np.max(np.abs(dn_g - dn_c) / dn_c))}
+    emit(out)
+    checks = [
+        abs(pm_g[0] - pm_c[0]) <= cd_tol(1800 + 2048, 2048,
+                                         (gt ** 2).sum(-1).max()),
+        # the stand-in and the advection move points by under 0.2
+        abs(cc_g[0] - cc_c[0]) <= cd_tol(2 * 1024, 1024,
+                                         3 * (np.abs(low).max() + 0.2) ** 2),
+        abs(pm_g[1] - pm_c[1]) <= EMD_RTOL * abs(pm_c[1]),
+        abs(cc_g[1] - cc_c[1]) <= EMD_RTOL * abs(cc_c[1]),
+        abs(pm_g[2] - pm_c[2]) <= MMD_RTOL * abs(pm_c[2]) + 1e-7,
+        abs(cc_g[2] - cc_c[2]) <= MMD_RTOL * abs(cc_c[2]) + 1e-7,
+        out["density_max_rel_err"] <= 1e-5]
+    if not all(checks):
+        raise AssertionError(f"eval card vs CPU: checks {checks}")
+
+
 def kernel_line(groups):
     """One entry per kernel. ``groups``: (name, source, replaces, rows,
     weight keys, what the times sum over, launches by path); times are sums
@@ -1097,8 +1465,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from tpugan_tpu_torch import _build
-    from tpugan_tpu_torch.ops.kernels import (ball_query, edgeconv, fps,
-                                              interp, knn, nn1, pooled_mlp)
+    from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp,
+                                              edgeconv, fps, interp, knn, nn1,
+                                              pooled_mlp)
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -1112,7 +1481,7 @@ def main(argv=None) -> int:
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL, "nn1": nn1.KERNEL,
                "fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
                "pooled_mlp_fwd": pooled_mlp.FWD, "pooled_mlp_bwd": pooled_mlp.BWD,
-               "interp": interp.KERNEL}
+               "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL}
     rng = np.random.default_rng(0)
     knn_rows = check_knn(torch, dev, rng)
     ec_rows = check_edgeconv(torch, dev, rng)
@@ -1143,23 +1512,32 @@ def main(argv=None) -> int:
     train_launches, _ = train(torch, dev, kernels, args.profile)
     train_card_vs_cpu(torch, dev)
 
-    by_path = {n: {"serving": serving_launches[n], "train": train_launches[n]}
+    # the eval path (counts reset inside, read after each sample), then the
+    # densities (reset inside, read before the kernel comparisons)
+    eval_launches = eval_phase(torch, kernels)
+    density_launches, bi_rows = density_phase(torch, dev, kernels)
+    eval_card_vs_cpu(torch, dev)
+
+    by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
+                   "eval": eval_launches[n], "density": density_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
     step = ("per_step",), "one G+D train step"
     emit(kernel_line([
-        ("knn", "tpugan_tpu_torch/csrc/knn.cu", pallas + "knn_kernel.py:350",
-         knn_rows, ("per_forward", "per_step"),
+        ("knn", "tpugan_tpu_torch/csrc/knn.cu", pallas + "knn_kernel.py:351",
+         knn_rows, ("per_forward", "per_step", "per_sample", "per_density"),
          "one f32 dynamic forward (7 graphs) plus one G+D train step "
-         "(7 generator graphs, 9 flow embeddings)", by_path["knn"]),
+         "(7 generator graphs, 9 flow embeddings) plus the eval sample's "
+         "capped interpolation plus the capped density", by_path["knn"]),
         ("edgeconv", "tpugan_tpu_torch/csrc/edgeconv.cu",
          pallas + "edgeconv_kernel.py:358", ec_f32, ("per_forward",),
          "one f32 dynamic forward (9 EdgeConvs)", by_path["edgeconv"]),
-        ("nn1", "tpugan_tpu_torch/csrc/nn1.cu", pallas + "nn1_kernel.py:123",
-         nn1_rows, ("per_gate", "per_step"),
+        ("nn1", "tpugan_tpu_torch/csrc/nn1.cu", pallas + "nn1_kernel.py:124",
+         nn1_rows, ("per_gate", "per_step", "per_sample"),
          "one Chamfer gate (2 directions) plus one train step (Chamfer, "
-         "masking target)", by_path["nn1"]),
+         "masking target) plus one eval sample (4 directions)",
+         by_path["nn1"]),
         ("fps", "tpugan_tpu_torch/csrc/fps.cu", pallas + "fps_kernel.py:152",
          fps_rows, *step, by_path["fps"]),
         ("ball_query", "tpugan_tpu_torch/csrc/ball_query.cu",
@@ -1173,6 +1551,10 @@ def main(argv=None) -> int:
          by_path["pooled_mlp_bwd"]),
         ("interp", "tpugan_tpu_torch/csrc/interp.cu",
          pallas + "interp_kernel.py:89", ip_rows, *step, by_path["interp"]),
+        ("binned_interp", "tpugan_tpu_torch/csrc/binned_interp.cu",
+         pallas + "binned_interp_kernel.py:333", bi_rows, ("per_density",),
+         "one density phase (the frame's and the grid's exact densities)",
+         by_path["binned_interp"]),
     ]))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,8 +16,8 @@ import torch
 import tpugan_tpu_torch
 from tpugan_tpu_torch.checkpoint import load_srnet
 from tpugan_tpu_torch.models.generator import RolloutMaskState, SRNet
-from tpugan_tpu_torch.ops.kernels import (ball_query, edgeconv, fps, interp,
-                                          knn, nn1, pooled_mlp)
+from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp, edgeconv,
+                                          fps, interp, knn, nn1, pooled_mlp)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "checkpoints", "fluid_vel_20k.ckpt")
@@ -33,7 +33,9 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "for m in ('train.step', 'train.state', 'models.discriminator', "
         "'nn.setconv', 'nn.flow', 'ops.interpolate', 'losses.geometry', "
-        "'data.fluid', 'ops.kernels.pooled_mlp'):\n"
+        "'data.fluid', 'ops.kernels.pooled_mlp', 'data.sampling', "
+        "'eval.analysis', 'cli.eval_fluid', 'ops.kernels.binned_interp', "
+        "'ops.metrics'):\n"
         "    assert 'tpugan_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpugan_tpu')]\n"
@@ -55,7 +57,8 @@ def test_entry_points_need_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("wrapper", ["knn", "nn1", "edgeconv", "fps",
-                                     "ball_query", "interp", "pooled_mlp"])
+                                     "ball_query", "interp", "pooled_mlp",
+                                     "binned_interp"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
     # a tensor on neither the CPU nor a CUDA card is refused, not computed
     t = lambda *s: torch.zeros(s, device="meta")
@@ -73,12 +76,15 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
                                                t(1, 8, 3), 0.1, t(1, 8)),
         "pooled_mlp": lambda: pooled_mlp.pooled_mlp_bn_train(
             t(1, 2, 4, 6), [t(6, 8)], [t(8)], [t(8)]),
+        "binned_interp": lambda: binned_interp.binned_interp(
+            t(1, 8, 3), t(1, 8, 3), t(1, 8, 3), 0.1, t(1, 8)),
     }
     with pytest.raises(ValueError, match="tensors on"):
         calls[wrapper]()
     assert all(k.launches == 0 for k in (knn.KERNEL, nn1.KERNEL, fps.KERNEL,
                                          ball_query.KERNEL, interp.KERNEL,
-                                         pooled_mlp.FWD, pooled_mlp.BWD))
+                                         pooled_mlp.FWD, pooled_mlp.BWD,
+                                         binned_interp.KERNEL))
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -112,7 +118,8 @@ def card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,k,nc", [(3, 20, 1000), (32, 12, 333),
-                                    (64, 4, 2048), (6, 1, 7), (3, 32, 256)])
+                                    (64, 4, 2048), (6, 1, 7), (3, 32, 256),
+                                    (3, 64, 1000), (3, 50, 777)])
 def test_knn_kernel_matches_plain_on_card(card, gen, d, k, nc):
     q = torch.from_numpy(gen.standard_normal((2, 300, d)).astype(np.float32))
     c = torch.from_numpy(gen.standard_normal((2, nc, d)).astype(np.float32))
@@ -221,3 +228,30 @@ def test_pooled_mlp_kernels_match_plain_on_card(card, gen):
         b = b.detach()
         torch.testing.assert_close(a.detach().cpu(), b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,cutoff,c", [("bicubic", 0.16, 3),
+                                           ("spline1", 0.05, 1),
+                                           ("linear", 0.6, 8),
+                                           ("exponential", 0.01, 2)])
+def test_binned_interp_kernel_matches_plain_on_card(card, gen, kind, cutoff, c):
+    """Masked candidates, sentinel queries far outside the grid, cells that
+    hold many points (0.6) and a cutoff below the spacing (0.01)."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    q, cand, v = t(2, 300, 3) * 0.2, t(2, 500, 3) * 0.2, t(2, 500, c)
+    q[:, :4] = 999.0
+    bias = torch.zeros(2, 500)
+    bias[:, ::3] = 1e10
+    before = binned_interp.KERNEL.launches
+    ok, dk = binned_interp.binned_interp(q.to(card), cand.to(card), v.to(card),
+                                         cutoff, bias.to(card), kind)
+    assert binned_interp.KERNEL.launches == before + 1
+    grid = binned_interp.build_grid(cand, v, bias, cutoff)
+    op, dp = binned_interp.binned_interp_plain(q, grid, cutoff, kind)
+    od, dd = interp.interp_plain(q, cand, v, cutoff, bias, kind)
+    # f32 sums over the same candidates in another order
+    for o, d in ((op, dp), (od, dd)):
+        torch.testing.assert_close(ok.cpu(), o, rtol=0,
+                                   atol=1e-5 * float(v.abs().max()))
+        torch.testing.assert_close(dk.cpu(), d, rtol=1e-5, atol=1e-6)

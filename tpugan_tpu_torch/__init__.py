@@ -4,10 +4,12 @@ The layout mirrors the JAX package so each counterpart is found by path:
 
   ops/neighbors.py       kNN (differentiable distances), graph kNN, FPS,
                          ball query, grouping, radius counts
-  ops/metrics.py         nearest neighbour, Chamfer, the masking target
-  ops/interpolate.py     SPH kernels, dense SPH interpolation
+  ops/metrics.py         nearest neighbour, Chamfer, the masking target,
+                         auction assignment and EMD, Gaussian MMD
+  ops/interpolate.py     SPH kernels; capped and dense SPH interpolation
   ops/kernels/           one module per hand-written CUDA kernel (csrc/*.cu),
-                         each with its plain PyTorch version and launch count
+                         each with its plain PyTorch version and launch count;
+                         binned_interp.py: the cell-grid exact SPH sum
   nn/layers.py           BatchNorm, SpectralNorm (flax semantics), ConvLayer,
                          SharedMLP
   nn/edgeconv.py         EdgeConv, IDGCNLayer
@@ -16,8 +18,13 @@ The layout mirrors the JAX package so each counterpart is found by path:
   models/discriminator.py  the fluid spatial and temporal critics
   losses/                geometric and LSGAN losses
   train/                 Adam with the staircase schedule, the fluid GAN step
-  data/                  synthetic fluid sequences, dataset, batches
+  data/                  synthetic fluid sequences, dataset, batches;
+                         data/sampling.py: host FPS, kd-tree patches,
+                         padding, free-surface particles
   eval/rollout.py        the serving rollout loop
+  eval/analysis.py       Chamfer / EMD / MMD metrics, cycle consistency,
+                         particle densities, free-surface counts
+  cli/eval_fluid.py      the evaluation CLI
   checkpoint.py          flax msgpack reader, SRNet and trainer-state bridges
 
 The package imports torch, numpy and scipy only. Entry points run on the

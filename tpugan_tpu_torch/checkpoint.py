@@ -18,6 +18,7 @@ states, the iteration count).
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Dict, Optional
 
@@ -251,14 +252,25 @@ def load_trainer_state(path, cfg=None, device=None):
     return GanTrainState(n_iter=int(tree["n_iter"]), **states)
 
 
+def resolve_checkpoint(path) -> str:
+    """``path`` itself, or for a directory of checkpoints the one its
+    ``latest_checkpoint.txt`` manifest names (first line)."""
+    path = os.fspath(path)
+    if os.path.isdir(path):
+        with open(os.path.join(path, "latest_checkpoint.txt")) as fh:
+            path = os.path.join(path, fh.readline().strip())
+    return path
+
+
 def load_srnet(path, device=None, **model_kwargs):
     """Build an :class:`SRNet` matching a trained checkpoint and load its
-    ``sr_net`` weights. in_feats, node_emb_dim, the upsample ratio and the
-    extractor depth are read off the weight shapes; ``model_kwargs`` sets the
-    rest (``compute_dtype``, ``graph_mode``, ...)."""
+    ``sr_net`` weights. ``path`` is a checkpoint file or a directory with a
+    ``latest_checkpoint.txt`` manifest. in_feats, node_emb_dim, the
+    upsample ratio and the extractor depth are read off the weight shapes;
+    ``model_kwargs`` sets the rest (``compute_dtype``, ``graph_mode``, ...)."""
     from tpugan_tpu_torch.models.generator import SRNet
 
-    params = read_flax_msgpack(path)["sr_net"]["params"]
+    params = read_flax_msgpack(resolve_checkpoint(path))["sr_net"]["params"]
     fe = params["feature_extractor"]
     in_feats, half = fe["EdgeConv_0"]["ConvLayer_0"]["Dense_0"]["kernel"].shape
     model = SRNet(

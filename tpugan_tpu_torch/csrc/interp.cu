@@ -7,7 +7,8 @@
 //
 // Contract: query [B,Nq,3], cand [B,M,3], values [B,M,C] (C <= 8),
 // bias [B,M] (0 valid, 1e10 invalid), all f32 ->
-//   d2  = dx*dx + dy*dy + dz*dz + bias        (direct differences)
+//   d2  = ((dx*dx + dy*dy) + dz*dz) + bias    (direct differences, each
+//                                              operation rounded on its own)
 //   w   = W(d2) in the two-hinge form of the TPU kernel's _kernel_w:
 //         u = max(d2 / cutoff^2, 0), q = sqrt(u)
 //         bicubic / spline1: k1 (1-q)_+^3 - k2 (1/2-q)_+^3
@@ -26,24 +27,13 @@
 // memory, read by every lane as a broadcast; numerator and denominator
 // stay in registers and sum in candidate order.
 #include "common.cuh"
+#include "sph_weight.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int TILE = 512;    // 8 KB of rows + 16 KB of values
 constexpr int MAX_C = 8;
-
-enum Kind { kBicubic = 0, kSpline1 = 1, kLinear = 2, kExponential = 3 };
-
-__device__ __forceinline__ float weight(float d2, float inv_c2, float k1,
-                                        float k2, int kind) {
-  const float u = fmaxf(d2 * inv_c2, 0.f);
-  const float q = sqrtf(u);
-  if (kind == kLinear) return fmaxf(1.f - q, 0.f);
-  if (kind == kExponential) return u <= 1.f ? k1 * expf(-u) : 0.f;
-  const float s1 = fmaxf(1.f - q, 0.f), s2 = fmaxf(0.5f - q, 0.f);
-  return k1 * (s1 * s1 * s1) - k2 * (s2 * s2 * s2);
-}
 
 __global__ void __launch_bounds__(THREADS)
 interp_kernel(const float* __restrict__ query, const float* __restrict__ cand,
@@ -78,8 +68,8 @@ interp_kernel(const float* __restrict__ query, const float* __restrict__ cand,
     for (int i = 0; i < nt; ++i) {
       const float4 c = ct[i];
       const float dx = qx - c.x, dy = qy - c.y, dz = qz - c.z;
-      const float w = weight(dx * dx + dy * dy + dz * dz + c.w, inv_c2, k1, k2,
-                             kind);
+      const float w = sph_weight(sph_d2(dx, dy, dz, c.w), inv_c2, k1, k2,
+                                 kind);
       den += w;
 #pragma unroll
       for (int j = 0; j < MAX_C; ++j)

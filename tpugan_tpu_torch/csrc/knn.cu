@@ -21,7 +21,8 @@
 // memory; warp w scores candidates w*16 .. w*16+15 of every tile, so the 8
 // warps split the candidate set and a 10,240-point cloud keeps 2,560 warps
 // in flight where one thread per query would give 320. Each thread keeps a
-// sorted top-K list in registers (K = k rounded up to a compiled bucket;
+// sorted top-K list in registers (K = k rounded up to a compiled bucket:
+// 4, 8, 12, 16, 20, 32, and 64 for D <= 4;
 // one compare-and-swap pass per accepted candidate, strict < so that an
 // equal distance stays behind the lower index it met first). Query vectors
 // live in registers, zero-padded to a power of two DP; the candidate row is
@@ -205,13 +206,18 @@ int dispatch_k(const float* q, const float* c, const float* bias, float* d2,
   if (k <= 16) return launch<DP, 16>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
   if (k <= 20) return launch<DP, 20>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
   if (k <= 32) return launch<DP, 32>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
+  // k = 64 (the capped particle density's radius kNN) only for points
+  // (D <= 4): 128 registers of list beside a 4-wide query vector
+  if constexpr (DP == 4) {
+    if (k <= 64) return launch<DP, 64>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Shapes the wrapper (ops/kernels/knn.py) admits: D <= 64, 1 <= k <= 32,
-// k <= Nc, all tensors contiguous on one device.
+// Shapes the wrapper (ops/kernels/knn.py) admits: D <= 64, 1 <= k <= 32
+// (k <= 64 for D <= 4), k <= Nc, all tensors contiguous on one device.
 extern "C" int knn_f32(const void* query, const void* cand, const void* bias,
                        void* d2, void* idx, int B, int Nq, int Nc, int D,
                        int k, void* stream) {

@@ -1,46 +1,28 @@
 """The fluid three-frame dataset and batch iterator
-(``tpugan_tpu/data/fluid.py`` with ``emit_lowres=False``: the train step
-samples the low-res inputs on the card).
+(``tpugan_tpu/data/fluid.py``).
 
 An item loads three consecutive frames, shifts all by the centre frame's
 centroid, cuts one kd-tree patch of ``sample_num`` points around a random
 seed on the centre frame and takes the same particles from the side frames
 (particle identity is shared): ``highres_pos`` / ``highres_vel``
-[3, sample_num, 3] and ``h``. A batch stacks items frame-major,
-[3, B, sample_num, 3].
+[3, sample_num, 3] and ``h``. With ``emit_lowres`` the item also carries
+the patch's FPS downsample (``fps_ratio`` of it, the same indices in all
+three frames), its positions jittered by ``jitter``: ``lowres_pos`` /
+``lowres_vel`` [3, n, 3], as the eval path reads them. The train step
+samples its low-res inputs on the card and keeps ``emit_lowres=False`` (the
+default here; the JAX package's default is True). A batch stacks items
+frame-major, [3, B, sample_num, 3].
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional
 
 import numpy as np
-from scipy.spatial import cKDTree
 
-
-def normalize_point_cloud(pos: np.ndarray
-                          ) -> Tuple[np.ndarray, np.ndarray, np.float32]:
-    """Centroid shift; the furthest-distance scale is pinned to 1, as in
-    the reference."""
-    centroid = np.mean(pos, axis=0, keepdims=True)
-    furthest_distance = np.float32(1.0)
-    return (pos - centroid) / furthest_distance, centroid, furthest_distance
-
-
-def sample_patch(input_pos: np.ndarray, sample_num: Optional[int],
-                 rng: np.random.Generator) -> np.ndarray:
-    """Indices of the kd-tree patch of ``sample_num`` nearest points around
-    a random seed point (``sample_patch_with_fps(fps=False)``)."""
-    total = input_pos.shape[0]
-    if sample_num is None:
-        patch_num = 9216 if total > 10000 else (total // 1024) * 1024
-    else:
-        patch_num = sample_num if total > sample_num else 4096
-    patch_num = min(patch_num, total)
-    seed = int(rng.integers(total))
-    _, patch_idx = cKDTree(input_pos).query(input_pos[seed], patch_num)
-    return patch_idx
+from tpugan_tpu_torch.data.sampling import (normalize_point_cloud,
+                                            sample_patch_with_fps)
 
 
 class SiamFluidDataset:
@@ -48,11 +30,15 @@ class SiamFluidDataset:
 
     def __init__(self, dataset_path: str, case_num: int, case_steps: int,
                  case_prefix: str = "data", case_to_start: int = 1,
-                 sample_num: int = 9216, seed: int = 0):
+                 sample_num: int = 9216, fps_ratio: float = 0.125,
+                 jitter: float = 0.003, seed: int = 0,
+                 emit_lowres: bool = False):
         self.dataset_path = dataset_path
         self.case_num, self.case_steps = case_num, case_steps
         self.case_prefix, self.case_to_start = case_prefix, case_to_start
         self.sample_num = sample_num
+        self.fps_ratio, self.jitter = fps_ratio, jitter
+        self.emit_lowres = emit_lowres
         self.rng = np.random.default_rng(seed)
         self.cache: Dict[str, dict] = {}
 
@@ -77,10 +63,19 @@ class SiamFluidDataset:
         pos = [(frames[0]["pos"].astype(np.float32) - m) / h, pos_c,
                (frames[2]["pos"].astype(np.float32) - m) / h]
         vel = [f["vel"].astype(np.float32) / h for f in frames]
-        patch_idx = sample_patch(pos[1], self.sample_num, rng)
-        return {"highres_pos": np.stack([p[patch_idx] for p in pos]),
+        _, patch_idx, fps_idx = sample_patch_with_fps(
+            pos[1], sample_num=self.sample_num, fps_ratio=self.fps_ratio,
+            rng=rng, fps=self.emit_lowres)
+        item = {"highres_pos": np.stack([p[patch_idx] for p in pos]),
                 "highres_vel": np.stack([v[patch_idx] for v in vel]),
                 "h": np.float32(h)}
+        if self.emit_lowres:
+            lowres_pos = item["highres_pos"][:, fps_idx]          # [3, n, 3]
+            lowres_pos = lowres_pos + rng.standard_normal(
+                lowres_pos.shape).astype(np.float32) * self.jitter
+            item["lowres_pos"] = lowres_pos.astype(np.float32)
+            item["lowres_vel"] = item["highres_vel"][:, fps_idx]
+        return item
 
 
 def fluid_batch_iterator(dataset: SiamFluidDataset, batch_size: int,

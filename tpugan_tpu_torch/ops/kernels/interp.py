@@ -54,6 +54,14 @@ def sph_weight(d2: torch.Tensor, cutoff: float, kind: str) -> torch.Tensor:
     return k1 * (s1 * s1 * s1) - k2 * (s2 * s2 * s2)
 
 
+def sq_dist(diff: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """((dx*dx + dy*dy) + dz*dz) + bias of differences [..., 3], in the
+    kernels' order (``csrc/sph_weight.cuh : sph_d2``): near the cutoff one
+    ulp of d2 moves the weight by about 1e-4 of itself."""
+    sq = diff * diff
+    return ((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + bias
+
+
 def interp_plain(query: torch.Tensor, cand: torch.Tensor, values: torch.Tensor,
                  cutoff: float, bias: torch.Tensor, kind: str = "bicubic"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,7 +69,7 @@ def interp_plain(query: torch.Tensor, cand: torch.Tensor, values: torch.Tensor,
     outs, dens = [], []
     for s in range(0, query.shape[1], _PLAIN_CHUNK):
         diff = query[:, s:s + _PLAIN_CHUNK, None, :] - cand[:, None, :, :]
-        d2 = (diff * diff).sum(-1) + bias[:, None, :]
+        d2 = sq_dist(diff, bias[:, None, :])
         w = sph_weight(d2, cutoff, kind)
         den = w.sum(-1) + 1e-6
         outs.append(torch.matmul(w, values) / den[..., None])

@@ -15,7 +15,8 @@ from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 KERNEL = CudaKernel("knn", {"knn_f32": [VOIDP] * 5 + [INT] * 5 + [VOIDP]})
 
 MAX_D = 64      # widest point / feature vector the kernel is compiled for
-MAX_K = 32      # largest k bucket the kernel is compiled for
+MAX_K = 32      # largest k bucket the kernel is compiled for at any D
+MAX_K_POINTS = 64   # the k = 64 bucket, built for D <= 4 (points) only
 _PLAIN_CHUNK = 2048   # query rows per [rows, Nc] block in the plain version
 
 
@@ -64,9 +65,9 @@ def knn_kernel(query: torch.Tensor, cand: torch.Tensor, bias: torch.Tensor,
                          f"{bias.device}")
     if {query.dtype, cand.dtype, bias.dtype} != {torch.float32}:
         raise TypeError("knn kernel takes float32 query, cand and bias")
-    if d > MAX_D or k > MAX_K:
-        raise ValueError(f"knn kernel is built for D <= {MAX_D}, k <= {MAX_K}; "
-                         f"got D={d}, k={k}")
+    if d > MAX_D or k > (MAX_K_POINTS if d <= 4 else MAX_K):
+        raise ValueError(f"knn kernel is built for D <= {MAX_D}, k <= {MAX_K} "
+                         f"(k <= {MAX_K_POINTS} for D <= 4); got D={d}, k={k}")
     query, cand, bias = query.contiguous(), cand.contiguous(), bias.contiguous()
     d2 = torch.empty((b, nq, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((b, nq, k), dtype=torch.int64, device=query.device)

@@ -25,7 +25,8 @@ from tpugan_tpu_torch.ops.kernels.fps import fps_kernel
 from tpugan_tpu_torch.ops.kernels.knn import knn_kernel, sqdist
 
 BIG = 1e10
-_CHUNK = 2048   # query rows per [rows, Nc] block of radius_count
+_CHUNK = 2048   # query rows per [rows, Nc] block (radius_count, the
+                # auction's bids, the MMD)
 
 
 # [..., Nq, D] x [..., Nc, D] -> [..., Nq, Nc] squared distances
