@@ -29,7 +29,11 @@ Phases, one JSON line each (``phase`` names it):
            forward of each serving mode;
   kernel   (train) the train step's kernels (fps, ball_query, the pooled
            MLP forward and backward, interp) against their plain versions
-           at every shape one train step gives them;
+           at every shape one train step gives them; the EdgeConv backward
+           at each shape class of the fused train step (12 frames of 1,152
+           points; f32, one bf16 case, one with exact ties between
+           duplicated planes) and the pooled MLP's affine backward at the
+           spatial critic's sa_0 and a group_all shape;
   train    with the launch counts reset: the trainer state of
            checkpoints/fluid_vel_20k.ckpt resumed for 4 full-width
            train_vel steps (B=4, 9,216-point patches, device sampling,
@@ -39,6 +43,19 @@ Phases, one JSON line each (``phase`` names it):
            step by CUDA events; then a profile of 2 more steps;
   train_cpu one small step (B=2, 1,024-point patches) from the same state
            and draws on the card and on the CPU (plain versions);
+  train_fused with the launch counts reset: the train CLI twin
+           (cli/train_fluid.main, called as a function) with
+           TPUGAN_FUSED_EDGECONV_TRAIN=1, --preset train_vel
+           --device_sampling --synthetic, resumed from the checkpoint for
+           iterations 20001-20004 (log dir runs/chip_smoke_train_fluid/):
+           each step's launches against STEP_ALWAYS + STEP_FUSED (9 fused
+           EdgeConv forwards and 9 backwards) and the gate's and critics'
+           counts, the checkpoint iterations' test split and sample dump
+           against CKPT_EVAL, the last checkpoint read back equal to the
+           state in memory; then one step with the switch off and on from
+           the same state and draws (graphs replayed), the generator's
+           gradients against FUSED_GRAD_TOL, ms per step of both, G only
+           and G+D, and a profile of 2 more fused steps;
   kernel   (eval) kNN at k = 32 over [1, 9,216] x [1, 9,216] (the capped
            interpolation) and k = 64 over [1, 9,216]^2 (the capped
            density), nn1 at the eval Chamfers' shapes (sentinel-padded
@@ -437,14 +454,15 @@ def serving(torch, dev, kernels):
 
 
 class GraphReplay:
-    """Runs the card's forward recording every kNN graph it builds, then
-    the CPU's forward with those graphs replayed in order. Each replayed
-    list is first held against the CPU's own kNN of its own features: they
-    may differ only between candidates whose exact distances tie within f32
-    noise (the two devices round |q|^2 + |c|^2 - 2 q.c differently, and
-    under the IDGCN's ::2 dilation one such swap changes a point's features
-    and then its neighbours'). With equal graphs the outputs must agree to
-    f32 noise."""
+    """Runs one forward (or step) recording every kNN graph it builds, then
+    another (the CPU's, or the card's other path) with those graphs
+    replayed in order. Each replayed list is first held against the second
+    run's own kNN of its own features: they may differ only between
+    candidates whose exact distances tie within f32 noise (the two runs
+    round |q|^2 + |c|^2 - 2 q.c, or their features, differently, and under
+    the IDGCN's ::2 dilation one such swap changes a point's features and
+    then its neighbours'). With equal graphs the outputs must agree to f32
+    noise."""
 
     def __init__(self, torch):
         import tpugan_tpu_torch.models.generator as generator
@@ -474,7 +492,7 @@ class GraphReplay:
     def replay(self, call, *args):
         def replaying(x, k, c_valid=None):
             d2, own = self.own(x, k, c_valid)
-            rec = self.lists.pop(0)
+            rec = self.lists.pop(0).to(own.device)
             xf = x.detach().double()
             b, r, s = (rec != own).nonzero(as_tuple=True)
             exact = lambda idx: ((xf[b, r] - xf[b, idx[b, r, s]]) ** 2).sum(-1)
@@ -794,6 +812,165 @@ def check_pooled_mlp(torch, dev, rng):
     return fwd_rows, bwd_rows
 
 
+# The EdgeConv backward at each shape class of the fused train step: the
+# generator's [3B] = 12 frames of 1,152 points. (name, C, H, O, K,
+# aggregate, mlp, dtype, exact ties, launches per fused train step)
+EDGECONV_BWD_SHAPES = [
+    ("extractor EdgeConv_0", 6, 64, 128, 20, "max", True, "f32", False, 1),
+    ("IDGCN d=1", 32, 16, 32, 20, "max", True, "f32", False, 2),
+    ("IDGCN d=2", 32, 16, 32, 10, "max", True, "f32", False, 2),
+    ("upsampler/mask k=12", 64, 128, 256, 12, "max", True, "f32", False, 2),
+    ("upsampler k=4", 64, 128, 256, 4, "max", True, "f32", False, 1),
+    ("mask k=8 sum", 64, 128, 128, 8, "sum", False, "f32", False, 1),
+    ("IDGCN d=1 bf16", 32, 16, 32, 20, "max", True, "bf16", False, 0),
+    ("upsampler k=12 exact ties", 64, 128, 256, 12, "max", True, "f32", True, 0),
+]
+TRAIN_ROWS, TRAIN_POINTS = 12, 1152
+# Each gradient to this share of its norm, and at most SHARE_OFF of gnbr's
+# elements off by more than NORM_TOL of its scale. Both sides round the
+# same values but sum in another order, so where two planes' outputs lie
+# within f32 rounding of each other the max can send a (point, column)'s
+# cotangent to the other plane, and a leaky-ReLU pre-activation within f32
+# noise of 0 can take the other slope: a few elements of gnbr move by order
+# 1. bf16: a rounding flip of one cotangent carries through the layers.
+EC_BWD_TOL = {"f32": (1e-3, 1e-3), "bf16": (2e-2, 1e-2)}   # (norm, share off)
+
+
+def _grad_errors(got, want, tol, share_tol, what):
+    """(max abs err, max norm-relative err, share of the first tensor's
+    elements off by more than tol of its scale); raises past the limits."""
+    err, rel, share = 0.0, 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            continue
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        err = max(err, float(diff.max()))
+        r = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        rel = max(rel, r)
+        if i == 0:
+            share = float((diff > tol * b.abs().max()).float().mean())
+        if r > tol or share > share_tol:
+            raise AssertionError(f"{what} gradient {i}: norm rel {r}, "
+                                 f"share off {share}")
+    return err, rel, share
+
+
+def check_edgeconv_bwd(torch, dev, rng):
+    """The backward kernel against its plain version (the kernel's rounding
+    points, max ties recomputed) at the fused train step's shapes; in the
+    exact-tie case, planes 1 and 5 repeat planes 0 and 3, so a max shared by
+    two planes must split its cotangent evenly between them."""
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+
+    rows = []
+    b, n = TRAIN_ROWS, TRAIN_POINTS
+    for name, c, h, o, k, agg, mlp, kind, ties, per in EDGECONV_BWD_SHAPES:
+        cdt = torch.float32 if kind == "f32" else torch.bfloat16
+        t = lambda *s: torch.from_numpy(
+            rng.standard_normal(s).astype(np.float32)).to(dev)
+        nbr, ctr = t(b, k, n, c), t(b, n, c)
+        if ties:
+            nbr[:, 1], nbr[:, 5] = nbr[:, 0], nbr[:, 3]
+        wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
+        w1 = t(h, h) / np.sqrt(h) if mlp else None
+        w2 = t(h, o) / np.sqrt(h) if mlp else None
+        g = t(b, n, o if mlp else h).to(cdt)
+        args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, g, agg, cdt)
+        got = E.edgeconv_backward(*args)
+        want = E.edgeconv_backward_plain(*args)
+        torch.cuda.synchronize()
+        tol, share_tol = EC_BWD_TOL[kind]
+        err, rel, share = _grad_errors(got, want, tol, share_tol,
+                                       f"edgeconv_bwd {name}")
+        split = None
+        if ties:
+            # the duplicated planes' gradients are equal, both sides
+            split = float(max((got[0][:, 1] - got[0][:, 0]).abs().max(),
+                              (got[0][:, 5] - got[0][:, 3]).abs().max()))
+            if split != 0.0:
+                raise AssertionError(f"edgeconv_bwd ties: planes differ {split}")
+        ms = time_ms(lambda: E.edgeconv_backward(*args), torch)
+        plain_ms = time_ms(lambda: E.edgeconv_backward_plain(*args), torch)
+        esz = 4 if kind == "f32" else 2
+        # the function recomputes the forward and forms two products per
+        # layer (the inputs' and the weights' gradients): 3x the forward
+        mac = 2 * c * h + ((h * h + h * o) if mlp else 0)
+        flops = 3 * 2 * b * k * n * mac
+        nbytes = (esz * (2 * b * k * n * c + 2 * b * n * c + b * n * (o if mlp else h))
+                  + 4 * 2 * mac)
+        b_ms, b_by = bound(flops, nbytes, kind)
+        rows.append(dict(config=name, dtype=kind, B=b, N=n, C=c, H=h, O=o,
+                         K=k, aggregate=agg, exact_ties=ties, per_step=per,
+                         max_abs_err=err, max_norm_rel_err=rel,
+                         gnbr_share_off=share, tie_split_err=split, tol=tol,
+                         ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "edgeconv_bwd", **rows[-1]})
+    return rows
+
+
+AFFINE_SHAPES = [  # (stage, (B, M, ns, C0), widths, slope)
+    ("spatial sa_0", (4, 1024, 32, 6), (64, 128), 0.01),
+    ("group_all (sa_pooling)", (4, 1, 128, 259), (256, 256), 0.0),
+]
+
+
+def check_pooled_affine_bwd(torch, dev, rng):
+    """The affine form's backward (a norm-free SetConv trained fused)
+    against its plain version, on tables with exact max ties; limits as
+    for the batch-norm backward (check_pooled_mlp)."""
+    from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
+
+    rows = []
+    for stage, shape, widths, slope in AFFINE_SHAPES:
+        b, m, ns, c0 = shape
+        tab = _cloud(torch, dev, rng, *shape, scale=1.0)
+        tab[:, :, 1] = tab[:, :, 0]
+        cs = (c0,) + widths
+        nl = len(widths)
+        ws = [_cloud(torch, dev, rng, cs[i], cs[i + 1], scale=cs[i] ** -0.5)
+              for i in range(nl)]
+        a_s = [1.0 + _cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+        b_s = [_cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+        g = _cloud(torch, dev, rng, b, m, widths[-1], scale=1.0)
+        leaves = [x.clone().requires_grad_() for x in [tab, *ws, *a_s, *b_s]]
+        pooled = P.pooled_mlp_affine(leaves[0], leaves[1:1 + nl],
+                                     leaves[1 + nl:1 + 2 * nl],
+                                     leaves[1 + 2 * nl:], slope)
+        got = torch.autograd.grad(pooled, leaves, g, retain_graph=True)
+        pp = P.pooled_mlp_affine_plain(tab, ws, a_s, b_s, slope)
+        want = P.pooled_mlp_affine_backward_plain(tab, ws, a_s, b_s, pp, g,
+                                                  slope)
+        torch.cuda.synchronize()
+        f_err = float((pooled.detach() - pp).abs().max())
+        if f_err > 1e-5 * max(1.0, float(pp.abs().max())):
+            raise AssertionError(f"pooled_mlp_affine {stage} forward: {f_err}")
+        err, rel, share = _grad_errors(
+            got, [want[0], *want[1], *want[2], *want[3]], 1e-2, 1e-3,
+            f"pooled_mlp_affine_bwd {stage}")
+        ms = time_ms(lambda: torch.autograd.grad(pooled, leaves, g,
+                                                 retain_graph=True), torch)
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: P.pooled_mlp_affine_backward_plain(
+                tab, ws, a_s, b_s, pp, g, slope), torch)
+        rows_n = b * m * ns
+        mac = sum(cs[i] * cs[i + 1] for i in range(nl))
+        nw = sum(w.numel() for w in ws) + 2 * sum(widths)
+        # recompute the activations (2), form dX and dW (4), as the
+        # batch-norm backward's bound counts
+        b_ms, b_by = bound(6.0 * rows_n * mac,
+                           4 * (2 * rows_n * c0 + 2 * nw + 2 * b * m * widths[-1]),
+                           "f32")
+        rows.append(dict(stage=stage, table=list(shape), widths=list(widths),
+                         slope=slope, per_check=1, max_abs_err=err,
+                         max_norm_rel_err=rel, dtable_share_off=share, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "pooled_mlp_affine_bwd", **rows[-1]})
+    return rows
+
+
 def check_interp(torch, dev, rng, b=12, n=9216):
     """The velocity transfer's shape: the three predicted frames (with
     999-sentinel rows) against the ground truth, bicubic, cutoff 1.6 R.
@@ -939,9 +1116,10 @@ def train(torch, dev, kernels, profile_dir=None, cfg=None):
     return launches, steps
 
 
-def train_profile(torch, step, state, batches, out_dir):
+def train_profile(torch, step, state, batches, out_dir, of="train"):
     """torch.profiler over two more steps (one odd, one even): device time
-    by kernel and the device's idle share of the steps' wall time."""
+    by kernel and the device's idle share of the steps' wall time; ``of``
+    names the path in the output."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -958,10 +1136,10 @@ def train_profile(torch, step, state, batches, out_dir):
     kernels_ms = sum(t for _, t, _ in table)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as fh:
+        with open(os.path.join(out_dir, f"profile_{of}_step.txt"), "w") as fh:
             fh.write(p.key_averages().table(sort_by="self_device_time_total",
                                             row_limit=80))
-    emit({"phase": "profile", "train_steps": len(batches),
+    emit({"phase": "profile", "of": of, "train_steps": len(batches),
           "wall_ms": wall_ms, "device_kernel_ms": kernels_ms,
           "device_idle_share": 1.0 - kernels_ms / wall_ms,
           "top": [(n[:60], round(t, 4), c) for n, t, c in table[:20]]})
@@ -1110,6 +1288,253 @@ def train_card_vs_cpu(torch, dev, patch=1024):
     if lost <= 1.0:
         raise AssertionError("card vs CPU: the generator's change without "
                              f"its adversarial losses passes the check ({lost})")
+
+
+# ------------------------------------------------------ fused-train phase
+
+FUSED_DIR = os.path.join(ROOT, "runs", "chip_smoke_train_fluid")   # gitignored
+FUSED_ITERS = 20004
+# Launches per fused train step on top of STEP_ALWAYS (and STEP_GATE,
+# STEP_CRITICS): the generator's 9 EdgeConvs through the fused forward and
+# its backward kernel (tpugan_tpu_torch/nn/edgeconv.py with fused_train).
+STEP_FUSED = {"edgeconv": 9, "edgeconv_bwd": 9}
+# After a checkpoint iteration (20001 and 20004 at the train_vel preset's
+# --ckpt_every 10000, cli/train_fluid.py): the test split's 4 batches, one
+# serving forward each (7 kNN, 9 EdgeConv) and its Chamfer (2 nn1), and
+# the sample dump's serving forward.
+CKPT_EVAL = {"knn": 5 * 7, "edgeconv": 5 * 9, "nn1": 4 * 2}
+# Limit of the generator's gradients with the switch on against off (each
+# parameter's step gradient, recovered from Adam's first moment, by norm,
+# from one state and one set of draws, with the graphs replayed): the two
+# paths sum in another order in f32. About 9x the error measured on an
+# NVIDIA H100 80GB HBM3 at 700 W (5.6e-7, PERF.md section 6), so a fused
+# backward off by 1e-5 in any parameter fails; the changes are only
+# reported, since with the resumed moments one step's gradient is a tenth
+# of the new mu.
+FUSED_GRAD_TOL = 5e-6
+FUSED_LOSS_TOL = 5e-3
+# The control's loss: this share of each EdgeConv's neighbour-table
+# gradient dropped (a fault in the gather's backward) must fail the check.
+LOSSY_NBR_GRAD = 0.05
+
+
+def _grads_rel_err(net_a, net_b, mu_before):
+    """(largest ||g_a - g_b|| / ||g_b||, its parameter) over the step
+    gradients of two nets that stepped from the same Adam state, each
+    recovered as g = (mu - b1 mu_before) / (1 - b1)."""
+    b1, worst, worst_k = net_b.opt.b1, 0.0, None
+    for k, before in mu_before.items():
+        ga = (net_a.opt.mu[k] - b1 * before) / (1.0 - b1)
+        gb = (net_b.opt.mu[k] - b1 * before) / (1.0 - b1)
+        err = float((ga - gb).norm()) / max(float(gb.norm()), 1e-30)
+        if err > worst:
+            worst, worst_k = err, k
+    return worst, worst_k
+
+
+def _changes_rel_err(module_a, module_b, before):
+    """Largest ||change_a - change_b|| / ||change_b|| of each parameter
+    from ``before``."""
+    pa, pb = dict(module_a.named_parameters()), dict(module_b.named_parameters())
+    return max(float((pa[k].detach().cpu() - pb[k].detach().cpu()).norm())
+               / max(float((pb[k].detach().cpu() - v).norm()), 1e-30)
+               for k, v in before.items())
+
+
+def _state_equal(a, b):
+    """(name of the first tensor that differs, or None) between two trainer
+    states: every parameter, buffer, Adam moment and count."""
+    if a.n_iter != b.n_iter:
+        return "n_iter"
+    for name in ("sr", "tempo", "spatial"):
+        na, nb = getattr(a, name), getattr(b, name)
+        sa, sb = na.module.state_dict(), nb.module.state_dict()
+        for k in sa:
+            if not bool((sa[k] == sb[k]).all()):
+                return f"{name} {k}"
+        if (na.opt.count, na.opt.sched_count) != (nb.opt.count, nb.opt.sched_count):
+            return f"{name} adam counts"
+        for moments in ("mu", "nu"):
+            ma, mb = getattr(na.opt, moments), getattr(nb.opt, moments)
+            for k in ma:
+                if not bool((ma[k] == mb[k]).all()):
+                    return f"{name} adam {moments} {k}"
+    return None
+
+
+def fused_train(torch, dev, kernels):
+    """The train CLI twin called as a function, resumed from the trained
+    checkpoint for iterations 20001-20004 at the train_vel preset with
+    device sampling on its synthetic data, with TPUGAN_FUSED_EDGECONV_TRAIN=1:
+    every generator EdgeConv trains through the fused forward and backward
+    kernels. Counts reset just before; each step's launches against the
+    counts the code implies, the windows between steps against CKPT_EVAL
+    after checkpoint iterations (0 else); the last checkpoint read back
+    equal to the state in memory."""
+    import shutil
+
+    from tpugan_tpu_torch.checkpoint import load_trainer_state
+    from tpugan_tpu_torch.cli import train_fluid as cli
+    from tpugan_tpu_torch.train.step import FluidTrainConfig
+
+    shutil.rmtree(FUSED_DIR, ignore_errors=True)
+    argv = ["--preset", "train_vel", "--device_sampling", "--synthetic",
+            "--resume", "--path_to_resume", CHECKPOINT, "--iters",
+            str(FUSED_ITERS), "--log_dir", FUSED_DIR]
+    marks = []
+
+    def hook(event, n_iter, metrics):
+        if event in ("start", "end"):
+            torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((event, n_iter, counts(kernels), ev, metrics,
+                      time.perf_counter()))
+
+    for k in kernels.values():
+        k.launches = 0
+    os.environ[cli.FUSED_SWITCH] = "1"
+    t0 = time.perf_counter()
+    try:
+        out = cli.main(argv, hook=hook)
+    finally:
+        del os.environ[cli.FUSED_SWITCH]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = counts(kernels)
+    for k in kernels.values():
+        k.launches = 0
+
+    ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= FUSED_ITERS
+    steps, prev_counts, prev_iter = [], {n: 0 for n in kernels}, None
+    by = {}
+    for event, n_iter, c, ev, metrics, wall in marks:
+        by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
+    for n_iter in sorted(by):
+        m = by[n_iter]
+        between = delta(prev_counts, m["start"][0])
+        expect(between, CKPT_EVAL if prev_iter and ckpt_iter(prev_iter) else {},
+               f"fused CLI before iteration {n_iter}")
+        metrics = m["end"][2]
+        d_update = metrics["gate"] and n_iter % 2 == 0
+        want = dict(STEP_ALWAYS)
+        for extra in [STEP_FUSED] + ([STEP_GATE] if metrics["gate"] else []) + (
+                [STEP_CRITICS] if d_update else []):
+            for name, v in extra.items():
+                want[name] = want.get(name, 0) + v
+        got = delta(m["start"][0], m["end"][0])
+        expect(got, want, f"fused train step {n_iter}")
+        for name, v in metrics.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"fused step {n_iter}: {name} = {v}")
+        start, gen, crit = m["start"][1], m["generator"][1], m["critics"][1]
+        steps.append(dict(iteration=n_iter, **metrics, critic_update=d_update,
+                          launches=got, ms=start.elapsed_time(crit),
+                          generator_ms=start.elapsed_time(gen),
+                          critics_ms=gen.elapsed_time(crit),
+                          wall_ms=(m["end"][3] - m["start"][3]) * 1e3))
+        emit({"phase": "train_fused", **steps[-1]})
+        prev_counts, prev_iter = m["end"][0], n_iter
+    expect(delta(prev_counts, launches), CKPT_EVAL, "fused CLI after the last step")
+    if len(steps) != FUSED_ITERS - 20000 or not any(s["critic_update"]
+                                                     for s in steps):
+        raise AssertionError(f"fused CLI ran {len(steps)} steps, critic "
+                             f"updates {[s['critic_update'] for s in steps]}")
+    back = load_trainer_state(out["checkpoint"], FluidTrainConfig(), dev)
+    differs = _state_equal(out["state"], back)
+    if differs is not None:
+        raise AssertionError(f"checkpoint read back differs: {differs}")
+    test_cd = out["test_chamfer"]
+    if len(test_cd) != 2 or not all(np.isfinite(test_cd)):
+        raise AssertionError(f"test Chamfer {test_cd}")
+    emit({"phase": "train_fused", "resumed_from": os.path.relpath(CHECKPOINT, ROOT),
+          "checkpoint": os.path.relpath(out["checkpoint"], ROOT),
+          "checkpoint_read_back_equal": True, "test_chamfer": test_cd,
+          "steps": len(steps), "cli_s": total_s, "launches": launches})
+    return launches
+
+
+def fused_vs_grouped(torch, dev, profile_dir=None):
+    """One step from the trained state with the same draws, the switch off
+    (grouped formulation) and on (fused kernels), the graphs of the first
+    replayed into the second: the losses to FUSED_LOSS_TOL relative, each
+    generator parameter's step gradient to FUSED_GRAD_TOL of its norm (the
+    largest relative error of the changes is reported beside it). A control
+    step with the switch on and LOSSY_NBR_GRAD of every EdgeConv's
+    neighbour-table gradient dropped must fail that check. Then the ms per
+    step of both, G only (odd iterations) and G+D (even), and a profile of
+    two more fused steps. The gate is held open, so the adversarial losses
+    reach the generator through the fused backward in every step."""
+    import tpugan_tpu_torch.ops.kernels.edgeconv as ek
+    from tpugan_tpu_torch.checkpoint import load_trainer_state
+    from tpugan_tpu_torch.models.discriminator import dropout_widths
+    from tpugan_tpu_torch.train.step import (FluidGanStep, FluidTrainConfig,
+                                             StepDraws)
+
+    cfg = FluidTrainConfig(ml_gate=1e9)
+    steps = 4
+    batches = fluid_batches(torch, dev, cfg.patch_size, cfg.batch_size, steps)
+    states = {on: load_trainer_state(CHECKPOINT, cfg, dev, fused_train=on)
+              for on in (False, True)}
+    control = load_trainer_state(CHECKPOINT, cfg, dev, fused_train=True)
+    before = {k: v.detach().cpu().clone()
+              for k, v in states[False].sr.module.named_parameters()}
+    mu_before = {k: v.clone() for k, v in states[False].sr.opt.mu.items()}
+    widths = dropout_widths(states[False].spatial.module)
+    draws = [StepDraws.draw(torch.Generator().manual_seed(3 + i), cfg,
+                            cfg.patch_size, widths) for i in range(steps)]
+    step = FluidGanStep(cfg)
+    replay = GraphReplay(torch)
+    m_off = replay.record(step, states[False], batches[0], draws[0])
+    graphs = list(replay.lists)
+    m_on = replay.replay(step, states[True], batches[0], draws[0])
+    own_bwd = ek.edgeconv_backward
+
+    def lossy_bwd(*args, **kw):
+        gnbr, *rest = own_bwd(*args, **kw)
+        return ((1.0 - LOSSY_NBR_GRAD) * gnbr, *rest)
+
+    replay.lists, ek.edgeconv_backward = graphs, lossy_bwd
+    try:
+        replay.replay(step, control, batches[0], draws[0])
+    finally:
+        ek.edgeconv_backward = own_bwd
+    lossy, _ = _grads_rel_err(control.sr, states[False].sr, mu_before)
+    del control
+    loss_rel = {k: abs(m_on[k] - v) / max(abs(v), 1e-5)
+                for k, v in m_off.items() if k != "gate"}
+    worst, worst_k = _grads_rel_err(states[True].sr, states[False].sr,
+                                    mu_before)
+    out = {"phase": "train_fused_vs_grouped", "iteration": states[True].n_iter,
+           "gate": [m_off["gate"], m_on["gate"]], "knn_tie_swaps": replay.swaps,
+           "loss_rel_err": loss_rel, "grad_tol": FUSED_GRAD_TOL,
+           "sr_grad_rel_err": worst, "worst_parameter": worst_k,
+           "sr_change_rel_err": _changes_rel_err(
+               states[True].sr.module, states[False].sr.module, before),
+           "lossy_nbr_grad": LOSSY_NBR_GRAD, "lossy_sr_grad_rel_err": lossy}
+    if (m_off["gate"] != m_on["gate"] or worst > FUSED_GRAD_TOL
+            or lossy <= FUSED_GRAD_TOL
+            or max(loss_rel.values()) > FUSED_LOSS_TOL):
+        emit(out)
+        raise AssertionError(f"fused vs grouped step: {out}")
+    # ms per step of both paths from here on, in turns
+    ms = {False: [], True: []}
+    for i in range(1, steps):
+        for on in (False, True):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(states[on], batches[i], draws[i])
+            end.record()
+            end.synchronize()
+            ms[on].append((states[on].n_iter, start.elapsed_time(end)))
+    for on, name in ((False, "grouped"), (True, "fused")):
+        out[f"{name}_ms"] = {"g_only": [t for n, t in ms[on] if n % 2],
+                             "g_and_d": [t for n, t in ms[on] if n % 2 == 0]}
+    emit(out)
+    train_profile(torch, step, states[True], batches[2:], profile_dir,
+                  of="train_fused")
+    return out
 
 
 # ---------------------------------------------------------- eval phases
@@ -1478,9 +1903,11 @@ def main(argv=None) -> int:
           "build_s": build_s,
           "ptxas": {n: ptxas_summary(n) for n in _build.sources()}})
 
-    kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL, "nn1": nn1.KERNEL,
+    kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
+               "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
                "fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
                "pooled_mlp_fwd": pooled_mlp.FWD, "pooled_mlp_bwd": pooled_mlp.BWD,
+               "pooled_mlp_affine_bwd": pooled_mlp.AFFINE_BWD,
                "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL}
     rng = np.random.default_rng(0)
     knn_rows = check_knn(torch, dev, rng)
@@ -1490,6 +1917,8 @@ def main(argv=None) -> int:
     bq_rows = check_ball_query(torch, dev, rng)
     pf_rows, pb_rows = check_pooled_mlp(torch, dev, rng)
     ip_rows = check_interp(torch, dev, rng)
+    eb_rows = check_edgeconv_bwd(torch, dev, rng)
+    ab_rows = check_pooled_affine_bwd(torch, dev, rng)
 
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
@@ -1512,6 +1941,11 @@ def main(argv=None) -> int:
     train_launches, _ = train(torch, dev, kernels, args.profile)
     train_card_vs_cpu(torch, dev)
 
+    # the fused-train path: the CLI twin with the switch on (counts reset
+    # inside, read after each step and after the CLI returns)
+    fused_launches = fused_train(torch, dev, kernels)
+    fused_vs_grouped(torch, dev, args.profile)
+
     # the eval path (counts reset inside, read after each sample), then the
     # densities (reset inside, read before the kernel comparisons)
     eval_launches = eval_phase(torch, kernels)
@@ -1519,7 +1953,8 @@ def main(argv=None) -> int:
     eval_card_vs_cpu(torch, dev)
 
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
-                   "eval": eval_launches[n], "density": density_launches[n]}
+                   "train_fused": fused_launches[n], "eval": eval_launches[n],
+                   "density": density_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
@@ -1533,6 +1968,10 @@ def main(argv=None) -> int:
         ("edgeconv", "tpugan_tpu_torch/csrc/edgeconv.cu",
          pallas + "edgeconv_kernel.py:358", ec_f32, ("per_forward",),
          "one f32 dynamic forward (9 EdgeConvs)", by_path["edgeconv"]),
+        ("edgeconv_bwd", "tpugan_tpu_torch/csrc/edgeconv.cu",
+         pallas + "edgeconv_kernel.py:277", eb_rows, ("per_step",),
+         "one fused train step (9 EdgeConv backwards, f32)",
+         by_path["edgeconv_bwd"]),
         ("nn1", "tpugan_tpu_torch/csrc/nn1.cu", pallas + "nn1_kernel.py:124",
          nn1_rows, ("per_gate", "per_step", "per_sample"),
          "one Chamfer gate (2 directions) plus one train step (Chamfer, "
@@ -1549,6 +1988,10 @@ def main(argv=None) -> int:
         ("pooled_mlp_bwd", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
          pallas + "pooled_mlp_kernel.py:519", pb_rows, *step,
          by_path["pooled_mlp_bwd"]),
+        ("pooled_mlp_affine_bwd", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
+         pallas + "pooled_mlp_kernel.py:499", ab_rows, ("per_check",),
+         "one call at each of sa_0 and group_all (no main path runs it)",
+         by_path["pooled_mlp_affine_bwd"]),
         ("interp", "tpugan_tpu_torch/csrc/interp.cu",
          pallas + "interp_kernel.py:89", ip_rows, *step, by_path["interp"]),
         ("binned_interp", "tpugan_tpu_torch/csrc/binned_interp.cu",

@@ -180,13 +180,19 @@ def test_shared_mlp_pooled_matches_flax(rng, act, fused, train):
 
 
 def test_shared_mlp_pooled_eval_is_forward_only(rng):
+    """The eval-mode pooled stack is differentiable through the affine
+    form's backward: its gradient with respect to the input equals autograd
+    through the plain eval stack and ``amax``. A biased batch-norm stack is
+    refused."""
     m = tl.SharedMLP(6, [8], act=tl.relu, norm="batch", spectral_norm=True,
                      use_bias=False, device="cpu")
     x = torch.from_numpy(rng.standard_normal((1, 2, 4, 6)).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        m.pooled(x, train=False)
-    with torch.no_grad():
-        assert m.pooled(x, train=False).shape == (1, 2, 8)
+    x.requires_grad_()
+    out = m.pooled(x, train=False)
+    assert out.shape == (1, 2, 8)
+    got, = torch.autograd.grad(out.sum(), x)
+    want, = torch.autograd.grad(m(x, train=False).amax(dim=2).sum(), x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     biased = tl.SharedMLP(6, [8], act=tl.relu, norm="batch", device="cpu")
     with pytest.raises(ValueError, match="bias-free"):
         biased.pooled(x, train=True)

@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
         "'nn.setconv', 'nn.flow', 'ops.interpolate', 'losses.geometry', "
         "'data.fluid', 'ops.kernels.pooled_mlp', 'data.sampling', "
         "'eval.analysis', 'cli.eval_fluid', 'ops.kernels.binned_interp', "
-        "'ops.metrics'):\n"
+        "'ops.metrics', 'cli.train_fluid', 'train.checkpoint', "
+        "'utils.logging', 'config', 'data.prefetch'):\n"
         "    assert 'tpugan_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpugan_tpu')]\n"
@@ -56,8 +57,9 @@ def test_entry_points_need_a_card(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("wrapper", ["knn", "nn1", "edgeconv", "fps",
-                                     "ball_query", "interp", "pooled_mlp",
+@pytest.mark.parametrize("wrapper", ["knn", "nn1", "edgeconv", "edgeconv_bwd",
+                                     "fps", "ball_query", "interp",
+                                     "pooled_mlp", "pooled_mlp_affine",
                                      "binned_interp"])
 def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
     # a tensor on neither the CPU nor a CUDA card is refused, not computed
@@ -67,6 +69,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
         "nn1": lambda: nn1.nn1_kernel(t(1, 8, 3), t(1, 8, 3), t(1, 8)),
         "edgeconv": lambda: edgeconv.edgeconv_fused(
             t(1, 4, 8, 6), t(1, 8, 6), t(6, 8), t(6, 8), t(8, 8), t(8, 16)),
+        "edgeconv_bwd": lambda: edgeconv.edgeconv_backward(
+            t(1, 4, 8, 6), t(1, 8, 6), t(6, 8), t(6, 8), t(8, 8), t(8, 16),
+            t(1, 8, 16)),
         "fps": lambda: fps.fps_kernel(t(1, 8, 3), 4, t(1, 8),
                                       torch.zeros(1, dtype=torch.int64,
                                                   device="meta")),
@@ -76,14 +81,18 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
                                                t(1, 8, 3), 0.1, t(1, 8)),
         "pooled_mlp": lambda: pooled_mlp.pooled_mlp_bn_train(
             t(1, 2, 4, 6), [t(6, 8)], [t(8)], [t(8)]),
+        "pooled_mlp_affine": lambda: pooled_mlp.pooled_mlp_affine(
+            t(1, 2, 4, 6), [t(6, 8)], [t(8)], [t(8)]),
         "binned_interp": lambda: binned_interp.binned_interp(
             t(1, 8, 3), t(1, 8, 3), t(1, 8, 3), 0.1, t(1, 8)),
     }
     with pytest.raises(ValueError, match="tensors on"):
         calls[wrapper]()
     assert all(k.launches == 0 for k in (knn.KERNEL, nn1.KERNEL, fps.KERNEL,
+                                         edgeconv.KERNEL, edgeconv.BWD,
                                          ball_query.KERNEL, interp.KERNEL,
                                          pooled_mlp.FWD, pooled_mlp.BWD,
+                                         pooled_mlp.AFFINE_BWD,
                                          binned_interp.KERNEL))
 
 
@@ -154,6 +163,44 @@ def test_edgeconv_kernel_matches_plain_on_card(card, gen, dtype, c, h, o, k,
     tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
     torch.testing.assert_close(out_k.cpu().float(), out_p.float(), rtol=0,
                                atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h,o,k,agg,ties", [(6, 64, 128, 20, "max", False),
+                                              (32, 16, 32, 10, "max", True),
+                                              (64, 128, None, 8, "sum", False),
+                                              (10, 24, 40, 5, "mean", False),
+                                              (12, 8, 8, 3, "min", True),
+                                              (300, 8, 8, 3, "max", False)])
+def test_edgeconv_backward_kernel_matches_plain_on_card(card, gen, dtype, c, h,
+                                                        o, k, agg, ties):
+    """Every gradient to 1e-3 (f32) or 2e-2 (bf16) of its norm: both sides
+    round the same values but sum in another order, so a plane whose
+    output lies within rounding of the max can take another (point,
+    column)'s cotangent. Duplicated planes (ties) split it exactly. C = 300
+    takes two column chunks of the input gradients."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    nbr = t(2, k, 77, c)
+    if ties:
+        nbr[:, 1] = nbr[:, 0]
+    args = [nbr.to(dtype), t(2, 77, c).to(dtype), t(c, h) / c ** 0.5,
+            t(c, h) / c ** 0.5, t(h, h) / h ** 0.5 if o else None,
+            t(h, o) / h ** 0.5 if o else None, t(2, 77, o or h).to(dtype)]
+    before = edgeconv.BWD.launches
+    got = edgeconv.edgeconv_backward(
+        *[a.to(card) if a is not None else None for a in args], agg, dtype)
+    assert edgeconv.BWD.launches == before + 1
+    want = edgeconv.edgeconv_backward_plain(*args, agg, dtype)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    for a, w in zip(got, want):
+        if w is None:
+            assert a is None
+            continue
+        a, w = a.cpu().float(), w.float()
+        assert float((a - w).norm()) <= tol * float(w.norm())
+    if ties:
+        assert torch.equal(got[0][:, 0], got[0][:, 1])
 
 
 @pytest.mark.gpu
@@ -255,3 +302,36 @@ def test_binned_interp_kernel_matches_plain_on_card(card, gen, kind, cutoff, c):
         torch.testing.assert_close(ok.cpu(), o, rtol=0,
                                    atol=1e-5 * float(v.abs().max()))
         torch.testing.assert_close(dk.cpu(), d, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dims,slope", [((2, 64, 16, 6), (32, 64), 0.01),
+                                              ((2, 1, 300, 19), (8,), 0.0)])
+def test_pooled_mlp_affine_backward_matches_plain_on_card(card, gen, shape,
+                                                          dims, slope):
+    """Table, weights and affines through autograd on the card against the
+    CPU (plain versions); f32 sums in another order, hence the scale."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    tab = t(*shape)
+    tab[:, :, 1] = tab[:, :, 0]                 # exact max ties
+    cs = (shape[-1],) + dims
+    ws = [t(cs[i], cs[i + 1]) / cs[i] ** 0.5 for i in range(len(dims))]
+    a_s, b_s = [1 + 0.1 * t(d) for d in dims], [0.1 * t(d) for d in dims]
+    g = t(shape[0], shape[1], dims[-1])
+
+    def run(dev):
+        leaves = [x.to(dev).requires_grad_() for x in [tab, *ws, *a_s, *b_s]]
+        nl = len(dims)
+        p = pooled_mlp.pooled_mlp_affine(leaves[0], leaves[1:1 + nl],
+                                         leaves[1 + nl:1 + 2 * nl],
+                                         leaves[1 + 2 * nl:], slope)
+        (p * g.to(dev)).sum().backward()
+        return [p] + [x.grad for x in leaves]
+
+    before = pooled_mlp.AFFINE_BWD.launches
+    got = run(card)
+    assert pooled_mlp.AFFINE_BWD.launches == before + 1
+    for a, b in zip(got, run("cpu")):
+        b = b.detach()
+        torch.testing.assert_close(a.detach().cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))

@@ -70,7 +70,7 @@ class GraphReplay:
             d2, own = graph_knn(x, k, c_valid)
             rec = self.lists.pop(0)
             assert rec.shape == tuple(own.shape)
-            xf = x.float().numpy().astype(np.float64)
+            xf = x.detach().float().numpy().astype(np.float64)
             b, r, s = np.nonzero(rec != own.numpy())
             exact = lambda idx: np.sum((xf[b, r] - xf[b, idx[b, r, s]]) ** 2, -1)
             # f32 noise of |q|^2 + |c|^2 - 2 q.c at these feature norms

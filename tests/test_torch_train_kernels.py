@@ -178,10 +178,22 @@ def test_pooled_mlp_affine_matches_jax(rng):
 
 
 def test_pooled_mlp_affine_refuses_gradients(rng):
-    tbl, ws, a_s, b_s, _ = _pooled_inputs(rng)
-    w = [T(x).requires_grad_() for x in ws]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        pooled_mlp_affine(T(tbl), w, [T(x) for x in a_s], [T(x) for x in b_s])
+    """The affine form's gradients (``_bwd_pallas_affine``'s counterpart)
+    with respect to the table, the weights and the affines, over exact max
+    ties, against ``jax.vjp`` of the JAX package's op, to the f32
+    summation order."""
+    tbl, ws, a_s, b_s, g = _pooled_inputs(rng)
+    leaves = [T(x).requires_grad_() for x in [tbl, *ws, *a_s, *b_s]]
+    out = pooled_mlp_affine(leaves[0], leaves[1:3], leaves[3:5], leaves[5:7])
+    got = torch.autograd.grad(out, leaves, T(g))
+    J = lambda xs: [jnp.asarray(x) for x in xs]
+    _, vjp = jax.vjp(lambda t, w, a, bb: jax_affine(t, w, a, bb, 0.0),
+                     jnp.asarray(tbl), J(ws), J(a_s), J(b_s))
+    dt, dws, das, dbs = vjp(jnp.asarray(g))
+    for x, y in zip(got, [dt, *dws, *das, *dbs]):
+        y = np.asarray(y)
+        np.testing.assert_allclose(x.numpy(), y, rtol=0,
+                                   atol=2e-5 * max(1.0, np.abs(y).max()))
 
 
 # ---------------------------------------------------------------- interp

@@ -215,15 +215,17 @@ def adam_from_flax(opt_state: Dict[str, Any], net) -> None:
     opt.sched_count = int(sched["count"])
 
 
-def load_trainer_state(path, cfg=None, device=None):
-    """The whole fluid trainer state of a flax msgpack checkpoint:
+def load_trainer_state(path, cfg=None, device=None, fused_train=False):
+    """The whole fluid trainer state of a flax msgpack checkpoint (a file,
+    or a directory through its ``latest_checkpoint.txt`` manifest):
     ``sr_net``, ``tempo_dis`` and ``spatial_dis`` (params, BatchNorm
     running moments, spectral-norm u / sigma), their three Adam states and
     ``n_iter``, as a :class:`~tpugan_tpu_torch.train.state.GanTrainState`
     on ``device`` (the card when None). ``cfg`` (a
     :class:`~tpugan_tpu_torch.train.step.FluidTrainConfig`, the train_vel
-    defaults when None) gives the learning rates and schedule. Raises on
-    any leaf left over or tensor left unfilled."""
+    defaults when None) gives the learning rates and schedule;
+    ``fused_train`` goes to the SRNet. Raises on any leaf left over or
+    tensor left unfilled."""
     from tpugan_tpu_torch import resolve_device
     from tpugan_tpu_torch.models.discriminator import (FluidSpatialDis,
                                                        FluidTempoDis)
@@ -232,12 +234,13 @@ def load_trainer_state(path, cfg=None, device=None):
 
     cfg = cfg or FluidTrainConfig()
     device = resolve_device(device)
+    path = resolve_checkpoint(path)
     tree = read_flax_msgpack(path)
     extra = set(tree) - {"sr_net", "tempo_dis", "spatial_dis", "sr_optim",
                          "tempo_optim", "spatial_optim", "n_iter"}
     if extra:
         raise ValueError(f"unexpected trainer-state entries {sorted(extra)}")
-    sr = load_srnet(path, device=device)
+    sr = load_srnet(path, device=device, fused_train=fused_train)
     nets = {"sr": sr, "tempo": FluidTempoDis(3, device=device),
             "spatial": FluidSpatialDis(device=device)}
     for name, flax_name in (("tempo", "tempo_dis"), ("spatial", "spatial_dis")):

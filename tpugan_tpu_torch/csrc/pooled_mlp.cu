@@ -5,7 +5,9 @@
 // and its custom VJP: the passes _stats_kernel and _final_kernel of the
 // forward, _tie_count_kernel, _bwd_stats_kernel and _bwd_apply_kernel of
 // _bwd_pallas_bn. The forward's final pass with given affines is
-// pooled_mlp_affine's forward (eval-mode SetConvs).
+// pooled_mlp_affine's forward (eval-mode SetConvs); its backward
+// (_bwd_pallas_affine) is the tie pass and the apply pass without the
+// batch-norm terms.
 //
 // Contract: table [R, C0] f32, R = B*M*ns rows, row r in neighbourhood
 // r / ns; L <= 4 layers W_l [C_l, C_{l+1}] packed one after another;
@@ -22,6 +24,8 @@
 //     S1_p = sum dpre_p = dbeta_p, S2_p = sum dpre_p zhat_p = dgamma_p,
 //     dz_p = a_p (dpre_p - S1_p / R - zhat_p S2_p / R),
 //     dW_p = x_p^T dz_p, dx_p = dz_p W_p^T, dtable = dx_0.
+//   backward of the affine form: dz_p = a_p dpre_p, da_p = sum dpre_p z_p,
+//     db_p = sum dpre_p, dW_p and dx_p as above.
 //
 // What bounds it on the H100: operations. The spatial critic's second stage
 // (4 x 512 x 32 rows of 131 channels, 128 -> 128) recomputes its layers in
@@ -43,6 +47,7 @@
 // partial sums, and a second kernel adds the partials in block order. The
 // max-pool runs in the block that owns the whole neighbourhood.
 #include "common.cuh"
+#include "reduce.cuh"
 
 namespace {
 
@@ -211,16 +216,6 @@ __global__ void finalize_stats(const float* __restrict__ part_s,
   b[o] = beta[o] - mf * af;
 }
 
-// out[i] = sum over blocks of part[k][i], in block order.
-__global__ void sum_parts(const float* __restrict__ part, int nblk, int n,
-                          float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  double s = 0.0;
-  for (int k = 0; k < nblk; ++k) s += part[(size_t)k * n + i];
-  out[i] = (float)s;
-}
-
 // mode 0: pooled = max over each neighbourhood of x_L.
 // mode 1: cnt = number of the neighbourhood's rows equal to pooled.
 // A block owns TM whole neighbourhoods and walks their rows in tiles.
@@ -272,7 +267,10 @@ pool_kernel(Stack S, const float* __restrict__ table, int R, int ns, int TM,
 
 // Backward over the block's tiles. stop >= 0: partial S1, S2 of layer
 // stop (the layers above it use their finished S1, S2). stop < 0: dtable
-// rows and the block's partial dW of every layer.
+// rows and the block's partial dW of every layer, at dw_part + blockIdx.x *
+// pstride. bn == 0 (the affine form; mu, ivar, s1, s2 unused, stop < 0):
+// also the block's partial da and db of every layer, packed per layer after
+// the block's dW, at wtotal + hoff[l] and wtotal + htotal + hoff[l].
 __global__ void __launch_bounds__(THREADS)
 bwd_kernel(Stack S, const float* __restrict__ table, int R, int ns,
            const float* __restrict__ pooled, const float* __restrict__ gout,
@@ -281,7 +279,7 @@ bwd_kernel(Stack S, const float* __restrict__ table, int R, int ns,
            const float* __restrict__ s2, float ninv, int stop,
            float* __restrict__ part1, float* __restrict__ part2,
            float* __restrict__ dtable, float* __restrict__ dw_part,
-           int wtotal) {
+           int wtotal, int htotal, int pstride, int bn) {
   constexpr int RT = BWD_ROWS;
   extern __shared__ float sm[];
   const int L = S.L;
@@ -327,6 +325,45 @@ bwd_kernel(Stack S, const float* __restrict__ table, int R, int ns,
       const int n = S.c[q + 1], cin = S.c[q];
       const float* aq = S.a + S.hoff[q];
       const float* bq = S.b + S.hoff[q];
+      float* dw = dw_part + (size_t)blockIdx.x * pstride;
+      if (!bn) {
+        // the affine form: dpre (kept in D for da, db), dz = a dpre
+        for (int i = threadIdx.x; i < RT * n; i += THREADS) {
+          const int o = i % n;
+          float dpre = 0.f;
+          if (row0 + i / n < R)
+            dpre = D[i] * act_grad(fmaf(Z[q][i], aq[o], bq[o]), slope);
+          D[i] = dpre;
+          DZ[i] = aq[o] * dpre;
+        }
+        __syncthreads();
+        for (int o = threadIdx.x; o < n; o += THREADS) {
+          float sa = 0.f, sb = 0.f;
+          for (int r = 0; r < RT; ++r) {
+            sa = fmaf(D[r * n + o], Z[q][r * n + o], sa);
+            sb += D[r * n + o];
+          }
+          dw[wtotal + S.hoff[q] + o] += sa;
+          dw[wtotal + htotal + S.hoff[q] + o] += sb;
+        }
+        for (int i = threadIdx.x; i < cin * n; i += THREADS) {
+          const int c = i / n, o = i % n;
+          float acc = 0.f;
+          for (int r = 0; r < RT; ++r)
+            acc = fmaf(X[q][r * cin + c], DZ[r * n + o], acc);
+          dw[S.woff[q] + i] += acc;
+        }
+        __syncthreads();                   // D is read; the product rewrites it
+        tile_product<RT, true>(DZ, n, n, S.W + S.woff[q], cin,
+                               [&](int r, int c, float v) { D[r * cin + c] = v; });
+        __syncthreads();
+        if (q == 0) {
+          const int c0 = S.c[0];
+          for (int i = threadIdx.x; i < RT * c0; i += THREADS)
+            if (row0 + i / c0 < R) dtable[(size_t)row0 * c0 + i] = D[i];
+        }
+        continue;
+      }
       const float* mq = mu + S.hoff[q];
       const float* iq = ivar + S.hoff[q];
       if (q == stop) {
@@ -360,13 +397,12 @@ bwd_kernel(Stack S, const float* __restrict__ table, int R, int ns,
       }
       __syncthreads();
       if (stop < 0) {
-        float* dw = dw_part + (size_t)blockIdx.x * wtotal + S.woff[q];
         for (int i = threadIdx.x; i < cin * n; i += THREADS) {
           const int c = i / n, o = i % n;
           float acc = 0.f;
           for (int r = 0; r < RT; ++r)
             acc = fmaf(X[q][r * cin + c], DZ[r * n + o], acc);
-          dw[i] += acc;
+          dw[S.woff[q] + i] += acc;
         }
       }
       tile_product<RT, true>(DZ, n, n, S.W + S.woff[q], cin,
@@ -506,7 +542,7 @@ extern "C" int pmlp_backward(const void* table, const void* W, const void* a,
     bwd_kernel<<<nblk, THREADS, smem, st>>>(
         S, tbl, R, ns, pl, static_cast<const float*>(gout), ct,
         static_cast<const float*>(mu), static_cast<const float*>(ivar), f1, f2,
-        ninv, p, p1, p2, nullptr, nullptr, wtotal);
+        ninv, p, p1, p2, nullptr, nullptr, wtotal, 0, wtotal, 1);
     sum_parts<<<(n + 127) / 128, 128, 0, st>>>(p1, nblk, n, f1 + S.hoff[p]);
     sum_parts<<<(n + 127) / 128, 128, 0, st>>>(p2, nblk, n, f2 + S.hoff[p]);
     e = cudaGetLastError();
@@ -516,8 +552,49 @@ extern "C" int pmlp_backward(const void* table, const void* W, const void* a,
       S, tbl, R, ns, pl, static_cast<const float*>(gout), ct,
       static_cast<const float*>(mu), static_cast<const float*>(ivar), f1, f2,
       ninv, -1, nullptr, nullptr, static_cast<float*>(dtable),
-      static_cast<float*>(dw_part), wtotal);
+      static_cast<float*>(dw_part), wtotal, 0, wtotal, 1);
   sum_parts<<<(wtotal + 255) / 256, 256, 0, st>>>(
       static_cast<float*>(dw_part), nblk, wtotal, static_cast<float*>(dW));
+  return (int)cudaGetLastError();
+}
+
+// Backward of the affine forward (pmlp_forward with train == 0). In: table,
+// W, a, b, pooled, gout. Out: dtable [R, c0] and grads = (dW packed, then
+// da packed, then db packed). Scratch: cnt [R / ns, cL], dw_part of nblk *
+// (size of grads) floats, ZEROED.
+extern "C" int pmlp_backward_affine(const void* table, const void* W,
+                                    const void* a, const void* b,
+                                    const void* pooled, const void* gout,
+                                    void* cnt, void* dw_part, void* dtable,
+                                    void* grads, int R, int ns, int L, int c0,
+                                    int c1, int c2, int c3, int c4,
+                                    float slope, int nblk, void* stream) {
+  const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
+  const Stack S = make_stack(L, c, slope, W, a, b);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto tbl = static_cast<const float*>(table);
+  auto pl = static_cast<const float*>(pooled);
+  auto ct = static_cast<float*>(cnt);
+  cudaError_t e = pool(S, tbl, R, ns, 1, const_cast<float*>(pl), ct, st);
+  if (e != cudaSuccess) return (int)e;
+
+  int wtotal = 0, htotal = 0, widths = 0;
+  for (int l = 0; l < L; ++l) {
+    wtotal += c[l] * c[l + 1];
+    htotal += c[l + 1];
+    widths += c[l] + c[l + 1];
+  }
+  widths += c[L];
+  const size_t smem =
+      sizeof(float) * (BWD_ROWS * (widths + 2 * S.cmax) + 2 * THREADS);
+  e = allow_smem(bwd_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int pstride = wtotal + 2 * htotal;
+  bwd_kernel<<<nblk, THREADS, smem, st>>>(
+      S, tbl, R, ns, pl, static_cast<const float*>(gout), ct, nullptr, nullptr,
+      nullptr, nullptr, 0.f, -1, nullptr, nullptr, static_cast<float*>(dtable),
+      static_cast<float*>(dw_part), wtotal, htotal, pstride, 0);
+  sum_parts<<<(pstride + 255) / 256, 256, 0, st>>>(
+      static_cast<float*>(dw_part), nblk, pstride, static_cast<float*>(grads));
   return (int)cudaGetLastError();
 }

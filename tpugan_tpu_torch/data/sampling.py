@@ -83,6 +83,27 @@ def sample_patch_with_fps(input_pos: np.ndarray,
             patch_idx, fps_idx)
 
 
+def dump_pointcloud_visualization(pos: np.ndarray, filename: str) -> None:
+    """Headless scatter render of a cloud to PNG through matplotlib, as the
+    JAX package's does (reference train_utils.py:224-238 used Open3D's
+    offscreen capture); where matplotlib does not import, the cloud is
+    saved as ``filename + ".npy"`` instead."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        np.save(filename + ".npy", pos)
+        return
+    fig = plt.figure(figsize=(5, 5))
+    ax = fig.add_subplot(projection="3d")
+    ax.scatter(pos[:, 0], pos[:, 2], pos[:, 1], s=0.5)
+    ax.set_axis_off()
+    fig.savefig(filename, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+
+
 def pad_with_appropriate_size(pos: np.ndarray, bucket: int = 1024,
                               sentinel: float = 999.0
                               ) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,8 +1,9 @@
 """The masked upsampling generator SRNet and its rollout mask ring
 (``tpugan_tpu/models/generator.py``). ``train=False`` is the serving
 forward (fused EdgeConv kernels, no autograd); ``train=True`` the training
-forward (the grouped EdgeConv formulation, differentiable). The generator
-has no batch statistics, so several frames may run as one batch.
+forward (differentiable: the grouped EdgeConv formulation, or with
+``fused_train`` the fused kernels and their backward). The generator has no
+batch statistics, so several frames may run as one batch.
 
 Shapes are channels-last. Copies of input point i occupy output slots
 i*r .. i*r + r - 1; pruned copies are parked at the 999 sentinel and
@@ -36,10 +37,10 @@ class GCNFeatureExtractor(nn.Module):
     [B, N, (layer_num - 1) * node_emb_dim]."""
 
     def __init__(self, in_feats: int, layer_num: int, node_emb_dim: int,
-                 dtype=None, generator=None, device=None):
+                 dtype=None, fused_train=False, generator=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, generator=seeded(generator),
-                  device=resolve_device(device))
+        kw = dict(dtype=dtype, fused_train=fused_train,
+                  generator=seeded(generator), device=resolve_device(device))
         self.EdgeConv_0 = EdgeConv(in_feats, node_emb_dim, k=20, **kw)
         self.idgcn = [f"IDGCNLayer_{l}" for l in range(layer_num - 1)]
         for name in self.idgcn:
@@ -59,15 +60,17 @@ class UpsamplingModule(nn.Module):
     k=4, a SharedMLP and a biased f32 projection to 3r offsets."""
 
     def __init__(self, in_dim: int, upsample_ratio: int, dtype=None,
-                 generator=None, device=None):
+                 fused_train=False, generator=None, device=None):
         super().__init__()
         generator, device = seeded(generator), resolve_device(device)
         kw = dict(dtype=dtype, generator=generator, device=device)
         out_dim = 3 * upsample_ratio
         self.ConvLayer_0 = ConvLayer(in_dim, in_dim // 4, **kw)
-        self.EdgeConv_0 = EdgeConv(in_dim // 4, in_dim, k=12, **kw)
+        self.EdgeConv_0 = EdgeConv(in_dim // 4, in_dim, k=12,
+                                   fused_train=fused_train, **kw)
         self.ConvLayer_1 = ConvLayer(in_dim, in_dim // 4, **kw)
-        self.EdgeConv_1 = EdgeConv(in_dim // 4, in_dim, k=4, **kw)
+        self.EdgeConv_1 = EdgeConv(in_dim // 4, in_dim, k=4,
+                                   fused_train=fused_train, **kw)
         self.SharedMLP_0 = SharedMLP(in_dim, [out_dim // 2, out_dim], **kw)
         self.Dense_0 = dense(out_dim, out_dim, True, generator, device)
 
@@ -85,15 +88,18 @@ class BinaryMaskingModule(nn.Module):
     scalar. The last projection starts at bias 0.1 so the ReLU head is
     alive at initialisation."""
 
-    def __init__(self, in_dim: int, dtype=None, generator=None, device=None):
+    def __init__(self, in_dim: int, dtype=None, fused_train=False,
+                 generator=None, device=None):
         super().__init__()
         generator, device = seeded(generator), resolve_device(device)
         kw = dict(dtype=dtype, generator=generator, device=device)
         self.ConvLayer_0 = ConvLayer(in_dim, in_dim // 4, **kw)
-        self.EdgeConv_0 = EdgeConv(in_dim // 4, in_dim, k=12, **kw)
+        self.EdgeConv_0 = EdgeConv(in_dim // 4, in_dim, k=12,
+                                   fused_train=fused_train, **kw)
         self.ConvLayer_1 = ConvLayer(in_dim, in_dim // 4, **kw)
         self.EdgeConv_1 = EdgeConv(in_dim // 4, in_dim, k=8, aggregate="sum",
-                                   mlp_layer=False, **kw)
+                                   mlp_layer=False, fused_train=fused_train,
+                                   **kw)
         self.SharedMLP_0 = SharedMLP(in_dim, [in_dim // 2, in_dim // 4], **kw)
         self.Dense_0 = dense(in_dim // 4, 1, True, generator, device,
                              scale=0.01, bias_init=0.1)
@@ -140,6 +146,10 @@ class SRNet(nn.Module):
     "dynamic" rebuilds the kNN graph in every layer (7 graphs per forward);
     "static" builds one k=20 graph from the input graph source (pos when
     in_feats > 3, else the input feature) and every layer reuses it.
+    ``fused_train`` trains every EdgeConv and IDGCN layer through the fused
+    kernels and their backward (the JAX package's
+    ``TPUGAN_FUSED_EDGECONV_TRAIN=1``; the port reads no environment
+    variable); serving always takes them.
 
     Weights are drawn on the CPU from ``generator`` (seeded 0 when None);
     ``device`` None means the CUDA card, and raises without one.
@@ -150,7 +160,7 @@ class SRNet(nn.Module):
     def __init__(self, in_feats: int, node_emb_dim: int = 128,
                  upsample_ratio: int = 8, feature_extractor_depth: int = 3,
                  compute_dtype: Optional[torch.dtype] = None,
-                 graph_mode: str = "dynamic",
+                 graph_mode: str = "dynamic", fused_train: bool = False,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if graph_mode not in ("dynamic", "static"):
@@ -160,8 +170,8 @@ class SRNet(nn.Module):
         self.in_feats, self.upsample_ratio = in_feats, upsample_ratio
         self.graph_mode = graph_mode
         self.compute_dtype = compute_dtype
-        kw = dict(dtype=compute_dtype, generator=seeded(generator),
-                  device=resolve_device(device))
+        kw = dict(dtype=compute_dtype, fused_train=fused_train,
+                  generator=seeded(generator), device=resolve_device(device))
         self.feature_extractor = GCNFeatureExtractor(
             in_feats, feature_extractor_depth, node_emb_dim, **kw)
         enc = (feature_extractor_depth - 1) * node_emb_dim

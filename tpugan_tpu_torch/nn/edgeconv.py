@@ -9,9 +9,11 @@ intermediate.
 
 At ``train=True`` the layers take the grouped plain formulation with
 autograd (a point-major ``[B, N, K, C]`` table, the affines on it, ``amax``
-or ``sum``), the path the JAX package runs in training: it enables its
-fused EdgeConv backward only with ``TPUGAN_FUSED_EDGECONV_TRAIN=1``, off by
-default, so that backward is not ported yet.
+or ``sum``), the path the JAX package runs in training by default, unless
+the model asks for the fused path (``fused_train``, the JAX package's
+``TPUGAN_FUSED_EDGECONV_TRAIN=1``): then training gathers neighbour-major
+too, and the kernel's autograd Function carries the gradient back through
+its backward kernel and the gather.
 """
 
 from __future__ import annotations
@@ -26,6 +28,12 @@ from tpugan_tpu_torch.nn.layers import (ConvLayer, SharedMLP, leaky_relu_02,
                                         seeded)
 from tpugan_tpu_torch.ops.kernels.edgeconv import edgeconv_fused
 from tpugan_tpu_torch.ops.neighbors import gather, graph_knn, group
+
+
+def fused_enabled(train: bool, fused_train: bool) -> bool:
+    """Serving always takes the fused kernel, training only when the model
+    asks (``tpugan_tpu/nn/edgeconv.py : _fused_enabled``)."""
+    return (not train) or fused_train
 
 
 def gather_neighbor_major(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -44,11 +52,13 @@ class EdgeConv(nn.Module):
     ``mlp_layer=False`` aggregates first and applies the head once, which is
     exact only for sum / mean (the linear head commutes with them); the
     generator uses it with sum, and the fused kernel needs it that way.
+    ``fused_train``: see :func:`fused_enabled`.
     """
 
     def __init__(self, in_features: int, out_features: int, k: int = 9,
                  dilation: int = 1, mlp_layer: bool = True,
                  aggregate: str = "max", dtype: Optional[torch.dtype] = None,
+                 fused_train: bool = False,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if not mlp_layer and aggregate not in ("sum", "mean"):
@@ -58,6 +68,7 @@ class EdgeConv(nn.Module):
         half = out_features // 2
         self.k, self.dilation = k, dilation
         self.mlp_layer, self.aggregate, self.dtype = mlp_layer, aggregate, dtype
+        self.fused_train = fused_train
         kw = dict(dtype=dtype, generator=generator, device=device)
         self.ConvLayer_0 = ConvLayer(in_features, half, act=leaky_relu_02, **kw)
         self.ConvLayer_1 = ConvLayer(in_features, half, act=leaky_relu_02, **kw)
@@ -73,11 +84,12 @@ class EdgeConv(nn.Module):
                 neighbor: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feat [B, N, C] -> [B, N, out]. ``idx`` [B, N, >=k] is a kNN list
         built elsewhere over the same graph source; ``neighbor_t``
-        [B, >=k, N, C] a neighbour-major table gathered elsewhere (serving),
-        ``neighbor`` [B, N, >=k, C] a point-major one (training)."""
+        [B, >=k, N, C] a neighbour-major table gathered elsewhere (the fused
+        path), ``neighbor`` [B, N, >=k, C] a point-major one (the grouped
+        path; given it, the layer takes that path, as the JAX layer does)."""
         if self.dtype is not None:
             feat = feat.to(self.dtype)
-        if train:
+        if neighbor is not None or not fused_enabled(train, self.fused_train):
             return self._grouped(feat, pos, idx, neighbor)
         if neighbor_t is None:
             if idx is None:
@@ -122,18 +134,23 @@ class EdgeConv(nn.Module):
 class IDGCNLayer(nn.Module):
     """Inception-DenseGCN layer: bottleneck to C/4, three branches (local
     max over the 9 nearest, EdgeConv d=1, EdgeConv d=2) sharing one k=20
-    list, concat, decode, residual skip."""
+    list, concat, decode, residual skip. ``fused_train`` chooses the
+    branches' path as :class:`EdgeConv`'s does (and the table's layout)."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: Optional[torch.dtype] = None,
+                 fused_train: bool = False,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         generator, device = seeded(generator), resolve_device(device)
         kw = dict(dtype=dtype, generator=generator, device=device)
+        self.fused_train = fused_train
         c4 = in_features // 4
         self.ConvLayer_0 = ConvLayer(in_features, c4, **kw)       # bottleneck
-        self.EdgeConv_0 = EdgeConv(c4, c4, k=20, dilation=1, **kw)
-        self.EdgeConv_1 = EdgeConv(c4, c4, k=20, dilation=2, **kw)
+        self.EdgeConv_0 = EdgeConv(c4, c4, k=20, dilation=1,
+                                   fused_train=fused_train, **kw)
+        self.EdgeConv_1 = EdgeConv(c4, c4, k=20, dilation=2,
+                                   fused_train=fused_train, **kw)
         self.ConvLayer_1 = ConvLayer(3 * c4, out_features, act=leaky_relu_02,
                                      **kw)                        # decode
         self.ConvLayer_2 = ConvLayer(in_features, out_features, **kw)  # skip
@@ -143,14 +160,14 @@ class IDGCNLayer(nn.Module):
                 train: bool = False) -> torch.Tensor:
         x = self.ConvLayer_0(feat)                                # [B, N, C/4]
         idx20 = shared_idx if shared_idx is not None else graph_knn(x, 20)[1]
-        if train:
-            nbr = group(x, idx20)                                 # [B, N, 20, C/4]
-            local_max = nbr[:, :, :9].amax(dim=2)
-            kw = dict(neighbor=nbr, train=True)
-        else:
+        if fused_enabled(train, self.fused_train):
             nbr_t = gather_neighbor_major(x, idx20)               # [B, 20, N, C/4]
             local_max = nbr_t[:, :9].amax(dim=1)
             kw = dict(neighbor_t=nbr_t)
-        y = torch.cat([local_max, self.EdgeConv_0(x, **kw),
-                       self.EdgeConv_1(x, **kw)], dim=-1)
+        else:
+            nbr = group(x, idx20)                                 # [B, N, 20, C/4]
+            local_max = nbr[:, :, :9].amax(dim=2)
+            kw = dict(neighbor=nbr)
+        y = torch.cat([local_max, self.EdgeConv_0(x, train=train, **kw),
+                       self.EdgeConv_1(x, train=train, **kw)], dim=-1)
         return self.ConvLayer_1(y) + self.ConvLayer_2(feat)

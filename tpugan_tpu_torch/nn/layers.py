@@ -225,22 +225,34 @@ class SharedMLP(nn.Module):
 
     def pooled(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The stack on a grouped table [B, M, ns, C], then the max over ns,
-        as one fused op: the pooled-MLP kernel (``ops/kernels/pooled_mlp.py``)
-        for a bias-free batch-norm stack of f32 layers (SetConv's), whose max
-        splits the gradient over ties as ``jnp.max`` does.
+        as one fused op: the pooled-MLP kernels (``ops/kernels/pooled_mlp.py``)
+        for a stack of f32 layers with a (leaky) ReLU, batch-normalised and
+        bias-free, or norm-free with or without a Dense bias (the JAX
+        package's ``_fused_pooled``); the max splits the gradient over ties
+        as ``jnp.max`` does.
 
-        Each spectral norm advances once per call. In training the batch
-        moments come from the kernel and each BatchNorm's running average
-        takes one step from the 2-point probe ``[mu - s, mu + s]``
+        Each spectral norm advances once per call. A norm-free stack is the
+        affine form with a = 1 and b = the bias (or 0). In training the
+        batch moments come from the kernel and each BatchNorm's running
+        average takes one step from the 2-point probe ``[mu - s, mu + s]``
         (s = sqrt(max(var, 0))), whose moments are the batch's, as the JAX
         package's ``bn_update`` probe does."""
         layers = list(self.children())
         slope = act_slope(self.act)
-        if (self.norm != "batch" or self.dtype is not None or slope is None
-                or any(layer.Dense_0.bias is not None for layer in layers)):
-            raise ValueError("the pooled-MLP kernel takes a bias-free f32 "
-                             "batch-norm stack with a (leaky) ReLU")
+        if self.dtype is not None or slope is None:
+            raise ValueError("the pooled-MLP kernel takes f32 layers with a "
+                             "(leaky) ReLU")
+        if self.norm == "batch" and any(layer.Dense_0.bias is not None
+                                        for layer in layers):
+            raise ValueError("the pooled-MLP kernel takes a bias-free "
+                             "batch-norm stack")
         ws = [layer.weight(train).t() for layer in layers]
+        if self.norm == "none":
+            ones = [torch.ones(w.shape[1], device=w.device) for w in ws]
+            bs = [layer.Dense_0.bias if layer.Dense_0.bias is not None
+                  else torch.zeros(w.shape[1], device=w.device)
+                  for layer, w in zip(layers, ws)]
+            return pooled_mlp_affine(x, ws, ones, bs, slope)
         bns = [layer.BatchNorm_0 for layer in layers]
         if train:
             pooled, mus, vars_ = pooled_mlp_bn_train(

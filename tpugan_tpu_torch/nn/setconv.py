@@ -5,7 +5,7 @@ deterministic replacement for the reference's dummy-resampling loop),
 ball-query and group neighbourhoods, shared MLP, max-pool per
 neighbourhood. ``npoint=None`` pools one group over the whole cloud.
 
-The shared MLP and the pool run as one fused op (the pooled-MLP kernel) at
+The shared MLP and the pool run as one fused op (the pooled-MLP kernels) at
 eval everywhere, and in training where ``fused_train`` is set (the fluid
 spatial critic's stages), as in the JAX package; otherwise as the plain
 grouped stack and ``amax``.
@@ -25,15 +25,17 @@ from tpugan_tpu_torch.ops.neighbors import (fps, gather, group_all,
 
 
 class SetConv(nn.Module):
-    """Single-scale-grouping set abstraction with batch-normalised,
-    bias-free MLP layers (the JAX package's ``bn=True``, which every critic
-    uses). ``mlp`` lists the MLP output widths; the input width is 3 + the
-    feature width (``use_xyz``)."""
+    """Single-scale-grouping set abstraction. ``bn`` (the JAX package's,
+    default True, which every critic uses): batch-normalised, bias-free MLP
+    layers; False: norm-free layers with a Dense bias (``use_bias = not
+    bn``). ``mlp`` lists the MLP output widths; the input width is 3 + the
+    feature width (``use_xyz``). The fused op runs at eval and, with
+    ``fused_train``, in training."""
 
     def __init__(self, in_features: int, mlp: Sequence[int],
                  npoint: Optional[int] = None, radius: Optional[float] = None,
                  nsample: Optional[int] = None, mask_dummy: bool = False,
-                 use_xyz: bool = True,
+                 bn: bool = True, use_xyz: bool = True,
                  spectral_norm: bool = True, act: Callable = relu,
                  fused_train: bool = False,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -43,8 +45,8 @@ class SetConv(nn.Module):
         self.fused_train = fused_train
         self.SharedMLP_0 = SharedMLP(
             in_features + (3 if use_xyz else 0), mlp, act=act,
-            norm="batch", spectral_norm=spectral_norm,
-            use_bias=False, generator=seeded(generator),
+            norm="batch" if bn else "none", spectral_norm=spectral_norm,
+            use_bias=not bn, generator=seeded(generator),
             device=resolve_device(device))
 
     def fps_centers(self, xyz: torch.Tensor,

@@ -1,9 +1,15 @@
-"""Fused EdgeConv forward: the CUDA kernel ``csrc/edgeconv.cu`` and its plain
-PyTorch version.
+"""Fused EdgeConv forward and backward: the CUDA kernels ``csrc/edgeconv.cu``
+and their plain PyTorch versions.
 
-Replaces ``tpugan_tpu/ops/pallas/edgeconv_kernel.py : edgeconv_fused`` (its
-forward). The kernel's source note says what bounds it on the card and how
-it is laid out.
+Replaces ``tpugan_tpu/ops/pallas/edgeconv_kernel.py : edgeconv_fused``, its
+forward (``_fwd_pallas``) and its backward (``_bwd_pallas``).
+:func:`edgeconv_fused` is differentiable: its autograd Function saves
+``(nbr_t, ctr, wn, we, w1, w2)``, as the JAX VJP does, and its backward is
+the backward kernel (or, on the CPU, :func:`edgeconv_backward_plain`).
+``KERNEL`` counts forward launches, ``BWD`` backward launches (one per
+call: the kernel and the pass that adds the blocks' weight-gradient
+partials); both handles load the same library. The kernels' source note
+says what bounds them on the card and how they are laid out.
 """
 
 from __future__ import annotations
@@ -17,9 +23,13 @@ from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel("edgeconv",
                     {"edgeconv_fwd": [VOIDP] * 7 + [INT] * 9 + [VOIDP]})
+BWD = CudaKernel("edgeconv",
+                 {"edgeconv_bwd": [VOIDP] * 11 + [INT] * 10 + [VOIDP]})
 
 AGGREGATES = {"max": 0, "min": 1, "sum": 2, "mean": 3}
 MAX_WIDTH = 256   # widest hidden / output layer (one thread per column)
+MAX_BLOCKS = 264  # blocks of the backward (2 per SM): bounds its scratch
+TILE = 16         # points per block tile (csrc/edgeconv.cu : TP)
 
 
 def _round(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -31,19 +41,33 @@ def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
+def _lrelu_grad(z: torch.Tensor) -> torch.Tensor:
+    return torch.where(z >= 0, 1.0, 0.2)
+
+
+def _layers(nbr_t, ctr, wn, we, w1, w2, cdt):
+    """Every plane's activations in the kernels' arithmetic: (nb, edge, z1a,
+    z1b, h1, z2, h2, z3, y), [B, K, N, .] f32 holding compute-dtype values
+    where the kernels round (z2, h2, z3 None without the MLP)."""
+    nb = _round(nbr_t, cdt)                                  # [B, K, N, C]
+    edge = _round(nb - _round(ctr, cdt)[:, None], cdt)
+    z1a, z1b = nb @ _round(wn, cdt), edge @ _round(we, cdt)
+    h1 = _round(_lrelu(z1a) + _lrelu(z1b), cdt)
+    if w1 is None:
+        return nb, edge, z1a, z1b, h1, None, None, None, h1
+    z2 = h1 @ _round(w1, cdt)
+    h2 = _round(_lrelu(z2), cdt)
+    z3 = h2 @ _round(w2, cdt)
+    return nb, edge, z1a, z1b, h1, z2, h2, z3, _round(_lrelu(z3), cdt)
+
+
 def edgeconv_plain(nbr_t, ctr, wn, we, w1=None, w2=None, aggregate="max",
                    compute_dtype=torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch: products of values rounded to
     the compute dtype, accumulated in f32; each layer rounded to the compute
     dtype; the aggregate folded plane by plane in the compute dtype."""
     cdt = compute_dtype
-    nb = _round(nbr_t, cdt)                                  # [B, K, N, C]
-    edge = _round(nb - _round(ctr, cdt)[:, None], cdt)
-    y = _round(_lrelu(nb @ _round(wn, cdt)) + _lrelu(edge @ _round(we, cdt)),
-               cdt)
-    if w1 is not None:
-        y = _round(_lrelu(y @ _round(w1, cdt)), cdt)
-        y = _round(_lrelu(y @ _round(w2, cdt)), cdt)
+    y = _layers(nbr_t, ctr, wn, we, w1, w2, cdt)[-1]
     acc = y[:, 0]
     for j in range(1, y.shape[1]):
         if aggregate == "max":
@@ -57,18 +81,52 @@ def edgeconv_plain(nbr_t, ctr, wn, we, w1=None, w2=None, aggregate="max",
     return acc.to(cdt)
 
 
-def edgeconv_fused(nbr_t: torch.Tensor, ctr: torch.Tensor, wn: torch.Tensor,
-                   we: torch.Tensor, w1: Optional[torch.Tensor] = None,
-                   w2: Optional[torch.Tensor] = None, aggregate: str = "max",
-                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Fused EdgeConv tail on a neighbour-major table -> [B, N, O].
+def edgeconv_backward_plain(nbr_t, ctr, wn, we, w1, w2, g, aggregate="max",
+                            compute_dtype=torch.float32):
+    """(gnbr, gctr, gwn, gwe, gw1, gw2) by the backward kernel's formulas
+    (``csrc/edgeconv.cu``, above ``edgeconv_bwd_kernel``): the cotangent of
+    each plane's output (max / min: split over the planes equal to the
+    aggregate, recomputed here), then each layer's backward with every
+    cotangent rounded to the compute dtype before it enters a product.
+    gnbr and gctr come in the dtypes of ``nbr_t`` and ``ctr``, the weight
+    gradients in the weights' dtypes (accumulated in f32)."""
+    cdt = compute_dtype
+    k = nbr_t.shape[1]
+    nb, edge, z1a, z1b, h1, z2, h2, z3, y = _layers(nbr_t, ctr, wn, we, w1,
+                                                    w2, cdt)
+    g = _round(g, cdt)[:, None]                              # [B, 1, N, O]
+    if aggregate in ("max", "min"):
+        acc = y.amax(1, keepdim=True) if aggregate == "max" else y.amin(
+            1, keepdim=True)
+        tie = (y == acc).float()
+        gy = g * tie / tie.sum(1, keepdim=True)
+    elif aggregate == "sum":
+        gy = g.expand_as(y)
+    else:
+        gy = (g / k).expand_as(y)
+    rows = lambda a, b: torch.einsum("bknc,bknh->ch", a, b)
+    gw1 = gw2 = None
+    if w1 is not None:
+        d3 = _round(gy * _lrelu_grad(z3), cdt)
+        gw2 = rows(h2, d3).to(w2.dtype)
+        d2 = _round((d3 @ _round(w2, cdt).t()) * _lrelu_grad(z2), cdt)
+        gw1 = rows(h1, d2).to(w1.dtype)
+        gh1 = d2 @ _round(w1, cdt).t()
+    else:
+        gh1 = gy
+    d1a = _round(gh1 * _lrelu_grad(z1a), cdt)
+    d1b = _round(gh1 * _lrelu_grad(z1b), cdt)
+    gnb_b = d1b @ _round(we, cdt).t()
+    gnbr = (d1a @ _round(wn, cdt).t() + gnb_b).to(nbr_t.dtype)
+    gctr = (-gnb_b.sum(1)).to(ctr.dtype)
+    return (gnbr, gctr, rows(nb, d1a).to(wn.dtype), rows(edge, d1b).to(we.dtype),
+            gw1, gw2)
 
-    nbr_t [B, K, N, C], ctr [B, N, C], wn / we [C, H], w1 [H, H] and
-    w2 [H, O] (both None: no SharedMLP, O = H); bias-free, norm-free,
-    leaky-ReLU slope 0.2; compute dtype float32 or bfloat16. A CPU tensor
-    takes :func:`edgeconv_plain`; a CUDA tensor launches the kernel or
-    raises.
-    """
+
+# ------------------------------------------------------------ kernel launches
+
+def _check(nbr_t, ctr, wn, we, w1, w2, aggregate, compute_dtype):
+    """(b, k, n, c, h, o, mlp) of valid arguments; raises on the rest."""
     b, k, n, c = nbr_t.shape
     h = wn.shape[1]
     mlp = w1 is not None
@@ -83,23 +141,109 @@ def edgeconv_fused(nbr_t: torch.Tensor, ctr: torch.Tensor, wn: torch.Tensor,
         raise TypeError(f"edgeconv: compute dtype {compute_dtype}")
     if k < 1:
         raise ValueError("edgeconv: no neighbour planes")
-    if nbr_t.device.type == "cpu":
-        return edgeconv_plain(nbr_t, ctr, wn, we, w1, w2, aggregate,
-                              compute_dtype)
-    if not nbr_t.is_cuda or any(
-            t.device != nbr_t.device for t in (ctr, wn, we, w1, w2)
-            if t is not None):
+    return b, k, n, c, h, o, mlp
+
+
+def _check_card(tensors, h, o):
+    first = tensors[0]
+    if not first.is_cuda or any(t.device != first.device for t in tensors
+                                if t is not None):
         raise ValueError("edgeconv: tensors on more than one device")
     if max(h, o) > MAX_WIDTH:
         raise ValueError(f"edgeconv kernel takes H, O <= {MAX_WIDTH}; "
                          f"got H={h}, O={o}")
-    args = [t.to(compute_dtype).contiguous() if t is not None else None
-            for t in (nbr_t, ctr, wn, we, w1, w2)]
-    out = torch.empty((b, n, o), dtype=compute_dtype, device=nbr_t.device)
+
+
+def _operands(tensors, cdt):
+    return [t.to(cdt).contiguous() if t is not None else None for t in tensors]
+
+
+def _ptrs(tensors):
+    return [ptr(t) if t is not None else VOIDP(0) for t in tensors]
+
+
+def _forward(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt):
+    b, k, n, c, h, o, mlp = _check(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt)
+    if nbr_t.device.type == "cpu":
+        return edgeconv_plain(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt)
+    _check_card([nbr_t, ctr, wn, we, w1, w2], h, o)
+    args = _operands((nbr_t, ctr, wn, we, w1, w2), cdt)
+    out = torch.empty((b, n, o), dtype=cdt, device=nbr_t.device)
     if b * n == 0:
         return out
-    ptrs = [ptr(t) if t is not None else VOIDP(0) for t in args]
-    KERNEL.launch("edgeconv_fwd", *ptrs, ptr(out), b, k, n, c, h, o,
-                  int(mlp), AGGREGATES[aggregate],
-                  int(compute_dtype == torch.bfloat16), stream_of(out))
+    KERNEL.launch("edgeconv_fwd", *_ptrs(args), ptr(out), b, k, n, c, h, o,
+                  int(mlp), AGGREGATES[aggregate], int(cdt == torch.bfloat16),
+                  stream_of(out))
     return out
+
+
+def edgeconv_backward(nbr_t, ctr, wn, we, w1, w2, g, aggregate="max",
+                      compute_dtype=torch.float32):
+    """Gradients (gnbr, gctr, gwn, gwe, gw1, gw2) of :func:`edgeconv_fused`
+    for the cotangent ``g`` [B, N, O]. A CPU tensor takes
+    :func:`edgeconv_backward_plain`; a CUDA tensor launches the backward
+    kernel or raises."""
+    cdt = compute_dtype
+    b, k, n, c, h, o, mlp = _check(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt)
+    if g.shape != (b, n, o):
+        raise ValueError(f"edgeconv: cotangent {tuple(g.shape)}, output "
+                         f"{(b, n, o)}")
+    if nbr_t.device.type == "cpu":
+        return edgeconv_backward_plain(nbr_t, ctr, wn, we, w1, w2, g,
+                                       aggregate, cdt)
+    _check_card([nbr_t, ctr, wn, we, w1, w2, g], h, o)
+    dev = nbr_t.device
+    args = _operands((nbr_t, ctr, wn, we, w1, w2, g), cdt)
+    gnbr = torch.empty((b, k, n, c), device=dev)
+    gctr = torch.empty((b, n, c), device=dev)
+    sizes = [c * h, c * h] + ([h * h, h * o] if mlp else [])
+    dw = torch.empty(sum(sizes), device=dev)
+    if b * n:
+        nblk = min(b * -(-n // TILE), MAX_BLOCKS)
+        dw_part = torch.zeros((nblk, dw.numel()), device=dev)
+        BWD.launch("edgeconv_bwd", *_ptrs(args), ptr(gnbr), ptr(gctr),
+                   ptr(dw_part), ptr(dw), b, k, n, c, h, o, int(mlp),
+                   AGGREGATES[aggregate], int(cdt == torch.bfloat16), nblk,
+                   stream_of(gnbr))
+    else:
+        dw.zero_()
+    shapes = [(c, h), (c, h)] + ([(h, h), (h, o)] if mlp else [])
+    parts = [p.view(s) for p, s in zip(torch.split(dw, sizes), shapes)]
+    weights = [wn, we] + ([w1, w2] if mlp else [])
+    grads = [p.to(w.dtype) for p, w in zip(parts, weights)]
+    if not mlp:
+        grads += [None, None]
+    return (gnbr.to(nbr_t.dtype), gctr.to(ctr.dtype), *grads)
+
+
+class _EdgeConvFused(torch.autograd.Function):
+    """edgeconv_fused with its kernel backward; saves the forward's inputs
+    and recomputes the rest (the JAX VJP's residuals)."""
+
+    @staticmethod
+    def forward(ctx, nbr_t, ctr, wn, we, w1, w2, aggregate, cdt):
+        ctx.aggregate, ctx.cdt = aggregate, cdt
+        ctx.save_for_backward(nbr_t, ctr, wn, we, w1, w2)
+        return _forward(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = edgeconv_backward(*ctx.saved_tensors, g.contiguous(),
+                                  ctx.aggregate, ctx.cdt)
+        return (*grads, None, None)
+
+
+def edgeconv_fused(nbr_t: torch.Tensor, ctr: torch.Tensor, wn: torch.Tensor,
+                   we: torch.Tensor, w1: Optional[torch.Tensor] = None,
+                   w2: Optional[torch.Tensor] = None, aggregate: str = "max",
+                   compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused EdgeConv tail on a neighbour-major table -> [B, N, O].
+
+    nbr_t [B, K, N, C], ctr [B, N, C], wn / we [C, H], w1 [H, H] and
+    w2 [H, O] (both None: no SharedMLP, O = H); bias-free, norm-free,
+    leaky-ReLU slope 0.2; compute dtype float32 or bfloat16. Differentiable
+    in all six tensors. A CPU tensor takes the plain versions; a CUDA tensor
+    launches the kernels or raises.
+    """
+    return _EdgeConvFused.apply(nbr_t, ctr, wn, we, w1, w2, aggregate,
+                                compute_dtype)

@@ -4,13 +4,13 @@ versions.
 
 Replaces ``tpugan_tpu/ops/pallas/pooled_mlp_kernel.py``:
 ``pooled_mlp_bn_train`` with its Pallas backward (``_bwd_pallas_bn``), and
-``pooled_mlp_affine``'s forward. The affine form's backward
-(``_bwd_pallas_affine``) is not on the train step and is not ported:
-:func:`pooled_mlp_affine` refuses inputs that need a gradient.
+``pooled_mlp_affine`` with its Pallas backward (``_bwd_pallas_affine``).
 
 ``FWD`` counts forward launches (one per call: its stats passes and the
-final pass), ``BWD`` backward launches (one per call: tie count, the
-S-moment passes and the apply pass). Both handles load the same library.
+final pass), ``BWD`` backward launches of the batch-norm form (one per call:
+tie count, the S-moment passes and the apply pass), ``AFFINE_BWD`` those of
+the affine form (one per call: tie count and the apply pass). The handles
+load the same library.
 The kernel's source note says what bounds it on the card and how it is
 laid out.
 """
@@ -29,6 +29,8 @@ FWD = CudaKernel("pooled_mlp", {
     "pmlp_forward": [VOIDP] * 11 + [INT] * 8 + [_F, _F, INT, INT, VOIDP]})
 BWD = CudaKernel("pooled_mlp", {
     "pmlp_backward": [VOIDP] * 15 + [INT] * 8 + [_F, INT, VOIDP]})
+AFFINE_BWD = CudaKernel("pooled_mlp", {
+    "pmlp_backward_affine": [VOIDP] * 10 + [INT] * 8 + [_F, INT, VOIDP]})
 
 MAX_LAYERS = 4
 MAX_WIDTH = 256       # widest layer output (one thread per column)
@@ -107,6 +109,29 @@ def pooled_mlp_bn_backward_plain(table, ws, a_s, b_s, mus, ivars, pooled, g,
     return dx, dws, dgammas, dbetas
 
 
+def pooled_mlp_affine_backward_plain(table, ws, a_s, b_s, pooled, g, slope):
+    """(dtable, dws, das, dbs) of :func:`pooled_mlp_affine_plain` by the
+    kernel's formulas: the pooled cotangent split over the ties of the max,
+    then top down dpre = dx act'(pre), dz = a dpre, da = sum dpre z,
+    db = sum dpre, dW = x^T dz, dx = dz W^T."""
+    xs, zs = [table.float()], []
+    for w, a, b in zip(ws, a_s, b_s):
+        zs.append(torch.matmul(xs[-1], w))
+        xs.append(act(zs[-1] * a + b, slope))
+    tie = (xs[-1] == pooled[:, :, None, :]).float()
+    dx = tie * (g / tie.sum(dim=2))[:, :, None, :]
+    n = len(ws)
+    dws, das, dbs = [None] * n, [None] * n, [None] * n
+    for q in range(n - 1, -1, -1):
+        dpre = dx * _act_grad(zs[q] * a_s[q] + b_s[q], slope)
+        das[q] = (dpre * zs[q]).sum(dim=(0, 1, 2))
+        dbs[q] = dpre.sum(dim=(0, 1, 2))
+        dz = dpre * a_s[q]
+        dws[q] = torch.einsum("bmnc,bmnh->ch", xs[q], dz)
+        dx = torch.matmul(dz, ws[q].t())
+    return dx, dws, das, dbs
+
+
 # ------------------------------------------------------------ kernel launches
 
 def _widths(table, ws) -> List[int]:
@@ -177,6 +202,31 @@ def _launch_forward(table, ws, gammas, betas, a_s, b_s, slope, eps, train):
     return (pooled, _split(mu, [(h,) for h in hs]), _split(var, [(h,) for h in hs]),
             _split(ivar, [(h,) for h in hs]), _split(a_flat, [(h,) for h in hs]),
             _split(b_flat, [(h,) for h in hs]))
+
+
+def _launch_affine_backward(table, ws, a_s, b_s, pooled, g, slope):
+    b, m, ns, c0 = table.shape
+    c = _widths(table, ws)
+    rows = b * m * ns
+    dev = table.device
+    hs = [w.shape[1] for w in ws]
+    nblk = _nblk(rows, BWD_ROWS)
+    w_flat = _pack(ws)
+    # packed inputs stay referenced until the launch returns
+    a_flat, b_flat = _pack(a_s), _pack(b_s)
+    total = w_flat.numel() + 2 * sum(hs)
+    dtable = torch.zeros((b, m, ns, c0), dtype=torch.float32, device=dev)
+    grads = torch.zeros(total, device=dev)
+    if rows:
+        cnt = torch.empty_like(pooled)
+        dw_part = torch.zeros((nblk, total), device=dev)
+        AFFINE_BWD.launch("pmlp_backward_affine", ptr(table), ptr(w_flat),
+                          ptr(a_flat), ptr(b_flat), ptr(pooled),
+                          ptr(g.float().contiguous()), ptr(cnt), ptr(dw_part),
+                          ptr(dtable), ptr(grads), rows, ns, len(ws), *c,
+                          _F(slope), nblk, stream_of(table))
+    vec = [(h,) for h in hs]
+    return (dtable, _split(grads, [tuple(w.shape) for w in ws] + vec + vec))
 
 
 def _launch_backward(table, ws, a_s, b_s, mus, ivars, pooled, g, slope):
@@ -274,19 +324,49 @@ def pooled_mlp_bn_train(table: torch.Tensor, ws: Sequence[torch.Tensor],
     return out[0], tuple(out[1:1 + n]), tuple(out[1 + n:])
 
 
+class _PooledAffine(torch.autograd.Function):
+    """pooled_mlp_affine with its kernel backward. Inputs: table, slope, L,
+    then W_0..W_{L-1}, a_0.., b_0..; saves them and the pooled output (the
+    tie pass compares the recomputed rows with it)."""
+
+    @staticmethod
+    def forward(ctx, table, slope, n_layers, *params):
+        ws, a_s = params[:n_layers], params[n_layers:2 * n_layers]
+        b_s = params[2 * n_layers:]
+        if table.device.type == "cpu":
+            pooled = pooled_mlp_affine_plain(table, ws, a_s, b_s, slope)
+        else:
+            _check_card(table, *params)
+            table = table.contiguous()
+            pooled = _launch_forward(table, ws, None, None, a_s, b_s, slope,
+                                     0.0, False)
+        ctx.slope, ctx.n_layers = slope, n_layers
+        ctx.save_for_backward(table, pooled, *params)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        table, pooled, *params = ctx.saved_tensors
+        l = ctx.n_layers
+        ws, a_s, b_s = params[:l], params[l:2 * l], params[2 * l:]
+        if table.device.type == "cpu":
+            dtable, dws, das, dbs = pooled_mlp_affine_backward_plain(
+                table, ws, a_s, b_s, pooled, g, ctx.slope)
+        else:
+            dtable, flat = _launch_affine_backward(table, ws, a_s, b_s, pooled,
+                                                   g, ctx.slope)
+            dws, das, dbs = flat[:l], flat[l:2 * l], flat[2 * l:]
+        grads = [d.to(p.dtype) for d, p in zip([*dws, *das, *dbs], params)]
+        return (dtable.to(table.dtype), None, None, *grads)
+
+
 def pooled_mlp_affine(table: torch.Tensor, ws: Sequence[torch.Tensor],
                       a_s: Sequence[torch.Tensor], b_s: Sequence[torch.Tensor],
                       slope: float = 0.0) -> torch.Tensor:
     """act((x @ W_l) * a_l + b_l) stacked, then max over the ns axis (the
-    eval-mode SetConv). Forward only: the affine backward is not ported, so
-    inputs that need a gradient are refused."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (table, *ws, *a_s, *b_s)):
-        raise NotImplementedError(
-            "pooled_mlp_affine has no backward in the port; run it under "
-            "torch.no_grad()")
-    if table.device.type == "cpu":
-        return pooled_mlp_affine_plain(table, ws, a_s, b_s, slope)
-    _check_card(table, *ws, *a_s, *b_s)
-    return _launch_forward(table.contiguous(), ws, None, None, a_s, b_s,
-                           float(slope), 0.0, False)
+    eval-mode SetConv, and a norm-free SetConv trained fused).
+    Differentiable in the table, the weights and the affines through the
+    kernel backward, whose max splits the gradient over ties as ``jnp.max``
+    does. A CPU table takes the plain versions; a CUDA table launches the
+    kernels or raises."""
+    return _PooledAffine.apply(table, float(slope), len(ws), *ws, *a_s, *b_s)

@@ -11,6 +11,11 @@ staircase=True))`` step for step: its state is optax's chain, Adam's
 
 and a parameter without a gradient takes g = 0, as optax sees a zero
 gradient for a parameter the loss does not reach.
+
+:func:`init_fluid_state` builds a fresh trainer (``tpugan_tpu/train/step.py
+: init_fluid_state``): the three networks from a seed and zero Adam states,
+the generator at ``cfg.lr`` and the critics at ``cfg.dis_lr_factor *
+cfg.lr``, all with the staircase decay.
 """
 
 from __future__ import annotations
@@ -90,3 +95,29 @@ class GanTrainState:
     sr: NetState
     tempo: NetState
     spatial: NetState
+
+
+def init_fluid_state(cfg, seed: int = 0, device=None,
+                     fused_train: bool = False) -> GanTrainState:
+    """A fresh fluid trainer of ``cfg`` (a ``FluidTrainConfig``): SRNet of
+    its widths (``fused_train``: see :class:`SRNet`), the temporal and the
+    spatial critic, weights drawn from ``seed`` on the CPU, zero Adam
+    states, ``n_iter`` 0, on ``device`` (the card when None)."""
+    from tpugan_tpu_torch import resolve_device
+    from tpugan_tpu_torch.models.discriminator import (FluidSpatialDis,
+                                                       FluidTempoDis)
+    from tpugan_tpu_torch.models.generator import SRNet
+
+    device = resolve_device(device)
+    gens = [torch.Generator().manual_seed(seed + i) for i in range(3)]
+    nets = {
+        "sr": SRNet(in_feats=cfg.in_node_feats, node_emb_dim=cfg.node_embedding,
+                    upsample_ratio=cfg.upsample_ratio, fused_train=fused_train,
+                    generator=gens[0], device=device),
+        "tempo": FluidTempoDis(3, generator=gens[1], device=device),
+        "spatial": FluidSpatialDis(generator=gens[2], device=device)}
+    d_lr = cfg.dis_lr_factor * cfg.lr
+    return GanTrainState(n_iter=0, **{
+        name: NetState.create(net, cfg.lr if name == "sr" else d_lr,
+                              cfg.lr_decay_steps, cfg.lr_decay_rate)
+        for name, net in nets.items()})

@@ -3,20 +3,25 @@ make_fluid_gan_step``, sequential-critic path) and its helpers.
 
 One step, in order:
 
-* device sampling: FPS of each item's centre frame (the same indices for
-  all three frames) from a random start, plus N(0, jitter) on the low-res
-  positions;
+* the low-res inputs: with ``device_sampling``, FPS of each item's centre
+  frame (the same indices for all three frames) from a random start, plus
+  N(0, jitter) on the low-res positions; else the batch's own
+  ``lowres_pos`` / ``lowres_vel`` (the loader's FPS and jitter);
 * the generator's three frames as one [3B] batch (``train=True``; the
   generator has no batch statistics, so stacking is exact), the Chamfer +
   masking loss on the centre frame;
 * when the masking loss is under ``ml_gate``: the spatial critic on the
-  shuffled hard-masked centre frame, the SPH velocity transfer (dense
-  interp kernel, no gradient) and the temporal critic on the three frames,
-  both critics in train mode (their BatchNorm and spectral-norm state
-  moves, their parameters do not), LSGAN generator losses;
+  shuffled hard-masked centre frame, the SPH velocity transfer (``interp``
+  "dense": the dense interp kernel; "capped": the reference's 32 nearest
+  within the cutoff; no gradient; without ``use_vel`` no transfer: the
+  temporal critic sees its positions only) and the temporal critic on the
+  three frames, both critics in train mode (their BatchNorm and
+  spectral-norm state moves, their parameters do not), LSGAN generator
+  losses;
 * the generator's Adam update;
-* on even iterations with the gate open: the temporal and then the spatial
-  critic's update on (fake, real), with random rotations (p = 0.3).
+* on even iterations with the gate open, unless ``freeze_D``: the temporal
+  and then the spatial critic's update on (fake, real), with random
+  rotations (p = 0.3).
 
 Every random number of a step comes from one :class:`StepDraws`: drawn from
 a ``torch.Generator`` by default, or given (a test rebuilds the JAX step's
@@ -38,7 +43,8 @@ from tpugan_tpu_torch.losses.gan import (lsgan_discriminator_loss,
 from tpugan_tpu_torch.losses.geometry import tpugan_sr_loss
 from tpugan_tpu_torch.models.discriminator import (dropout_multipliers,
                                                    dropout_widths)
-from tpugan_tpu_torch.ops.interpolate import cubic_interpolation_dense
+from tpugan_tpu_torch.ops.interpolate import (cubic_interpolation,
+                                              cubic_interpolation_dense)
 from tpugan_tpu_torch.ops.neighbors import fps
 from tpugan_tpu_torch.train.state import GanTrainState
 
@@ -46,11 +52,12 @@ from tpugan_tpu_torch.train.state import GanTrainState
 @dataclasses.dataclass
 class FluidTrainConfig:
     """The train step's settings (``tpugan_tpu/config.py :
-    FluidTrainConfig``); the defaults are the ``train_vel`` preset with
-    device sampling. The step always takes that preset's path: generator
-    inputs of positions and velocity * DT (6 features), the critics on
-    advection features, both critics updated. The networks' widths come
-    from the trainer state."""
+    FluidTrainConfig``, the fields the step and :func:`init_fluid_state`
+    read); the defaults are the ``train_vel`` preset with device sampling:
+    generator inputs of positions and velocity * DT (``use_vel``,
+    ``in_node_feats`` 6), the critics on advection features. The step
+    takes the networks as the trainer state holds them; ``init_fluid_state``
+    builds them from the widths here."""
 
     lr: float = 3e-4
     lr_decay_steps: int = 10000
@@ -66,6 +73,12 @@ class FluidTrainConfig:
     cutoff: float = 0.025
     masking_w: float = 100.0
     ml_gate: float = 0.1
+    in_node_feats: int = 6
+    node_embedding: int = 128
+    use_vel: bool = True
+    interp: str = "dense"            # velocity transfer: "dense" or "capped"
+    device_sampling: bool = True
+    freeze_D: bool = False
 
     @property
     def lowres_size(self) -> int:
@@ -203,17 +216,30 @@ def device_sample_lowres(highres_pos: torch.Tensor, highres_vel: torch.Tensor,
 
 def interpolate_vel_lst(pred_pos_frames: torch.Tensor,
                         gt_pos_frames: torch.Tensor,
-                        gt_vel_frames: torch.Tensor, cutoff: float):
+                        gt_vel_frames: torch.Tensor, cutoff: float,
+                        mode: str = "dense"):
     """Ground-truth advection (vel * DT) and its SPH transfer onto the
-    predicted particles, per frame, in one dense-interp launch over the
-    [F*B] rows; no gradient. Returns (gt_adv, pred_adv)."""
+    predicted particles, per frame, over the [F*B] rows in one call: the
+    dense-interp kernel (``mode="dense"``, every in-cutoff neighbour) or
+    the capped form (``"capped"``, the 32 nearest within the cutoff); no
+    gradient. Returns (gt_adv, pred_adv)."""
+    if mode not in ("dense", "capped"):
+        raise ValueError(f"interp mode {mode!r}")
     f, b = pred_pos_frames.shape[:2]
     gt_adv = gt_vel_frames * DT
     flat = lambda a: a.reshape((f * b,) + a.shape[2:])
-    pred_adv = cubic_interpolation_dense(
-        flat(pred_pos_frames.detach()), flat(gt_adv), flat(gt_pos_frames),
-        cutoff).reshape(pred_pos_frames.shape)
-    return gt_adv, pred_adv
+    interp = (cubic_interpolation_dense if mode == "dense"
+              else lambda q, fld, p, c: cubic_interpolation(q, fld, p, c, k=32))
+    with torch.no_grad():
+        pred_adv = interp(flat(pred_pos_frames.detach()), flat(gt_adv),
+                          flat(gt_pos_frames), cutoff)
+    return gt_adv, pred_adv.reshape(pred_pos_frames.shape)
+
+
+def _frames(feat: Optional[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+    """[F, B, N, 3] advection features as the temporal critic's per-frame
+    list; None (no ``use_vel``): the critic takes the positions instead."""
+    return None if feat is None else list(feat)
 
 
 # ---------------------------------------------------------------- the step
@@ -251,10 +277,16 @@ class FluidGanStep:
         radius = cfg.cutoff               # furthest distance is pinned to 1
         n = cfg.lowres_size
 
-        lowres_pos, lowres_vel = device_sample_lowres(
-            highres_pos, highres_vel, n, cfg.jitter, draws.fps_start,
-            draws.jitter)
-        feats = torch.cat([lowres_pos, lowres_vel * DT], -1)
+        if cfg.device_sampling and "lowres_pos" not in batch:
+            lowres_pos, lowres_vel = device_sample_lowres(
+                highres_pos, highres_vel, n, cfg.jitter, draws.fps_start,
+                draws.jitter)
+        else:
+            lowres_pos, lowres_vel = batch["lowres_pos"], batch["lowres_vel"]
+        if cfg.use_vel and cfg.in_node_feats == 6:
+            feats = torch.cat([lowres_pos, lowres_vel * DT], -1)
+        else:
+            feats = lowres_pos
 
         # ----- generator update
         out = sr(feats.reshape((f * b,) + feats.shape[2:]),
@@ -277,9 +309,13 @@ class FluidGanStep:
                                     padded[2][:, draws.p2]])
             pred_valid = torch.stack([valid[0][:, draws.p0], valid[1],
                                       valid[2][:, draws.p2]])
-            gt_adv, pred_adv = interpolate_vel_lst(
-                pred_seq, highres_pos, highres_vel, 1.6 * cfg.R)
-            tp_fake = tempo(list(pred_seq), cfg.R, feat_lst=list(pred_adv),
+            if cfg.use_vel:
+                gt_adv, pred_adv = interpolate_vel_lst(
+                    pred_seq, highres_pos, highres_vel, 1.6 * cfg.R,
+                    cfg.interp)
+            else:
+                gt_adv = pred_adv = None
+            tp_fake = tempo(list(pred_seq), cfg.R, feat_lst=_frames(pred_adv),
                             valid_lst=list(pred_valid), train=True,
                             keep=draws.keep["tempo_g"])
             tempo_loss = lsgan_generator_loss(tp_fake, draws.tp_target)
@@ -290,8 +326,8 @@ class FluidGanStep:
 
         # ----- critic updates (every 2nd iteration, gated)
         t_loss = s_loss = zero
-        if cur_iter % 2 == 0 and gate:
-            pred_seq, pred_adv = pred_seq.detach(), pred_adv.detach()
+        if cur_iter % 2 == 0 and gate and not cfg.freeze_D:
+            pred_seq = pred_seq.detach()
             # the reference's spatial update reuses the side-frame loop's
             # variable: the LAST frame's unshuffled prediction
             padded_last, last_valid = padded[2].detach(), valid[2]
@@ -300,12 +336,13 @@ class FluidGanStep:
             if draws.do_rot:
                 fake_pos = rotate_frames(pred_seq, draws.rots_fake)
                 true_pos = rotate_frames(highres_pos, draws.rots_true)
-                fake_feat = rotate_frames(pred_adv, draws.rots_fake)
-                true_feat = rotate_frames(gt_adv, draws.rots_true)
-            fake = tempo(list(fake_pos), cfg.R, feat_lst=list(fake_feat),
+                if cfg.use_vel:
+                    fake_feat = rotate_frames(pred_adv, draws.rots_fake)
+                    true_feat = rotate_frames(gt_adv, draws.rots_true)
+            fake = tempo(list(fake_pos), cfg.R, feat_lst=_frames(fake_feat),
                          valid_lst=list(pred_valid), train=True,
                          keep=draws.keep["tempo_fake"])
-            true = tempo(list(true_pos), cfg.R, feat_lst=list(true_feat),
+            true = tempo(list(true_pos), cfg.R, feat_lst=_frames(true_feat),
                          valid_lst=None, train=True,
                          keep=draws.keep["tempo_real"])
             t_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
