@@ -16,7 +16,9 @@ Phases, one JSON line each (``phase`` names it):
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
            CUDA-event medians of the kernel, the plain version and a
-           PyTorch yardstick the port never calls, the bound;
+           PyTorch yardstick the port never calls, the bound; kNN also on
+           exact ties at serving width (duplicated grid points), equal to
+           the plain version;
   serving  with the launch counts reset: the trained checkpoint through the
            port's loader, the f32 dynamic and the bf16 static forward of a
            10,240-point frame, the Chamfer gate between them, the launches
@@ -272,6 +274,24 @@ def check_knn(torch, dev, rng):
                          max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", "kernel": "knn", **rows[-1]})
+
+    # exact ties at serving width: 5,120 integer grid points, each twice, so
+    # every distance is exact in f32 and each neighbour has a twin; the
+    # kernel must give the plain version's (stable argsort's) lists exactly
+    g = np.stack(np.meshgrid(np.arange(16.0), np.arange(16.0), np.arange(20.0),
+                             indexing="ij"), -1).reshape(-1, 3)
+    pts = torch.from_numpy(np.concatenate([g, g])[None].astype(np.float32)).to(dev)
+    bias = torch.zeros((1, N_POINTS), device=dev)
+    d2k, ik = K.knn_kernel(pts, pts, bias, 20)
+    d2p, ip = K.knn_plain(pts, pts, bias, 20)
+    torch.cuda.synchronize()
+    bad = int((ik != ip).sum())
+    emit({"phase": "kernel", "kernel": "knn", "case": "exact ties", "B": 1,
+          "Nq": N_POINTS, "Nc": N_POINTS, "D": 3, "k": 20,
+          "max_abs_err": float((d2k - d2p).abs().max()), "index_mismatch": bad})
+    if bad or not torch.equal(d2k, d2p):
+        raise AssertionError(f"knn exact ties: {bad} indices differ from the "
+                             "plain version's")
     return rows
 
 

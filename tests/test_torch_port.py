@@ -125,21 +125,75 @@ def card():
     return torch.device("cuda", 0)
 
 
+def _grid(n):
+    """n^3 integer grid points, each twice (exact f32 distances, exact ties)."""
+    g = np.stack(np.meshgrid(*[np.arange(float(n))] * 3, indexing="ij"), -1)
+    return np.concatenate([g.reshape(-1, 3)] * 2).astype(np.float32)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,k,nc", [(3, 20, 1000), (32, 12, 333),
-                                    (64, 4, 2048), (6, 1, 7), (3, 32, 256),
-                                    (3, 64, 1000), (3, 50, 777)])
-def test_knn_kernel_matches_plain_on_card(card, gen, d, k, nc):
-    q = torch.from_numpy(gen.standard_normal((2, 300, d)).astype(np.float32))
-    c = torch.from_numpy(gen.standard_normal((2, nc, d)).astype(np.float32))
-    bias = torch.where(torch.rand(2, nc, generator=torch.Generator().manual_seed(0))
-                       < 0.1, 1e10, 0.0)
+@pytest.mark.parametrize("d,k,nq,nc,kind", [
+    pytest.param(3, 20, 300, 1000, "random", id="3-20-1000"),
+    pytest.param(32, 12, 300, 333, "random", id="32-12-333"),
+    pytest.param(64, 4, 300, 2048, "random", id="64-4-2048"),
+    pytest.param(6, 1, 300, 7, "random", id="6-1-7"),
+    pytest.param(3, 32, 300, 256, "random", id="3-32-256"),
+    pytest.param(3, 64, 300, 1000, "random", id="3-64-1000"),
+    pytest.param(3, 50, 300, 777, "random", id="3-50-777"),
+    # exact ties: the duplicated 4^3 grid of test_knn_ties_follow_index_order
+    # (one tile), and a duplicated 6^3 grid whose twins lie in other tiles
+    pytest.param(3, 12, 128, 128, "grid", id="ties-grid4-k12"),
+    pytest.param(3, 64, 432, 432, "grid", id="ties-grid6-k64"),
+    # Nq and Nc off the 32-query block and the 128-candidate tile
+    pytest.param(3, 1, 1, 1, "random", id="nq1-nc1"),
+    pytest.param(16, 32, 33, 129, "random", id="nq33-nc129"),
+    pytest.param(64, 32, 129, 33, "random", id="nq129-nc33"),
+    pytest.param(32, 20, 10239, 10239, "random", id="nq10239-nc10239"),
+    # k = Nc
+    pytest.param(3, 33, 40, 33, "random", id="k-eq-nc33"),
+    pytest.param(8, 32, 70, 32, "random", id="k-eq-nc32"),
+    # a row with fewer valid candidates than k
+    pytest.param(3, 20, 300, 500, "short", id="short-row"),
+])
+def test_knn_kernel_matches_plain_on_card(card, gen, d, k, nq, nc, kind):
+    """Distances to the f32 rounding of |q|^2 + |c|^2 - 2 q.c; an index may
+    differ from the plain version's only where the two candidates' exact
+    distances tie within twice that; exact inputs (grid points, 1e10-biased
+    candidates) give the plain version's output bit for bit."""
+    if kind == "grid":
+        pts = _grid(6 if nq > 128 else 4)
+        q = c = torch.from_numpy(np.stack([pts, pts[::-1].copy()]))
+        bias = torch.zeros(2, nc)
+    else:
+        q = torch.from_numpy(gen.standard_normal((2, nq, d)).astype(np.float32))
+        c = torch.from_numpy(gen.standard_normal((2, nc, d)).astype(np.float32))
+        bias = torch.where(torch.rand(2, nc, generator=torch.Generator().manual_seed(0))
+                           < 0.1, 1e10, 0.0)
+    if kind == "short":   # row 0: 5 valid candidates, the rest 1e10-biased
+        valid = np.sort(gen.choice(nc, 5, replace=False))
+        bias[0] = 1e10
+        bias[0, valid] = 0.0
     d2k, ik = knn.knn_kernel(q.to(card), c.to(card), bias.to(card), k)
+    torch.cuda.synchronize()
+    d2k, ik = d2k.cpu(), ik.cpu()
     d2p, ip = knn.knn_plain(q, c, bias, k)
+    if kind == "grid":
+        torch.testing.assert_close(d2k, d2p, rtol=0, atol=0)
+        assert torch.equal(ik, ip)
+        return
     # f32 rounding of |q|^2 + |c|^2 - 2 q.c
     tol = 1e-5 * float((q * q).sum(-1).max() + (c * c).sum(-1).max())
-    torch.testing.assert_close(d2k.cpu(), d2p, rtol=0, atol=tol)
-    assert float((ik.cpu() == ip).float().mean()) > 0.99
+    torch.testing.assert_close(d2k, d2p, rtol=0, atol=tol)
+    assert float((ik == ip).float().mean()) > 0.99
+    bi, qi, _ = torch.nonzero(ik != ip, as_tuple=True)
+    exact = lambda i: (((q[bi, qi].double() - c[bi, i].double()) ** 2).sum(-1)
+                       + bias[bi, i].double())
+    gaps = (exact(ik[ik != ip]) - exact(ip[ik != ip])).abs()
+    assert gaps.numel() == 0 or float(gaps.max()) <= 2 * tol
+    if kind == "short":   # the valid ones, then the invalid in index order
+        assert torch.equal(ik[0], ip[0])
+        invalid = np.setdiff1d(np.arange(nc), valid)[:k - 5]
+        assert (ik[0, :, 5:].numpy() == invalid).all()
 
 
 @pytest.mark.gpu

@@ -1,7 +1,8 @@
 // Exact k-nearest-neighbour search.
 //
 // Replaces tpugan_tpu/ops/pallas/knn_kernel.py : knn_pallas (the plain peel
-// _knn_kernel_plain and the chunked fold-peel _knn_chunked_kernel).
+// _knn_kernel_plain and the chunked fold-peel _knn_chunked_kernel, with the
+// distance of _compute_d2).
 //
 // Contract: query [B,Nq,D] f32, cand [B,Nc,D] f32, bias [B,Nc] f32 (0 for a
 // valid candidate, 1e10 for an invalid one), k <= Nc
@@ -10,189 +11,328 @@
 // (the formula of the TPU kernel's _compute_d2 and of pairwise_sqdist), and
 // equal distances ordered by lower candidate index, as a stable argsort.
 //
-// What bounds it on the H100: operations. A call does Nq*Nc*(2D+3) f32
-// operations plus one compare per pair, against inputs and outputs of a few
-// MB (N=10240, D=64, k=20: 13.7 GFLOP against 5.6 MB), so the f32 rate of
-// the SMs, not memory, is the limit.
+// What bounds it on the H100. The distance product is Nq*Nc*(2D+3) f32
+// operations against inputs and outputs of a few MB (N=10240, D=64, k=20:
+// 13.7 GFLOP against 5.6 MB), so at D >= 32 the bound is the SMs' f32 FMA
+// rate. At D=3 the product is 4 FMAs a pair and the top-k selection is the
+// work: one compare per pair and about k(1 + ln(Nc/k)) list insertions per
+// query, each a chain of warp shuffles.
 //
-// Design: no [Nq, Nc] distance block exists anywhere, so the TPU kernel's
-// 24,576-candidate cap is gone. A block owns 32 queries (one per lane of
-// each warp) and has 8 warps. Candidate tiles of 128 stream through shared
-// memory; warp w scores candidates w*16 .. w*16+15 of every tile, so the 8
-// warps split the candidate set and a 10,240-point cloud keeps 2,560 warps
-// in flight where one thread per query would give 320. Each thread keeps a
-// sorted top-K list in registers (K = k rounded up to a compiled bucket:
-// 4, 8, 12, 16, 20, 32, and 64 for D <= 4;
-// one compare-and-swap pass per accepted candidate, strict < so that an
-// equal distance stays behind the lower index it met first). Query vectors
-// live in registers, zero-padded to a power of two DP; the candidate row is
-// read from shared memory as float4 broadcasts. At the end the 8 partial
-// lists of a query are merged into warp 0's list by (d2, index), which
-// restores the lower-index rule across warps.
+// Design. No [Nq, Nc] distance block exists anywhere, so the TPU kernel's
+// 24,576-candidate cap is gone. Everything is f32 FMA: TF32 or bf16 tensor
+// cores would break the exact contract.
+// - A block owns 32 queries of one batch row (8 warps of 4) and loops over
+//   candidate tiles of 128. The query tile sits in shared memory transposed,
+//   [DP][32] (DP: D rounded up to a power of two, zero-padded). Candidate
+//   tiles are double-buffered, row-major [128][DP] with the float4 chunks of
+//   each row swizzled, and copied with cp.async (16-byte chunks when D % 4
+//   == 0), so the copy of tile t+1 runs while tile t is scored. |q|^2 is
+//   formed once per block, |c|^2 once per candidate and tile.
+// - Distance tile: warp w scores its own 4 queries against the 128
+//   candidates, lane l the candidates l, l+32, l+64, l+96. Per 4 features
+//   that is 4 float4 loads of candidate chunks (conflict-free by the
+//   swizzle), 4 broadcast float4 loads of the query values and 64 FMAs into
+//   a 4 x 4 register tile. The distances stay in registers: the warp that
+//   computes a query's distances is the warp that selects them.
+// - Selection: one top-k list per query, spread over its warp: lane s holds
+//   entry s (and entry 32+s for k > 32). Candidates arrive in index order
+//   (tile, then chunk of 32, then lane), so every candidate has a higher
+//   index than the list's entries, and the stable order needs distances
+//   alone: a candidate enters when its distance is below entry k-1's. One
+//   vote per query and tile skips the tile when no lane enters (the common
+//   case once the list has filled); else, per chunk of 32, a ballot finds
+//   the candidates that enter, and each of them, lowest lane first, takes
+//   the place popc(ballot(entry <= d)) gives, the entries behind it move up
+//   one lane (__shfl_up_sync), and the warp ballots again against the new
+//   entry k-1. No lane diverges, and no list is merged with another.
+// - At the end lane s writes entry s of each of its queries: the stores of
+//   a row are coalesced.
+// - 80 registers (launch bounds of 3 blocks an SM) and 75 KB of shared
+//   memory at D=64 keep 3 blocks on each SM, so a 10,240-point frame's 320
+//   blocks run in one wave.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int QB = 32;                  // queries per block (one per lane)
-constexpr int WARPS = 8;
-constexpr int THREADS = QB * WARPS;
-constexpr int TILE = 128;               // candidates per shared-memory tile
-constexpr int PER_WARP = TILE / WARPS;  // candidates of a tile per warp
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int QW = 4;                 // queries per warp
+constexpr int THREADS = 256;
+constexpr int QB = QW * THREADS / 32; // queries per block
+constexpr int TILE = 128;             // candidates per tile
+constexpr int CPL = TILE / 32;        // candidates per lane in a tile
 
-template <int K>
-__device__ __forceinline__ void insert_sorted(float (&bd)[K], int (&bi)[K],
-                                              float d, int i) {
-  // candidates arrive in ascending index order: strict < keeps ties stable
+template <int DP>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * (DP * QB + 2 * (DP * TILE + TILE) + QB + TILE);
+}
+
+// Candidate row r of a tile holds its DP / 4 float4 chunks in the order
+// c ^ swizzle(r): the 8 lanes of a 16-byte load phase, which read 8
+// consecutive rows, then hit 8 different bank groups.
+template <int DP>
+__device__ __forceinline__ int swizzle(int r) {
+  constexpr int C4 = DP / 4;
+  if constexpr (C4 >= 8) return r & 7;
+  else return (r >> (C4 == 4 ? 1 : C4 == 2 ? 2 : 0)) & (C4 - 1);
+}
+
+// 16-byte asynchronous copy of src[i .. i+3] to shared dst, as cp_async4
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, size_t i,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src + (pred ? i : 0)), "r"(pred ? 16 : 0));
+}
+
+// 4-byte asynchronous copy of src[i] to shared dst; zero-fills, and reads
+// nothing, when !pred
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, size_t i,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src + (pred ? i : 0)), "r"(pred ? 4 : 0));
+}
+
+// Insert (d, i), with d below entry k-1, into the list held by the warp
+// (entry 32 s + lane in ld[s], li[s]); entries behind it move up by one.
+// Candidates arrive in index order, so i exceeds every index in the list:
+// it goes behind the entries of equal distance.
+template <int S>
+__device__ __forceinline__ void insert(float (&ld)[S], int (&li)[S], float d,
+                                       int i, int lane) {
+  int pos = 0;
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (d < bd[s]) {
-      const float td = bd[s];
-      const int ti = bi[s];
-      bd[s] = d;
-      bi[s] = i;
-      d = td;
-      i = ti;
+  for (int s = 0; s < S; ++s) pos += __popc(__ballot_sync(FULL, ld[s] <= d));
+#pragma unroll
+  for (int s = S - 1; s >= 0; --s) {
+    float ud = __shfl_up_sync(FULL, ld[s], 1);
+    int ui = __shfl_up_sync(FULL, li[s], 1);
+    if (s > 0) {  // lane 0 takes the last entry of the slot below
+      const float pd = __shfl_sync(FULL, ld[s > 0 ? s - 1 : 0], 31);
+      const int pi = __shfl_sync(FULL, li[s > 0 ? s - 1 : 0], 31);
+      if (lane == 0) {
+        ud = pd;
+        ui = pi;
+      }
+    }
+    const int e = 32 * s + lane;
+    if (e == pos) {
+      ld[s] = d;
+      li[s] = i;
+    } else if (e > pos) {
+      ld[s] = ud;
+      li[s] = ui;
     }
   }
 }
 
-template <int K>
-__device__ __forceinline__ void insert_lex(float (&bd)[K], int (&bi)[K],
-                                          float d, int i) {
-  // merge of lists from other warps: order by (distance, index)
+// The distance of entry k-1 of the list, on every lane.
+template <int S>
+__device__ __forceinline__ float last_entry(const float (&ld)[S], int kslot, int klane) {
+  float d = ld[0];
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    if (d < bd[s] || (d == bd[s] && i < bi[s])) {
-      const float td = bd[s];
-      const int ti = bi[s];
-      bd[s] = d;
-      bi[s] = i;
-      d = td;
-      i = ti;
-    }
-  }
+  for (int s = 1; s < S; ++s)
+    if (kslot == s) d = ld[s];
+  return __shfl_sync(FULL, d, klane);
 }
 
-template <int DP, int K>
-__global__ void __launch_bounds__(THREADS)
+template <int DP, int S>
+__global__ void __launch_bounds__(THREADS, 3)
 knn_kernel(const float* __restrict__ query, const float* __restrict__ cand,
            const float* __restrict__ bias, float* __restrict__ out_d,
-           long long* __restrict__ out_i, int Nq, int Nc, int D, int k) {
-  __shared__ __align__(16) float tile[TILE * DP];
-  __shared__ float c2s[TILE];
-  __shared__ float bs[TILE];
-  __shared__ float md[K * QB];
-  __shared__ int mi[K * QB];
+           long long* __restrict__ out_i, int Nq, int Nc, int D, int k,
+           bool vec) {
+  constexpr int C4 = DP / 4;   // float4 chunks of a candidate row
+  constexpr int CT = DP * TILE + TILE;  // floats of one tile buffer
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [DP][QB]
+  float* q2s = qs + DP * QB;        // [QB]
+  float* c2s = q2s + QB;            // [TILE]
+  float* tiles = c2s + TILE;        // 2 x ([TILE][DP] candidates, [TILE] bias)
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int b = blockIdx.y;
-  const int qi = blockIdx.x * QB + lane;
-  const bool qvalid = qi < Nq;
-
-  float qv[DP];
-  float q2 = 0.f;
-  const float* qrow = query + ((size_t)b * Nq + (qvalid ? qi : 0)) * D;
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    qv[d] = (qvalid && d < D) ? __ldg(qrow + d) : 0.f;
-    q2 = fmaf(qv[d], qv[d], q2);
-  }
-
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = CUDART_INF_F;
-    bi[s] = 0x7fffffff;
-  }
-
+  const int q0 = blockIdx.x * QB;
+  const float* qb = query + (size_t)b * Nq * D;
   const float* cb = cand + (size_t)b * Nc * D;
   const float* vb = bias + (size_t)b * Nc;
-  for (int t0 = 0; t0 < Nc; t0 += TILE) {
-    const int nt = min(TILE, Nc - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = threadIdx.x; e < TILE * DP; e += THREADS) {
-      const int ci = e / DP;
-      const int d = e - ci * DP;
-      tile[e] = (ci < nt && d < D) ? __ldg(cb + (size_t)(t0 + ci) * D + d) : 0.f;
-    }
-    __syncthreads();
-    // |c|^2 of the warp's own 16 candidates: lanes stride over the row
-    // (conflict-free) and the warp sums with shuffles
-    for (int j = 0; j < PER_WARP; ++j) {
-      const int ci = warp * PER_WARP + j;
-      float s = 0.f;
-      for (int d = lane; d < DP; d += 32) s = fmaf(tile[ci * DP + d], tile[ci * DP + d], s);
+
+  // query tile, transposed and zero-padded; |q|^2 in the order of the dots
+  for (int e = tid; e < DP * QB; e += THREADS) {
+    const int q = e / DP;
+    const int d = e - q * DP;
+    qs[d * QB + q] = (q0 + q < Nq && d < D) ? __ldg(qb + (size_t)(q0 + q) * D + d) : 0.f;
+  }
+  __syncthreads();
+  if (tid < QB) {
+    float s = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) {
-        // padding past Nc scores +inf and is never accepted
-        c2s[ci] = ci < nt ? s : CUDART_INF_F;
-        bs[ci] = ci < nt ? __ldg(vb + t0 + ci) : 0.f;
+    for (int d = 0; d < DP; ++d) s = fmaf(qs[d * QB + tid], qs[d * QB + tid], s);
+    q2s[tid] = s;
+  }
+
+  float ld[QW][S], td[QW];  // the lists, and the distance of entry k-1
+  int li[QW][S];
+#pragma unroll
+  for (int q = 0; q < QW; ++q) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      ld[q][s] = CUDART_INF_F;
+      li[q][s] = 0x7fffffff;
+    }
+    td[q] = CUDART_INF_F;
+  }
+  const int kslot = (k - 1) >> 5;
+  const int klane = (k - 1) & 31;
+  const int qw = q0 + QW * warp;  // the warp's first query
+
+  // copy of one candidate tile (rows past Nc and features past D zero-filled)
+  const auto fetch = [&](int t0, float* buf) {
+    const int nt = min(TILE, Nc - t0);
+    if (vec) {  // D % 4 == 0 and 16-byte aligned rows: whole chunks
+#pragma unroll
+      for (int e = tid; e < TILE * C4; e += THREADS) {
+        const int ci = e / C4;
+        const int c = e - ci * C4;
+        cp_async16(buf + ci * DP + 4 * (c ^ swizzle<DP>(ci)), cb,
+                   (size_t)(t0 + ci) * D + 4 * c, ci < nt && 4 * c < D);
+      }
+    } else {
+#pragma unroll
+      for (int e = tid; e < TILE * DP; e += THREADS) {
+        const int ci = e / DP;
+        const int d = e - ci * DP;
+        cp_async4(buf + ci * DP + 4 * ((d >> 2) ^ swizzle<DP>(ci)) + (d & 3), cb,
+                  (size_t)(t0 + ci) * D + d, ci < nt && d < D);
       }
     }
-    __syncwarp();  // each warp reads only the c2s / bs entries it wrote
-    if (qvalid) {
-#pragma unroll 4
-      for (int j = 0; j < PER_WARP; ++j) {
-        const int ci = warp * PER_WARP + j;
-        const float4* row = reinterpret_cast<const float4*>(tile + ci * DP);
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    if (tid < TILE) cp_async4(buf + DP * TILE + tid, vb, t0 + tid, tid < nt);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  fetch(0, tiles);
+
+  for (int t0 = 0, it = 0; t0 < Nc; t0 += TILE, ++it) {
+    const int nt = min(TILE, Nc - t0);
+    const float* cs = tiles + (it & 1) * CT;
+    const float* bs = cs + DP * TILE;
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();  // tile t is in; tile t-1's buffer is no longer read
+    if (t0 + TILE < Nc) fetch(t0 + TILE, tiles + ((it + 1) & 1) * CT);
+    // |c|^2 once per candidate, in the order of |q|^2, so that a point's
+    // distance to itself is exactly 0
+    if (tid < TILE) {
+      const int swz = swizzle<DP>(tid);
+      float s2 = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < DP / 4; ++d4) {
-          const float4 v = row[d4];
-          a0 = fmaf(qv[4 * d4 + 0], v.x, a0);
-          a1 = fmaf(qv[4 * d4 + 1], v.y, a1);
-          a2 = fmaf(qv[4 * d4 + 2], v.z, a2);
-          a3 = fmaf(qv[4 * d4 + 3], v.w, a3);
+      for (int c = 0; c < C4; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(cs + tid * DP + 4 * (c ^ swz));
+        s2 = fmaf(v.x, v.x, s2);
+        s2 = fmaf(v.y, v.y, s2);
+        s2 = fmaf(v.z, v.z, s2);
+        s2 = fmaf(v.w, v.w, s2);
+      }
+      c2s[tid] = s2;
+    }
+
+    // the 4 x 4 tile of dots
+    float acc[QW][CPL];
+#pragma unroll
+    for (int q = 0; q < QW; ++q)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) acc[q][j] = 0.f;
+    const int sw = swizzle<DP>(lane);  // = swizzle(32 j + lane)
+#pragma unroll
+    for (int c = 0; c < C4; ++c) {
+      float cv[CPL][4];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            cs + (32 * j + lane) * DP + 4 * (c ^ sw));
+        cv[j][0] = v.x;
+        cv[j][1] = v.y;
+        cv[j][2] = v.z;
+        cv[j][3] = v.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float qv[QW];
+        const float4 v = *reinterpret_cast<const float4*>(qs + (4 * c + u) * QB + QW * warp);
+        qv[0] = v.x;
+        qv[1] = v.y;
+        qv[2] = v.z;
+        qv[3] = v.w;
+#pragma unroll
+        for (int q = 0; q < QW; ++q)
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) acc[q][j] = fmaf(qv[q], cv[j][u], acc[q][j]);
+      }
+    }
+
+    // selection: a candidate enters when its distance is below entry k-1's
+    // (an equal distance stays out: the entry has the lower index)
+    __syncthreads();  // |c|^2 is in
+    float c2[CPL], bv[CPL];
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      c2[j] = c2s[32 * j + lane];
+      bv[j] = 32 * j + lane < nt ? bs[32 * j + lane] : CUDART_NAN_F;  // padding never enters
+    }
+#pragma unroll
+    for (int q = 0; q < QW; ++q) {
+      if (qw + q >= Nq) continue;  // warp-uniform
+      const float q2 = q2s[QW * warp + q];
+      float dd[CPL];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        dd[j] = fmaxf(q2 + c2[j] - 2.f * acc[q][j], 0.f) + bv[j];
+        any |= dd[j] < td[q];
+      }
+      if (!__any_sync(FULL, any)) continue;
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        unsigned m = __ballot_sync(FULL, dd[j] < td[q]);
+        while (m) {
+          const int src = __ffs(m) - 1;
+          insert<S>(ld[q], li[q], __shfl_sync(FULL, dd[j], src), t0 + 32 * j + src, lane);
+          td[q] = last_entry<S>(ld[q], kslot, klane);
+          m = __ballot_sync(FULL, lane > src && dd[j] < td[q]);
         }
-        const float dot = (a0 + a1) + (a2 + a3);
-        const float dd = fmaxf(q2 + c2s[ci] - 2.f * dot, 0.f) + bs[ci];
-        if (dd < bd[K - 1]) insert_sorted<K>(bd, bi, dd, t0 + ci);
       }
     }
   }
 
-  // merge the other warps' lists into warp 0's, one warp at a time
-  for (int w = 1; w < WARPS; ++w) {
-    __syncthreads();
-    if (warp == w) {
 #pragma unroll
-      for (int s = 0; s < K; ++s) {
-        md[s * QB + lane] = bd[s];
-        mi[s * QB + lane] = bi[s];
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      for (int s = 0; s < K; ++s) {
-        const float d = md[s * QB + lane];
-        const int i = mi[s * QB + lane];
-        if (d > bd[K - 1]) break;  // the list is sorted: nothing later fits
-        insert_lex<K>(bd, bi, d, i);
-      }
-    }
-  }
-  if (warp == 0 && qvalid) {
-    float* od = out_d + ((size_t)b * Nq + qi) * k;
-    long long* oi = out_i + ((size_t)b * Nq + qi) * k;
+  for (int q = 0; q < QW; ++q) {
+    if (qw + q >= Nq) continue;
+    const size_t row = ((size_t)b * Nq + qw + q) * k;
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      if (s < k) {
-        od[s] = bd[s];
-        oi[s] = bi[s];
+    for (int s = 0; s < S; ++s) {
+      const int e = 32 * s + lane;
+      if (e < k) {
+        out_d[row + e] = ld[q][s];
+        out_i[row + e] = li[q][s];
       }
     }
   }
 }
 
-template <int DP, int K>
+template <int DP, int S>
 int launch(const float* q, const float* c, const float* bias, float* d2,
            long long* idx, int B, int Nq, int Nc, int D, int k,
            cudaStream_t stream) {
   const dim3 grid((Nq + QB - 1) / QB, B);
-  knn_kernel<DP, K><<<grid, THREADS, 0, stream>>>(q, c, bias, d2, idx, Nq, Nc, D, k);
+  if constexpr (smem_bytes<DP>() > 48 * 1024)
+    cudaFuncSetAttribute(knn_kernel<DP, S>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem_bytes<DP>()));
+  knn_kernel<DP, S><<<grid, THREADS, smem_bytes<DP>(), stream>>>(
+      q, c, bias, d2, idx, Nq, Nc, D, k,
+      D % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,16 +340,10 @@ template <int DP>
 int dispatch_k(const float* q, const float* c, const float* bias, float* d2,
                long long* idx, int B, int Nq, int Nc, int D, int k,
                cudaStream_t s) {
-  if (k <= 4) return launch<DP, 4>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
-  if (k <= 8) return launch<DP, 8>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
-  if (k <= 12) return launch<DP, 12>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
-  if (k <= 16) return launch<DP, 16>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
-  if (k <= 20) return launch<DP, 20>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
-  if (k <= 32) return launch<DP, 32>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
-  // k = 64 (the capped particle density's radius kNN) only for points
-  // (D <= 4): 128 registers of list beside a 4-wide query vector
+  if (k <= 32) return launch<DP, 1>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
+  // k <= 64 (the capped particle density's radius kNN) only for points
   if constexpr (DP == 4) {
-    if (k <= 64) return launch<DP, 64>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
+    if (k <= 64) return launch<DP, 2>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
