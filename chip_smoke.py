@@ -11,20 +11,27 @@ Run from the root of the repository on a machine with one CUDA card:
 
 Phases, one JSON line each (``phase`` names it):
   device   nvidia-smi name and power limit, torch and CUDA versions, the
-           kernels' build time and their ptxas register / spill report;
+           kernels' build time and their ptxas register / spill report
+           (and the tensor-core EdgeConv kernel's alone);
   kernel   each CUDA kernel of the serving path against its plain PyTorch
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
            CUDA-event medians of the kernel, the plain version and a
            PyTorch yardstick the port never calls, the bound; kNN also on
            exact ties at serving width (duplicated grid points), equal to
-           the plain version;
+           the plain version; each EdgeConv row names its variant (the
+           bf16 (64, 128, 256) class runs the tensor-core kernel, "tc",
+           the rest the general one, "simt") and adds the device time of
+           the wrapper's launches (torch.profiler), and the tc class on
+           exact inputs at serving width equals the plain version bit for
+           bit;
   serving  with the launch counts reset: the trained checkpoint through the
            port's loader, the f32 dynamic and the bf16 static forward of a
            10,240-point frame, the Chamfer gate between them, the launches
-           of each;
+           of each (the bf16 static forward's 9 EdgeConvs include 3
+           tensor-core launches, the f32 dynamic's none);
   rollout  a 25-frame rollout of about 10,000-point frames (counts read
-           after it);
+           after it; 3 tensor-core EdgeConv launches a frame);
   timing   the card's forward against the CPU's (plain versions) at 2,048
            points, and ms per frame of both serving forwards;
   profile  with --profile only: device time by kernel and idle share of one
@@ -164,6 +171,23 @@ def time_ms(fn, torch, reps=REPS, warmup=2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, torch, reps=REPS) -> float:
+    """Device time of the kernels ``fn`` launches, per call (torch.profiler,
+    after a warm-up): what the card spends, without the host's launch
+    overhead that ``time_ms`` includes where the host is the slower side."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in p.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def bound(flops: float, nbytes: float, kind: str):
     """(least time in ms, "bytes" or "operations") on the published peaks."""
     t_ops = flops / PEAK_OPS[kind] * 1e3
@@ -171,10 +195,15 @@ def bound(flops: float, nbytes: float, kind: str):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def ptxas_summary(name: str) -> dict:
+def ptxas_summary(name: str, function: str = "") -> dict:
+    """Registers and spills of ``csrc/<name>.cu``'s kernels (only those whose
+    mangled name holds ``function``, when given)."""
     from tpugan_tpu_torch import _build
 
     text = _build.ptxas_report(name)
+    if function:
+        parts = text.split("Compiling entry function")
+        text = "".join(p for p in parts[1:] if function in p.split("\n", 1)[0])
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)]
     return {"functions": len(regs), "max_registers": max(regs, default=0),
@@ -216,6 +245,9 @@ EDGECONV_SHAPES = [  # (name, C, H, O, K, aggregate, mlp, launches per forward)
     ("up k=4", 64, 128, 256, 4, "max", True, 1),
     ("mask k=8 sum", 64, 128, 128, 8, "sum", False, 1),
 ]
+# bf16 static forward launches of the tensor-core EdgeConv kernel: the
+# (64, 128, 256) SharedMLP class, "up/mask k=12" twice and "up k=4" once
+TC_PER_BF16_FORWARD = 3
 
 
 def exact_sqdist(q, c, bi, qi, ci):
@@ -296,6 +328,10 @@ def check_knn(torch, dev, rng):
 
 
 def check_edgeconv(torch, dev, rng):
+    """Each EdgeConv shape class of the serving forward in f32 and bf16; the
+    bf16 (64, 128, 256) SharedMLP class must launch the tensor-core kernel
+    (variant "tc") once, every other row the general kernel ("simt"). Then
+    exact inputs at that class and serving width, bit for bit."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     rows = []
@@ -309,7 +345,13 @@ def check_edgeconv(torch, dev, rng):
             w1 = t(h, h) / np.sqrt(h) if mlp else None
             w2 = t(h, o) / np.sqrt(h) if mlp else None
             args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, agg, cdt)
+            variant = "tc" if E.takes_tensor_cores(cdt, mlp, c, h, o) else "simt"
+            tc0 = E.TC_LAUNCHES
             out_k = E.edgeconv_fused(*args).float()
+            if E.TC_LAUNCHES - tc0 != int(variant == "tc"):
+                raise AssertionError(f"edgeconv {name} {kind}: "
+                                     f"{E.TC_LAUNCHES - tc0} tensor-core "
+                                     f"launches, variant {variant}")
             out_p = E.edgeconv_plain(*args).float()
             torch.cuda.synchronize()
             scale = float(out_p.abs().max())
@@ -320,18 +362,55 @@ def check_edgeconv(torch, dev, rng):
             if not (err <= tol and bool(torch.isfinite(out_k).all())):
                 raise AssertionError(f"edgeconv {name} {kind}: err {err} tol {tol}")
             ms = time_ms(lambda: E.edgeconv_fused(*args), torch)
+            dev_ms = device_ms(lambda: E.edgeconv_fused(*args), torch)
             plain_ms = time_ms(lambda: E.edgeconv_plain(*args), torch)
             esz = 4 if kind == "f32" else 2
             flops = 2 * N_POINTS * k * (2 * c * h + ((h * h + h * o) if mlp else 0))
             nbytes = esz * (k * N_POINTS * c + N_POINTS * c + 2 * c * h
                             + ((h * h + h * o) if mlp else 0) + N_POINTS * o)
             b_ms, b_by = bound(flops, nbytes, kind)
-            rows.append(dict(config=name, dtype=kind, C=c, H=h, O=o, K=k,
-                             aggregate=agg, per_forward=per_fwd,
-                             max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=b_ms, bound_by=b_by))
+            rows.append(dict(config=name, dtype=kind, variant=variant, C=c,
+                             H=h, O=o, K=k, aggregate=agg, per_forward=per_fwd,
+                             max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
+                             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by))
             emit({"phase": "kernel", "kernel": "edgeconv", **rows[-1]})
+    check_edgeconv_exact(torch, dev)
     return rows
+
+
+def check_edgeconv_exact(torch, dev, k=12):
+    """The tensor-core class at serving width on exact inputs: ctr = 0 and
+    sparse {0, 1} neighbours and weights, so leaky ReLU is the identity and
+    every product and sum is an integer, exact in f32 in any order; planes
+    1 and 3 repeat planes 0 and 2 (max and min tie). Every aggregate must
+    equal the plain version bit for bit. Its own generator keeps the other
+    checks' data as it was."""
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+
+    gen = np.random.default_rng(8)
+    bits = lambda p, *s: torch.from_numpy(
+        (gen.random(s) < p).astype(np.float32)).to(dev)
+    c, h, o = E.TC_WIDTHS
+    nbr = bits(0.5, 1, k, N_POINTS, c)
+    nbr[:, 1], nbr[:, 3] = nbr[:, 0], nbr[:, 2]
+    args = (nbr.bfloat16(), torch.zeros(1, N_POINTS, c, device=dev).bfloat16(),
+            bits(0.03, c, h), bits(0.03, c, h), bits(0.03, h, h),
+            bits(0.03, h, o))
+    for agg in E.AGGREGATES:
+        tc0 = E.TC_LAUNCHES
+        out_k = E.edgeconv_fused(*args, agg, torch.bfloat16)
+        out_p = E.edgeconv_plain(*args, agg, torch.bfloat16)
+        torch.cuda.synchronize()
+        bad = int((out_k != out_p).sum())
+        emit({"phase": "kernel", "kernel": "edgeconv", "case": "exact",
+              "variant": "tc", "C": c, "H": h, "O": o, "K": k, "N": N_POINTS,
+              "aggregate": agg, "tc_launches": E.TC_LAUNCHES - tc0,
+              "max_abs_err": float((out_k.float() - out_p.float()).abs().max()),
+              "mismatches": bad, "output_max": float(out_p.float().max())})
+        if bad or E.TC_LAUNCHES - tc0 != 1:
+            raise AssertionError(f"edgeconv exact {agg}: {bad} outputs differ "
+                                 "from the plain version's")
 
 
 # (path, B, Nq, M, masked candidate tail, sentinel query tail, launches per
@@ -424,6 +503,7 @@ def expect(got: dict, want: dict, what: str) -> None:
 
 def serving(torch, dev, kernels):
     from tpugan_tpu_torch.checkpoint import load_srnet
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
     from tpugan_tpu_torch.ops.metrics import chamfer
 
     f32 = load_srnet(CHECKPOINT, device=dev)
@@ -435,17 +515,22 @@ def serving(torch, dev, kernels):
     pos = torch.from_numpy(pos_np).to(dev)
     feat = torch.cat([pos, torch.zeros_like(pos)], -1)    # zero velocity
 
-    c0 = counts(kernels)
+    c0, tc0 = counts(kernels), E.TC_LAUNCHES
     exp_f32, mask_f32, _, valid_f32 = f32(feat, pos)
     torch.cuda.synchronize()
-    c1 = counts(kernels)
+    c1, tc1 = counts(kernels), E.TC_LAUNCHES
     expect(delta(c0, c1), {"knn": 7, "edgeconv": 9, "nn1": 0},
            "f32 dynamic forward")
     exp_bf16, _, _, valid_bf16 = bf16(feat, pos)
     torch.cuda.synchronize()
-    c2 = counts(kernels)
+    c2, tc2 = counts(kernels), E.TC_LAUNCHES
     expect(delta(c1, c2), {"knn": 1, "edgeconv": 9, "nn1": 0},
            "bf16 static forward")
+    # of the EdgeConv launches, those of the tensor-core kernel
+    if (tc1 - tc0, tc2 - tc1) != (0, TC_PER_BF16_FORWARD):
+        raise AssertionError(f"tensor-core EdgeConv launches: f32 dynamic "
+                             f"{tc1 - tc0}, bf16 static {tc2 - tc1}; expected "
+                             f"0 and {TC_PER_BF16_FORWARD}")
     scale = float((pos ** 2).sum(-1).mean())
     cd = float(chamfer(exp_f32, exp_bf16).mean())
     cd_norm = cd / (exp_f32.shape[1] * scale)
@@ -469,7 +554,8 @@ def serving(torch, dev, kernels):
           "bf16_static_valid": int(valid_bf16.sum()),
           "chamfer_norm": cd_norm, "gate": GATE,
           "launches": {"f32_dynamic": delta(c0, c1), "bf16_static": delta(c1, c2),
-                       "gate": {"nn1": 2}}})
+                       "gate": {"nn1": 2}},
+          "tc_launches": {"f32_dynamic": tc1 - tc0, "bf16_static": tc2 - tc1}})
     return (f32, bf16), (feat, pos, pos_np)
 
 
@@ -593,6 +679,7 @@ def rollout(torch, model, kernels):
     frames are ragged within one bucket. Then ``rollout_sequence`` over the
     sequence."""
     from tpugan_tpu_torch.eval.rollout import rollout_sequence
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     dev = next(model.parameters()).device
     rng = np.random.default_rng(1)
@@ -604,7 +691,7 @@ def rollout(torch, model, kernels):
         frames.append((pos[0, :n].cpu().numpy(), None))
         expanded = model(torch.cat([pos, torch.zeros_like(pos)], -1), pos)[0]
         pos = expanded[:, :ROLLOUT_POINTS] * 0.999
-    c0 = counts(kernels)
+    c0, tc0 = counts(kernels), E.TC_LAUNCHES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = rollout_sequence(model, frames, use_vel=True)
@@ -612,6 +699,10 @@ def rollout(torch, model, kernels):
     got = delta(c0, counts(kernels))
     expect(got, {"knn": ROLLOUT_FRAMES, "edgeconv": 9 * ROLLOUT_FRAMES, "nn1": 0},
            "rollout")
+    tc = E.TC_LAUNCHES - tc0
+    if tc != TC_PER_BF16_FORWARD * ROLLOUT_FRAMES:
+        raise AssertionError(f"rollout: {tc} tensor-core EdgeConv launches, "
+                             f"expected {TC_PER_BF16_FORWARD * ROLLOUT_FRAMES}")
     if len(outs) != ROLLOUT_FRAMES:
         raise AssertionError(f"rollout returned {len(outs)} frames")
     sizes = []
@@ -624,7 +715,8 @@ def rollout(torch, model, kernels):
     emit({"phase": "rollout", "frames": ROLLOUT_FRAMES,
           "points": [int(f[0].shape[0]) for f in frames[:4]],
           "output_points_first_last": [sizes[0], sizes[-1]],
-          "launches": got, "wall_ms_per_frame": wall * 1e3 / ROLLOUT_FRAMES})
+          "launches": got, "tc_launches": tc,
+          "wall_ms_per_frame": wall * 1e3 / ROLLOUT_FRAMES})
 
 
 # ------------------------------------------------- train-step kernel checks
@@ -1921,7 +2013,8 @@ def main(argv=None) -> int:
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s,
-          "ptxas": {n: ptxas_summary(n) for n in _build.sources()}})
+          "ptxas": {n: ptxas_summary(n) for n in _build.sources()},
+          "ptxas_edgeconv_tc": ptxas_summary("edgeconv", "edgeconv_tc_kernel")})
 
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
                "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
@@ -1979,7 +2072,7 @@ def main(argv=None) -> int:
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
     step = ("per_step",), "one G+D train step"
-    emit(kernel_line([
+    line = kernel_line([
         ("knn", "tpugan_tpu_torch/csrc/knn.cu", pallas + "knn_kernel.py:351",
          knn_rows, ("per_forward", "per_step", "per_sample", "per_density"),
          "one f32 dynamic forward (7 graphs) plus one G+D train step "
@@ -2018,7 +2111,16 @@ def main(argv=None) -> int:
          pallas + "binned_interp_kernel.py:333", bi_rows, ("per_density",),
          "one density phase (the frame's and the grid's exact densities)",
          by_path["binned_interp"]),
-    ]))
+    ])
+    # the EdgeConv forward's times per bf16 static forward beside the f32's
+    ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
+    ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")
+    ec_entry["bf16_static"] = {
+        key: sum(r[key] * r["per_forward"] for r in ec_bf16)
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    ec_entry["bf16_static"]["times_are"] = (
+        "one bf16 static forward (9 EdgeConvs, 3 on the tensor-core kernel)")
+    emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,8 @@ def test_entry_points_need_a_card(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("wrapper", ["knn", "nn1", "edgeconv", "edgeconv_bwd",
+@pytest.mark.parametrize("wrapper", ["knn", "nn1", "edgeconv", "edgeconv_tc",
+                                     "edgeconv_bwd",
                                      "fps", "ball_query", "interp",
                                      "pooled_mlp", "pooled_mlp_affine",
                                      "binned_interp"])
@@ -69,6 +70,10 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
         "nn1": lambda: nn1.nn1_kernel(t(1, 8, 3), t(1, 8, 3), t(1, 8)),
         "edgeconv": lambda: edgeconv.edgeconv_fused(
             t(1, 4, 8, 6), t(1, 8, 6), t(6, 8), t(6, 8), t(8, 8), t(8, 16)),
+        "edgeconv_tc": lambda: edgeconv.edgeconv_fused(
+            t(1, 4, 8, 64).bfloat16(), t(1, 8, 64).bfloat16(), t(64, 128),
+            t(64, 128), t(128, 128), t(128, 256),
+            compute_dtype=torch.bfloat16),
         "edgeconv_bwd": lambda: edgeconv.edgeconv_backward(
             t(1, 4, 8, 6), t(1, 8, 6), t(6, 8), t(6, 8), t(8, 8), t(8, 16),
             t(1, 8, 16)),
@@ -94,6 +99,26 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
                                          pooled_mlp.FWD, pooled_mlp.BWD,
                                          pooled_mlp.AFFINE_BWD,
                                          binned_interp.KERNEL))
+    assert edgeconv.TC_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("dtype,mlp,widths,tc", [
+    (torch.bfloat16, True, (64, 128, 256), True),
+    (torch.float32, True, (64, 128, 256), False),
+    (torch.bfloat16, True, (64, 128, 128), False),
+    (torch.bfloat16, False, (64, 128, 128), False),
+    (torch.bfloat16, False, (64, 128, 256), False),
+    (torch.bfloat16, True, (6, 64, 128), False),
+    (torch.bfloat16, True, (32, 16, 32), False),
+    (torch.bfloat16, True, (32, 128, 256), False),
+    (torch.float16, True, (64, 128, 256), False),
+])
+def test_edgeconv_dispatch_takes_tensor_cores_only_at_its_class(dtype, mlp,
+                                                                 widths, tc):
+    """Only the bf16 forward with the SharedMLP at (C, H, O) = (64, 128,
+    256) routes to the tensor-core kernel; f32 at the same widths, another
+    width, or no SharedMLP take the general kernel."""
+    assert edgeconv.takes_tensor_cores(dtype, mlp, *widths) is tc
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -196,22 +221,72 @@ def test_knn_kernel_matches_plain_on_card(card, gen, d, k, nq, nc, kind):
         assert (ik[0, :, 5:].numpy() == invalid).all()
 
 
+def _edgeconv_cases():
+    """(c, h, o, k, agg, b, n, kind): the general kernel's five classes,
+    then the tensor-core class (64, 128, 256) at K 1, 4 and 12 with every
+    aggregate, ragged N (77 and 9,992, off the 16-point tile), one whole
+    10,240-point frame, exact inputs with tied planes, and inputs that
+    start 2 or 4 bytes into their storage (not 16-byte aligned)."""
+    cases = [pytest.param(*c, 2, 77, "random", id="-".join(map(str, c)))
+             for c in [(6, 64, 128, 20, "max"), (32, 16, 32, 10, "max"),
+                       (64, 128, None, 8, "sum"), (10, 24, 40, 5, "mean"),
+                       (12, 8, 8, 3, "min")]]
+    cases += [pytest.param(64, 128, 256, k, agg, 2, n, "random",
+                           id=f"tc-k{k}-{agg}-n{n}")
+              for k in (1, 4, 12) for agg in ("max", "min", "sum", "mean")
+              for n in (77, 9992)]
+    cases.append(pytest.param(64, 128, 256, 12, "max", 1, 10240, "random",
+                              id="tc-k12-max-1x10240"))
+    cases += [pytest.param(64, 128, 256, 12, agg, 2, 9992, "exact",
+                           id=f"tc-exact-k12-{agg}")
+              for agg in ("max", "min", "sum", "mean")]
+    cases.append(pytest.param(64, 128, 256, 4, "max", 2, 77, "offset",
+                              id="tc-k4-max-n77-offset"))
+    return cases
+
+
+def _exact_edgeconv_inputs(gen, b, k, n, c, h, o):
+    """ctr = 0 and sparse {0, 1} neighbours and weights: leaky ReLU is the
+    identity and every product and sum is an integer below 2^24, exact in
+    f32 in any order, so the kernels and the plain version round the same
+    values. Planes 1 and 3 repeat planes 0 and 2 (max and min tie)."""
+    bits = lambda p, *s: torch.from_numpy(
+        (gen.random(s) < p).astype(np.float32))
+    nbr = bits(0.5, b, k, n, c)
+    nbr[:, 1], nbr[:, 3] = nbr[:, 0], nbr[:, 2]
+    return [nbr, torch.zeros(b, n, c), bits(0.03, c, h), bits(0.03, c, h),
+            bits(0.03, h, h), bits(0.03, h, o)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,h,o,k,agg", [(6, 64, 128, 20, "max"),
-                                         (32, 16, 32, 10, "max"),
-                                         (64, 128, None, 8, "sum"),
-                                         (10, 24, 40, 5, "mean"),
-                                         (12, 8, 8, 3, "min")])
+@pytest.mark.parametrize("c,h,o,k,agg,b,n,kind", _edgeconv_cases())
 def test_edgeconv_kernel_matches_plain_on_card(card, gen, dtype, c, h, o, k,
-                                               agg):
+                                               agg, b, n, kind):
+    """The bf16 forward at (64, 128, 256) with the SharedMLP launches the
+    tensor-core kernel (one count of TC_LAUNCHES), every other forward the
+    general kernel (none); exact inputs give the plain version bit for
+    bit."""
     t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
-    args = [t(2, k, 77, c).to(dtype), t(2, 77, c).to(dtype), t(c, h), t(c, h),
-            t(h, h) if o else None, t(h, o) if o else None]
-    out_k = edgeconv.edgeconv_fused(*[a.to(card) if a is not None else None
-                                      for a in args], aggregate=agg,
+    if kind == "exact":
+        args = _exact_edgeconv_inputs(gen, b, k, n, c, h, o)
+        args[:2] = [a.to(dtype) for a in args[:2]]
+    else:
+        args = [t(b, k, n, c).to(dtype), t(b, n, c).to(dtype), t(c, h),
+                t(c, h), t(h, h) if o else None, t(h, o) if o else None]
+    on_card = [a.to(card) if a is not None else None for a in args]
+    if kind == "offset":    # each a view one element into a fresh buffer
+        on_card = [torch.empty(a.numel() + 1, dtype=dtype, device=card)[1:]
+                   .view(a.shape).copy_(a) for a in on_card]
+    before = edgeconv.TC_LAUNCHES
+    out_k = edgeconv.edgeconv_fused(*on_card, aggregate=agg,
                                     compute_dtype=dtype)
+    tc = dtype == torch.bfloat16 and (c, h, o) == (64, 128, 256)
+    assert edgeconv.TC_LAUNCHES == before + int(tc)
     out_p = edgeconv.edgeconv_plain(*args, aggregate=agg, compute_dtype=dtype)
+    if kind == "exact":
+        assert torch.equal(out_k.cpu(), out_p)
+        return
     scale = float(out_p.float().abs().max())
     # f32: summation order; bf16: a one-ulp rounding flip carried forward
     tol = (1e-4 if dtype == torch.float32 else 3e-2) * scale

@@ -35,6 +35,27 @@
 // layer's outputs are folded into the aggregate in registers (a thread
 // keeps the same (point, column) pairs for every plane), so they never
 // touch shared memory either.
+//
+// The bf16 forward of the upsampler's and mask head's class, (C, H, O) =
+// (64, 128, 256) with the SharedMLP, has a kernel of its own,
+// edgeconv_tc_kernel (entry point edgeconv_fwd_bf16_tc). It replaces
+// _edgeconv_kernel at this shape, with the same contract. Its bound: a
+// k=12 launch over 10,240 points does 16.1 GFLOP, 16.3 us at the card's
+// 989 TFLOP/s of bf16 tensor-core products, against 15.7 MB of bf16
+// table, 4.7 us at 3.35 TB/s: bound by operations, so every product goes
+// to the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), where
+// the general kernel widens each bf16 value to f32 and runs FFMA chains at
+// 67 TFLOP/s with its weights read from L2. The bf16 weights (128 KB)
+// are staged once per block in shared memory, and the grid is persistent
+// (one block an SM, at most), so each block spreads that copy over many
+// tiles. Four groups of four warps share the weights; a group owns a
+// 16-point tile, whose planes' rows and edges (formed in f32, rounded to
+// bf16) go to shared memory, the next plane's rows waiting in registers.
+// Its warps split each layer's columns (32 of h1 and h2, 64 of the
+// output); h1 and h2 round to bf16 into shared memory, where ldmatrix
+// reads them (and, transposed, the weights) as fragments; the output
+// columns' aggregate stays in the accumulators' layout in registers over
+// the K planes. Only the [N, 256] result is written.
 #include "common.cuh"
 #include "reduce.cuh"
 
@@ -490,6 +511,264 @@ int launch_bwd(const void* nbr, const void* ctr, const void* wn, const void* we,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------ bf16 tensor-core forward (class)
+//
+// edgeconv_tc_kernel: the bf16 SharedMLP forward at (C, H, O) = (64, 128,
+// 256) on mma.sync.m16n8k16 (bf16 in, f32 accumulate). The contract is
+// edgeconv_kernel's for T = bf16; the head of this file says what bounds it
+// and how it is laid out.
+namespace tc {
+
+constexpr int C = 64, H = 128, O = 256;
+constexpr int GROUPS = 4;                     // point tiles in flight a block
+constexpr int GROUP_THREADS = 128;            // 4 warps share a tile
+constexpr int THREADS = GROUPS * GROUP_THREADS;
+// bf16 row pitches: 16 bytes of padding put the 8 rows an ldmatrix reads
+// in 8 different bank groups
+constexpr int LDC = C + 8, LDH = H + 8, LDO = O + 8;
+constexpr int W_ELEMS = 2 * C * LDH + H * LDH + H * LDO;   // Wn, We, W1, W2
+constexpr int G_ELEMS = 2 * TP * LDC + 2 * TP * LDH;       // nb, edge, h1, h2
+constexpr size_t SMEM = sizeof(__nv_bfloat16) * (W_ELEMS + GROUPS * G_ELEMS);
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A fragments of a [16][ld] row-major tile at columns k0..k0+15
+__device__ __forceinline__ void ldsm_a(const bf16* tile, int ld, int k0,
+                                       int lane, unsigned (&r)[4]) {
+  const unsigned a = smem_u32(tile + (lane & 15) * ld + k0 + (lane >> 4) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// B fragments of two n-tiles (columns n0..n0+15) of a [K][ld] row-major
+// weight at rows k0..k0+15: {r[0], r[1]} for n0, {r[2], r[3]} for n0 + 8
+__device__ __forceinline__ void ldsm_b(const bf16* w, int ld, int k0, int n0,
+                                       int lane, unsigned (&r)[4]) {
+  const unsigned a = smem_u32(w + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld
+                              + n0 + (lane >> 4) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[nt] = A[16][0:16 KS] W[0:16 KS][n0 + 8 nt .. +8] for nt < NT (f32)
+template <int KS, int NT>
+__device__ __forceinline__ void product(const bf16* a, int lda, const bf16* w,
+                                        int ldw, int n0, int lane,
+                                        float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    unsigned af[4];
+    ldsm_a(a, lda, 16 * ks, lane, af);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned bf[4];
+      ldsm_b(w, ldw, 16 * ks, n0 + 16 * np, lane, bf);
+      mma(acc[2 * np], af, bf[0], bf[1]);
+      mma(acc[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The 4 warps of a group meet; group g uses named barrier 1 + g
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + group), "r"(GROUP_THREADS)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// bf16(n - c) of two bf16 pairs, the difference formed in f32
+__device__ __forceinline__ unsigned sub_pair(unsigned n, unsigned c) {
+  const float2 nf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&n));
+  const float2 cf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&c));
+  return pack(nf.x - cf.x, nf.y - cf.y);
+}
+
+// rows x cols bf16 from device memory into a [rows][ld] tile, 16 bytes a move
+__device__ __forceinline__ void stage(const bf16* __restrict__ src, int rows,
+                                      int cols, int ld, bf16* dst) {
+  const int chunks = cols / 8;
+  for (int e = threadIdx.x; e < rows * chunks; e += THREADS) {
+    const int r = e / chunks, c = e - r * chunks;
+    *reinterpret_cast<uint4*>(dst + r * ld + 8 * c) =
+        __ldg(reinterpret_cast<const uint4*>(src) + e);
+  }
+}
+
+template <int AGG>
+__device__ __forceinline__ float fold(float acc, float y) {
+  if (AGG == kMax) return fmaxf(acc, y);
+  if (AGG == kMin) return fminf(acc, y);
+  return round_to<bf16>(acc + y);   // sum / mean fold in bf16
+}
+
+// Blocks hold the weights in shared memory and stride over the point tiles:
+// group g of block x takes tiles g * gridDim.x + x, then every
+// GROUPS * gridDim.x-th. A group's thread t loads row t / 8, channels
+// 8 (t % 8) .. +8 of each plane (and keeps its centre chunk in registers);
+// warp w computes h1 and h2 columns 32 w .. +32 and output columns
+// 64 w .. +64, whose aggregate it keeps in registers over the K planes.
+template <int AGG>
+__global__ void __launch_bounds__(THREADS, 1)
+edgeconv_tc_kernel(const bf16* __restrict__ nbr, const bf16* __restrict__ ctr,
+                   const bf16* __restrict__ wn, const bf16* __restrict__ we,
+                   const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                   bf16* __restrict__ out, int B, int K, int N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* wn_s = reinterpret_cast<bf16*>(smem_raw);   // [C][LDH]
+  bf16* we_s = wn_s + C * LDH;                       // [C][LDH]
+  bf16* w1_s = we_s + C * LDH;                       // [H][LDH]
+  bf16* w2_s = w1_s + H * LDH;                       // [H][LDO]
+  const int group = threadIdx.x / GROUP_THREADS;
+  const int gt = threadIdx.x % GROUP_THREADS;
+  const int warp = gt / 32, lane = threadIdx.x % 32;
+  bf16* nb_s = w2_s + H * LDO + group * G_ELEMS;     // [TP][LDC]
+  bf16* ed_s = nb_s + TP * LDC;                      // [TP][LDC]
+  bf16* h1_s = ed_s + TP * LDC;                      // [TP][LDH]
+  bf16* h2_s = h1_s + TP * LDH;                      // [TP][LDH]
+
+  stage(wn, C, H, LDH, wn_s);
+  stage(we, C, H, LDH, we_s);
+  stage(w1, H, H, LDH, w1_s);
+  stage(w2, H, O, LDO, w2_s);
+  __syncthreads();
+
+  const int lr = gt / 8, lc = 8 * (gt % 8);   // the thread's row and channels
+  const int fr = lane / 4, fc = 2 * (lane % 4);   // its fragment row and column
+  const int row_tiles = (N + TP - 1) / TP;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int tile = group * gridDim.x + blockIdx.x; tile < B * row_tiles;
+       tile += GROUPS * gridDim.x) {
+    const int b = tile / row_tiles, p0 = (tile - b * row_tiles) * TP;
+    const int np = min(TP, N - p0);
+    const bool live = lr < np;   // rows past N stay zero and are not written
+    const uint4 cv = live ? __ldg(reinterpret_cast<const uint4*>(
+                                ctr + ((size_t)b * N + p0 + lr) * C + lc))
+                          : zero;
+    const bf16* rows = nbr + ((size_t)b * K * N + p0 + lr) * C + lc;
+    uint4 nv = live ? __ldg(reinterpret_cast<const uint4*>(rows)) : zero;
+
+    float acc[8][4];
+    for (int j = 0; j < K; ++j) {
+      // plane j's rows and edges into shared memory; plane j + 1's rows
+      // into registers while the plane's products run
+      *reinterpret_cast<uint4*>(nb_s + lr * LDC + lc) = nv;
+      *reinterpret_cast<uint4*>(ed_s + lr * LDC + lc) =
+          make_uint4(sub_pair(nv.x, cv.x), sub_pair(nv.y, cv.y),
+                     sub_pair(nv.z, cv.z), sub_pair(nv.w, cv.w));
+      group_sync(group);
+      if (live && j + 1 < K)
+        nv = __ldg(reinterpret_cast<const uint4*>(rows + (size_t)(j + 1) * N * C));
+
+      // layer 1: h1 = bf16(lrelu(nb Wn) + lrelu(edge We))
+      {
+        float za[4][4], zb[4][4];
+        product<C / 16, 4>(nb_s, LDC, wn_s, LDH, 32 * warp, lane, za);
+        product<C / 16, 4>(ed_s, LDC, we_s, LDH, 32 * warp, lane, zb);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          bf16* h = h1_s + fr * LDH + 32 * warp + 8 * nt + fc;
+          *reinterpret_cast<unsigned*>(h) =
+              pack(lrelu(za[nt][0]) + lrelu(zb[nt][0]),
+                   lrelu(za[nt][1]) + lrelu(zb[nt][1]));
+          *reinterpret_cast<unsigned*>(h + 8 * LDH) =
+              pack(lrelu(za[nt][2]) + lrelu(zb[nt][2]),
+                   lrelu(za[nt][3]) + lrelu(zb[nt][3]));
+        }
+      }
+      group_sync(group);
+
+      // layer 2: h2 = bf16(lrelu(h1 W1))
+      {
+        float z[4][4];
+        product<H / 16, 4>(h1_s, LDH, w1_s, LDH, 32 * warp, lane, z);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          bf16* h = h2_s + fr * LDH + 32 * warp + 8 * nt + fc;
+          *reinterpret_cast<unsigned*>(h) = pack(lrelu(z[nt][0]), lrelu(z[nt][1]));
+          *reinterpret_cast<unsigned*>(h + 8 * LDH) =
+              pack(lrelu(z[nt][2]), lrelu(z[nt][3]));
+        }
+      }
+      group_sync(group);
+
+      // layer 3: y = bf16(lrelu(h2 W2)), folded into the aggregate
+      {
+        float z[8][4];
+        product<H / 16, 8>(h2_s, LDH, w2_s, LDO, 64 * warp, lane, z);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float y = round_to<bf16>(lrelu(z[nt][e]));
+            acc[nt][e] = j == 0 ? y : fold<AGG>(acc[nt][e], y);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = fr + 8 * half;
+        float lo = acc[nt][2 * half], hi = acc[nt][2 * half + 1];
+        if (AGG == kMean) {
+          lo = round_to<bf16>(lo / (float)K);
+          hi = round_to<bf16>(hi / (float)K);
+        }
+        if (p < np)
+          *reinterpret_cast<unsigned*>(out + ((size_t)b * N + p0 + p) * O +
+                                       64 * warp + 8 * nt + fc) = pack(lo, hi);
+      }
+  }
+}
+
+template <int AGG>
+int launch(const void* nbr, const void* ctr, const void* wn, const void* we,
+           const void* w1, const void* w2, void* out, int B, int K, int N,
+           cudaStream_t stream) {
+  auto kern = edgeconv_tc_kernel<AGG>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int device = 0, sms = 0;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = B * ((N + TP - 1) / TP);
+  const int groups = (tiles + GROUPS - 1) / GROUPS;
+  const int grid = groups < sms ? groups : sms;   // persistent: one wave
+  kern<<<grid, THREADS, SMEM, stream>>>(
+      static_cast<const bf16*>(nbr), static_cast<const bf16*>(ctr),
+      static_cast<const bf16*>(wn), static_cast<const bf16*>(we),
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+      static_cast<bf16*>(out), B, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Shapes the wrapper (ops/kernels/edgeconv.py) admits: 1 <= H, O <= 256,
@@ -530,4 +809,20 @@ extern "C" int edgeconv_bwd(const void* nbr, const void* ctr, const void* wn,
   if (mlp) EDGECONV_BWD(float, true);
   EDGECONV_BWD(float, false);
 #undef EDGECONV_BWD
+}
+
+// The bf16 forward with the SharedMLP at (C, H, O) = (64, 128, 256) on the
+// tensor cores: edgeconv_fwd's contract for bf16 = 1, mlp = 1 at these
+// widths. Every pointer 16-byte aligned; B * N >= 1, K >= 1.
+extern "C" int edgeconv_fwd_bf16_tc(const void* nbr, const void* ctr,
+                                    const void* wn, const void* we,
+                                    const void* w1, const void* w2, void* out,
+                                    int B, int K, int N, int agg, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (agg) {
+    case kMax: return tc::launch<kMax>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    case kMin: return tc::launch<kMin>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    case kSum: return tc::launch<kSum>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    default: return tc::launch<kMean>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+  }
 }

@@ -8,8 +8,12 @@ forward (``_fwd_pallas``) and its backward (``_bwd_pallas``).
 the backward kernel (or, on the CPU, :func:`edgeconv_backward_plain`).
 ``KERNEL`` counts forward launches, ``BWD`` backward launches (one per
 call: the kernel and the pass that adds the blocks' weight-gradient
-partials); both handles load the same library. The kernels' source note
-says what bounds them on the card and how they are laid out.
+partials); both handles load the same library. A bf16 forward with the
+SharedMLP at (C, H, O) = ``TC_WIDTHS`` launches the tensor-core kernel
+(``edgeconv_fwd_bf16_tc``) through ``KERNEL``, and ``TC_LAUNCHES`` counts
+those launches alone; every other forward launches ``edgeconv_fwd``. The
+kernels' source note says what bounds them on the card and how they are
+laid out.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch.nn.functional as F
 from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel("edgeconv",
-                    {"edgeconv_fwd": [VOIDP] * 7 + [INT] * 9 + [VOIDP]})
+                    {"edgeconv_fwd": [VOIDP] * 7 + [INT] * 9 + [VOIDP],
+                     "edgeconv_fwd_bf16_tc": [VOIDP] * 7 + [INT] * 4 + [VOIDP]})
 BWD = CudaKernel("edgeconv",
                  {"edgeconv_bwd": [VOIDP] * 11 + [INT] * 10 + [VOIDP]})
 
@@ -30,6 +35,8 @@ AGGREGATES = {"max": 0, "min": 1, "sum": 2, "mean": 3}
 MAX_WIDTH = 256   # widest hidden / output layer (one thread per column)
 MAX_BLOCKS = 264  # blocks of the backward (2 per SM): bounds its scratch
 TILE = 16         # points per block tile (csrc/edgeconv.cu : TP)
+TC_WIDTHS = (64, 128, 256)   # (C, H, O) of the tensor-core kernel
+TC_LAUNCHES = 0              # launches of the tensor-core kernel
 
 
 def _round(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -162,6 +169,12 @@ def _ptrs(tensors):
     return [ptr(t) if t is not None else VOIDP(0) for t in tensors]
 
 
+def takes_tensor_cores(cdt, mlp, c, h, o) -> bool:
+    """Whether a forward on the card launches the tensor-core kernel: the
+    bf16 forward with the SharedMLP at (C, H, O) = ``TC_WIDTHS``."""
+    return cdt is torch.bfloat16 and mlp and (c, h, o) == TC_WIDTHS
+
+
 def _forward(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt):
     b, k, n, c, h, o, mlp = _check(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt)
     if nbr_t.device.type == "cpu":
@@ -170,6 +183,14 @@ def _forward(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt):
     args = _operands((nbr_t, ctr, wn, we, w1, w2), cdt)
     out = torch.empty((b, n, o), dtype=cdt, device=nbr_t.device)
     if b * n == 0:
+        return out
+    if takes_tensor_cores(cdt, mlp, c, h, o):
+        global TC_LAUNCHES
+        # the kernel moves 16 bytes at a time: a view may start anywhere
+        args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
+        KERNEL.launch("edgeconv_fwd_bf16_tc", *_ptrs(args), ptr(out), b, k, n,
+                      AGGREGATES[aggregate], stream_of(out))
+        TC_LAUNCHES += 1
         return out
     KERNEL.launch("edgeconv_fwd", *_ptrs(args), ptr(out), b, k, n, c, h, o,
                   int(mlp), AGGREGATES[aggregate], int(cdt == torch.bfloat16),
