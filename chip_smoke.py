@@ -12,7 +12,8 @@ Run from the root of the repository on a machine with one CUDA card:
 Phases, one JSON line each (``phase`` names it):
   device   nvidia-smi name and power limit, torch and CUDA versions, the
            kernels' build time and their ptxas register / spill report
-           (and the tensor-core EdgeConv kernel's alone);
+           (and the tensor-core and the f32 register-tiled EdgeConv
+           kernels' alone; the latter must not spill);
   kernel   each CUDA kernel of the serving path against its plain PyTorch
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
@@ -21,17 +22,19 @@ Phases, one JSON line each (``phase`` names it):
            exact ties at serving width (duplicated grid points), equal to
            the plain version; each EdgeConv row names its variant (the
            bf16 (64, 128, 256) class runs the tensor-core kernel, "tc",
-           the rest the general one, "simt") and adds the device time of
-           the wrapper's launches (torch.profiler), and the tc class on
-           exact inputs at serving width equals the plain version bit for
-           bit;
+           the f32 classes of F32_TILED_CLASSES the f32 register-tiled
+           one, "f32t", the rest the general one, "simt") and adds the
+           device time of the wrapper's launches (torch.profiler), and the
+           tc class and every f32t class on exact inputs at serving width
+           equal the plain version bit for bit;
   serving  with the launch counts reset: the trained checkpoint through the
            port's loader, the f32 dynamic and the bf16 static forward of a
            10,240-point frame, the Chamfer gate between them, the launches
            of each (the bf16 static forward's 9 EdgeConvs include 3
-           tensor-core launches, the f32 dynamic's none);
+           tensor-core launches and no f32t one, the f32 dynamic's 9 f32t
+           launches and no tensor-core one);
   rollout  a 25-frame rollout of about 10,000-point frames (counts read
-           after it; 3 tensor-core EdgeConv launches a frame);
+           after it; 3 tensor-core EdgeConv launches a frame, no f32t one);
   timing   the card's forward against the CPU's (plain versions) at 2,048
            points, and ms per frame of both serving forwards;
   profile  with --profile only: device time by kernel and idle share of one
@@ -248,6 +251,9 @@ EDGECONV_SHAPES = [  # (name, C, H, O, K, aggregate, mlp, launches per forward)
 # bf16 static forward launches of the tensor-core EdgeConv kernel: the
 # (64, 128, 256) SharedMLP class, "up/mask k=12" twice and "up k=4" once
 TC_PER_BF16_FORWARD = 3
+# f32 dynamic forward launches of the f32 register-tiled EdgeConv kernel:
+# every shape class above
+F32T_PER_F32_FORWARD = 9
 
 
 def exact_sqdist(q, c, bi, qi, ci):
@@ -330,8 +336,10 @@ def check_knn(torch, dev, rng):
 def check_edgeconv(torch, dev, rng):
     """Each EdgeConv shape class of the serving forward in f32 and bf16; the
     bf16 (64, 128, 256) SharedMLP class must launch the tensor-core kernel
-    (variant "tc") once, every other row the general kernel ("simt"). Then
-    exact inputs at that class and serving width, bit for bit."""
+    (variant "tc") once, an f32 class of ``F32_TILED_CLASSES`` the f32
+    register-tiled kernel ("f32t") once, every other row the general
+    kernel ("simt"). Then exact inputs at those classes and serving width,
+    bit for bit."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     rows = []
@@ -345,13 +353,15 @@ def check_edgeconv(torch, dev, rng):
             w1 = t(h, h) / np.sqrt(h) if mlp else None
             w2 = t(h, o) / np.sqrt(h) if mlp else None
             args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, agg, cdt)
-            variant = "tc" if E.takes_tensor_cores(cdt, mlp, c, h, o) else "simt"
-            tc0 = E.TC_LAUNCHES
+            variant = ("tc" if E.takes_tensor_cores(cdt, mlp, c, h, o) else
+                       "f32t" if E.takes_f32_tiled(cdt, mlp, c, h, o) else
+                       "simt")
+            tc0, f0 = E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
             out_k = E.edgeconv_fused(*args).float()
-            if E.TC_LAUNCHES - tc0 != int(variant == "tc"):
-                raise AssertionError(f"edgeconv {name} {kind}: "
-                                     f"{E.TC_LAUNCHES - tc0} tensor-core "
-                                     f"launches, variant {variant}")
+            got = (E.TC_LAUNCHES - tc0, E.F32_TILED_LAUNCHES - f0)
+            if got != (int(variant == "tc"), int(variant == "f32t")):
+                raise AssertionError(f"edgeconv {name} {kind}: (tensor-core, "
+                                     f"f32t) launches {got}, variant {variant}")
             out_p = E.edgeconv_plain(*args).float()
             torch.cuda.synchronize()
             scale = float(out_p.abs().max())
@@ -380,37 +390,46 @@ def check_edgeconv(torch, dev, rng):
 
 
 def check_edgeconv_exact(torch, dev, k=12):
-    """The tensor-core class at serving width on exact inputs: ctr = 0 and
-    sparse {0, 1} neighbours and weights, so leaky ReLU is the identity and
-    every product and sum is an integer, exact in f32 in any order; planes
-    1 and 3 repeat planes 0 and 2 (max and min tie). Every aggregate must
-    equal the plain version bit for bit. Its own generator keeps the other
-    checks' data as it was."""
+    """The tensor-core class (bf16) and each class of the f32 register-tiled
+    kernel (f32) at serving width on exact inputs: ctr = 0 and sparse
+    {0, 1} neighbours and weights, so leaky ReLU is the identity and every
+    product and sum is an integer, exact in f32 in any order; planes 1 and
+    3 repeat planes 0 and 2 (max and min tie). Every aggregate must equal
+    the plain version bit for bit and launch its kernel once. Its own
+    generator keeps the other checks' data as it was."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     gen = np.random.default_rng(8)
     bits = lambda p, *s: torch.from_numpy(
         (gen.random(s) < p).astype(np.float32)).to(dev)
-    c, h, o = E.TC_WIDTHS
-    nbr = bits(0.5, 1, k, N_POINTS, c)
-    nbr[:, 1], nbr[:, 3] = nbr[:, 0], nbr[:, 2]
-    args = (nbr.bfloat16(), torch.zeros(1, N_POINTS, c, device=dev).bfloat16(),
-            bits(0.03, c, h), bits(0.03, c, h), bits(0.03, h, h),
-            bits(0.03, h, o))
-    for agg in E.AGGREGATES:
-        tc0 = E.TC_LAUNCHES
-        out_k = E.edgeconv_fused(*args, agg, torch.bfloat16)
-        out_p = E.edgeconv_plain(*args, agg, torch.bfloat16)
-        torch.cuda.synchronize()
-        bad = int((out_k != out_p).sum())
-        emit({"phase": "kernel", "kernel": "edgeconv", "case": "exact",
-              "variant": "tc", "C": c, "H": h, "O": o, "K": k, "N": N_POINTS,
-              "aggregate": agg, "tc_launches": E.TC_LAUNCHES - tc0,
-              "max_abs_err": float((out_k.float() - out_p.float()).abs().max()),
-              "mismatches": bad, "output_max": float(out_p.float().max())})
-        if bad or E.TC_LAUNCHES - tc0 != 1:
-            raise AssertionError(f"edgeconv exact {agg}: {bad} outputs differ "
-                                 "from the plain version's")
+    classes = [("tc", torch.bfloat16, (True, *E.TC_WIDTHS))]
+    classes += [("f32t", torch.float32, cls)
+                for cls in sorted(E.F32_TILED_CLASSES, reverse=True)]
+    for variant, cdt, (mlp, c, h, o) in classes:
+        nbr = bits(0.5, 1, k, N_POINTS, c)
+        nbr[:, 1], nbr[:, 3] = nbr[:, 0], nbr[:, 2]
+        args = (nbr.to(cdt), torch.zeros(1, N_POINTS, c, device=dev).to(cdt),
+                bits(0.03, c, h), bits(0.03, c, h),
+                bits(0.03, h, h) if mlp else None,
+                bits(0.03, h, o) if mlp else None)
+        for agg in E.AGGREGATES:
+            counter = "TC_LAUNCHES" if variant == "tc" else "F32_TILED_LAUNCHES"
+            n0 = getattr(E, counter)
+            out_k = E.edgeconv_fused(*args, agg, cdt)
+            out_p = E.edgeconv_plain(*args, agg, cdt)
+            torch.cuda.synchronize()
+            launched = getattr(E, counter) - n0
+            bad = int((out_k != out_p).sum())
+            emit({"phase": "kernel", "kernel": "edgeconv", "case": "exact",
+                  "variant": variant, "dtype": str(cdt).split(".")[-1],
+                  "C": c, "H": h, "O": o, "mlp": mlp, "K": k, "N": N_POINTS,
+                  "aggregate": agg, "launches": launched,
+                  "max_abs_err": float((out_k.float() - out_p.float()).abs().max()),
+                  "mismatches": bad, "output_max": float(out_p.float().max())})
+            if bad or launched != 1:
+                raise AssertionError(f"edgeconv exact {variant} ({c}, {h}, {o}) "
+                                     f"{agg}: {bad} outputs differ from the "
+                                     f"plain version's, {launched} launches")
 
 
 # (path, B, Nq, M, masked candidate tail, sentinel query tail, launches per
@@ -515,15 +534,15 @@ def serving(torch, dev, kernels):
     pos = torch.from_numpy(pos_np).to(dev)
     feat = torch.cat([pos, torch.zeros_like(pos)], -1)    # zero velocity
 
-    c0, tc0 = counts(kernels), E.TC_LAUNCHES
+    c0, tc0, ft0 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
     exp_f32, mask_f32, _, valid_f32 = f32(feat, pos)
     torch.cuda.synchronize()
-    c1, tc1 = counts(kernels), E.TC_LAUNCHES
+    c1, tc1, ft1 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
     expect(delta(c0, c1), {"knn": 7, "edgeconv": 9, "nn1": 0},
            "f32 dynamic forward")
     exp_bf16, _, _, valid_bf16 = bf16(feat, pos)
     torch.cuda.synchronize()
-    c2, tc2 = counts(kernels), E.TC_LAUNCHES
+    c2, tc2, ft2 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
     expect(delta(c1, c2), {"knn": 1, "edgeconv": 9, "nn1": 0},
            "bf16 static forward")
     # of the EdgeConv launches, those of the tensor-core kernel
@@ -531,6 +550,11 @@ def serving(torch, dev, kernels):
         raise AssertionError(f"tensor-core EdgeConv launches: f32 dynamic "
                              f"{tc1 - tc0}, bf16 static {tc2 - tc1}; expected "
                              f"0 and {TC_PER_BF16_FORWARD}")
+    # and those of the f32 register-tiled kernel
+    if (ft1 - ft0, ft2 - ft1) != (F32T_PER_F32_FORWARD, 0):
+        raise AssertionError(f"f32t EdgeConv launches: f32 dynamic "
+                             f"{ft1 - ft0}, bf16 static {ft2 - ft1}; expected "
+                             f"{F32T_PER_F32_FORWARD} and 0")
     scale = float((pos ** 2).sum(-1).mean())
     cd = float(chamfer(exp_f32, exp_bf16).mean())
     cd_norm = cd / (exp_f32.shape[1] * scale)
@@ -555,7 +579,9 @@ def serving(torch, dev, kernels):
           "chamfer_norm": cd_norm, "gate": GATE,
           "launches": {"f32_dynamic": delta(c0, c1), "bf16_static": delta(c1, c2),
                        "gate": {"nn1": 2}},
-          "tc_launches": {"f32_dynamic": tc1 - tc0, "bf16_static": tc2 - tc1}})
+          "tc_launches": {"f32_dynamic": tc1 - tc0, "bf16_static": tc2 - tc1},
+          "f32t_launches": {"f32_dynamic": ft1 - ft0,
+                            "bf16_static": ft2 - ft1}})
     return (f32, bf16), (feat, pos, pos_np)
 
 
@@ -691,7 +717,7 @@ def rollout(torch, model, kernels):
         frames.append((pos[0, :n].cpu().numpy(), None))
         expanded = model(torch.cat([pos, torch.zeros_like(pos)], -1), pos)[0]
         pos = expanded[:, :ROLLOUT_POINTS] * 0.999
-    c0, tc0 = counts(kernels), E.TC_LAUNCHES
+    c0, tc0, ft0 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = rollout_sequence(model, frames, use_vel=True)
@@ -699,10 +725,11 @@ def rollout(torch, model, kernels):
     got = delta(c0, counts(kernels))
     expect(got, {"knn": ROLLOUT_FRAMES, "edgeconv": 9 * ROLLOUT_FRAMES, "nn1": 0},
            "rollout")
-    tc = E.TC_LAUNCHES - tc0
-    if tc != TC_PER_BF16_FORWARD * ROLLOUT_FRAMES:
-        raise AssertionError(f"rollout: {tc} tensor-core EdgeConv launches, "
-                             f"expected {TC_PER_BF16_FORWARD * ROLLOUT_FRAMES}")
+    tc, ft = E.TC_LAUNCHES - tc0, E.F32_TILED_LAUNCHES - ft0
+    if (tc, ft) != (TC_PER_BF16_FORWARD * ROLLOUT_FRAMES, 0):
+        raise AssertionError(f"rollout: {tc} tensor-core and {ft} f32t EdgeConv "
+                             f"launches, expected "
+                             f"{TC_PER_BF16_FORWARD * ROLLOUT_FRAMES} and 0")
     if len(outs) != ROLLOUT_FRAMES:
         raise AssertionError(f"rollout returned {len(outs)} frames")
     sizes = []
@@ -715,7 +742,7 @@ def rollout(torch, model, kernels):
     emit({"phase": "rollout", "frames": ROLLOUT_FRAMES,
           "points": [int(f[0].shape[0]) for f in frames[:4]],
           "output_points_first_last": [sizes[0], sizes[-1]],
-          "launches": got, "tc_launches": tc,
+          "launches": got, "tc_launches": tc, "f32t_launches": ft,
           "wall_ms_per_frame": wall * 1e3 / ROLLOUT_FRAMES})
 
 
@@ -2009,12 +2036,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     build_s = _build.build_all()
+    f32t_ptxas = ptxas_summary("edgeconv", "edgeconv_f32t_kernel")
+    if f32t_ptxas["functions"] == 0 or f32t_ptxas["spill_store_bytes"]:
+        raise AssertionError(f"edgeconv_f32t_kernel ptxas: {f32t_ptxas}")
     emit({"phase": "device", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s,
           "ptxas": {n: ptxas_summary(n) for n in _build.sources()},
-          "ptxas_edgeconv_tc": ptxas_summary("edgeconv", "edgeconv_tc_kernel")})
+          "ptxas_edgeconv_tc": ptxas_summary("edgeconv", "edgeconv_tc_kernel"),
+          "ptxas_edgeconv_f32t": f32t_ptxas})
 
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
                "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
@@ -2036,9 +2067,12 @@ def main(argv=None) -> int:
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
         k.launches = 0
+    edgeconv.TC_LAUNCHES = edgeconv.F32_TILED_LAUNCHES = 0
     (f32, bf16), (feat, pos, pos_np) = serving(torch, dev, kernels)
     rollout(torch, bf16, kernels)
     serving_launches = counts(kernels)
+    serving_variants = {"tc": edgeconv.TC_LAUNCHES,
+                        "f32t": edgeconv.F32_TILED_LAUNCHES}
 
     # checks and timings past the counted run
     result = cpu_reference(torch, dev, pos_np)
@@ -2120,6 +2154,10 @@ def main(argv=None) -> int:
         for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
     ec_entry["bf16_static"]["times_are"] = (
         "one bf16 static forward (9 EdgeConvs, 3 on the tensor-core kernel)")
+    # of the serving path's EdgeConv launches, those of each kernel variant
+    ec_entry["serving_launches_by_variant"] = {
+        **serving_variants,
+        "simt": by_path["edgeconv"]["serving"] - sum(serving_variants.values())}
     emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -58,7 +58,7 @@ def test_entry_points_need_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("wrapper", ["knn", "nn1", "edgeconv", "edgeconv_tc",
-                                     "edgeconv_bwd",
+                                     "edgeconv_f32t", "edgeconv_bwd",
                                      "fps", "ball_query", "interp",
                                      "pooled_mlp", "pooled_mlp_affine",
                                      "binned_interp"])
@@ -74,6 +74,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
             t(1, 4, 8, 64).bfloat16(), t(1, 8, 64).bfloat16(), t(64, 128),
             t(64, 128), t(128, 128), t(128, 256),
             compute_dtype=torch.bfloat16),
+        "edgeconv_f32t": lambda: edgeconv.edgeconv_fused(
+            t(1, 4, 8, 64), t(1, 8, 64), t(64, 128), t(64, 128), t(128, 128),
+            t(128, 256)),
         "edgeconv_bwd": lambda: edgeconv.edgeconv_backward(
             t(1, 4, 8, 6), t(1, 8, 6), t(6, 8), t(6, 8), t(8, 8), t(8, 16),
             t(1, 8, 16)),
@@ -100,25 +103,42 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
                                          pooled_mlp.AFFINE_BWD,
                                          binned_interp.KERNEL))
     assert edgeconv.TC_LAUNCHES == 0
+    assert edgeconv.F32_TILED_LAUNCHES == 0
 
 
-@pytest.mark.parametrize("dtype,mlp,widths,tc", [
-    (torch.bfloat16, True, (64, 128, 256), True),
-    (torch.float32, True, (64, 128, 256), False),
-    (torch.bfloat16, True, (64, 128, 128), False),
-    (torch.bfloat16, False, (64, 128, 128), False),
-    (torch.bfloat16, False, (64, 128, 256), False),
-    (torch.bfloat16, True, (6, 64, 128), False),
-    (torch.bfloat16, True, (32, 16, 32), False),
-    (torch.bfloat16, True, (32, 128, 256), False),
-    (torch.float16, True, (64, 128, 256), False),
+# (mlp, C, H, O) of the classes the f32 register-tiled kernel takes
+F32_TILED = [(True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
+             (True, 32, 16, 32)]
+
+
+@pytest.mark.parametrize("dtype,mlp,widths,tc,f32t", [
+    (torch.bfloat16, True, (64, 128, 256), True, False),
+    (torch.float32, True, (64, 128, 256), False, True),
+    (torch.bfloat16, True, (64, 128, 128), False, False),
+    (torch.bfloat16, False, (64, 128, 128), False, False),
+    (torch.bfloat16, False, (64, 128, 256), False, False),
+    (torch.bfloat16, True, (6, 64, 128), False, False),
+    (torch.bfloat16, True, (32, 16, 32), False, False),
+    (torch.bfloat16, True, (32, 128, 256), False, False),
+    (torch.float16, True, (64, 128, 256), False, False),
+    (torch.float32, False, (64, 128, 128), False, True),
+    (torch.float32, True, (6, 64, 128), False, True),
+    (torch.float32, True, (32, 16, 32), False, True),
+    (torch.float32, False, (64, 128, 256), False, False),
+    (torch.float32, True, (32, 128, 256), False, False),
+    (torch.float32, True, (10, 24, 40), False, False),
+    (torch.float32, True, (12, 8, 8), False, False),
 ])
 def test_edgeconv_dispatch_takes_tensor_cores_only_at_its_class(dtype, mlp,
-                                                                 widths, tc):
+                                                                 widths, tc,
+                                                                 f32t):
     """Only the bf16 forward with the SharedMLP at (C, H, O) = (64, 128,
-    256) routes to the tensor-core kernel; f32 at the same widths, another
-    width, or no SharedMLP take the general kernel."""
+    256) routes to the tensor-core kernel, and only the f32 forward at a
+    class of ``F32_TILED`` to the f32 register-tiled kernel; another dtype,
+    width or SharedMLP setting takes the general kernel."""
     assert edgeconv.takes_tensor_cores(dtype, mlp, *widths) is tc
+    assert edgeconv.takes_f32_tiled(dtype, mlp, *widths) is f32t
+    assert edgeconv.F32_TILED_CLASSES == frozenset(F32_TILED)
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -223,25 +243,46 @@ def test_knn_kernel_matches_plain_on_card(card, gen, d, k, nq, nc, kind):
 
 def _edgeconv_cases():
     """(c, h, o, k, agg, b, n, kind): the general kernel's five classes,
-    then the tensor-core class (64, 128, 256) at K 1, 4 and 12 with every
-    aggregate, ragged N (77 and 9,992, off the 16-point tile), one whole
-    10,240-point frame, exact inputs with tied planes, and inputs that
-    start 2 or 4 bytes into their storage (not 16-byte aligned)."""
+    then the tensor-core and f32 register-tiled class (64, 128, 256) at K
+    1, 4, 12 and 20 with every aggregate, ragged N (77 and 9,992, off the
+    tiles), one whole 10,240-point frame, the fused train step's 12 x
+    1,152 rows, exact inputs with tied planes, and inputs that start 2 or
+    4 bytes into their storage (not 16-byte aligned)."""
     cases = [pytest.param(*c, 2, 77, "random", id="-".join(map(str, c)))
              for c in [(6, 64, 128, 20, "max"), (32, 16, 32, 10, "max"),
                        (64, 128, None, 8, "sum"), (10, 24, 40, 5, "mean"),
                        (12, 8, 8, 3, "min")]]
     cases += [pytest.param(64, 128, 256, k, agg, 2, n, "random",
                            id=f"tc-k{k}-{agg}-n{n}")
-              for k in (1, 4, 12) for agg in ("max", "min", "sum", "mean")
+              for k in (1, 4, 12, 20) for agg in ("max", "min", "sum", "mean")
               for n in (77, 9992)]
     cases.append(pytest.param(64, 128, 256, 12, "max", 1, 10240, "random",
                               id="tc-k12-max-1x10240"))
+    # the fused train step's rows: 12 frames of 1,152 points
+    cases.append(pytest.param(64, 128, 256, 12, "max", 12, 1152, "random",
+                              id="tc-k12-max-12x1152"))
     cases += [pytest.param(64, 128, 256, 12, agg, 2, 9992, "exact",
                            id=f"tc-exact-k12-{agg}")
               for agg in ("max", "min", "sum", "mean")]
     cases.append(pytest.param(64, 128, 256, 4, "max", 2, 77, "offset",
                               id="tc-k4-max-n77-offset"))
+    # the other classes of the f32 register-tiled kernel, each with the
+    # aggregate the serving forward gives it
+    for c, h, o, agg in [(64, 128, None, "sum"), (6, 64, 128, "max"),
+                         (32, 16, 32, "max")]:
+        name = f"f32t-{c}-{h}-{o}"
+        cases += [pytest.param(c, h, o, k, agg, 2, n, "random",
+                               id=f"{name}-k{k}-n{n}")
+                  for k in (1, 4, 12, 20) for n in (77, 9992)]
+        cases += [pytest.param(c, h, o, 20, agg, 1, 10240, "random",
+                               id=f"{name}-k20-1x10240"),
+                  pytest.param(c, h, o, 12, agg, 12, 1152, "random",
+                               id=f"{name}-k12-12x1152"),
+                  pytest.param(c, h, o, 4, agg, 2, 77, "offset",
+                               id=f"{name}-k4-n77-offset")]
+        cases += [pytest.param(c, h, o, 12, a, 2, 9992, "exact",
+                               id=f"{name}-exact-k12-{a}")
+                  for a in ("max", "min", "sum", "mean")]
     return cases
 
 
@@ -255,7 +296,7 @@ def _exact_edgeconv_inputs(gen, b, k, n, c, h, o):
     nbr = bits(0.5, b, k, n, c)
     nbr[:, 1], nbr[:, 3] = nbr[:, 0], nbr[:, 2]
     return [nbr, torch.zeros(b, n, c), bits(0.03, c, h), bits(0.03, c, h),
-            bits(0.03, h, h), bits(0.03, h, o)]
+            bits(0.03, h, h) if o else None, bits(0.03, h, o) if o else None]
 
 
 @pytest.mark.gpu
@@ -264,9 +305,10 @@ def _exact_edgeconv_inputs(gen, b, k, n, c, h, o):
 def test_edgeconv_kernel_matches_plain_on_card(card, gen, dtype, c, h, o, k,
                                                agg, b, n, kind):
     """The bf16 forward at (64, 128, 256) with the SharedMLP launches the
-    tensor-core kernel (one count of TC_LAUNCHES), every other forward the
-    general kernel (none); exact inputs give the plain version bit for
-    bit."""
+    tensor-core kernel (one count of TC_LAUNCHES), the f32 forward at a
+    class of F32_TILED the f32 register-tiled kernel (one count of
+    F32_TILED_LAUNCHES), every other forward the general kernel (none of
+    either); exact inputs give the plain version bit for bit."""
     t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
     if kind == "exact":
         args = _exact_edgeconv_inputs(gen, b, k, n, c, h, o)
@@ -277,12 +319,15 @@ def test_edgeconv_kernel_matches_plain_on_card(card, gen, dtype, c, h, o, k,
     on_card = [a.to(card) if a is not None else None for a in args]
     if kind == "offset":    # each a view one element into a fresh buffer
         on_card = [torch.empty(a.numel() + 1, dtype=dtype, device=card)[1:]
-                   .view(a.shape).copy_(a) for a in on_card]
-    before = edgeconv.TC_LAUNCHES
+                   .view(a.shape).copy_(a) if a is not None else None
+                   for a in on_card]
+    before, before_f32t = edgeconv.TC_LAUNCHES, edgeconv.F32_TILED_LAUNCHES
     out_k = edgeconv.edgeconv_fused(*on_card, aggregate=agg,
                                     compute_dtype=dtype)
     tc = dtype == torch.bfloat16 and (c, h, o) == (64, 128, 256)
+    f32t = dtype == torch.float32 and (o is not None, c, h, o or h) in F32_TILED
     assert edgeconv.TC_LAUNCHES == before + int(tc)
+    assert edgeconv.F32_TILED_LAUNCHES == before_f32t + int(f32t)
     out_p = edgeconv.edgeconv_plain(*args, aggregate=agg, compute_dtype=dtype)
     if kind == "exact":
         assert torch.equal(out_k.cpu(), out_p)

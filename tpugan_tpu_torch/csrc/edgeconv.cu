@@ -28,13 +28,44 @@
 // [16, Cin] x [Cin, Cout] product: thread t computes column t % Cout for
 // the points t / Cout, t / Cout + 256 / Cout, ..., reading the activation
 // rows as float4 broadcasts from shared memory and one weight per input
-// channel straight from device memory. The weights are not staged: the
-// upsampler's f32 weights (Wn and We 64 KB, W1 64 KB, W2 128 KB) exceed a
-// block's 227 KB of shared memory, and every block reads them in the same
-// order, so they stay resident in the 50 MB L2 and partly in L1. The last
-// layer's outputs are folded into the aggregate in registers (a thread
-// keeps the same (point, column) pairs for every plane), so they never
-// touch shared memory either.
+// channel straight from device memory. This kernel does not stage the
+// weights; it now serves only the bf16 forwards outside the tensor-core
+// class and the f32 forwards outside the register-tiled kernel's classes
+// (below), where every block reads the weights in the same order from the
+// 50 MB L2 and partly from L1. The last layer's outputs are folded into
+// the aggregate in registers (a thread keeps the same (point, column)
+// pairs for every plane), so they never touch shared memory either.
+//
+// The f32 forward at four classes (mlp, C, H, O) has a kernel of its own,
+// edgeconv_f32t_kernel (entry point edgeconv_fwd_f32_tiled), with the same
+// contract. It replaces _edgeconv_kernel with cdt = float32 at the
+// upsampler's and mask head's (64, 128, 256), the mask head's sum without
+// the SharedMLP (64, 128, 128), EdgeConv_0's (6, 64, 128) and the IDGCN's
+// (32, 16, 32). TF32 stays off, so its bound is the card's 67 TFLOP/s of
+// f32 FFMA; at 10,240 points a k=12 launch of (64, 128, 256) does 16.1
+// GFLOP (0.240 ms), a k=4 launch 5.4 (0.080 ms), the k=8 sum 2.7 (0.040
+// ms), EdgeConv_0 at k=20 5.3 (0.080 ms), the IDGCN at k=20 0.73 (0.011
+// ms), each above 20 operations a byte of table. The general kernel
+// feeds each weight it loads from L2 to at most 16 FMAs; here the weights
+// sit in shared memory and every thread owns an R x S register tile of
+// each layer's output (R = 5 points by 4 columns of h1 and h2, 8 of the
+// output, at (64, 128, 256)), so per 4 input channels it reads R + S
+// float4 values for 4 R S FMAs. Shared memory per block, (64, 128, 256):
+// Wn, We and W1 resident (128 KB); W2 (128 KB) streamed per plane through
+// two 16-row stages by cp.async (32 KB, L2 traffic of 128 KB a plane per
+// 40-point tile, about 6 bytes a cycle an SM); the plane's rows and the
+// centres double-buffered (4 x 10,880 B), h2 written over h1 (21,120 B):
+// 228,480 of the 232,448 bytes a block may hold, one block an SM. Keeping
+// W1 and W2 resident instead (192 KB) would leave Wn and We to L2 reads
+// in the layer that reads the most activations. The other classes hold
+// every weight: (64, 128, 128) 109,056 B, (6, 64, 128) (C padded to 8)
+// 73,984 B, (32, 16, 32) 51,200 B. The grid is persistent (resident blocks
+// an SM x 132, at most one a tile); a block strides over the point tiles
+// (40 points, 80 at (6, 64, 128), 64 at the IDGCN: at (64, 128, 256)
+// 10,240 points make 256 tiles, two rounds of 132 blocks filled to 97%),
+// and the next plane's rows (at a tile's last plane, the next tile's
+// centres too) arrive by cp.async while the current plane computes. Only
+// [N, O] is written.
 //
 // The bf16 forward of the upsampler's and mask head's class, (C, H, O) =
 // (64, 128, 256) with the SharedMLP, has a kernel of its own,
@@ -769,6 +800,380 @@ int launch(const void* nbr, const void* ctr, const void* wn, const void* we,
 
 }  // namespace tc
 
+// --------------------------------------------- f32 register-tiled forward
+//
+// edgeconv_f32t_kernel: the f32 forward at the classes Shape admits. The
+// contract is edgeconv_kernel's for T = float; the head of this file says
+// what bounds it and how its shared memory is spent.
+namespace f32t {
+
+constexpr int THREADS = 256;
+constexpr int KC = 16;   // rows of W2 a shared-memory stage holds
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float part(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// A class's widths and its layout. Thread (pg, cg) owns rows pg + r PG of
+// the tile (r < R) and, in a layer of width 4 CG S/4, columns
+// cg * 4 + q * 4 CG + u (q < S/4, u < 4): 4 columns of h1 and h2, S3 of the
+// output. A warp is LP rows by LC column groups, so each float4 read of an
+// activation row serves LC lanes and each of a weight row LP lanes.
+template <int C_, int H_, int O_, bool MLP_, int TP_>
+struct Shape {
+  static constexpr int C = C_, CP = (C_ + 3) / 4 * 4, H = H_, TP = TP_;
+  static constexpr bool MLP = MLP_;
+  static constexpr int O = MLP_ ? O_ : H_;
+  static constexpr int CG = H / 4, PG = THREADS / CG, R = TP / PG;
+  static constexpr int S3 = MLP_ ? O / CG : 4;       // output columns a thread
+  static constexpr int LC = CG < 8 ? CG : 8, LP = 32 / LC, WC = CG / LC;
+  // row pitches of 4 (mod 32) floats: the LP rows a warp reads at once lie
+  // in distinct banks
+  static constexpr int LDC = CP + 4, LDH = H + 4;
+  static constexpr int NCH = MLP_ ? H / KC : 0;      // W2 stages a plane
+  static constexpr int W_FLOATS = 2 * CP * H + (MLP_ ? H * H + 2 * KC * O : 0);
+  static constexpr int A_FLOATS = 4 * TP * LDC + (MLP_ ? TP * LDH : 0);
+  static constexpr size_t SMEM = sizeof(float) * (W_FLOATS + A_FLOATS);
+  static_assert(H % 4 == 0 && CG * PG == THREADS && R * PG == TP, "layout");
+  static_assert(LC * LP == 32 && PG % LP == 0, "warp layout");
+  static_assert(!MLP_ || (H % KC == 0 && O % (4 * CG) == 0), "MLP widths");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// acc[r][s] += sum_{c < KD} X[row r][c] W[c][column s] of the thread's rows
+// and S columns: per 4 input channels R float4 activation reads, S weight
+// float4 reads, 4 R S FMAs.
+template <class SH, int S, int KD, int LDX, int LDW>
+__device__ __forceinline__ void product(const float* X, const float* W, int pg,
+                                        int cg, float (&acc)[SH::R][S]) {
+  const float* xr = X + pg * LDX;
+  const float* wc = W + cg * 4;
+#pragma unroll 2
+  for (int c = 0; c < KD; c += 4) {
+    float4 x[SH::R];
+#pragma unroll
+    for (int r = 0; r < SH::R; ++r)
+      x[r] = *reinterpret_cast<const float4*>(xr + r * SH::PG * LDX + c);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float w[S];
+#pragma unroll
+      for (int q = 0; q < S / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(wc + (c + u) * LDW + q * 4 * SH::CG);
+        w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int r = 0; r < SH::R; ++r)
+#pragma unroll
+        for (int s = 0; s < S; ++s) acc[r][s] = fmaf(part(x[r], u), w[s], acc[r][s]);
+    }
+  }
+}
+
+// Layer 1's two products: za = nb Wn, zb = (nb - ctr) We at the thread's
+// rows and 4 columns (the edge formed in registers, exact in f32).
+template <class SH>
+__device__ __forceinline__ void affines(const float* nb, const float* ct,
+                                        const float* wn, const float* we,
+                                        int pg, int cg, float (&za)[SH::R][4],
+                                        float (&zb)[SH::R][4]) {
+  constexpr int LD = SH::LDC, H = SH::H;
+#pragma unroll
+  for (int r = 0; r < SH::R; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) { za[r][s] = 0.f; zb[r][s] = 0.f; }
+#pragma unroll 2
+  for (int c = 0; c < SH::CP; c += 4) {
+    float4 x[SH::R], e[SH::R];
+#pragma unroll
+    for (int r = 0; r < SH::R; ++r) {
+      const int o = (pg + r * SH::PG) * LD + c;
+      x[r] = *reinterpret_cast<const float4*>(nb + o);
+      const float4 z = *reinterpret_cast<const float4*>(ct + o);
+      e[r] = make_float4(x[r].x - z.x, x[r].y - z.y, x[r].z - z.z, x[r].w - z.w);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 a = *reinterpret_cast<const float4*>(wn + (c + u) * H + cg * 4);
+      const float4 b = *reinterpret_cast<const float4*>(we + (c + u) * H + cg * 4);
+#pragma unroll
+      for (int r = 0; r < SH::R; ++r) {
+        const float xu = part(x[r], u), eu = part(e[r], u);
+        za[r][0] = fmaf(xu, a.x, za[r][0]); zb[r][0] = fmaf(eu, b.x, zb[r][0]);
+        za[r][1] = fmaf(xu, a.y, za[r][1]); zb[r][1] = fmaf(eu, b.y, zb[r][1]);
+        za[r][2] = fmaf(xu, a.z, za[r][2]); zb[r][2] = fmaf(eu, b.z, zb[r][2]);
+        za[r][3] = fmaf(xu, a.w, za[r][3]); zb[r][3] = fmaf(eu, b.w, zb[r][3]);
+      }
+    }
+  }
+}
+
+// Rows p0 .. p0 + TP of a [.., C] tensor (src points at row p0) into a
+// [TP][LDC] tile by cp.async; rows past np and channels past C read as 0.
+template <class SH>
+__device__ __forceinline__ void load_rows(const float* __restrict__ src, int np,
+                                          float* dst) {
+  constexpr int C = SH::C, LD = SH::LDC;
+  if constexpr (C % 4 == 0) {
+    constexpr int CH = C / 4;
+    for (int e = threadIdx.x; e < SH::TP * CH; e += THREADS) {
+      const int p = e / CH, c = 4 * (e - p * CH);
+      const bool in = p < np;
+      cp_async16(dst + p * LD + c, in ? src + (size_t)p * C + c : src, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < SH::TP * SH::CP; e += THREADS) {
+      const int p = e / SH::CP, c = e - p * SH::CP;
+      const bool in = p < np && c < C;
+      cp_async4(dst + p * LD + c, in ? src + (size_t)p * C + c : src, in);
+    }
+  }
+}
+
+template <int AGG>
+__device__ __forceinline__ float fold(float acc, float y) {
+  if (AGG == kMax) return fmaxf(acc, y);
+  if (AGG == kMin) return fminf(acc, y);
+  return acc + y;   // sum / mean fold in f32
+}
+
+// Blocks hold Wn, We and W1 in shared memory and stride over the point
+// tiles (tile blockIdx.x, then every gridDim.x-th). A block walks its
+// tiles' planes in order; while plane j computes, the rows of the next
+// plane (and, at a tile's last plane, the next tile's centres) arrive in
+// the other buffer. Per plane: layer 1 into registers, h1 to shared
+// memory; layer 2 into registers, h2 over h1; layer 3 over W2 in KC-row
+// stages, two in flight, its outputs folded into the aggregate in
+// registers. Only [N, O] is written.
+template <class SH, int AGG>
+__global__ void __launch_bounds__(THREADS, 1)
+edgeconv_f32t_kernel(const float* __restrict__ nbr, const float* __restrict__ ctr,
+                     const float* __restrict__ wn, const float* __restrict__ we,
+                     const float* __restrict__ w1, const float* __restrict__ w2,
+                     float* __restrict__ out, int B, int K, int N) {
+  constexpr int C = SH::C, CP = SH::CP, H = SH::H, O = SH::O, TP = SH::TP;
+  constexpr int R = SH::R, PG = SH::PG, CG = SH::CG, S3 = SH::S3;
+  constexpr int LDC = SH::LDC, LDH = SH::LDH, NCH = SH::NCH;
+  constexpr bool MLP = SH::MLP;
+  extern __shared__ __align__(16) float smem[];
+  float* wn_s = smem;                                // [CP][H]
+  float* we_s = wn_s + CP * H;                       // [CP][H]
+  float* w1_s = we_s + CP * H;                       // [H][H] (MLP)
+  float* w2_s = w1_s + (MLP ? H * H : 0);            // 2 x [KC][O] (MLP)
+  float* nb_s = w2_s + (MLP ? 2 * KC * O : 0);       // 2 x [TP][LDC]
+  float* ct_s = nb_s + 2 * TP * LDC;                 // 2 x [TP][LDC]
+  float* h_s = ct_s + 2 * TP * LDC;                  // [TP][LDH] h1, then h2
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cg = (warp % SH::WC) * SH::LC + lane % SH::LC;
+  const int pg = (warp / SH::WC) * SH::LP + lane / SH::LC;
+  const int row_tiles = (N + TP - 1) / TP, tiles = B * row_tiles;
+  int tile = blockIdx.x;
+  if (tile >= tiles) return;
+
+  for (int e = tid; e < CP * H / 4; e += THREADS) {   // Wn, We; rows past C 0
+    const bool in = 4 * e < C * H;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(wn_s)[e] = in ? __ldg(reinterpret_cast<const float4*>(wn) + e) : z;
+    reinterpret_cast<float4*>(we_s)[e] = in ? __ldg(reinterpret_cast<const float4*>(we) + e) : z;
+  }
+  if (MLP)
+    for (int e = tid; e < H * H / 4; e += THREADS)
+      reinterpret_cast<float4*>(w1_s)[e] = __ldg(reinterpret_cast<const float4*>(w1) + e);
+  auto load_w2 = [&](int i) {   // W2 rows KC i .. +KC into stage i % 2
+    const float* src = w2 + (size_t)i * KC * O;
+    float* dst = w2_s + (i % 2) * KC * O;
+    for (int e = tid; e < KC * O / 4; e += THREADS) cp_async16(dst + 4 * e, src + 4 * e, true);
+  };
+  auto rows_of = [&](int t, int& b, int& p0) {
+    b = t / row_tiles;
+    p0 = (t - b * row_tiles) * TP;
+  };
+  {
+    int b, p0;
+    rows_of(tile, b, p0);
+    load_rows<SH>(ctr + ((size_t)b * N + p0) * C, N - p0, ct_s);
+    load_rows<SH>(nbr + ((size_t)b * K * N + p0) * C, N - p0, nb_s);
+    cp_commit();
+  }
+
+  int nbuf = 0, cbuf = 0;
+  for (; tile < tiles; tile += gridDim.x) {
+    int b, p0;
+    rows_of(tile, b, p0);
+    const int np = min(TP, N - p0);
+    float res[R][S3];
+    for (int j = 0; j < K; ++j) {
+      cp_wait<0>();
+      __syncthreads();   // plane j's rows are in; plane j - 1 is no longer read
+      const int nt = j + 1 < K ? tile : tile + (int)gridDim.x;
+      const int nj = j + 1 < K ? j + 1 : 0;
+      if (nt < tiles) {
+        int nb_b, nb_p0;
+        rows_of(nt, nb_b, nb_p0);
+        load_rows<SH>(nbr + (((size_t)nb_b * K + nj) * N + nb_p0) * C,
+                      N - nb_p0, nb_s + (nbuf ^ 1) * TP * LDC);
+        if (nj == 0)
+          load_rows<SH>(ctr + ((size_t)nb_b * N + nb_p0) * C, N - nb_p0,
+                        ct_s + (cbuf ^ 1) * TP * LDC);
+      }
+      cp_commit();
+      if (MLP) {
+        load_w2(0);
+        cp_commit();
+        if (NCH > 1) load_w2(1);
+        cp_commit();
+      }
+
+      // layer 1: h1 = lrelu(nb Wn) + lrelu((nb - ctr) We)
+      float za[R][4], zb[R][4];
+      affines<SH>(nb_s + nbuf * TP * LDC, ct_s + cbuf * TP * LDC, wn_s, we_s,
+                  pg, cg, za, zb);
+      nbuf ^= 1;
+      if (!MLP) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const float y = lrelu(za[r][s]) + lrelu(zb[r][s]);
+            res[r][s] = j == 0 ? y : fold<AGG>(res[r][s], y);
+          }
+        continue;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        *reinterpret_cast<float4*>(h_s + (pg + r * PG) * LDH + cg * 4) =
+            make_float4(lrelu(za[r][0]) + lrelu(zb[r][0]),
+                        lrelu(za[r][1]) + lrelu(zb[r][1]),
+                        lrelu(za[r][2]) + lrelu(zb[r][2]),
+                        lrelu(za[r][3]) + lrelu(zb[r][3]));
+      __syncthreads();
+
+      // layer 2: h2 = lrelu(h1 W1), written over h1 once every thread has
+      // read it
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) za[r][s] = 0.f;
+      product<SH, 4, H, LDH, H>(h_s, w1_s, pg, cg, za);
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        *reinterpret_cast<float4*>(h_s + (pg + r * PG) * LDH + cg * 4) =
+            make_float4(lrelu(za[r][0]), lrelu(za[r][1]), lrelu(za[r][2]),
+                        lrelu(za[r][3]));
+
+      // layer 3: y = lrelu(h2 W2) over the W2 stages, folded in registers
+      float z[R][S3];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int s = 0; s < S3; ++s) z[r][s] = 0.f;
+      for (int i = 0; i < NCH; ++i) {
+        if (i + 1 < NCH) cp_wait<1>(); else cp_wait<0>();
+        __syncthreads();   // stage i (and, at i = 0, h2) visible
+        product<SH, S3, KC, LDH, O>(h_s + i * KC, w2_s + (i % 2) * KC * O, pg,
+                                    cg, z);
+        if (i + 2 < NCH) {
+          __syncthreads();   // stage i % 2 is no longer read
+          load_w2(i + 2);
+          cp_commit();
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int s = 0; s < S3; ++s) {
+          const float y = lrelu(z[r][s]);
+          res[r][s] = j == 0 ? y : fold<AGG>(res[r][s], y);
+        }
+    }
+    cbuf ^= 1;
+
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int p = pg + r * PG;
+      if (p >= np) continue;
+#pragma unroll
+      for (int q = 0; q < S3 / 4; ++q) {
+        float4 v = make_float4(res[r][4 * q], res[r][4 * q + 1],
+                               res[r][4 * q + 2], res[r][4 * q + 3]);
+        if (AGG == kMean) {
+          const float k = (float)K;
+          v = make_float4(v.x / k, v.y / k, v.z / k, v.w / k);
+        }
+        *reinterpret_cast<float4*>(out + ((size_t)b * N + p0 + p) * O + cg * 4 +
+                                   q * 4 * CG) = v;
+      }
+    }
+  }
+}
+
+template <class SH, int AGG>
+int launch(const void* nbr, const void* ctr, const void* wn, const void* we,
+           const void* w1, const void* w2, void* out, int B, int K, int N,
+           cudaStream_t stream) {
+  auto kern = edgeconv_f32t_kernel<SH, AGG>;
+  static int grid_max = 0;   // SMs x resident blocks an SM, found once
+  if (grid_max == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SH::SMEM);
+    int device = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
+                                                        SH::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid_max = sms * per_sm;
+  }
+  const int tiles = B * ((N + SH::TP - 1) / SH::TP);
+  const int grid = tiles < grid_max ? tiles : grid_max;   // persistent
+  kern<<<grid, THREADS, SH::SMEM, stream>>>(
+      static_cast<const float*>(nbr), static_cast<const float*>(ctr),
+      static_cast<const float*>(wn), static_cast<const float*>(we),
+      static_cast<const float*>(w1), static_cast<const float*>(w2),
+      static_cast<float*>(out), B, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class SH>
+int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
+               const void* w1, const void* w2, void* out, int B, int K, int N,
+               int agg, cudaStream_t s) {
+  switch (agg) {
+    case kMax: return launch<SH, kMax>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    case kMin: return launch<SH, kMin>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    case kSum: return launch<SH, kSum>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    default: return launch<SH, kMean>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+  }
+}
+
+}  // namespace f32t
+
 }  // namespace
 
 // Shapes the wrapper (ops/kernels/edgeconv.py) admits: 1 <= H, O <= 256,
@@ -825,4 +1230,27 @@ extern "C" int edgeconv_fwd_bf16_tc(const void* nbr, const void* ctr,
     case kSum: return tc::launch<kSum>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
     default: return tc::launch<kMean>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
   }
+}
+
+// The f32 forward on register tiles (f32t::edgeconv_f32t_kernel): the
+// contract of edgeconv_fwd for bf16 = 0 at the classes below (mlp, C, H, O);
+// any other class returns cudaErrorInvalidValue. Every pointer 16-byte
+// aligned; B * N >= 1, K >= 1.
+extern "C" int edgeconv_fwd_f32_tiled(const void* nbr, const void* ctr,
+                                      const void* wn, const void* we,
+                                      const void* w1, const void* w2, void* out,
+                                      int B, int K, int N, int C, int H, int O,
+                                      int mlp, int agg, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  using namespace f32t;
+#define EDGECONV_F32T(c, h, o, m, tp)                                          \
+  if (bool(mlp) == m && C == c && H == h && O == o)                           \
+    return launch_agg<Shape<c, h, o, m, tp>>(nbr, ctr, wn, we, w1, w2, out, B, \
+                                             K, N, agg, s)
+  EDGECONV_F32T(64, 128, 256, true, 40);    // upsampler and mask head
+  EDGECONV_F32T(64, 128, 128, false, 40);   // mask head's sum
+  EDGECONV_F32T(6, 64, 128, true, 80);      // EdgeConv_0
+  EDGECONV_F32T(32, 16, 32, true, 64);      // IDGCN
+#undef EDGECONV_F32T
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,9 +11,11 @@ call: the kernel and the pass that adds the blocks' weight-gradient
 partials); both handles load the same library. A bf16 forward with the
 SharedMLP at (C, H, O) = ``TC_WIDTHS`` launches the tensor-core kernel
 (``edgeconv_fwd_bf16_tc``) through ``KERNEL``, and ``TC_LAUNCHES`` counts
-those launches alone; every other forward launches ``edgeconv_fwd``. The
-kernels' source note says what bounds them on the card and how they are
-laid out.
+those launches alone. An f32 forward at a class of ``F32_TILED_CLASSES``
+launches the register-tiled f32 kernel (``edgeconv_fwd_f32_tiled``)
+through ``KERNEL``, and ``F32_TILED_LAUNCHES`` counts those launches
+alone. Every other forward launches ``edgeconv_fwd``. The kernels' source
+note says what bounds them on the card and how they are laid out.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel("edgeconv",
                     {"edgeconv_fwd": [VOIDP] * 7 + [INT] * 9 + [VOIDP],
-                     "edgeconv_fwd_bf16_tc": [VOIDP] * 7 + [INT] * 4 + [VOIDP]})
+                     "edgeconv_fwd_bf16_tc": [VOIDP] * 7 + [INT] * 4 + [VOIDP],
+                     "edgeconv_fwd_f32_tiled": [VOIDP] * 7 + [INT] * 8 + [VOIDP]})
 BWD = CudaKernel("edgeconv",
                  {"edgeconv_bwd": [VOIDP] * 11 + [INT] * 10 + [VOIDP]})
 
@@ -37,6 +40,10 @@ MAX_BLOCKS = 264  # blocks of the backward (2 per SM): bounds its scratch
 TILE = 16         # points per block tile (csrc/edgeconv.cu : TP)
 TC_WIDTHS = (64, 128, 256)   # (C, H, O) of the tensor-core kernel
 TC_LAUNCHES = 0              # launches of the tensor-core kernel
+# (mlp, C, H, O) of the f32 register-tiled kernel
+F32_TILED_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
+                               (True, 6, 64, 128), (True, 32, 16, 32)})
+F32_TILED_LAUNCHES = 0       # launches of the f32 register-tiled kernel
 
 
 def _round(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -84,7 +91,10 @@ def edgeconv_plain(nbr_t, ctr, wn, we, w1=None, w2=None, aggregate="max",
         else:
             acc = _round(acc + y[:, j], cdt)
     if aggregate == "mean":
-        acc = _round(acc / y.shape[1], cdt)
+        # true division on every device, as the kernels and jnp divide (on
+        # a CUDA tensor, a division by a Python number multiplies by its
+        # rounded reciprocal instead)
+        acc = _round(acc / torch.full_like(acc, y.shape[1]), cdt)
     return acc.to(cdt)
 
 
@@ -175,6 +185,19 @@ def takes_tensor_cores(cdt, mlp, c, h, o) -> bool:
     return cdt is torch.bfloat16 and mlp and (c, h, o) == TC_WIDTHS
 
 
+def takes_f32_tiled(cdt, mlp, c, h, o) -> bool:
+    """Whether a forward on the card launches the f32 register-tiled
+    kernel: the f32 forward at a class of ``F32_TILED_CLASSES``."""
+    return cdt is torch.float32 and (bool(mlp), c, h, o) in F32_TILED_CLASSES
+
+
+def _aligned(args):
+    """The operands, each cloned where its view does not start on 16 bytes
+    (the kernels move 16 bytes at a time; a view may start anywhere)."""
+    return [a if a is None or a.data_ptr() % 16 == 0 else a.clone()
+            for a in args]
+
+
 def _forward(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt):
     b, k, n, c, h, o, mlp = _check(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt)
     if nbr_t.device.type == "cpu":
@@ -186,11 +209,16 @@ def _forward(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt):
         return out
     if takes_tensor_cores(cdt, mlp, c, h, o):
         global TC_LAUNCHES
-        # the kernel moves 16 bytes at a time: a view may start anywhere
-        args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
-        KERNEL.launch("edgeconv_fwd_bf16_tc", *_ptrs(args), ptr(out), b, k, n,
-                      AGGREGATES[aggregate], stream_of(out))
+        KERNEL.launch("edgeconv_fwd_bf16_tc", *_ptrs(_aligned(args)), ptr(out),
+                      b, k, n, AGGREGATES[aggregate], stream_of(out))
         TC_LAUNCHES += 1
+        return out
+    if takes_f32_tiled(cdt, mlp, c, h, o):
+        global F32_TILED_LAUNCHES
+        KERNEL.launch("edgeconv_fwd_f32_tiled", *_ptrs(_aligned(args)),
+                      ptr(out), b, k, n, c, h, o, int(mlp),
+                      AGGREGATES[aggregate], stream_of(out))
+        F32_TILED_LAUNCHES += 1
         return out
     KERNEL.launch("edgeconv_fwd", *_ptrs(args), ptr(out), b, k, n, c, h, o,
                   int(mlp), AGGREGATES[aggregate], int(cdt == torch.bfloat16),
