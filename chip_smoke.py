@@ -13,7 +13,8 @@ Phases, one JSON line each (``phase`` names it):
   device   nvidia-smi name and power limit, torch and CUDA versions, the
            kernels' build time and their ptxas register / spill report
            (and the tensor-core and the f32 register-tiled EdgeConv
-           kernels' alone; the latter must not spill);
+           kernels' alone, the latter must not spill; and the approximate
+           kNN kernel's);
   kernel   each CUDA kernel of the serving path against its plain PyTorch
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
@@ -27,6 +28,16 @@ Phases, one JSON line each (``phase`` names it):
            device time of the wrapper's launches (torch.profiler), and the
            tc class and every f32t class on exact inputs at serving width
            equal the plain version bit for bit;
+  kernel   (approx) the approximate bf16 kNN kernel against its plain
+           version at the six approximate serving shapes (the f32 dynamic
+           forward's five graph shapes at 10,240 points, the first also the
+           bf16 static graph's; the rollout's 10,112-row frame, its last
+           112 rows at the 999 sentinel with no invalid bias, as the
+           rollout pads it), with the share of queries whose neighbour set
+           differs from the exact kernel's, the times of the exact kernel,
+           the plain version and the yardstick; the duplicated grid (bit
+           for bit) and a query whose lane column holds more of its
+           neighbours than the mode keeps (the same neighbour dropped);
   serving  with the launch counts reset: the trained checkpoint through the
            port's loader, the f32 dynamic and the bf16 static forward of a
            10,240-point frame, the Chamfer gate between them, the launches
@@ -37,6 +48,13 @@ Phases, one JSON line each (``phase`` names it):
            after it; 3 tensor-core EdgeConv launches a frame, no f32t one);
   timing   the card's forward against the CPU's (plain versions) at 2,048
            points, and ms per frame of both serving forwards;
+  serving_approx with the launch counts reset: the exact f32 dynamic
+           forward, then with the approximate graph kNN switched on the f32
+           dynamic (7 approximate launches) and the bf16 static forward (1),
+           each with the normalised Chamfer against the exact one under
+           GATE, the keep-mask agreement and ms per frame; then the rollout
+           above with the switch on (1 approximate launch a frame); counts
+           read after it;
   profile  with --profile only: device time by kernel and idle share of one
            forward of each serving mode;
   kernel   (train) the train step's kernels (fps, ball_query, the pooled
@@ -81,6 +99,14 @@ Phases, one JSON line each (``phase`` names it):
            permutation, each sample's launches equal to EVAL_SAMPLE /
            EVAL_SAMPLE_AGREEMENT; seconds per sample, seconds and rounds
            of each auction;
+  eval_approx with the launch counts reset: one eval CLI sample with
+           --approx_graph --agreement_vs_exact at --patch_size 32768 (4,096
+           inputs, the first size whose graphs reach the approximate
+           kernel) on a 40,000-particle synthetic dataset under
+           runs/eval_fluid_synth_approx/, --emd_iters cut to
+           EVAL_APPROX_EMD_ITERS; launches against EVAL_APPROX_SAMPLE,
+           every metric finite, the Chamfer against the exact twin under
+           GATE, the switch off again after the call;
   density  with the launch counts reset: the trained SRNet on a whole
            12,000-particle frame (96,000 slots), the exact density of its
            kept points and of a 32^3 grid over it (the cell-grid kernel,
@@ -117,6 +143,7 @@ CHECKPOINT = os.path.join(ROOT, "checkpoints", "fluid_vel_20k.ckpt")
 N_POINTS = 10240          # serving frame (the JAX bench's frame)
 ROLLOUT_FRAMES = 25
 ROLLOUT_POINTS = 10000    # not a multiple of the rollout's ALIGN
+ROLLOUT_BUCKET = 10112    # the frames' rows (rounded up to ALIGN = 128)
 GATE = 5e-3               # normalised Chamfer gate, as in bench.py
 
 # H100 SXM published peaks (dense): HBM bytes/s and the rates by type
@@ -272,6 +299,14 @@ def index_gaps(q_np, c_np, ik, ip):
     return int(gap.size), float(gap.max()) if gap.size else 0.0
 
 
+def tie_grid(torch, dev):
+    """[1, 10,240, 3]: a 16 x 16 x 20 integer grid, every point twice, so
+    every distance is exact in f32 and each neighbour has a twin."""
+    g = np.stack(np.meshgrid(np.arange(16.0), np.arange(16.0), np.arange(20.0),
+                             indexing="ij"), -1).reshape(-1, 3)
+    return torch.from_numpy(np.concatenate([g, g])[None].astype(np.float32)).to(dev)
+
+
 def check_knn(torch, dev, rng):
     """Every kNN graph shape of the serving forward and of the train step
     (the step's graphs are rows of one launch each). Distances to 1e-5 of
@@ -316,9 +351,7 @@ def check_knn(torch, dev, rng):
     # exact ties at serving width: 5,120 integer grid points, each twice, so
     # every distance is exact in f32 and each neighbour has a twin; the
     # kernel must give the plain version's (stable argsort's) lists exactly
-    g = np.stack(np.meshgrid(np.arange(16.0), np.arange(16.0), np.arange(20.0),
-                             indexing="ij"), -1).reshape(-1, 3)
-    pts = torch.from_numpy(np.concatenate([g, g])[None].astype(np.float32)).to(dev)
+    pts = tie_grid(torch, dev)
     bias = torch.zeros((1, N_POINTS), device=dev)
     d2k, ik = K.knn_kernel(pts, pts, bias, 20)
     d2p, ip = K.knn_plain(pts, pts, bias, 20)
@@ -330,6 +363,138 @@ def check_knn(torch, dev, rng):
     if bad or not torch.equal(d2k, d2p):
         raise AssertionError(f"knn exact ties: {bad} indices differ from the "
                              "plain version's")
+    return rows
+
+
+# (graph, Nq = Nc, D, k, sentinel rows, launches per f32 dynamic forward,
+# per bf16 static forward, per rollout frame) of the approximate kernel
+# with the switch on. The rollout's graphs carry no valid mask: its padding
+# rows sit at the 999 sentinel with bias 0, as real candidates far away.
+APPROX_SHAPES = [
+    ("EdgeConv_0 / static graph", N_POINTS, 3, 20, 0, 1, 1, 0),
+    ("IDGCN", N_POINTS, 32, 20, 0, 2, 0, 0),
+    ("up/mask k=12", N_POINTS, 64, 12, 0, 2, 0, 0),
+    ("up k=4", N_POINTS, 64, 4, 0, 1, 0, 0),
+    ("mask k=8", N_POINTS, 64, 8, 0, 1, 0, 0),
+    ("rollout frame", ROLLOUT_BUCKET, 3, 20, ROLLOUT_BUCKET - ROLLOUT_POINTS,
+     0, 0, 1),
+]
+
+
+def _set_overlap(a, b):
+    """(share of rows whose index sets differ, mean share of b's entries
+    missing from a's row) of [B, Nq, k] index tensors."""
+    hit = (a[..., :, None] == b[..., None, :]).any(-2)   # b's entries in a
+    return (float((~hit.all(-1)).float().mean()),
+            float((~hit).float().mean()))
+
+
+def check_knn_approx(torch, dev, rng):
+    """The approximate kNN kernel at every approximate serving shape against
+    its plain version (``knn.approx_agreement`` over the real rows: d2
+    within half a bf16 ulp plus 1e-5 of 2 max |q|^2 of the float64 value,
+    differing lists only where a distance rounds to bf16 within that of a
+    boundary, at most 2% of the queries; the sentinel rows bit for bit),
+    with its recall against the exact kernel; then the grid (bit for bit)
+    and the dropped-neighbour case."""
+    from tpugan_tpu_torch import PAD_SENTINEL
+    from tpugan_tpu_torch.ops.kernels import knn as K
+
+    rows = []
+    for (graph, n, d, k, pad, per_fwd, per_static,
+         per_frame) in APPROX_SHAPES:
+        scale = 0.3 if d == 3 else 1.0
+        c_np = (rng.standard_normal((1, n, d)) * scale).astype(np.float32)
+        c_np[:, n - pad:] = PAD_SENTINEL
+        c = torch.from_numpy(c_np).to(dev)
+        bias = torch.zeros((1, n), device=dev)
+        got = K.knn_approx_kernel(c, c, bias, k)
+        want = K.knn_approx_plain(c, c, bias, k)
+        exact = K.knn_kernel(c, c, bias, k)
+        torch.cuda.synchronize()
+        # the real rows pick real neighbours only, so their tolerance takes
+        # the real points' norms; the sentinel rows tie at d2 = 0 exactly
+        real = n - pad
+        if pad and not (int(got[1][:, :real].max()) < real
+                        and torch.equal(got[0][:, real:], want[0][:, real:])
+                        and torch.equal(got[1][:, real:], want[1][:, real:])):
+            raise AssertionError(f"knn approx {graph}: the sentinel rows")
+        agree = K.approx_agreement(
+            (got[0][:, :real], got[1][:, :real]),
+            (want[0][:, :real], want[1][:, :real]),
+            (c[:, :real], c[:, :real], bias[:, :real]))
+        if not (agree["d2_excess"] <= 0 and agree["d2_unexplained"] == 0
+                and agree["rows_unexplained"] == 0
+                and agree["rows"] <= 0.02 * agree["queries"]):
+            raise AssertionError(f"knn approx {graph} D={d} k={k}: {agree}")
+        differ, missing = _set_overlap(got[1][:, :real], exact[1][:, :real])
+        # queries whose exact top-k holds more than kp members of one lane
+        # column: the mode's own losses, before any bf16 rank flip
+        per_col = torch.zeros((1, real, K.LANES), device=dev).scatter_add_(
+            -1, exact[1][:, :real] % K.LANES,
+            torch.ones_like(exact[0][:, :real]))
+        crowded = float((per_col.amax(-1) > K.chunk_kp_approx(k)).float().mean())
+        ms = time_ms(lambda: K.knn_approx_kernel(c, c, bias, k), torch)
+        exact_ms = time_ms(lambda: K.knn_kernel(c, c, bias, k), torch)
+        plain_ms = time_ms(lambda: K.knn_approx_plain(c, c, bias, k), torch)
+        lib_ms = time_ms(lambda: torch.topk(torch.cdist(c, c), k, largest=False),
+                         torch)
+        # the cross term's 2 D products a pair are of bf16 operands (the
+        # tensor cores' type), the norms' sum and clamp 3 f32 operations
+        t_ops = (2 * d * n * n / PEAK_OPS["bf16"]
+                 + 3 * n * n / PEAK_OPS["f32"]) * 1e3
+        t_bytes = (4 * (2 * n * d + n) + n * k * 12) / PEAK_BYTES * 1e3
+        b_ms, b_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        rows.append(dict(graph=graph, B=1, Nq=n, Nc=n, D=d, k=k,
+                         kp=K.chunk_kp_approx(k), sentinel_rows=pad,
+                         per_forward=per_fwd, per_static=per_static,
+                         per_frame=per_frame,
+                         max_abs_err=float((got[0] - want[0]).abs().max()),
+                         index_mismatch=int((got[1] != want[1]).sum()),
+                         **agree, rows_set_differs_vs_exact=differ,
+                         neighbours_missing_vs_exact=missing,
+                         rows_column_crowded=crowded, ms=ms,
+                         exact_ms=exact_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "knn_approx", **rows[-1]})
+
+    # exact inputs: the duplicated grid of check_knn, bit for bit
+    pts = tie_grid(torch, dev)
+    bias = torch.zeros((1, N_POINTS), device=dev)
+    got = K.knn_approx_kernel(pts, pts, bias, 20)
+    want = K.knn_approx_plain(pts, pts, bias, 20)
+    torch.cuda.synchronize()
+    bad = int((got[1] != want[1]).sum())
+    emit({"phase": "kernel", "kernel": "knn_approx", "case": "exact ties",
+          "Nq": N_POINTS, "Nc": N_POINTS, "D": 3, "k": 20,
+          "max_abs_err": float((got[0] - want[0]).abs().max()),
+          "index_mismatch": bad})
+    if bad or not torch.equal(got[0], want[0]):
+        raise AssertionError(f"knn approx exact ties: {bad} indices differ")
+
+    # a query at the origin whose 4 nearest candidates are 5, 133 and 261
+    # (lane column 5) and 7, the rest 2-3 away: k = 4 keeps 2 keys a column,
+    # so 261 is dropped on both sides; the exact kernel keeps it
+    drng = np.random.default_rng(3)
+    dirs = drng.standard_normal((4096, 3))
+    cand = dirs / np.linalg.norm(dirs, axis=1, keepdims=True) * drng.uniform(
+        2.0, 3.0, (4096, 1))
+    for i, r in ((5, 0.125), (133, 0.25), (261, 0.375), (7, 0.5)):
+        cand[i] = (r, 0.0, 0.0)
+    c = torch.from_numpy(cand[None].astype(np.float32)).to(dev)
+    q = torch.zeros((1, 1, 3), device=dev)
+    bias = torch.zeros((1, 4096), device=dev)
+    got = K.knn_approx_kernel(q, c, bias, 4)
+    want = K.knn_approx_plain(q, c, bias, 4)
+    exact = K.knn_kernel(q, c, bias, 4)
+    torch.cuda.synchronize()
+    emit({"phase": "kernel", "kernel": "knn_approx", "case": "dropped neighbour",
+          "approx_idx": got[1][0, 0].tolist(), "plain_idx": want[1][0, 0].tolist(),
+          "exact_idx": exact[1][0, 0].tolist()})
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and got[1][0, 0].tolist()[:3] == [5, 133, 7]
+            and exact[1][0, 0].tolist() == [5, 133, 261, 7]):
+        raise AssertionError("knn approx dropped-neighbour case")
     return rows
 
 
@@ -698,15 +863,11 @@ def profile(torch, name, model, feat, pos, out_dir):
           "top": [(n[:60], round(t, 4), c) for n, t, c in table[:12]]})
 
 
-def rollout(torch, model, kernels):
+def rollout_frames(torch, model):
     """25 frames chained as the JAX bench chains them (frame t+1 is the
     first 10,000 expanded points of frame t's forward, times 0.999), with
     zero velocity; frame t keeps 10,000 - 8 * (t % 4) of them, so the
-    frames are ragged within one bucket. Then ``rollout_sequence`` over the
-    sequence."""
-    from tpugan_tpu_torch.eval.rollout import rollout_sequence
-    from tpugan_tpu_torch.ops.kernels import edgeconv as E
-
+    frames are ragged within one bucket."""
     dev = next(model.parameters()).device
     rng = np.random.default_rng(1)
     pos = torch.from_numpy(rng.standard_normal((1, ROLLOUT_POINTS, 3))
@@ -717,14 +878,30 @@ def rollout(torch, model, kernels):
         frames.append((pos[0, :n].cpu().numpy(), None))
         expanded = model(torch.cat([pos, torch.zeros_like(pos)], -1), pos)[0]
         pos = expanded[:, :ROLLOUT_POINTS] * 0.999
+    return frames
+
+
+def rollout(torch, model, kernels, approx=False):
+    """``rollout_sequence`` over ``rollout_frames``, with the approximate
+    graph kNN on when ``approx`` (one approximate launch a frame)."""
+    from tpugan_tpu_torch.eval.rollout import rollout_sequence
+    from tpugan_tpu_torch.ops import neighbors
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+
+    frames = rollout_frames(torch, model)
     c0, tc0, ft0 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = rollout_sequence(model, frames, use_vel=True)
+    neighbors.set_approx_graph_knn(approx)
+    try:
+        outs = rollout_sequence(model, frames, use_vel=True)
+    finally:
+        neighbors.set_approx_graph_knn(False)
     wall = time.perf_counter() - t0
     got = delta(c0, counts(kernels))
-    expect(got, {"knn": ROLLOUT_FRAMES, "edgeconv": 9 * ROLLOUT_FRAMES, "nn1": 0},
-           "rollout")
+    want = {"knn_approx" if approx else "knn": ROLLOUT_FRAMES,
+            "edgeconv": 9 * ROLLOUT_FRAMES}
+    expect(got, want, "rollout" + (" (approximate graphs)" if approx else ""))
     tc, ft = E.TC_LAUNCHES - tc0, E.F32_TILED_LAUNCHES - ft0
     if (tc, ft) != (TC_PER_BF16_FORWARD * ROLLOUT_FRAMES, 0):
         raise AssertionError(f"rollout: {tc} tensor-core and {ft} f32t EdgeConv "
@@ -739,11 +916,61 @@ def rollout(torch, model, kernels):
                 and np.abs(o).max() < 100):
             raise AssertionError(f"rollout frame of {n}: {o.shape[0]} points")
         sizes.append(int(o.shape[0]))
-    emit({"phase": "rollout", "frames": ROLLOUT_FRAMES,
+    emit({"phase": "rollout", "approx_graph": approx, "frames": ROLLOUT_FRAMES,
           "points": [int(f[0].shape[0]) for f in frames[:4]],
           "output_points_first_last": [sizes[0], sizes[-1]],
           "launches": got, "tc_launches": tc, "f32t_launches": ft,
           "wall_ms_per_frame": wall * 1e3 / ROLLOUT_FRAMES})
+
+
+def serving_approx(torch, models, feat, pos, kernels):
+    """With the counts reset by the caller: the exact f32 dynamic forward,
+    then the f32 dynamic and the bf16 static forward with the approximate
+    graph kNN on, each against the exact one (normalised Chamfer under
+    GATE, keep-mask agreement). Returns the phase's line (ms per frame are
+    added past the counted run, by ``approx_ms``)."""
+    from tpugan_tpu_torch.ops import neighbors
+    from tpugan_tpu_torch.ops.metrics import chamfer
+
+    f32, bf16 = models
+    c0 = counts(kernels)
+    exp_e, _, _, valid_e = f32(feat, pos)
+    torch.cuda.synchronize()
+    expect(delta(c0, counts(kernels)), {"knn": 7, "edgeconv": 9},
+           "exact f32 dynamic forward")
+    scale = float((pos ** 2).sum(-1).mean())
+    out = {"phase": "serving_approx", "points": N_POINTS, "gate": GATE}
+    for name, model, want in (
+            ("f32_dynamic", f32, {"knn_approx": 7, "edgeconv": 9}),
+            ("bf16_static", bf16, {"knn_approx": 1, "edgeconv": 9})):
+        c0 = counts(kernels)
+        neighbors.set_approx_graph_knn(True)
+        try:
+            exp_a, _, _, valid_a = model(feat, pos)
+        finally:
+            neighbors.set_approx_graph_knn(False)
+        torch.cuda.synchronize()
+        got = delta(c0, counts(kernels))
+        expect(got, want, f"approximate {name} forward")
+        cd = float(chamfer(exp_e, exp_a).mean()) / (exp_e.shape[1] * scale)
+        out[name] = {"launches": got, "chamfer_norm_vs_exact": cd,
+                     "keep_mask_agreement_vs_exact":
+                         float((valid_a == valid_e).float().mean()),
+                     "valid": int(valid_a.sum())}
+        if not (cd < GATE and bool(torch.isfinite(exp_a).all())):
+            raise AssertionError(f"approximate {name}: {out[name]}")
+    return out
+
+
+def approx_ms(torch, model, feat, pos) -> float:
+    """ms per frame of a forward with the approximate graph kNN on."""
+    from tpugan_tpu_torch.ops import neighbors
+
+    neighbors.set_approx_graph_knn(True)
+    try:
+        return time_ms(lambda: model(feat, pos), torch)
+    finally:
+        neighbors.set_approx_graph_knn(False)
 
 
 # ------------------------------------------------- train-step kernel checks
@@ -1790,6 +2017,67 @@ def eval_phase(torch, kernels):
     return total
 
 
+# The eval CLI with --approx_graph at --patch_size 32768 (4,096 inputs, the
+# first size whose graphs reach the approximate kernel), on a synthetic
+# dataset of 40,000 particles (the CLI's own has 12,000), 4 frames, 1
+# sample, the auction cut from 2,000 rounds a phase to 100 (a 32,768-point
+# EMD at the default would take minutes). Launches per sample, read off
+# cli/eval_fluid.py and eval/analysis.py: the approximate f32 dynamic
+# forward (7 graphs, all approximate), the exact twin (7 exact), their
+# Chamfer (2 nn1); position_metrics' Chamfer (2 nn1) and the capped
+# interpolation's radius kNN (exact); cycle_consistency's 2 approximate
+# forwards and its Chamfer (2 nn1).
+EVAL_APPROX_DIR = os.path.join(ROOT, "runs", "eval_fluid_synth_approx")
+EVAL_APPROX_PARTICLES = 40000
+EVAL_APPROX_EMD_ITERS = 100
+EVAL_APPROX_SAMPLE = {"knn": 7 + 1, "knn_approx": 3 * 7,
+                      "edgeconv": 4 * 9, "nn1": 2 + 2 + 2}
+
+
+def eval_approx(torch, kernels):
+    """One eval CLI sample with --approx_graph --agreement_vs_exact (counts
+    reset here, read after the sample); returns the launches."""
+    from tpugan_tpu_torch.cli import eval_fluid
+    from tpugan_tpu_torch.data.synthetic import make_synthetic_fluid_dataset
+    from tpugan_tpu_torch.ops import neighbors
+
+    t0 = time.perf_counter()
+    make_synthetic_fluid_dataset(EVAL_APPROX_DIR, case_num=1, case_steps=4,
+                                 num_particles=EVAL_APPROX_PARTICLES, seed=100)
+    data_s = time.perf_counter() - t0
+    argv = ["--ckpt", CHECKPOINT, "--in_node_feats", "6", "--use_vel",
+            "--patch_size", "32768", "--num_samples", "1",
+            "--sequence_length", "4", "--dataset_path", EVAL_APPROX_DIR,
+            "--emd_iters", str(EVAL_APPROX_EMD_ITERS), "--approx_graph",
+            "--agreement_vs_exact"]
+    marks = []
+
+    def mark(_=None):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), counts(kernels)))
+
+    for k in kernels.values():
+        k.launches = 0
+    mark()
+    out = eval_fluid.evaluate(eval_fluid.parser().parse_args(argv),
+                              on_sample=mark)
+    launches = counts(kernels)
+    expect(delta(marks[0][1], marks[1][1]), {}, "eval approx setup")
+    expect(delta(marks[1][1], marks[2][1]), EVAL_APPROX_SAMPLE,
+           "eval approx sample")
+    emit({"phase": "eval_approx", "argv": argv, "result": out,
+          "data_s": data_s, "setup_s": marks[1][0] - marks[0][0],
+          "sample_s": marks[2][0] - marks[1][0],
+          "launches": delta(marks[1][1], marks[2][1])})
+    bad = {k: v for k, v in out.items()
+           if k != "serving_mode" and not np.isfinite(v)}
+    if (bad or out["samples"] != 1 or not out["serving_mode"]["approx_graph"]
+            or not out["chamfer_norm_vs_exact"] < GATE
+            or neighbors.APPROX_GRAPH_KNN):
+        raise AssertionError(f"eval approx: {out}")
+    return launches
+
+
 def density_phase(torch, dev, kernels):
     """With the counts reset: the trained SRNet (f32 dynamic) on a whole
     12,000-particle synthetic frame with its velocities (96,000 slots), the
@@ -2045,16 +2333,19 @@ def main(argv=None) -> int:
           "build_s": build_s,
           "ptxas": {n: ptxas_summary(n) for n in _build.sources()},
           "ptxas_edgeconv_tc": ptxas_summary("edgeconv", "edgeconv_tc_kernel"),
-          "ptxas_edgeconv_f32t": f32t_ptxas})
+          "ptxas_edgeconv_f32t": f32t_ptxas,
+          "ptxas_knn_approx": ptxas_summary("knn", "knn_approx_kernel")})
 
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
                "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
                "fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
                "pooled_mlp_fwd": pooled_mlp.FWD, "pooled_mlp_bwd": pooled_mlp.BWD,
                "pooled_mlp_affine_bwd": pooled_mlp.AFFINE_BWD,
-               "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL}
+               "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL,
+               "knn_approx": knn.APPROX}
     rng = np.random.default_rng(0)
     knn_rows = check_knn(torch, dev, rng)
+    approx_rows = check_knn_approx(torch, dev, rng)
     ec_rows = check_edgeconv(torch, dev, rng)
     nn1_rows = check_nn1(torch, dev, rng)
     fps_rows = check_fps(torch, dev, rng)
@@ -2082,6 +2373,17 @@ def main(argv=None) -> int:
     if args.profile:
         profile(torch, "f32_dynamic", f32, feat, pos, args.profile)
         profile(torch, "bf16_static", bf16, feat, pos, args.profile)
+
+    # the approximate serving path: counts start at 0 here and are read
+    # after its rollout
+    for k in kernels.values():
+        k.launches = 0
+    approx_line = serving_approx(torch, (f32, bf16), feat, pos, kernels)
+    rollout(torch, bf16, kernels, approx=True)
+    serving_approx_launches = counts(kernels)
+    for name, model in (("f32_dynamic", f32), ("bf16_static", bf16)):
+        approx_line[name]["ms_per_frame"] = approx_ms(torch, model, feat, pos)
+    emit(approx_line)
     del f32, bf16
 
     # the train path: counts reset to 0 inside, read after its 4 steps
@@ -2096,12 +2398,15 @@ def main(argv=None) -> int:
     # the eval path (counts reset inside, read after each sample), then the
     # densities (reset inside, read before the kernel comparisons)
     eval_launches = eval_phase(torch, kernels)
+    eval_approx_launches = eval_approx(torch, kernels)
     density_launches, bi_rows = density_phase(torch, dev, kernels)
     eval_card_vs_cpu(torch, dev)
 
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
-                   "density": density_launches[n]}
+                   "density": density_launches[n],
+                   "serving_approx": serving_approx_launches[n],
+                   "eval_approx": eval_approx_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
@@ -2112,6 +2417,12 @@ def main(argv=None) -> int:
          "one f32 dynamic forward (7 graphs) plus one G+D train step "
          "(7 generator graphs, 9 flow embeddings) plus the eval sample's "
          "capped interpolation plus the capped density", by_path["knn"]),
+        ("knn_approx", "tpugan_tpu_torch/csrc/knn.cu",
+         pallas + "knn_kernel.py:351 (approx=True)", approx_rows,
+         ("per_forward", "per_static", "per_frame"),
+         "one f32 dynamic forward (7 graphs) plus one bf16 static forward "
+         "(1) plus one rollout frame (1), with the approximate graph kNN on",
+         by_path["knn_approx"]),
         ("edgeconv", "tpugan_tpu_torch/csrc/edgeconv.cu",
          pallas + "edgeconv_kernel.py:358", ec_f32, ("per_forward",),
          "one f32 dynamic forward (9 EdgeConvs)", by_path["edgeconv"]),

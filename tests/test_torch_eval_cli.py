@@ -31,6 +31,7 @@ from tpugan_tpu_torch.cli import eval_fluid as port_cli
 from tpugan_tpu_torch.data import sampling as tsampling
 from tpugan_tpu_torch.data.fluid import SiamFluidDataset
 from tpugan_tpu_torch.data.synthetic import make_synthetic_fluid_dataset
+from tpugan_tpu_torch.ops import neighbors
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "checkpoints", "fluid_vel_20k.ckpt")
@@ -122,7 +123,8 @@ def test_eval_cli_matches_jax(data_root, monkeypatch, capsys, no_native):
 
 def test_eval_cli_serving_mode_agreement_and_refusals(data_root, tmp_path):
     """bf16 static with the exact twin (the JAX CLI's agreement keys), a
-    checkpoint directory with a manifest, and the refused --approx_graph."""
+    checkpoint directory with a manifest, and --approx_graph: accepted,
+    reported, and the graph-kNN switch back off after main returns."""
     ckpt_dir = tmp_path / "ckpts"
     ckpt_dir.mkdir()
     os.symlink(CKPT, ckpt_dir / "model_20000.ckpt")
@@ -139,8 +141,13 @@ def test_eval_cli_serving_mode_agreement_and_refusals(data_root, tmp_path):
     assert 0.9 <= got["keep_mask_agreement_vs_exact"] <= 1.0
     assert 0.0 <= got["chamfer_norm_vs_exact"] < 5e-3
     assert all(np.isfinite(v) for k, v in got.items() if k != "serving_mode")
-    with pytest.raises(ValueError, match="approx_graph"):
-        port_cli.main(argv + ["--approx_graph"])
+    approx = port_cli.main(argv + ["--approx_graph"])
+    assert approx["serving_mode"]["approx_graph"] is True
+    assert neighbors.APPROX_GRAPH_KNN is False
+    # 128 inputs: no graph reaches the approximate kernel, so the result
+    # is the exact one
+    assert {k: v for k, v in approx.items() if k != "serving_mode"} == {
+        k: v for k, v in got.items() if k != "serving_mode"}
     with pytest.raises(ValueError, match="flags say"):
         port_cli.main(argv[:4] + ["--node_embedding", "64"] + argv[4:])
     m = load_srnet(ckpt_dir, device="cpu")

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import tpugan_tpu_torch
+from tpugan_tpu_torch import PAD_SENTINEL
 from tpugan_tpu_torch.checkpoint import load_srnet
 from tpugan_tpu_torch.models.generator import RolloutMaskState, SRNet
 from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp, edgeconv,
@@ -57,7 +58,8 @@ def test_entry_points_need_a_card(monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("wrapper", ["knn", "nn1", "edgeconv", "edgeconv_tc",
+@pytest.mark.parametrize("wrapper", ["knn", "knn_approx", "nn1", "edgeconv",
+                                     "edgeconv_tc",
                                      "edgeconv_f32t", "edgeconv_bwd",
                                      "fps", "ball_query", "interp",
                                      "pooled_mlp", "pooled_mlp_affine",
@@ -67,6 +69,8 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
     t = lambda *s: torch.zeros(s, device="meta")
     calls = {
         "knn": lambda: knn.knn_kernel(t(1, 8, 3), t(1, 8, 3), t(1, 8), 4),
+        "knn_approx": lambda: knn.knn_approx_kernel(t(1, 8, 3), t(1, 4096, 3),
+                                                    t(1, 4096), 4),
         "nn1": lambda: nn1.nn1_kernel(t(1, 8, 3), t(1, 8, 3), t(1, 8)),
         "edgeconv": lambda: edgeconv.edgeconv_fused(
             t(1, 4, 8, 6), t(1, 8, 6), t(6, 8), t(6, 8), t(8, 8), t(8, 16)),
@@ -96,7 +100,8 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
     }
     with pytest.raises(ValueError, match="tensors on"):
         calls[wrapper]()
-    assert all(k.launches == 0 for k in (knn.KERNEL, nn1.KERNEL, fps.KERNEL,
+    assert all(k.launches == 0 for k in (knn.KERNEL, knn.APPROX, nn1.KERNEL,
+                                         fps.KERNEL,
                                          edgeconv.KERNEL, edgeconv.BWD,
                                          ball_query.KERNEL, interp.KERNEL,
                                          pooled_mlp.FWD, pooled_mlp.BWD,
@@ -239,6 +244,59 @@ def test_knn_kernel_matches_plain_on_card(card, gen, d, k, nq, nc, kind):
         assert torch.equal(ik[0], ip[0])
         invalid = np.setdiff1d(np.arange(nc), valid)[:k - 5]
         assert (ik[0, :, 5:].numpy() == invalid).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,k,nq,nc,kind", [
+    # the approximate serving shapes: the f32 dynamic forward's five graph
+    # shapes (the bf16 static graph is the first) at 10,240 points, the
+    # rollout's padded frame (112 rows at the 999 sentinel, bias 0, as the
+    # rollout pads it)
+    pytest.param(3, 20, 10240, 10240, "random", id="serving-3-20"),
+    pytest.param(32, 20, 10240, 10240, "random", id="serving-32-20"),
+    pytest.param(64, 12, 10240, 10240, "random", id="serving-64-12"),
+    pytest.param(64, 4, 10240, 10240, "random", id="serving-64-4"),
+    pytest.param(64, 8, 10240, 10240, "random", id="serving-64-8"),
+    pytest.param(3, 20, 10112, 10112, "sentinel", id="rollout-3-20-pad112"),
+    # Nq off the 32-query block, D off the float4 chunk, the 24,576 cap
+    pytest.param(6, 12, 1000, 4096, "random", id="nq1000-d6-k12"),
+    pytest.param(16, 3, 33, 24576, "random", id="nq33-nc24576-k3"),
+    # exact ties: the duplicated 16^3 grid, bit for bit
+    pytest.param(3, 20, 8192, 8192, "grid", id="grid16-k20"),
+])
+def test_knn_approx_kernel_matches_plain_on_card(card, gen, d, k, nq, nc, kind):
+    """The approximate kernel against its plain version (the tolerance of
+    ``knn.approx_agreement`` over the real rows); bit for bit on exact
+    inputs and on the sentinel rows, which tie at d2 = 0."""
+    if kind == "grid":
+        q = c = torch.from_numpy(_grid(16)[None])
+    else:
+        c = torch.from_numpy(gen.standard_normal((2, nc, d)).astype(np.float32))
+        if kind == "sentinel":
+            c[:, nc - 112:] = PAD_SENTINEL
+        q = c[:, :nq].contiguous()
+    bias = torch.zeros(c.shape[:2])
+    before = knn.APPROX.launches, knn.KERNEL.launches
+    got = knn.knn_approx_kernel(q.to(card), c.to(card), bias.to(card), k)
+    torch.cuda.synchronize()
+    assert (knn.APPROX.launches, knn.KERNEL.launches) == (before[0] + 1,
+                                                          before[1])
+    want = knn.knn_approx_plain(q, c, bias, k)
+    if kind == "grid":
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        return
+    if kind == "sentinel":
+        real = nc - 112
+        assert torch.equal(got[0][:, real:].cpu(), want[0][:, real:])
+        assert torch.equal(got[1][:, real:].cpu(), want[1][:, real:])
+        assert int(got[1][:, :real].max()) < real
+        got = got[0][:, :real], got[1][:, :real]
+        want = want[0][:, :real], want[1][:, :real]
+        q, c, bias = q[:, :real], c[:, :real], bias[:, :real]
+    a = knn.approx_agreement(got, want, (q, c, bias))
+    assert a["d2_excess"] <= 0 and a["d2_unexplained"] == 0, a
+    assert a["rows_unexplained"] == 0 and a["rows"] <= 0.02 * a["queries"], a
 
 
 def _edgeconv_cases():

@@ -2,7 +2,7 @@
 and ring properties.
 
 Both rollouts pad frames to a bucket (JAX to a multiple of 256 points, the
-port to a multiple of 32) and must give the same real outputs: padding is
+port to a multiple of 128) and must give the same real outputs: padding is
 transparent. The parity run uses the static graph (one kNN on positions),
 so no feature-space near-tie can reorder neighbours between the two.
 """
@@ -56,7 +56,7 @@ def test_rollout_padding_is_transparent(rng, monkeypatch):
     # dynamic graphs: sentinel rows must never become real points' neighbours
     _, _, tm = _models("dynamic", in_feats=3)
     frames = [(p, None) for p, _ in _frames(rng, [90, 90, 90])]
-    padded = rollout_sequence(tm, frames)                  # bucket 96
+    padded = rollout_sequence(tm, frames)                  # bucket 128
     monkeypatch.setattr(rollout_mod, "ALIGN", 1)           # bucket 90
     exact = rollout_sequence(tm, frames)
     for a, b in zip(exact, padded):
@@ -81,4 +81,4 @@ def test_rollout_refuses_frames_it_cannot_pad(rng):
     with pytest.raises(ValueError, match="max graph k"):
         rollout_sequence(tm, small, use_vel=True)
     with pytest.raises(ValueError, match="exceeds the rollout bucket"):
-        rollout_sequence(tm, _frames(rng, [64, 65]), use_vel=True)
+        rollout_sequence(tm, _frames(rng, [128, 129]), use_vel=True)

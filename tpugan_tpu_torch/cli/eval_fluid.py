@@ -12,8 +12,11 @@ CLI's keys.
     python -m tpugan_tpu_torch.cli.eval_fluid ... --device cpu
 
 Without ``--dataset_path`` a synthetic dataset is written under the
-repository's ``runs/eval_fluid_synth/``. The port's kNN is exact
-everywhere, so ``--approx_graph`` is refused.
+repository's ``runs/eval_fluid_synth/``. ``--approx_graph`` turns the
+approximate bf16 graph kNN on for the evaluated forwards (the exact twin of
+``--agreement_vs_exact`` runs with it off); it reaches the kernel from
+``--patch_size 32768`` (4,096 inputs) on. The switch is restored when the
+evaluation returns.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--graph_mode", choices=["dynamic", "static"],
                    default="dynamic")
     p.add_argument("--approx_graph", action="store_true",
-                   help="refused: the port has no approximate graph kNN")
+                   help="allow the approximate bf16 graph-kNN kernel "
+                        "(default: exact)")
     p.add_argument("--agreement_vs_exact", action="store_true",
                    help="also run the exact f32 dynamic-graph forward on "
                         "every sample and report keep-mask agreement and "
@@ -92,7 +96,18 @@ def _generator(opt, device, compute_dtype, graph_mode):
 def evaluate(opt, on_sample: Optional[Callable[[int], None]] = None) -> dict:
     """Run the evaluation of parsed flags ``opt``; returns the JSON dict.
     ``on_sample(i)`` is called after sample i's metrics, and with -1 once
-    the data and the model are ready, before sample 0."""
+    the data and the model are ready, before sample 0. The graph-kNN
+    switch is restored on return."""
+    from tpugan_tpu_torch.ops import neighbors
+
+    prev = neighbors.APPROX_GRAPH_KNN
+    try:
+        return _evaluate(opt, on_sample)
+    finally:
+        neighbors.set_approx_graph_knn(prev)
+
+
+def _evaluate(opt, on_sample):
     import torch
 
     from tpugan_tpu_torch import DT, resolve_device
@@ -103,10 +118,8 @@ def evaluate(opt, on_sample: Optional[Callable[[int], None]] = None) -> dict:
         cycle_consistency, free_surface_particle_count_diff,
         free_surface_particle_counts, position_metrics)
     from tpugan_tpu_torch.ops.metrics import chamfer
+    from tpugan_tpu_torch.ops.neighbors import set_approx_graph_knn
 
-    if opt.approx_graph:
-        raise ValueError("--approx_graph: the port's kNN is exact everywhere "
-                         "(it has no approximate bf16 graph kNN)")
     dev = resolve_device(opt.device)
     dataset_path = opt.dataset_path
     if dataset_path is None:
@@ -145,14 +158,18 @@ def evaluate(opt, on_sample: Optional[Callable[[int], None]] = None) -> dict:
             vel = tensor(item["lowres_vel"])
             feat = torch.cat([low, vel * DT], -1) if use_vel else low
 
+            set_approx_graph_knn(opt.approx_graph)
             _, _, padded, valid = model(feat[1][None], low[1][None])
             if exact is not None:
+                set_approx_graph_knn(False)
                 _, _, padded_e, valid_e = exact(feat[1][None], low[1][None])
                 mask_agreements.append(float((valid == valid_e).float().mean()))
                 cd = float(chamfer(padded, padded_e, a_valid=valid,
                                    b_valid=valid_e)[0])
                 scale = float((low[1] ** 2).sum(-1).mean())
                 cd_vs_exact.append(cd / (padded.shape[1] * max(scale, 1e-12)))
+                # the metrics and the cycle below run the requested mode
+                set_approx_graph_knn(opt.approx_graph)
             pred = padded[0][valid[0]].float().cpu().numpy()
             gt = item["highres_pos"][1]
             # the Chamfer sees the whole prediction: padded to a bucket with

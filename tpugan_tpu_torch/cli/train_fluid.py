@@ -22,7 +22,9 @@ steps 10-15 to ``<log_dir>/profile``.
 generator EdgeConv through the fused kernels and their backward
 (``SRNet(fused_train=True)``); the package itself reads no environment
 variable. ``--exact_graph`` is accepted and changes nothing: the port's
-graph kNN is exact. ``--data_parallel`` and ``--fast_d`` are refused.
+graph kNN is exact unless ``set_approx_graph_knn`` turns the approximate
+one on, which this CLI never does. ``--data_parallel`` and ``--fast_d``
+are refused.
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ def get_arguments(argv=None) -> argparse.Namespace:
         help="FPS-downsample + jitter the lowres inputs on the card inside "
              "the step instead of in the host loader")
     add("--exact_graph", action="store_true",
-        help="accepted for the JAX CLI's surface: the port's graph kNN is "
-             "always exact")
+        help="accepted for the JAX CLI's surface: the port's training "
+             "graphs are always exact")
     add("--freeze_D", action="store_true")
     add("--fast_d", action="store_true",
         help="refused: the stacked-apply critics (GroupedBatchNorm) are not "

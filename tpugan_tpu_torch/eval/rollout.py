@@ -21,12 +21,14 @@ from tpugan_tpu_torch.models.generator import (RolloutMaskState, SRNet,
                                                rollout_mask_update)
 
 # Frames are sentinel-padded up to a multiple of ALIGN points, so mildly
-# ragged sequences share one ring shape. The CUDA kernels take any N; 32 is
-# the kNN kernel's query tile, the smallest step that adds no idle lanes.
-# Padding rows sit at the 999 sentinel, far from any normalised cloud, so
-# exact kNN never picks them as neighbours of real points and real outputs
-# do not change.
-ALIGN = 32
+# ragged sequences share one ring shape. The CUDA kernels take any N; 128
+# is a multiple of the kNN kernels' 32-query tile and the smallest step at
+# which a frame's graphs reach the approximate kNN (which needs Nc % 128 ==
+# 0) when the switch is on; the JAX rollout's 256 is a multiple of it.
+# Padding rows sit at the 999 sentinel, far from any normalised cloud, with
+# no valid mask, so neither kNN picks them as neighbours of real points and
+# real outputs do not change.
+ALIGN = 128
 
 # Largest kNN k in the generator: with fewer real points than this,
 # sentinel rows would enter real points' neighbour lists.

@@ -1,7 +1,27 @@
-"""Exact kNN: the CUDA kernel ``csrc/knn.cu`` and its plain PyTorch version.
+"""kNN: the CUDA kernels of ``csrc/knn.cu`` and their plain PyTorch versions.
 
-Replaces ``tpugan_tpu/ops/pallas/knn_kernel.py : knn_pallas``. The kernel's
-source note says what bounds it on the card and how it is laid out.
+Replaces ``tpugan_tpu/ops/pallas/knn_kernel.py : knn_pallas``: the exact
+search (``knn_f32``, :func:`knn_kernel`) and the approximate bf16 mode of
+``approx=True`` (``knn_approx_bf16``, :func:`knn_approx_kernel`). The
+kernels' source note says what bounds them on the card and how they are
+laid out.
+
+The approximate mode's contract, where :func:`takes_approx` holds (the
+shapes at which the TPU kernel runs its bf16 body): each candidate c of a
+query q gets the 32-bit key
+
+    bits(bf16(max(|q|^2 + |c|^2 - 2 bf16(q).bf16(c), 0) + bias)) << 16 | c
+
+(norms from the f32 operands, the cross term from the bf16-rounded ones
+accumulated in f32, one round-to-nearest-even to bf16 at the end); of the
+candidates c = l (mod 128) of each lane column l the kp smallest keys are
+kept (kp from :func:`chunk_kp_approx`), and of those 128 kp keys the k
+smallest are the result: d2 is the bf16 value as f32, idx the low half.
+The TPU kernel's folds break ties toward the lower tile and its merge
+toward the lower index, both the key's order; a query whose true top-k
+holds more than kp members of one lane column loses the rest, as there.
+``KERNEL.launches`` counts the exact kernel's launches and
+``APPROX.launches`` the approximate one's.
 """
 
 from __future__ import annotations
@@ -13,11 +33,21 @@ import torch
 from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel("knn", {"knn_f32": [VOIDP] * 5 + [INT] * 5 + [VOIDP]})
+APPROX = CudaKernel("knn", {"knn_approx_bf16": [VOIDP] * 5 + [INT] * 6
+                            + [VOIDP]})
 
 MAX_D = 64      # widest point / feature vector the kernel is compiled for
 MAX_K = 32      # largest k bucket the kernel is compiled for at any D
 MAX_K_POINTS = 64   # the k = 64 bucket, built for D <= 4 (points) only
 _PLAIN_CHUNK = 2048   # query rows per [rows, Nc] block in the plain version
+
+# The TPU kernel's dispatch, copied from tpugan_tpu/ops/pallas/knn_kernel.py
+# (_CHUNK_L, _CHUNK_MIN_NC, _use_chunked, _chunk_kp_approx) and
+# tpugan_tpu/ops/neighbors.py (_PALLAS_MAX_NC)
+LANES = 128             # lane columns: candidate c lies in column c % 128
+APPROX_MIN_NC = 4096    # below this the TPU kernel runs its exact plain peel
+PALLAS_MAX_NC = 24576   # above this the JAX kNN takes no TPU kernel at all
+_APPROX_CHUNK = 512     # query rows per block in the plain approximate version
 
 
 def sqdist(query: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -75,4 +105,145 @@ def knn_kernel(query: torch.Tensor, cand: torch.Tensor, bias: torch.Tensor,
         return d2, idx
     KERNEL.launch("knn_f32", ptr(query), ptr(cand), ptr(bias), ptr(d2),
                   ptr(idx), b, nq, nc, d, k, stream_of(query))
+    return d2, idx
+
+
+# ---------------------------------------------------------- approximate mode
+
+def chunk_kp_approx(k: int) -> int:
+    """Keys kept per lane column in the approximate mode."""
+    return 3 if k >= 16 else 2
+
+
+def takes_approx(nc: int, k: int) -> bool:
+    """Whether the TPU kernel runs its approximate bf16 body for ``nc``
+    candidates and ``k`` neighbours (its chunked path; elsewhere its
+    ``approx`` changes nothing). The JAX kNN adds ``nc <= PALLAS_MAX_NC``."""
+    return nc >= APPROX_MIN_NC and nc % LANES == 0 and k >= 3
+
+
+def _approx_keys(query: torch.Tensor, cand: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """[B, Nq, Nc] int64 keys of the approximate contract (module note)."""
+    q2 = (query * query).sum(-1, keepdim=True)
+    c2 = (cand * cand).sum(-1, keepdim=True)
+    cross = torch.matmul(query.bfloat16().float(),
+                         cand.bfloat16().float().transpose(-1, -2))
+    d2 = (q2 + c2.transpose(-1, -2) - 2.0 * cross).clamp_min(0.0) \
+        + bias[:, None, :]
+    bits = d2.bfloat16().view(torch.int16).to(torch.int64) & 0xFFFF
+    idx = torch.arange(cand.shape[1], device=cand.device)
+    return (bits << 16) | idx
+
+
+def knn_approx_plain(query: torch.Tensor, cand: torch.Tensor,
+                     bias: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The approximate kernel's function in plain PyTorch (module note)."""
+    b, _, _ = query.shape
+    nc = cand.shape[1]
+    kp = chunk_kp_approx(k)
+    ds, idxs = [], []
+    for s in range(0, query.shape[1], _APPROX_CHUNK):
+        keys = _approx_keys(query[:, s:s + _APPROX_CHUNK], cand, bias)
+        rows = keys.shape[1]
+        cols = keys.view(b, rows, nc // LANES, LANES)
+        kept = torch.topk(cols, kp, dim=2, largest=False).values
+        best = torch.topk(kept.reshape(b, rows, kp * LANES), k, dim=-1,
+                          largest=False, sorted=True).values
+        bits = (best >> 16).to(torch.int32).to(torch.int16)
+        ds.append(bits.view(torch.bfloat16).float())
+        idxs.append(best & 0xFFFF)
+    return torch.cat(ds, 1), torch.cat(idxs, 1)
+
+
+def _pre_round(query, cand, bias, bi, qi, ci):
+    """float64 max(|q|^2 + |c|^2 - 2 bf16(q).bf16(c), 0) + bias at the
+    (batch, query, candidate) index tensors: the value the contract rounds."""
+    q, c = query[bi, qi].double(), cand[bi, ci].double()
+    dot = (query[bi, qi].bfloat16().double() * cand[bi, ci].bfloat16().double()
+           ).sum(-1)
+    v = (q * q).sum(-1) + (c * c).sum(-1) - 2.0 * dot
+    return v.clamp_min(0.0) + bias[bi, ci].double()
+
+
+def approx_agreement(got, want, got_in, want_in=None) -> dict:
+    """How two approximate results (d2, idx) [B, Nq, k] agree, each from
+    its inputs (query, cand, bias) (``want_in`` defaults to ``got_in``).
+
+    The sides round |q|^2 + |c|^2 - 2 q.c in f32 in other orders, within
+    ``tol`` = 1e-5 * 2 max |p|^2 (inputs that differ by f32 noise, as two
+    forwards' features do, may also round a bf16 operand apart). So a
+    distance whose value lies within ``tol`` of a bf16 rounding boundary may
+    round to either side of it. Returns the largest excess of a side's d2
+    over half a bf16 ulp plus ``tol`` from the float64 value (``d2_excess``,
+    <= 0 when right), the entries of equal index and unequal d2 with no such
+    cause (``d2_unexplained``), the queries whose lists differ (``rows``)
+    and those with no candidate among both sides' neighbours that rounds
+    apart (``rows_unexplained``), and the query count (``queries``)."""
+    want_in = got_in if want_in is None else want_in
+    got_in, want_in = ([t.detach().cpu() for t in x] for x in (got_in, want_in))
+    (gd, gi), (wd, wi) = ([t.detach().cpu() for t in x] for x in (got, want))
+    tol = 1e-5 * 2 * max(float((x.double() ** 2).sum(-1).max())
+                         for x in (*got_in[:2], *want_in[:2]))
+    b, nq, k = wi.shape
+    bi = torch.arange(b)[:, None, None].expand(b, nq, 2 * k)
+    qi = torch.arange(nq)[None, :, None].expand(b, nq, 2 * k)
+    both = torch.cat([gi, wi], -1)
+    rounded, near, excess = [], [], []
+    for d2, inputs, part in ((gd, got_in, slice(0, k)),
+                             (wd, want_in, slice(k, 2 * k))):
+        v = _pre_round(*inputs, bi, qi, both)
+        half = torch.exp2(torch.floor(torch.log2(v.clamp_min(1e-30))) - 8)
+        slack = tol + v * 2.0 ** -23
+        r = v.float().bfloat16().double()
+        rounded.append(r)
+        near.append((v - r).abs() >= half - slack)
+        excess.append(float(((d2.double() - v[..., part]).abs()
+                             - half[..., part] - slack[..., part]).max()))
+    apart = near[0] | near[1] | (rounded[0] != rounded[1])
+    same = gi == wi
+    rows = ~same.all(-1)
+    return {"d2_excess": max(excess),
+            "d2_unexplained": int((same & (gd != wd) & ~apart[..., :k]).sum()),
+            "rows": int(rows.sum()),
+            "rows_unexplained": int((rows & ~apart.any(-1)).sum()),
+            "queries": b * nq}
+
+
+def knn_approx_kernel(query: torch.Tensor, cand: torch.Tensor,
+                      bias: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate bf16 kNN, ascending: (d2 [B, Nq, k] f32, idx [B, Nq, k]
+    int64), for shapes where :func:`takes_approx` holds (the caller
+    dispatches; other shapes raise). Inputs as :func:`knn_kernel`'s. A CPU
+    tensor takes :func:`knn_approx_plain`; a CUDA tensor launches the
+    kernel or raises."""
+    b, nq, d = query.shape
+    nc = cand.shape[1]
+    if cand.shape != (b, nc, d) or bias.shape != (b, nc):
+        raise ValueError(f"knn approx: shapes {tuple(query.shape)}, "
+                         f"{tuple(cand.shape)}, {tuple(bias.shape)}")
+    if not (takes_approx(nc, k) and nc <= 0xFFFF
+            and k <= chunk_kp_approx(k) * LANES):
+        raise ValueError(f"knn approx: Nc={nc}, k={k} is not an approximate "
+                         f"shape (takes_approx, and Nc < 2^16 for the keys)")
+    if query.device.type == "cpu":
+        return knn_approx_plain(query, cand, bias, k)
+    if not query.is_cuda or cand.device != query.device or bias.device != query.device:
+        raise ValueError(f"knn approx: tensors on {query.device}, "
+                         f"{cand.device}, {bias.device}")
+    if {query.dtype, cand.dtype, bias.dtype} != {torch.float32}:
+        raise TypeError("knn approx kernel takes float32 query, cand and bias")
+    if d > MAX_D:
+        raise ValueError(f"knn approx kernel is built for D <= {MAX_D}; "
+                         f"got D={d}")
+    query, cand, bias = query.contiguous(), cand.contiguous(), bias.contiguous()
+    d2 = torch.empty((b, nq, k), dtype=torch.float32, device=query.device)
+    idx = torch.empty((b, nq, k), dtype=torch.int64, device=query.device)
+    if b * nq == 0:
+        return d2, idx
+    APPROX.launch("knn_approx_bf16", ptr(query), ptr(cand), ptr(bias),
+                  ptr(d2), ptr(idx), b, nq, nc, d, k, chunk_kp_approx(k),
+                  stream_of(query))
     return d2, idx

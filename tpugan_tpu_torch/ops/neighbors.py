@@ -2,10 +2,15 @@
 (``tpugan_tpu/ops/neighbors.py``).
 
 Distances are ``max(|q|^2 + |c|^2 - 2 q.c, 0)`` in f32, the formula of the
-JAX package. The port is exact everywhere: the JAX ``approx`` flag selects a
-bf16 TPU kernel and is a no-op off the TPU, so it has no counterpart here.
-Invalid candidates carry a 1e10 bias and are never selected while enough
-valid ones exist.
+JAX package. ``knn(..., approx=True)`` is the JAX ``approx`` flag: at the
+shapes where the TPU kernel runs its bf16 body (``kernels.knn.takes_approx``
+and at most 24,576 candidates) it takes the approximate kernel, which ranks
+bf16 distances and may miss a tail neighbour; elsewhere it is exact.
+``graph_knn`` passes ``APPROX_GRAPH_KNN``, which is False here (the JAX
+package's default is True, so its TPU serving graphs were approximate): the
+port's graphs are exact unless a caller turns the switch on, as
+``eval_fluid --approx_graph`` does. Invalid candidates carry a 1e10 bias and
+are never selected while enough valid ones exist.
 
 kNN distances are differentiable (:class:`_Knn`: the gather and
 scatter-add formula of the JAX kNN kernel's VJP); FPS and ball-query
@@ -22,11 +27,23 @@ import torch
 
 from tpugan_tpu_torch.ops.kernels.ball_query import ball_query_kernel
 from tpugan_tpu_torch.ops.kernels.fps import fps_kernel
-from tpugan_tpu_torch.ops.kernels.knn import knn_kernel, sqdist
+from tpugan_tpu_torch.ops.kernels.knn import (PALLAS_MAX_NC,
+                                               knn_approx_kernel, knn_kernel,
+                                               sqdist, takes_approx)
 
 BIG = 1e10
 _CHUNK = 2048   # query rows per [rows, Nc] block (radius_count, the
                 # auction's bids, the MMD)
+
+# Graph kNN (EdgeConv / IDGCN graph builds) through the approximate bf16
+# kernel where it applies; metrics, losses, ball queries and interpolation
+# stay exact. Read at call time.
+APPROX_GRAPH_KNN = False
+
+
+def set_approx_graph_knn(enabled: bool) -> None:
+    global APPROX_GRAPH_KNN
+    APPROX_GRAPH_KNN = bool(enabled)
 
 
 # [..., Nq, D] x [..., Nc, D] -> [..., Nq, Nc] squared distances
@@ -41,7 +58,7 @@ def valid_bias(c_valid: Optional[torch.Tensor], shape, device) -> torch.Tensor:
 
 
 def knn(query: torch.Tensor, cand: Optional[torch.Tensor] = None, k: int = 16,
-        c_valid: Optional[torch.Tensor] = None
+        c_valid: Optional[torch.Tensor] = None, approx: bool = False
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k nearest neighbours, ascending, ties to the lower index.
 
@@ -49,6 +66,8 @@ def knn(query: torch.Tensor, cand: Optional[torch.Tensor] = None, k: int = 16,
     distance 0), c_valid [B, Nc] bool. Returns (d2 [B, Nq, k] f32,
     idx [B, Nq, k] int64). When k > Nc the tail is padded with BIG
     distances repeating the last index. bf16 inputs are searched in f32.
+    ``approx``: the approximate bf16 kernel where the TPU kernel would run
+    it (module note; graph builds only), else exact.
     """
     if cand is None:
         cand = query
@@ -56,7 +75,8 @@ def knn(query: torch.Tensor, cand: Optional[torch.Tensor] = None, k: int = 16,
     nc = cand.shape[-2]
     k_eff = min(k, nc)
     bias = valid_bias(c_valid, cand.shape[:-1], cand.device)
-    d2, idx = _Knn.apply(query, cand, bias, k_eff)
+    approx = approx and k_eff == k and nc <= PALLAS_MAX_NC and takes_approx(nc, k)
+    d2, idx = _Knn.apply(query, cand, bias, k_eff, approx)
     if k_eff < k:
         pad = k - k_eff
         d2 = torch.cat([d2, d2.new_full(d2.shape[:-1] + (pad,), BIG)], -1)
@@ -81,12 +101,14 @@ def scatter_sqdist_grad(query, cand, idx, g_d2):
 
 
 class _Knn(torch.autograd.Function):
-    """The kNN kernel with a differentiable distance output (the indices
-    carry no gradient)."""
+    """A kNN kernel (exact, or approximate with ``approx``) with a
+    differentiable distance output (the indices carry no gradient; the
+    backward is the JAX VJP both modes share)."""
 
     @staticmethod
-    def forward(ctx, query, cand, bias, k):
-        d2, idx = knn_kernel(query, cand, bias, k)
+    def forward(ctx, query, cand, bias, k, approx):
+        search = knn_approx_kernel if approx else knn_kernel
+        d2, idx = search(query, cand, bias, k)
         ctx.save_for_backward(query, cand, idx)
         ctx.mark_non_differentiable(idx)
         return d2, idx
@@ -95,7 +117,7 @@ class _Knn(torch.autograd.Function):
     def backward(ctx, g_d2, _):
         query, cand, idx = ctx.saved_tensors
         gq, gc = scatter_sqdist_grad(query, cand, idx, g_d2)
-        return gq, gc, None, None
+        return gq, gc, None, None, None
 
 
 def radius_mask_knn(query: torch.Tensor, cand: Optional[torch.Tensor] = None,
@@ -149,8 +171,9 @@ def ball_query(query: torch.Tensor, cand: torch.Tensor, radius: float,
 def graph_knn(x: torch.Tensor, k: int,
               c_valid: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """kNN graph of a point or feature cloud over itself."""
-    return knn(x, k=k, c_valid=c_valid)
+    """kNN graph of a point or feature cloud over itself; approximate where
+    ``APPROX_GRAPH_KNN`` is on and the shape takes the approximate kernel."""
+    return knn(x, k=k, c_valid=c_valid, approx=APPROX_GRAPH_KNN)
 
 
 def gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
