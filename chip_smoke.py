@@ -13,8 +13,9 @@ Phases, one JSON line each (``phase`` names it):
   device   nvidia-smi name and power limit, torch and CUDA versions, the
            kernels' build time and their ptxas register / spill report
            (and the tensor-core and the f32 register-tiled EdgeConv
-           kernels' alone, the latter must not spill; and the approximate
-           kNN kernel's);
+           kernels' alone, the latter must not spill; the approximate kNN
+           kernel's; the pooled MLP's batch-norm kernels, rows_gemm,
+           dw_gemm and top_kernel, which must not spill);
   kernel   each CUDA kernel of the serving path against its plain PyTorch
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
@@ -59,7 +60,9 @@ Phases, one JSON line each (``phase`` names it):
            forward of each serving mode;
   kernel   (train) the train step's kernels (fps, ball_query, the pooled
            MLP forward and backward, interp) against their plain versions
-           at every shape one train step gives them; the EdgeConv backward
+           at every shape one train step gives them (the pooled MLP also
+           with gammas of both signs and zero, and with the device time of
+           each of its kernels); the EdgeConv backward
            at each shape class of the fused train step (12 frames of 1,152
            points; f32, one bf16 case, one with exact ties between
            duplicated planes) and the pooled MLP's affine backward at the
@@ -70,7 +73,8 @@ Phases, one JSON line each (``phase`` names it):
            dense interp) on the port's synthetic fluid data; losses, the
            adversarial gate, the critics' updates and state, the launches
            of each step against the counts the step's code implies, ms per
-           step by CUDA events; then a profile of 2 more steps;
+           step by CUDA events, the peak device memory from resuming the
+           state on; then a profile of 2 more steps;
   train_cpu one small step (B=2, 1,024-point patches) from the same state
            and draws on the card and on the CPU (plain versions);
   train_fused with the launch counts reset: the train CLI twin
@@ -201,21 +205,36 @@ def time_ms(fn, torch, reps=REPS, warmup=2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, torch, reps=REPS) -> float:
+def device_ms(fn, torch, reps=REPS, by_kernel=False, tries=3):
     """Device time of the kernels ``fn`` launches, per call (torch.profiler,
     after a warm-up): what the card spends, without the host's launch
-    overhead that ``time_ms`` includes where the host is the slower side."""
+    overhead that ``time_ms`` includes where the host is the slower side.
+    ``by_kernel``: also the time per call of each kernel, by name (the
+    demangled name up to its argument list). A profile that lost kernel
+    records (a kernel counted other than a multiple of ``reps`` times, or
+    none at all, as happens now and then on the card) is taken again, up
+    to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
     fn()
     torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in p.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(tries):
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in p.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events and all(e.count % reps == 0 for e in events):
+            break
+    names = {}
+    for e in events:
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(", 1)[0] or name
+        names[name] = names.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    total = sum(names.values())
+    return (total, names) if by_kernel else total
 
 
 def bound(flops: float, nbytes: float, kind: str):
@@ -992,11 +1011,16 @@ BALL_SHAPES = [  # (stage, B, Nq, Nc, radius, nsample, launches per G+D step)
     ("tempo sa2 (per frame)", 4, 256, 1024, 0.20, 32, 9),
 ]
 
-POOLED_SHAPES = [  # (stage, (B, M, ns, C0), widths, slope, per G+D step)
-    ("spatial sa_0", (4, 1024, 32, 6), (64, 128), 0.01, 3),
-    ("spatial sa_1", (4, 512, 32, 131), (128, 128), 0.01, 3),
-    ("spatial sa_2", (4, 128, 16, 131), (128, 256), 0.01, 3),
-    ("spatial sa_pooling", (4, 1, 128, 259), (256, 256), 0.0, 3),
+POOLED_SHAPES = [  # (stage, (B, M, ns, C0), widths, slope, per G+D step,
+    #                  gammas: "positive" around 1, "mixed" of both signs and 0)
+    ("spatial sa_0", (4, 1024, 32, 6), (64, 128), 0.01, 3, "positive"),
+    ("spatial sa_1", (4, 512, 32, 131), (128, 128), 0.01, 3, "positive"),
+    ("spatial sa_2", (4, 128, 16, 131), (128, 256), 0.01, 3, "positive"),
+    ("spatial sa_pooling", (4, 1, 128, 259), (256, 256), 0.0, 3, "positive"),
+    # a trained critic may hold gammas <= 0: the max then comes from the
+    # min of z (the kernels pool from each neighbourhood's extremes)
+    ("spatial sa_1 mixed-sign gamma", (4, 512, 32, 131), (128, 128), 0.01, 0,
+     "mixed"),
 ]
 
 
@@ -1075,7 +1099,8 @@ def check_ball_query(torch, dev, rng):
 def check_pooled_mlp(torch, dev, rng):
     """Forward (pooled, moments) and backward (dtable, dW, dgamma, dbeta)
     against the plain versions, on tables with exact max ties (the ball
-    query's repeated first hit). Forward to 1e-5 of each tensor's scale
+    query's repeated first hit), at each stage and once with gammas of both
+    signs and zero. Forward to 1e-5 of each tensor's scale
     (f32 sums in another order). Backward: each gradient to 1e-2 of its
     norm, and at most 1e-3 of dtable's elements off by more than 1e-3 of
     its scale. The two sides sum the layers in another order, so where two
@@ -1087,7 +1112,7 @@ def check_pooled_mlp(torch, dev, rng):
     from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
 
     fwd_rows, bwd_rows = [], []
-    for stage, shape, widths, slope, per in POOLED_SHAPES:
+    for stage, shape, widths, slope, per, gammas in POOLED_SHAPES:
         b, m, ns, c0 = shape
         tab = _cloud(torch, dev, rng, *shape, scale=1.0)
         tab[:, :, 1] = tab[:, :, 0]
@@ -1096,6 +1121,10 @@ def check_pooled_mlp(torch, dev, rng):
         ws = [_cloud(torch, dev, rng, cs[i], cs[i + 1], scale=cs[i] ** -0.5)
               for i in range(len(widths))]
         gs = [1.0 + _cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+        if gammas == "mixed":
+            for gamma in gs:
+                gamma[::3] *= -1
+                gamma[1::5] = 0.0
         bs = [_cloud(torch, dev, rng, h, scale=0.1) for h in widths]
         g = _cloud(torch, dev, rng, b, m, widths[-1], scale=1.0)
         leaves = [x.clone().requires_grad_() for x in [tab, *ws, *gs, *bs]]
@@ -1132,12 +1161,14 @@ def check_pooled_mlp(torch, dev, rng):
         with torch.no_grad():
             fwd = lambda: P.pooled_mlp_bn_train(tab, ws, gs, bs, slope)
             ms = time_ms(fwd, torch)
+            dev_ms, fwd_kernels = device_ms(fwd, torch, by_kernel=True)
             plain_ms = time_ms(lambda: P.pooled_mlp_bn_forward_plain(
                 tab, ws, gs, bs, slope), torch)
             bwd_plain_ms = time_ms(lambda: P.pooled_mlp_bn_backward_plain(
                 tab, ws, fp[4], fp[5], fp[1], fp[3], fp[0], g, slope), torch)
-        bwd_ms = time_ms(lambda: torch.autograd.grad(pooled, leaves, g,
-                                                     retain_graph=True), torch)
+        bwd = lambda: torch.autograd.grad(pooled, leaves, g, retain_graph=True)
+        bwd_ms = time_ms(bwd, torch)
+        bwd_dev_ms, bwd_kernels = device_ms(bwd, torch, by_kernel=True)
         rows_n = b * m * ns
         mac = sum(cs[i] * cs[i + 1] for i in range(nl))
         nw = sum(w.numel() for w in ws) + 2 * sum(widths)
@@ -1148,14 +1179,19 @@ def check_pooled_mlp(torch, dev, rng):
                         4 * (2 * rows_n * c0 + 2 * nw + 2 * b * m * widths[-1]),
                         "f32")
         common = dict(stage=stage, table=list(shape), widths=list(widths),
-                      slope=slope, per_step=per)
+                      slope=slope, gammas=gammas, per_step=per)
         fwd_rows.append(dict(**common, max_abs_err=f_err, ms=ms,
-                             plain_ms=plain_ms, library_ms=None,
-                             bound_ms=f_bound[0], bound_by=f_bound[1]))
+                             device_ms=dev_ms, device_ms_by_kernel=fwd_kernels,
+                             plain_ms=plain_ms,
+                             library_ms=None, bound_ms=f_bound[0],
+                             bound_by=f_bound[1]))
         bwd_rows.append(dict(**common, max_abs_err=b_err, max_norm_rel_err=b_rel,
-                             dtable_share_off=dtable_off,
-                             ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=None,
-                             bound_ms=b_bound[0], bound_by=b_bound[1]))
+                             dtable_share_off=dtable_off, ms=bwd_ms,
+                             device_ms=bwd_dev_ms,
+                             device_ms_by_kernel=bwd_kernels,
+                             plain_ms=bwd_plain_ms,
+                             library_ms=None, bound_ms=b_bound[0],
+                             bound_by=b_bound[1]))
         emit({"phase": "kernel", "kernel": "pooled_mlp_fwd", **fwd_rows[-1]})
         emit({"phase": "kernel", "kernel": "pooled_mlp_bwd", **bwd_rows[-1]})
         if stage == "spatial sa_0":
@@ -2325,8 +2361,13 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     build_s = _build.build_all()
     f32t_ptxas = ptxas_summary("edgeconv", "edgeconv_f32t_kernel")
-    if f32t_ptxas["functions"] == 0 or f32t_ptxas["spill_store_bytes"]:
-        raise AssertionError(f"edgeconv_f32t_kernel ptxas: {f32t_ptxas}")
+    # the pooled-MLP batch-norm form's GEMM blocks
+    pmlp_ptxas = {f: ptxas_summary("pooled_mlp", f)
+                  for f in ("rows_gemm", "dw_gemm", "top_kernel")}
+    for name, rep in [("edgeconv_f32t_kernel", f32t_ptxas),
+                      *pmlp_ptxas.items()]:
+        if rep["functions"] == 0 or rep["spill_store_bytes"]:
+            raise AssertionError(f"{name} ptxas: {rep}")
     emit({"phase": "device", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2334,6 +2375,7 @@ def main(argv=None) -> int:
           "ptxas": {n: ptxas_summary(n) for n in _build.sources()},
           "ptxas_edgeconv_tc": ptxas_summary("edgeconv", "edgeconv_tc_kernel"),
           "ptxas_edgeconv_f32t": f32t_ptxas,
+          "ptxas_pooled_mlp": pmlp_ptxas,
           "ptxas_knn_approx": ptxas_summary("knn", "knn_approx_kernel")})
 
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
@@ -2386,7 +2428,9 @@ def main(argv=None) -> int:
     emit(approx_line)
     del f32, bf16
 
-    # the train path: counts reset to 0 inside, read after its 4 steps
+    # the train path: counts reset to 0 inside, read after its 4 steps; its
+    # peak memory from here (resuming the trainer state included)
+    torch.cuda.reset_peak_memory_stats()
     train_launches, _ = train(torch, dev, kernels, args.profile)
     train_card_vs_cpu(torch, dev)
 
@@ -2457,6 +2501,12 @@ def main(argv=None) -> int:
          "one density phase (the frame's and the grid's exact densities)",
          by_path["binned_interp"]),
     ])
+    # the pooled-MLP rows' device time (torch.profiler) per G+D step
+    for entry in line["kernels"]:
+        if entry["name"] in ("pooled_mlp_fwd", "pooled_mlp_bwd"):
+            rows = pf_rows if entry["name"] == "pooled_mlp_fwd" else pb_rows
+            entry["device_ms"] = sum(r["device_ms"] * r["per_step"]
+                                     for r in rows)
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

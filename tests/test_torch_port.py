@@ -486,27 +486,47 @@ def test_interp_kernel_matches_plain_on_card(card, gen, kind):
     torch.testing.assert_close(dk.cpu(), dp, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.gpu
-def test_pooled_mlp_kernels_match_plain_on_card(card, gen):
+def _pooled_bn_case(gen):
+    """A small batch-norm stack with exact max ties and gammas of both signs
+    and zero, as a trained critic may hold them: every third gamma negated,
+    channel 0's set to 0."""
     t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
     tab = t(2, 64, 16, 6)
     tab[:, :, 1] = tab[:, :, 0]                 # exact max ties
     ws = [t(6, 32) / 6 ** 0.5, t(32, 64) / 32 ** 0.5]
     gs, bs = [1 + 0.1 * t(32), 1 + 0.1 * t(64)], [0.1 * t(32), 0.1 * t(64)]
-    g = t(2, 64, 64)
+    for gamma in gs:
+        gamma[::3] *= -1
+        gamma[0] = 0.0
+    return tab, ws, gs, bs, t(2, 64, 64)
 
-    def run(dev):
-        leaves = [x.to(dev).requires_grad_() for x in [tab, *ws, *gs, *bs]]
-        p, mus, vs = pooled_mlp.pooled_mlp_bn_train(
-            leaves[0], leaves[1:3], leaves[3:5], leaves[5:7], 0.01)
-        (p * g.to(dev)).sum().backward()
-        return [p, *mus, *vs] + [x.grad for x in leaves]
 
-    for a, b in zip(run(card), run("cpu")):
+def _run_pooled_bn(dev, tab, ws, gs, bs, g):
+    leaves = [x.to(dev).requires_grad_() for x in [tab, *ws, *gs, *bs]]
+    p, mus, vs = pooled_mlp.pooled_mlp_bn_train(
+        leaves[0], leaves[1:3], leaves[3:5], leaves[5:7], 0.01)
+    (p * g.to(dev)).sum().backward()
+    return [p, *mus, *vs] + [x.grad for x in leaves]
+
+
+@pytest.mark.gpu
+def test_pooled_mlp_kernels_match_plain_on_card(card, gen):
+    case = _pooled_bn_case(gen)
+    for a, b in zip(_run_pooled_bn(card, *case), _run_pooled_bn("cpu", *case)):
         # f32 sums in another order; BN backward cancels, hence the scale
         b = b.detach()
         torch.testing.assert_close(a.detach().cpu(), b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_pooled_mlp_kernels_repeat_bit_for_bit_on_card(card, gen):
+    """Sums over rows have a fixed order (no float atomics): two calls give
+    the same pooled output, moments and gradients, bit for bit."""
+    case = _pooled_bn_case(gen)
+    first = _run_pooled_bn(card, *case)
+    for a, b in zip(first, _run_pooled_bn(card, *case)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Per-shape times of two checkouts' kNN or fused-EdgeConv forward kernels
-(``tpugan_tpu_torch``) on one CUDA card.
+"""Per-shape times of two checkouts' kNN, fused-EdgeConv forward or
+pooled-MLP kernels (``tpugan_tpu_torch``) on one CUDA card.
 
     python3 tools/compare_knn_torch.py --base DIR [--head DIR]
-                                       [--check knn|edgeconv] [--out FILE]
+                                       [--check knn|edgeconv|pooled_mlp]
+                                       [--out FILE]
 
-Runs ``chip_smoke.check_knn`` (or ``check_edgeconv``) of each checkout in a
+Runs ``chip_smoke.check_knn`` (or ``check_edgeconv``, or
+``check_pooled_mlp`` and ``check_pooled_affine_bwd``) of each checkout in a
 process of its own, in the order base, head, head, base, so that both see
 the same card and a drift of its clocks falls on both. Each process builds
 its checkout's kernels, checks the kernel against the plain version at every
-row of the check (``KNN_SHAPES``, or ``EDGECONV_SHAPES`` in f32 and bf16)
-and times the kernel, the plain version and, for kNN, ``cdist`` + ``topk``
-(CUDA-event medians); for EdgeConv also the device time of the wrapper's
-launches (torch.profiler; None for a checkout that does not report it). Prints one JSON line per shape with both checkouts'
-times (the mean of their two runs), then one line with the sums weighted by
-the launches of each unit of work: for kNN one f32 dynamic serving forward,
-one G+D train step, one eval sample and one density phase; for EdgeConv one
-f32 dynamic and one bf16 static serving forward. Last comes the card's name
-and power limit.
+row of the check (``KNN_SHAPES``, ``EDGECONV_SHAPES`` in f32 and bf16, or
+``POOLED_SHAPES`` forward and backward and the affine form's rows) and
+times the kernel, the plain version and, for kNN, ``cdist`` + ``topk``
+(CUDA-event medians); for EdgeConv and the pooled MLP also the device time
+of the wrapper's launches (torch.profiler; None for a checkout that does
+not report it). For the pooled MLP each process then runs
+``chip_smoke.train`` (the train_vel step resumed from the checkpoint, 4
+steps) and reports the G+D and G-only steps' ms (CUDA events) and wall ms,
+and the peak device memory of the process; then the affine form's device
+time at ``AFFINE_SHAPES`` (forward and backward, the same inputs in both
+checkouts). Prints one JSON line per shape
+with both checkouts' times (the mean of their two runs), then one line with
+the sums weighted by the launches of each unit of work: for kNN one f32
+dynamic serving forward, one G+D train step, one eval sample and one
+density phase; for EdgeConv one f32 dynamic and one bf16 static serving
+forward; for the pooled MLP the forward and the backward of one G+D step.
+Last comes the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -36,7 +46,44 @@ import chip_smoke
 from tpugan_tpu_torch import _build
 _build.build_all()
 print(json.dumps({{"ptxas": chip_smoke.ptxas_summary({kernel!r})}}), flush=True)
-chip_smoke.check_{kernel}(torch, torch.device("cuda", 0), np.random.default_rng(0))
+dev, rng = torch.device("cuda", 0), np.random.default_rng(0)
+chip_smoke.check_{kernel}(torch, dev, rng)
+"""
+
+# the pooled MLP: its affine form's backward rows, then the train step
+POOLED_CHILD = """
+chip_smoke.check_pooled_affine_bwd(torch, dev, rng)
+from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp, edgeconv,
+                                          fps, interp, knn, nn1, pooled_mlp)
+kernels = {{"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
+           "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL, "fps": fps.KERNEL,
+           "ball_query": ball_query.KERNEL, "pooled_mlp_fwd": pooled_mlp.FWD,
+           "pooled_mlp_bwd": pooled_mlp.BWD,
+           "pooled_mlp_affine_bwd": pooled_mlp.AFFINE_BWD,
+           "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL,
+           "knn_approx": knn.APPROX}}
+chip_smoke.train(torch, dev, kernels)
+# the affine form's device time (torch.profiler), the same inputs in both
+# checkouts: its CUDA-event rows above carry the host's time too
+g = np.random.default_rng(1)
+for stage, shape, widths, slope in chip_smoke.AFFINE_SHAPES:
+    t = lambda *s: torch.from_numpy(g.standard_normal(s).astype(np.float32)).to(dev)
+    cs = (shape[-1],) + tuple(widths)
+    ws = [t(cs[i], cs[i + 1]) / cs[i] ** 0.5 for i in range(len(widths))]
+    a_s = [1 + 0.1 * t(h) for h in widths]
+    b_s = [0.1 * t(h) for h in widths]
+    leaves = [x.requires_grad_() for x in [t(*shape), *ws, *a_s, *b_s]]
+    nl = len(widths)
+    args = (leaves[0], leaves[1:1 + nl], leaves[1 + nl:1 + 2 * nl],
+            leaves[1 + 2 * nl:], slope)
+    with torch.no_grad():
+        fwd = chip_smoke.device_ms(lambda: pooled_mlp.pooled_mlp_affine(*args), torch)
+    out = pooled_mlp.pooled_mlp_affine(*args)
+    cot = t(*out.shape)
+    bwd = chip_smoke.device_ms(lambda: torch.autograd.grad(
+        out, leaves, cot, retain_graph=True), torch)
+    print(json.dumps({{"affine_device": stage, "fwd_device_ms": fwd,
+                      "bwd_device_ms": bwd}}), flush=True)
 """
 
 
@@ -48,35 +95,71 @@ def _edgeconv_weights(row):
             "per_bf16_static_forward": per if row["dtype"] == "bf16" else 0}
 
 
+def _pooled_weights(row):
+    """Launches of the row's shape per G+D step, forward and backward (the
+    affine form's rows: no path of the step runs them)."""
+    per = row.get("per_step", 0)
+    return {"forward_per_step": per if row["kernel"] == "pooled_mlp_fwd" else 0,
+            "backward_per_step": per if row["kernel"] == "pooled_mlp_bwd" else 0}
+
+
 # per check: the row's key fields, its launches per unit of work, the
-# columns it reports
+# columns it reports, the kernel names of its rows
 CHECKS = {
     "knn": (("path", "B", "Nq", "Nc", "D", "k"),
             lambda row: {p: row[p] for p in ("per_forward", "per_step",
                                              "per_sample", "per_density")},
-            ("ms", "plain_ms", "library_ms")),
+            ("ms", "plain_ms", "library_ms"), ("knn",)),
     "edgeconv": (("config", "dtype"), _edgeconv_weights,
-                 ("ms", "device_ms", "plain_ms")),
+                 ("ms", "device_ms", "plain_ms"), ("edgeconv",)),
+    "pooled_mlp": (("kernel", "stage"), _pooled_weights,
+                   ("ms", "device_ms", "plain_ms"),
+                   ("pooled_mlp_fwd", "pooled_mlp_bwd", "pooled_mlp_affine",
+                    "pooled_mlp_affine_bwd")),
 }
 
 
+def _train_summary(lines):
+    """The train phase's G+D and G-only steps (mean ms and wall ms) and the
+    process's peak device memory."""
+    steps = [o for o in lines if "iteration" in o]
+    out = {}
+    for name, want in (("gd", True), ("g_only", False)):
+        sel = [o for o in steps if o["critic_update"] == want]
+        out[f"{name}_steps"] = len(sel)
+        for col in ("ms", "wall_ms"):
+            out[f"{name}_{col}"] = (sum(o[col] for o in sel) / len(sel)
+                                    if sel else None)
+    out["peak_memory_gib"] = next(o["peak_memory_gib"] for o in lines
+                                  if "peak_memory_gib" in o)
+    return out
+
+
 def run(root: str, kernel: str) -> dict:
-    out = subprocess.run(
-        [sys.executable, "-c", CHILD.format(root=root, kernel=kernel)],
-        cwd=root, capture_output=True, text=True)
+    code = CHILD.format(root=root, kernel=kernel)
+    if kernel == "pooled_mlp":
+        code += POOLED_CHILD.format()
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"{root}: check_{kernel} failed\n{out.stdout[-4000:]}"
                            f"\n{out.stderr[-4000:]}")
-    key = CHECKS[kernel][0]
-    rows, ptxas = {}, None
+    key, names = CHECKS[kernel][0], CHECKS[kernel][3]
+    rows, ptxas, train, affine = {}, None, [], []
     for line in out.stdout.splitlines():
         obj = json.loads(line)
         if "ptxas" in obj:
             ptxas = obj["ptxas"]
-        elif (obj.get("kernel") == kernel and "case" not in obj
+        elif "affine_device" in obj:
+            affine.append(obj)
+        elif obj.get("phase") == "train":
+            train.append(obj)
+        elif (obj.get("kernel") in names and "case" not in obj
               and all(k in obj for k in key)):
             rows[tuple(obj[k] for k in key)] = obj
-    return {"ptxas": ptxas, "rows": rows}
+    return {"ptxas": ptxas, "rows": rows,
+            "train": _train_summary(train) if train else None,
+            "affine_device": affine}
 
 
 def main(argv=None) -> int:
@@ -87,14 +170,14 @@ def main(argv=None) -> int:
                     help="the kernel whose per-shape rows are compared")
     ap.add_argument("--out", help="also write every run's rows here (JSON)")
     args = ap.parse_args(argv)
-    key, weights, cols = CHECKS[args.check]
+    key, weights, cols, _ = CHECKS[args.check]
     roots = {"base": os.path.abspath(args.base), "head": os.path.abspath(args.head)}
     runs = [(name, run(roots[name], args.check))
             for name in ("base", "head", "head", "base")]
     if args.out:
         with open(args.out, "w") as f:
-            json.dump([{"checkout": n, "ptxas": r["ptxas"],
-                        "rows": list(r["rows"].values())} for n, r in runs], f)
+            json.dump([{"checkout": n, **r, "rows": list(r["rows"].values())}
+                       for n, r in runs], f)
     for name in ("base", "head"):
         print(json.dumps({"checkout": name, "root": roots[name],
                           "ptxas": next(r["ptxas"] for n, r in runs if n == name)}))
@@ -118,6 +201,8 @@ def main(argv=None) -> int:
             for col in summed:
                 acc = sums[f"{name}_{col}"]
                 for p, n_launch in per.items():
+                    if not n_launch:   # the row runs no time in this unit
+                        continue
                     v = line[f"{name}_{col}"]
                     acc[p] = (None if v is None or acc.get(p, 0.0) is None
                               else acc.get(p, 0.0) + v * n_launch)
@@ -125,6 +210,11 @@ def main(argv=None) -> int:
             bounds[p] = bounds.get(p, 0.0) + first["bound_ms"] * n_launch
         print(json.dumps(line))
     print(json.dumps({"sums": sums, "bound_ms": bounds}))
+    if args.check == "pooled_mlp":   # every run's train step, in run order
+        print(json.dumps({"train": [dict(checkout=n, **r["train"])
+                                    for n, r in runs]}))
+        print(json.dumps({"affine_device": [dict(checkout=n, rows=r["affine_device"])
+                                            for n, r in runs]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

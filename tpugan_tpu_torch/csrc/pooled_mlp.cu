@@ -1,51 +1,86 @@
 // Grouped SharedMLP with train-mode BatchNorm and a neighbourhood max-pool,
-// forward and backward, with no per-layer intermediate in device memory.
+// forward and backward; and the same stack with given affines (the eval-mode
+// and norm-free form).
 //
 // Replaces tpugan_tpu/ops/pallas/pooled_mlp_kernel.py : pooled_mlp_bn_train
-// and its custom VJP: the passes _stats_kernel and _final_kernel of the
-// forward, _tie_count_kernel, _bwd_stats_kernel and _bwd_apply_kernel of
-// _bwd_pallas_bn. The forward's final pass with given affines is
-// pooled_mlp_affine's forward (eval-mode SetConvs); its backward
-// (_bwd_pallas_affine) is the tie pass and the apply pass without the
-// batch-norm terms.
+// and its custom VJP: the forward _bn_train_impl (passes _stats_kernel and
+// _final_kernel) and the backward _bwd_pallas_bn (_tie_count_kernel,
+// _bwd_stats_kernel, _bwd_apply_kernel). pooled_mlp_affine's forward (the
+// final pass with given affines) and its backward _bwd_pallas_affine are
+// the affine form below.
 //
 // Contract: table [R, C0] f32, R = B*M*ns rows, row r in neighbourhood
-// r / ns; L <= 4 layers W_l [C_l, C_{l+1}] packed one after another;
-// slope s of the leaky ReLU (0: ReLU). Per-channel vectors of every layer
-// (gamma, beta, a, b, mu, var, ivar, S1, S2) are packed the same way.
+// r / ns; L <= 4 layers W_l [C_l, C_{l+1}]; slope s >= 0 of the leaky ReLU
+// (0: ReLU). Per-channel vectors of every layer (a, b, mu, var, ivar, S1,
+// S2) are packed one layer after another.
 //   forward, train: for p = 0..L-1 over all R rows
 //     z_p = x_p W_p, mu_p = E[z_p], var_p = E[z_p^2] - mu_p^2 (biased),
 //     a_p = gamma_p / sqrt(max(var_p, 0) + eps), b_p = beta_p - mu_p a_p,
 //     x_{p+1} = act(z_p a_p + b_p);  pooled = max over ns of x_L.
-//   forward, affine: the same final pass with a_p, b_p given.
 //   backward of pooled (cotangent g): the cotangent goes to every row that
 //     equals the pooled value, split evenly over the ties (cnt). Then top
 //     down, dpre_p = dx_{p+1} act'(pre_p), zhat_p = (z_p - mu_p) ivar_p,
 //     S1_p = sum dpre_p = dbeta_p, S2_p = sum dpre_p zhat_p = dgamma_p,
 //     dz_p = a_p (dpre_p - S1_p / R - zhat_p S2_p / R),
 //     dW_p = x_p^T dz_p, dx_p = dz_p W_p^T, dtable = dx_0.
-//   backward of the affine form: dz_p = a_p dpre_p, da_p = sum dpre_p z_p,
-//     db_p = sum dpre_p, dW_p and dx_p as above.
+//   affine form: the forward's final pass with a_p, b_p given; its
+//     backward dz_p = a_p dpre_p, da_p = sum dpre_p z_p, db_p = sum dpre_p,
+//     dW_p and dx_p as above.
 //
-// What bounds it on the H100: operations. The spatial critic's second stage
-// (4 x 512 x 32 rows of 131 channels, 128 -> 128) recomputes its layers in
-// every pass: 2 L + 1 passes in all, each about 2 R (C0 H1 + H1 H2)
-// multiply-adds on the f32 cores, against a table read of a few MB.
+// What bounds the batch-norm form on the H100: operations. The spatial
+// critic's first stage (4 x 1024 x 32 rows, 6 -> 64 -> 128) does 2 R mac
+// = 2.25 GFLOP forward, 34 us at the 67 TFLOP/s of f32 FFMA (TF32 stays
+// off), against a 3 MB table. Its layer outputs are larger (z_1: 67 MB,
+// 20 us at 3.35 TB/s) but cost less to keep than to recompute: the TPU
+// kernel never wrote an intermediate, recomputing the stack in each of its
+// 2 L + 1 passes (and twice that in the backward) out of VMEM.
 //
-// Design. A block works on tiles of 32 rows (16 in the backward, whose
-// tile keeps every layer's input and pre-activation in shared memory).
-// Each layer of a tile is a [rows, Cin] x [Cin, Cout] product: thread t
-// owns column t % Cout for rows t / Cout, t / Cout + 256 / Cout, ...,
-// reads the activations from shared memory as broadcasts and the weights
-// through L2 (the last stage's weights, 527 KB, exceed shared memory). The
-// product of an element is one fmaf chain over the input channels from 0,
-// and every pass computes the layer stack through the same device
-// function, so the final, tie-count and backward passes see bit-identical
-// activations and the tie mask (y == pooled) agrees between them.
-// Reductions over all rows never use float atomics, whose order changes
-// from run to run: a block walks a fixed set of tiles and writes its own
-// partial sums, and a second kernel adds the partials in block order. The
-// max-pool runs in the block that owns the whole neighbourhood.
+// Design of the batch-norm form: each layer's product is computed once in
+// the forward and twice in the backward (dW and dx), on one register-tiled
+// f32 GEMM block (product()): a block owns a BM x BN output tile, 256
+// threads each an (BM / 16) x (BN / 16) register tile (8 x 8 at 128 x 128),
+// and walks the depth in slabs of 8, three in flight: cp.async copies slab
+// k + 2 into shared memory (rows padded by 4 floats against bank
+// conflicts) while slab k feeds 4 float4 reads per 64 FMAs a thread, so
+// the copies hold no registers beside the accumulators. A is transformed
+// where it lands (Src, Slab::transform): the forward's x_p = act(fmaf(
+// z_{p-1}, a, b)), the backward's dz formula; each thread transforms the
+// elements it copied, before the slab's one barrier. The stages take 25-38
+// KB of shared memory per block whatever the depth (W at sa_pooling is
+// 259 x 256, 265 KB). The epilogue goes through a shared product tile, so
+// its global reads and writes are float4 and coalesced along the rows.
+// Measured on the card (PERF.md): with the loads in registers and a
+// runtime kind, each transform waited on its own loads in turn and the
+// products ran at 8-20 TFLOP/s; slab depths of 4-32 and 1 or 2 blocks an
+// SM moved nothing; the pipeline above brought every kernel to 0 spills at
+// 2 blocks an SM.
+//   forward (pmlp_bn_forward): pass p computes z_p once (rows_gemm), writes
+//     it (the backward reads it), and adds each tile's column sums and sums
+//     of squares into one partial per tile; bn_stats adds the partials in
+//     a fixed order (col_sum). The last pass also keeps each neighbourhood's
+//     max and min of z_{L-1}: a row tile holds whole neighbourhoods. act
+//     and fmaf(., a, b) are non-decreasing in z for a >= 0 and
+//     non-increasing for a < 0 (slope >= 0, rounding is monotone), so
+//     max over ns of act(fmaf(z, a, b)) = act(fmaf(max z, a, b)) for a >= 0
+//     and act(fmaf(min z, a, b)) for a < 0, bit for bit; pool_extremes
+//     forms pooled once a, b are known. No pass recomputes the stack.
+//   backward (pmlp_bn_backward): top_kernel counts the ties from the saved
+//     z_{L-1} through the same act(fmaf(z, a, b)) expression that produced
+//     pooled (so the extreme row always finds itself), and writes dpre_{L-1}
+//     and its S1, S2 partials. Then per layer from the top: dW_q = x_q^T dz_q
+//     (dw_gemm, fixed row ranges, one partial per block, added in block
+//     order), dx_q = dz_q W_q^T (rows_gemm, W read transposed) whose
+//     epilogue forms dpre_{q-1} and its S1, S2 partials; dz is the
+//     prologue of both products.
+//   Reductions over rows never use float atomics, whose order changes from
+//   run to run: every partial sum has one owner and a fixed order.
+//
+// The affine form keeps the TPU kernel's recompute design (no path users
+// run launches it): a block works on tiles of 32 rows (16 in the backward),
+// each layer a [rows, Cin] x [Cin, Cout] product in which thread t owns
+// column t % Cout, reading activations from shared memory and weights
+// through L2; the tie pass and the apply pass recompute the stack through
+// the same device function, so the tie mask (y == pooled) agrees.
 #include "common.cuh"
 #include "reduce.cuh"
 
@@ -53,6 +88,669 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAXL = 4;
+
+__device__ __forceinline__ float act(float pre, float slope) {
+  return pre >= 0.f ? pre : __fmul_rn(slope, pre);
+}
+
+__device__ __forceinline__ float act_grad(float pre, float slope) {
+  return pre >= 0.f ? 1.f : slope;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// ------------------------------------------------------ batch-norm form
+
+constexpr int BK = 8;          // depth of a slab
+constexpr int STAGES = 3;      // slabs in flight
+constexpr int PAD = 4;         // floats past each slab row in shared memory
+constexpr int ROW_TILE = 128;  // rows of a row-major product's tile
+
+enum SrcKind { kPlain = 0, kAct = 1, kDz = 2 };
+
+// A row-major [rows, chans] operand read at (row, chan) through a
+// per-channel transform, 0 at row >= lim (lim <= rows) or chan >= chans:
+//   kPlain  p[row, chan];
+//   kAct    act(fmaf(p, v0, v1))                 (p = z of the layer below);
+//   kDz     v0 (p - v3 ninv - (z - v1) v2 v4 ninv)  (p = dpre, v = a, mu,
+//           ivar, S1, S2 of the layer).
+// The kind is a template argument of the kernels (KIND below), so a slab's
+// loads carry no branch on the values they fetch.
+struct Src {
+  const float* p;
+  const float* z;
+  const float* v[5];
+  int rows, chans;
+  float slope, ninv;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// One BK-deep slab of an operand: X entries along the tile's own axis by BK
+// along the depth, in shared memory as [BK][X + PAD] (kDz: a second such
+// array holds the raw z). KCH: the depth is the operand's channel axis (a
+// [X, BK] block of a row-major matrix, read along the channels and stored
+// transposed); else its row axis. copy() issues this thread's PER
+// asynchronous 4-byte copies (zero-filled outside), transform() applies the
+// transform to the same elements once they have arrived, in place: no
+// thread reads another's elements before the barrier that follows.
+template <int X, bool KCH, int KIND>
+struct Slab {
+  static constexpr int PER = BK * X / THREADS;
+  static constexpr int LD = X + PAD;
+  static constexpr int FLOATS = (KIND == kDz ? 2 : 1) * BK * LD;
+
+  __device__ __forceinline__ static void at(int i, int idx0, int k0, int& ix,
+                                            int& kk, int& row, int& ch) {
+    const int e = threadIdx.x + i * THREADS;
+    if (KCH) {
+      ix = e / BK;
+      kk = e % BK;
+      row = idx0 + ix;
+      ch = k0 + kk;
+    } else {
+      kk = e / X;
+      ix = e % X;
+      row = k0 + kk;
+      ch = idx0 + ix;
+    }
+  }
+  __device__ __forceinline__ static void copy(const Src& s, int lim, int idx0,
+                                              int k0, float* S) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int ix, kk, row, ch;
+      at(i, idx0, k0, ix, kk, row, ch);
+      const bool in = row < lim && ch < s.chans;
+      const int o = in ? row * s.chans + ch : 0;   // rows * chans < 2^31
+      cp_async4(S + kk * LD + ix, s.p + o, in);
+      if (KIND == kDz) cp_async4(S + (BK + kk) * LD + ix, s.z + o, in);
+    }
+  }
+  __device__ __forceinline__ static void transform(const Src& s, int lim,
+                                                   int idx0, int k0, float* S) {
+#pragma unroll
+    for (int i = 0; i < (KIND == kPlain ? 0 : PER); ++i) {
+      int ix, kk, row, ch;
+      at(i, idx0, k0, ix, kk, row, ch);
+      if (row >= lim || ch >= s.chans) continue;      // stays 0
+      float& v = S[kk * LD + ix];
+      if (KIND == kAct) {
+        v = act(fmaf(v, __ldg(s.v[0] + ch), __ldg(s.v[1] + ch)), s.slope);
+      } else {
+        const float zhat =
+            (S[(BK + kk) * LD + ix] - __ldg(s.v[1] + ch)) * __ldg(s.v[2] + ch);
+        v = __ldg(s.v[0] + ch) * (v - __ldg(s.v[3] + ch) * s.ninv -
+                                  zhat * (__ldg(s.v[4] + ch) * s.ninv));
+      }
+    }
+  }
+};
+
+// A BM x BN tile over 256 threads: thread (ty, tx) = (t / 16, t % 16) owns
+// rows (i / 4) 64 + 4 ty + i % 4 and columns (j / 4) 64 + 4 tx + j % 4.
+template <int BM, int BN>
+struct Tile {
+  static constexpr int TM = BM / 16, TN = BN / 16;
+  __device__ static __forceinline__ int row(int i) {
+    return (i / 4) * 64 + (threadIdx.x / 16) * 4 + i % 4;
+  }
+  __device__ static __forceinline__ int col(int j) {
+    return (j / 4) * 64 + (threadIdx.x % 16) * 4 + j % 4;
+  }
+};
+
+// Shared memory of product(), in floats: STAGES slabs of A and B.
+template <int BM, int BN, bool AK, bool BKC, int AKIND, int BKIND>
+__host__ __device__ constexpr int pipe_floats() {
+  return STAGES * (Slab<BM, AK, AKIND>::FLOATS + Slab<BN, BKC, BKIND>::FLOATS);
+}
+
+// acc = sum over k0 <= k < k1 of A(m0 + row, k) B(k, n0 + col): one fmaf
+// chain per element, k ascending; A's and B's rows end at a_lim and b_lim.
+// AK / BKC: the depth is A's / B's channel axis, AKIND / BKIND their
+// transforms (Slab). STAGES slabs are in flight: slab k + STAGES - 1 is
+// copied while slab k computes, so the copies take no registers and no
+// instruction waits on them but the wait for slab k itself. One barrier a
+// slab: it publishes slab k's transformed elements and tells that every
+// thread has finished slab k - 1, whose buffer the next copy takes. The
+// operands are read in place (kernel parameters), not copied: a copy would
+// hold a Src in registers beside the 64 accumulators. Uses pipe_floats()
+// floats at sm; starts and ends on a barrier, so the caller may reuse them
+// before and after.
+template <int BM, int BN, bool AK, bool BKC, int AKIND, int BKIND>
+__device__ __forceinline__ void product(const Src& A, int a_lim, int m0,
+                                        const Src& B, int b_lim, int n0, int k0,
+                                        int k1, float* sm,
+                                        float (&acc)[BM / 16][BN / 16]) {
+  using SA = Slab<BM, AK, AKIND>;
+  using SB = Slab<BN, BKC, BKIND>;
+  constexpr int TM = BM / 16, TN = BN / 16;
+  constexpr int STAGE = SA::FLOATS + SB::FLOATS;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int nk = (k1 - k0 + BK - 1) / BK;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  __syncthreads();
+#pragma unroll 1
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) {
+      SA::copy(A, a_lim, m0, k0 + st * BK, sm + st * STAGE);
+      SB::copy(B, b_lim, n0, k0 + st * BK, sm + st * STAGE + SA::FLOATS);
+    }
+    cp_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    float* const sa = sm + (it % STAGES) * STAGE;
+    float* const sb = sa + SA::FLOATS;
+    const int k = k0 + it * BK;
+    cp_wait<STAGES - 2>();
+    SA::transform(A, a_lim, m0, k, sa);
+    SB::transform(B, b_lim, n0, k, sb);
+    __syncthreads();
+    const int nx = it + STAGES - 1;
+    if (nx < nk) {
+      float* const na = sm + (nx % STAGES) * STAGE;
+      SA::copy(A, a_lim, m0, k0 + nx * BK, na);
+      SB::copy(B, b_lim, n0, k0 + nx * BK, na + SA::FLOATS);
+    }
+    cp_commit();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int j = 0; j < TM / 4; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(sa + kk * SA::LD + j * 64 + ty * 4);
+        a[4 * j] = v.x;
+        a[4 * j + 1] = v.y;
+        a[4 * j + 2] = v.z;
+        a[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < TN / 4; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(sb + kk * SB::LD + j * 64 + tx * 4);
+        b[4 * j] = v.x;
+        b[4 * j + 1] = v.y;
+        b[4 * j + 2] = v.z;
+        b[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+}
+
+enum Epi { kStore = 0, kStats = 1, kDpre = 2 };
+
+// out [R, N] = A [R, K] B [K, N] over row tiles of tile_rows rows (chunks of
+// ROW_TILE), by epilogue:
+//   kStore  out = the product (dtable);
+//   kStats  out = z; part_u / part_v [tiles, N] = the tile's sums of z and
+//           z^2; with zmax: each neighbourhood's max and min of z
+//           ([R / ns, N]), tile_rows a multiple of ns;
+//   kDpre   out = dpre = product * act'(fmaf(zp, a, b)) with zp, a, b (and
+//           mu, ivar for zhat) of the layer below; parts: sums of dpre and
+//           dpre zhat (S1, S2).
+struct RowsArgs {
+  Src A, B;
+  int R, K, N, tile_rows, ns, epi;
+  float* out;
+  float* part_u;
+  float* part_v;
+  float* zmax;
+  float* zmin;
+  const float* zp;
+  const float* pv[4];   // kDpre: a, b, mu, ivar of the layer below
+  float slope;
+};
+
+// Shared memory of rows_gemm, in floats: the pipeline, over which a chunk's
+// product tile [BM][BN + PAD] lies; then the column sums [2][RGS][BN];
+// then the running extremes [2][nbh][BN] (ext).
+template <int BN, bool BKC, int AKIND>
+__host__ __device__ constexpr int rows_head() {
+  return pipe_floats<ROW_TILE, BN, true, BKC, AKIND, kPlain>() >
+                 ROW_TILE * (BN + PAD)
+             ? pipe_floats<ROW_TILE, BN, true, BKC, AKIND, kPlain>()
+             : ROW_TILE * (BN + PAD);
+}
+
+template <int BN, bool BKC, int AKIND>
+__global__ void __launch_bounds__(THREADS, 2) rows_gemm(RowsArgs P) {
+  constexpr int BM = ROW_TILE;
+  using T = Tile<BM, BN>;
+  constexpr int TM = T::TM, TN = T::TN, ZLD = BN + PAD;
+  // the epilogue: thread (rg, cq) takes columns 4 cq .. 4 cq + 3 of the
+  // tile's rows rg RG .. rg RG + RG - 1, so its accumulators are dead and
+  // each global access is a float4, coalesced along the row
+  constexpr int CQ = BN / 4, RGS = THREADS / CQ, RG = BM / RGS;
+  extern __shared__ float sm[];
+  const int tid = threadIdx.x, tx = tid % 16;
+  const int tile = blockIdx.x, n0 = blockIdx.y * BN;
+  const int t0 = tile * P.tile_rows, t1 = min(P.R, t0 + P.tile_rows);
+  const bool ext = P.zmax != nullptr;
+  const int nbh = ext ? P.tile_rows / P.ns : 0;
+  float* const zt = sm;                    // [BM][ZLD]: a chunk's product
+  float* const red = sm + rows_head<BN, BKC, AKIND>();   // [2][RGS][BN]
+  float* const run = red + 2 * RGS * BN;   // [2][nbh][BN]: running max, min
+  for (int i = tid; i < nbh * BN; i += THREADS) {
+    run[i] = -CUDART_INF_F;
+    run[nbh * BN + i] = CUDART_INF_F;
+  }
+  float tot_u = 0.f, tot_v = 0.f;          // thread t < BN: column n0 + t
+  for (int c0 = t0; c0 < t1; c0 += BM) {
+    {
+      float acc[TM][TN];
+      product<BM, BN, true, BKC, AKIND, kPlain>(P.A, t1, c0, P.B, P.B.rows, n0,
+                                                0, P.K, sm, acc);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int g = 0; g < TN / 4; ++g)
+          *reinterpret_cast<float4*>(zt + T::row(i) * ZLD + g * 64 + tx * 4) =
+              make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                          acc[i][4 * g + 3]);
+    }
+    __syncthreads();
+    // read here, not before the product, where they would hold registers
+    const int cq = tid % CQ, rg = tid / CQ;
+    const int n = n0 + 4 * cq;             // the epilogue's first column
+    const bool full = P.N % 4 == 0 && n + 3 < P.N;
+    float pa[4], pb[4], pm[4], pi[4];      // kDpre: the layer below's a, b, mu, ivar
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool in = P.epi == kDpre && n + u < P.N;
+      pa[u] = in ? P.pv[0][n + u] : 0.f;
+      pb[u] = in ? P.pv[1][n + u] : 0.f;
+      pm[u] = in ? P.pv[2][n + u] : 0.f;
+      pi[u] = in ? P.pv[3][n + u] : 0.f;
+    }
+    float su[4] = {0.f, 0.f, 0.f, 0.f}, sv[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int rr = 0; rr < RG; ++rr) {
+      const int lr = rg * RG + rr, r = c0 + lr;
+      if (r >= t1) break;
+      const float4 y4 = *reinterpret_cast<const float4*>(zt + lr * ZLD + 4 * cq);
+      float y[4] = {y4.x, y4.y, y4.z, y4.w};
+      const size_t o = (size_t)r * P.N + n;
+      float zp[4] = {0.f, 0.f, 0.f, 0.f};
+      if (P.epi == kDpre) {
+        if (full) {
+          const float4 v = *reinterpret_cast<const float4*>(P.zp + o);
+          zp[0] = v.x;
+          zp[1] = v.y;
+          zp[2] = v.z;
+          zp[3] = v.w;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) zp[u] = n + u < P.N ? P.zp[o + u] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (P.epi == kDpre) {
+          y[u] *= act_grad(fmaf(zp[u], pa[u], pb[u]), P.slope);
+          su[u] += y[u];
+          sv[u] = fmaf(y[u], (zp[u] - pm[u]) * pi[u], sv[u]);
+        } else if (P.epi == kStats) {
+          su[u] += y[u];
+          sv[u] = fmaf(y[u], y[u], sv[u]);
+        }
+      }
+      if (full) {
+        *reinterpret_cast<float4*>(P.out + o) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (n + u < P.N) P.out[o + u] = y[u];
+      }
+    }
+    if (P.epi != kStore) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        red[rg * BN + 4 * cq + u] = su[u];
+        red[(RGS + rg) * BN + 4 * cq + u] = sv[u];
+      }
+    }
+    __syncthreads();
+    if (P.epi != kStore && tid < BN)
+      for (int y = 0; y < RGS; ++y) {
+        tot_u += red[y * BN + tid];
+        tot_v += red[(RGS + y) * BN + tid];
+      }
+    if (ext) {
+      const int c1 = min(t1, c0 + BM);
+      const int j0 = (c0 - t0) / P.ns, j1 = (c1 - 1 - t0) / P.ns;
+      for (int p = tid; p < (j1 - j0 + 1) * BN; p += THREADS) {
+        const int j = j0 + p / BN, col = p % BN;
+        const int lo = max(c0, t0 + j * P.ns), hi = min(c1, t0 + (j + 1) * P.ns);
+        float mx = run[j * BN + col], mn = run[(nbh + j) * BN + col];
+        for (int r = lo; r < hi; ++r) {
+          const float v = zt[(r - c0) * ZLD + col];
+          mx = fmaxf(mx, v);
+          mn = fminf(mn, v);
+        }
+        run[j * BN + col] = mx;
+        run[(nbh + j) * BN + col] = mn;
+      }
+    }
+    __syncthreads();                       // red and zt are read
+  }
+  if (ext) {
+    const int ctr0 = t0 / P.ns, nc = (t1 - t0) / P.ns;
+    for (int p = tid; p < nc * BN; p += THREADS) {
+      const int j = p / BN, c = n0 + p % BN;
+      if (c >= P.N) continue;
+      P.zmax[(size_t)(ctr0 + j) * P.N + c] = run[p];
+      P.zmin[(size_t)(ctr0 + j) * P.N + c] = run[nbh * BN + p];
+    }
+  }
+  if (P.epi != kStore && tid < BN && n0 + tid < P.N) {
+    P.part_u[(size_t)tile * P.N + n0 + tid] = tot_u;
+    P.part_v[(size_t)tile * P.N + n0 + tid] = tot_v;
+  }
+}
+
+// part [split, M, N] = sum over the split's rows r of A(r, m) B(r, n):
+// A = x [R, M], B = dz [R, N]; a split holds split_rows rows.
+struct DwArgs {
+  Src A, B;
+  int R, M, N, split_rows;
+  float* part;
+};
+
+template <int BM, int BN, int AKIND>
+__global__ void __launch_bounds__(THREADS, 2) dw_gemm(DwArgs P) {
+  using T = Tile<BM, BN>;
+  extern __shared__ float sm[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, s = blockIdx.z;
+  const int r0 = s * P.split_rows, r1 = min(P.R, r0 + P.split_rows);
+  float acc[T::TM][T::TN];
+  product<BM, BN, false, false, AKIND, kDz>(P.A, r1, m0, P.B, r1, n0, r0, r1,
+                                            sm, acc);
+  float* out = P.part + (size_t)s * P.M * P.N;
+  const int tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int m = m0 + T::row(i);
+    if (m >= P.M) continue;
+#pragma unroll
+    for (int g = 0; g < T::TN / 4; ++g) {
+      const int n = n0 + g * 64 + tx * 4;
+      float* const o = out + (size_t)m * P.N + n;
+      if (P.N % 4 == 0 && n + 3 < P.N) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                        acc[i][4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (n + u < P.N) o[u] = acc[i][4 * g + u];
+      }
+    }
+  }
+}
+
+// pooled = act(fmaf(a >= 0 ? zmax : zmin, a, b)) over [n_out / N, N].
+__global__ void pool_extremes(const float* __restrict__ zmax,
+                              const float* __restrict__ zmin,
+                              const float* __restrict__ a,
+                              const float* __restrict__ b, int n_out, int N,
+                              float slope, float* __restrict__ pooled) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int c = i % N;
+  const float av = a[c];
+  pooled[i] = act(fmaf(av >= 0.f ? zmax[i] : zmin[i], av, b[c]), slope);
+}
+
+// The top layer's dpre from the saved z [R, N] and its S1, S2 partials per
+// row tile of tile_rows rows (whole neighbourhoods). Thread t works on
+// column t % N of every (256 / N)-th neighbourhood of the tile.
+struct TopArgs {
+  const float* z;
+  const float* a;
+  const float* b;
+  const float* mu;
+  const float* ivar;
+  const float* pooled;
+  const float* g;
+  float* dpre;
+  float* part_u;
+  float* part_v;
+  int R, ns, N, tile_rows;
+  float slope;
+};
+
+__global__ void __launch_bounds__(THREADS) top_kernel(TopArgs P) {
+  __shared__ float red[2 * THREADS];
+  const int G = THREADS / P.N, g = threadIdx.x / P.N, c = threadIdx.x % P.N;
+  const int tile = blockIdx.x, t0 = tile * P.tile_rows;
+  const int t1 = min(P.R, t0 + P.tile_rows);
+  const int ctr0 = t0 / P.ns, nc = (t1 - t0) / P.ns;
+  float su = 0.f, sv = 0.f;
+  if (g < G) {
+    const float a = P.a[c], b = P.b[c], mu = P.mu[c], iv = P.ivar[c];
+    for (int j = g; j < nc; j += G) {
+      const size_t k = (size_t)(ctr0 + j) * P.N + c;
+      const float ref = P.pooled[k];
+      const int r0 = t0 + j * P.ns, r1 = r0 + P.ns;
+      float cnt = 0.f;
+      for (int r = r0; r < r1; ++r)
+        cnt += act(fmaf(P.z[(size_t)r * P.N + c], a, b), P.slope) == ref ? 1.f
+                                                                       : 0.f;
+      const float share = P.g[k] / cnt;
+      for (int r = r0; r < r1; ++r) {
+        const size_t o = (size_t)r * P.N + c;
+        const float z = P.z[o];
+        const float pre = fmaf(z, a, b);
+        const float d =
+            act(pre, P.slope) == ref ? share * act_grad(pre, P.slope) : 0.f;
+        su += d;
+        sv = fmaf(d, (z - mu) * iv, sv);
+        P.dpre[o] = d;
+      }
+    }
+  }
+  red[threadIdx.x] = su;
+  red[THREADS + threadIdx.x] = sv;
+  __syncthreads();
+  if (threadIdx.x < P.N) {
+    float u = 0.f, v = 0.f;
+    for (int y = 0; y < G; ++y) {
+      u += red[y * P.N + threadIdx.x];
+      v += red[THREADS + y * P.N + threadIdx.x];
+    }
+    P.part_u[(size_t)tile * P.N + threadIdx.x] = u;
+    P.part_v[(size_t)tile * P.N + threadIdx.x] = v;
+  }
+}
+
+// Columns of a product's tile for an output width n: 64 or 128, whichever
+// pads n less (128 on a tie). launch_plan in ops/kernels/pooled_mlp.py
+// mirrors this rule and the shared-memory sizes below.
+int tile_width(int n) {
+  const int p64 = (n + 63) / 64 * 64, p128 = (n + 127) / 128 * 128;
+  return n <= 64 || p64 < p128 ? 64 : 128;
+}
+
+// The largest dynamic shared memory a block may ask for, allowed once per
+// kernel (the host's cost of a launch counts at the small stages).
+constexpr int SMEM_LIMIT = 232448;
+
+template <int BN, bool BKC, int AKIND>
+cudaError_t rows_go(const RowsArgs& P, dim3 grid, cudaStream_t st) {
+  const int rgs = THREADS / (BN / 4);
+  const size_t floats = rows_head<BN, BKC, AKIND>() + 2 * rgs * BN +
+                        (P.zmax != nullptr ? 2 * (P.tile_rows / P.ns) * BN : 0);
+  const size_t smem = floats * sizeof(float);
+  static const cudaError_t e = allow_smem(rows_gemm<BN, BKC, AKIND>, SMEM_LIMIT);
+  if (e != cudaSuccess) return e;
+  rows_gemm<BN, BKC, AKIND><<<grid, THREADS, smem, st>>>(P);
+  return cudaGetLastError();
+}
+
+// The forward's products (A: the table, or act of the layer below's z; B:
+// W) or, with bkc, the backward's dx = dz W^T (A: dz; B: W read
+// transposed).
+cudaError_t rows_launch(const RowsArgs& P, bool bkc, int akind,
+                        cudaStream_t st) {
+  const int bn = tile_width(P.N);
+  const dim3 grid((P.R + P.tile_rows - 1) / P.tile_rows, (P.N + bn - 1) / bn);
+  if (bkc)
+    return bn == 64 ? rows_go<64, true, kDz>(P, grid, st)
+                    : rows_go<128, true, kDz>(P, grid, st);
+  if (akind == kAct)
+    return bn == 64 ? rows_go<64, false, kAct>(P, grid, st)
+                    : rows_go<128, false, kAct>(P, grid, st);
+  return bn == 64 ? rows_go<64, false, kPlain>(P, grid, st)
+                  : rows_go<128, false, kPlain>(P, grid, st);
+}
+
+template <int BM, int BN, int AKIND>
+cudaError_t dw_go(const DwArgs& P, dim3 grid, cudaStream_t st) {
+  const size_t smem =
+      pipe_floats<BM, BN, false, false, AKIND, kDz>() * sizeof(float);
+  static const cudaError_t e = allow_smem(dw_gemm<BM, BN, AKIND>, SMEM_LIMIT);
+  if (e != cudaSuccess) return e;
+  dw_gemm<BM, BN, AKIND><<<grid, THREADS, smem, st>>>(P);
+  return cudaGetLastError();
+}
+
+template <int AKIND>
+cudaError_t dw_tiles(const DwArgs& P, cudaStream_t st) {
+  const int bm = tile_width(P.M), bn = tile_width(P.N);
+  const dim3 grid((P.M + bm - 1) / bm, (P.N + bn - 1) / bn,
+                  (P.R + P.split_rows - 1) / P.split_rows);
+  if (bm == 64)
+    return bn == 64 ? dw_go<64, 64, AKIND>(P, grid, st)
+                    : dw_go<64, 128, AKIND>(P, grid, st);
+  return bn == 64 ? dw_go<128, 64, AKIND>(P, grid, st)
+                  : dw_go<128, 128, AKIND>(P, grid, st);
+}
+
+// dW partials (A: the table, or act of the layer below's z; B: dz).
+cudaError_t dw_launch(const DwArgs& P, int akind, cudaStream_t st) {
+  return akind == kAct ? dw_tiles<kAct>(P, st) : dw_tiles<kPlain>(P, st);
+}
+
+Src plain_src(const void* p, int rows, int chans) {
+  Src s = {};
+  s.p = static_cast<const float*>(p);
+  s.rows = rows;
+  s.chans = chans;
+  return s;
+}
+
+// Layer l's input: the table (kPlain) for l == 0, else act(fmaf(z, a, b))
+// of layer l - 1's z (kAct).
+Src input_src(int l, const void* table, const void* const* z, const float* a,
+              const float* b, int rows, int chans, float slope) {
+  Src s = plain_src(l == 0 ? table : z[l - 1], rows, chans);
+  s.v[0] = a;
+  s.v[1] = b;
+  s.slope = slope;
+  return s;
+}
+
+// Sums over the rows of per-tile partials [nblk, n] in a fixed order: block
+// (RX, RY) takes RX columns; lane y adds partials y, y + RY, ... in double,
+// then lane 0 adds the lanes in order.
+constexpr int RX = 32, RY = 16;
+
+__device__ __forceinline__ double col_sum(const float* __restrict__ part,
+                                          int nblk, int n,
+                                          double (*red)[RX]) {
+  const int i = blockIdx.x * RX + threadIdx.x;
+  double s = 0.0;
+  if (i < n)
+    for (int k = threadIdx.y; k < nblk; k += RY) s += part[(size_t)k * n + i];
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0)
+    for (int y = 1; y < RY; ++y) s += red[y][threadIdx.x];
+  __syncthreads();
+  return s;
+}
+
+// out = the column sums of part [nblk, n].
+__global__ void __launch_bounds__(RX * RY)
+sum_cols(const float* __restrict__ part, int nblk, int n,
+         float* __restrict__ out) {
+  __shared__ double red[RY][RX];
+  const double s = col_sum(part, nblk, n, red);
+  const int i = blockIdx.x * RX + threadIdx.x;
+  if (threadIdx.y == 0 && i < n) out[i] = (float)s;
+}
+
+// mu, var, ivar, a, b of one layer from per-tile sums and sums of squares.
+__global__ void __launch_bounds__(RX * RY)
+bn_stats(const float* __restrict__ part_s, const float* __restrict__ part_q,
+         int nblk, int n, double count, const float* __restrict__ gamma,
+         const float* __restrict__ beta, float eps, float* mu, float* var,
+         float* ivar, float* a, float* b) {
+  __shared__ double red[RY][RX];
+  const double s = col_sum(part_s, nblk, n, red);
+  const double q = col_sum(part_q, nblk, n, red);
+  const int o = blockIdx.x * RX + threadIdx.x;
+  if (threadIdx.y != 0 || o >= n) return;
+  const double m = s / count;
+  const float mf = (float)m;
+  const float vf = (float)(q / count - m * m);
+  const float iv = 1.f / sqrtf(fmaxf(vf, 0.f) + eps);
+  const float af = gamma[o] * iv;
+  mu[o] = mf;
+  var[o] = vf;
+  ivar[o] = iv;
+  a[o] = af;
+  b[o] = beta[o] - mf * af;
+}
+
+void sum_cols_launch(const float* part, int nblk, int n, float* out,
+                     cudaStream_t st) {
+  sum_cols<<<(n + RX - 1) / RX, dim3(RX, RY), 0, st>>>(part, nblk, n, out);
+}
+
+struct Layers {
+  int tot;
+  int hoff[MAXL];     // offset of layer l's channels in a packed vector
+};
+
+Layers layers(int L, const int* c) {
+  Layers Y = {};
+  for (int l = 0; l < L; ++l) {
+    Y.hoff[l] = Y.tot;
+    Y.tot += c[l + 1];
+  }
+  return Y;
+}
+
+// ------------------------------------------------------------- affine form
+
 constexpr int FWD_ROWS = 32;
 constexpr int BWD_ROWS = 16;
 
@@ -67,14 +765,6 @@ struct Stack {
   const float* a;
   const float* b;
 };
-
-__device__ __forceinline__ float act(float pre, float slope) {
-  return pre >= 0.f ? pre : __fmul_rn(slope, pre);
-}
-
-__device__ __forceinline__ float act_grad(float pre, float slope) {
-  return pre >= 0.f ? 1.f : slope;
-}
 
 // For every output (r, o), r < RT and o < n, calls epi(r, o, acc) with
 //   acc = sum_{j < k} A[r * lda + j] * B(j, o)   (one fmaf chain, j from 0)
@@ -135,87 +825,6 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ table,
     X[i] = row0 + i / c0 < R ? table[base + i] : 0.f;
 }
 
-// Per-thread sums (column t % n, rows t / n + k G) -> one value per column,
-// added over the row groups in order.
-__device__ __forceinline__ void block_sums(float s, float q, int n,
-                                           float* red, float* out_s,
-                                           float* out_q) {
-  red[threadIdx.x] = s;
-  red[THREADS + threadIdx.x] = q;
-  __syncthreads();
-  if (threadIdx.x < n) {
-    const int G = THREADS / n;
-    float ss = 0.f, qq = 0.f;
-    for (int g = 0; g < G; ++g) {
-      ss += red[g * n + threadIdx.x];
-      qq += red[THREADS + g * n + threadIdx.x];
-    }
-    out_s[blockIdx.x * n + threadIdx.x] = ss;
-    out_q[blockIdx.x * n + threadIdx.x] = qq;
-  }
-}
-
-// Partial sum and sum of squares of z_p over the block's tiles.
-__global__ void __launch_bounds__(THREADS)
-stats_kernel(Stack S, const float* __restrict__ table, int R, int p,
-             float* __restrict__ part_s, float* __restrict__ part_q) {
-  constexpr int RT = FWD_ROWS;
-  extern __shared__ float sm[];
-  float* buf[2] = {sm, sm + RT * S.cmax};
-  float* red = sm + 2 * RT * S.cmax;
-  const int n = S.c[p + 1];
-  float s = 0.f, q = 0.f;
-  const int ntiles = (R + RT - 1) / RT;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * RT;
-    __syncthreads();                       // the previous tile is read
-    load_rows<RT>(table, R, S.c[0], row0, buf[0]);
-    __syncthreads();
-    int cur = 0;
-    for (int l = 0; l < p; ++l) {
-      layer_fwd<RT>(S, l, buf[cur], buf[cur ^ 1], nullptr);
-      __syncthreads();
-      cur ^= 1;
-    }
-    tile_product<RT, false>(buf[cur], S.c[p], S.c[p], S.W + S.woff[p], n,
-                            [&](int r, int, float z) {
-                              if (row0 + r < R) {
-                                s += z;
-                                q = fmaf(z, z, q);
-                              }
-                            });
-  }
-  __syncthreads();
-  block_sums(s, q, n, red, part_s, part_q);
-}
-
-// mu, var, ivar, a, b of one layer from the blocks' partial sums.
-__global__ void finalize_stats(const float* __restrict__ part_s,
-                               const float* __restrict__ part_q, int nblk,
-                               int n, double count,
-                               const float* __restrict__ gamma,
-                               const float* __restrict__ beta, float eps,
-                               float* mu, float* var, float* ivar, float* a,
-                               float* b) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n) return;
-  double s = 0.0, q = 0.0;
-  for (int k = 0; k < nblk; ++k) {
-    s += part_s[(size_t)k * n + o];
-    q += part_q[(size_t)k * n + o];
-  }
-  const double m = s / count;
-  const float mf = (float)m;
-  const float vf = (float)(q / count - m * m);
-  const float iv = 1.f / sqrtf(fmaxf(vf, 0.f) + eps);
-  const float af = gamma[o] * iv;
-  mu[o] = mf;
-  var[o] = vf;
-  ivar[o] = iv;
-  a[o] = af;
-  b[o] = beta[o] - mf * af;
-}
-
 // mode 0: pooled = max over each neighbourhood of x_L.
 // mode 1: cnt = number of the neighbourhood's rows equal to pooled.
 // A block owns TM whole neighbourhoods and walks their rows in tiles.
@@ -263,6 +872,33 @@ pool_kernel(Stack S, const float* __restrict__ table, int R, int ns, int TM,
   float* out = mode == 0 ? pooled : cnt;
   for (int i = threadIdx.x; i < nc * cout; i += THREADS)
     out[(size_t)ctr0 * cout + i] = run[i];
+}
+
+// The affine form's backward: one kernel that also held the batch-norm
+// form's passes before that form had the kernels above; it runs with bn = 0
+// and stop = -1, so those paths no longer run. A copy without them measured
+// slower on the same inputs (3.77 against 3.47 ms at sa_0 [4, 1024, 32, 6]
+// 64 -> 128, 0.69 against 0.53 at group_all [4, 1, 128, 259] 256 -> 256;
+// NVIDIA H100 80GB HBM3, 700.00 W): the compiler lays the same affine code
+// out otherwise.
+// Per-thread sums (column t % n, rows t / n + k G) -> one value per column,
+// added over the row groups in order.
+__device__ __forceinline__ void block_sums(float s, float q, int n,
+                                           float* red, float* out_s,
+                                           float* out_q) {
+  red[threadIdx.x] = s;
+  red[THREADS + threadIdx.x] = q;
+  __syncthreads();
+  if (threadIdx.x < n) {
+    const int G = THREADS / n;
+    float ss = 0.f, qq = 0.f;
+    for (int g = 0; g < G; ++g) {
+      ss += red[g * n + threadIdx.x];
+      qq += red[THREADS + g * n + threadIdx.x];
+    }
+    out_s[blockIdx.x * n + threadIdx.x] = ss;
+    out_q[blockIdx.x * n + threadIdx.x] = qq;
+  }
 }
 
 // Backward over the block's tiles. stop >= 0: partial S1, S2 of layer
@@ -444,12 +1080,6 @@ Stack make_stack(int L, const int* c, float slope, const void* W,
   return S;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 cudaError_t pool(const Stack& S, const float* table, int R, int ns, int mode,
                  float* pooled, float* cnt, cudaStream_t st) {
   const int TM = ns < FWD_ROWS ? FWD_ROWS / ns : 1;
@@ -465,103 +1095,183 @@ cudaError_t pool(const Stack& S, const float* table, int R, int ns, int mode,
 
 }  // namespace
 
-// Forward. train != 0: gamma, beta in; mu, var, ivar, a, b out (packed per
-// layer); part is scratch of 2 * nblk * cmax floats. train == 0: a, b in
-// (the affine form); gamma, beta, mu, var, ivar and part unused.
-// c = (c0, ..., cL); R % ns == 0; every c[l + 1] <= 256.
-extern "C" int pmlp_forward(const void* table, const void* W,
-                            const void* gamma, const void* beta, void* a,
-                            void* b, void* mu, void* var, void* ivar,
-                            void* pooled, void* part, int R, int ns, int L,
-                            int c0, int c1, int c2, int c3, int c4, float slope,
-                            float eps, int train, int nblk, void* stream) {
-  const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
-  const Stack S = make_stack(L, c, slope, W, a, b);
+// Forward of the batch-norm form. In: table [R, c0], W[l] [c_l, c_{l+1}],
+// gamma[l], beta[l]. Out: z[l] [R, c_{l+1}] (kept for the backward), stats
+// = mu, var, ivar, a, b, each packed over the layers, pooled [R / ns, cL].
+// Scratch: part, 2 * tiles * max(c_1..c_L) floats (tiles = ceil(R /
+// tile_rows)); ext, 2 * (R / ns) * cL floats. tile_rows: a multiple of ns.
+extern "C" int pmlp_bn_forward(const void* table, const void* const* W,
+                               const void* const* gamma,
+                               const void* const* beta, void* const* z,
+                               void* stats, void* part, void* ext,
+                               void* pooled, int R, int ns, int L,
+                               const int* c, int tile_rows, float slope,
+                               float eps, void* stream) {
+  const Layers Y = layers(L, c);
   auto st = static_cast<cudaStream_t>(stream);
-  auto tbl = static_cast<const float*>(table);
-  cudaError_t e;
-  if (train) {
-    float* ps = static_cast<float*>(part);
-    float* pq = ps + (size_t)nblk * S.cmax;
-    const size_t smem = sizeof(float) * (2 * FWD_ROWS * S.cmax + 2 * THREADS);
-    e = allow_smem(stats_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    for (int p = 0; p < L; ++p) {
-      const int n = c[p + 1], h = S.hoff[p];
-      stats_kernel<<<nblk, THREADS, smem, st>>>(S, tbl, R, p, ps, pq);
-      finalize_stats<<<(n + 127) / 128, 128, 0, st>>>(
-          ps, pq, nblk, n, (double)R, static_cast<const float*>(gamma) + h,
-          static_cast<const float*>(beta) + h, eps,
-          static_cast<float*>(mu) + h, static_cast<float*>(var) + h,
-          static_cast<float*>(ivar) + h, static_cast<float*>(a) + h,
-          static_cast<float*>(b) + h);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
+  float* mu = static_cast<float*>(stats);
+  float* var = mu + Y.tot;
+  float* ivar = var + Y.tot;
+  float* a = ivar + Y.tot;
+  float* b = a + Y.tot;
+  const int tiles = (R + tile_rows - 1) / tile_rows;
+  const int nout = (R / ns) * c[L];
+  float* zmax = static_cast<float*>(ext);
+  for (int p = 0; p < L; ++p) {
+    const int K = c[p], N = c[p + 1], h = Y.hoff[p];
+    const int hb = p > 0 ? Y.hoff[p - 1] : 0;
+    RowsArgs P = {};
+    P.A = input_src(p, table, z, a + hb, b + hb, R, K, slope);
+    P.B = plain_src(W[p], K, N);
+    P.R = R;
+    P.K = K;
+    P.N = N;
+    P.tile_rows = tile_rows;
+    P.ns = ns;
+    P.epi = kStats;
+    P.out = static_cast<float*>(z[p]);
+    P.part_u = static_cast<float*>(part);
+    P.part_v = P.part_u + (size_t)tiles * N;
+    if (p == L - 1) {
+      P.zmax = zmax;
+      P.zmin = zmax + nout;
     }
-  }
-  return (int)pool(S, tbl, R, ns, 0, static_cast<float*>(pooled), nullptr, st);
-}
-
-// Backward of the train-mode forward. In: table, W, a, b, mu, ivar, pooled,
-// gout (the cotangent of pooled). Out: dtable [R, c0], dW (packed), s1 =
-// dbeta and s2 = dgamma (packed). Scratch: cnt [R / ns, cL], part of
-// 2 * nblk * cmax floats, dw_part of nblk * (packed W size) floats, ZEROED.
-extern "C" int pmlp_backward(const void* table, const void* W, const void* a,
-                             const void* b, const void* mu, const void* ivar,
-                             const void* pooled, const void* gout, void* cnt,
-                             void* s1, void* s2, void* part, void* dw_part,
-                             void* dtable, void* dW, int R, int ns, int L,
-                             int c0, int c1, int c2, int c3, int c4,
-                             float slope, int nblk, void* stream) {
-  const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
-  const Stack S = make_stack(L, c, slope, W, a, b);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto tbl = static_cast<const float*>(table);
-  auto pl = static_cast<const float*>(pooled);
-  auto ct = static_cast<float*>(cnt);
-  cudaError_t e = pool(S, tbl, R, ns, 1, const_cast<float*>(pl), ct, st);
-  if (e != cudaSuccess) return (int)e;
-
-  int wtotal = 0, widths = 0;
-  for (int l = 0; l < L; ++l) {
-    wtotal += c[l] * c[l + 1];
-    widths += c[l] + c[l + 1];
-  }
-  widths += c[L];                          // X[0..L] and Z[0..L-1]
-  const size_t smem =
-      sizeof(float) * (BWD_ROWS * (widths + 2 * S.cmax) + 2 * THREADS);
-  e = allow_smem(bwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  float* p1 = static_cast<float*>(part);
-  float* p2 = p1 + (size_t)nblk * S.cmax;
-  auto f1 = static_cast<float*>(s1);
-  auto f2 = static_cast<float*>(s2);
-  const float ninv = 1.f / (float)R;
-  for (int p = L - 1; p >= 0; --p) {
-    const int n = c[p + 1];
-    bwd_kernel<<<nblk, THREADS, smem, st>>>(
-        S, tbl, R, ns, pl, static_cast<const float*>(gout), ct,
-        static_cast<const float*>(mu), static_cast<const float*>(ivar), f1, f2,
-        ninv, p, p1, p2, nullptr, nullptr, wtotal, 0, wtotal, 1);
-    sum_parts<<<(n + 127) / 128, 128, 0, st>>>(p1, nblk, n, f1 + S.hoff[p]);
-    sum_parts<<<(n + 127) / 128, 128, 0, st>>>(p2, nblk, n, f2 + S.hoff[p]);
+    cudaError_t e = rows_launch(P, false, p == 0 ? kPlain : kAct, st);
+    if (e != cudaSuccess) return (int)e;
+    bn_stats<<<(N + RX - 1) / RX, dim3(RX, RY), 0, st>>>(
+        P.part_u, P.part_v, tiles, N, (double)R,
+        static_cast<const float*>(gamma[p]), static_cast<const float*>(beta[p]),
+        eps, mu + h, var + h, ivar + h, a + h, b + h);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  bwd_kernel<<<nblk, THREADS, smem, st>>>(
-      S, tbl, R, ns, pl, static_cast<const float*>(gout), ct,
-      static_cast<const float*>(mu), static_cast<const float*>(ivar), f1, f2,
-      ninv, -1, nullptr, nullptr, static_cast<float*>(dtable),
-      static_cast<float*>(dw_part), wtotal, 0, wtotal, 1);
-  sum_parts<<<(wtotal + 255) / 256, 256, 0, st>>>(
-      static_cast<float*>(dw_part), nblk, wtotal, static_cast<float*>(dW));
+  const int hL = Y.hoff[L - 1];
+  pool_extremes<<<(nout + 255) / 256, 256, 0, st>>>(
+      zmax, zmax + nout, a + hL, b + hL, nout, c[L], slope,
+      static_cast<float*>(pooled));
   return (int)cudaGetLastError();
 }
 
-// Backward of the affine forward (pmlp_forward with train == 0). In: table,
-// W, a, b, pooled, gout. Out: dtable [R, c0] and grads = (dW packed, then
-// da packed, then db packed). Scratch: cnt [R / ns, cL], dw_part of nblk *
-// (size of grads) floats, ZEROED.
+// Backward of pmlp_bn_forward. In: table, W[l], z[l], stats (as the
+// forward wrote them), pooled, gout (the cotangent of pooled). Out: dtable
+// [R, c0], dW[l] [c_l, c_{l+1}], s12 = S1 (dbeta) then S2 (dgamma), each
+// packed over the layers. Scratch: dpre[l] [R, c_{l+1}]; part, 2 *
+// max(ceil(R / tile_rows), ceil(R / 128)) * max(c_1..c_L) floats; dw_part,
+// max over l of splits_l * c_l * c_{l+1} floats (splits_l = ceil(R /
+// split_rows[l])).
+extern "C" int pmlp_bn_backward(const void* table, const void* const* W,
+                                const void* const* z, const void* stats,
+                                const void* pooled, const void* gout,
+                                void* const* dpre, void* part, void* dw_part,
+                                void* dtable, void* const* dW, void* s12,
+                                int R, int ns, int L, const int* c,
+                                int tile_rows, const int* split_rows,
+                                float slope, void* stream) {
+  const Layers Y = layers(L, c);
+  auto st = static_cast<cudaStream_t>(stream);
+  const float* mu = static_cast<const float*>(stats);
+  const float* ivar = mu + 2 * Y.tot;
+  const float* a = mu + 3 * Y.tot;
+  const float* b = mu + 4 * Y.tot;
+  float* s1 = static_cast<float*>(s12);
+  float* s2 = s1 + Y.tot;
+  float* pu = static_cast<float*>(part);
+  const float ninv = 1.f / (float)R;
+  cudaError_t e;
+
+  const int top_tiles = (R + tile_rows - 1) / tile_rows;
+  const int cL = c[L], hL = Y.hoff[L - 1];
+  const TopArgs T = {static_cast<const float*>(z[L - 1]), a + hL, b + hL,
+                     mu + hL, ivar + hL, static_cast<const float*>(pooled),
+                     static_cast<const float*>(gout),
+                     static_cast<float*>(dpre[L - 1]), pu,
+                     pu + (size_t)top_tiles * cL, R, ns, cL, tile_rows, slope};
+  top_kernel<<<top_tiles, THREADS, 0, st>>>(T);
+  sum_cols_launch(T.part_u, top_tiles, cL, s1 + hL, st);
+  sum_cols_launch(T.part_v, top_tiles, cL, s2 + hL, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const int row_tiles = (R + ROW_TILE - 1) / ROW_TILE;
+  for (int q = L - 1; q >= 0; --q) {
+    const int C = c[q], N1 = c[q + 1], h = Y.hoff[q];
+    const int hb = q > 0 ? Y.hoff[q - 1] : 0;
+    Src dz = plain_src(dpre[q], R, N1);
+    dz.z = static_cast<const float*>(z[q]);
+    dz.v[0] = a + h;
+    dz.v[1] = mu + h;
+    dz.v[2] = ivar + h;
+    dz.v[3] = s1 + h;
+    dz.v[4] = s2 + h;
+    dz.ninv = ninv;
+
+    DwArgs D = {};
+    D.A = input_src(q, table, z, a + hb, b + hb, R, C, slope);
+    D.B = dz;
+    D.R = R;
+    D.M = C;
+    D.N = N1;
+    D.split_rows = split_rows[q];
+    D.part = static_cast<float*>(dw_part);
+    e = dw_launch(D, q == 0 ? kPlain : kAct, st);
+    if (e != cudaSuccess) return (int)e;
+    sum_cols_launch(D.part, (R + D.split_rows - 1) / D.split_rows, C * N1,
+                    static_cast<float*>(dW[q]), st);
+
+    RowsArgs P = {};
+    P.A = dz;
+    P.B = plain_src(W[q], C, N1);
+    P.R = R;
+    P.K = N1;
+    P.N = C;
+    P.tile_rows = ROW_TILE;
+    P.ns = ns;
+    P.slope = slope;
+    if (q == 0) {
+      P.epi = kStore;
+      P.out = static_cast<float*>(dtable);
+    } else {
+      P.epi = kDpre;
+      P.out = static_cast<float*>(dpre[q - 1]);
+      P.zp = static_cast<const float*>(z[q - 1]);
+      P.pv[0] = a + hb;
+      P.pv[1] = b + hb;
+      P.pv[2] = mu + hb;
+      P.pv[3] = ivar + hb;
+      P.part_u = pu;
+      P.part_v = pu + (size_t)row_tiles * C;
+    }
+    e = rows_launch(P, true, kDz, st);
+    if (e != cudaSuccess) return (int)e;
+    if (q > 0) {
+      sum_cols_launch(P.part_u, row_tiles, C, s1 + hb, st);
+      sum_cols_launch(P.part_v, row_tiles, C, s2 + hb, st);
+    }
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// Forward of the affine form: pooled = max over ns of the stack with the
+// given a, b (packed), weights packed one layer after another.
+// c = (c0, ..., cL); R % ns == 0; every c[l + 1] <= 256.
+extern "C" int pmlp_affine_forward(const void* table, const void* W,
+                                   const void* a, const void* b, void* pooled,
+                                   int R, int ns, int L, int c0, int c1,
+                                   int c2, int c3, int c4, float slope,
+                                   void* stream) {
+  const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
+  const Stack S = make_stack(L, c, slope, W, a, b);
+  return (int)pool(S, static_cast<const float*>(table), R, ns, 0,
+                   static_cast<float*>(pooled), nullptr,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// Backward of the affine forward. In: table, W, a, b, pooled, gout. Out:
+// dtable [R, c0] and grads = (dW packed, then da packed, then db packed).
+// Scratch: cnt [R / ns, cL], dw_part of nblk * (size of grads) floats,
+// ZEROED.
 extern "C" int pmlp_backward_affine(const void* table, const void* W,
                                     const void* a, const void* b,
                                     const void* pooled, const void* gout,
@@ -584,7 +1294,7 @@ extern "C" int pmlp_backward_affine(const void* table, const void* W,
     htotal += c[l + 1];
     widths += c[l] + c[l + 1];
   }
-  widths += c[L];
+  widths += c[L];                          // X[0..L] and Z[0..L-1]
   const size_t smem =
       sizeof(float) * (BWD_ROWS * (widths + 2 * S.cmax) + 2 * THREADS);
   e = allow_smem(bwd_kernel, smem);
