@@ -65,7 +65,10 @@ Phases, one JSON line each (``phase`` names it):
            each of its kernels); the EdgeConv backward
            at each shape class of the fused train step (12 frames of 1,152
            points; f32, one bf16 case, one with exact ties between
-           duplicated planes) and the pooled MLP's affine backward at the
+           duplicated planes), each row with the path it takes ("tiled":
+           the f32 (64, 128, 256) class on GEMM tiles, two calls equal bit
+           for bit; "general" the rest) and the device time of each of its
+           kernels; and the pooled MLP's affine backward at the
            spatial critic's sa_0 and a group_all shape;
   train    with the launch counts reset: the trainer state of
            checkpoints/fluid_vel_20k.ckpt resumed for 4 full-width
@@ -83,7 +86,8 @@ Phases, one JSON line each (``phase`` names it):
            --device_sampling --synthetic, resumed from the checkpoint for
            iterations 20001-20004 (log dir runs/chip_smoke_train_fluid/):
            each step's launches against STEP_ALWAYS + STEP_FUSED (9 fused
-           EdgeConv forwards and 9 backwards) and the gate's and critics'
+           EdgeConv forwards and 9 backwards, STEP_TILED_BWD = 3 of those
+           on GEMM tiles, none between steps) and the gate's and critics'
            counts, the checkpoint iterations' test split and sample dump
            against CKPT_EVAL, the last checkpoint read back equal to the
            state in memory; then one step with the switch off and on from
@@ -1262,7 +1266,11 @@ def check_edgeconv_bwd(torch, dev, rng):
     """The backward kernel against its plain version (the kernel's rounding
     points, max ties recomputed) at the fused train step's shapes; in the
     exact-tie case, planes 1 and 5 repeat planes 0 and 3, so a max shared by
-    two planes must split its cotangent evenly between them."""
+    two planes must split its cotangent evenly between them. Each row names
+    its path ("tiled": the f32 class of F32_TILED_BWD_CLASSES on GEMM
+    tiles, one launch of it a call and a second call equal bit for bit;
+    "general": the general kernel, none) and the device time of each of its
+    kernels."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     rows = []
@@ -1279,7 +1287,12 @@ def check_edgeconv_bwd(torch, dev, rng):
         w2 = t(h, o) / np.sqrt(h) if mlp else None
         g = t(b, n, o if mlp else h).to(cdt)
         args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, g, agg, cdt)
+        tiled = E.takes_f32_tiled_bwd(cdt, mlp, c, h, o)
+        f0 = E.F32_TILED_BWD_LAUNCHES
         got = E.edgeconv_backward(*args)
+        if E.F32_TILED_BWD_LAUNCHES - f0 != int(tiled):
+            raise AssertionError(f"edgeconv_bwd {name}: tiled launches "
+                                 f"{E.F32_TILED_BWD_LAUNCHES - f0}")
         want = E.edgeconv_backward_plain(*args)
         torch.cuda.synchronize()
         tol, share_tol = EC_BWD_TOL[kind]
@@ -1292,7 +1305,15 @@ def check_edgeconv_bwd(torch, dev, rng):
                               (got[0][:, 5] - got[0][:, 3]).abs().max()))
             if split != 0.0:
                 raise AssertionError(f"edgeconv_bwd ties: planes differ {split}")
+        repeat = None
+        if tiled:
+            repeat = all(torch.equal(a, b) for a, b in
+                         zip(got, E.edgeconv_backward(*args)) if a is not None)
+            if not repeat:
+                raise AssertionError(f"edgeconv_bwd {name}: two calls differ")
         ms = time_ms(lambda: E.edgeconv_backward(*args), torch)
+        dev_ms, by_kernel = device_ms(lambda: E.edgeconv_backward(*args),
+                                      torch, by_kernel=True)
         plain_ms = time_ms(lambda: E.edgeconv_backward_plain(*args), torch)
         esz = 4 if kind == "f32" else 2
         # the function recomputes the forward and forms two products per
@@ -1304,10 +1325,12 @@ def check_edgeconv_bwd(torch, dev, rng):
         b_ms, b_by = bound(flops, nbytes, kind)
         rows.append(dict(config=name, dtype=kind, B=b, N=n, C=c, H=h, O=o,
                          K=k, aggregate=agg, exact_ties=ties, per_step=per,
+                         path="tiled" if tiled else "general",
                          max_abs_err=err, max_norm_rel_err=rel,
                          gnbr_share_off=share, tie_split_err=split, tol=tol,
-                         ms=ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=b_ms, bound_by=b_by))
+                         repeat_bit_equal=repeat, ms=ms, device_ms=dev_ms,
+                         device_ms_by_kernel=by_kernel, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", "kernel": "edgeconv_bwd", **rows[-1]})
     return rows
 
@@ -1700,6 +1723,10 @@ FUSED_ITERS = 20004
 # STEP_CRITICS): the generator's 9 EdgeConvs through the fused forward and
 # its backward kernel (tpugan_tpu_torch/nn/edgeconv.py with fused_train).
 STEP_FUSED = {"edgeconv": 9, "edgeconv_bwd": 9}
+# Of those backwards, the f32 (64, 128, 256) class's on GEMM tiles
+# (edgeconv.F32_TILED_BWD_LAUNCHES): the upsampler's k=12 and k=4 and the
+# mask head's k=12 EdgeConvs.
+STEP_TILED_BWD = 3
 # After a checkpoint iteration (20001 and 20004 at the train_vel preset's
 # --ckpt_every 10000, cli/train_fluid.py): the test split's 4 batches, one
 # serving forward each (7 kNN, 9 EdgeConv) and its Chamfer (2 nn1), and
@@ -1772,11 +1799,13 @@ def fused_train(torch, dev, kernels):
     kernels. Counts reset just before; each step's launches against the
     counts the code implies, the windows between steps against CKPT_EVAL
     after checkpoint iterations (0 else); the last checkpoint read back
-    equal to the state in memory."""
+    equal to the state in memory. The counts hold "edgeconv_bwd_tiled",
+    the backwards on GEMM tiles (STEP_TILED_BWD a step, 0 between)."""
     import shutil
 
     from tpugan_tpu_torch.checkpoint import load_trainer_state
     from tpugan_tpu_torch.cli import train_fluid as cli
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
     from tpugan_tpu_torch.train.step import FluidTrainConfig
 
     shutil.rmtree(FUSED_DIR, ignore_errors=True)
@@ -1784,17 +1813,20 @@ def fused_train(torch, dev, kernels):
             "--resume", "--path_to_resume", CHECKPOINT, "--iters",
             str(FUSED_ITERS), "--log_dir", FUSED_DIR]
     marks = []
+    tally = lambda: {**counts(kernels),
+                     "edgeconv_bwd_tiled": E.F32_TILED_BWD_LAUNCHES}
 
     def hook(event, n_iter, metrics):
         if event in ("start", "end"):
             torch.cuda.synchronize()
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        marks.append((event, n_iter, counts(kernels), ev, metrics,
+        marks.append((event, n_iter, tally(), ev, metrics,
                       time.perf_counter()))
 
     for k in kernels.values():
         k.launches = 0
+    E.F32_TILED_BWD_LAUNCHES = 0
     os.environ[cli.FUSED_SWITCH] = "1"
     t0 = time.perf_counter()
     try:
@@ -1803,12 +1835,12 @@ def fused_train(torch, dev, kernels):
         del os.environ[cli.FUSED_SWITCH]
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = counts(kernels)
+    launches = tally()
     for k in kernels.values():
         k.launches = 0
 
     ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= FUSED_ITERS
-    steps, prev_counts, prev_iter = [], {n: 0 for n in kernels}, None
+    steps, prev_counts, prev_iter = [], {n: 0 for n in launches}, None
     by = {}
     for event, n_iter, c, ev, metrics, wall in marks:
         by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
@@ -1819,7 +1851,7 @@ def fused_train(torch, dev, kernels):
                f"fused CLI before iteration {n_iter}")
         metrics = m["end"][2]
         d_update = metrics["gate"] and n_iter % 2 == 0
-        want = dict(STEP_ALWAYS)
+        want = dict(STEP_ALWAYS, edgeconv_bwd_tiled=STEP_TILED_BWD)
         for extra in [STEP_FUSED] + ([STEP_GATE] if metrics["gate"] else []) + (
                 [STEP_CRITICS] if d_update else []):
             for name, v in extra.items():
@@ -1831,7 +1863,9 @@ def fused_train(torch, dev, kernels):
                 raise AssertionError(f"fused step {n_iter}: {name} = {v}")
         start, gen, crit = m["start"][1], m["generator"][1], m["critics"][1]
         steps.append(dict(iteration=n_iter, **metrics, critic_update=d_update,
-                          launches=got, ms=start.elapsed_time(crit),
+                          launches=got,
+                          f32_tiled_bwd_launches=got["edgeconv_bwd_tiled"],
+                          ms=start.elapsed_time(crit),
                           generator_ms=start.elapsed_time(gen),
                           critics_ms=gen.elapsed_time(crit),
                           wall_ms=(m["end"][3] - m["start"][3]) * 1e3))
@@ -2361,11 +2395,14 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     build_s = _build.build_all()
     f32t_ptxas = ptxas_summary("edgeconv", "edgeconv_f32t_kernel")
+    # the f32 EdgeConv backward on GEMM tiles (csrc/edgeconv.cu : bwdt)
+    bwdt_ptxas = {f: ptxas_summary("edgeconv", f)
+                  for f in ("bwd_rows", "dw_gemm", "bwd_ties", "bwd_gctr")}
     # the pooled-MLP batch-norm form's GEMM blocks
     pmlp_ptxas = {f: ptxas_summary("pooled_mlp", f)
                   for f in ("rows_gemm", "dw_gemm", "top_kernel")}
     for name, rep in [("edgeconv_f32t_kernel", f32t_ptxas),
-                      *pmlp_ptxas.items()]:
+                      *bwdt_ptxas.items(), *pmlp_ptxas.items()]:
         if rep["functions"] == 0 or rep["spill_store_bytes"]:
             raise AssertionError(f"{name} ptxas: {rep}")
     emit({"phase": "device", "nvidia_smi": smi,
@@ -2375,6 +2412,7 @@ def main(argv=None) -> int:
           "ptxas": {n: ptxas_summary(n) for n in _build.sources()},
           "ptxas_edgeconv_tc": ptxas_summary("edgeconv", "edgeconv_tc_kernel"),
           "ptxas_edgeconv_f32t": f32t_ptxas,
+          "ptxas_edgeconv_bwd_tiled": bwdt_ptxas,
           "ptxas_pooled_mlp": pmlp_ptxas,
           "ptxas_knn_approx": ptxas_summary("knn", "knn_approx_kernel")})
 
@@ -2501,12 +2539,17 @@ def main(argv=None) -> int:
          "one density phase (the frame's and the grid's exact densities)",
          by_path["binned_interp"]),
     ])
-    # the pooled-MLP rows' device time (torch.profiler) per G+D step
+    # the pooled-MLP rows' device time (torch.profiler) per G+D step, the
+    # EdgeConv backward's per fused step, and its launches on GEMM tiles
+    device_rows = {"pooled_mlp_fwd": pf_rows, "pooled_mlp_bwd": pb_rows,
+                   "edgeconv_bwd": eb_rows}
     for entry in line["kernels"]:
-        if entry["name"] in ("pooled_mlp_fwd", "pooled_mlp_bwd"):
-            rows = pf_rows if entry["name"] == "pooled_mlp_fwd" else pb_rows
+        if entry["name"] in device_rows:
             entry["device_ms"] = sum(r["device_ms"] * r["per_step"]
-                                     for r in rows)
+                                     for r in device_rows[entry["name"]])
+        if entry["name"] == "edgeconv_bwd":
+            entry["train_fused_tiled_launches"] = fused_launches[
+                "edgeconv_bwd_tiled"]
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

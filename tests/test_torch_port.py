@@ -61,6 +61,7 @@ def test_entry_points_need_a_card(monkeypatch):
 @pytest.mark.parametrize("wrapper", ["knn", "knn_approx", "nn1", "edgeconv",
                                      "edgeconv_tc",
                                      "edgeconv_f32t", "edgeconv_bwd",
+                                     "edgeconv_bwd_tiled",
                                      "fps", "ball_query", "interp",
                                      "pooled_mlp", "pooled_mlp_affine",
                                      "binned_interp"])
@@ -84,6 +85,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
         "edgeconv_bwd": lambda: edgeconv.edgeconv_backward(
             t(1, 4, 8, 6), t(1, 8, 6), t(6, 8), t(6, 8), t(8, 8), t(8, 16),
             t(1, 8, 16)),
+        "edgeconv_bwd_tiled": lambda: edgeconv.edgeconv_backward(
+            t(1, 4, 8, 64), t(1, 8, 64), t(64, 128), t(64, 128),
+            t(128, 128), t(128, 256), t(1, 8, 256)),
         "fps": lambda: fps.fps_kernel(t(1, 8, 3), 4, t(1, 8),
                                       torch.zeros(1, dtype=torch.int64,
                                                   device="meta")),
@@ -109,6 +113,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
                                          binned_interp.KERNEL))
     assert edgeconv.TC_LAUNCHES == 0
     assert edgeconv.F32_TILED_LAUNCHES == 0
+    assert edgeconv.F32_TILED_BWD_LAUNCHES == 0
 
 
 # (mlp, C, H, O) of the classes the f32 register-tiled kernel takes
@@ -433,6 +438,66 @@ def test_edgeconv_backward_kernel_matches_plain_on_card(card, gen, dtype, c, h,
         assert float((a - w).norm()) <= tol * float(w.norm())
     if ties:
         assert torch.equal(got[0][:, 0], got[0][:, 1])
+
+
+def _tiled_bwd_args(gen, k, n, ties, dtype=torch.float32):
+    """Inputs of the backward at (C, H, O) = (64, 128, 256), B = 2."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    nbr = t(2, k, n, 64)
+    if ties:
+        nbr[:, 1], nbr[:, 5] = nbr[:, 0], nbr[:, 3]
+    return [nbr.to(dtype), t(2, n, 64).to(dtype), t(64, 128) / 8.0,
+            t(64, 128) / 8.0, t(128, 128) / 128 ** 0.5,
+            t(128, 256) / 128 ** 0.5, t(2, n, 256).to(dtype)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,agg,ties", [(12, "max", True), (4, "max", False),
+                                        (8, "sum", False), (12, "min", False),
+                                        (6, "mean", False)])
+def test_edgeconv_tiled_backward_matches_plain_on_card(card, gen, k, agg, ties):
+    """The f32 backward on GEMM tiles at (64, 128, 256), N = 77 (off the
+    128-row tile): every gradient to 1e-3 of its norm, as the general
+    kernel's test; duplicated planes split their cotangent exactly; each
+    call counts once in BWD and once in F32_TILED_BWD_LAUNCHES."""
+    args = _tiled_bwd_args(gen, k, 77, ties)
+    before = edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES
+    got = edgeconv.edgeconv_backward(*[a.to(card) for a in args], agg)
+    assert (edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = edgeconv.edgeconv_backward_plain(*args, agg)
+    for a, w in zip(got, want):
+        a = a.cpu()
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert float((a - w).norm()) <= 1e-3 * float(w.norm())
+    if ties:
+        assert torch.equal(got[0][:, 1], got[0][:, 0])
+        assert torch.equal(got[0][:, 5], got[0][:, 3])
+
+
+@pytest.mark.gpu
+def test_edgeconv_tiled_backward_repeats_bit_for_bit_on_card(card, gen):
+    """Sums over rows have a fixed order (no float atomics): two calls give
+    the same gradients, bit for bit."""
+    args = [a.to(card) for a in _tiled_bwd_args(gen, 12, 77, False)]
+    first = edgeconv.edgeconv_backward(*args, "max")
+    for a, b in zip(first, edgeconv.edgeconv_backward(*args, "max")):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_edgeconv_bf16_backward_at_tiled_class_takes_general_kernel(card, gen):
+    """The bf16 backward at (64, 128, 256) stays on the general kernel."""
+    args = _tiled_bwd_args(gen, 4, 77, False, torch.bfloat16)
+    before = edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES
+    got = edgeconv.edgeconv_backward(*[a.to(card) for a in args], "max",
+                                     torch.bfloat16)
+    assert (edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES) == (
+        before[0] + 1, before[1])
+    want = edgeconv.edgeconv_backward_plain(*args, "max", torch.bfloat16)
+    for a, w in zip(got, want):
+        a, w = a.cpu().float(), w.float()
+        assert float((a - w).norm()) <= 2e-2 * float(w.norm())
 
 
 @pytest.mark.gpu

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Per-shape times of two checkouts' kNN, fused-EdgeConv forward or
-pooled-MLP kernels (``tpugan_tpu_torch``) on one CUDA card.
+backward, or pooled-MLP kernels (``tpugan_tpu_torch``) on one CUDA card.
 
     python3 tools/compare_knn_torch.py --base DIR [--head DIR]
-                                       [--check knn|edgeconv|pooled_mlp]
+                                       [--check knn|edgeconv|edgeconv_bwd|
+                                                pooled_mlp]
                                        [--out FILE]
 
 Runs ``chip_smoke.check_knn`` (or ``check_edgeconv``, or
@@ -27,6 +28,19 @@ the sums weighted by the launches of each unit of work: for kNN one f32
 dynamic serving forward, one G+D train step, one eval sample and one
 density phase; for EdgeConv one f32 dynamic and one bf16 static serving
 forward; for the pooled MLP the forward and the backward of one G+D step.
+
+``--check edgeconv_bwd`` runs ``chip_smoke.check_edgeconv_bwd`` (every
+``EDGECONV_BWD_SHAPES`` row: ms, device ms, plain ms, the row's path),
+sums them per fused train step, then ``chip_smoke.fused_vs_grouped`` (one
+train step with the fused-EdgeConv switch off and on: ms a step of both,
+G only and G+D, and the process's peak device memory). For
+``edgeconv_bwd`` and ``pooled_mlp`` each process also prints a digest
+(SHA-256) of the kernels' outputs on the same seeded inputs at every row
+(the EdgeConv backward's gradients, with their device time; the pooled
+MLP's outputs and gradients, both forms), and the tool prints which rows
+give the same digest in both checkouts (a change that leaves a kernel's
+results as they were shows equal digests) and, for the EdgeConv backward,
+each row's device time in both.
 Last comes the card's name and power limit.
 """
 
@@ -45,9 +59,69 @@ import numpy as np, torch
 import chip_smoke
 from tpugan_tpu_torch import _build
 _build.build_all()
-print(json.dumps({{"ptxas": chip_smoke.ptxas_summary({kernel!r})}}), flush=True)
+print(json.dumps({{"ptxas": chip_smoke.ptxas_summary({source!r})}}), flush=True)
 dev, rng = torch.device("cuda", 0), np.random.default_rng(0)
 chip_smoke.check_{kernel}(torch, dev, rng)
+"""
+
+# a digest of the outputs of each row on inputs drawn from one seed
+DIGEST = """
+import hashlib
+def digest(ts):
+    h = hashlib.sha256()
+    for t in ts:
+        if t is not None:
+            h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+g = np.random.default_rng(7)
+t = lambda *s: torch.from_numpy(g.standard_normal(s).astype(np.float32)).to(dev)
+"""
+
+EDGECONV_BWD_CHILD = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import edgeconv as E
+b, n = chip_smoke.TRAIN_ROWS, chip_smoke.TRAIN_POINTS
+for name, c, h, o, k, agg, mlp, kind, ties, per in chip_smoke.EDGECONV_BWD_SHAPES:
+    cdt = torch.float32 if kind == "f32" else torch.bfloat16
+    args = (t(b, k, n, c).to(cdt), t(b, n, c).to(cdt), t(c, h) / c ** .5,
+            t(c, h) / c ** .5, t(h, h) / h ** .5 if mlp else None,
+            t(h, o) / h ** .5 if mlp else None, t(b, n, o if mlp else h).to(cdt),
+            agg, cdt)
+    sha = digest(E.edgeconv_backward(*args))
+    dev_ms = chip_smoke.device_ms(lambda: E.edgeconv_backward(*args), torch)
+    print(json.dumps({{"digest": [name, kind], "sha": sha,
+                      "device_ms": dev_ms}}), flush=True)
+torch.cuda.reset_peak_memory_stats()
+step = chip_smoke.fused_vs_grouped(torch, dev)
+print(json.dumps({{"fused_step": {{k: step[k] for k in ("fused_ms", "grouped_ms")}},
+                  "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}),
+      flush=True)
+"""
+
+POOLED_DIGEST = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
+for stage, shape, widths, slope, per, gammas in chip_smoke.POOLED_SHAPES:
+    cs = (shape[-1],) + tuple(widths)
+    nl = len(widths)
+    leaves = [x.requires_grad_() for x in
+              [t(*shape)] + [t(cs[i], cs[i + 1]) / cs[i] ** .5 for i in range(nl)]
+              + [1 + 0.1 * t(w) for w in widths] + [0.1 * t(w) for w in widths]]
+    pooled, mus, vars_ = P.pooled_mlp_bn_train(
+        leaves[0], leaves[1:1 + nl], leaves[1 + nl:1 + 2 * nl],
+        leaves[1 + 2 * nl:], slope)
+    grads = torch.autograd.grad(pooled, leaves, t(*pooled.shape))
+    print(json.dumps({{"digest": [stage, "bn_train"],
+                      "sha": digest([pooled, *mus, *vars_, *grads])}}), flush=True)
+for stage, shape, widths, slope in chip_smoke.AFFINE_SHAPES:
+    cs = (shape[-1],) + tuple(widths)
+    nl = len(widths)
+    leaves = [x.requires_grad_() for x in
+              [t(*shape)] + [t(cs[i], cs[i + 1]) / cs[i] ** .5 for i in range(nl)]
+              + [1 + 0.1 * t(w) for w in widths] + [0.1 * t(w) for w in widths]]
+    out = P.pooled_mlp_affine(leaves[0], leaves[1:1 + nl],
+                              leaves[1 + nl:1 + 2 * nl], leaves[1 + 2 * nl:], slope)
+    grads = torch.autograd.grad(out, leaves, t(*out.shape))
+    print(json.dumps({{"digest": [stage, "affine"],
+                      "sha": digest([out, *grads])}}), flush=True)
 """
 
 # the pooled MLP: its affine form's backward rows, then the train step
@@ -112,6 +186,9 @@ CHECKS = {
             ("ms", "plain_ms", "library_ms"), ("knn",)),
     "edgeconv": (("config", "dtype"), _edgeconv_weights,
                  ("ms", "device_ms", "plain_ms"), ("edgeconv",)),
+    "edgeconv_bwd": (("config", "dtype"),
+                     lambda row: {"per_fused_step": row["per_step"]},
+                     ("ms", "device_ms", "plain_ms"), ("edgeconv_bwd",)),
     "pooled_mlp": (("kernel", "stage"), _pooled_weights,
                    ("ms", "device_ms", "plain_ms"),
                    ("pooled_mlp_fwd", "pooled_mlp_bwd", "pooled_mlp_affine",
@@ -136,20 +213,30 @@ def _train_summary(lines):
 
 
 def run(root: str, kernel: str) -> dict:
-    code = CHILD.format(root=root, kernel=kernel)
+    code = CHILD.format(root=root, kernel=kernel,
+                        source=kernel.replace("_bwd", ""))
     if kernel == "pooled_mlp":
-        code += POOLED_CHILD.format()
+        code += POOLED_CHILD.format() + POOLED_DIGEST.format()
+    elif kernel == "edgeconv_bwd":
+        code += EDGECONV_BWD_CHILD.format()
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"{root}: check_{kernel} failed\n{out.stdout[-4000:]}"
                            f"\n{out.stderr[-4000:]}")
     key, names = CHECKS[kernel][0], CHECKS[kernel][3]
-    rows, ptxas, train, affine = {}, None, [], []
+    rows, ptxas, train, affine, digests, step = {}, None, [], [], {}, None
+    device = {}
     for line in out.stdout.splitlines():
         obj = json.loads(line)
         if "ptxas" in obj:
             ptxas = obj["ptxas"]
+        elif "digest" in obj:
+            digests[" / ".join(obj["digest"])] = obj["sha"]
+            if "device_ms" in obj:
+                device[" / ".join(obj["digest"])] = obj["device_ms"]
+        elif "fused_step" in obj:
+            step = obj
         elif "affine_device" in obj:
             affine.append(obj)
         elif obj.get("phase") == "train":
@@ -159,7 +246,8 @@ def run(root: str, kernel: str) -> dict:
             rows[tuple(obj[k] for k in key)] = obj
     return {"ptxas": ptxas, "rows": rows,
             "train": _train_summary(train) if train else None,
-            "affine_device": affine}
+            "affine_device": affine, "digests": digests, "fused_step": step,
+            "device_ms": device}
 
 
 def main(argv=None) -> int:
@@ -193,6 +281,8 @@ def main(argv=None) -> int:
             got = [r["rows"][k] for n, r in runs if n == name]
             if args.check == "edgeconv":   # rows before the tc kernel: simt
                 line[f"{name}_variant"] = got[0].get("variant", "simt")
+            if args.check == "edgeconv_bwd":   # rows before the tiled path
+                line[f"{name}_path"] = got[0].get("path", "general")
             for col in cols:   # a column the checkout does not report: None
                 vals = [g.get(col) for g in got]
                 line[f"{name}_{col}"] = (None if None in vals
@@ -215,6 +305,30 @@ def main(argv=None) -> int:
                                     for n, r in runs]}))
         print(json.dumps({"affine_device": [dict(checkout=n, rows=r["affine_device"])
                                             for n, r in runs]}))
+    if args.check == "edgeconv_bwd":
+        # each row's device time on the digest's inputs (torch.profiler;
+        # the mean of a checkout's two runs), then every run's fused and
+        # grouped step
+        dev = {}
+        for n, r in runs:
+            for row, ms in r["device_ms"].items():
+                dev.setdefault(row, {}).setdefault(n, []).append(ms)
+        print(json.dumps({"device_ms": {
+            row: {**{n: sum(v) / len(v) for n, v in d.items()},
+                  "head_over_base": (sum(d["head"]) / sum(d["base"]))}
+            for row, d in dev.items()}}))
+        print(json.dumps({"fused_step": [dict(checkout=n, **r["fused_step"])
+                                         for n, r in runs]}))
+    if args.check in ("edgeconv_bwd", "pooled_mlp"):
+        # each row's digest per checkout; a checkout's two runs must agree
+        shas = {}
+        for n, r in runs:
+            for row, sha in r["digests"].items():
+                shas.setdefault(row, {}).setdefault(n, set()).add(sha)
+        print(json.dumps({"digests": {
+            row: {"base": sorted(d.get("base", ())), "head": sorted(d.get("head", ())),
+                  "equal": d.get("base") == d.get("head") and len(d["base"]) == 1}
+            for row, d in shas.items()}}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -87,12 +87,11 @@
 // reads them (and, transposed, the weights) as fragments; the output
 // columns' aggregate stays in the accumulators' layout in registers over
 // the K planes. Only the [N, 256] result is written.
-#include "common.cuh"
+#include "gemm_tile.cuh"
 #include "reduce.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int TP = 16;   // points per block
 
 enum Aggregate { kMax = 0, kMin = 1, kSum = 2, kMean = 3 };
@@ -807,28 +806,12 @@ int launch(const void* nbr, const void* ctr, const void* wn, const void* we,
 // what bounds it and how its shared memory is spent.
 namespace f32t {
 
-constexpr int THREADS = 256;
 constexpr int KC = 16;   // rows of W2 a shared-memory stage holds
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ float part(const float4& v, int u) {
@@ -1174,6 +1157,438 @@ int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
 
 }  // namespace f32t
 
+// ------------------------------------- f32 backward on GEMM tiles (one class)
+//
+// bwdt: the f32 backward with the SharedMLP at (C, H, O) = (64, 128, 256),
+// the upsampler's and the mask head's class (entry point
+// edgeconv_bwd_f32_tiled). It replaces _bwd_pallas / _edgeconv_bwd_kernel
+// (tpugan_tpu/ops/pallas/edgeconv_kernel.py:277) at this class, with
+// edgeconv_bwd's contract for bf16 = 0, mlp = 1; in f32 every rounding
+// point is the identity.
+//
+// What bounds it on the H100: operations. Over R = B K N plane-rows it does
+// three times the forward's 65,536 multiply-adds a row (the forward once,
+// then per layer dW and dX): at the fused train step's 12 frames of 1,152
+// points, 65.2 GFLOP at k = 12 (0.974 ms at 67 TFLOP/s of f32 FFMA, TF32
+// off) and 21.7 at k = 4 (0.325 ms). What it keeps between the layers
+// (edge, h1, h2, z3 and their cotangents, 2,352 bytes a row) moves about
+// 2.5 GB at k = 12, 0.76 ms at 3.35 TB/s: under the operations, not far.
+//
+// Design: layer-wise products over all R rows, each computed once, on the
+// register-tiled GEMM block of gemm_tile.cuh (a 128 x 128 or 128 x 64
+// output tile a block, 8 x 8 or 8 x 4 accumulators a thread, a 3-stage
+// cp.async pipeline of 8-deep slabs). Row r = (b K + j) N + n, its centre
+// row b N + n; each kernel below is one launch, in this order:
+//   forward  bwd_edge: edge = nb - ctr into xe (read again by dWe);
+//            bwd_rows<kAct>: z1a = nb Wn, lrelu(z1a) into x1, its signs
+//            into sgn; bwd_rows<kAddAct>: z1b = edge We, its signs, h1 =
+//            lrelu(z1a) + lrelu(z1b) over x1;
+//            bwd_rows<kAct>: z2 = h1 W1, h2 = lrelu(z2) into x2, its signs;
+//            bwd_rows<kStore>: z3 = h2 W2 into x3;
+//   ties     bwd_ties: per (b, n, column) the K values of z3 give y =
+//            lrelu(z3), the aggregate and the count of planes equal to it
+//            (max / min), and d3 = gy [y == acc] / cnt lrelu'(z3) (sum: gy
+//            = g; mean: g / K) over z3 in x3. The count and the comparison
+//            come from the same stored z3, never from the forward kernel's
+//            output, where one ulp of another summation order would lose a
+//            point's whole gradient;
+//   layers   dW2 = h2^T d3 (dw_gemm, split-K); bwd_rows<kD2>: d2 = (d3
+//            W2^T) lrelu'(z2) over h2; dW1 = h1^T d2; bwd_rows<kD1>: gh1 =
+//            d2 W1^T, d1a = gh1 lrelu'(z1a) over h1, d1b = gh1 lrelu'(z1b)
+//            over d3; dWn = nb^T d1a, dWe = edge^T d1b; bwd_rows<kGnbr>:
+//            d1b We^T into x2 (for gctr), then the same chains continue
+//            over d1a Wn^T: gnbr = [d1b | d1a] [We ; Wn]^T, one product of
+//            depth 256; bwd_gctr: gctr = -sum_j (d1b_j We^T), j ascending.
+// Only a slope is read of z1a, z1b and z2: their signs are kept as bits,
+// 48 bytes a row (store_signs). Every dot product of a row is one fmaf
+// chain in a fixed order wherever the row lies in a tile, so duplicated
+// planes give equal gradients bit for bit; each dW product sums fixed row
+// ranges into one partial per block, which sum_cols adds in a fixed order:
+// no float atomics, two calls agree bit for bit. The wrapper allocates the
+// scratch (ops/kernels/edgeconv.py : tiled_bwd_plan).
+//
+// On the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md): a k = 12 launch
+// 2.18 ms of device time (predicted 1.9-2.9; the general kernel 37.5, the
+// plain version 3.9), 2.24x its bound; k = 4 0.84 ms, 2.6x. The products
+// run at 32-38 TFLOP/s, about half the FFMA peak; the tie pass, which
+// reads z3 twice at max / min, took 0.18 ms against 0.11-0.16 predicted.
+// Holding z1a and z1b's products in one block, or forming edge in the
+// operand load, spilled registers: hence the separate launches above.
+namespace bwdt {
+
+constexpr int C = 64, H = 128, O = 256;
+constexpr int BM = 128;   // rows of a row product's tile
+constexpr int SW = 12;    // sign words a row: z1a, z1b, z2, 4 each
+
+// bwd_rows epilogues: kStore the product; kAct its signs into the words
+// from w0, lrelu of it into out; kAddAct the same, added to out; kD2, kD1,
+// kGnbr as the note above says
+enum RowEpi { kStore = 0, kAct = 1, kAddAct = 2, kD2 = 3, kD1 = 4, kGnbr = 5 };
+
+__device__ __forceinline__ float lrelu_rn(float x) {
+  return x >= 0.f ? x : __fmul_rn(0.2f, x);
+}
+
+// The signs (z >= 0) of a 128 x 128 tile's accumulators into each row's 4
+// sign words from word w0: thread (ty, tx)'s column j (Tile<BM, 128>) is
+// bit 16 (j % 2) + tx of word j / 2. A warp holds two ty: lanes 0-15 write
+// the even one's words, lanes 16-31 the odd one's. Every lane must call.
+__device__ __forceinline__ void store_signs(const float (&acc)[8][8],
+                                            unsigned* sgn, int w0, int m0,
+                                            int R) {
+  using T = Tile<BM, H>;
+  const int lane = threadIdx.x % 32, sh = lane & 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    unsigned b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      b[j] = (__ballot_sync(0xffffffffu, acc[i][j] >= 0.f) >> sh) & 0xffffu;
+    const int r = m0 + T::row(i);
+    if (lane % 16 == 0 && r < R)
+      *reinterpret_cast<uint4*>(sgn + (size_t)r * SW + w0) =
+          make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16, b[4] | b[5] << 16,
+                     b[6] | b[7] << 16);
+  }
+}
+
+__device__ __forceinline__ uint4 sign_words(const unsigned* sgn, int r, int w0) {
+  return *reinterpret_cast<const uint4*>(sgn + (size_t)r * SW + w0);
+}
+
+// lrelu'(z) at the thread's register column j (< 8) from its row's words.
+__device__ __forceinline__ float slope_of(const uint4& w, int j) {
+  const unsigned word = j / 2 == 0 ? w.x : j / 2 == 1 ? w.y : j / 2 == 2 ? w.z : w.w;
+  return (word >> (16 * (j % 2) + threadIdx.x % 16)) & 1u ? 1.f : 0.2f;
+}
+
+// Rows m0 + Tile::row(i) < R of out [R, ld] from column n0 (float4 stores).
+template <int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BM / 16][BN / 16],
+                                           float* out, int ld, int m0, int n0,
+                                           int R) {
+  using T = Tile<BM, BN>;
+  const int tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = m0 + T::row(i);
+    if (r >= R) continue;
+#pragma unroll
+    for (int g = 0; g < T::TN / 4; ++g)
+      *reinterpret_cast<float4*>(out + (size_t)r * ld + n0 + g * 64 + tx * 4) =
+          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                      acc[i][4 * g + 3]);
+  }
+}
+
+struct RowArgs {
+  Src a, b;       // the product a b (depth the channels of a)
+  Src a2, b2;     // kGnbr: the second half's pair
+  int R, depth, ldo, w0;
+  float* out;     // [R, ldo]
+  float* out2;    // kD1: d1b [R, H]; kGnbr: d1b We^T [R, C]
+  unsigned* sgn;  // [R, SW]
+};
+
+// One BM x BN tile of a row product (rows blockIdx.x BM, columns blockIdx.y
+// BN) and its epilogue EPI. BKC: b is read transposed (a W^T product).
+template <int BN, bool BKC, int EPI>
+__global__ void __launch_bounds__(THREADS, 2) bwd_rows(RowArgs P) {
+  using T = Tile<BM, BN>;
+  extern __shared__ float sm[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  float acc[T::TM][T::TN];
+  product<BM, BN, true, BKC, kPlain, kPlain>(P.a, P.R, m0, P.b, P.b.rows, n0,
+                                             0, P.depth, sm, acc);
+  if constexpr (EPI == kAct || EPI == kAddAct) {
+    store_signs(acc, P.sgn, P.w0, m0, P.R);
+    const int tx = threadIdx.x % 16;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const int r = m0 + T::row(i);
+      if (r >= P.R) continue;
+#pragma unroll
+      for (int g = 0; g < T::TN / 4; ++g) {
+        float4* const o = reinterpret_cast<float4*>(
+            P.out + (size_t)r * P.ldo + n0 + g * 64 + tx * 4);
+        float4 v = make_float4(lrelu_rn(acc[i][4 * g]), lrelu_rn(acc[i][4 * g + 1]),
+                               lrelu_rn(acc[i][4 * g + 2]), lrelu_rn(acc[i][4 * g + 3]));
+        if (EPI == kAddAct) {
+          const float4 u = *o;
+          v = make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
+        }
+        *o = v;
+      }
+    }
+  } else if constexpr (EPI == kStore) {
+    store_tile<BN>(acc, P.out, P.ldo, m0, n0, P.R);
+  } else if constexpr (EPI == kD2 || EPI == kD1) {
+    const int tx = threadIdx.x % 16;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const int r = m0 + T::row(i);
+      if (r >= P.R) continue;
+      const uint4 wa = sign_words(P.sgn, r, EPI == kD2 ? 8 : 0);
+      const uint4 wb = EPI == kD1 ? sign_words(P.sgn, r, 4) : wa;
+#pragma unroll
+      for (int g = 0; g < T::TN / 4; ++g) {
+        float da[4], db[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          da[u] = acc[i][4 * g + u] * slope_of(wa, 4 * g + u);
+          db[u] = acc[i][4 * g + u] * slope_of(wb, 4 * g + u);
+        }
+        const size_t o = (size_t)r * P.ldo + g * 64 + tx * 4;
+        *reinterpret_cast<float4*>(P.out + o) = make_float4(da[0], da[1], da[2], da[3]);
+        if (EPI == kD1)
+          *reinterpret_cast<float4*>(P.out2 + o) = make_float4(db[0], db[1], db[2], db[3]);
+      }
+    }
+  } else {   // kGnbr
+    store_tile<BN>(acc, P.out2, P.ldo, m0, n0, P.R);
+    product<BM, BN, true, BKC, kPlain, kPlain, false>(P.a2, P.R, m0, P.b2,
+                                                      P.b2.rows, n0, 0, P.depth,
+                                                      sm, acc);
+    store_tile<BN>(acc, P.out, P.ldo, m0, n0, P.R);
+  }
+}
+
+// edge [R, C] = nb - its centre's row (thread i: 4 columns of row i / 16).
+__global__ void __launch_bounds__(THREADS)
+bwd_edge(const float* __restrict__ nb, const float* __restrict__ ctr, int B,
+         int K, int N, float* __restrict__ edge) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= B * K * N * (C / 4)) return;
+  const int q = i % (C / 4), r = i / (C / 4), p = r / (K * N) * N + r % N;
+  const float4 v = *reinterpret_cast<const float4*>(nb + (size_t)r * C + 4 * q);
+  const float4 c = *reinterpret_cast<const float4*>(ctr + (size_t)p * C + 4 * q);
+  *reinterpret_cast<float4*>(edge + (size_t)r * C + 4 * q) =
+      make_float4(v.x - c.x, v.y - c.y, v.z - c.z, v.w - c.w);
+}
+
+// d3 over z3 [R, O] (above): thread i holds 4 columns of one (b, n).
+template <int AGG>
+__global__ void __launch_bounds__(THREADS)
+bwd_ties(float* __restrict__ z, const float* __restrict__ g, int B, int K,
+         int N) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= B * N * (O / 4)) return;
+  const int q = i % (O / 4), p = i / (O / 4), b = p / N, n = p - b * N;
+  float* const z0 = z + ((size_t)b * K * N + n) * O + 4 * q;
+  const size_t step = (size_t)N * O;
+  const float4 gv = *reinterpret_cast<const float4*>(g + (size_t)p * O + 4 * q);
+  float gy[4] = {gv.x, gv.y, gv.z, gv.w}, acc[4], cnt[4];
+  constexpr bool extreme = AGG == kMax || AGG == kMin;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (AGG == kMean) gy[u] = gy[u] / (float)K;
+    acc[u] = 0.f;
+    cnt[u] = 1.f;
+  }
+  if (extreme) {
+    for (int j = 0; j < K; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(z0 + j * step);
+      const float zz[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float y = lrelu_rn(zz[u]);
+        const bool beyond = AGG == kMax ? y > acc[u] : y < acc[u];
+        if (j == 0 || beyond) {
+          acc[u] = y;
+          cnt[u] = 1.f;
+        } else if (y == acc[u]) {
+          cnt[u] += 1.f;
+        }
+      }
+    }
+  }
+  for (int j = 0; j < K; ++j) {
+    float4* const zp = reinterpret_cast<float4*>(z0 + j * step);
+    const float4 v = *zp;
+    const float zz[4] = {v.x, v.y, v.z, v.w};
+    float d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float gu =
+          extreme ? (lrelu_rn(zz[u]) == acc[u] ? gy[u] : 0.f) / cnt[u] : gy[u];
+      d[u] = gu * lrelu_grad(zz[u]);
+    }
+    *zp = make_float4(d[0], d[1], d[2], d[3]);
+  }
+}
+
+// gctr [B, N, C] = -sum over j ascending of gb [R, C] at the rows of (b, n).
+__global__ void __launch_bounds__(THREADS)
+bwd_gctr(const float* __restrict__ gb, int B, int K, int N,
+         float* __restrict__ gctr) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= B * N * (C / 4)) return;
+  const int q = i % (C / 4), p = i / (C / 4), b = p / N, n = p - b * N;
+  const float* const g0 = gb + ((size_t)b * K * N + n) * C + 4 * q;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = 0; j < K; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(g0 + (size_t)j * N * C);
+    s = make_float4(s.x - v.x, s.y - v.y, s.z - v.z, s.w - v.w);
+  }
+  *reinterpret_cast<float4*>(gctr + (size_t)p * C + 4 * q) = s;
+}
+
+template <int BN, bool BKC, int EPI>
+cudaError_t rows_go(const RowArgs& P, int col_tiles, cudaStream_t st) {
+  auto kern = bwd_rows<BN, BKC, EPI>;
+  static const cudaError_t e = allow_smem(kern, SMEM_LIMIT);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((P.R + BM - 1) / BM, col_tiles);
+  kern<<<grid, THREADS,
+         sizeof(float) * pipe_floats<BM, BN, true, BKC, kPlain, kPlain>(), st>>>(P);
+  return cudaGetLastError();
+}
+
+// dW [M, 128 k] = A^T B over the split row ranges, then their sum into out.
+template <int BMW, int AKIND>
+cudaError_t dw_go(const DwArgs& P, float* out, cudaStream_t st) {
+  auto kern = dw_gemm<BMW, 128, AKIND, kPlain>;
+  static const cudaError_t e = allow_smem(kern, SMEM_LIMIT);
+  if (e != cudaSuccess) return e;
+  const int splits = (P.R + P.split_rows - 1) / P.split_rows;
+  const size_t smem =
+      sizeof(float) * pipe_floats<BMW, 128, false, false, AKIND, kPlain>();
+  kern<<<dim3(P.M / BMW, P.N / 128, splits), THREADS, smem, st>>>(P);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return e2;
+  sum_cols_launch(P.part, splits, P.M * P.N, out, st);
+  return cudaGetLastError();
+}
+
+template <int AGG>
+cudaError_t ties_go(float* z3, const float* g, int B, int K, int N,
+                    cudaStream_t st) {
+  const int n = B * N * (O / 4);
+  bwd_ties<AGG><<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(z3, g, B, K, N);
+  return cudaGetLastError();
+}
+
+Src src(const void* p, int rows, int chans) {
+  Src s = {};
+  s.p = static_cast<const float*>(p);
+  s.rows = rows;
+  s.chans = chans;
+  return s;
+}
+
+DwArgs dw_args(const Src& a, const Src& b, int R, int M, int N, int split_rows,
+               float* part) {
+  DwArgs D = {};
+  D.A = a;
+  D.B = b;
+  D.R = R;
+  D.M = M;
+  D.N = N;
+  D.split_rows = split_rows;
+  D.part = part;
+  return D;
+}
+
+#define BWDT_TRY(call)                        \
+  do {                                        \
+    const cudaError_t e_ = (call);            \
+    if (e_ != cudaSuccess) return e_;         \
+  } while (0)
+
+// The launches in order (the note above). split: the rows of a dW partial,
+// for dW2, dW1, dWn, dWe.
+cudaError_t backward(const void* nbr, const void* ctr, const void* wn,
+                     const void* we, const void* w1, const void* w2,
+                     const void* g, float* gnbr, float* gctr, float* dw,
+                     float* scratch, float* part, int B, int K, int N, int agg,
+                     const int (&split)[4], cudaStream_t st) {
+  const int R = B * K * N;
+  float* const x1 = scratch;                  // h1, then d1a
+  float* const x2 = x1 + (size_t)R * H;       // h2, then d2, then d1b We^T
+  float* const x3 = x2 + (size_t)R * H;       // z3, then d3, then d1b
+  float* const xe = x3 + (size_t)R * O;       // edge
+  unsigned* const sgn = reinterpret_cast<unsigned*>(xe + (size_t)R * C);
+  float* const dwn = dw;
+  float* const dwe = dwn + C * H;
+  float* const dw1 = dwe + C * H;
+  float* const dw2 = dw1 + H * H;
+  const int ne = R * (C / 4);
+  bwd_edge<<<(ne + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      static_cast<const float*>(nbr), static_cast<const float*>(ctr), B, K, N,
+      xe);
+  BWDT_TRY(cudaGetLastError());
+  const Src edge = src(xe, R, C);
+
+  RowArgs P = {};
+  P.R = R;
+  P.sgn = sgn;
+  P.a = src(nbr, R, C);
+  P.b = src(wn, C, H);
+  P.depth = C;
+  P.ldo = H;
+  P.w0 = 0;
+  P.out = x1;
+  BWDT_TRY((rows_go<H, false, kAct>(P, 1, st)));
+  P.a = edge;
+  P.b = src(we, C, H);
+  P.w0 = 4;
+  BWDT_TRY((rows_go<H, false, kAddAct>(P, 1, st)));
+  P.a = src(x1, R, H);
+  P.b = src(w1, H, H);
+  P.depth = H;
+  P.w0 = 8;
+  P.out = x2;
+  BWDT_TRY((rows_go<H, false, kAct>(P, 1, st)));
+  P.a = src(x2, R, H);
+  P.b = src(w2, H, O);
+  P.ldo = O;
+  P.out = x3;
+  BWDT_TRY((rows_go<128, false, kStore>(P, O / 128, st)));
+  const float* gf = static_cast<const float*>(g);
+  switch (agg) {
+    case kMax: BWDT_TRY(ties_go<kMax>(x3, gf, B, K, N, st)); break;
+    case kMin: BWDT_TRY(ties_go<kMin>(x3, gf, B, K, N, st)); break;
+    case kSum: BWDT_TRY(ties_go<kSum>(x3, gf, B, K, N, st)); break;
+    default: BWDT_TRY(ties_go<kMean>(x3, gf, B, K, N, st));
+  }
+
+  BWDT_TRY((dw_go<128, kPlain>(
+      dw_args(src(x2, R, H), src(x3, R, O), R, H, O, split[0], part), dw2, st)));
+  P.a = src(x3, R, O);
+  P.b = src(w2, H, O);          // read transposed: W2^T
+  P.depth = O;
+  P.ldo = H;
+  P.out = x2;
+  BWDT_TRY((rows_go<H, true, kD2>(P, 1, st)));
+  BWDT_TRY((dw_go<128, kPlain>(
+      dw_args(src(x1, R, H), src(x2, R, H), R, H, H, split[1], part), dw1, st)));
+  P.a = src(x2, R, H);
+  P.b = src(w1, H, H);
+  P.depth = H;
+  P.out = x1;
+  P.out2 = x3;
+  BWDT_TRY((rows_go<H, true, kD1>(P, 1, st)));
+  BWDT_TRY((dw_go<64, kPlain>(
+      dw_args(src(nbr, R, C), src(x1, R, H), R, C, H, split[2], part), dwn, st)));
+  BWDT_TRY((dw_go<64, kPlain>(
+      dw_args(edge, src(x3, R, H), R, C, H, split[3], part), dwe, st)));
+  P.a = src(x3, R, H);          // d1b We^T, then d1a Wn^T
+  P.b = src(we, C, H);
+  P.a2 = src(x1, R, H);
+  P.b2 = src(wn, C, H);
+  P.ldo = C;
+  P.out = gnbr;
+  P.out2 = x2;
+  BWDT_TRY((rows_go<C, true, kGnbr>(P, 1, st)));
+  const int n = B * N * (C / 4);
+  bwd_gctr<<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(x2, B, K, N, gctr);
+  return cudaGetLastError();
+}
+
+#undef BWDT_TRY
+
+}  // namespace bwdt
+
 }  // namespace
 
 // Shapes the wrapper (ops/kernels/edgeconv.py) admits: 1 <= H, O <= 256,
@@ -1253,4 +1668,27 @@ extern "C" int edgeconv_fwd_f32_tiled(const void* nbr, const void* ctr,
   EDGECONV_F32T(32, 16, 32, true, 64);      // IDGCN
 #undef EDGECONV_F32T
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 backward with the SharedMLP at (C, H, O) = (64, 128, 256) on GEMM
+// tiles (bwdt): edgeconv_bwd's contract for bf16 = 0, mlp = 1 at these
+// widths, without dw_part. scratch: R (2 H + O + C) floats and R 12 words, R =
+// B K N; part: max over the dW products of splits M N floats, splits =
+// ceil(R / split_rows) (dW2 128 x 256, dW1 128 x 128, dWn and dWe 64 x 128),
+// split_rows a multiple of 8. Every pointer 16-byte aligned; B * N >= 1,
+// K >= 1, R * 256 < 2^31.
+extern "C" int edgeconv_bwd_f32_tiled(const void* nbr, const void* ctr,
+                                      const void* wn, const void* we,
+                                      const void* w1, const void* w2,
+                                      const void* g, void* gnbr, void* gctr,
+                                      void* dw, void* scratch, void* part,
+                                      int B, int K, int N, int agg,
+                                      int split_w2, int split_w1, int split_wn,
+                                      int split_we, void* stream) {
+  const int split[4] = {split_w2, split_w1, split_wn, split_we};
+  return static_cast<int>(bwdt::backward(
+      nbr, ctr, wn, we, w1, w2, g, static_cast<float*>(gnbr),
+      static_cast<float*>(gctr), static_cast<float*>(dw),
+      static_cast<float*>(scratch), static_cast<float*>(part), B, K, N, agg,
+      split, static_cast<cudaStream_t>(stream)));
 }

@@ -14,8 +14,13 @@ SharedMLP at (C, H, O) = ``TC_WIDTHS`` launches the tensor-core kernel
 those launches alone. An f32 forward at a class of ``F32_TILED_CLASSES``
 launches the register-tiled f32 kernel (``edgeconv_fwd_f32_tiled``)
 through ``KERNEL``, and ``F32_TILED_LAUNCHES`` counts those launches
-alone. Every other forward launches ``edgeconv_fwd``. The kernels' source
-note says what bounds them on the card and how they are laid out.
+alone. Every other forward launches ``edgeconv_fwd``. An f32 backward at
+a class of ``F32_TILED_BWD_CLASSES`` launches the backward on GEMM tiles
+(``edgeconv_bwd_f32_tiled``, its launches and scratch from
+:func:`tiled_bwd_plan`) through ``BWD``, and ``F32_TILED_BWD_LAUNCHES``
+counts those launches alone; every other backward launches
+``edgeconv_bwd``. The kernels' source note says what bounds them on the
+card and how they are laid out.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ KERNEL = CudaKernel("edgeconv",
                      "edgeconv_fwd_bf16_tc": [VOIDP] * 7 + [INT] * 4 + [VOIDP],
                      "edgeconv_fwd_f32_tiled": [VOIDP] * 7 + [INT] * 8 + [VOIDP]})
 BWD = CudaKernel("edgeconv",
-                 {"edgeconv_bwd": [VOIDP] * 11 + [INT] * 10 + [VOIDP]})
+                 {"edgeconv_bwd": [VOIDP] * 11 + [INT] * 10 + [VOIDP],
+                  "edgeconv_bwd_f32_tiled": [VOIDP] * 12 + [INT] * 8 + [VOIDP]})
 
 AGGREGATES = {"max": 0, "min": 1, "sum": 2, "mean": 3}
 MAX_WIDTH = 256   # widest hidden / output layer (one thread per column)
@@ -44,6 +50,14 @@ TC_LAUNCHES = 0              # launches of the tensor-core kernel
 F32_TILED_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
                                (True, 6, 64, 128), (True, 32, 16, 32)})
 F32_TILED_LAUNCHES = 0       # launches of the f32 register-tiled kernel
+# (mlp, C, H, O) of the f32 backward on GEMM tiles (csrc/edgeconv.cu : bwdt)
+F32_TILED_BWD_CLASSES = frozenset({(True, 64, 128, 256)})
+F32_TILED_BWD_LAUNCHES = 0   # launches of the f32 backward on GEMM tiles
+# Its row products take tiles of BWD_ROW_TILE plane-rows; each dW product
+# splits the rows into ranges of a multiple of DW_BK rows, so that about
+# DW_BLOCKS blocks run, each over at least DW_MIN_ROWS rows; each row keeps
+# SIGN_WORDS words of slopes (z1a, z1b, z2) beside h1, h2, z3 and its edge.
+BWD_ROW_TILE, DW_BLOCKS, DW_MIN_ROWS, DW_BK, SIGN_WORDS = 128, 264, 64, 8, 12
 
 
 def _round(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -191,6 +205,53 @@ def takes_f32_tiled(cdt, mlp, c, h, o) -> bool:
     return cdt is torch.float32 and (bool(mlp), c, h, o) in F32_TILED_CLASSES
 
 
+def takes_f32_tiled_bwd(cdt, mlp, c, h, o) -> bool:
+    """Whether a backward on the card launches the f32 backward on GEMM
+    tiles: the f32 backward at a class of ``F32_TILED_BWD_CLASSES``, for
+    every aggregate."""
+    return cdt is torch.float32 and (bool(mlp), c, h, o) in F32_TILED_BWD_CLASSES
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_ranges(rows: int, split_rows: int):
+    """The row ranges [r0, r1) of a dW product's partials, in block
+    order (``dw_gemm`` in ``csrc/gemm_tile.cuh``: split s takes rows s
+    split_rows up to the next split's first or ``rows``)."""
+    return [(r0, min(rows, r0 + split_rows)) for r0 in range(0, rows, split_rows)]
+
+
+def tiled_bwd_plan(b: int, k: int, n: int) -> dict:
+    """The f32 backward on GEMM tiles for nbr_t [b, k, n, 64] at (C, H, O)
+    = (64, 128, 256): ``rows`` (R = b k n plane-rows), ``row_tiles`` (the
+    row products' tiles), per dW product in launch order (dW2, dW1, dWn,
+    dWe) its (M, N), ``split_rows`` and ``splits``; ``scratch_floats`` (h1,
+    h2, z3 and their cotangents, R (2 H + O), the edges nb - ctr, R C, then
+    R SIGN_WORDS words of slopes) and ``part_floats`` (the largest dW
+    product's partials).
+    Raises ValueError past the kernels' 32-bit indexing."""
+    c, h, o = TC_WIDTHS
+    rows = b * k * n
+    if rows * o >= 2 ** 31:
+        raise ValueError(f"edgeconv tiled backward takes fewer than 2^31 / {o}"
+                         f" plane-rows, got {rows}")
+    dws = [(h, o), (h, h), (c, h), (c, h)]
+    split_rows, splits, part = [], [], 0
+    for m, nn in dws:
+        tiles = _cdiv(m, 128) * _cdiv(nn, 128)
+        s = max(1, min(_cdiv(rows, DW_MIN_ROWS), _cdiv(DW_BLOCKS, tiles)))
+        sr = max(DW_BK, _cdiv(_cdiv(rows, s), DW_BK) * DW_BK)
+        split_rows.append(sr)
+        splits.append(_cdiv(rows, sr))
+        part = max(part, splits[-1] * m * nn)
+    return dict(rows=rows, row_tiles=_cdiv(rows, BWD_ROW_TILE), dw=dws,
+                split_rows=tuple(split_rows), splits=tuple(splits),
+                scratch_floats=rows * (2 * h + o + c + SIGN_WORDS),
+                part_floats=part)
+
+
 def _aligned(args):
     """The operands, each cloned where its view does not start on 16 bytes
     (the kernels move 16 bytes at a time; a view may start anywhere)."""
@@ -247,7 +308,16 @@ def edgeconv_backward(nbr_t, ctr, wn, we, w1, w2, g, aggregate="max",
     gctr = torch.empty((b, n, c), device=dev)
     sizes = [c * h, c * h] + ([h * h, h * o] if mlp else [])
     dw = torch.empty(sum(sizes), device=dev)
-    if b * n:
+    if b * n and takes_f32_tiled_bwd(cdt, mlp, c, h, o):
+        global F32_TILED_BWD_LAUNCHES
+        plan = tiled_bwd_plan(b, k, n)
+        scratch = torch.empty(plan["scratch_floats"], device=dev)
+        part = torch.empty(plan["part_floats"], device=dev)
+        BWD.launch("edgeconv_bwd_f32_tiled", *_ptrs(_aligned(args)), ptr(gnbr),
+                   ptr(gctr), ptr(dw), ptr(scratch), ptr(part), b, k, n,
+                   AGGREGATES[aggregate], *plan["split_rows"], stream_of(gnbr))
+        F32_TILED_BWD_LAUNCHES += 1
+    elif b * n:
         nblk = min(b * -(-n // TILE), MAX_BLOCKS)
         dw_part = torch.zeros((nblk, dw.numel()), device=dev)
         BWD.launch("edgeconv_bwd", *_ptrs(args), ptr(gnbr), ptr(gctr),
