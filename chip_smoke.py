@@ -15,7 +15,8 @@ Phases, one JSON line each (``phase`` names it):
            (and the tensor-core and the f32 register-tiled EdgeConv
            kernels' alone, the latter must not spill; the approximate kNN
            kernel's; the pooled MLP's batch-norm kernels, rows_gemm,
-           dw_gemm and top_kernel, which must not spill);
+           dw_gemm and top_kernel, and every instance of the FPS kernel's
+           fps_warp and fps_cluster, which must not spill);
   kernel   each CUDA kernel of the serving path against its plain PyTorch
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
@@ -60,7 +61,13 @@ Phases, one JSON line each (``phase`` names it):
            forward of each serving mode;
   kernel   (train) the train step's kernels (fps, ball_query, the pooled
            MLP forward and backward, interp) against their plain versions
-           at every shape one train step gives them (the pooled MLP also
+           at every shape one train step gives them (FPS index for index,
+           each row with its launch plan (variant, cluster size, threads,
+           points a thread), its device time and its device microseconds a
+           round, also on rows of exact ties and rows that run out of valid
+           points, then the round's fixed cost, "fps_floor": one point a
+           thread, 1,024 rounds, on one warp and on clusters of 1 to 16
+           blocks; the pooled MLP also
            with gammas of both signs and zero, and with the device time of
            each of its kernels); the EdgeConv backward
            at each shape class of the fused train step (12 frames of 1,152
@@ -1033,34 +1040,95 @@ def _cloud(torch, dev, rng, *shape, scale=0.3):
                             .astype(np.float32)).to(dev)
 
 
+# Rows on which the selections tie or run out of valid points, at the
+# variants' widths (none runs in the train step): (stage, rows, N, m,
+# points: "lattice" at multiples of 0.25, exact distances and ties; or the
+# count of valid points, the rest at -1e10 and far away)
+FPS_EDGE_SHAPES = [
+    ("ties: lattice, cluster", 4, 9216, 1024, "lattice"),
+    ("ties: lattice, one block", 12, 1024, 256, "lattice"),
+    ("ties: lattice, one warp", 4, 512, 128, "lattice"),
+    ("exhausted: 700 valid, cluster", 4, 9216, 1024, 700),
+    ("exhausted: 100 valid, one block", 4, 1024, 256, 100),
+    ("exhausted: 60 valid, one warp", 4, 512, 128, 60),
+]
+# The round's fixed cost: rows of one point a thread, FPS_FLOOR_ROUNDS
+# rounds, on one warp and on clusters of each size of 128-thread blocks.
+FPS_FLOOR_ROUNDS = 1024
+FPS_FLOOR_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def _fps_case(torch, dev, rng, b, n, masked):
+    """(pos, penalty, start) of an FPS stage: a cloud, with a hard-masked
+    tail as the critics see (``masked`` True), the lattice (``masked``
+    "lattice") or all but ``masked`` points invalid (an int)."""
+    pos = _cloud(torch, dev, rng, b, n, 3)
+    pen = torch.zeros((b, n), device=dev)
+    n_valid = n - n // 8 if masked is True else n
+    if masked == "lattice":
+        pos = torch.from_numpy(rng.integers(-16, 17, (b, n, 3))
+                               .astype(np.float32) * 0.25).to(dev)
+    elif masked is True:
+        pen[:, n_valid:] = -1e10
+        pos[:, n_valid:] = 999.0
+    elif masked:
+        n_valid = masked
+        pen[:, n_valid:] = -1e10
+        pos[:, n_valid:] *= 1000.0
+    start = torch.from_numpy(rng.integers(0, n_valid, b)).to(dev)
+    return pos, pen, start
+
+
+def _fps_row(torch, F, stage, b, n, m, pos, pen, start, plan=None, plain=True):
+    """The kernel against the plain version (index for index), its times
+    and its bound; ``plan`` a launch other than the wrapper's own."""
+    ik = F.fps_kernel(pos, m, pen, start, plan)
+    ip = F.fps_plain(pos, m, pen, start)
+    torch.cuda.synchronize()
+    bad = int((ik != ip).sum())
+    if bad:
+        raise AssertionError(f"fps {stage}: {bad} indices differ")
+    run = lambda: F.fps_kernel(pos, m, pen, start, plan)
+    ms = time_ms(run, torch)
+    dev_ms = device_ms(run, torch)
+    plain_ms = (time_ms(lambda: F.fps_plain(pos, m, pen, start), torch,
+                        reps=3, warmup=1) if plain else None)
+    b_ms, b_by = bound(8.0 * b * m * n, 4 * b * n * 4 + 8 * b * (m + 1), "f32")
+    plan = plan or F.fps_plan(n)
+    return dict(stage=stage, rows=b, N=n, m=m, variant=plan.variant,
+                cluster=plan.cluster, threads=plan.threads, ppt=plan.ppt,
+                max_abs_err=0.0, index_mismatch=bad, ms=ms, device_ms=dev_ms,
+                us_per_round=dev_ms * 1e3 / max(m - 1, 1), plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 def check_fps(torch, dev, rng):
+    """The train step's FPS stages (each weighted by its launches per G+D
+    step), then the tie and exhaustion rows (weight 0), each the kernel
+    against the plain version; then the round's fixed cost (``fps_floor``
+    rows, not in the returned list)."""
     from tpugan_tpu_torch.ops.kernels import fps as F
 
     rows = []
     for stage, b, n, m, masked, per in FPS_SHAPES:
-        pos = _cloud(torch, dev, rng, b, n, 3)
-        pen = torch.zeros((b, n), device=dev)
-        if masked:                      # a hard-masked tail, as the critics see
-            pen[:, -n // 8:] = -1e10
-            pos[:, -n // 8:] = 999.0
-        start = torch.from_numpy(rng.integers(0, n - n // 8, b)).to(dev)
-        ik = F.fps_kernel(pos, m, pen, start)
-        ip = F.fps_plain(pos, m, pen, start)
-        torch.cuda.synchronize()
-        # random clouds hold no distance ties: the indices must be equal
-        bad = int((ik != ip).sum())
-        if bad:
-            raise AssertionError(f"fps {stage}: {bad} indices differ")
-        ms = time_ms(lambda: F.fps_kernel(pos, m, pen, start), torch)
-        plain_ms = time_ms(lambda: F.fps_plain(pos, m, pen, start), torch,
-                           reps=3, warmup=1)
-        b_ms, b_by = bound(8.0 * b * m * n, 4 * b * n * 4 + 8 * b * (m + 1),
-                           "f32")
-        rows.append(dict(stage=stage, rows=b, N=n, m=m, per_step=per,
-                         max_abs_err=0.0, index_mismatch=bad, ms=ms,
-                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                         bound_by=b_by))
+        pos, pen, start = _fps_case(torch, dev, rng, b, n, masked)
+        rows.append(dict(_fps_row(torch, F, stage, b, n, m, pos, pen, start),
+                         per_step=per))
         emit({"phase": "kernel", "kernel": "fps", **rows[-1]})
+    for stage, b, n, m, points in FPS_EDGE_SHAPES:
+        pos, pen, start = _fps_case(torch, dev, rng, b, n, points)
+        rows.append(dict(_fps_row(torch, F, stage, b, n, m, pos, pen, start),
+                         per_step=0))
+        emit({"phase": "kernel", "kernel": "fps", **rows[-1]})
+    plans = [("warp", F.FpsPlan("warp", 1, 32, 1))] + [
+        (f"cluster {c}", F.FpsPlan("cluster", c, 128, 1))
+        for c in FPS_FLOOR_CLUSTERS]
+    for name, plan in plans:
+        n = plan.cluster * plan.slice
+        pos, pen, start = _fps_case(torch, dev, rng, 4, n, False)
+        row = _fps_row(torch, F, f"floor: {name}", 4, n, FPS_FLOOR_ROUNDS,
+                       pos, pen, start, plan, plain=False)
+        emit({"phase": "kernel", "kernel": "fps_floor", **row})
     return rows
 
 
@@ -2401,8 +2469,11 @@ def main(argv=None) -> int:
     # the pooled-MLP batch-norm form's GEMM blocks
     pmlp_ptxas = {f: ptxas_summary("pooled_mlp", f)
                   for f in ("rows_gemm", "dw_gemm", "top_kernel")}
+    # the FPS kernel's two variants, every points-per-thread instance
+    fps_ptxas = {f: ptxas_summary("fps", f) for f in ("fps_warp", "fps_cluster")}
     for name, rep in [("edgeconv_f32t_kernel", f32t_ptxas),
-                      *bwdt_ptxas.items(), *pmlp_ptxas.items()]:
+                      *bwdt_ptxas.items(), *pmlp_ptxas.items(),
+                      *fps_ptxas.items()]:
         if rep["functions"] == 0 or rep["spill_store_bytes"]:
             raise AssertionError(f"{name} ptxas: {rep}")
     emit({"phase": "device", "nvidia_smi": smi,
@@ -2414,6 +2485,7 @@ def main(argv=None) -> int:
           "ptxas_edgeconv_f32t": f32t_ptxas,
           "ptxas_edgeconv_bwd_tiled": bwdt_ptxas,
           "ptxas_pooled_mlp": pmlp_ptxas,
+          "ptxas_fps": fps_ptxas,
           "ptxas_knn_approx": ptxas_summary("knn", "knn_approx_kernel")})
 
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
@@ -2539,10 +2611,11 @@ def main(argv=None) -> int:
          "one density phase (the frame's and the grid's exact densities)",
          by_path["binned_interp"]),
     ])
-    # the pooled-MLP rows' device time (torch.profiler) per G+D step, the
-    # EdgeConv backward's per fused step, and its launches on GEMM tiles
+    # the pooled-MLP and FPS rows' device time (torch.profiler) per G+D
+    # step, the EdgeConv backward's per fused step, and its launches on
+    # GEMM tiles
     device_rows = {"pooled_mlp_fwd": pf_rows, "pooled_mlp_bwd": pb_rows,
-                   "edgeconv_bwd": eb_rows}
+                   "edgeconv_bwd": eb_rows, "fps": fps_rows}
     for entry in line["kernels"]:
         if entry["name"] in device_rows:
             entry["device_ms"] = sum(r["device_ms"] * r["per_step"]

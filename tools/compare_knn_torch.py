@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Per-shape times of two checkouts' kNN, fused-EdgeConv forward or
-backward, or pooled-MLP kernels (``tpugan_tpu_torch``) on one CUDA card.
+backward, pooled-MLP or FPS kernels (``tpugan_tpu_torch``) on one CUDA card.
 
     python3 tools/compare_knn_torch.py --base DIR [--head DIR]
                                        [--check knn|edgeconv|edgeconv_bwd|
-                                                pooled_mlp]
+                                                pooled_mlp|fps]
                                        [--out FILE]
 
 Runs ``chip_smoke.check_knn`` (or ``check_edgeconv``, or
@@ -41,6 +41,14 @@ MLP's outputs and gradients, both forms), and the tool prints which rows
 give the same digest in both checkouts (a change that leaves a kernel's
 results as they were shows equal digests) and, for the EdgeConv backward,
 each row's device time in both.
+
+``--check fps`` runs ``chip_smoke.check_fps`` (every ``FPS_SHAPES`` stage,
+weighted by its launches per G+D step: ms, device ms, plain ms), then on
+inputs of its own seed, the same in both checkouts, each stage's and each
+tie and exhaustion row's device time and a digest of its indices, then
+``chip_smoke.train`` as for the pooled MLP (the G+D and G-only steps' ms
+and the peak device memory). The tool prints each row's device time in both
+checkouts and their sum per G+D step, and which digests agree.
 Last comes the card's name and power limit.
 """
 
@@ -51,6 +59,9 @@ import json
 import os
 import subprocess
 import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 CHILD = """
 import json, sys
@@ -124,9 +135,9 @@ for stage, shape, widths, slope in chip_smoke.AFFINE_SHAPES:
                       "sha": digest([out, *grads])}}), flush=True)
 """
 
-# the pooled MLP: its affine form's backward rows, then the train step
-POOLED_CHILD = """
-chip_smoke.check_pooled_affine_bwd(torch, dev, rng)
+# chip_smoke.train (4 resumed train_vel steps) with the launch counters of
+# every kernel
+TRAIN_CHILD = """
 from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp, edgeconv,
                                           fps, interp, knn, nn1, pooled_mlp)
 kernels = {{"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
@@ -137,6 +148,12 @@ kernels = {{"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
            "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL,
            "knn_approx": knn.APPROX}}
 chip_smoke.train(torch, dev, kernels)
+"""
+
+# the pooled MLP: its affine form's backward rows, then the train step
+POOLED_CHILD = """
+chip_smoke.check_pooled_affine_bwd(torch, dev, rng)
+""" + TRAIN_CHILD + """
 # the affine form's device time (torch.profiler), the same inputs in both
 # checkouts: its CUDA-event rows above carry the host's time too
 g = np.random.default_rng(1)
@@ -158,6 +175,33 @@ for stage, shape, widths, slope in chip_smoke.AFFINE_SHAPES:
         out, leaves, cot, retain_graph=True), torch)
     print(json.dumps({{"affine_device": stage, "fwd_device_ms": fwd,
                       "bwd_device_ms": bwd}}), flush=True)
+"""
+
+
+# FPS: each stage of the train step (weighted by its launches per G+D step)
+# and this checkout's rows of exact ties and of exhausted valid points
+# (chip_smoke.FPS_EDGE_SHAPES, weight 0), on inputs drawn here, the same in
+# both checkouts: device time and indices' digest
+FPS_CHILD = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import fps as F
+cases = list(chip_smoke.FPS_SHAPES) + [(*e, 0) for e in {edge!r}]
+for stage, b, n, m, masked, per in cases:
+    pos, pen, n_valid = 0.3 * t(b, n, 3), torch.zeros(b, n, device=dev), n
+    if masked == "lattice":
+        pos = torch.from_numpy(0.25 * g.integers(-16, 17, (b, n, 3))
+                               .astype(np.float32)).to(dev)
+    elif masked is True:
+        n_valid = n - n // 8
+        pen[:, n_valid:], pos[:, n_valid:] = -1e10, 999.0
+    elif masked:
+        n_valid = masked
+        pen[:, n_valid:] = -1e10
+        pos[:, n_valid:] *= 1000.0
+    start = torch.from_numpy(g.integers(0, n_valid, b)).to(dev)
+    run = lambda: F.fps_kernel(pos, m, pen, start)
+    print(json.dumps({{"digest": [stage], "sha": digest([run()]),
+                      "device_ms": chip_smoke.device_ms(run, torch),
+                      "per_step": per}}), flush=True)
 """
 
 
@@ -193,6 +237,8 @@ CHECKS = {
                    ("ms", "device_ms", "plain_ms"),
                    ("pooled_mlp_fwd", "pooled_mlp_bwd", "pooled_mlp_affine",
                     "pooled_mlp_affine_bwd")),
+    "fps": (("stage",), lambda row: {"per_step": row["per_step"]},
+            ("ms", "device_ms", "plain_ms"), ("fps",)),
 }
 
 
@@ -219,6 +265,9 @@ def run(root: str, kernel: str) -> dict:
         code += POOLED_CHILD.format() + POOLED_DIGEST.format()
     elif kernel == "edgeconv_bwd":
         code += EDGECONV_BWD_CHILD.format()
+    elif kernel == "fps":
+        code += (FPS_CHILD.format(edge=chip_smoke.FPS_EDGE_SHAPES)
+                 + TRAIN_CHILD.format())
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True)
     if out.returncode != 0:
@@ -226,15 +275,18 @@ def run(root: str, kernel: str) -> dict:
                            f"\n{out.stderr[-4000:]}")
     key, names = CHECKS[kernel][0], CHECKS[kernel][3]
     rows, ptxas, train, affine, digests, step = {}, None, [], [], {}, None
-    device = {}
+    device, per_step = {}, {}
     for line in out.stdout.splitlines():
         obj = json.loads(line)
         if "ptxas" in obj:
             ptxas = obj["ptxas"]
         elif "digest" in obj:
-            digests[" / ".join(obj["digest"])] = obj["sha"]
+            name = " / ".join(obj["digest"])
+            digests[name] = obj["sha"]
             if "device_ms" in obj:
-                device[" / ".join(obj["digest"])] = obj["device_ms"]
+                device[name] = obj["device_ms"]
+            if "per_step" in obj:
+                per_step[name] = obj["per_step"]
         elif "fused_step" in obj:
             step = obj
         elif "affine_device" in obj:
@@ -247,7 +299,7 @@ def run(root: str, kernel: str) -> dict:
     return {"ptxas": ptxas, "rows": rows,
             "train": _train_summary(train) if train else None,
             "affine_device": affine, "digests": digests, "fused_step": step,
-            "device_ms": device}
+            "device_ms": device, "per_step": per_step}
 
 
 def main(argv=None) -> int:
@@ -300,26 +352,33 @@ def main(argv=None) -> int:
             bounds[p] = bounds.get(p, 0.0) + first["bound_ms"] * n_launch
         print(json.dumps(line))
     print(json.dumps({"sums": sums, "bound_ms": bounds}))
-    if args.check == "pooled_mlp":   # every run's train step, in run order
+    if args.check in ("pooled_mlp", "fps"):   # every run's train step
         print(json.dumps({"train": [dict(checkout=n, **r["train"])
                                     for n, r in runs]}))
+    if args.check == "pooled_mlp":
         print(json.dumps({"affine_device": [dict(checkout=n, rows=r["affine_device"])
                                             for n, r in runs]}))
-    if args.check == "edgeconv_bwd":
+    if args.check in ("edgeconv_bwd", "fps"):
         # each row's device time on the digest's inputs (torch.profiler;
-        # the mean of a checkout's two runs), then every run's fused and
-        # grouped step
+        # the mean of a checkout's two runs)
         dev = {}
         for n, r in runs:
             for row, ms in r["device_ms"].items():
                 dev.setdefault(row, {}).setdefault(n, []).append(ms)
+        mean = {row: {n: sum(v) / len(v) for n, v in d.items()}
+                for row, d in dev.items()}
         print(json.dumps({"device_ms": {
-            row: {**{n: sum(v) / len(v) for n, v in d.items()},
-                  "head_over_base": (sum(d["head"]) / sum(d["base"]))}
-            for row, d in dev.items()}}))
+            row: {**d, "head_over_base": d["head"] / d["base"]}
+            for row, d in mean.items()}}))
+    if args.check == "fps":   # the digest rows' device time per G+D step
+        weight = runs[0][1]["per_step"]
+        print(json.dumps({"device_ms_per_step": {
+            n: sum(mean[row][n] * w for row, w in weight.items())
+            for n in ("base", "head")}}))
+    if args.check == "edgeconv_bwd":   # every run's fused and grouped step
         print(json.dumps({"fused_step": [dict(checkout=n, **r["fused_step"])
                                          for n, r in runs]}))
-    if args.check in ("edgeconv_bwd", "pooled_mlp"):
+    if args.check in ("edgeconv_bwd", "pooled_mlp", "fps"):
         # each row's digest per checkout; a checkout's two runs must agree
         shas = {}
         for n, r in runs:
