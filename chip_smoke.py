@@ -16,7 +16,9 @@ Phases, one JSON line each (``phase`` names it):
            kernels' alone, the latter must not spill; the approximate kNN
            kernel's; the pooled MLP's batch-norm kernels, rows_gemm,
            dw_gemm and top_kernel, and every instance of the FPS kernel's
-           fps_warp and fps_cluster, which must not spill);
+           fps_warp and fps_cluster, of nn1's nn1_split_kernel and
+           nn1_finish and of the dense interp's interp_split_kernel and
+           interp_finish, which must not spill);
   kernel   each CUDA kernel of the serving path against its plain PyTorch
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
@@ -61,7 +63,12 @@ Phases, one JSON line each (``phase`` names it):
            forward of each serving mode;
   kernel   (train) the train step's kernels (fps, ball_query, the pooled
            MLP forward and backward, interp) against their plain versions
-           at every shape one train step gives them (FPS index for index,
+           at every shape one train step gives them (the dense interp on a
+           random cloud in random order and on the train step's own call,
+           train_interp_case: the first batch's predicted frames against
+           their ground truth, each row with its launch plan, the share of
+           pairs within the cutoff, its device time and two launches bit
+           for bit; FPS index for index,
            each row with its launch plan (variant, cluster size, threads,
            points a thread), its device time and its device microseconds a
            round, also on rows of exact ties and rows that run out of valid
@@ -105,7 +112,8 @@ Phases, one JSON line each (``phase`` names it):
            interpolation) and k = 64 over [1, 9,216]^2 (the capped
            density), nn1 at the eval Chamfers' shapes (sentinel-padded
            queries, a masked candidate tail), each against its plain
-           version (run with the kernel checks above);
+           version (run with the kernel checks above); every nn1 row with
+           its launch plan, its device time and two launches bit for bit;
   eval     with the launch counts reset: the port's eval CLI, called as a
            function, on the trained checkpoint at 9,216-point patches with
            its default 2,000 auction rounds, 2 samples f32 dynamic and 1
@@ -650,7 +658,9 @@ NN1_SHAPES = [
 def check_nn1(torch, dev, rng):
     """Distances and the tie rule as in :func:`check_knn` over the live
     queries; no index may point into a masked tail. Sentinel queries (the
-    999 rows of a padded prediction) are held to 1e-5 of their distance."""
+    999 rows of a padded prediction) are held to 1e-5 of their distance.
+    Each row also carries its launch plan, the device time of the wrapper's
+    launches and whether two launches agree bit for bit."""
     from tpugan_tpu_torch.ops.kernels import nn1 as N1
 
     rows = []
@@ -666,7 +676,9 @@ def check_nn1(torch, dev, rng):
             bias[:, -masked:] = 1e10
         d2k, ik = N1.nn1_kernel(q, c, bias)
         d2p, ip = N1.nn1_plain(q, c, bias)
+        again = N1.nn1_kernel(q, c, bias)
         torch.cuda.synchronize()
+        repeat = bool(torch.equal(d2k, again[0]) and torch.equal(ik, again[1]))
         tol = 1e-5 * 2 * float(max((q[:, :live] ** 2).sum(-1).max(),
                                    (c * c).sum(-1).max()))
         err = float((d2k - d2p)[:, :live].abs().max())
@@ -674,11 +686,13 @@ def check_nn1(torch, dev, rng):
         tail_rel = (float(((d2k - d2p)[:, live:].abs() / d2p[:, live:]).max())
                     if q_tail else 0.0)
         if not (err <= tol and gap <= 2 * tol and tail_rel <= 1e-5
-                and int(ik.max()) < m - masked):
+                and int(ik.max()) < m - masked and repeat):
             raise AssertionError(f"nn1 {path} B={b} Nq={nq} M={m}: err {err} "
                                  f"tol {tol}, index gaps up to {gap}, "
-                                 f"sentinel rows {tail_rel}")
-        ms = time_ms(lambda: N1.nn1_kernel(q, c, bias), torch)
+                                 f"sentinel rows {tail_rel}, repeat {repeat}")
+        run = lambda: N1.nn1_kernel(q, c, bias)
+        ms = time_ms(run, torch)
+        dev_ms = device_ms(run, torch)
         plain_ms = time_ms(lambda: N1.nn1_plain(q, c, bias), torch)
 
         def yardstick():
@@ -686,13 +700,20 @@ def check_nn1(torch, dev, rng):
                 torch.cdist(q[:, s:s + 8192], c).min(-1)
 
         lib_ms = time_ms(yardstick, torch)
-        b_ms, b_by = bound(9.0 * b * nq * m,
+        # the least work of a pair: three FMAs and a min (7 flops)
+        b_ms, b_by = bound(7.0 * b * nq * m,
                            4 * b * (3 * nq + 3 * m + m) + 12 * b * nq, "f32")
+        plan = N1.nn1_plan(b, nq, m, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
         rows.append(dict(path=path, B=b, Nq=nq, M=m, masked=masked,
                          sentinel_queries=q_tail, per_gate=per_gate,
                          per_step=per_step, per_sample=per_sample,
+                         threads=plan.threads, qpt=N1.QPT,
+                         splits=plan.splits, span=plan.span,
+                         blocks=plan.blocks(b, nq),
                          max_abs_err=err, tol=tol, index_mismatch=bad,
-                         max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
+                         max_tie_gap=gap, repeat_bit_equal=repeat, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", "kernel": "nn1", **rows[-1]})
     return rows
@@ -1464,39 +1485,115 @@ def check_pooled_affine_bwd(torch, dev, rng):
     return rows
 
 
-def check_interp(torch, dev, rng, b=12, n=9216):
-    """The velocity transfer's shape: the three predicted frames (with
-    999-sentinel rows) against the ground truth, bicubic, cutoff 1.6 R.
-    out to 1e-5 of the values' scale, den to 1e-5 relative (f32 sums)."""
+def _interp_in_radius(torch, query, cand, bias, cutoff):
+    """Pairs of one interp call within the cutoff (u <= 1), the pairs whose
+    weight the kernel computes."""
     from tpugan_tpu_torch.ops.kernels import interp as I
 
+    inv_c2 = torch.tensor(I.kernel_constants(cutoff, "bicubic")[0],
+                          dtype=torch.float32, device=query.device)
+    in_radius = 0
+    for s in range(0, query.shape[1], 1024):
+        diff = query[:, s:s + 1024, None, :] - cand[:, None]
+        in_radius += int((~(I.sq_dist(diff, bias[:, None, :]) * inv_c2
+                            > 1.0)).sum())
+    return in_radius
+
+
+def _interp_row(torch, layout, query, cand, vals, bias, cutoff, kind,
+                per_step):
+    """The kernel against the plain version (out to 1e-5 of the values'
+    scale, den to 1e-5 relative: f32 sums in another order), two launches
+    bit for bit, times, the plan and the bound: about 9 f32 operations a
+    pair (the distance and the test) and about 20 more a pair within the
+    cutoff (the weight and the sums), counted on this call's pairs."""
+    from tpugan_tpu_torch.ops.kernels import interp as I
+
+    b, nq, m, c = query.shape[0], query.shape[1], cand.shape[1], vals.shape[-1]
+    run = lambda: I.interp_kernel(query, cand, vals, cutoff, bias, kind)
+    ok, dk = run()
+    op, dp = I.interp_plain(query, cand, vals, cutoff, bias, kind)
+    again = run()
+    torch.cuda.synchronize()
+    repeat = bool(torch.equal(ok, again[0]) and torch.equal(dk, again[1]))
+    err = float((ok - op).abs().max())
+    den_rel = float(((dk - dp).abs() / dp.abs()).max())
+    if not (err <= 1e-5 * float(vals.abs().max()) and den_rel <= 1e-5
+            and bool(torch.isfinite(ok).all()) and repeat):
+        raise AssertionError(f"interp {layout}: err {err}, den rel {den_rel}, "
+                             f"repeat {repeat}")
+    ms = time_ms(run, torch)
+    dev_ms = device_ms(run, torch)
+    plain_ms = time_ms(lambda: I.interp_plain(query, cand, vals, cutoff, bias,
+                                              kind), torch, reps=3, warmup=1)
+    plan = I.interp_plan(b, nq, m, c)
+    in_radius = _interp_in_radius(torch, query, cand, bias, cutoff)
+    b_ms, b_by = bound(9.0 * b * nq * m + 20.0 * in_radius,
+                       4 * (b * nq * 3 + b * m * (3 + c + 1) + b * nq * (c + 1)),
+                       "f32")
+    row = dict(layout=layout, B=b, Nq=nq, M=m, C=c, cutoff=cutoff, kind=kind,
+               per_step=per_step, threads=plan.threads, qpt=I.QPT,
+               splits=plan.splits, span=plan.span, blocks=plan.blocks(b, nq),
+               in_radius_share=in_radius / (b * nq * m), max_abs_err=err,
+               den_max_rel_err=den_rel, repeat_bit_equal=repeat, ms=ms,
+               device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "kernel", "kernel": "interp", **row})
+    return row
+
+
+def train_interp_case(torch, dev):
+    """The dense interp's call in the train step, as the train phase's first
+    step makes it: (query, cand, values, bias, cutoff, kind), captured from
+    a train_vel step resumed from the checkpoint on the train phase's first
+    batch with its generator's draws (the three predicted frames of each
+    item, 12 rows of 9,216 points with the 999 rows of dropped points,
+    against the ground truth and its advection)."""
+    import tpugan_tpu_torch.ops.interpolate as interpolate
+    from tpugan_tpu_torch.checkpoint import load_trainer_state
+    from tpugan_tpu_torch.train.step import FluidGanStep, FluidTrainConfig
+
+    cfg = FluidTrainConfig()
+    batch = fluid_batches(torch, dev, cfg.patch_size, cfg.batch_size, 1)[0]
+    state = load_trainer_state(CHECKPOINT, cfg, device=dev)
+    step = FluidGanStep(cfg, generator=torch.Generator().manual_seed(1))
+    own, calls = interpolate.interp_kernel, []
+
+    def capture(query, cand, values, cutoff, bias, kind="bicubic"):
+        calls.append((query.clone(), cand.clone(), values.clone(),
+                      bias.clone(), cutoff, kind))
+        return own(query, cand, values, cutoff, bias, kind=kind)
+
+    interpolate.interp_kernel = capture
+    try:
+        step(state, batch)
+    finally:
+        interpolate.interp_kernel = own
+    torch.cuda.synchronize()
+    if len(calls) != 1:
+        raise AssertionError(f"the train step's first batch made {len(calls)} "
+                             f"dense interp calls, not 1 (gate shut?)")
+    return calls[0]
+
+
+def check_interp(torch, dev, rng, b=12, n=9216):
+    """The velocity transfer's shape: the three predicted frames (with
+    999-sentinel rows) against the ground truth, bicubic, cutoff 1.6 R, on
+    a random cloud in random order (weight 0), then on the train step's own
+    call (:func:`train_interp_case`, one a G+D step); each row by
+    :func:`_interp_row`."""
     c, cutoff = 3, 0.16
     cand = _cloud(torch, dev, rng, b, n, 3)
     query = cand + _cloud(torch, dev, rng, b, n, 3, scale=0.01)
     query[:, -n // 10:] = 999.0
     vals = _cloud(torch, dev, rng, b, n, c, scale=0.025)
     bias = torch.zeros((b, n), device=dev)
-    ok, dk = I.interp_kernel(query, cand, vals, cutoff, bias, "bicubic")
-    op, dp = I.interp_plain(query, cand, vals, cutoff, bias, "bicubic")
-    torch.cuda.synchronize()
-    err = float((ok - op).abs().max())
-    den_rel = float(((dk - dp).abs() / dp.abs()).max())
-    if not (err <= 1e-5 * float(vals.abs().max()) and den_rel <= 1e-5
-            and bool(torch.isfinite(ok).all())):
-        raise AssertionError(f"interp: err {err}, den rel {den_rel}")
-    ms = time_ms(lambda: I.interp_kernel(query, cand, vals, cutoff, bias),
-                 torch)
-    plain_ms = time_ms(lambda: I.interp_plain(query, cand, vals, cutoff, bias),
-                       torch, reps=3, warmup=1)
-    b_ms, b_by = bound(20.0 * b * n * n,
-                       4 * (b * n * 3 + b * n * (3 + c + 1) + b * n * (c + 1)),
-                       "f32")
-    row = dict(B=b, Nq=n, M=n, C=c, cutoff=cutoff, per_step=1,
-               max_abs_err=err, den_max_rel_err=den_rel, ms=ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by)
-    emit({"phase": "kernel", "kernel": "interp", **row})
-    return [row]
+    rows = [_interp_row(torch, "random", query, cand, vals, bias, cutoff,
+                        "bicubic", 0)]
+    query, cand, vals, bias, cutoff, kind = train_interp_case(torch, dev)
+    rows.append(_interp_row(torch, "train", query, cand, vals, bias, cutoff,
+                            kind, 1))
+    return rows
 
 
 # ---------------------------------------------------------- train phases
@@ -2471,9 +2568,16 @@ def main(argv=None) -> int:
                   for f in ("rows_gemm", "dw_gemm", "top_kernel")}
     # the FPS kernel's two variants, every points-per-thread instance
     fps_ptxas = {f: ptxas_summary("fps", f) for f in ("fps_warp", "fps_cluster")}
+    # nn1's and the dense interp's split kernels (every C instance) and
+    # their merge passes
+    nn1_ptxas = {f: ptxas_summary("nn1", f)
+                 for f in ("nn1_split_kernel", "nn1_finish")}
+    interp_ptxas = {f: ptxas_summary("interp", f)
+                    for f in ("interp_split_kernel", "interp_finish")}
     for name, rep in [("edgeconv_f32t_kernel", f32t_ptxas),
                       *bwdt_ptxas.items(), *pmlp_ptxas.items(),
-                      *fps_ptxas.items()]:
+                      *fps_ptxas.items(), *nn1_ptxas.items(),
+                      *interp_ptxas.items()]:
         if rep["functions"] == 0 or rep["spill_store_bytes"]:
             raise AssertionError(f"{name} ptxas: {rep}")
     emit({"phase": "device", "nvidia_smi": smi,
@@ -2486,6 +2590,8 @@ def main(argv=None) -> int:
           "ptxas_edgeconv_bwd_tiled": bwdt_ptxas,
           "ptxas_pooled_mlp": pmlp_ptxas,
           "ptxas_fps": fps_ptxas,
+          "ptxas_nn1": nn1_ptxas,
+          "ptxas_interp": interp_ptxas,
           "ptxas_knn_approx": ptxas_summary("knn", "knn_approx_kernel")})
 
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
@@ -2611,15 +2717,20 @@ def main(argv=None) -> int:
          "one density phase (the frame's and the grid's exact densities)",
          by_path["binned_interp"]),
     ])
-    # the pooled-MLP and FPS rows' device time (torch.profiler) per G+D
-    # step, the EdgeConv backward's per fused step, and its launches on
-    # GEMM tiles
-    device_rows = {"pooled_mlp_fwd": pf_rows, "pooled_mlp_bwd": pb_rows,
-                   "edgeconv_bwd": eb_rows, "fps": fps_rows}
+    # the pooled-MLP, FPS and dense interp rows' device time (torch.profiler)
+    # per G+D step, the EdgeConv backward's per fused step, nn1's per gate +
+    # step + eval sample, and the EdgeConv backward's launches on GEMM tiles
+    device_rows = {"pooled_mlp_fwd": (pf_rows, ("per_step",)),
+                   "pooled_mlp_bwd": (pb_rows, ("per_step",)),
+                   "edgeconv_bwd": (eb_rows, ("per_step",)),
+                   "fps": (fps_rows, ("per_step",)),
+                   "interp": (ip_rows, ("per_step",)),
+                   "nn1": (nn1_rows, ("per_gate", "per_step", "per_sample"))}
     for entry in line["kernels"]:
         if entry["name"] in device_rows:
-            entry["device_ms"] = sum(r["device_ms"] * r["per_step"]
-                                     for r in device_rows[entry["name"]])
+            rows, weights = device_rows[entry["name"]]
+            entry["device_ms"] = sum(r["device_ms"] * sum(r[w] for w in weights)
+                                     for r in rows)
         if entry["name"] == "edgeconv_bwd":
             entry["train_fused_tiled_launches"] = fused_launches[
                 "edgeconv_bwd_tiled"]

@@ -551,6 +551,163 @@ def test_interp_kernel_matches_plain_on_card(card, gen, kind):
     torch.testing.assert_close(dk.cpu(), dp, rtol=1e-5, atol=1e-6)
 
 
+def _nn1_plans(b, nq, m):
+    """The wrapper's plan on an H100's 132 SMs and three others, forced
+    through the wrapper's launch: splits of 32 candidates in blocks of 32
+    threads, the whole row in one split in blocks of 256, and three splits
+    in blocks of 64."""
+    chunk = nn1.CHUNK
+    one = chunk * -(-m // chunk)
+    third = chunk * -(-m // (3 * chunk))
+    return [nn1.nn1_plan(b, nq, m, 132),
+            nn1.Nn1Plan(32, -(-m // chunk), chunk),
+            nn1.Nn1Plan(256, 1, one),
+            nn1.Nn1Plan(64, -(-m // third), third)]
+
+
+def _nn1_case(gen, case):
+    """(query, cand, bias, exact): ``exact`` where every distance is exact
+    in f32 (lattice points at multiples of 0.25), so that the kernel must
+    equal the plain version bit for bit, ties included."""
+    t = lambda *s: torch.from_numpy((gen.standard_normal(s) * 0.3)
+                                    .astype(np.float32))
+    if case == "ties":
+        g = torch.from_numpy(0.25 * _grid(6))[None]        # each point twice
+        return g.flip(1).clone(), g.clone(), torch.zeros(1, g.shape[1]), True
+    if case == "masked":
+        bias = torch.zeros(2, 1500)
+        bias[:, -300:] = 1e10
+        bias[1] = 1e10                                     # a row all masked
+        return t(2, 700, 3), t(2, 1500, 3), bias, False
+    if case == "sentinel":
+        q = t(2, 600, 3)
+        q[:, -100:] = PAD_SENTINEL
+        return q, t(2, 900, 3), torch.zeros(2, 900), False
+    if case == "n1":
+        return t(3, 1, 3), t(3, 777, 3), torch.zeros(3, 777), False
+    if case == "m1":
+        return t(2, 300, 3), t(2, 1, 3), torch.zeros(2, 1), False
+    raise ValueError(case)
+
+
+def _assert_nn1_like_plain(q, c, bias, d2k, ik, exact):
+    """As chip_smoke.check_nn1: live rows' distances within tol and index
+    differences only at exact-distance gaps of at most 2 tol; sentinel rows
+    to 1e-5 of their distance; no index into a masked candidate of a row
+    that has a valid one."""
+    d2p, ip = nn1.nn1_plain(q, c, bias)
+    if exact:
+        assert torch.equal(d2k, d2p) and torch.equal(ik, ip)
+        return
+    live = q.abs().amax(-1) < PAD_SENTINEL
+    tol = 1e-5 * 2 * max(float((q[live] ** 2).sum(-1).max()),
+                         float((c * c).sum(-1).max()))
+    assert float((d2k - d2p)[live].abs().max()) <= tol
+    if (~live).any():
+        rel = ((d2k - d2p)[~live].abs() / d2p[~live]).max()
+        assert float(rel) <= 1e-5
+    rows = torch.arange(q.shape[0])[:, None]
+    exact_d = lambda i: ((q.double() - c.double()[rows, i]) ** 2).sum(-1)
+    gap = (exact_d(ik) - exact_d(ip)).abs()[live & (ik != ip)]
+    assert gap.numel() == 0 or float(gap.max()) <= 2 * tol
+    has_valid = (bias == 0).any(-1, keepdim=True)
+    assert bool(((bias[rows, ik] == 0) | ~has_valid).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", range(4))
+@pytest.mark.parametrize("case", ["ties", "masked", "sentinel", "n1", "m1"])
+def test_nn1_kernel_plans_match_plain_on_card(card, gen, case, variant):
+    q, c, bias, exact = _nn1_case(gen, case)
+    plan = _nn1_plans(q.shape[0], q.shape[1], c.shape[1])[variant]
+    assert plan.admits(q.shape[1], c.shape[1])
+    before = nn1.KERNEL.launches
+    d2k, ik = nn1._launch(q.to(card), c.to(card), bias.to(card), plan)
+    assert nn1.KERNEL.launches == before + 1
+    _assert_nn1_like_plain(q, c, bias, d2k.cpu(), ik.cpu(), exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", range(4))
+def test_nn1_kernel_nan_query_matches_plain_on_card(card, gen, variant):
+    """A query with a NaN coordinate (a diverged generator's output) gets
+    d2 NaN and index 0, as from the plain version, under every plan; every
+    index stays in [0, M) and the other rows are unchanged."""
+    clean, c, bias, _ = _nn1_case(gen, "masked")
+    q = clean.clone()
+    nan = torch.zeros(q.shape[:2], dtype=torch.bool)
+    nan[0, 5], nan[1, 600:603] = True, True
+    q[0, 5, 2] = float("nan")
+    q[1, 600:603] = float("nan")
+    plan = _nn1_plans(q.shape[0], q.shape[1], c.shape[1])[variant]
+    d2k, ik = (t.cpu() for t in nn1._launch(q.to(card), c.to(card),
+                                            bias.to(card), plan))
+    d2p, ip = nn1.nn1_plain(q, c, bias)
+    assert bool(torch.isnan(d2k[nan]).all()) and bool(torch.isnan(d2p[nan]).all())
+    assert torch.equal(ik[nan], ip[nan]) and bool((ik[nan] == 0).all())
+    assert int(ik.min()) >= 0 and int(ik.max()) < c.shape[1]
+    d2c, ic = (t.cpu() for t in nn1._launch(clean.to(card), c.to(card),
+                                            bias.to(card), plan))
+    _assert_nn1_like_plain(clean, c, bias, d2c, ic, False)
+    assert torch.equal(d2k[~nan], d2c[~nan]) and torch.equal(ik[~nan], ic[~nan])
+
+
+@pytest.mark.gpu
+def test_nn1_kernel_repeats_bit_for_bit_and_refuses_bad_plans_on_card(card, gen):
+    q, c, bias, _ = _nn1_case(gen, "masked")
+    args = (q.to(card), c.to(card), bias.to(card))
+    first, second = nn1.nn1_kernel(*args), nn1.nn1_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    with pytest.raises(ValueError, match="does not cover"):
+        nn1._launch(*args, nn1.Nn1Plan(128, 1, 32))
+
+
+def _interp_plans(b, nq, m, c):
+    """The wrapper's plan and three others, forced through the wrapper's
+    launch: splits of 32 candidates in blocks of 32 threads, the whole row
+    in one split in blocks of 256, three splits in blocks of 64."""
+    third = -(-m // 3)
+    return [interp.interp_plan(b, nq, m, c),
+            interp.InterpPlan(32, -(-m // 32), 32),
+            interp.InterpPlan(256, 1, m),
+            interp.InterpPlan(64, -(-m // third), third)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", range(4))
+@pytest.mark.parametrize("spread", ["skip_heavy", "skip_free"])
+@pytest.mark.parametrize("kind", sorted(interp.KINDS))
+def test_interp_kernel_plans_match_plain_on_card(card, gen, kind, spread,
+                                                 variant):
+    """Every kind under each plan, on a cloud where most pairs lie beyond
+    the cutoff (most candidates skipped by every lane) and on one where
+    every valid pair lies within it (nothing skipped); masked candidates
+    and sentinel queries in both. Tolerances as in
+    test_interp_kernel_matches_plain_on_card."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    scale, cutoff = (1.0, 0.16) if spread == "skip_heavy" else (0.02, 0.5)
+    q, c, v = t(2, 700, 3) * scale, t(2, 1100, 3) * scale, t(2, 1100, 5)
+    q[:, -7:] = PAD_SENTINEL
+    bias = torch.zeros(2, 1100)
+    bias[:, ::9] = 1e10
+    plan = _interp_plans(2, 700, 1100, 5)[variant]
+    assert plan.admits(700, 1100, 5)
+    ok, dk = interp._launch(q.to(card), c.to(card), v.to(card), cutoff,
+                            bias.to(card), kind, plan)
+    op, dp = interp.interp_plain(q, c, v, cutoff, bias, kind)
+    torch.testing.assert_close(ok.cpu(), op, rtol=0, atol=1e-5)
+    torch.testing.assert_close(dk.cpu(), dp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_interp_kernel_repeats_bit_for_bit_on_card(card, gen):
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    args = (t(3, 2000, 3).to(card) * 0.3, t(3, 2500, 3).to(card) * 0.3,
+            t(3, 2500, 3).to(card), 0.16, torch.zeros(3, 2500, device=card))
+    first, second = interp.interp_kernel(*args), interp.interp_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def _pooled_bn_case(gen):
     """A small batch-norm stack with exact max ties and gammas of both signs
     and zero, as a trained critic may hold them: every third gamma negated,

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Per-shape times of two checkouts' kNN, fused-EdgeConv forward or
-backward, pooled-MLP or FPS kernels (``tpugan_tpu_torch``) on one CUDA card.
+backward, pooled-MLP, FPS, nn1 or dense interp kernels
+(``tpugan_tpu_torch``) on one CUDA card.
 
     python3 tools/compare_knn_torch.py --base DIR [--head DIR]
                                        [--check knn|edgeconv|edgeconv_bwd|
-                                                pooled_mlp|fps]
+                                                pooled_mlp|fps|nn1|interp]
                                        [--out FILE]
 
 Runs ``chip_smoke.check_knn`` (or ``check_edgeconv``, or
@@ -49,6 +50,21 @@ tie and exhaustion row's device time and a digest of its indices, then
 ``chip_smoke.train`` as for the pooled MLP (the G+D and G-only steps' ms
 and the peak device memory). The tool prints each row's device time in both
 checkouts and their sum per G+D step, and which digests agree.
+
+``--check nn1`` runs ``chip_smoke.check_nn1`` (every ``NN1_SHAPES`` row,
+weighted by its launches per Chamfer gate, train step and eval sample: ms,
+device ms, plain ms, ``cdist`` + ``min``), then on inputs of the tool's own
+seed, the same in both checkouts, each row's device time and digests of its
+distances and indices, then ``chip_smoke.serving`` (the serving gate's
+``chamfer_norm``, with digests of the gate's two nn1 calls' distances and
+indices) and ``chip_smoke.train``. ``--check interp`` runs
+``chip_smoke.check_interp``, then the device time and output digest of the
+random-order row on the tool's own inputs and of the train step's own call
+(``chip_smoke.train_interp_case``, made once by the head checkout and read
+by both from ``runs/compare_interp_train.pt``), each with its error against
+the plain version, then ``chip_smoke.train``. Both print each digest row's
+device time in both checkouts and their sum per unit of work (nn1: one gate
++ train step + eval sample; interp: one G+D step).
 Last comes the card's name and power limit.
 """
 
@@ -205,6 +221,73 @@ for stage, b, n, m, masked, per in cases:
 """
 
 
+# nn1: each NN1_SHAPES row (head's list) on inputs drawn here, the same in
+# both checkouts: device time and digests of distances and indices; then the
+# serving gate, its two nn1 calls' digests recorded
+NN1_CHILD = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import nn1 as N1
+for path, b, nq, m, masked, q_tail, per_gate, per_step, per_sample in {shapes!r}:
+    q, c = 0.3 * t(b, nq, 3), 0.3 * t(b, m, 3)
+    q[:, nq - q_tail:] = 999.0
+    bias = torch.zeros(b, m, device=dev)
+    if masked:
+        bias[:, -masked:] = 1e10
+    run = lambda: N1.nn1_kernel(q, c, bias)
+    d2, idx = run()
+    name = f"{{path}} {{b}}x{{nq}}x{{m}} masked {{masked}} sentinel {{q_tail}}"
+    print(json.dumps({{"digest": [name, "d2"], "sha": digest([d2])}}), flush=True)
+    print(json.dumps({{"digest": [name, "idx"], "sha": digest([idx]),
+                      "device_ms": chip_smoke.device_ms(run, torch),
+                      "per_step": per_gate + per_step + per_sample}}), flush=True)
+import tpugan_tpu_torch.ops.metrics as metrics
+own, gate = metrics.nn1_kernel, []
+def recording(*a, **kw):
+    out = own(*a, **kw)
+    gate.append(out)
+    return out
+metrics.nn1_kernel = recording
+(f32, bf16), _ = chip_smoke.serving(torch, dev, {{"nn1": N1.KERNEL}})
+metrics.nn1_kernel = own
+for i, (d2, idx) in enumerate(gate):
+    print(json.dumps({{"digest": [f"serving gate call {{i}}", "d2"], "sha": digest([d2])}}))
+    print(json.dumps({{"digest": [f"serving gate call {{i}}", "idx"], "sha": digest([idx])}}))
+del f32, bf16
+"""
+
+# the dense interp: the random-order row on inputs drawn here and the train
+# step's own call from the head's file, the same in both checkouts
+INTERP_CHILD = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import interp as I
+cand = 0.3 * t(12, 9216, 3)
+query = cand + 0.01 * t(12, 9216, 3)
+query[:, -9216 // 10:] = 999.0
+cases = [("random", query, cand, 0.025 * t(12, 9216, 3),
+          torch.zeros(12, 9216, device=dev), 0.16, "bicubic", 0),
+         ("train", *[x.to(dev) if torch.is_tensor(x) else x
+                     for x in torch.load({case!r})], 1)]
+for layout, q, c, v, bias, cutoff, kind, per in cases:
+    run = lambda: I.interp_kernel(q, c, v, cutoff, bias, kind)
+    out, den = run()
+    op, dp = I.interp_plain(q, c, v, cutoff, bias, kind)
+    print(json.dumps({{"digest": [layout], "sha": digest([out, den]),
+                      "device_ms": chip_smoke.device_ms(run, torch),
+                      "max_abs_err": float((out - op).abs().max()),
+                      "tol": 1e-5 * float(v.abs().max()),
+                      "den_max_rel_err": float(((den - dp).abs() / dp.abs()).max()),
+                      "per_step": per}}), flush=True)
+"""
+
+# the train step's dense interp call, written once by the head checkout
+INTERP_CASE = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke
+torch.save([x.cpu() if torch.is_tensor(x) else x for x in
+            chip_smoke.train_interp_case(torch, torch.device("cuda", 0))], {path!r})
+"""
+
+
 def _edgeconv_weights(row):
     """Launches of the row's shape per f32 dynamic and per bf16 static
     forward (each serving mode runs every shape class in its own dtype)."""
@@ -239,7 +322,17 @@ CHECKS = {
                     "pooled_mlp_affine_bwd")),
     "fps": (("stage",), lambda row: {"per_step": row["per_step"]},
             ("ms", "device_ms", "plain_ms"), ("fps",)),
+    "nn1": (("path", "B", "Nq", "M", "masked", "sentinel_queries"),
+            lambda row: {p: row[p] for p in ("per_gate", "per_step",
+                                             "per_sample")},
+            ("ms", "device_ms", "plain_ms", "library_ms"), ("nn1",)),
+    "interp": (("layout", "B", "Nq", "M", "C"),
+               lambda row: {"per_step": row["per_step"]},
+               ("ms", "device_ms", "plain_ms"), ("interp",)),
 }
+# a key field a checkout's rows may lack (the dense interp's rows before
+# the train step's own call was added: the random-order row)
+KEY_DEFAULTS = {"layout": "random"}
 
 
 def _train_summary(lines):
@@ -258,7 +351,7 @@ def _train_summary(lines):
     return out
 
 
-def run(root: str, kernel: str) -> dict:
+def run(root: str, kernel: str, case: str = "") -> dict:
     code = CHILD.format(root=root, kernel=kernel,
                         source=kernel.replace("_bwd", ""))
     if kernel == "pooled_mlp":
@@ -268,6 +361,11 @@ def run(root: str, kernel: str) -> dict:
     elif kernel == "fps":
         code += (FPS_CHILD.format(edge=chip_smoke.FPS_EDGE_SHAPES)
                  + TRAIN_CHILD.format())
+    elif kernel == "nn1":
+        code += (NN1_CHILD.format(shapes=chip_smoke.NN1_SHAPES)
+                 + TRAIN_CHILD.format())
+    elif kernel == "interp":
+        code += INTERP_CHILD.format(case=case) + TRAIN_CHILD.format()
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True)
     if out.returncode != 0:
@@ -275,7 +373,7 @@ def run(root: str, kernel: str) -> dict:
                            f"\n{out.stderr[-4000:]}")
     key, names = CHECKS[kernel][0], CHECKS[kernel][3]
     rows, ptxas, train, affine, digests, step = {}, None, [], [], {}, None
-    device, per_step = {}, {}
+    device, per_step, errors, gate = {}, {}, {}, None
     for line in out.stdout.splitlines():
         obj = json.loads(line)
         if "ptxas" in obj:
@@ -287,6 +385,11 @@ def run(root: str, kernel: str) -> dict:
                 device[name] = obj["device_ms"]
             if "per_step" in obj:
                 per_step[name] = obj["per_step"]
+            if "max_abs_err" in obj:
+                errors[name] = {k: obj[k] for k in ("max_abs_err", "tol",
+                                                    "den_max_rel_err")}
+        elif obj.get("phase") == "serving":
+            gate = obj["chamfer_norm"]
         elif "fused_step" in obj:
             step = obj
         elif "affine_device" in obj:
@@ -294,12 +397,13 @@ def run(root: str, kernel: str) -> dict:
         elif obj.get("phase") == "train":
             train.append(obj)
         elif (obj.get("kernel") in names and "case" not in obj
-              and all(k in obj for k in key)):
-            rows[tuple(obj[k] for k in key)] = obj
+              and all(k in obj or k in KEY_DEFAULTS for k in key)):
+            rows[tuple(obj.get(k, KEY_DEFAULTS.get(k)) for k in key)] = obj
     return {"ptxas": ptxas, "rows": rows,
             "train": _train_summary(train) if train else None,
             "affine_device": affine, "digests": digests, "fused_step": step,
-            "device_ms": device, "per_step": per_step}
+            "device_ms": device, "per_step": per_step, "errors": errors,
+            "gate_chamfer_norm": gate}
 
 
 def main(argv=None) -> int:
@@ -312,7 +416,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     key, weights, cols, _ = CHECKS[args.check]
     roots = {"base": os.path.abspath(args.base), "head": os.path.abspath(args.head)}
-    runs = [(name, run(roots[name], args.check))
+    case = ""
+    if args.check == "interp":   # the train step's call, made by the head
+        case = os.path.join(roots["head"], "runs", "compare_interp_train.pt")
+        os.makedirs(os.path.dirname(case), exist_ok=True)
+        subprocess.run([sys.executable, "-c", INTERP_CASE.format(
+            root=roots["head"], path=case)], cwd=roots["head"], check=True)
+    runs = [(name, run(roots[name], args.check, case))
             for name in ("base", "head", "head", "base")]
     if args.out:
         with open(args.out, "w") as f:
@@ -352,13 +462,20 @@ def main(argv=None) -> int:
             bounds[p] = bounds.get(p, 0.0) + first["bound_ms"] * n_launch
         print(json.dumps(line))
     print(json.dumps({"sums": sums, "bound_ms": bounds}))
-    if args.check in ("pooled_mlp", "fps"):   # every run's train step
+    if args.check in ("pooled_mlp", "fps", "nn1", "interp"):   # train steps
         print(json.dumps({"train": [dict(checkout=n, **r["train"])
                                     for n, r in runs]}))
     if args.check == "pooled_mlp":
         print(json.dumps({"affine_device": [dict(checkout=n, rows=r["affine_device"])
                                             for n, r in runs]}))
-    if args.check in ("edgeconv_bwd", "fps"):
+    if args.check == "nn1":   # every run's serving gate
+        print(json.dumps({"gate_chamfer_norm": [
+            dict(checkout=n, chamfer_norm=r["gate_chamfer_norm"])
+            for n, r in runs]}))
+    if args.check == "interp":   # every run's error against the plain version
+        print(json.dumps({"errors": [dict(checkout=n, **r["errors"])
+                                     for n, r in runs]}))
+    if args.check in ("edgeconv_bwd", "fps", "nn1", "interp"):
         # each row's device time on the digest's inputs (torch.profiler;
         # the mean of a checkout's two runs)
         dev = {}
@@ -370,7 +487,9 @@ def main(argv=None) -> int:
         print(json.dumps({"device_ms": {
             row: {**d, "head_over_base": d["head"] / d["base"]}
             for row, d in mean.items()}}))
-    if args.check == "fps":   # the digest rows' device time per G+D step
+    if args.check in ("fps", "nn1", "interp"):
+        # the digest rows' device time per unit of work (FPS and the dense
+        # interp: one G+D step; nn1: one gate + train step + eval sample)
         weight = runs[0][1]["per_step"]
         print(json.dumps({"device_ms_per_step": {
             n: sum(mean[row][n] * w for row, w in weight.items())
@@ -378,7 +497,7 @@ def main(argv=None) -> int:
     if args.check == "edgeconv_bwd":   # every run's fused and grouped step
         print(json.dumps({"fused_step": [dict(checkout=n, **r["fused_step"])
                                          for n, r in runs]}))
-    if args.check in ("edgeconv_bwd", "pooled_mlp", "fps"):
+    if args.check in ("edgeconv_bwd", "pooled_mlp", "fps", "nn1", "interp"):
         # each row's digest per checkout; a checkout's two runs must agree
         shas = {}
         for n, r in runs:
