@@ -17,8 +17,10 @@ Phases, one JSON line each (``phase`` names it):
            kernel's; the pooled MLP's batch-norm kernels, rows_gemm,
            dw_gemm and top_kernel, and every instance of the FPS kernel's
            fps_warp and fps_cluster, of nn1's nn1_split_kernel and
-           nn1_finish and of the dense interp's interp_split_kernel and
-           interp_finish, which must not spill);
+           nn1_finish, of the dense interp's interp_split_kernel and
+           interp_finish, of the approximate kNN's approx_kernel and
+           approx_prep and of the ball query's ball_query_kernel, which
+           must not spill);
   kernel   each CUDA kernel of the serving path against its plain PyTorch
            version on the card, at every shape the serving path and the
            train step give it: the error against the stated tolerance,
@@ -38,10 +40,15 @@ Phases, one JSON line each (``phase`` names it):
            bf16 static graph's; the rollout's 10,112-row frame, its last
            112 rows at the 999 sentinel with no invalid bias, as the
            rollout pads it), with the share of queries whose neighbour set
-           differs from the exact kernel's, the times of the exact kernel,
-           the plain version and the yardstick; the duplicated grid (bit
-           for bit) and a query whose lane column holds more of its
-           neighbours than the mode keeps (the same neighbour dropped);
+           differs from the exact kernel's, its launch plan (query tile,
+           blocks, blocks an SM, waves), two launches bit for bit, the
+           device time of it and of the exact kernel (torch.profiler), the
+           times of the exact kernel, the plain version and the yardstick,
+           and its bound with the per-pair epilogue counted at its pipes'
+           rates beside the product-only bound counted before; the
+           duplicated grid (bit for bit) and a query whose lane column holds
+           more of its neighbours than the mode keeps (the same neighbour
+           dropped);
   serving  with the launch counts reset: the trained checkpoint through the
            port's loader, the f32 dynamic and the bf16 static forward of a
            10,240-point frame, the Chamfer gate between them, the launches
@@ -68,7 +75,9 @@ Phases, one JSON line each (``phase`` names it):
            train_interp_case: the first batch's predicted frames against
            their ground truth, each row with its launch plan, the share of
            pairs within the cutoff, its device time and two launches bit
-           for bit; FPS index for index,
+           for bit; the ball query index for index, each row with its
+           launch plan, its device time and two launches bit for bit; FPS
+           index for index,
            each row with its launch plan (variant, cluster size, threads,
            points a thread), its device time and its device microseconds a
            round, also on rows of exact ties and rows that run out of valid
@@ -152,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -172,6 +182,15 @@ GATE = 5e-3               # normalised Chamfer gate, as in bench.py
 # H100 SXM published peaks (dense): HBM bytes/s and the rates by type
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12}
+# Instruction rates of one H100 SXM by pipe, for work that is not FMAs:
+# results a clock an SM (the CUDA C++ Programming Guide's arithmetic
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz, the clock
+# the 67 TFLOP/s f32 peak assumes (2 x 128 x 132 x 1.98e9): f32 add, fma
+# and min / max 128; 32-bit integer add, logic and min / max 64;
+# conversions 16; and 128 instructions a clock an SM issued in all
+SM_CLOCKS = 132 * 1.98e9
+PIPE_RATE = {"f32": 128 * SM_CLOCKS, "int": 64 * SM_CLOCKS,
+             "cvt": 16 * SM_CLOCKS, "issue": 128 * SM_CLOCKS}
 
 REPS = 10
 
@@ -472,28 +491,62 @@ def check_knn_approx(torch, dev, rng):
             -1, exact[1][:, :real] % K.LANES,
             torch.ones_like(exact[0][:, :real]))
         crowded = float((per_col.amax(-1) > K.chunk_kp_approx(k)).float().mean())
-        ms = time_ms(lambda: K.knn_approx_kernel(c, c, bias, k), torch)
+        again = K.knn_approx_kernel(c, c, bias, k)
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(got[0], again[0])
+                      and torch.equal(got[1], again[1]))
+        if not repeat:
+            raise AssertionError(f"knn approx {graph}: two launches differ")
+        run = lambda: K.knn_approx_kernel(c, c, bias, k)
+        ms = time_ms(run, torch)
+        dev_ms = device_ms(run, torch)
         exact_ms = time_ms(lambda: K.knn_kernel(c, c, bias, k), torch)
+        exact_dev_ms = device_ms(lambda: K.knn_kernel(c, c, bias, k), torch)
         plain_ms = time_ms(lambda: K.knn_approx_plain(c, c, bias, k), torch)
         lib_ms = time_ms(lambda: torch.topk(torch.cdist(c, c), k, largest=False),
                          torch)
-        # the cross term's 2 D products a pair are of bf16 operands (the
-        # tensor cores' type), the norms' sum and clamp 3 f32 operations
-        t_ops = (2 * d * n * n / PEAK_OPS["bf16"]
-                 + 3 * n * n / PEAK_OPS["f32"]) * 1e3
+        kp = K.chunk_kp_approx(k)
+        pairs = n * n
+        # the least time of the work the function needs, the larger over
+        # the pipes that run side by side. A pair: the cross term's 2 D bf16
+        # operations on the tensor cores; 4 f32 (|q|^2 + |c|^2, the fma with
+        # -2 q.c, the clamp, the bias); half a conversion (one bf16x2 rounds
+        # two distances); 2.5 integer (the key from the rounded pair: 1.5;
+        # one compare with its lane column's kp-th key). A lane column of
+        # m = Nc / 128 candidates in random order admits
+        # kp (1 + ln(m / kp)) of them, each a 2 kp - 1 min / max insert.
+        # Every one of these at the issue rate too.
+        m = n / K.LANES
+        admitted = min(m, kp * (1 + math.log(m / kp)))
+        inserts = admitted * (2 * kp - 1) / m      # a pair, on average
+        t_ops = max(2 * d * pairs / PEAK_OPS["bf16"],
+                    4 * pairs / PIPE_RATE["f32"],
+                    (2.5 + inserts) * pairs / PIPE_RATE["int"],
+                    0.5 * pairs / PIPE_RATE["cvt"],
+                    (7 + inserts) * pairs / PIPE_RATE["issue"]) * 1e3
         t_bytes = (4 * (2 * n * d + n) + n * k * 12) / PEAK_BYTES * 1e3
         b_ms, b_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        # the bound counted before this one (the products, 3 f32 operations
+        # a pair at the FMA peak)
+        b_old = max((2 * d * pairs / PEAK_OPS["bf16"]
+                     + 3 * pairs / PEAK_OPS["f32"]) * 1e3, t_bytes)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = K.knn_approx_plan(1, n, n, d, k, sms)
         rows.append(dict(graph=graph, B=1, Nq=n, Nc=n, D=d, k=k,
-                         kp=K.chunk_kp_approx(k), sentinel_rows=pad,
+                         kp=kp, sentinel_rows=pad,
                          per_forward=per_fwd, per_static=per_static,
-                         per_frame=per_frame,
+                         per_frame=per_frame, wq=plan.wq,
+                         queries_a_block=plan.queries, blocks=plan.blocks(1, n),
+                         blocks_per_sm=plan.per_sm, waves=plan.waves(1, n, sms),
                          max_abs_err=float((got[0] - want[0]).abs().max()),
                          index_mismatch=int((got[1] != want[1]).sum()),
                          **agree, rows_set_differs_vs_exact=differ,
                          neighbours_missing_vs_exact=missing,
-                         rows_column_crowded=crowded, ms=ms,
-                         exact_ms=exact_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         rows_column_crowded=crowded, repeat_bit_equal=repeat,
+                         ms=ms, device_ms=dev_ms, exact_ms=exact_ms,
+                         exact_device_ms=exact_dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         bound_ms_products_only=b_old))
         emit({"phase": "kernel", "kernel": "knn_approx", **rows[-1]})
 
     # exact inputs: the duplicated grid of check_knn, bit for bit
@@ -1154,6 +1207,9 @@ def check_fps(torch, dev, rng):
 
 
 def check_ball_query(torch, dev, rng):
+    """Each train stage's ball query index for index against the plain
+    version, with its launch plan, two launches bit for bit, its device
+    time (torch.profiler) and its bound over the pairs this data scans."""
     from tpugan_tpu_torch.ops.kernels import ball_query as BQ
 
     rows = []
@@ -1164,13 +1220,17 @@ def check_ball_query(torch, dev, rng):
         bias[:, ::9] = 2.0                           # masked candidates
         ik = BQ.ball_query_kernel(query, cand, r, ns, bias)
         ip = BQ.ball_query_plain(query, cand, r, ns, bias)
+        again = BQ.ball_query_kernel(query, cand, r, ns, bias)
         torch.cuda.synchronize()
         # both evaluate the same f32 expression in the same order: equal
         bad = int((ik != ip).sum())
-        if bad:
-            raise AssertionError(f"ball_query {stage}: {bad} indices differ")
-        ms = time_ms(lambda: BQ.ball_query_kernel(query, cand, r, ns, bias),
-                     torch)
+        repeat = bool(torch.equal(ik, again))
+        if bad or not repeat:
+            raise AssertionError(f"ball_query {stage}: {bad} indices differ, "
+                                 f"repeat {repeat}")
+        run = lambda: BQ.ball_query_kernel(query, cand, r, ns, bias)
+        ms = time_ms(run, torch)
+        dev_ms = device_ms(run, torch)
         plain_ms = time_ms(lambda: BQ.ball_query_plain(query, cand, r, ns,
                                                        bias), torch)
         # the scan ends at the nsample-th hit: count the candidates this
@@ -1182,9 +1242,11 @@ def check_ball_query(torch, dev, rng):
                            "f32")
         rows.append(dict(stage=stage, B=b, Nq=nq, Nc=nc, radius=r, nsample=ns,
                          per_step=per, full_balls=float(full.float().mean()),
-                         max_abs_err=0.0, index_mismatch=bad, ms=ms,
-                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                         bound_by=b_by))
+                         warps=BQ.WARPS, tile=BQ.TILE,
+                         blocks=BQ.blocks(b, nq), max_abs_err=0.0,
+                         index_mismatch=bad, repeat_bit_equal=repeat, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", "kernel": "ball_query", **rows[-1]})
     return rows
 
@@ -2574,10 +2636,17 @@ def main(argv=None) -> int:
                  for f in ("nn1_split_kernel", "nn1_finish")}
     interp_ptxas = {f: ptxas_summary("interp", f)
                     for f in ("interp_split_kernel", "interp_finish")}
+    # the approximate kNN's every (DK, KP, WQ) instance and its row
+    # preparation, and the ball query's kernel
+    approx_ptxas = {f: ptxas_summary("knn", f)
+                    for f in ("approx_kernel", "approx_prep")}
+    ball_ptxas = {"ball_query_kernel": ptxas_summary("ball_query",
+                                                     "ball_query_kernel")}
     for name, rep in [("edgeconv_f32t_kernel", f32t_ptxas),
                       *bwdt_ptxas.items(), *pmlp_ptxas.items(),
                       *fps_ptxas.items(), *nn1_ptxas.items(),
-                      *interp_ptxas.items()]:
+                      *interp_ptxas.items(), *approx_ptxas.items(),
+                      *ball_ptxas.items()]:
         if rep["functions"] == 0 or rep["spill_store_bytes"]:
             raise AssertionError(f"{name} ptxas: {rep}")
     emit({"phase": "device", "nvidia_smi": smi,
@@ -2592,7 +2661,8 @@ def main(argv=None) -> int:
           "ptxas_fps": fps_ptxas,
           "ptxas_nn1": nn1_ptxas,
           "ptxas_interp": interp_ptxas,
-          "ptxas_knn_approx": ptxas_summary("knn", "knn_approx_kernel")})
+          "ptxas_knn_approx": approx_ptxas,
+          "ptxas_ball_query": ball_ptxas})
 
     kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
                "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
@@ -2717,10 +2787,15 @@ def main(argv=None) -> int:
          "one density phase (the frame's and the grid's exact densities)",
          by_path["binned_interp"]),
     ])
-    # the pooled-MLP, FPS and dense interp rows' device time (torch.profiler)
-    # per G+D step, the EdgeConv backward's per fused step, nn1's per gate +
-    # step + eval sample, and the EdgeConv backward's launches on GEMM tiles
-    device_rows = {"pooled_mlp_fwd": (pf_rows, ("per_step",)),
+    # the pooled-MLP, FPS, ball query and dense interp rows' device time
+    # (torch.profiler) per G+D step, the EdgeConv backward's per fused step,
+    # nn1's per gate + step + eval sample, the approximate kNN's per f32
+    # dynamic + bf16 static forward + rollout frame, and the EdgeConv
+    # backward's launches on GEMM tiles
+    device_rows = {"knn_approx": (approx_rows, ("per_forward", "per_static",
+                                                "per_frame")),
+                   "ball_query": (bq_rows, ("per_step",)),
+                   "pooled_mlp_fwd": (pf_rows, ("per_step",)),
                    "pooled_mlp_bwd": (pb_rows, ("per_step",)),
                    "edgeconv_bwd": (eb_rows, ("per_step",)),
                    "fps": (fps_rows, ("per_step",)),

@@ -535,6 +535,100 @@ def test_ball_query_kernel_matches_plain_on_card(card, gen):
     assert torch.equal(ik.cpu(), ball_query.ball_query_plain(q, c, 0.4, 32, bias))
 
 
+def _approx_case(gen, case):
+    """(query, cand, bias, k, exact) for the approximate kernel's forced-plan
+    tests: ``exact`` where the contract's arithmetic is exact (integer grid
+    points; sentinel rows tie at d2 = 0), so that every plan must equal the
+    plain version bit for bit."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    if case == "grid":          # one row, self graph, duplicated 16^3 grid
+        g = torch.from_numpy(_grid(16)[None])
+        return g, g, torch.zeros(1, g.shape[1]), 20, True
+    if case == "sentinel":      # two rows of a padded frame, self graph
+        c = t(2, 4224, 3) * 0.3
+        c[:, -112:] = PAD_SENTINEL
+        return c, c, torch.zeros(2, 4224), 20, False
+    if case == "cross":         # queries off the 16-row tile, a masked tail
+        bias = torch.zeros(2, 4096)
+        bias[:, -300:] = 1e10
+        return t(2, 1001, 32), t(2, 4096, 32), bias, 12, False
+    if case == "wide":          # D = 64, k = 4 (kp = 2), Nq one short of 80
+        c = t(1, 4096, 64)
+        return c[:, :79].contiguous(), c, torch.zeros(1, 4096), 4, False
+    raise ValueError(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wq", sorted(knn.APPROX_BLOCKS_PER_SM))
+@pytest.mark.parametrize("case", ["grid", "sentinel", "cross", "wide"])
+def test_knn_approx_kernel_plans_match_plain_on_card(card, gen, case, wq):
+    """The approximate kernel under each query tile (WQ = 2, 5) against
+    its plain version: bit for bit on exact inputs and on sentinel rows,
+    else within ``knn.approx_agreement``; two launches bit for bit."""
+    q, c, bias, k, exact = _approx_case(gen, case)
+    plan = knn.ApproxPlan(wq)
+    args = [x.to(card) for x in (q, c, bias)]
+    if q is c:
+        args[1] = args[0]            # a self graph: one tensor, as callers pass
+    before = knn.APPROX.launches
+    got = [x.cpu() for x in knn._launch_approx(*args, k, plan)]
+    again = [x.cpu() for x in knn._launch_approx(*args, k, plan)]
+    assert knn.APPROX.launches == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = knn.knn_approx_plain(q, c, bias, k)
+    if exact:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return
+    real = q.shape[1] - (112 if case == "sentinel" else 0)
+    if case == "sentinel":
+        assert torch.equal(got[0][:, real:], want[0][:, real:])
+        assert torch.equal(got[1][:, real:], want[1][:, real:])
+    a = knn.approx_agreement((got[0][:, :real], got[1][:, :real]),
+                             (want[0][:, :real], want[1][:, :real]),
+                             (q[:, :real], c[:, :real] if case == "sentinel" else c,
+                              bias[:, :real] if case == "sentinel" else bias))
+    assert a["d2_excess"] <= 0 and a["d2_unexplained"] == 0, a
+    assert a["rows_unexplained"] == 0 and a["rows"] <= 0.02 * a["queries"], a
+
+
+def _ball_case(gen, case):
+    """(query, cand, radius, nsample, bias) for the ball query's tile tests."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    if case == "mixed":         # empty balls, masked candidates, full balls
+        q, c = t(3, 300, 3) * 0.5, t(3, 2900, 3) * 0.5
+        q[0, :7] = 50.0
+        bias = torch.zeros(3, 2900)
+        bias[:, ::4] = 2.0
+        return q, c, 0.2, 32, bias
+    if case == "ns_over_nc":    # nsample past Nc: every slot past the hits pads
+        return t(2, 70, 3) * 0.3, t(2, 40, 3) * 0.3, 0.5, 64, torch.zeros(2, 40)
+    if case.startswith("last_tile_"):  # the only hits end Nc's last tile
+        nc = int(case[10:])
+        c = t(2, nc, 3) + 20.0
+        c[:, -37:] = 0.02 * t(2, 37, 3)
+        q = 0.02 * t(2, 90, 3)
+        return q, c, 0.3, 16, torch.zeros(2, nc)
+    raise ValueError(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "mixed", "ns_over_nc", "last_tile_1024", "last_tile_1025",
+    "last_tile_2049", "last_tile_2500", "last_tile_3075"])
+def test_ball_query_kernel_tiles_match_plain_on_card(card, gen, case):
+    """Candidate tiles of 1,024 with a last tile of 1,024, 1, 452 or 3
+    candidates, index for index against the plain version; two launches
+    bit for bit."""
+    q, c, r, ns, bias = _ball_case(gen, case)
+    args = [x.to(card) for x in (q, c)]
+    before = ball_query.KERNEL.launches
+    got = ball_query.ball_query_kernel(*args, r, ns, bias.to(card)).cpu()
+    again = ball_query.ball_query_kernel(*args, r, ns, bias.to(card)).cpu()
+    assert ball_query.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, ball_query.ball_query_plain(q, c, r, ns, bias))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", sorted(interp.KINDS))
 def test_interp_kernel_matches_plain_on_card(card, gen, kind):

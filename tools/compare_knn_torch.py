@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Per-shape times of two checkouts' kNN, fused-EdgeConv forward or
-backward, pooled-MLP, FPS, nn1 or dense interp kernels
-(``tpugan_tpu_torch``) on one CUDA card.
+"""Per-shape times of two checkouts' kNN (exact or approximate),
+fused-EdgeConv forward or backward, pooled-MLP, FPS, ball query, nn1 or
+dense interp kernels (``tpugan_tpu_torch``) on one CUDA card.
 
     python3 tools/compare_knn_torch.py --base DIR [--head DIR]
-                                       [--check knn|edgeconv|edgeconv_bwd|
-                                                pooled_mlp|fps|nn1|interp]
+                                       [--check knn|knn_approx|edgeconv|
+                                                edgeconv_bwd|pooled_mlp|fps|
+                                                ball_query|nn1|interp]
                                        [--out FILE]
 
 Runs ``chip_smoke.check_knn`` (or ``check_edgeconv``, or
@@ -18,7 +19,10 @@ row of the check (``KNN_SHAPES``, ``EDGECONV_SHAPES`` in f32 and bf16, or
 times the kernel, the plain version and, for kNN, ``cdist`` + ``topk``
 (CUDA-event medians); for EdgeConv and the pooled MLP also the device time
 of the wrapper's launches (torch.profiler; None for a checkout that does
-not report it). For the pooled MLP each process then runs
+not report it). For the exact kNN each process also prints, on inputs of
+the tool's own seed (the same in both checkouts), a digest of the
+distances and indices at every ``KNN_SHAPES`` row, and the tool prints
+which digests agree. For the pooled MLP each process then runs
 ``chip_smoke.train`` (the train_vel step resumed from the checkpoint, 4
 steps) and reports the G+D and G-only steps' ms (CUDA events) and wall ms,
 and the peak device memory of the process; then the affine form's device
@@ -65,6 +69,23 @@ by both from ``runs/compare_interp_train.pt``), each with its error against
 the plain version, then ``chip_smoke.train``. Both print each digest row's
 device time in both checkouts and their sum per unit of work (nn1: one gate
 + train step + eval sample; interp: one G+D step).
+
+``--check knn_approx`` runs ``chip_smoke.check_knn_approx`` (every
+``APPROX_SHAPES`` row: ms, plain ms, ``cdist`` + ``topk``; a head that
+reports them adds the device ms and the plan), then on inputs of the
+tool's own seed, the same in both checkouts, each row's device time, the
+exact kernel's device time on the same inputs and a digest of the result
+(d2 and idx, which carry the keys); each checkout saves its results, and
+where the digests differ the tool holds head against base by
+``knn.approx_agreement`` (the digests may differ only where it explains
+it); then ``chip_smoke.serving_approx`` and ``chip_smoke.approx_ms`` (the
+gate and ms per frame, f32 dynamic and bf16 static, with the approximate
+graph kNN on). ``--check ball_query`` runs ``chip_smoke.check_ball_query``
+(every ``BALL_SHAPES`` row: ms, plain ms), then on the tool's own inputs
+each stage's device time and index digest (which must be equal), then
+``chip_smoke.train``. Both print each digest row's device time in both
+checkouts and their sum per unit of work (knn_approx: one f32 dynamic +
+bf16 static forward + rollout frame; ball_query: one G+D step).
 Last comes the card's name and power limit.
 """
 
@@ -277,6 +298,65 @@ for layout, q, c, v, bias, cutoff, kind, per in cases:
                       "per_step": per}}), flush=True)
 """
 
+# the approximate kNN: each APPROX_SHAPES row on inputs drawn here, the same
+# in both checkouts: device time of it and of the exact kernel, a digest of
+# its result, the results saved for the agreement check; then the
+# approximate serving frames
+KNN_APPROX_CHILD = DIGEST + """
+from tpugan_tpu_torch import PAD_SENTINEL
+from tpugan_tpu_torch.ops.kernels import edgeconv, knn as K, nn1
+saved = []
+for graph, n, d, k, pad, per_fwd, per_static, per_frame in chip_smoke.APPROX_SHAPES:
+    c = t(1, n, d) * (0.3 if d == 3 else 1.0)
+    c[:, n - pad:] = PAD_SENTINEL
+    bias = torch.zeros(1, n, device=dev)
+    run = lambda: K.knn_approx_kernel(c, c, bias, k)
+    d2, idx = run()
+    name = f"{{graph}} D={{d}} k={{k}}"
+    print(json.dumps({{"digest": [name], "sha": digest([d2, idx]),
+                      "device_ms": chip_smoke.device_ms(run, torch),
+                      "exact_device_ms": chip_smoke.device_ms(
+                          lambda: K.knn_kernel(c, c, bias, k), torch),
+                      "per_step": per_fwd + per_static + per_frame}}), flush=True)
+    saved.append((name, c.cpu(), bias.cpu(), d2.cpu(), idx.cpu(), pad))
+torch.save(saved, {saved!r})
+kernels = {{"knn": K.KERNEL, "edgeconv": edgeconv.KERNEL, "nn1": nn1.KERNEL,
+           "knn_approx": K.APPROX}}
+(f32, bf16), (feat, pos, _) = chip_smoke.serving(torch, dev, kernels)
+line = chip_smoke.serving_approx(torch, (f32, bf16), feat, pos, kernels)
+for name, model in (("f32_dynamic", f32), ("bf16_static", bf16)):
+    line[name]["ms_per_frame"] = chip_smoke.approx_ms(torch, model, feat, pos)
+print(json.dumps({{"serving_approx": {{m: line[m] for m in ("f32_dynamic", "bf16_static")}}}}),
+      flush=True)
+"""
+
+# the exact kNN: each KNN_SHAPES row on inputs drawn here, the same in both
+# checkouts: a digest of its distances and indices
+KNN_CHILD = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import knn as K
+for path, b, nq, nc, d, k, self_graph, *_ in chip_smoke.KNN_SHAPES:
+    c = t(b, nc, d)
+    q = c[:, :nq] if self_graph else t(b, nq, d)
+    bias = torch.zeros(b, nc, device=dev)
+    print(json.dumps({{"digest": [f"{{path}} {{b}}x{{nq}}x{{nc}} D={{d}} k={{k}}"],
+                      "sha": digest(K.knn_kernel(q, c, bias, k))}}), flush=True)
+"""
+
+# the ball query: each BALL_SHAPES stage on inputs drawn here, the same in
+# both checkouts: device time and index digest
+BALL_CHILD = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import ball_query as BQ
+for stage, b, nq, nc, r, ns, per in chip_smoke.BALL_SHAPES:
+    cand = 0.3 * t(b, nc, 3)
+    query = cand[:, torch.from_numpy(g.permutation(nc)[:nq]).to(dev)]
+    bias = torch.zeros(b, nc, device=dev)
+    bias[:, ::9] = 2.0
+    run = lambda: BQ.ball_query_kernel(query, cand, r, ns, bias)
+    print(json.dumps({{"digest": [stage], "sha": digest([run()]),
+                      "device_ms": chip_smoke.device_ms(run, torch),
+                      "per_step": per}}), flush=True)
+"""
+
 # the train step's dense interp call, written once by the head checkout
 INTERP_CASE = """
 import sys
@@ -329,6 +409,13 @@ CHECKS = {
     "interp": (("layout", "B", "Nq", "M", "C"),
                lambda row: {"per_step": row["per_step"]},
                ("ms", "device_ms", "plain_ms"), ("interp",)),
+    "knn_approx": (("graph", "D", "k"),
+                   lambda row: {"per_frame_unit": row["per_forward"]
+                                + row["per_static"] + row["per_frame"]},
+                   ("ms", "device_ms", "exact_ms", "plain_ms", "library_ms"),
+                   ("knn_approx",)),
+    "ball_query": (("stage",), lambda row: {"per_step": row["per_step"]},
+                   ("ms", "device_ms", "plain_ms"), ("ball_query",)),
 }
 # a key field a checkout's rows may lack (the dense interp's rows before
 # the train step's own call was added: the random-order row)
@@ -351,9 +438,18 @@ def _train_summary(lines):
     return out
 
 
+# the source whose ptxas report a check prints
+SOURCES = {"knn_approx": "knn", "edgeconv_bwd": "edgeconv"}
+
+
+def _saved(root: str) -> str:
+    """Where a checkout's approximate-kNN results go (gitignored)."""
+    return os.path.join(root, "runs", "compare_knn_approx.pt")
+
+
 def run(root: str, kernel: str, case: str = "") -> dict:
     code = CHILD.format(root=root, kernel=kernel,
-                        source=kernel.replace("_bwd", ""))
+                        source=SOURCES.get(kernel, kernel))
     if kernel == "pooled_mlp":
         code += POOLED_CHILD.format() + POOLED_DIGEST.format()
     elif kernel == "edgeconv_bwd":
@@ -366,6 +462,13 @@ def run(root: str, kernel: str, case: str = "") -> dict:
                  + TRAIN_CHILD.format())
     elif kernel == "interp":
         code += INTERP_CHILD.format(case=case) + TRAIN_CHILD.format()
+    elif kernel == "knn":
+        code += KNN_CHILD.format()
+    elif kernel == "knn_approx":
+        os.makedirs(os.path.dirname(_saved(root)), exist_ok=True)
+        code += KNN_APPROX_CHILD.format(saved=_saved(root))
+    elif kernel == "ball_query":
+        code += BALL_CHILD.format() + TRAIN_CHILD.format()
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True)
     if out.returncode != 0:
@@ -373,7 +476,7 @@ def run(root: str, kernel: str, case: str = "") -> dict:
                            f"\n{out.stderr[-4000:]}")
     key, names = CHECKS[kernel][0], CHECKS[kernel][3]
     rows, ptxas, train, affine, digests, step = {}, None, [], [], {}, None
-    device, per_step, errors, gate = {}, {}, {}, None
+    device, per_step, errors, gate, exact, approx = {}, {}, {}, None, {}, None
     for line in out.stdout.splitlines():
         obj = json.loads(line)
         if "ptxas" in obj:
@@ -383,11 +486,15 @@ def run(root: str, kernel: str, case: str = "") -> dict:
             digests[name] = obj["sha"]
             if "device_ms" in obj:
                 device[name] = obj["device_ms"]
+            if "exact_device_ms" in obj:
+                exact[name] = obj["exact_device_ms"]
             if "per_step" in obj:
                 per_step[name] = obj["per_step"]
             if "max_abs_err" in obj:
                 errors[name] = {k: obj[k] for k in ("max_abs_err", "tol",
                                                     "den_max_rel_err")}
+        elif "serving_approx" in obj:
+            approx = obj["serving_approx"]
         elif obj.get("phase") == "serving":
             gate = obj["chamfer_norm"]
         elif "fused_step" in obj:
@@ -403,7 +510,38 @@ def run(root: str, kernel: str, case: str = "") -> dict:
             "train": _train_summary(train) if train else None,
             "affine_device": affine, "digests": digests, "fused_step": step,
             "device_ms": device, "per_step": per_step, "errors": errors,
-            "gate_chamfer_norm": gate}
+            "gate_chamfer_norm": gate, "exact_device_ms": exact,
+            "serving_approx": approx}
+
+
+def _agreement(head: str, base: str) -> dict:
+    """Per approximate row whose results differ between the checkouts'
+    saved files: ``knn.approx_agreement`` of head against base over the
+    real (not sentinel) rows, and whether it explains the difference."""
+    import torch
+
+    from tpugan_tpu_torch.ops.kernels import knn as K
+
+    out = {}
+    for (name, c, bias, d2h, ih, pad), (_, cb, _, d2b, ib, _) in zip(
+            torch.load(_saved(head)), torch.load(_saved(base))):
+        if not torch.equal(c, cb):
+            raise AssertionError(f"{name}: the checkouts drew other inputs")
+        if torch.equal(d2h, d2b) and torch.equal(ih, ib):
+            out[name] = {"equal": True}
+            continue
+        real = c.shape[1] - pad
+        a = K.approx_agreement((d2h[:, :real], ih[:, :real]),
+                               (d2b[:, :real], ib[:, :real]),
+                               (c[:, :real], c[:, :real], bias[:, :real]))
+        out[name] = {"equal": False, **a,
+                     "sentinel_rows_equal": bool(
+                         torch.equal(d2h[:, real:], d2b[:, real:])
+                         and torch.equal(ih[:, real:], ib[:, real:])),
+                     "explained": a["d2_excess"] <= 0
+                     and a["d2_unexplained"] == 0
+                     and a["rows_unexplained"] == 0}
+    return out
 
 
 def main(argv=None) -> int:
@@ -462,7 +600,7 @@ def main(argv=None) -> int:
             bounds[p] = bounds.get(p, 0.0) + first["bound_ms"] * n_launch
         print(json.dumps(line))
     print(json.dumps({"sums": sums, "bound_ms": bounds}))
-    if args.check in ("pooled_mlp", "fps", "nn1", "interp"):   # train steps
+    if args.check in ("pooled_mlp", "fps", "nn1", "interp", "ball_query"):
         print(json.dumps({"train": [dict(checkout=n, **r["train"])
                                     for n, r in runs]}))
     if args.check == "pooled_mlp":
@@ -475,7 +613,18 @@ def main(argv=None) -> int:
     if args.check == "interp":   # every run's error against the plain version
         print(json.dumps({"errors": [dict(checkout=n, **r["errors"])
                                      for n, r in runs]}))
-    if args.check in ("edgeconv_bwd", "fps", "nn1", "interp"):
+    if args.check == "knn_approx":   # every run's approximate serving frames
+        print(json.dumps({"serving_approx": [
+            dict(checkout=n, **r["serving_approx"]) for n, r in runs]}))
+        exact = {}
+        for n, r in runs:
+            for row, ms in r["exact_device_ms"].items():
+                exact.setdefault(row, {}).setdefault(n, []).append(ms)
+        print(json.dumps({"exact_device_ms": {
+            row: {n: sum(v) / len(v) for n, v in d.items()}
+            for row, d in exact.items()}}))
+    if args.check in ("edgeconv_bwd", "fps", "nn1", "interp", "knn_approx",
+                      "ball_query"):
         # each row's device time on the digest's inputs (torch.profiler;
         # the mean of a checkout's two runs)
         dev = {}
@@ -487,9 +636,11 @@ def main(argv=None) -> int:
         print(json.dumps({"device_ms": {
             row: {**d, "head_over_base": d["head"] / d["base"]}
             for row, d in mean.items()}}))
-    if args.check in ("fps", "nn1", "interp"):
-        # the digest rows' device time per unit of work (FPS and the dense
-        # interp: one G+D step; nn1: one gate + train step + eval sample)
+    if args.check in ("fps", "nn1", "interp", "knn_approx", "ball_query"):
+        # the digest rows' device time per unit of work (FPS, the ball query
+        # and the dense interp: one G+D step; nn1: one gate + train step +
+        # eval sample; knn_approx: one f32 dynamic + bf16 static forward +
+        # rollout frame)
         weight = runs[0][1]["per_step"]
         print(json.dumps({"device_ms_per_step": {
             n: sum(mean[row][n] * w for row, w in weight.items())
@@ -497,7 +648,11 @@ def main(argv=None) -> int:
     if args.check == "edgeconv_bwd":   # every run's fused and grouped step
         print(json.dumps({"fused_step": [dict(checkout=n, **r["fused_step"])
                                          for n, r in runs]}))
-    if args.check in ("edgeconv_bwd", "pooled_mlp", "fps", "nn1", "interp"):
+    if args.check == "knn_approx":   # where the digests differ: agreement
+        print(json.dumps({"agreement_head_vs_base": _agreement(
+            roots["head"], roots["base"])}))
+    if args.check in ("knn", "edgeconv_bwd", "pooled_mlp", "fps", "nn1",
+                      "interp", "knn_approx", "ball_query"):
         # each row's digest per checkout; a checkout's two runs must agree
         shas = {}
         for n, r in runs:

@@ -194,30 +194,6 @@ __device__ __forceinline__ float row_sqnorm(const float* cs, int r) {
   return s2;
 }
 
-// The same for the approximate kernel, which then rounds the row to bf16
-// in place (the float4 chunks in the swizzled order row_sqnorm reads them
-// in, so 8 consecutive rows of a load phase hit 8 bank groups).
-template <int DP>
-__device__ __forceinline__ float row_sqnorm_to_bf16(float* cs, int r) {
-  const int swz = swizzle<DP>(r);
-  float s2 = 0.f;
-#pragma unroll
-  for (int c = 0; c < DP / 4; ++c) {
-    float4* p = reinterpret_cast<float4*>(cs + r * DP + 4 * (c ^ swz));
-    float4 v = *p;
-    s2 = fmaf(v.x, v.x, s2);
-    s2 = fmaf(v.y, v.y, s2);
-    s2 = fmaf(v.z, v.z, s2);
-    s2 = fmaf(v.w, v.w, s2);
-    v.x = __bfloat162float(__float2bfloat16_rn(v.x));
-    v.y = __bfloat162float(__float2bfloat16_rn(v.y));
-    v.z = __bfloat162float(__float2bfloat16_rn(v.z));
-    v.w = __bfloat162float(__float2bfloat16_rn(v.w));
-    *p = v;
-  }
-  return s2;
-}
-
 // Insert (d, i), with d below entry k-1, into the list held by the warp
 // (entry 32 s + lane in ld[s], li[s]); entries behind it move up by one.
 // Candidates arrive in index order, so i exceeds every index in the list:
@@ -412,25 +388,206 @@ int dispatch_k(const float* q, const float* c, const float* bias, float* d2,
 // column (c = l mod 128) the KP smallest keys are kept, and of those 128 KP
 // keys the k smallest are the result (d2 the bf16 value, idx the low half).
 //
-// Design: the exact kernel's block layout (32 queries a block, 4 a warp,
-// double-buffered 128-candidate tiles, the 4 x 4 FFMA dot tile). A tile is
-// one row of the TPU's lane columns: lane l scores the candidates l, l+32,
-// l+64, l+96 of every tile, so it owns 4 whole columns and keeps their
-// lists alone, with no exchange between lanes until the end.
-// - Operands: |q|^2 and |c|^2 are summed from the f32 values, then the
-//   thread that summed a row rounds it to bf16 in place in shared memory
-//   (__float2bfloat16_rn, as XLA's astype), in the swizzled float4 order
-//   that keeps a load phase free of bank conflicts (a plain element loop
-//   over a row is a 32-way conflict at D=64 and made the kernel 5x slower
-//   than the exact one), so the dot tile multiplies bf16 values in f32:
-//   every product is exact and the sums are f32.
-// - Per query and column, a sorted list of KP (2 or 3) keys in registers,
-//   updated by a min / max network (keys are unique, so no tie rule).
-// - At the end, per query, k rounds of __reduce_min_sync over the lanes'
-//   column heads; the lane that holds the minimum pops it, and lane r % 32
-//   writes entry r.
-// 4 queries x 4 columns x 3 keys are 48 registers beside the 16 dots, so
-// the kernel asks for 2 blocks an SM (128 registers) instead of 3.
+// What bounds it on the H100. The cross term is 2 D bf16 operations a pair
+// (13.4 GFLOP for a 10,240-point graph at D = 64, 14 us on the tensor
+// cores). What is left is the per-pair epilogue on the f32, integer and
+// conversion pipes: the norms' sum, the -2 acc fma, the clamp and the bias
+// (4 f32), half a bf16x2 conversion, the key (1.5 integer) and one compare
+// with its column's KP-th key; a column of Nc / 128 candidates admits
+// about KP (1 + ln(Nc / 128 / KP)) of them (random order), each a 2 KP - 1
+// min / max insert. chip_smoke.py counts that bound: about 0.024 ms at a
+// 10,240-point graph, issue-bound. This kernel inserts every pair (2 KP - 1
+// min / max, branch-free), so it does about twice the integer work the
+// function needs; it is 4-5x that bound (PERF.md).
+//
+// Design.
+// - approx_prep, once per launch: every query and candidate row to bf16
+//   (cvt.rn.bf16x2, round to nearest even as XLA's astype) zero-padded to
+//   DK = 16, 32 or 64 features, and its |p|^2 summed from the f32 values in
+//   feature order (fmaf, the exact kernel's order); a candidate's |c|^2
+//   beside its bias as a float2. A self graph prepares its rows once. The
+//   main kernel never rounds a row.
+// - approx_kernel: a block owns 16 WQ queries of one batch row: WQ query
+//   tiles of 16 rows (one mma m16 tile a warp) times 4 warps across the 128
+//   lane columns (32 columns a warp). A warp's A fragments (its 16 queries,
+//   all DK features) stay in registers for the whole candidate loop.
+//   Candidate tiles of 128 rows (one row of lane columns) and their (|c|^2,
+//   bias) are double-buffered in shared memory by cp.async, rows at a pitch
+//   of DK + 8 bf16 so that an ldmatrix phase reads 8 bank groups.
+// - Per tile a warp takes its 4 n8 slices one at a time: B fragments by
+//   ldmatrix, DK / 16 mma.sync.m16n8k16 (bf16 in, f32 accumulate), and the
+//   accumulator fragment straight into keys. A thread holds rows g and g + 8
+//   and columns 2t, 2t + 1 of every slice, so over its warp's 4 slices it
+//   owns the same 16 (query, lane column) cells on every tile, and keeps
+//   their KP-deep sorted key lists in registers (a min / max network; keys
+//   are unique, so no tie rule). The two columns of a row round to bf16 in
+//   one cvt.rn.bf16x2.f32.
+// - At the end the lists go to shared memory ([query][KP][128 columns]) and
+//   one warp per query takes the k smallest keys: k rounds of
+//   __reduce_min_sync over the heads of the columns l, l + 32, l + 64,
+//   l + 96 that lane l reads; lane r % 32 writes entry r. A round costs
+//   0.41-0.48 us of the kernel at a 10,240-point graph (a warp's 4 queries
+//   one after another): 9-10% of it at k = 20, 5% at k = 12 (an H100 SXM,
+//   tools/knn_approx_sweep_torch.py).
+// - Registers bound the queries an SM holds: 8 threads a query, each with
+//   16 x KP keys. The instances WQ = 2 and 5 keep 2 and 1 blocks on an SM
+//   (at most 128 and 96 registers a thread; 64 and 80 queries an SM).
+//   knn_approx_plan (ops/kernels/knn.py) picks WQ from the card's SM count:
+//   on 132 SMs a 10,240- or 10,112-point graph takes WQ = 5 (128 or 127
+//   blocks, one wave), a 4,096-point graph WQ = 2 (128 blocks, one wave);
+//   fewer, larger blocks read the candidate rows from L2 fewer times. Both
+//   were the fastest instance at their shapes on an H100 SXM
+//   (tools/knn_approx_sweep_torch.py, PERF.md); a WQ = 1 instance (5 blocks
+//   an SM) was slower at every shape and is not built.
+// - D = 3 pads K to 16 all the same: an FFMA product of the 4 padded
+//   features in the same fragment layout was slower at the 10,240-point
+//   graph, WQ = 5 (kernel 0.1035 against 0.0958 ms; 0.1101 against 0.1025
+//   with the row preparation; one sweep on an H100 SXM, PERF.md), so there
+//   is one product.
+// - The shared-memory attribute is set once per instance, not per launch.
+namespace approx {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TILE = 128;             // candidates a tile: one row of lane columns
+constexpr int WC = 4;                 // warps across the lane columns
+constexpr int NT = TILE / WC / 8;     // n8 slices a warp
+constexpr int CELLS = 2 * NT;         // lane columns a thread holds in each of its rows
+constexpr unsigned NONE = 0xffffffffu;  // above every key
+
+__host__ __device__ constexpr int pitch(int dk) { return dk + 8; }
+// one tile buffer: [TILE][DK + 8] bf16 rows, then [TILE] float2 (|c|^2, bias)
+__host__ __device__ constexpr int tile_bytes(int dk) { return TILE * pitch(dk) * 2 + TILE * 8; }
+// the lists at the end: [16 WQ][KP][TILE] keys, rows 8 words apart
+__host__ __device__ constexpr int list_pitch(int kp) { return kp * TILE + 8; }
+__host__ __device__ constexpr size_t smem_bytes(int dk, int kp, int wq) {
+  return 2 * tile_bytes(dk) > 16 * wq * list_pitch(kp) * 4
+             ? 2 * tile_bytes(dk) : 16 * wq * list_pitch(kp) * 4;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// bf16x2 of (lo, hi), round to nearest even: lo in the low half
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Rows [0, nq) of query and [0, nc) of cand (nq = 0 for a self graph):
+// bf16 copies zero-padded to DK features, |p|^2 from the f32 values. A
+// block stages PREP_ROWS rows through shared memory (a warp reads a row's
+// features together, all its rows' loads in flight at once), then thread i
+// converts row i (an odd pitch: no bank conflict).
+constexpr int PREP_ROWS = 128;
+
+template <int DK>
+__global__ void __launch_bounds__(PREP_ROWS)
+approx_prep(const float* __restrict__ query, const float* __restrict__ cand,
+            const float* __restrict__ bias, int nq, int nc, int D,
+            bf16* __restrict__ qh, float* __restrict__ q2,
+            bf16* __restrict__ ch, float2* __restrict__ cn) {
+  __shared__ float rows[PREP_ROWS][DK + 1];
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * PREP_ROWS;
+  const int n = min(PREP_ROWS, nq + nc - i0);
+#pragma unroll
+  for (int j = 0; j < PREP_ROWS / 4; ++j) {  // warp w: rows w, w + 4, ...
+    const int r = (tid >> 5) + 4 * j;
+    const int i = i0 + r;
+    const float* src = i < nq ? query + (size_t)i * D : cand + (size_t)(i - nq) * D;
+#pragma unroll
+    for (int d = tid & 31; d < DK; d += 32)
+      if (r < n) rows[r][d] = d < D ? __ldg(src + d) : 0.f;
+  }
+  __syncthreads();
+  const int i = i0 + tid;
+  if (i >= nq + nc) return;
+  const bool is_q = i < nq;
+  const int r = is_q ? i : i - nq;
+  uint4* dst = reinterpret_cast<uint4*>((is_q ? qh : ch) + (size_t)r * DK);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < DK / 8; ++c) {
+    unsigned w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float lo = rows[tid][8 * c + 2 * j];
+      const float hi = rows[tid][8 * c + 2 * j + 1];
+      s = fmaf(lo, lo, s);
+      s = fmaf(hi, hi, s);
+      w[j] = pack_bf16x2(lo, hi);
+    }
+    dst[c] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  if (is_q) q2[r] = s;
+  else cn[r] = make_float2(s, __ldg(bias + r));
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src));
+}
+
+// Candidate rows [t0, t0 + TILE) and their (|c|^2, bias) into buffer dst
+// (a rolled loop: unrolled, its hoisted addresses cost registers).
+template <int DK, int THREADS>
+__device__ __forceinline__ void fetch(unsigned char* dst, const bf16* cb,
+                                      const float2* nb, int t0, int tid) {
+  constexpr int CH = DK / 8;  // 16-byte chunks a row
+  constexpr int ROWS = TILE * CH;
+#pragma unroll 1
+  for (int e = tid; e < ROWS + TILE / 2; e += THREADS) {
+    if (e < ROWS) {
+      const int r = e / CH;
+      const int c = e - r * CH;
+      cp_async_16(dst + 2 * (r * pitch(DK) + 8 * c), cb + ((t0 + r) * DK + 8 * c));
+    } else {
+      const int j = e - ROWS;
+      cp_async_16(dst + 2 * TILE * pitch(DK) + 16 * j, nb + t0 + 2 * j);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// B fragments of candidates n0 .. n0 + 7 (the slice's n8 columns) at every
+// k16 step: bf[ks] = {features 16 ks + 2t, +1 ; 16 ks + 8 + 2t, +1} of
+// candidate n0 + g.
+template <int KS>
+__device__ __forceinline__ void load_b(const bf16* tile, int n0, int lane,
+                                       unsigned (&bf)[KS][2]) {
+  constexpr int P = pitch(16 * KS);
+  if constexpr (KS == 1) {
+    const unsigned a = smem_u32(tile + (n0 + (lane & 7)) * P + 8 * ((lane >> 3) & 1));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(bf[0][0]), "=r"(bf[0][1]) : "r"(a));
+  } else {
+#pragma unroll
+    for (int j = 0; j < KS / 2; ++j) {
+      const unsigned a = smem_u32(tile + (n0 + (lane & 7)) * P + 32 * j + 8 * (lane >> 3));
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                   : "=r"(bf[2 * j][0]), "=r"(bf[2 * j][1]), "=r"(bf[2 * j + 1][0]),
+                     "=r"(bf[2 * j + 1][1])
+                   : "r"(a));
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// max(|q|^2 + |c|^2 - 2 acc, 0) + bias, in the contract's order (2 acc is
+// exact, so the fma rounds as the subtraction does)
+__device__ __forceinline__ float dist(float q2, float c2, float bias, float acc) {
+  return __fadd_rn(fmaxf(fmaf(-2.f, acc, __fadd_rn(q2, c2)), 0.f), bias);
+}
 
 // (a0 < a1 < ... ) <- the KP smallest of the list and x
 template <int KP>
@@ -440,99 +597,113 @@ __device__ __forceinline__ void insert_key(unsigned (&a)[KP], unsigned x) {
   a[0] = min(a[0], x);
 }
 
-template <int DP, int KP>
-__global__ void __launch_bounds__(THREADS, 2)
-knn_approx_kernel(const float* __restrict__ query, const float* __restrict__ cand,
-                  const float* __restrict__ bias, float* __restrict__ out_d,
-                  long long* __restrict__ out_i, int Nq, int Nc, int D, int k,
-                  bool vec) {
-  constexpr int CT = DP * TILE + TILE;
-  constexpr unsigned NONE = 0xffffffffu;  // above every key
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [DP][QB], bf16 values after the norms
-  float* q2s = qs + DP * QB;        // [QB]
-  float* c2s = q2s + QB;            // [TILE]
-  float* tiles = c2s + TILE;        // 2 x ([TILE][DP] candidates, [TILE] bias)
+__device__ __forceinline__ unsigned ld_u32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned*>(p));
+}
+
+template <int DK, int KP, int WQ>
+__global__ void __launch_bounds__(128 * WQ, WQ == 2 ? 2 : 1)
+approx_kernel(const bf16* __restrict__ qh, const float* __restrict__ q2, int q2_stride,
+              const bf16* __restrict__ ch, const float2* __restrict__ cn,
+              float* __restrict__ out_d, long long* __restrict__ out_i, int Nq,
+              int Nc, int k) {
+  constexpr int THREADS = 128 * WQ, WARPS = 4 * WQ, QB = 16 * WQ;
+  constexpr int KS = DK / 16, LP = list_pitch(KP), TB = tile_bytes(DK);
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int wq = warp / WC;
+  const int wc = warp - wq * WC;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * QB;
-  const float* qb = query + (size_t)b * Nq * D;
-  const float* cb = cand + (size_t)b * Nc * D;
-  const float* vb = bias + (size_t)b * Nc;
+  const bf16* cb = ch + (size_t)b * Nc * DK;
+  const float2* nb = cn + (size_t)b * Nc;
 
-  load_queries<DP>(qs, qb, q0, Nq, D, tid);
-  __syncthreads();
-  if (tid < QB) {  // |q|^2 from f32, then the query's values to bf16
-    float s = 0.f;
+  // the warp's query tile: A fragments and |q|^2 of rows g and g + 8
+  const int ra = q0 + 16 * wq + g;
+  const int rb = ra + 8;
+  const bf16* qb = qh + (size_t)b * Nq * DK;
+  unsigned af[KS][4];
 #pragma unroll
-    for (int d = 0; d < DP; ++d) s = fmaf(qs[d * QB + tid], qs[d * QB + tid], s);
-    q2s[tid] = s;
-#pragma unroll
-    for (int d = 0; d < DP; ++d)
-      qs[d * QB + tid] = __bfloat162float(__float2bfloat16_rn(qs[d * QB + tid]));
+  for (int ks = 0; ks < KS; ++ks) {
+    const int f = 16 * ks + 2 * t;
+    af[ks][0] = ra < Nq ? ld_u32(qb + (size_t)ra * DK + f) : 0u;
+    af[ks][1] = rb < Nq ? ld_u32(qb + (size_t)rb * DK + f) : 0u;
+    af[ks][2] = ra < Nq ? ld_u32(qb + (size_t)ra * DK + f + 8) : 0u;
+    af[ks][3] = rb < Nq ? ld_u32(qb + (size_t)rb * DK + f + 8) : 0u;
   }
+  const float qa2 = ra < Nq ? __ldg(q2 + ((size_t)b * Nq + ra) * q2_stride) : 0.f;
+  const float qb2 = rb < Nq ? __ldg(q2 + ((size_t)b * Nq + rb) * q2_stride) : 0.f;
 
-  unsigned key[QW][CPL][KP];
+  unsigned key[2][CELLS][KP];  // rows g, g + 8 x the thread's 8 lane columns
 #pragma unroll
-  for (int q = 0; q < QW; ++q)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < CPL; ++j)
+    for (int c = 0; c < CELLS; ++c)
 #pragma unroll
-      for (int s = 0; s < KP; ++s) key[q][j][s] = NONE;
-  const int qw = q0 + QW * warp;
+      for (int s = 0; s < KP; ++s) key[h][c][s] = NONE;
 
-  fetch_tile<DP>(tiles, cb, vb, 0, Nc, D, vec, tid);
-
+  fetch<DK, THREADS>(smem, cb, nb, 0, tid);
   for (int t0 = 0, it = 0; t0 < Nc; t0 += TILE, ++it) {  // Nc % TILE == 0
-    float* cs = tiles + (it & 1) * CT;
-    const float* bs = cs + DP * TILE;
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();  // tile t is in; tile t-1's buffer is no longer read
-    if (t0 + TILE < Nc)
-      fetch_tile<DP>(tiles + ((it + 1) & 1) * CT, cb, vb, t0 + TILE, Nc, D, vec, tid);
-    // |c|^2 from f32, then the row to bf16 in place
-    if (tid < TILE) c2s[tid] = row_sqnorm_to_bf16<DP>(cs, tid);
-    __syncthreads();  // rounded rows and |c|^2 are in
-
-    float acc[QW][CPL];
-    dot_tile<DP>(acc, qs, cs, warp, lane);
-
-    float c2[CPL], bv[CPL];
+    if (t0 + TILE < Nc) fetch<DK, THREADS>(smem + ((it + 1) & 1) * TB, cb, nb, t0 + TILE, tid);
+    const bf16* cs = reinterpret_cast<const bf16*>(smem + (it & 1) * TB);
+    const float* ns = reinterpret_cast<const float*>(smem + (it & 1) * TB + 2 * TILE * pitch(DK));
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      c2[j] = c2s[32 * j + lane];
-      bv[j] = bs[32 * j + lane];
-    }
+    for (int s = 0; s < NT; ++s) {
+      const int n0 = 32 * wc + 8 * s;
+      unsigned bf[KS][2];
+      load_b<KS>(cs, n0, lane, bf);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int q = 0; q < QW; ++q) {
-      const float q2 = q2s[QW * warp + q];
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const float dd = fmaxf(q2 + c2[j] - 2.f * acc[q][j], 0.f) + bv[j];
-        const unsigned bits = __bfloat16_as_ushort(__float2bfloat16_rn(dd));
-        insert_key<KP>(key[q][j], (bits << 16) | (t0 + 32 * j + lane));
-      }
+      for (int ks = 0; ks < KS; ++ks) mma_bf16(acc, af[ks], bf[ks][0], bf[ks][1]);
+      // (|c|^2, bias) of columns n0 + 2t and n0 + 2t + 1
+      const float4 cv = *reinterpret_cast<const float4*>(ns + 2 * (n0 + 2 * t));
+      const unsigned c0 = t0 + n0 + 2 * t;
+      const unsigned pa = pack_bf16x2(dist(qa2, cv.x, cv.y, acc[0]), dist(qa2, cv.z, cv.w, acc[1]));
+      const unsigned pb = pack_bf16x2(dist(qb2, cv.x, cv.y, acc[2]), dist(qb2, cv.z, cv.w, acc[3]));
+      insert_key<KP>(key[0][2 * s], (pa << 16) | c0);
+      insert_key<KP>(key[0][2 * s + 1], (pa & 0xffff0000u) | (c0 + 1));
+      insert_key<KP>(key[1][2 * s], (pb << 16) | c0);
+      insert_key<KP>(key[1][2 * s + 1], (pb & 0xffff0000u) | (c0 + 1));
     }
   }
 
+  // the lists into shared memory, over the tile buffers
+  __syncthreads();  // every warp is done with the last tile
+  unsigned* lists = reinterpret_cast<unsigned*>(smem);
 #pragma unroll
-  for (int q = 0; q < QW; ++q) {
-    if (qw + q >= Nq) continue;  // warp-uniform
-    const size_t row = ((size_t)b * Nq + qw + q) * k;
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c)
+#pragma unroll
+      for (int s = 0; s < KP; ++s)
+        lists[(16 * wq + g + 8 * h) * LP + s * TILE + 32 * wc + 8 * (c >> 1) + 2 * t + (c & 1)] =
+            key[h][c][s];
+  __syncthreads();
+
+  // one warp a query: the k smallest of its 128 KP keys
+  for (int rr = warp; rr < QB && q0 + rr < Nq; rr += WARPS) {  // warp-uniform
+    unsigned kk[4][KP];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int s = 0; s < KP; ++s) kk[j][s] = lists[rr * LP + s * TILE + 32 * j + lane];
+    const size_t row = ((size_t)b * Nq + q0 + rr) * k;
     for (int r = 0; r < k; ++r) {
-      unsigned m = key[q][0][0];
-#pragma unroll
-      for (int j = 1; j < CPL; ++j) m = min(m, key[q][j][0]);
+      unsigned m = min(min(kk[0][0], kk[1][0]), min(kk[2][0], kk[3][0]));
       m = __reduce_min_sync(FULL, m);
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        if (key[q][j][0] == m) {  // one column of one lane: keys are unique
+      for (int j = 0; j < 4; ++j) {
+        if (kk[j][0] == m) {  // one column of one lane: keys are unique
 #pragma unroll
-          for (int s = 0; s + 1 < KP; ++s) key[q][j][s] = key[q][j][s + 1];
-          key[q][j][KP - 1] = NONE;
+          for (int s = 0; s + 1 < KP; ++s) kk[j][s] = kk[j][s + 1];
+          kk[j][KP - 1] = NONE;
         }
       }
       if (lane == (r & 31)) {
@@ -543,55 +714,84 @@ knn_approx_kernel(const float* __restrict__ query, const float* __restrict__ can
   }
 }
 
-template <int DP, int KP>
-int launch_approx(const float* q, const float* c, const float* bias, float* d2,
-                  long long* idx, int B, int Nq, int Nc, int D, int k,
-                  cudaStream_t stream) {
-  const dim3 grid((Nq + QB - 1) / QB, B);
-  if constexpr (smem_bytes<DP>() > 48 * 1024)
-    cudaFuncSetAttribute(knn_approx_kernel<DP, KP>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem_bytes<DP>()));
-  knn_approx_kernel<DP, KP><<<grid, THREADS, smem_bytes<DP>(), stream>>>(
-      q, c, bias, d2, idx, Nq, Nc, D, k,
-      D % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0);
+// scratch: ch [B Nc DK] bf16, cn [B Nc] float2, then for a graph that is
+// not its own candidate set qh [B Nq DK] bf16 and q2 [B Nq] f32, each from
+// a 16-byte boundary (ops/kernels/knn.py : approx_scratch_bytes)
+__host__ __forceinline__ size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+
+template <int DK, int KP, int WQ>
+int launch(const float* q, const float* c, const float* bias, float* d2,
+           long long* idx, unsigned char* scratch, long long scratch_bytes, int B,
+           int Nq, int Nc, int D, int k, cudaStream_t stream) {
+  constexpr size_t SMEM = smem_bytes(DK, KP, WQ);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      approx_kernel<DK, KP, WQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const bool self = q == c && Nq == Nc;
+  const size_t nq = self ? 0 : (size_t)B * Nq, nc = (size_t)B * Nc;
+  bf16* ch = reinterpret_cast<bf16*>(scratch);
+  float2* cn = reinterpret_cast<float2*>(scratch + align16(nc * DK * 2));
+  unsigned char* rest = reinterpret_cast<unsigned char*>(cn) + align16(nc * 8);
+  bf16* qh = self ? ch : reinterpret_cast<bf16*>(rest);
+  float* q2 = self ? &cn->x : reinterpret_cast<float*>(rest + align16(nq * DK * 2));
+  const size_t need = (rest - scratch) + (self ? 0 : align16(nq * DK * 2) + align16(nq * 4));
+  if ((size_t)scratch_bytes < need || nq + nc >= (size_t)1 << 31)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = static_cast<int>(nq + nc);
+  approx_prep<DK><<<(rows + PREP_ROWS - 1) / PREP_ROWS, PREP_ROWS, 0, stream>>>(
+      q, c, bias, static_cast<int>(nq), static_cast<int>(nc), D, qh, q2, ch, cn);
+  const dim3 grid((Nq + 16 * WQ - 1) / (16 * WQ), B);
+  approx_kernel<DK, KP, WQ><<<grid, 128 * WQ, SMEM, stream>>>(
+      qh, q2, self ? 2 : 1, ch, cn, d2, idx, Nq, Nc, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int dispatch_kp(const float* q, const float* c, const float* bias, float* d2,
-                long long* idx, int B, int Nq, int Nc, int D, int k, int kp,
-                cudaStream_t s) {
-  if (kp == 2) return launch_approx<DP, 2>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
-  if (kp == 3) return launch_approx<DP, 3>(q, c, bias, d2, idx, B, Nq, Nc, D, k, s);
+template <int DK, int KP>
+int dispatch_wq(int wq, const float* q, const float* c, const float* bias, float* d2,
+                long long* idx, unsigned char* scratch, long long bytes, int B, int Nq,
+                int Nc, int D, int k, cudaStream_t s) {
+  if (wq == 2) return launch<DK, KP, 2>(q, c, bias, d2, idx, scratch, bytes, B, Nq, Nc, D, k, s);
+  if (wq == 5) return launch<DK, KP, 5>(q, c, bias, d2, idx, scratch, bytes, B, Nq, Nc, D, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int DK>
+int dispatch_kp(int kp, int wq, const float* q, const float* c, const float* bias,
+                float* d2, long long* idx, unsigned char* scratch, long long bytes, int B,
+                int Nq, int Nc, int D, int k, cudaStream_t s) {
+  if (kp == 2) return dispatch_wq<DK, 2>(wq, q, c, bias, d2, idx, scratch, bytes, B, Nq, Nc, D, k, s);
+  if (kp == 3) return dispatch_wq<DK, 3>(wq, q, c, bias, d2, idx, scratch, bytes, B, Nq, Nc, D, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace approx
 }  // namespace
 
 // Shapes the wrapper (ops/kernels/knn.py : knn_approx_kernel) admits: D <=
 // 64, Nc a multiple of 128 in [4096, 65536), 3 <= k <= 128 kp, kp = 2 or 3
-// (chunk_kp_approx(k)), all tensors contiguous on one device.
+// (chunk_kp_approx(k)), B <= 65535, all tensors contiguous on one device;
+// wq = 2 or 5 (knn_approx_plan); scratch of approx_scratch_bytes.
 extern "C" int knn_approx_bf16(const void* query, const void* cand,
-                               const void* bias, void* d2, void* idx, int B,
-                               int Nq, int Nc, int D, int k, int kp,
+                               const void* bias, void* d2, void* idx,
+                               void* scratch, long long scratch_bytes, int B,
+                               int Nq, int Nc, int D, int k, int kp, int wq,
                                void* stream) {
   const auto* q = static_cast<const float*>(query);
   const auto* c = static_cast<const float*>(cand);
   const auto* v = static_cast<const float*>(bias);
   auto* od = static_cast<float*>(d2);
   auto* oi = static_cast<long long*>(idx);
+  auto* sc = static_cast<unsigned char*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  if (Nc % TILE != 0 || Nc >= (1 << 16) || k > TILE * kp)
+  if (Nc % approx::TILE != 0 || Nc >= (1 << 16) || k < 1 || k > approx::TILE * kp ||
+      Nq < 1 || B < 1 || B > 65535 || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 4) return dispatch_kp<4>(q, c, v, od, oi, B, Nq, Nc, D, k, kp, s);
-  if (D <= 8) return dispatch_kp<8>(q, c, v, od, oi, B, Nq, Nc, D, k, kp, s);
-  if (D <= 16) return dispatch_kp<16>(q, c, v, od, oi, B, Nq, Nc, D, k, kp, s);
-  if (D <= 32) return dispatch_kp<32>(q, c, v, od, oi, B, Nq, Nc, D, k, kp, s);
-  if (D <= 64) return dispatch_kp<64>(q, c, v, od, oi, B, Nq, Nc, D, k, kp, s);
+  if (D <= 16) return approx::dispatch_kp<16>(kp, wq, q, c, v, od, oi, sc, scratch_bytes, B, Nq, Nc, D, k, s);
+  if (D <= 32) return approx::dispatch_kp<32>(kp, wq, q, c, v, od, oi, sc, scratch_bytes, B, Nq, Nc, D, k, s);
+  if (D <= 64) return approx::dispatch_kp<64>(kp, wq, q, c, v, od, oi, sc, scratch_bytes, B, Nq, Nc, D, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
 // Shapes the wrapper (ops/kernels/knn.py) admits: D <= 64, 1 <= k <= 32
 // (k <= 64 for D <= 4), k <= Nc, all tensors contiguous on one device.
 extern "C" int knn_f32(const void* query, const void* cand, const void* bias,

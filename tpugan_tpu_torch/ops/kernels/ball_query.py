@@ -20,6 +20,17 @@ KERNEL = CudaKernel("ball_query", {
 
 _PLAIN_CHUNK = 1024   # query rows per [rows, Nc] block in the plain version
 
+# The block shape of csrc/ball_query.cu: WARPS queries a block, one a warp,
+# and candidate tiles of TILE points in shared memory.
+WARPS = 8
+TILE = 1024
+MAX_ROWS = 65535      # B, the grid's second dimension
+
+
+def blocks(b: int, nq: int) -> int:
+    """The launch's grid for ``b`` rows of ``nq`` queries."""
+    return b * -(-nq // WARPS)
+
 
 def radius_sq(radius: float) -> float:
     """radius^2 rounded as the JAX package rounds it (``float32(r) ** 2``)."""
@@ -82,6 +93,9 @@ def ball_query_kernel(query: torch.Tensor, cand: torch.Tensor, radius: float,
                          f"{cand.device}, {bias.device}")
     if {query.dtype, cand.dtype, bias.dtype} != {torch.float32}:
         raise TypeError("ball_query kernel takes float32 query, cand and bias")
+    if b > MAX_ROWS:
+        raise ValueError(f"ball_query kernel is built for B <= {MAX_ROWS}; "
+                         f"got B={b}")
     query, cand, bias = query.contiguous(), cand.contiguous(), bias.contiguous()
     idx = torch.empty((b, nq, nsample), dtype=torch.int64, device=query.device)
     if b * nq == 0:

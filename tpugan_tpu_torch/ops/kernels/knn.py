@@ -21,11 +21,15 @@ The TPU kernel's folds break ties toward the lower tile and its merge
 toward the lower index, both the key's order; a query whose true top-k
 holds more than kp members of one lane column loses the rest, as there.
 ``KERNEL.launches`` counts the exact kernel's launches and
-``APPROX.launches`` the approximate one's.
+``APPROX.launches`` the approximate one's; :func:`knn_approx_plan` picks the
+approximate kernel's block shape.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -33,8 +37,8 @@ import torch
 from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel("knn", {"knn_f32": [VOIDP] * 5 + [INT] * 5 + [VOIDP]})
-APPROX = CudaKernel("knn", {"knn_approx_bf16": [VOIDP] * 5 + [INT] * 6
-                            + [VOIDP]})
+APPROX = CudaKernel("knn", {"knn_approx_bf16": [VOIDP] * 6 + [ctypes.c_longlong]
+                            + [INT] * 7 + [VOIDP]})
 
 MAX_D = 64      # widest point / feature vector the kernel is compiled for
 MAX_K = 32      # largest k bucket the kernel is compiled for at any D
@@ -211,6 +215,97 @@ def approx_agreement(got, want, got_in, want_in=None) -> dict:
             "queries": b * nq}
 
 
+# The approximate kernel's launch shapes (csrc/knn.cu : approx): a block
+# holds WQ query tiles of 16 rows (128 WQ threads), and its instance's
+# launch bounds keep APPROX_BLOCKS_PER_SM[WQ] blocks resident on an SM (128
+# and 96 registers a thread). The plan takes the instance whose busiest
+# SM has the least work: blocks spread evenly over the SMs, an SM runs its
+# blocks in waves of APPROX_BLOCKS_PER_SM, and a wave costs its queries but
+# at least APPROX_SAT_QUERIES (an SM with fewer resident queries issues at a
+# share of its rate); on a tie the fewer blocks (each block reads every
+# candidate row from L2).
+APPROX_BLOCKS_PER_SM = {2: 2, 5: 1}
+APPROX_SAT_QUERIES = 32
+APPROX_MAX_ROWS = 65535     # B, the grid's second dimension
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class ApproxPlan:
+    """A launch of the approximate kernel: ``wq`` query tiles of 16 a block
+    (16 wq queries, 128 wq threads)."""
+    wq: int
+
+    @property
+    def queries(self) -> int:
+        return 16 * self.wq
+
+    @property
+    def threads(self) -> int:
+        return 128 * self.wq
+
+    @property
+    def per_sm(self) -> int:
+        """Blocks an SM holds (the instance's launch bounds)."""
+        return APPROX_BLOCKS_PER_SM[self.wq]
+
+    def blocks(self, b: int, nq: int) -> int:
+        """The launch's grid."""
+        return b * _ceil(nq, self.queries)
+
+    def waves(self, b: int, nq: int, sms: int) -> int:
+        """Rounds of resident blocks the busiest SM runs."""
+        return _ceil(_ceil(self.blocks(b, nq), sms), self.per_sm)
+
+    def admits(self) -> bool:
+        return self.wq in APPROX_BLOCKS_PER_SM
+
+
+def _approx_cost(plan: ApproxPlan, b: int, nq: int, sms: int) -> int:
+    """The work of the busiest SM by the model above, in queries."""
+    left, cost = _ceil(plan.blocks(b, nq), sms), 0
+    while left > 0:
+        wave = min(left, plan.per_sm)
+        cost += max(wave * plan.queries, APPROX_SAT_QUERIES)
+        left -= wave
+    return cost
+
+
+@functools.lru_cache(maxsize=256)
+def knn_approx_plan(b: int, nq: int, nc: int, d: int, k: int,
+                    sms: int) -> ApproxPlan:
+    """The approximate kernel's launch for ``b`` rows of ``nq`` queries over
+    ``nc`` candidates of width ``d`` on a card of ``sms`` SMs (the model
+    above)."""
+    if (not 1 <= b <= APPROX_MAX_ROWS or nq < 1 or not 1 <= d <= MAX_D
+            or sms < 1 or not (takes_approx(nc, k) and nc <= 0xFFFF
+                               and k <= chunk_kp_approx(k) * LANES)):
+        raise ValueError(f"knn approx kernel: B={b}, Nq={nq}, Nc={nc}, D={d}, "
+                         f"k={k}, {sms} SMs")
+    plans = [ApproxPlan(wq) for wq in sorted(APPROX_BLOCKS_PER_SM)]
+    return min(plans, key=lambda p: (_approx_cost(p, b, nq, sms),
+                                     p.blocks(b, nq)))
+
+
+def approx_dk(d: int) -> int:
+    """Features of the kernel's bf16 rows: D padded to 16, 32 or 64."""
+    return 16 if d <= 16 else 32 if d <= 32 else 64
+
+
+def approx_scratch_bytes(b: int, nq: int, nc: int, d: int, self_graph: bool
+                         ) -> int:
+    """The kernel's scratch: bf16 candidate rows and (|c|^2, bias), then
+    (not for a self graph) bf16 query rows and |q|^2, each from a 16-byte
+    boundary (csrc/knn.cu : approx::launch)."""
+    a16 = lambda x: -(-x // 16) * 16
+    dk = approx_dk(d)
+    out = a16(b * nc * dk * 2) + a16(b * nc * 8)
+    return out if self_graph else out + a16(b * nq * dk * 2) + a16(b * nq * 4)
+
+
 def knn_approx_kernel(query: torch.Tensor, cand: torch.Tensor,
                       bias: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -218,7 +313,7 @@ def knn_approx_kernel(query: torch.Tensor, cand: torch.Tensor,
     int64), for shapes where :func:`takes_approx` holds (the caller
     dispatches; other shapes raise). Inputs as :func:`knn_kernel`'s. A CPU
     tensor takes :func:`knn_approx_plain`; a CUDA tensor launches the
-    kernel or raises."""
+    kernel, planned by :func:`knn_approx_plan`, or raises."""
     b, nq, d = query.shape
     nc = cand.shape[1]
     if cand.shape != (b, nc, d) or bias.shape != (b, nc):
@@ -235,15 +330,34 @@ def knn_approx_kernel(query: torch.Tensor, cand: torch.Tensor,
                          f"{cand.device}, {bias.device}")
     if {query.dtype, cand.dtype, bias.dtype} != {torch.float32}:
         raise TypeError("knn approx kernel takes float32 query, cand and bias")
-    if d > MAX_D:
-        raise ValueError(f"knn approx kernel is built for D <= {MAX_D}; "
-                         f"got D={d}")
+    if d > MAX_D or b > APPROX_MAX_ROWS:
+        raise ValueError(f"knn approx kernel is built for D <= {MAX_D}, "
+                         f"B <= {APPROX_MAX_ROWS}; got D={d}, B={b}")
+    if b * nq == 0:
+        return (torch.empty((b, nq, k), dtype=torch.float32, device=query.device),
+                torch.empty((b, nq, k), dtype=torch.int64, device=query.device))
+    sms = torch.cuda.get_device_properties(query.device).multi_processor_count
+    return _launch_approx(query, cand, bias, k,
+                          knn_approx_plan(b, nq, nc, d, k, sms))
+
+
+def _launch_approx(query: torch.Tensor, cand: torch.Tensor,
+                   bias: torch.Tensor, k: int, plan: ApproxPlan
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn_approx_kernel`'s launch under ``plan`` (CUDA float32
+    tensors of its shapes, B Nq >= 1); the plan sweep and the card tests
+    force other plans here."""
+    b, nq, d = query.shape
+    nc = cand.shape[1]
+    if not plan.admits():
+        raise ValueError(f"knn approx kernel: {plan} not built")
     query, cand, bias = query.contiguous(), cand.contiguous(), bias.contiguous()
+    self_graph = query.data_ptr() == cand.data_ptr() and nq == nc
     d2 = torch.empty((b, nq, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((b, nq, k), dtype=torch.int64, device=query.device)
-    if b * nq == 0:
-        return d2, idx
+    nbytes = approx_scratch_bytes(b, nq, nc, d, self_graph)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=query.device)
     APPROX.launch("knn_approx_bf16", ptr(query), ptr(cand), ptr(bias),
-                  ptr(d2), ptr(idx), b, nq, nc, d, k, chunk_kp_approx(k),
-                  stream_of(query))
+                  ptr(d2), ptr(idx), ptr(scratch), nbytes, b, nq, nc, d, k,
+                  chunk_kp_approx(k), plan.wq, stream_of(query))
     return d2, idx
