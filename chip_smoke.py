@@ -28,12 +28,12 @@ Phases, one JSON line each (``phase`` names it):
            PyTorch yardstick the port never calls, the bound; kNN also on
            exact ties at serving width (duplicated grid points), equal to
            the plain version; each EdgeConv row names its variant (the
-           bf16 (64, 128, 256) class runs the tensor-core kernel, "tc",
+           bf16 classes of TC_CLASSES run the tensor-core kernel, "tc",
            the f32 classes of F32_TILED_CLASSES the f32 register-tiled
            one, "f32t", the rest the general one, "simt") and adds the
-           device time of the wrapper's launches (torch.profiler), and the
-           tc class and every f32t class on exact inputs at serving width
-           equal the plain version bit for bit;
+           device time of the wrapper's launches (torch.profiler), and
+           every tc and f32t class on exact inputs at serving width
+           equals the plain version bit for bit;
   kernel   (approx) the approximate bf16 kNN kernel against its plain
            version at the six approximate serving shapes (the f32 dynamic
            forward's five graph shapes at 10,240 points, the first also the
@@ -52,11 +52,12 @@ Phases, one JSON line each (``phase`` names it):
   serving  with the launch counts reset: the trained checkpoint through the
            port's loader, the f32 dynamic and the bf16 static forward of a
            10,240-point frame, the Chamfer gate between them, the launches
-           of each (the bf16 static forward's 9 EdgeConvs include 3
-           tensor-core launches and no f32t one, the f32 dynamic's 9 f32t
-           launches and no tensor-core one);
+           of each (the bf16 static forward's 9 EdgeConvs are 9
+           tensor-core launches, none on the general kernel, the f32
+           dynamic's 9 f32t launches and no tensor-core one); autograd off
+           in this phase and the next three;
   rollout  a 25-frame rollout of about 10,000-point frames (counts read
-           after it; 3 tensor-core EdgeConv launches a frame, no f32t one);
+           after it; 9 tensor-core EdgeConv launches a frame, no other);
   timing   the card's forward against the CPU's (plain versions) at 2,048
            points, and ms per frame of both serving forwards;
   serving_approx with the launch counts reset: the exact f32 dynamic
@@ -332,9 +333,9 @@ EDGECONV_SHAPES = [  # (name, C, H, O, K, aggregate, mlp, launches per forward)
     ("up k=4", 64, 128, 256, 4, "max", True, 1),
     ("mask k=8 sum", 64, 128, 128, 8, "sum", False, 1),
 ]
-# bf16 static forward launches of the tensor-core EdgeConv kernel: the
-# (64, 128, 256) SharedMLP class, "up/mask k=12" twice and "up k=4" once
-TC_PER_BF16_FORWARD = 3
+# bf16 static forward launches of the tensor-core EdgeConv kernel: every
+# shape class above
+TC_PER_BF16_FORWARD = 9
 # f32 dynamic forward launches of the f32 register-tiled EdgeConv kernel:
 # every shape class above
 F32T_PER_F32_FORWARD = 9
@@ -590,8 +591,8 @@ def check_knn_approx(torch, dev, rng):
 
 
 def check_edgeconv(torch, dev, rng):
-    """Each EdgeConv shape class of the serving forward in f32 and bf16; the
-    bf16 (64, 128, 256) SharedMLP class must launch the tensor-core kernel
+    """Each EdgeConv shape class of the serving forward in f32 and bf16; a
+    bf16 class of ``TC_CLASSES`` must launch the tensor-core kernel
     (variant "tc") once, an f32 class of ``F32_TILED_CLASSES`` the f32
     register-tiled kernel ("f32t") once, every other row the general
     kernel ("simt"). Then exact inputs at those classes and serving width,
@@ -646,19 +647,20 @@ def check_edgeconv(torch, dev, rng):
 
 
 def check_edgeconv_exact(torch, dev, k=12):
-    """The tensor-core class (bf16) and each class of the f32 register-tiled
-    kernel (f32) at serving width on exact inputs: ctr = 0 and sparse
-    {0, 1} neighbours and weights, so leaky ReLU is the identity and every
-    product and sum is an integer, exact in f32 in any order; planes 1 and
-    3 repeat planes 0 and 2 (max and min tie). Every aggregate must equal
-    the plain version bit for bit and launch its kernel once. Its own
-    generator keeps the other checks' data as it was."""
+    """Each class of the tensor-core kernel (bf16) and of the f32
+    register-tiled kernel (f32) at serving width on exact inputs: ctr = 0
+    and sparse {0, 1} neighbours and weights, so leaky ReLU is the identity
+    and every product and sum is an integer, exact in f32 in any order;
+    planes 1 and 3 repeat planes 0 and 2 (max and min tie). Every aggregate
+    must equal the plain version bit for bit and launch its kernel once.
+    Its own generator keeps the other checks' data as it was."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     gen = np.random.default_rng(8)
     bits = lambda p, *s: torch.from_numpy(
         (gen.random(s) < p).astype(np.float32)).to(dev)
-    classes = [("tc", torch.bfloat16, (True, *E.TC_WIDTHS))]
+    classes = [("tc", torch.bfloat16, cls)
+               for cls in sorted(E.TC_CLASSES, reverse=True)]
     classes += [("f32t", torch.float32, cls)
                 for cls in sorted(E.F32_TILED_CLASSES, reverse=True)]
     for variant, cdt, (mlp, c, h, o) in classes:
@@ -804,17 +806,20 @@ def serving(torch, dev, kernels):
     feat = torch.cat([pos, torch.zeros_like(pos)], -1)    # zero velocity
 
     c0, tc0, ft0 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
-    exp_f32, mask_f32, _, valid_f32 = f32(feat, pos)
+    with torch.no_grad():
+        exp_f32, mask_f32, _, valid_f32 = f32(feat, pos)
     torch.cuda.synchronize()
     c1, tc1, ft1 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
     expect(delta(c0, c1), {"knn": 7, "edgeconv": 9, "nn1": 0},
            "f32 dynamic forward")
-    exp_bf16, _, _, valid_bf16 = bf16(feat, pos)
+    with torch.no_grad():
+        exp_bf16, _, _, valid_bf16 = bf16(feat, pos)
     torch.cuda.synchronize()
     c2, tc2, ft2 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
     expect(delta(c1, c2), {"knn": 1, "edgeconv": 9, "nn1": 0},
            "bf16 static forward")
-    # of the EdgeConv launches, those of the tensor-core kernel
+    # of the EdgeConv launches, those of the tensor-core kernel: every one
+    # of the bf16 static forward's, none on the general kernel
     if (tc1 - tc0, tc2 - tc1) != (0, TC_PER_BF16_FORWARD):
         raise AssertionError(f"tensor-core EdgeConv launches: f32 dynamic "
                              f"{tc1 - tc0}, bf16 static {tc2 - tc1}; expected "
@@ -824,8 +829,14 @@ def serving(torch, dev, kernels):
         raise AssertionError(f"f32t EdgeConv launches: f32 dynamic "
                              f"{ft1 - ft0}, bf16 static {ft2 - ft1}; expected "
                              f"{F32T_PER_F32_FORWARD} and 0")
+    general = (c1["edgeconv"] - c0["edgeconv"] - (tc1 - tc0) - (ft1 - ft0),
+               c2["edgeconv"] - c1["edgeconv"] - (tc2 - tc1) - (ft2 - ft1))
+    if general != (0, 0):
+        raise AssertionError(f"general EdgeConv launches (f32 dynamic, bf16 "
+                             f"static): {general}, expected (0, 0)")
     scale = float((pos ** 2).sum(-1).mean())
-    cd = float(chamfer(exp_f32, exp_bf16).mean())
+    with torch.no_grad():
+        cd = float(chamfer(exp_f32, exp_bf16).mean())
     cd_norm = cd / (exp_f32.shape[1] * scale)
     torch.cuda.synchronize()
     expect(delta(c2, counts(kernels)), {"knn": 0, "edgeconv": 0, "nn1": 2},
@@ -944,13 +955,15 @@ def profile(torch, name, model, feat, pos, out_dir):
     from torch.profiler import ProfilerActivity, profile as prof
 
     os.makedirs(out_dir, exist_ok=True)
-    model(feat, pos)
-    torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
+    with torch.no_grad():
         model(feat, pos)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            model(feat, pos)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     # device rows only: a host op's self device time is the time of the
     # kernels it launched, which have rows of their own
     table = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -980,7 +993,9 @@ def rollout_frames(torch, model):
     for t in range(ROLLOUT_FRAMES):
         n = ROLLOUT_POINTS - 8 * (t % 4)
         frames.append((pos[0, :n].cpu().numpy(), None))
-        expanded = model(torch.cat([pos, torch.zeros_like(pos)], -1), pos)[0]
+        with torch.no_grad():
+            expanded = model(torch.cat([pos, torch.zeros_like(pos)], -1),
+                             pos)[0]
         pos = expanded[:, :ROLLOUT_POINTS] * 0.999
     return frames
 
@@ -998,7 +1013,7 @@ def rollout(torch, model, kernels, approx=False):
     t0 = time.perf_counter()
     neighbors.set_approx_graph_knn(approx)
     try:
-        outs = rollout_sequence(model, frames, use_vel=True)
+        outs = rollout_sequence(model, frames, use_vel=True)   # no autograd
     finally:
         neighbors.set_approx_graph_knn(False)
     wall = time.perf_counter() - t0
@@ -1010,7 +1025,8 @@ def rollout(torch, model, kernels, approx=False):
     if (tc, ft) != (TC_PER_BF16_FORWARD * ROLLOUT_FRAMES, 0):
         raise AssertionError(f"rollout: {tc} tensor-core and {ft} f32t EdgeConv "
                              f"launches, expected "
-                             f"{TC_PER_BF16_FORWARD * ROLLOUT_FRAMES} and 0")
+                             f"{TC_PER_BF16_FORWARD * ROLLOUT_FRAMES} and 0 "
+                             f"(none on the general kernel)")
     if len(outs) != ROLLOUT_FRAMES:
         raise AssertionError(f"rollout returned {len(outs)} frames")
     sizes = []
@@ -1038,7 +1054,8 @@ def serving_approx(torch, models, feat, pos, kernels):
 
     f32, bf16 = models
     c0 = counts(kernels)
-    exp_e, _, _, valid_e = f32(feat, pos)
+    with torch.no_grad():
+        exp_e, _, _, valid_e = f32(feat, pos)
     torch.cuda.synchronize()
     expect(delta(c0, counts(kernels)), {"knn": 7, "edgeconv": 9},
            "exact f32 dynamic forward")
@@ -1050,13 +1067,15 @@ def serving_approx(torch, models, feat, pos, kernels):
         c0 = counts(kernels)
         neighbors.set_approx_graph_knn(True)
         try:
-            exp_a, _, _, valid_a = model(feat, pos)
+            with torch.no_grad():
+                exp_a, _, _, valid_a = model(feat, pos)
         finally:
             neighbors.set_approx_graph_knn(False)
         torch.cuda.synchronize()
         got = delta(c0, counts(kernels))
         expect(got, want, f"approximate {name} forward")
-        cd = float(chamfer(exp_e, exp_a).mean()) / (exp_e.shape[1] * scale)
+        with torch.no_grad():
+            cd = float(chamfer(exp_e, exp_a).mean()) / (exp_e.shape[1] * scale)
         out[name] = {"launches": got, "chamfer_norm_vs_exact": cd,
                      "keep_mask_agreement_vs_exact":
                          float((valid_a == valid_e).float().mean()),
@@ -1072,7 +1091,8 @@ def approx_ms(torch, model, feat, pos) -> float:
 
     neighbors.set_approx_graph_knn(True)
     try:
-        return time_ms(lambda: model(feat, pos), torch)
+        with torch.no_grad():
+            return time_ms(lambda: model(feat, pos), torch)
     finally:
         neighbors.set_approx_graph_knn(False)
 
@@ -2621,6 +2641,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     build_s = _build.build_all()
+    tc_ptxas = ptxas_summary("edgeconv", "edgeconv_tc_kernel")
     f32t_ptxas = ptxas_summary("edgeconv", "edgeconv_f32t_kernel")
     # the f32 EdgeConv backward on GEMM tiles (csrc/edgeconv.cu : bwdt)
     bwdt_ptxas = {f: ptxas_summary("edgeconv", f)
@@ -2642,7 +2663,8 @@ def main(argv=None) -> int:
                     for f in ("approx_kernel", "approx_prep")}
     ball_ptxas = {"ball_query_kernel": ptxas_summary("ball_query",
                                                      "ball_query_kernel")}
-    for name, rep in [("edgeconv_f32t_kernel", f32t_ptxas),
+    for name, rep in [("edgeconv_tc_kernel", tc_ptxas),
+                      ("edgeconv_f32t_kernel", f32t_ptxas),
                       *bwdt_ptxas.items(), *pmlp_ptxas.items(),
                       *fps_ptxas.items(), *nn1_ptxas.items(),
                       *interp_ptxas.items(), *approx_ptxas.items(),
@@ -2654,7 +2676,7 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s,
           "ptxas": {n: ptxas_summary(n) for n in _build.sources()},
-          "ptxas_edgeconv_tc": ptxas_summary("edgeconv", "edgeconv_tc_kernel"),
+          "ptxas_edgeconv_tc": tc_ptxas,
           "ptxas_edgeconv_f32t": f32t_ptxas,
           "ptxas_edgeconv_bwd_tiled": bwdt_ptxas,
           "ptxas_pooled_mlp": pmlp_ptxas,
@@ -2695,8 +2717,11 @@ def main(argv=None) -> int:
 
     # checks and timings past the counted run
     result = cpu_reference(torch, dev, pos_np)
-    result["f32_dynamic_ms_per_frame"] = time_ms(lambda: f32(feat, pos), torch)
-    result["bf16_static_ms_per_frame"] = time_ms(lambda: bf16(feat, pos), torch)
+    with torch.no_grad():
+        result["f32_dynamic_ms_per_frame"] = time_ms(lambda: f32(feat, pos),
+                                                     torch)
+        result["bf16_static_ms_per_frame"] = time_ms(lambda: bf16(feat, pos),
+                                                     torch)
     emit({"phase": "timing", **result})
     if args.profile:
         profile(torch, "f32_dynamic", f32, feat, pos, args.profile)
@@ -2816,7 +2841,15 @@ def main(argv=None) -> int:
         key: sum(r[key] * r["per_forward"] for r in ec_bf16)
         for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
     ec_entry["bf16_static"]["times_are"] = (
-        "one bf16 static forward (9 EdgeConvs, 3 on the tensor-core kernel)")
+        "one bf16 static forward (9 EdgeConvs, all on the tensor-core kernel)")
+    # of which the six launches at EdgeConv_0's, the IDGCN's and the mask
+    # head's sum classes
+    narrow = [r for r in ec_bf16 if (r["C"], r["H"], r["O"]) != (64, 128, 256)]
+    ec_entry["bf16_static"]["narrow_classes"] = {
+        key: sum(r[key] * r["per_forward"] for r in narrow)
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    ec_entry["bf16_static"]["narrow_classes"]["launches"] = sum(
+        r["per_forward"] for r in narrow)
     # of the serving path's EdgeConv launches, those of each kernel variant
     ec_entry["serving_launches_by_variant"] = {
         **serving_variants,

@@ -116,19 +116,21 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
     assert edgeconv.F32_TILED_BWD_LAUNCHES == 0
 
 
-# (mlp, C, H, O) of the classes the f32 register-tiled kernel takes
+# (mlp, C, H, O) of the classes the f32 register-tiled kernel takes, and
+# those the bf16 tensor-core kernel takes (the same)
 F32_TILED = [(True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
              (True, 32, 16, 32)]
+TC = F32_TILED
 
 
 @pytest.mark.parametrize("dtype,mlp,widths,tc,f32t", [
     (torch.bfloat16, True, (64, 128, 256), True, False),
     (torch.float32, True, (64, 128, 256), False, True),
     (torch.bfloat16, True, (64, 128, 128), False, False),
-    (torch.bfloat16, False, (64, 128, 128), False, False),
+    (torch.bfloat16, False, (64, 128, 128), True, False),
     (torch.bfloat16, False, (64, 128, 256), False, False),
-    (torch.bfloat16, True, (6, 64, 128), False, False),
-    (torch.bfloat16, True, (32, 16, 32), False, False),
+    (torch.bfloat16, True, (6, 64, 128), True, False),
+    (torch.bfloat16, True, (32, 16, 32), True, False),
     (torch.bfloat16, True, (32, 128, 256), False, False),
     (torch.float16, True, (64, 128, 256), False, False),
     (torch.float32, False, (64, 128, 128), False, True),
@@ -138,17 +140,20 @@ F32_TILED = [(True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
     (torch.float32, True, (32, 128, 256), False, False),
     (torch.float32, True, (10, 24, 40), False, False),
     (torch.float32, True, (12, 8, 8), False, False),
+    (torch.bfloat16, False, (32, 16, 32), False, False),
+    (torch.bfloat16, True, (6, 64, 256), False, False),
 ])
 def test_edgeconv_dispatch_takes_tensor_cores_only_at_its_class(dtype, mlp,
                                                                  widths, tc,
                                                                  f32t):
-    """Only the bf16 forward with the SharedMLP at (C, H, O) = (64, 128,
-    256) routes to the tensor-core kernel, and only the f32 forward at a
-    class of ``F32_TILED`` to the f32 register-tiled kernel; another dtype,
-    width or SharedMLP setting takes the general kernel."""
+    """Only the bf16 forward at a class of ``TC`` routes to the tensor-core
+    kernel, and only the f32 forward at a class of ``F32_TILED`` to the f32
+    register-tiled kernel; another dtype, width or SharedMLP setting takes
+    the general kernel."""
     assert edgeconv.takes_tensor_cores(dtype, mlp, *widths) is tc
     assert edgeconv.takes_f32_tiled(dtype, mlp, *widths) is f32t
     assert edgeconv.F32_TILED_CLASSES == frozenset(F32_TILED)
+    assert edgeconv.TC_CLASSES == frozenset(TC)
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -346,6 +351,18 @@ def _edgeconv_cases():
         cases += [pytest.param(c, h, o, 12, a, 2, 9992, "exact",
                                id=f"{name}-exact-k12-{a}")
                   for a in ("max", "min", "sum", "mean")]
+    # the tensor-core kernel's narrow classes (bf16; in f32 the same rows
+    # run the register-tiled kernel): every aggregate at ragged N with each
+    # K the serving forward gives the class, a repeat bit for bit
+    for c, h, o, ks in [(6, 64, 128, (20,)), (32, 16, 32, (20, 10)),
+                        (64, 128, None, (8,))]:
+        name = f"tc-{c}-{h}-{o}"
+        cases += [pytest.param(c, h, o, k, agg, 2, n, "random",
+                               id=f"{name}-k{k}-{agg}-n{n}")
+                  for k in ks for agg in ("max", "min", "sum", "mean")
+                  for n in (77, 9992)]
+        cases.append(pytest.param(c, h, o, ks[0], "max", 2, 77, "repeat",
+                                  id=f"{name}-k{ks[0]}-max-n77-repeat"))
     return cases
 
 
@@ -367,11 +384,11 @@ def _exact_edgeconv_inputs(gen, b, k, n, c, h, o):
 @pytest.mark.parametrize("c,h,o,k,agg,b,n,kind", _edgeconv_cases())
 def test_edgeconv_kernel_matches_plain_on_card(card, gen, dtype, c, h, o, k,
                                                agg, b, n, kind):
-    """The bf16 forward at (64, 128, 256) with the SharedMLP launches the
-    tensor-core kernel (one count of TC_LAUNCHES), the f32 forward at a
-    class of F32_TILED the f32 register-tiled kernel (one count of
-    F32_TILED_LAUNCHES), every other forward the general kernel (none of
-    either); exact inputs give the plain version bit for bit."""
+    """The bf16 forward at a class of TC launches the tensor-core kernel
+    (one count of TC_LAUNCHES), the f32 forward at a class of F32_TILED
+    the f32 register-tiled kernel (one count of F32_TILED_LAUNCHES), every
+    other forward the general kernel (none of either); exact inputs give
+    the plain version bit for bit, and a second call the first's bits."""
     t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
     if kind == "exact":
         args = _exact_edgeconv_inputs(gen, b, k, n, c, h, o)
@@ -387,10 +404,15 @@ def test_edgeconv_kernel_matches_plain_on_card(card, gen, dtype, c, h, o, k,
     before, before_f32t = edgeconv.TC_LAUNCHES, edgeconv.F32_TILED_LAUNCHES
     out_k = edgeconv.edgeconv_fused(*on_card, aggregate=agg,
                                     compute_dtype=dtype)
-    tc = dtype == torch.bfloat16 and (c, h, o) == (64, 128, 256)
-    f32t = dtype == torch.float32 and (o is not None, c, h, o or h) in F32_TILED
+    cls = (o is not None, c, h, o or h)
+    tc = dtype == torch.bfloat16 and cls in TC
+    f32t = dtype == torch.float32 and cls in F32_TILED
     assert edgeconv.TC_LAUNCHES == before + int(tc)
     assert edgeconv.F32_TILED_LAUNCHES == before_f32t + int(f32t)
+    if kind == "repeat":
+        again = edgeconv.edgeconv_fused(*on_card, aggregate=agg,
+                                        compute_dtype=dtype)
+        assert torch.equal(again, out_k)
     out_p = edgeconv.edgeconv_plain(*args, aggregate=agg, compute_dtype=dtype)
     if kind == "exact":
         assert torch.equal(out_k.cpu(), out_p)

@@ -34,6 +34,14 @@ dynamic serving forward, one G+D train step, one eval sample and one
 density phase; for EdgeConv one f32 dynamic and one bf16 static serving
 forward; for the pooled MLP the forward and the backward of one G+D step.
 
+``--check edgeconv`` also prints, on inputs of the tool's own seed, each
+``EDGECONV_SHAPES`` row's device time and output digest in f32 and bf16
+and their device-time sums per f32 dynamic and per bf16 static forward;
+then per checkout ``chip_smoke.serving``'s gate, ms per frame of both
+serving modes (CUDA events, autograd off), three profiles of one forward
+of each mode (``chip_smoke.profile``: wall ms, kernel ms, idle share) and
+``chip_smoke.serving_approx``'s line (``chamfer_norm_vs_exact``).
+
 ``--check edgeconv_bwd`` runs ``chip_smoke.check_edgeconv_bwd`` (every
 ``EDGECONV_BWD_SHAPES`` row: ms, device ms, plain ms, the row's path),
 sums them per fused train step, then ``chip_smoke.fused_vs_grouped`` (one
@@ -330,6 +338,41 @@ print(json.dumps({{"serving_approx": {{m: line[m] for m in ("f32_dynamic", "bf16
       flush=True)
 """
 
+# the fused-EdgeConv forward: each EDGECONV_SHAPES row in f32 and bf16 on
+# inputs drawn here, the same in both checkouts: device time and a digest of
+# the output; then the serving frames (the gate, ms per frame of each mode
+# with autograd off, PROFILES profiles of one forward of each mode) and the
+# approximate serving line (its chamfer_norm_vs_exact)
+PROFILES = 3
+EDGECONV_CHILD = DIGEST + """
+from tpugan_tpu_torch.ops.kernels import edgeconv as E, knn as K, nn1
+n = chip_smoke.N_POINTS
+for name, c, h, o, k, agg, mlp, per in chip_smoke.EDGECONV_SHAPES:
+    for cdt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        args = (t(1, k, n, c).to(cdt), t(1, n, c).to(cdt), t(c, h) / c ** .5,
+                t(c, h) / c ** .5, t(h, h) / h ** .5 if mlp else None,
+                t(h, o) / h ** .5 if mlp else None, agg, cdt)
+        run = lambda: E.edgeconv_fused(*args)
+        print(json.dumps({{"digest": [name, kind], "sha": digest([run()]),
+                          "device_ms": chip_smoke.device_ms(run, torch),
+                          "dtype": kind, "per_forward": per}}), flush=True)
+kernels = {{"knn": K.KERNEL, "edgeconv": E.KERNEL, "nn1": nn1.KERNEL,
+           "knn_approx": K.APPROX}}
+(f32, bf16), (feat, pos, _) = chip_smoke.serving(torch, dev, kernels)
+frames = {{}}
+with torch.no_grad():
+    for mode, model in (("f32_dynamic", f32), ("bf16_static", bf16)):
+        frames[mode] = chip_smoke.time_ms(lambda: model(feat, pos), torch)
+print(json.dumps({{"serving_frames": frames}}), flush=True)
+for _ in range({profiles}):
+    for mode, model in (("f32_dynamic", f32), ("bf16_static", bf16)):
+        chip_smoke.profile(torch, mode, model, feat, pos,
+                           os.path.join({root!r}, "runs", "compare_profile"))
+line = chip_smoke.serving_approx(torch, (f32, bf16), feat, pos, kernels)
+print(json.dumps({{"serving_approx": {{m: line[m] for m in ("f32_dynamic", "bf16_static")}}}}),
+      flush=True)
+"""
+
 # the exact kNN: each KNN_SHAPES row on inputs drawn here, the same in both
 # checkouts: a digest of its distances and indices
 KNN_CHILD = DIGEST + """
@@ -469,6 +512,9 @@ def run(root: str, kernel: str, case: str = "") -> dict:
         code += KNN_APPROX_CHILD.format(saved=_saved(root))
     elif kernel == "ball_query":
         code += BALL_CHILD.format() + TRAIN_CHILD.format()
+    elif kernel == "edgeconv":
+        code += "import os\n" + EDGECONV_CHILD.format(profiles=PROFILES,
+                                                       root=root)
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True)
     if out.returncode != 0:
@@ -477,6 +523,7 @@ def run(root: str, kernel: str, case: str = "") -> dict:
     key, names = CHECKS[kernel][0], CHECKS[kernel][3]
     rows, ptxas, train, affine, digests, step = {}, None, [], [], {}, None
     device, per_step, errors, gate, exact, approx = {}, {}, {}, None, {}, None
+    frames, profiles, weights = None, [], {}
     for line in out.stdout.splitlines():
         obj = json.loads(line)
         if "ptxas" in obj:
@@ -490,11 +537,17 @@ def run(root: str, kernel: str, case: str = "") -> dict:
                 exact[name] = obj["exact_device_ms"]
             if "per_step" in obj:
                 per_step[name] = obj["per_step"]
+            if "per_forward" in obj:
+                weights[name] = (obj["dtype"], obj["per_forward"])
             if "max_abs_err" in obj:
                 errors[name] = {k: obj[k] for k in ("max_abs_err", "tol",
                                                     "den_max_rel_err")}
         elif "serving_approx" in obj:
             approx = obj["serving_approx"]
+        elif "serving_frames" in obj:
+            frames = obj["serving_frames"]
+        elif obj.get("phase") == "profile":
+            profiles.append(obj)
         elif obj.get("phase") == "serving":
             gate = obj["chamfer_norm"]
         elif "fused_step" in obj:
@@ -511,7 +564,8 @@ def run(root: str, kernel: str, case: str = "") -> dict:
             "affine_device": affine, "digests": digests, "fused_step": step,
             "device_ms": device, "per_step": per_step, "errors": errors,
             "gate_chamfer_norm": gate, "exact_device_ms": exact,
-            "serving_approx": approx}
+            "serving_approx": approx, "serving_frames": frames,
+            "profiles": profiles, "weights": weights}
 
 
 def _agreement(head: str, base: str) -> dict:
@@ -624,7 +678,7 @@ def main(argv=None) -> int:
             row: {n: sum(v) / len(v) for n, v in d.items()}
             for row, d in exact.items()}}))
     if args.check in ("edgeconv_bwd", "fps", "nn1", "interp", "knn_approx",
-                      "ball_query"):
+                      "ball_query", "edgeconv"):
         # each row's device time on the digest's inputs (torch.profiler;
         # the mean of a checkout's two runs)
         dev = {}
@@ -645,6 +699,24 @@ def main(argv=None) -> int:
         print(json.dumps({"device_ms_per_step": {
             n: sum(mean[row][n] * w for row, w in weight.items())
             for n in ("base", "head")}}))
+    if args.check == "edgeconv":
+        # the digest rows' device time per f32 dynamic and per bf16 static
+        # forward; every run's gate, serving frames (ms, CUDA events) and
+        # profiles (wall, kernels, idle share), and the approximate serving
+        # line (chamfer_norm_vs_exact, keep-mask agreement)
+        weight = runs[0][1]["weights"]
+        print(json.dumps({"device_ms_per_forward": {
+            n: {kind: sum(mean[row][n] * w for row, (k2, w) in weight.items()
+                          if k2 == kind) for kind in ("f32", "bf16")}
+            for n in ("base", "head")}}))
+        for n, r in runs:
+            print(json.dumps({"checkout": n, "gate_chamfer_norm":
+                              r["gate_chamfer_norm"],
+                              "serving_frames": r["serving_frames"],
+                              "profiles": [{k: p[k] for k in (
+                                  "forward", "wall_ms", "device_kernel_ms",
+                                  "device_idle_share")} for p in r["profiles"]],
+                              "serving_approx": r["serving_approx"]}))
     if args.check == "edgeconv_bwd":   # every run's fused and grouped step
         print(json.dumps({"fused_step": [dict(checkout=n, **r["fused_step"])
                                          for n, r in runs]}))
@@ -652,7 +724,7 @@ def main(argv=None) -> int:
         print(json.dumps({"agreement_head_vs_base": _agreement(
             roots["head"], roots["base"])}))
     if args.check in ("knn", "edgeconv_bwd", "pooled_mlp", "fps", "nn1",
-                      "interp", "knn_approx", "ball_query"):
+                      "interp", "knn_approx", "ball_query", "edgeconv"):
         # each row's digest per checkout; a checkout's two runs must agree
         shas = {}
         for n, r in runs:

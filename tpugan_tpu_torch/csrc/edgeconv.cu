@@ -29,10 +29,10 @@
 // the points t / Cout, t / Cout + 256 / Cout, ..., reading the activation
 // rows as float4 broadcasts from shared memory and one weight per input
 // channel straight from device memory. This kernel does not stage the
-// weights; it now serves only the bf16 forwards outside the tensor-core
-// class and the f32 forwards outside the register-tiled kernel's classes
-// (below), where every block reads the weights in the same order from the
-// 50 MB L2 and partly from L1. The last layer's outputs are folded into
+// weights; it now serves only the f32 forwards outside the register-tiled
+// kernel's classes and the bf16 forwards outside the tensor-core kernel's
+// (both below), where every block reads the weights in the same order from
+// the 50 MB L2 and partly from L1. The last layer's outputs are folded into
 // the aggregate in registers (a thread keeps the same (point, column)
 // pairs for every plane), so they never touch shared memory either.
 //
@@ -67,26 +67,37 @@
 // centres too) arrive by cp.async while the current plane computes. Only
 // [N, O] is written.
 //
-// The bf16 forward of the upsampler's and mask head's class, (C, H, O) =
-// (64, 128, 256) with the SharedMLP, has a kernel of its own,
-// edgeconv_tc_kernel (entry point edgeconv_fwd_bf16_tc). It replaces
-// _edgeconv_kernel at this shape, with the same contract. Its bound: a
-// k=12 launch over 10,240 points does 16.1 GFLOP, 16.3 us at the card's
-// 989 TFLOP/s of bf16 tensor-core products, against 15.7 MB of bf16
-// table, 4.7 us at 3.35 TB/s: bound by operations, so every product goes
-// to the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate), where
-// the general kernel widens each bf16 value to f32 and runs FFMA chains at
-// 67 TFLOP/s with its weights read from L2. The bf16 weights (128 KB)
-// are staged once per block in shared memory, and the grid is persistent
-// (one block an SM, at most), so each block spreads that copy over many
-// tiles. Four groups of four warps share the weights; a group owns a
-// 16-point tile, whose planes' rows and edges (formed in f32, rounded to
-// bf16) go to shared memory, the next plane's rows waiting in registers.
-// Its warps split each layer's columns (32 of h1 and h2, 64 of the
-// output); h1 and h2 round to bf16 into shared memory, where ldmatrix
-// reads them (and, transposed, the weights) as fragments; the output
-// columns' aggregate stays in the accumulators' layout in registers over
-// the K planes. Only the [N, 256] result is written.
+// The bf16 forward at every class of the serving forward has a kernel of
+// its own, edgeconv_tc_kernel (entry point edgeconv_fwd_bf16_tc), with the
+// same contract: (mlp, C, H, O) = (1, 64, 128, 256), the upsampler's and
+// mask head's; (0, 64, 128, 128), the mask head's sum; (1, 6, 64, 128),
+// EdgeConv_0; (1, 32, 16, 32), the IDGCN's. It replaces _edgeconv_kernel
+// with cdt = bfloat16 there. Its bound at 10,240 points: a k=12 launch of
+// (64, 128, 256) does 16.1 GFLOP, 16.3 us at the card's 989 TFLOP/s of
+// bf16 tensor-core products, against 15.7 MB of bf16 table, 4.7 us at 3.35
+// TB/s; EdgeConv_0 at k=20 5.3 GFLOP (5.4 us) against 2.5 MB; the IDGCN
+// at k=20 0.73 GFLOP (0.7 us) against 13.1 MB (3.9 us), the k=8 sum 2.7
+// (2.7 us) against 14.4 MB (4.3 us). Every product goes to the tensor
+// cores, where the general kernel widens each bf16 value to f32 and runs
+// FFMA chains at 67 TFLOP/s with its weights read from L2. A class's bf16
+// weights are staged once per block in shared memory (128 KB at (64, 128,
+// 256), 35 KB at the sum, 31 KB at EdgeConv_0, 5 KB at the IDGCN). WG warps
+// share a 16-point tile (tc::Shape): its planes' rows and edges (formed in
+// f32, rounded to bf16) go to shared memory, the next plane's rows waiting
+// in registers; the warps split each layer's columns; h1 and h2 round to
+// bf16 into shared memory, where ldmatrix reads them (and, transposed, the
+// weights) as fragments; the output columns' aggregate stays in the
+// accumulators' layout in registers over the K planes. Only [N, O] is
+// written. EdgeConv_0's 6 channels pad to one k16 step with zero channels
+// and zero weight rows (exact: zeros add nothing); its 16-row tile, 192
+// contiguous bytes, starts on 16 bytes only where (row * 6) % 8 == 0, so a
+// thread moves its 16 bytes at once where they are aligned and whole and
+// in four 4-byte moves otherwise. At (64, 128, 256) four groups of four
+// warps share one block an SM (the weights fill it); the sum and
+// EdgeConv_0 take one group a block, five blocks an SM; the IDGCN (H = 16,
+// two n8 tiles, which four warps cannot split) one warp a tile, meeting
+// only at __syncwarp, two tiles a block. 10,240 points (640 tiles) run in
+// one wave at each of the three.
 #include "gemm_tile.cuh"
 #include "reduce.cuh"
 
@@ -541,26 +552,46 @@ int launch_bwd(const void* nbr, const void* ctr, const void* wn, const void* we,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------ bf16 tensor-core forward (class)
+// ---------------------------------------- bf16 tensor-core forward (classes)
 //
-// edgeconv_tc_kernel: the bf16 SharedMLP forward at (C, H, O) = (64, 128,
-// 256) on mma.sync.m16n8k16 (bf16 in, f32 accumulate). The contract is
+// edgeconv_tc_kernel: the bf16 forward at the classes of Shape on
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate). The contract is
 // edgeconv_kernel's for T = bf16; the head of this file says what bounds it
 // and how it is laid out.
 namespace tc {
 
-constexpr int C = 64, H = 128, O = 256;
-constexpr int GROUPS = 4;                     // point tiles in flight a block
-constexpr int GROUP_THREADS = 128;            // 4 warps share a tile
-constexpr int THREADS = GROUPS * GROUP_THREADS;
-// bf16 row pitches: 16 bytes of padding put the 8 rows an ldmatrix reads
-// in 8 different bank groups
-constexpr int LDC = C + 8, LDH = H + 8, LDO = O + 8;
-constexpr int W_ELEMS = 2 * C * LDH + H * LDH + H * LDO;   // Wn, We, W1, W2
-constexpr int G_ELEMS = 2 * TP * LDC + 2 * TP * LDH;       // nb, edge, h1, h2
-constexpr size_t SMEM = sizeof(__nv_bfloat16) * (W_ELEMS + GROUPS * G_ELEMS);
-
 using bf16 = __nv_bfloat16;
+
+// A class's widths and layout. WG warps share a 16-point tile, warp w
+// computing columns HW w .. +HW of h1 and h2 and OW w .. +OW of the output
+// (without the SharedMLP the output is h1 folded: OW = HW); a block holds
+// GROUPS tiles in flight and at least MINB blocks fit an SM. C pads to
+// CP, a multiple of the k16 step, with zero channels and weight rows: zeros
+// add exactly. bf16 row pitches carry 16 bytes of padding, so the 8 rows an
+// ldmatrix reads lie in 8 different bank groups. Without the SharedMLP the
+// group double-buffers the plane's rows, so a plane needs one barrier.
+template <int C_, int H_, int O_, bool MLP_, int WG_, int GROUPS_, int MINB_>
+struct Shape {
+  static constexpr int C = C_, CP = (C_ + 15) / 16 * 16, H = H_;
+  static constexpr bool MLP = MLP_;
+  static constexpr int O = MLP_ ? O_ : H_;
+  static constexpr int WG = WG_, GROUPS = GROUPS_, MINB = MINB_;
+  static constexpr int GT = 32 * WG, THREADS = GT * GROUPS;
+  static constexpr int HW = H / WG, OW = O / WG;
+  static constexpr int LDC = CP + 8, LDH = H + 8, LDO = O + 8;
+  static constexpr int NB = MLP ? 1 : 2;                 // row buffers a group
+  static constexpr int W_ELEMS = 2 * CP * LDH + (MLP ? H * LDH + H * LDO : 0);
+  static constexpr int G_ELEMS = NB * 2 * TP * LDC + (MLP ? 2 * TP * LDH : 0);
+  static constexpr size_t SMEM = sizeof(bf16) * (W_ELEMS + GROUPS * G_ELEMS);
+  // A tile of TP rows is TP C contiguous values in device memory: UNITS
+  // units of 8 (16 bytes), unit q holding values 8q .. 8q + 7; a thread
+  // owns units gt, gt + GT, ... (NU of them). WIDE: a unit lies in one row.
+  static constexpr bool WIDE = C_ % 8 == 0;
+  static constexpr int UNITS = TP * C_ / 8, NU = (UNITS + GT - 1) / GT;
+  static_assert(C_ % 2 == 0 && H % 16 == 0 && HW % 16 == 0 && OW % 16 == 0,
+                "widths");
+  static_assert(GROUPS <= 15 && SMEM <= 232448, "barriers and shared memory");
+};
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -616,10 +647,16 @@ __device__ __forceinline__ void product(const bf16* a, int lda, const bf16* w,
   }
 }
 
-// The 4 warps of a group meet; group g uses named barrier 1 + g
+// The WG warps of a tile meet: one warp alone syncs as a warp; group g of
+// several uses named barrier 1 + g
+template <class SH>
 __device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + group), "r"(GROUP_THREADS)
-               : "memory");
+  if constexpr (SH::WG == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + group), "r"(SH::GT)
+                 : "memory");
+  }
 }
 
 __device__ __forceinline__ unsigned pack(float lo, float hi) {
@@ -634,14 +671,79 @@ __device__ __forceinline__ unsigned sub_pair(unsigned n, unsigned c) {
   return pack(nf.x - cf.x, nf.y - cf.y);
 }
 
-// rows x cols bf16 from device memory into a [rows][ld] tile, 16 bytes a move
+__device__ __forceinline__ unsigned word(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// A [rows][cols] bf16 weight into a [rows_p][ld] tile, 16 bytes a move;
+// rows past ``rows`` are zero
+template <class SH>
 __device__ __forceinline__ void stage(const bf16* __restrict__ src, int rows,
-                                      int cols, int ld, bf16* dst) {
+                                      int rows_p, int cols, int ld, bf16* dst) {
   const int chunks = cols / 8;
-  for (int e = threadIdx.x; e < rows * chunks; e += THREADS) {
+  for (int e = threadIdx.x; e < rows_p * chunks; e += SH::THREADS) {
     const int r = e / chunks, c = e - r * chunks;
     *reinterpret_cast<uint4*>(dst + r * ld + 8 * c) =
-        __ldg(reinterpret_cast<const uint4*>(src) + e);
+        r < rows ? __ldg(reinterpret_cast<const uint4*>(src) + e)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The thread's units of the TP-row tile of a [.., C] tensor whose first
+// row is at src; values of rows past np read as 0. A unit of a WIDE class
+// is one 16-byte move; otherwise (C = 6: a unit straddles rows, and the
+// tile starts on 16 bytes only where (row * C) % 8 == 0) one 16-byte move
+// where it is aligned and whole, else four 4-byte moves (C is even, so a
+// pair never straddles rows).
+template <class SH>
+__device__ __forceinline__ void load_units(const bf16* __restrict__ src, int np,
+                                           int gt, uint4 (&v)[SH::NU]) {
+  const int live = np * SH::C;   // values of the tile's live rows
+#pragma unroll
+  for (int u = 0; u < SH::NU; ++u) {
+    const int q = gt + u * SH::GT;
+    v[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (q >= SH::UNITS) continue;
+    const bf16* s = src + (size_t)q * 8;
+    const bool aligned = (reinterpret_cast<size_t>(s) & 15) == 0;
+    if (SH::WIDE || (aligned && 8 * q + 8 <= live)) {
+      if (8 * q < live) v[u] = __ldg(reinterpret_cast<const uint4*>(s));
+    } else {
+      const unsigned* sw = reinterpret_cast<const unsigned*>(s);
+      v[u] = make_uint4(8 * q < live ? __ldg(sw) : 0u,
+                        8 * q + 2 < live ? __ldg(sw + 1) : 0u,
+                        8 * q + 4 < live ? __ldg(sw + 2) : 0u,
+                        8 * q + 6 < live ? __ldg(sw + 3) : 0u);
+    }
+  }
+}
+
+// The thread's units of a plane's rows (nv) and their edges bf16(nv - cv)
+// into the [TP][LDC] tiles nb and ed (channels C .. CP stay as they are: 0)
+template <class SH>
+__device__ __forceinline__ void store_units(const uint4 (&nv)[SH::NU],
+                                            const uint4 (&cv)[SH::NU], int gt,
+                                            bf16* nb, bf16* ed) {
+#pragma unroll
+  for (int u = 0; u < SH::NU; ++u) {
+    const int q = gt + u * SH::GT;
+    if (q >= SH::UNITS) continue;
+    const uint4 n = nv[u], c = cv[u];
+    if constexpr (SH::WIDE) {
+      const int o = (q / (SH::C / 8)) * SH::LDC + 8 * (q % (SH::C / 8));
+      *reinterpret_cast<uint4*>(nb + o) = n;
+      *reinterpret_cast<uint4*>(ed + o) =
+          make_uint4(sub_pair(n.x, c.x), sub_pair(n.y, c.y),
+                     sub_pair(n.z, c.z), sub_pair(n.w, c.w));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = 8 * q + 2 * k;   // the pair's first value in the tile
+        const int o = (e / SH::C) * SH::LDC + e % SH::C;
+        *reinterpret_cast<unsigned*>(nb + o) = word(n, k);
+        *reinterpret_cast<unsigned*>(ed + o) = sub_pair(word(n, k), word(c, k));
+      }
+    }
   }
 }
 
@@ -654,100 +756,112 @@ __device__ __forceinline__ float fold(float acc, float y) {
 
 // Blocks hold the weights in shared memory and stride over the point tiles:
 // group g of block x takes tiles g * gridDim.x + x, then every
-// GROUPS * gridDim.x-th. A group's thread t loads row t / 8, channels
-// 8 (t % 8) .. +8 of each plane (and keeps its centre chunk in registers);
-// warp w computes h1 and h2 columns 32 w .. +32 and output columns
-// 64 w .. +64, whose aggregate it keeps in registers over the K planes.
-template <int AGG>
-__global__ void __launch_bounds__(THREADS, 1)
+// GROUPS * gridDim.x-th. A group's threads each load their units of every
+// plane (and keep their centre units in registers); warp w computes its
+// columns of each layer and keeps its output columns' aggregate in the
+// accumulators' layout over the K planes; the next plane's units wait in
+// registers while the current plane's products run. Only [N, O] is
+// written.
+template <class SH, int AGG>
+__global__ void __launch_bounds__(SH::THREADS, SH::MINB)
 edgeconv_tc_kernel(const bf16* __restrict__ nbr, const bf16* __restrict__ ctr,
                    const bf16* __restrict__ wn, const bf16* __restrict__ we,
                    const bf16* __restrict__ w1, const bf16* __restrict__ w2,
                    bf16* __restrict__ out, int B, int K, int N) {
+  constexpr int C = SH::C, CP = SH::CP, H = SH::H, O = SH::O;
+  constexpr int LDC = SH::LDC, LDH = SH::LDH, LDO = SH::LDO;
+  constexpr int HW = SH::HW, OW = SH::OW, NU = SH::NU, GT = SH::GT;
+  constexpr bool MLP = SH::MLP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* wn_s = reinterpret_cast<bf16*>(smem_raw);   // [C][LDH]
-  bf16* we_s = wn_s + C * LDH;                       // [C][LDH]
-  bf16* w1_s = we_s + C * LDH;                       // [H][LDH]
-  bf16* w2_s = w1_s + H * LDH;                       // [H][LDO]
-  const int group = threadIdx.x / GROUP_THREADS;
-  const int gt = threadIdx.x % GROUP_THREADS;
+  bf16* wn_s = reinterpret_cast<bf16*>(smem_raw);    // [CP][LDH]
+  bf16* we_s = wn_s + CP * LDH;                      // [CP][LDH]
+  bf16* w1_s = we_s + CP * LDH;                      // [H][LDH] (MLP)
+  bf16* w2_s = w1_s + (MLP ? H * LDH : 0);           // [H][LDO] (MLP)
+  const int group = threadIdx.x / GT, gt = threadIdx.x % GT;
   const int warp = gt / 32, lane = threadIdx.x % 32;
-  bf16* nb_s = w2_s + H * LDO + group * G_ELEMS;     // [TP][LDC]
-  bf16* ed_s = nb_s + TP * LDC;                      // [TP][LDC]
-  bf16* h1_s = ed_s + TP * LDC;                      // [TP][LDH]
-  bf16* h2_s = h1_s + TP * LDH;                      // [TP][LDH]
+  bf16* nb_s = wn_s + SH::W_ELEMS + group * SH::G_ELEMS;   // NB x [TP][LDC]
+  bf16* ed_s = nb_s + SH::NB * TP * LDC;                    // NB x [TP][LDC]
+  bf16* h1_s = ed_s + SH::NB * TP * LDC;                    // [TP][LDH] (MLP)
+  bf16* h2_s = h1_s + TP * LDH;                             // [TP][LDH] (MLP)
 
-  stage(wn, C, H, LDH, wn_s);
-  stage(we, C, H, LDH, we_s);
-  stage(w1, H, H, LDH, w1_s);
-  stage(w2, H, O, LDO, w2_s);
+  for (int e = gt; e < SH::G_ELEMS / 8; e += GT)   // channels past C stay 0
+    reinterpret_cast<uint4*>(nb_s)[e] = make_uint4(0u, 0u, 0u, 0u);
+  stage<SH>(wn, C, CP, H, LDH, wn_s);
+  stage<SH>(we, C, CP, H, LDH, we_s);
+  if constexpr (MLP) {
+    stage<SH>(w1, H, H, H, LDH, w1_s);
+    stage<SH>(w2, H, H, O, LDO, w2_s);
+  }
   __syncthreads();
 
-  const int lr = gt / 8, lc = 8 * (gt % 8);   // the thread's row and channels
-  const int fr = lane / 4, fc = 2 * (lane % 4);   // its fragment row and column
+  const int fr = lane / 4, fc = 2 * (lane % 4);   // fragment row and column
   const int row_tiles = (N + TP - 1) / TP;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  int plane = 0;   // planes this group has run (the row buffer's parity)
   for (int tile = group * gridDim.x + blockIdx.x; tile < B * row_tiles;
-       tile += GROUPS * gridDim.x) {
+       tile += SH::GROUPS * gridDim.x) {
     const int b = tile / row_tiles, p0 = (tile - b * row_tiles) * TP;
     const int np = min(TP, N - p0);
-    const bool live = lr < np;   // rows past N stay zero and are not written
-    const uint4 cv = live ? __ldg(reinterpret_cast<const uint4*>(
-                                ctr + ((size_t)b * N + p0 + lr) * C + lc))
-                          : zero;
-    const bf16* rows = nbr + ((size_t)b * K * N + p0 + lr) * C + lc;
-    uint4 nv = live ? __ldg(reinterpret_cast<const uint4*>(rows)) : zero;
+    uint4 cv[NU], nv[NU];
+    load_units<SH>(ctr + ((size_t)b * N + p0) * C, np, gt, cv);
+    const bf16* rows = nbr + ((size_t)b * K * N + p0) * C;
+    load_units<SH>(rows, np, gt, nv);
 
-    float acc[8][4];
-    for (int j = 0; j < K; ++j) {
+    float acc[OW / 8][4];
+    for (int j = 0; j < K; ++j, ++plane) {
       // plane j's rows and edges into shared memory; plane j + 1's rows
       // into registers while the plane's products run
-      *reinterpret_cast<uint4*>(nb_s + lr * LDC + lc) = nv;
-      *reinterpret_cast<uint4*>(ed_s + lr * LDC + lc) =
-          make_uint4(sub_pair(nv.x, cv.x), sub_pair(nv.y, cv.y),
-                     sub_pair(nv.z, cv.z), sub_pair(nv.w, cv.w));
-      group_sync(group);
-      if (live && j + 1 < K)
-        nv = __ldg(reinterpret_cast<const uint4*>(rows + (size_t)(j + 1) * N * C));
+      bf16* nb = nb_s + (plane % SH::NB) * TP * LDC;
+      bf16* ed = ed_s + (plane % SH::NB) * TP * LDC;
+      store_units<SH>(nv, cv, gt, nb, ed);
+      group_sync<SH>(group);
+      if (j + 1 < K) load_units<SH>(rows + (size_t)(j + 1) * N * C, np, gt, nv);
 
       // layer 1: h1 = bf16(lrelu(nb Wn) + lrelu(edge We))
-      {
-        float za[4][4], zb[4][4];
-        product<C / 16, 4>(nb_s, LDC, wn_s, LDH, 32 * warp, lane, za);
-        product<C / 16, 4>(ed_s, LDC, we_s, LDH, 32 * warp, lane, zb);
+      float za[HW / 8][4], zb[HW / 8][4];
+      product<CP / 16, HW / 8>(nb, LDC, wn_s, LDH, HW * warp, lane, za);
+      product<CP / 16, HW / 8>(ed, LDC, we_s, LDH, HW * warp, lane, zb);
+      if constexpr (!MLP) {   // the output is h1, folded
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          bf16* h = h1_s + fr * LDH + 32 * warp + 8 * nt + fc;
-          *reinterpret_cast<unsigned*>(h) =
-              pack(lrelu(za[nt][0]) + lrelu(zb[nt][0]),
-                   lrelu(za[nt][1]) + lrelu(zb[nt][1]));
-          *reinterpret_cast<unsigned*>(h + 8 * LDH) =
-              pack(lrelu(za[nt][2]) + lrelu(zb[nt][2]),
-                   lrelu(za[nt][3]) + lrelu(zb[nt][3]));
-        }
+        for (int nt = 0; nt < HW / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float y = round_to<bf16>(lrelu(za[nt][e]) + lrelu(zb[nt][e]));
+            acc[nt][e] = j == 0 ? y : fold<AGG>(acc[nt][e], y);
+          }
+        continue;
       }
-      group_sync(group);
+#pragma unroll
+      for (int nt = 0; nt < HW / 8; ++nt) {
+        bf16* h = h1_s + fr * LDH + HW * warp + 8 * nt + fc;
+        *reinterpret_cast<unsigned*>(h) =
+            pack(lrelu(za[nt][0]) + lrelu(zb[nt][0]),
+                 lrelu(za[nt][1]) + lrelu(zb[nt][1]));
+        *reinterpret_cast<unsigned*>(h + 8 * LDH) =
+            pack(lrelu(za[nt][2]) + lrelu(zb[nt][2]),
+                 lrelu(za[nt][3]) + lrelu(zb[nt][3]));
+      }
+      group_sync<SH>(group);
 
       // layer 2: h2 = bf16(lrelu(h1 W1))
       {
-        float z[4][4];
-        product<H / 16, 4>(h1_s, LDH, w1_s, LDH, 32 * warp, lane, z);
+        float z[HW / 8][4];
+        product<H / 16, HW / 8>(h1_s, LDH, w1_s, LDH, HW * warp, lane, z);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          bf16* h = h2_s + fr * LDH + 32 * warp + 8 * nt + fc;
+        for (int nt = 0; nt < HW / 8; ++nt) {
+          bf16* h = h2_s + fr * LDH + HW * warp + 8 * nt + fc;
           *reinterpret_cast<unsigned*>(h) = pack(lrelu(z[nt][0]), lrelu(z[nt][1]));
           *reinterpret_cast<unsigned*>(h + 8 * LDH) =
               pack(lrelu(z[nt][2]), lrelu(z[nt][3]));
         }
       }
-      group_sync(group);
+      group_sync<SH>(group);
 
       // layer 3: y = bf16(lrelu(h2 W2)), folded into the aggregate
       {
-        float z[8][4];
-        product<H / 16, 8>(h2_s, LDH, w2_s, LDO, 64 * warp, lane, z);
+        float z[OW / 8][4];
+        product<H / 16, OW / 8>(h2_s, LDH, w2_s, LDO, OW * warp, lane, z);
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < OW / 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float y = round_to<bf16>(lrelu(z[nt][e]));
@@ -756,45 +870,82 @@ edgeconv_tc_kernel(const bf16* __restrict__ nbr, const bf16* __restrict__ ctr,
       }
     }
 
+    // the aggregate out (bf16 values, exact); the mean then reads its sums
+    // back one pair at a time and divides, so that no accumulator is live
+    // across the true division's slow path (at the 128 registers of 512
+    // threads, it spilled)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < OW / 8; ++nt)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int p = fr + 8 * half;
-        float lo = acc[nt][2 * half], hi = acc[nt][2 * half + 1];
-        if (AGG == kMean) {
-          lo = round_to<bf16>(lo / (float)K);
-          hi = round_to<bf16>(hi / (float)K);
-        }
         if (p < np)
           *reinterpret_cast<unsigned*>(out + ((size_t)b * N + p0 + p) * O +
-                                       64 * warp + 8 * nt + fc) = pack(lo, hi);
+                                       OW * warp + 8 * nt + fc) =
+              pack(acc[nt][2 * half], acc[nt][2 * half + 1]);
       }
+    if constexpr (AGG == kMean) {
+#pragma unroll
+      for (int nt = 0; nt < OW / 8; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = fr + 8 * half;
+          if (p >= np) continue;
+          unsigned* o = reinterpret_cast<unsigned*>(
+              out + ((size_t)b * N + p0 + p) * O + OW * warp + 8 * nt + fc);
+          unsigned v;   // opaque to the compiler: no forwarding of the store
+          asm volatile("ld.global.u32 %0, [%1];\n"
+                       : "=r"(v) : "l"(o) : "memory");
+          const float2 f =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+          *o = pack(round_to<bf16>(f.x / (float)K),
+                    round_to<bf16>(f.y / (float)K));
+        }
+    }
   }
 }
 
-template <int AGG>
+template <class SH, int AGG>
 int launch(const void* nbr, const void* ctr, const void* wn, const void* we,
            const void* w1, const void* w2, void* out, int B, int K, int N,
            cudaStream_t stream) {
-  auto kern = edgeconv_tc_kernel<AGG>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int device = 0, sms = 0;
-  e = cudaGetDevice(&device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kern = edgeconv_tc_kernel<SH, AGG>;
+  static int grid_max = 0;   // SMs x resident blocks an SM, found once
+  if (grid_max == 0) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SH::SMEM);
+    int device = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        SH::THREADS, SH::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid_max = sms * per_sm;
+  }
   const int tiles = B * ((N + TP - 1) / TP);
-  const int groups = (tiles + GROUPS - 1) / GROUPS;
-  const int grid = groups < sms ? groups : sms;   // persistent: one wave
-  kern<<<grid, THREADS, SMEM, stream>>>(
+  const int groups = (tiles + SH::GROUPS - 1) / SH::GROUPS;
+  const int grid = groups < grid_max ? groups : grid_max;   // one wave
+  kern<<<grid, SH::THREADS, SH::SMEM, stream>>>(
       static_cast<const bf16*>(nbr), static_cast<const bf16*>(ctr),
       static_cast<const bf16*>(wn), static_cast<const bf16*>(we),
       static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
       static_cast<bf16*>(out), B, K, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class SH>
+int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
+               const void* w1, const void* w2, void* out, int B, int K, int N,
+               int agg, cudaStream_t s) {
+  switch (agg) {
+    case kMax: return launch<SH, kMax>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    case kMin: return launch<SH, kMin>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    case kSum: return launch<SH, kSum>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+    default: return launch<SH, kMean>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
+  }
 }
 
 }  // namespace tc
@@ -1631,20 +1782,28 @@ extern "C" int edgeconv_bwd(const void* nbr, const void* ctr, const void* wn,
 #undef EDGECONV_BWD
 }
 
-// The bf16 forward with the SharedMLP at (C, H, O) = (64, 128, 256) on the
-// tensor cores: edgeconv_fwd's contract for bf16 = 1, mlp = 1 at these
-// widths. Every pointer 16-byte aligned; B * N >= 1, K >= 1.
+// The bf16 forward on the tensor cores (tc::edgeconv_tc_kernel): the
+// contract of edgeconv_fwd for bf16 = 1 at the classes below (mlp, C, H, O);
+// any other class returns cudaErrorInvalidValue. Every pointer 16-byte
+// aligned; B * N >= 1, K >= 1.
 extern "C" int edgeconv_fwd_bf16_tc(const void* nbr, const void* ctr,
                                     const void* wn, const void* we,
                                     const void* w1, const void* w2, void* out,
-                                    int B, int K, int N, int agg, void* stream) {
+                                    int B, int K, int N, int C, int H, int O,
+                                    int mlp, int agg, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  switch (agg) {
-    case kMax: return tc::launch<kMax>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
-    case kMin: return tc::launch<kMin>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
-    case kSum: return tc::launch<kSum>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
-    default: return tc::launch<kMean>(nbr, ctr, wn, we, w1, w2, out, B, K, N, s);
-  }
+  using tc::Shape;
+  // (C, H, O, mlp, warps a tile, tiles a block, blocks an SM at least)
+#define EDGECONV_TC(c, h, o, m, wg, groups, minb)                              \
+  if (bool(mlp) == m && C == c && H == h && O == o)                           \
+    return tc::launch_agg<Shape<c, h, o, m, wg, groups, minb>>(                \
+        nbr, ctr, wn, we, w1, w2, out, B, K, N, agg, s)
+  EDGECONV_TC(64, 128, 256, true, 4, 4, 1);    // upsampler and mask head
+  EDGECONV_TC(64, 128, 128, false, 4, 1, 5);   // mask head's sum
+  EDGECONV_TC(6, 64, 128, true, 4, 1, 5);      // EdgeConv_0
+  EDGECONV_TC(32, 16, 32, true, 1, 2, 8);      // IDGCN
+#undef EDGECONV_TC
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The f32 forward on register tiles (f32t::edgeconv_f32t_kernel): the

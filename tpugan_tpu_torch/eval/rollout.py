@@ -45,9 +45,11 @@ def _device_of(model: SRNet) -> torch.device:
 def make_rollout_step(model: SRNet, use_vel: bool):
     """step(state, pos [1, N, 3], vel [1, N, 3], n_valid) ->
     (out [1, N*r, 3], valid [1, N*r], state). Rows past ``n_valid`` are
-    padding; their output slots are reported invalid."""
+    padding; their output slots are reported invalid. The step runs without
+    autograd: serving records no graph."""
     r = model.upsample_ratio
 
+    @torch.no_grad()
     def step(state, pos, vel, n_valid: int):
         n = pos.shape[1]
         real = (torch.arange(n, device=pos.device) < n_valid)[None, :, None]
@@ -82,6 +84,7 @@ def _padded_frame(pos: np.ndarray, vel: Optional[np.ndarray], bucket: int,
             torch.from_numpy(v).to(device))
 
 
+@torch.no_grad()
 def rollout_sequence(model: SRNet,
                      frames: Iterable[Tuple[np.ndarray, Optional[np.ndarray]]],
                      use_vel: bool = False, history: int = 25
@@ -125,6 +128,7 @@ def rollout_sequence(model: SRNet,
     return outputs
 
 
+@torch.no_grad()
 def rollout_sequence_device(model: SRNet, pos_seq: np.ndarray,
                             vel_seq: Optional[np.ndarray] = None,
                             use_vel: bool = False, history: int = 25,

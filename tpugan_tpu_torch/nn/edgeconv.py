@@ -76,6 +76,8 @@ class EdgeConv(nn.Module):
             self.SharedMLP_0 = SharedMLP(half, [half, out_features], **kw)
         else:
             self.ConvLayer_2 = ConvLayer(half, out_features, **kw)
+        # serving's kernel-ready weights (see _kernel_weights)
+        self._weight_cache = None
 
     def forward(self, feat: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 idx: Optional[torch.Tensor] = None,
@@ -98,17 +100,37 @@ class EdgeConv(nn.Module):
                 feat, idx[:, :, :self.k:self.dilation])
         else:
             neighbor_t = neighbor_t[:, :self.k:self.dilation]
-        w = lambda conv: conv.Dense_0.weight.t()       # flax layout [in, out]
-        if self.mlp_layer:
-            w1 = w(self.SharedMLP_0.ConvLayer_0)
-            w2 = w(self.SharedMLP_0.ConvLayer_1)
-        else:
-            w1 = w2 = None
-        y = edgeconv_fused(neighbor_t, feat, w(self.ConvLayer_0),
-                           w(self.ConvLayer_1), w1, w2,
+        wn, we, w1, w2 = self._kernel_weights(feat.dtype)
+        y = edgeconv_fused(neighbor_t, feat, wn, we, w1, w2,
                            aggregate=self.aggregate,
                            compute_dtype=feat.dtype)
         return y if self.mlp_layer else self.ConvLayer_2(y)
+
+    def _kernel_weights(self, dtype: torch.dtype):
+        """(Wn, We, W1, W2) in the kernel's layout, [in, out] (W1, W2 None
+        without the SharedMLP). With autograd on: transposed views of the
+        parameters, so the gradient reaches them. With it off (serving):
+        contiguous copies in ``dtype``, made once and kept while every
+        parameter is the same tensor with the same storage and version
+        (``load_state_dict``, an optimizer step or an in-place ``copy_``
+        bumps the version, ``Module.to`` moves the storage)."""
+        convs = [self.ConvLayer_0, self.ConvLayer_1]
+        if self.mlp_layer:
+            convs += [self.SharedMLP_0.ConvLayer_0, self.SharedMLP_0.ConvLayer_1]
+        params = [conv.Dense_0.weight for conv in convs]
+        if torch.is_grad_enabled():
+            ws = [p.t() for p in params]
+        else:
+            key = (dtype, params[0].device)
+            state = [(p, p.data_ptr(), p._version) for p in params]
+            cached = self._weight_cache
+            if (cached is None or cached[0] != key
+                    or any(a[0] is not b[0] or a[1:] != b[1:]
+                           for a, b in zip(cached[1], state))):
+                ws = [p.t().to(dtype).contiguous() for p in params]
+                self._weight_cache = cached = (key, state, ws)
+            ws = cached[2]
+        return (*ws, None, None) if len(ws) == 2 else tuple(ws)
 
     def _grouped(self, feat, pos, idx, neighbor):
         """The plain grouped formulation (differentiable)."""

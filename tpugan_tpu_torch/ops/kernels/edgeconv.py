@@ -8,8 +8,8 @@ forward (``_fwd_pallas``) and its backward (``_bwd_pallas``).
 the backward kernel (or, on the CPU, :func:`edgeconv_backward_plain`).
 ``KERNEL`` counts forward launches, ``BWD`` backward launches (one per
 call: the kernel and the pass that adds the blocks' weight-gradient
-partials); both handles load the same library. A bf16 forward with the
-SharedMLP at (C, H, O) = ``TC_WIDTHS`` launches the tensor-core kernel
+partials); both handles load the same library. A bf16 forward at a class
+of ``TC_CLASSES`` launches the tensor-core kernel
 (``edgeconv_fwd_bf16_tc``) through ``KERNEL``, and ``TC_LAUNCHES`` counts
 those launches alone. An f32 forward at a class of ``F32_TILED_CLASSES``
 launches the register-tiled f32 kernel (``edgeconv_fwd_f32_tiled``)
@@ -34,7 +34,7 @@ from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 
 KERNEL = CudaKernel("edgeconv",
                     {"edgeconv_fwd": [VOIDP] * 7 + [INT] * 9 + [VOIDP],
-                     "edgeconv_fwd_bf16_tc": [VOIDP] * 7 + [INT] * 4 + [VOIDP],
+                     "edgeconv_fwd_bf16_tc": [VOIDP] * 7 + [INT] * 8 + [VOIDP],
                      "edgeconv_fwd_f32_tiled": [VOIDP] * 7 + [INT] * 8 + [VOIDP]})
 BWD = CudaKernel("edgeconv",
                  {"edgeconv_bwd": [VOIDP] * 11 + [INT] * 10 + [VOIDP],
@@ -44,7 +44,9 @@ AGGREGATES = {"max": 0, "min": 1, "sum": 2, "mean": 3}
 MAX_WIDTH = 256   # widest hidden / output layer (one thread per column)
 MAX_BLOCKS = 264  # blocks of the backward (2 per SM): bounds its scratch
 TILE = 16         # points per block tile (csrc/edgeconv.cu : TP)
-TC_WIDTHS = (64, 128, 256)   # (C, H, O) of the tensor-core kernel
+# (mlp, C, H, O) of the bf16 tensor-core kernel
+TC_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
+                        (True, 6, 64, 128), (True, 32, 16, 32)})
 TC_LAUNCHES = 0              # launches of the tensor-core kernel
 # (mlp, C, H, O) of the f32 register-tiled kernel
 F32_TILED_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
@@ -195,8 +197,8 @@ def _ptrs(tensors):
 
 def takes_tensor_cores(cdt, mlp, c, h, o) -> bool:
     """Whether a forward on the card launches the tensor-core kernel: the
-    bf16 forward with the SharedMLP at (C, H, O) = ``TC_WIDTHS``."""
-    return cdt is torch.bfloat16 and mlp and (c, h, o) == TC_WIDTHS
+    bf16 forward at a class of ``TC_CLASSES``."""
+    return cdt is torch.bfloat16 and (bool(mlp), c, h, o) in TC_CLASSES
 
 
 def takes_f32_tiled(cdt, mlp, c, h, o) -> bool:
@@ -232,7 +234,7 @@ def tiled_bwd_plan(b: int, k: int, n: int) -> dict:
     R SIGN_WORDS words of slopes) and ``part_floats`` (the largest dW
     product's partials).
     Raises ValueError past the kernels' 32-bit indexing."""
-    c, h, o = TC_WIDTHS
+    (_, c, h, o), = F32_TILED_BWD_CLASSES
     rows = b * k * n
     if rows * o >= 2 ** 31:
         raise ValueError(f"edgeconv tiled backward takes fewer than 2^31 / {o}"
@@ -271,7 +273,8 @@ def _forward(nbr_t, ctr, wn, we, w1, w2, aggregate, cdt):
     if takes_tensor_cores(cdt, mlp, c, h, o):
         global TC_LAUNCHES
         KERNEL.launch("edgeconv_fwd_bf16_tc", *_ptrs(_aligned(args)), ptr(out),
-                      b, k, n, AGGREGATES[aggregate], stream_of(out))
+                      b, k, n, c, h, o, int(mlp), AGGREGATES[aggregate],
+                      stream_of(out))
         TC_LAUNCHES += 1
         return out
     if takes_f32_tiled(cdt, mlp, c, h, o):
@@ -361,8 +364,13 @@ def edgeconv_fused(nbr_t: torch.Tensor, ctr: torch.Tensor, wn: torch.Tensor,
     nbr_t [B, K, N, C], ctr [B, N, C], wn / we [C, H], w1 [H, H] and
     w2 [H, O] (both None: no SharedMLP, O = H); bias-free, norm-free,
     leaky-ReLU slope 0.2; compute dtype float32 or bfloat16. Differentiable
-    in all six tensors. A CPU tensor takes the plain versions; a CUDA tensor
-    launches the kernels or raises.
+    in all six tensors; where autograd is off or no tensor requires a
+    gradient (serving), the forward runs without the autograd Function, so
+    nothing is saved for a backward. A CPU tensor takes the plain versions;
+    a CUDA tensor launches the kernels or raises.
     """
-    return _EdgeConvFused.apply(nbr_t, ctr, wn, we, w1, w2, aggregate,
-                                compute_dtype)
+    args = (nbr_t, ctr, wn, we, w1, w2)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in args):
+        return _EdgeConvFused.apply(*args, aggregate, compute_dtype)
+    return _forward(*args, aggregate, compute_dtype)
