@@ -88,10 +88,11 @@ Phases, one JSON line each (``phase`` names it):
            with gammas of both signs and zero, and with the device time of
            each of its kernels); the EdgeConv backward
            at each shape class of the fused train step (12 frames of 1,152
-           points; f32, one bf16 case, one with exact ties between
-           duplicated planes), each row with the path it takes ("tiled":
-           the f32 (64, 128, 256) class on GEMM tiles, two calls equal bit
-           for bit; "general" the rest) and the device time of each of its
+           points; f32, one bf16 case, exact ties between duplicated planes
+           at each f32 class), each row with the path it takes ("tiled":
+           every f32 row, the redesigned kernel of F32_TILED_BWD_CLASSES,
+           one launch of it a call and two calls equal bit for bit;
+           "general": the bf16 row) and the device time of each of its
            kernels; and the pooled MLP's affine backward at the
            spatial critic's sa_0 and a group_all shape;
   train    with the launch counts reset: the trainer state of
@@ -110,8 +111,9 @@ Phases, one JSON line each (``phase`` names it):
            --device_sampling --synthetic, resumed from the checkpoint for
            iterations 20001-20004 (log dir runs/chip_smoke_train_fluid/):
            each step's launches against STEP_ALWAYS + STEP_FUSED (9 fused
-           EdgeConv forwards and 9 backwards, STEP_TILED_BWD = 3 of those
-           on GEMM tiles, none between steps) and the gate's and critics'
+           EdgeConv forwards and 9 backwards, STEP_TILED_BWD = 9 of those
+           on the redesigned f32 backward, none on the general kernel and
+           none between steps) and the gate's and critics'
            counts, the checkpoint iterations' test split and sample dump
            against CKPT_EVAL, the last checkpoint read back equal to the
            state in memory; then one step with the switch off and on from
@@ -281,6 +283,22 @@ def bound(flops: float, nbytes: float, kind: str):
     t_ops = flops / PEAK_OPS[kind] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_instances(name: str, functions) -> dict:
+    """Per kernel instance of ``csrc/<name>.cu`` whose mangled name holds
+    one of ``functions``: [registers, spill store bytes]."""
+    from tpugan_tpu_torch import _build
+
+    out = {}
+    for part in _build.ptxas_report(name).split("Compiling entry function")[1:]:
+        fn = part.split("\n", 1)[0].strip().strip("'")
+        if not any(f in fn for f in functions):
+            continue
+        regs = re.findall(r"Used (\d+) registers", part)
+        spills = re.findall(r"(\d+) bytes spill stores", part)
+        out[fn] = [int(regs[0]) if regs else 0, sum(int(v) for v in spills)]
+    return out
 
 
 def ptxas_summary(name: str, function: str = "") -> dict:
@@ -1401,6 +1419,9 @@ EDGECONV_BWD_SHAPES = [
     ("mask k=8 sum", 64, 128, 128, 8, "sum", False, "f32", False, 1),
     ("IDGCN d=1 bf16", 32, 16, 32, 20, "max", True, "bf16", False, 0),
     ("upsampler k=12 exact ties", 64, 128, 256, 12, "max", True, "f32", True, 0),
+    ("EdgeConv_0 exact ties", 6, 64, 128, 20, "max", True, "f32", True, 0),
+    ("IDGCN d=1 exact ties", 32, 16, 32, 20, "max", True, "f32", True, 0),
+    ("mask k=8 max exact ties", 64, 128, 128, 8, "max", False, "f32", True, 0),
 ]
 TRAIN_ROWS, TRAIN_POINTS = 12, 1152
 # Each gradient to this share of its norm, and at most SHARE_OFF of gnbr's
@@ -1438,10 +1459,10 @@ def check_edgeconv_bwd(torch, dev, rng):
     points, max ties recomputed) at the fused train step's shapes; in the
     exact-tie case, planes 1 and 5 repeat planes 0 and 3, so a max shared by
     two planes must split its cotangent evenly between them. Each row names
-    its path ("tiled": the f32 class of F32_TILED_BWD_CLASSES on GEMM
-    tiles, one launch of it a call and a second call equal bit for bit;
-    "general": the general kernel, none) and the device time of each of its
-    kernels."""
+    its path ("tiled": every f32 row, a class of F32_TILED_BWD_CLASSES, one
+    launch of the redesigned kernel a call and a second call equal bit for
+    bit; "general": the bf16 row on the general kernel, none) and the
+    device time of each of its kernels."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     rows = []
@@ -1459,6 +1480,9 @@ def check_edgeconv_bwd(torch, dev, rng):
         g = t(b, n, o if mlp else h).to(cdt)
         args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, g, agg, cdt)
         tiled = E.takes_f32_tiled_bwd(cdt, mlp, c, h, o)
+        if tiled != (kind == "f32"):
+            raise AssertionError(f"edgeconv_bwd {name}: path "
+                                 f"{'tiled' if tiled else 'general'}")
         f0 = E.F32_TILED_BWD_LAUNCHES
         got = E.edgeconv_backward(*args)
         if E.F32_TILED_BWD_LAUNCHES - f0 != int(tiled):
@@ -1970,10 +1994,12 @@ FUSED_ITERS = 20004
 # STEP_CRITICS): the generator's 9 EdgeConvs through the fused forward and
 # its backward kernel (tpugan_tpu_torch/nn/edgeconv.py with fused_train).
 STEP_FUSED = {"edgeconv": 9, "edgeconv_bwd": 9}
-# Of those backwards, the f32 (64, 128, 256) class's on GEMM tiles
-# (edgeconv.F32_TILED_BWD_LAUNCHES): the upsampler's k=12 and k=4 and the
-# mask head's k=12 EdgeConvs.
-STEP_TILED_BWD = 3
+# Of those backwards, the redesigned f32 backward's (edgeconv.
+# F32_TILED_BWD_LAUNCHES): all 9, the upsampler's k=12 and k=4 and the mask
+# head's k=12 EdgeConvs at (64, 128, 256), the mask head's k=8 sum,
+# EdgeConv_0 and the IDGCN's four (on GEMM tiles or one plane-row a
+# thread); none on the general kernel.
+STEP_TILED_BWD = 9
 # After a checkpoint iteration (20001 and 20004 at the train_vel preset's
 # --ckpt_every 10000, cli/train_fluid.py): the test split's 4 batches, one
 # serving forward each (7 kNN, 9 EdgeConv) and its Chamfer (2 nn1), and
@@ -2047,7 +2073,7 @@ def fused_train(torch, dev, kernels):
     counts the code implies, the windows between steps against CKPT_EVAL
     after checkpoint iterations (0 else); the last checkpoint read back
     equal to the state in memory. The counts hold "edgeconv_bwd_tiled",
-    the backwards on GEMM tiles (STEP_TILED_BWD a step, 0 between)."""
+    the redesigned f32 backwards (STEP_TILED_BWD a step, 0 between)."""
     import shutil
 
     from tpugan_tpu_torch.checkpoint import load_trainer_state
@@ -2643,9 +2669,15 @@ def main(argv=None) -> int:
     build_s = _build.build_all()
     tc_ptxas = ptxas_summary("edgeconv", "edgeconv_tc_kernel")
     f32t_ptxas = ptxas_summary("edgeconv", "edgeconv_f32t_kernel")
-    # the f32 EdgeConv backward on GEMM tiles (csrc/edgeconv.cu : bwdt)
-    bwdt_ptxas = {f: ptxas_summary("edgeconv", f)
-                  for f in ("bwd_rows", "dw_gemm", "bwd_ties", "bwd_gctr")}
+    # the redesigned f32 EdgeConv backward (csrc/edgeconv.cu : bwdt on GEMM
+    # tiles, rowf one plane-row a thread), and every instance of it
+    bwdt_kernels = ("bwd_rows", "dw_gemm", "bwd_ties", "bwd_gctr", "bwd_edge",
+                    "bwd_narrow", "rowf_fwd", "rowf_bwd")
+    bwdt_ptxas = {f: ptxas_summary("edgeconv", f) for f in bwdt_kernels}
+    bwdt_instances = ptxas_instances("edgeconv", bwdt_kernels)
+    spilled = {n: v for n, v in bwdt_instances.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"edgeconv backward instances spill: {spilled}")
     # the pooled-MLP batch-norm form's GEMM blocks
     pmlp_ptxas = {f: ptxas_summary("pooled_mlp", f)
                   for f in ("rows_gemm", "dw_gemm", "top_kernel")}
@@ -2679,6 +2711,7 @@ def main(argv=None) -> int:
           "ptxas_edgeconv_tc": tc_ptxas,
           "ptxas_edgeconv_f32t": f32t_ptxas,
           "ptxas_edgeconv_bwd_tiled": bwdt_ptxas,
+          "ptxas_edgeconv_bwd_instances": bwdt_instances,
           "ptxas_pooled_mlp": pmlp_ptxas,
           "ptxas_fps": fps_ptxas,
           "ptxas_nn1": nn1_ptxas,
@@ -2834,6 +2867,9 @@ def main(argv=None) -> int:
         if entry["name"] == "edgeconv_bwd":
             entry["train_fused_tiled_launches"] = fused_launches[
                 "edgeconv_bwd_tiled"]
+            entry["train_fused_general_launches"] = (
+                fused_launches["edgeconv_bwd"]
+                - fused_launches["edgeconv_bwd_tiled"])
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

@@ -6,8 +6,9 @@
   40 (a multiple of 8, so the Pallas body runs), k = 12 and 4 (the
   upsampler's and the mask head's), every aggregate, and a table whose
   duplicated planes tie exactly at the max.
-* ``takes_f32_tiled_bwd``: only the f32 backward with the SharedMLP at
-  (64, 128, 256) takes the kernel, whatever the aggregate.
+* ``takes_f32_tiled_bwd``: only the f32 backward at a class of the fused
+  train step takes the redesigned kernel, whatever the aggregate
+  (``tests/test_torch_edgeconv_bwd_classes.py`` covers the other classes).
 * ``tiled_bwd_plan``: the dW products' row ranges cover every row once, in
   order, at sizes off the 128-row tile; the partials and the scratch match
   their formulas.
@@ -57,16 +58,30 @@ def test_plain_backward_matches_pallas_at_tiled_class(rng, k, agg, ties):
     (torch.float32, True, (64, 128, 256), True),
     (torch.bfloat16, True, (64, 128, 256), False),
     (torch.float16, True, (64, 128, 256), False),
-    (torch.float32, False, (64, 128, 128), False),
+    (torch.float32, False, (64, 128, 128), True),
     (torch.float32, False, (64, 128, 256), False),
-    (torch.float32, True, (6, 64, 128), False),
-    (torch.float32, True, (32, 16, 32), False),
+    (torch.float32, True, (6, 64, 128), True),
+    (torch.float32, True, (32, 16, 32), True),
     (torch.float32, True, (64, 128, 128), False),
+    (torch.bfloat16, False, (64, 128, 128), False),
+    (torch.bfloat16, True, (6, 64, 128), False),
+    (torch.bfloat16, True, (32, 16, 32), False),
+    (torch.float32, True, (6, 64, 256), False),
+    (torch.float32, True, (8, 64, 128), False),
+    (torch.float32, True, (32, 16, 64), False),
+    (torch.float32, True, (32, 32, 32), False),
+    (torch.float32, False, (64, 64, 64), False),
+    (torch.float32, False, (32, 16, 16), False),
 ])
 def test_tiled_backward_dispatch(dtype, mlp, widths, tiled):
-    """Only the f32 backward at a class of F32_TILED_BWD_CLASSES takes the
-    kernel on GEMM tiles; the aggregate does not enter the choice."""
-    assert E.F32_TILED_BWD_CLASSES == frozenset({(True, 64, 128, 256)})
+    """Only the f32 backward at a class of F32_TILED_BWD_CLASSES (every f32
+    class of the fused train step: the upsampler's and mask head's, the
+    mask head's sum, EdgeConv_0's and the IDGCN's) takes the redesigned
+    kernel; bf16, another width or another SharedMLP setting does not; the
+    aggregate does not enter the choice."""
+    assert E.F32_TILED_BWD_CLASSES == frozenset({
+        (True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
+        (True, 32, 16, 32)})
     for _ in E.AGGREGATES:
         assert E.takes_f32_tiled_bwd(dtype, mlp, *widths) is tiled
 

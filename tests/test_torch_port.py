@@ -62,6 +62,9 @@ def test_entry_points_need_a_card(monkeypatch):
                                      "edgeconv_tc",
                                      "edgeconv_f32t", "edgeconv_bwd",
                                      "edgeconv_bwd_tiled",
+                                     "edgeconv_bwd_tiled_ec0",
+                                     "edgeconv_bwd_tiled_idgcn",
+                                     "edgeconv_bwd_tiled_sum",
                                      "fps", "ball_query", "interp",
                                      "pooled_mlp", "pooled_mlp_affine",
                                      "binned_interp"])
@@ -88,6 +91,15 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
         "edgeconv_bwd_tiled": lambda: edgeconv.edgeconv_backward(
             t(1, 4, 8, 64), t(1, 8, 64), t(64, 128), t(64, 128),
             t(128, 128), t(128, 256), t(1, 8, 256)),
+        "edgeconv_bwd_tiled_ec0": lambda: edgeconv.edgeconv_backward(
+            t(1, 4, 8, 6), t(1, 8, 6), t(6, 64), t(6, 64), t(64, 64),
+            t(64, 128), t(1, 8, 128)),
+        "edgeconv_bwd_tiled_idgcn": lambda: edgeconv.edgeconv_backward(
+            t(1, 4, 8, 32), t(1, 8, 32), t(32, 16), t(32, 16), t(16, 16),
+            t(16, 32), t(1, 8, 32)),
+        "edgeconv_bwd_tiled_sum": lambda: edgeconv.edgeconv_backward(
+            t(1, 4, 8, 64), t(1, 8, 64), t(64, 128), t(64, 128), None, None,
+            t(1, 8, 128), "sum"),
         "fps": lambda: fps.fps_kernel(t(1, 8, 3), 4, t(1, 8),
                                       torch.zeros(1, dtype=torch.int64,
                                                   device="meta")),
@@ -462,15 +474,24 @@ def test_edgeconv_backward_kernel_matches_plain_on_card(card, gen, dtype, c, h,
         assert torch.equal(got[0][:, 0], got[0][:, 1])
 
 
-def _tiled_bwd_args(gen, k, n, ties, dtype=torch.float32):
-    """Inputs of the backward at (C, H, O) = (64, 128, 256), B = 2."""
+def _tiled_bwd_args(gen, k, n, ties, dtype=torch.float32,
+                    cls=(True, 64, 128, 256)):
+    """Inputs of the backward at the class cls = (mlp, C, H, O) (by default
+    (64, 128, 256)), B = 2."""
+    mlp, c, h, o = cls
     t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
-    nbr = t(2, k, n, 64)
+    nbr = t(2, k, n, c)
     if ties:
         nbr[:, 1], nbr[:, 5] = nbr[:, 0], nbr[:, 3]
-    return [nbr.to(dtype), t(2, n, 64).to(dtype), t(64, 128) / 8.0,
-            t(64, 128) / 8.0, t(128, 128) / 128 ** 0.5,
-            t(128, 256) / 128 ** 0.5, t(2, n, 256).to(dtype)]
+    return [nbr.to(dtype), t(2, n, c).to(dtype), t(c, h) / c ** 0.5,
+            t(c, h) / c ** 0.5, t(h, h) / h ** 0.5 if mlp else None,
+            t(h, o) / h ** 0.5 if mlp else None, t(2, n, o).to(dtype)]
+
+
+# the classes the redesign added (EdgeConv_0, the IDGCN, the mask head's
+# sum) with the K of each at the fused train step
+NEW_BWD_CLASSES = [((True, 6, 64, 128), 20), ((True, 32, 16, 32), 20),
+                   ((True, 32, 16, 32), 10), ((False, 64, 128, 128), 8)]
 
 
 @pytest.mark.gpu
@@ -495,6 +516,58 @@ def test_edgeconv_tiled_backward_matches_plain_on_card(card, gen, k, agg, ties):
     if ties:
         assert torch.equal(got[0][:, 1], got[0][:, 0])
         assert torch.equal(got[0][:, 5], got[0][:, 3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls,k", NEW_BWD_CLASSES)
+@pytest.mark.parametrize("agg,ties", [("max", False), ("max", True),
+                                      ("min", False), ("sum", False),
+                                      ("mean", False)])
+def test_edgeconv_redesigned_backward_matches_plain_on_card(card, gen, cls, k,
+                                                            agg, ties):
+    """The f32 backward at EdgeConv_0's, the IDGCN's and the mask head's sum
+    class (on GEMM tiles, or one plane-row a thread at the IDGCN), N = 77
+    (off every tile): every gradient to 1e-3 of its norm; duplicated planes
+    split their cotangent exactly; each call counts once in BWD and once in
+    F32_TILED_BWD_LAUNCHES; a second call gives the first's bits."""
+    args = _tiled_bwd_args(gen, k, 77, ties, cls=cls)
+    on_card = [a.to(card) if a is not None else None for a in args]
+    before = edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES
+    got = edgeconv.edgeconv_backward(*on_card, agg)
+    assert (edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = edgeconv.edgeconv_backward_plain(*args, agg)
+    for a, w in zip(got, want):
+        if w is None:
+            assert a is None
+            continue
+        a = a.cpu()
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert float((a - w).norm()) <= 1e-3 * float(w.norm())
+    if ties:
+        assert torch.equal(got[0][:, 1], got[0][:, 0])
+        assert torch.equal(got[0][:, 5], got[0][:, 3])
+    for a, b in zip(got, edgeconv.edgeconv_backward(*on_card, agg)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls,k", NEW_BWD_CLASSES)
+def test_edgeconv_bf16_backward_at_new_class_takes_general_kernel(card, gen,
+                                                                  cls, k):
+    """The bf16 backward at each added class stays on the general kernel."""
+    args = _tiled_bwd_args(gen, k, 77, False, torch.bfloat16, cls)
+    before = edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES
+    got = edgeconv.edgeconv_backward(
+        *[a.to(card) if a is not None else None for a in args], "max",
+        torch.bfloat16)
+    assert (edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES) == (
+        before[0] + 1, before[1])
+    want = edgeconv.edgeconv_backward_plain(*args, "max", torch.bfloat16)
+    for a, w in zip(got, want):
+        if w is not None:
+            a, w = a.cpu().float(), w.float()
+            assert float((a - w).norm()) <= 2e-2 * float(w.norm())
 
 
 @pytest.mark.gpu

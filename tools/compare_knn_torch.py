@@ -687,8 +687,10 @@ def main(argv=None) -> int:
                 dev.setdefault(row, {}).setdefault(n, []).append(ms)
         mean = {row: {n: sum(v) / len(v) for n, v in d.items()}
                 for row, d in dev.items()}
+        # (a row one checkout lacks, such as a case the head added: None)
         print(json.dumps({"device_ms": {
-            row: {**d, "head_over_base": d["head"] / d["base"]}
+            row: {**d, "head_over_base": d["head"] / d["base"]
+                  if "head" in d and "base" in d else None}
             for row, d in mean.items()}}))
     if args.check in ("fps", "nn1", "interp", "knn_approx", "ball_query"):
         # the digest rows' device time per unit of work (FPS, the ball query

@@ -1308,24 +1308,30 @@ int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
 
 }  // namespace f32t
 
-// ------------------------------------- f32 backward on GEMM tiles (one class)
+// ----------------------------- f32 backward on GEMM tiles and on row tiles
 //
-// bwdt: the f32 backward with the SharedMLP at (C, H, O) = (64, 128, 256),
-// the upsampler's and the mask head's class (entry point
-// edgeconv_bwd_f32_tiled). It replaces _bwd_pallas / _edgeconv_bwd_kernel
-// (tpugan_tpu/ops/pallas/edgeconv_kernel.py:277) at this class, with
-// edgeconv_bwd's contract for bf16 = 0, mlp = 1; in f32 every rounding
-// point is the identity.
+// The f32 backward at the four classes of the fused train step (entry
+// point edgeconv_bwd_f32_tiled), with edgeconv_bwd's contract for bf16 = 0,
+// every aggregate; in f32 every rounding point is the identity. It
+// replaces _bwd_pallas / _edgeconv_bwd_kernel
+// (tpugan_tpu/ops/pallas/edgeconv_kernel.py:277) at (mlp, C, H, O) =
+// (1, 64, 128, 256), the upsampler's and the mask head's; (0, 64, 128,
+// 128), the mask head's sum; (1, 6, 64, 128), EdgeConv_0; and (1, 32, 16,
+// 32), the IDGCN's. The first three run layer-wise products on GEMM tiles
+// (bwdt, a template over its Shape), the IDGCN a row-fused kernel (rowf).
 //
 // What bounds it on the H100: operations. Over R = B K N plane-rows it does
-// three times the forward's 65,536 multiply-adds a row (the forward once,
-// then per layer dW and dX): at the fused train step's 12 frames of 1,152
-// points, 65.2 GFLOP at k = 12 (0.974 ms at 67 TFLOP/s of f32 FFMA, TF32
-// off) and 21.7 at k = 4 (0.325 ms). What it keeps between the layers
-// (edge, h1, h2, z3 and their cotangents, 2,352 bytes a row) moves about
-// 2.5 GB at k = 12, 0.76 ms at 3.35 TB/s: under the operations, not far.
+// three times the forward's multiply-adds a row (the forward once, then
+// per layer dW and dX): at the fused train step's 12 frames of 1,152
+// points, (64, 128, 256) 65.2 GFLOP at k = 12 (0.974 ms at 67 TFLOP/s of
+// f32 FFMA, TF32 off) and 21.7 at k = 4 (0.325 ms); EdgeConv_0 21.7 at
+// k = 20 (0.323 ms); the sum 10.9 at k = 8 (0.162 ms); the IDGCN 2.97 at
+// k = 20 (0.044 ms) and 1.49 at k = 10. What the layer-wise products keep
+// between the layers (edge, h1, h2, z3 and their cotangents, 2,352 bytes a
+// row at (64, 128, 256)) moves about 2.5 GB at k = 12, 0.76 ms at 3.35
+// TB/s: under the operations, not far.
 //
-// Design: layer-wise products over all R rows, each computed once, on the
+// bwdt, layer-wise products over all R rows, each computed once, on the
 // register-tiled GEMM block of gemm_tile.cuh (a 128 x 128 or 128 x 64
 // output tile a block, 8 x 8 or 8 x 4 accumulators a thread, a 3-stage
 // cp.async pipeline of 8-deep slabs). Row r = (b K + j) N + n, its centre
@@ -1334,83 +1340,166 @@ int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
 //            bwd_rows<kAct>: z1a = nb Wn, lrelu(z1a) into x1, its signs
 //            into sgn; bwd_rows<kAddAct>: z1b = edge We, its signs, h1 =
 //            lrelu(z1a) + lrelu(z1b) over x1;
-//            bwd_rows<kAct>: z2 = h1 W1, h2 = lrelu(z2) into x2, its signs;
-//            bwd_rows<kStore>: z3 = h2 W2 into x3;
+//            with the MLP: bwd_rows<kAct>: z2 = h1 W1, h2 = lrelu(z2) into
+//            x2, its signs; bwd_rows<kStore>: z3 = h2 W2 into x3;
 //   ties     bwd_ties: per (b, n, column) the K values of z3 give y =
 //            lrelu(z3), the aggregate and the count of planes equal to it
 //            (max / min), and d3 = gy [y == acc] / cnt lrelu'(z3) (sum: gy
-//            = g; mean: g / K) over z3 in x3. The count and the comparison
-//            come from the same stored z3, never from the forward kernel's
-//            output, where one ulp of another summation order would lose a
-//            point's whole gradient;
-//   layers   dW2 = h2^T d3 (dw_gemm, split-K); bwd_rows<kD2>: d2 = (d3
-//            W2^T) lrelu'(z2) over h2; dW1 = h1^T d2; bwd_rows<kD1>: gh1 =
-//            d2 W1^T, d1a = gh1 lrelu'(z1a) over h1, d1b = gh1 lrelu'(z1b)
-//            over d3; dWn = nb^T d1a, dWe = edge^T d1b; bwd_rows<kGnbr>:
-//            d1b We^T into x2 (for gctr), then the same chains continue
-//            over d1a Wn^T: gnbr = [d1b | d1a] [We ; Wn]^T, one product of
-//            depth 256; bwd_gctr: gctr = -sum_j (d1b_j We^T), j ascending.
+//            = g; mean: g / K) over z3 in x3. Without the MLP the output is
+//            h1 itself: bwd_ties_h1 takes y = h1 and writes d1a = gy
+//            lrelu'(z1a) over h1 and d1b = gy lrelu'(z1b) into x3. The
+//            count and the comparison come from the same stored values,
+//            never from the forward kernel's output, where one ulp of
+//            another summation order would lose a point's whole gradient;
+//   layers   with the MLP: dW2 = h2^T d3 (dw_gemm, split-K);
+//            bwd_rows<kD2>: d2 = (d3 W2^T) lrelu'(z2) over h2; dW1 = h1^T
+//            d2; bwd_rows<kD1>: gh1 = d2 W1^T, d1a = gh1 lrelu'(z1a) over
+//            h1, d1b = gh1 lrelu'(z1b) over d3; then every class: dWn = nb^T
+//            d1a, dWe = edge^T d1b; bwd_rows<kGnbr>: d1b We^T into gb (for
+//            gctr), then the same chains continue over d1a Wn^T: gnbr =
+//            [d1b | d1a] [We ; Wn]^T, one product of depth 2 H; bwd_gctr:
+//            gctr = -sum_j (d1b_j We^T), j ascending.
 // Only a slope is read of z1a, z1b and z2: their signs are kept as bits,
-// 48 bytes a row (store_signs). Every dot product of a row is one fmaf
-// chain in a fixed order wherever the row lies in a tile, so duplicated
-// planes give equal gradients bit for bit; each dW product sums fixed row
-// ranges into one partial per block, which sum_cols adds in a fixed order:
-// no float atomics, two calls agree bit for bit. The wrapper allocates the
-// scratch (ops/kernels/edgeconv.py : tiled_bwd_plan).
+// H / 32 words a layer and row (store_signs). EdgeConv_0's C = 6 ("narrow"):
+// z1a and z1b read their operands through 4-byte copies that zero-fill past
+// the 6 channels (depth 6 in one 8-deep slab) and run in one block
+// (bwd_rows<kH1>: one pass over h1); gnbr, dWn and dWe, which would fill 6
+// lanes of a 64-wide tile, take a tail kernel instead (bwd_narrow, after
+// kD1); its 24-byte rows are not 16-byte aligned, so edge, gnbr and gctr
+// move 4 bytes at a time there.
 //
-// On the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md): a k = 12 launch
-// 2.18 ms of device time (predicted 1.9-2.9; the general kernel 37.5, the
-// plain version 3.9), 2.24x its bound; k = 4 0.84 ms, 2.6x. The products
-// run at 32-38 TFLOP/s, about half the FFMA peak; the tie pass, which
-// reads z3 twice at max / min, took 0.18 ms against 0.11-0.16 predicted.
-// Holding z1a and z1b's products in one block, or forming edge in the
-// operand load, spilled registers: hence the separate launches above.
+// rowf, the IDGCN (H = 16 would fill an eighth of a 128-column tile): a
+// thread runs one plane-row's whole backward, the weights (7 KB) in shared
+// memory, read as broadcasts. rowf_fwd: z3 = the row's forward into scratch;
+// bwd_ties<.., 32>: d3 over it; rowf_bwd: a block of 128 threads walks
+// 128-row tiles (blockIdx.x, + gridDim.x, ...): the tile's nb, edge and d3
+// rows go to shared memory, each thread recomputes its row's forward (the
+// slopes of z1a, z1b, z2 as 16-bit masks in registers) and runs its
+// backward (d2, gh1, d1a, d1b into shared memory; gnbr and gb = d1b We^T
+// straight to device memory, gb over the row's d3). Then the tile's dW
+// products: each warp owns one of dWn, dWe, dW1, dW2, each lane a 4 x 4
+// block of it in registers, over the block's tiles in order; at the end a
+// block writes its 1,792 partial sums once, which sum_cols adds in block
+// order. bwd_gctr sums gb as above.
+//
+// Every dot product of a row is one fmaf chain in a fixed order wherever
+// the row lies in a tile, so duplicated planes give equal gradients bit for
+// bit; each dW product sums fixed row ranges into one partial per block,
+// which sum_cols adds in a fixed order: no float atomics, two calls agree
+// bit for bit. The wrapper allocates the scratch and the partials
+// (ops/kernels/edgeconv.py : tiled_bwd_plan).
+//
+// On the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md), device ms a launch
+// at the fused step: (64, 128, 256) k = 12 2.18 (the general kernel 37.5,
+// the plain version 3.9), 2.24x its bound, k = 4 0.84, 2.6x; EdgeConv_0
+// 1.09 (general 16.8), 3.4x; the sum 0.50 (3.9), 3.1x; the IDGCN k = 20
+// 0.33 (5.2), 7.4x, k = 10 0.18 (2.6). The wide products run at 32-38
+// TFLOP/s, about half the FFMA peak; the tie pass, which reads z3 twice at
+// max / min, takes 0.17-0.18 ms. rowf runs at about a quarter of the peak:
+// a 16-byte weight broadcast feeds 4 FFMA a thread, so shared-memory loads
+// pace it, and rowf_bwd holds 255 registers with one row a thread. At
+// (64, 128, 256), holding z1a and z1b's products in one block, or forming
+// edge in the operand load, spilled registers: hence the separate launches
+// above (at C = 6 their depth is one slab, and kH1 holds both).
 namespace bwdt {
 
-constexpr int C = 64, H = 128, O = 256;
 constexpr int BM = 128;   // rows of a row product's tile
-constexpr int SW = 12;    // sign words a row: z1a, z1b, z2, 4 each
+
+// A class: (C, H, O) with or without the SharedMLP (without: O = H). HW
+// sign words a layer and row, SW a row (z1a, z1b and with the MLP z2).
+template <int C_, int H_, int O_, bool MLP_>
+struct Shape {
+  static constexpr int C = C_, H = H_, O = MLP_ ? O_ : H_;
+  static constexpr bool MLP = MLP_;
+  static constexpr int HW = H / 32, SW = (MLP ? 3 : 2) * HW;
+  static_assert(H == 64 || H == 128, "a layer's rows fill one tile");
+  static_assert(!MLP || O % 128 == 0, "z3 in 128-column tiles");
+  static_assert(C == 64 || C % 4 != 0, "gnbr fills one 64-column tile, or "
+                                       "the narrow tail takes it");
+};
+
+// The tile of a dW product's M (N) extent.
+__host__ __device__ constexpr int dw_tile(int m) { return m >= 128 ? 128 : 64; }
 
 // bwd_rows epilogues: kStore the product; kAct its signs into the words
 // from w0, lrelu of it into out; kAddAct the same, added to out; kD2, kD1,
-// kGnbr as the note above says
-enum RowEpi { kStore = 0, kAct = 1, kAddAct = 2, kD2 = 3, kD1 = 4, kGnbr = 5 };
+// kGnbr as the note above says; kH1 (narrow C) z1a = a b and z1b = a2 b2 in
+// one block, both signs, h1 = lrelu(z1a) + lrelu(z1b) into out
+enum RowEpi { kStore = 0, kAct = 1, kAddAct = 2, kD2 = 3, kD1 = 4, kGnbr = 5,
+              kH1 = 6 };
 
 __device__ __forceinline__ float lrelu_rn(float x) {
   return x >= 0.f ? x : __fmul_rn(0.2f, x);
 }
 
-// The signs (z >= 0) of a 128 x 128 tile's accumulators into each row's 4
-// sign words from word w0: thread (ty, tx)'s column j (Tile<BM, 128>) is
-// bit 16 (j % 2) + tx of word j / 2. A warp holds two ty: lanes 0-15 write
-// the even one's words, lanes 16-31 the odd one's. Every lane must call.
-__device__ __forceinline__ void store_signs(const float (&acc)[8][8],
-                                            unsigned* sgn, int w0, int m0,
-                                            int R) {
-  using T = Tile<BM, H>;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The signs (z >= 0) of a BM x 16 TN tile's accumulators into each row's
+// TN / 2 sign words from word w0 (sw words a row): thread (ty, tx)'s column
+// j (Tile<BM, 16 TN>) is bit 16 (j % 2) + tx of word j / 2. A warp holds
+// two ty: lanes 0-15 write the even one's words, lanes 16-31 the odd one's.
+// Every lane must call.
+template <int TN>
+__device__ __forceinline__ void store_signs(const float (&acc)[BM / 16][TN],
+                                            unsigned* sgn, int sw, int w0,
+                                            int m0, int R) {
+  using T = Tile<BM, 16 * TN>;
+  static_assert(TN == 4 || TN == 8, "two or four words a layer");
   const int lane = threadIdx.x % 32, sh = lane & 16;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    unsigned b[8];
+  for (int i = 0; i < T::TM; ++i) {
+    unsigned b[TN];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < TN; ++j)
       b[j] = (__ballot_sync(0xffffffffu, acc[i][j] >= 0.f) >> sh) & 0xffffu;
     const int r = m0 + T::row(i);
-    if (lane % 16 == 0 && r < R)
-      *reinterpret_cast<uint4*>(sgn + (size_t)r * SW + w0) =
-          make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16, b[4] | b[5] << 16,
-                     b[6] | b[7] << 16);
+    if (lane % 16 == 0 && r < R) {
+      unsigned* const p = sgn + (size_t)r * sw + w0;
+      if constexpr (TN == 8)
+        *reinterpret_cast<uint4*>(p) =
+            make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16, b[4] | b[5] << 16,
+                       b[6] | b[7] << 16);
+      else
+        *reinterpret_cast<uint2*>(p) = make_uint2(b[0] | b[1] << 16,
+                                                  b[2] | b[3] << 16);
+    }
   }
 }
 
-__device__ __forceinline__ uint4 sign_words(const unsigned* sgn, int r, int w0) {
-  return *reinterpret_cast<const uint4*>(sgn + (size_t)r * SW + w0);
+// A row's HW sign words of one layer, from word w0.
+template <int HW>
+struct Words {
+  unsigned w[HW];
+};
+
+template <int HW>
+__device__ __forceinline__ Words<HW> sign_words(const unsigned* sgn, int sw,
+                                                int r, int w0) {
+  const unsigned* const p = sgn + (size_t)r * sw + w0;
+  Words<HW> s;
+  if constexpr (HW == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    s.w[0] = v.x; s.w[1] = v.y; s.w[2] = v.z; s.w[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    s.w[0] = v.x; s.w[1] = v.y;
+  }
+  return s;
 }
 
-// lrelu'(z) at the thread's register column j (< 8) from its row's words.
-__device__ __forceinline__ float slope_of(const uint4& w, int j) {
-  const unsigned word = j / 2 == 0 ? w.x : j / 2 == 1 ? w.y : j / 2 == 2 ? w.z : w.w;
-  return (word >> (16 * (j % 2) + threadIdx.x % 16)) & 1u ? 1.f : 0.2f;
+// lrelu'(z) at the thread's register column j from its row's words.
+template <int HW>
+__device__ __forceinline__ float slope_of(const Words<HW>& s, int j) {
+  return (s.w[j / 2] >> (16 * (j % 2) + threadIdx.x % 16)) & 1u ? 1.f : 0.2f;
+}
+
+// Whether z >= 0 at column col of a row whose layer words start at w: the
+// same bit as above, found from the column (col = (j / 4) 64 + 4 tx + j % 4).
+__device__ __forceinline__ bool sign_at(const unsigned* w, int col) {
+  const int u = col % 4;
+  return (w[2 * (col / 64) + u / 2] >> (16 * (u % 2) + (col % 64) / 4)) & 1u;
 }
 
 // Rows m0 + Tile::row(i) < R of out [R, ld] from column n0 (float4 stores).
@@ -1438,12 +1527,12 @@ struct RowArgs {
   int R, depth, ldo, w0;
   float* out;     // [R, ldo]
   float* out2;    // kD1: d1b [R, H]; kGnbr: d1b We^T [R, C]
-  unsigned* sgn;  // [R, SW]
+  unsigned* sgn;  // [R, S::SW]
 };
 
 // One BM x BN tile of a row product (rows blockIdx.x BM, columns blockIdx.y
 // BN) and its epilogue EPI. BKC: b is read transposed (a W^T product).
-template <int BN, bool BKC, int EPI>
+template <class S, int BN, bool BKC, int EPI>
 __global__ void __launch_bounds__(THREADS, 2) bwd_rows(RowArgs P) {
   using T = Tile<BM, BN>;
   extern __shared__ float sm[];
@@ -1451,8 +1540,29 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_rows(RowArgs P) {
   float acc[T::TM][T::TN];
   product<BM, BN, true, BKC, kPlain, kPlain>(P.a, P.R, m0, P.b, P.b.rows, n0,
                                              0, P.depth, sm, acc);
-  if constexpr (EPI == kAct || EPI == kAddAct) {
-    store_signs(acc, P.sgn, P.w0, m0, P.R);
+  if constexpr (EPI == kH1) {
+    float acc2[T::TM][T::TN];
+    product<BM, BN, true, BKC, kPlain, kPlain>(P.a2, P.R, m0, P.b2, P.b2.rows,
+                                               n0, 0, P.depth, sm, acc2);
+    store_signs<T::TN>(acc, P.sgn, S::SW, 0, m0, P.R);
+    store_signs<T::TN>(acc2, P.sgn, S::SW, S::HW, m0, P.R);
+    const int tx = threadIdx.x % 16;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      const int r = m0 + T::row(i);
+      if (r >= P.R) continue;
+#pragma unroll
+      for (int g = 0; g < T::TN / 4; ++g) {
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = lrelu_rn(acc[i][4 * g + u]) + lrelu_rn(acc2[i][4 * g + u]);
+        *reinterpret_cast<float4*>(P.out + (size_t)r * P.ldo + n0 + g * 64 + tx * 4) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  } else if constexpr (EPI == kAct || EPI == kAddAct) {
+    store_signs<T::TN>(acc, P.sgn, S::SW, P.w0, m0, P.R);
     const int tx = threadIdx.x % 16;
 #pragma unroll
     for (int i = 0; i < T::TM; ++i) {
@@ -1474,13 +1584,14 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_rows(RowArgs P) {
   } else if constexpr (EPI == kStore) {
     store_tile<BN>(acc, P.out, P.ldo, m0, n0, P.R);
   } else if constexpr (EPI == kD2 || EPI == kD1) {
+    constexpr int HW = S::HW;
     const int tx = threadIdx.x % 16;
 #pragma unroll
     for (int i = 0; i < T::TM; ++i) {
       const int r = m0 + T::row(i);
       if (r >= P.R) continue;
-      const uint4 wa = sign_words(P.sgn, r, EPI == kD2 ? 8 : 0);
-      const uint4 wb = EPI == kD1 ? sign_words(P.sgn, r, 4) : wa;
+      const Words<HW> wa = sign_words<HW>(P.sgn, S::SW, r, EPI == kD2 ? 2 * HW : 0);
+      const Words<HW> wb = EPI == kD1 ? sign_words<HW>(P.sgn, S::SW, r, HW) : wa;
 #pragma unroll
       for (int g = 0; g < T::TN / 4; ++g) {
         float da[4], db[4];
@@ -1504,21 +1615,110 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_rows(RowArgs P) {
   }
 }
 
-// edge [R, C] = nb - its centre's row (thread i: 4 columns of row i / 16).
+// Floats a thread of bwd_edge / bwd_gctr moves: 4 where C rows are
+// 16-byte aligned, else 1.
+template <int C>
+__host__ __device__ constexpr int vec() { return C % 4 == 0 ? 4 : 1; }
+
+// The tail at a narrow C (EdgeConv_0's 6 channels, where gnbr, dWn and dWe
+// would fill 6 lanes of a 64-wide GEMM tile): blocks walk NTR-row tiles
+// (blockIdx.x, + gridDim.x, ...) with the tile's d1a, d1b, nb and edge rows
+// in shared memory. gnbr = d1a Wn^T + d1b We^T and gb = d1b We^T: one
+// thread an output (row, c), one fmaf chain each over h ascending. dWn =
+// nb^T d1a and dWe = edge^T d1b: thread t owns column t % H of one product
+// for NC channels, over its block's rows in order; part [gridDim.x, 2 C H]
+// (dWn, dWe) written once a block.
+constexpr int NTR = 64;
+
+template <class S>
+__global__ void __launch_bounds__(THREADS)
+bwd_narrow(const float* __restrict__ nb, const float* __restrict__ edge,
+           const float* __restrict__ d1a, const float* __restrict__ d1b,
+           const float* __restrict__ wn, const float* __restrict__ we, int R,
+           float* __restrict__ gnbr, float* __restrict__ gb,
+           float* __restrict__ part) {
+  constexpr int C = S::C, H = S::H, LD = H + 4, NC = 2 * C * H / THREADS;
+  static_assert(THREADS % (2 * H) == 0 && NC * THREADS / (2 * H) == C,
+                "threads own whole columns of dWn and dWe");
+  __shared__ __align__(16) float w_s[2][C][LD];     // Wn, We
+  __shared__ __align__(16) float d_s[2][NTR][LD];   // d1a, d1b rows
+  __shared__ float x_s[2][NTR][C];                  // nb, edge rows
+  for (int e = threadIdx.x; e < C * H; e += THREADS) {
+    w_s[0][e / H][e % H] = wn[e];
+    w_s[1][e / H][e % H] = we[e];
+  }
+  const int h = threadIdx.x % H, p = threadIdx.x / H % 2;
+  const int c0 = threadIdx.x / (2 * H) * NC;
+  float acc[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
+  const int tiles = (R + NTR - 1) / NTR;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile * NTR, nr = min(NTR, R - r0);
+    __syncthreads();                   // the previous tile is no longer read
+    for (int e = threadIdx.x; e < nr * (H / 4); e += THREADS) {
+      const int row = e / (H / 4), q = e % (H / 4);
+      const size_t o = (size_t)(r0 + row) * H + 4 * q;
+      *reinterpret_cast<float4*>(&d_s[0][row][4 * q]) = ld4(d1a + o);
+      *reinterpret_cast<float4*>(&d_s[1][row][4 * q]) = ld4(d1b + o);
+    }
+    for (int e = threadIdx.x; e < nr * C; e += THREADS) {
+      x_s[0][e / C][e % C] = nb[(size_t)r0 * C + e];
+      x_s[1][e / C][e % C] = edge[(size_t)r0 * C + e];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < nr * C; e += THREADS) {
+      const int row = e / C, c = e % C;
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int k = 0; k < H; k += 4) {
+        const float4 a = ld4(&d_s[0][row][k]), b = ld4(&d_s[1][row][k]);
+        const float4 u = ld4(&w_s[0][c][k]), v = ld4(&w_s[1][c][k]);
+        sa = fmaf(a.x, u.x, sa);
+        sa = fmaf(a.y, u.y, sa);
+        sa = fmaf(a.z, u.z, sa);
+        sa = fmaf(a.w, u.w, sa);
+        sb = fmaf(b.x, v.x, sb);
+        sb = fmaf(b.y, v.y, sb);
+        sb = fmaf(b.z, v.z, sb);
+        sb = fmaf(b.w, v.w, sb);
+      }
+      gnbr[(size_t)r0 * C + e] = sa + sb;
+      gb[(size_t)r0 * C + e] = sb;
+    }
+    for (int row = 0; row < nr; ++row) {
+      const float d = d_s[p][row][h];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) acc[i] = fmaf(x_s[p][row][c0 + i], d, acc[i]);
+    }
+  }
+  float* const out = part + (size_t)blockIdx.x * 2 * C * H + p * C * H;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) out[(c0 + i) * H + h] = acc[i];
+}
+
+// edge [R, C] = nb - its centre's row (thread i: vec<C>() columns of row
+// i / (C / vec<C>())).
+template <int C>
 __global__ void __launch_bounds__(THREADS)
 bwd_edge(const float* __restrict__ nb, const float* __restrict__ ctr, int B,
          int K, int N, float* __restrict__ edge) {
+  constexpr int V = vec<C>(), Q = C / V;
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= B * K * N * (C / 4)) return;
-  const int q = i % (C / 4), r = i / (C / 4), p = r / (K * N) * N + r % N;
-  const float4 v = *reinterpret_cast<const float4*>(nb + (size_t)r * C + 4 * q);
-  const float4 c = *reinterpret_cast<const float4*>(ctr + (size_t)p * C + 4 * q);
-  *reinterpret_cast<float4*>(edge + (size_t)r * C + 4 * q) =
-      make_float4(v.x - c.x, v.y - c.y, v.z - c.z, v.w - c.w);
+  if (i >= B * K * N * Q) return;
+  const int q = i % Q, r = i / Q, p = r / (K * N) * N + r % N;
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(nb + (size_t)r * C + 4 * q);
+    const float4 c = *reinterpret_cast<const float4*>(ctr + (size_t)p * C + 4 * q);
+    *reinterpret_cast<float4*>(edge + (size_t)r * C + 4 * q) =
+        make_float4(v.x - c.x, v.y - c.y, v.z - c.z, v.w - c.w);
+  } else {
+    edge[(size_t)r * C + q] = nb[(size_t)r * C + q] - ctr[(size_t)p * C + q];
+  }
 }
 
 // d3 over z3 [R, O] (above): thread i holds 4 columns of one (b, n).
-template <int AGG>
+template <int AGG, int O>
 __global__ void __launch_bounds__(THREADS)
 bwd_ties(float* __restrict__ z, const float* __restrict__ g, int B, int K,
          int N) {
@@ -1568,25 +1768,93 @@ bwd_ties(float* __restrict__ z, const float* __restrict__ g, int B, int K,
   }
 }
 
-// gctr [B, N, C] = -sum over j ascending of gb [R, C] at the rows of (b, n).
+// Without the MLP: y = h1 [R, H] (in place) -> d1a = gy lrelu'(z1a) over
+// it and d1b = gy lrelu'(z1b) into d1b [R, H], gy as in bwd_ties; the
+// slopes from the row's sign words (z1a's at 0, z1b's at S::HW).
+template <class S, int AGG>
+__global__ void __launch_bounds__(THREADS)
+bwd_ties_h1(float* __restrict__ h1, float* __restrict__ d1b,
+            const unsigned* __restrict__ sgn, const float* __restrict__ g,
+            int B, int K, int N) {
+  constexpr int H = S::H;
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= B * N * (H / 4)) return;
+  const int q = i % (H / 4), p = i / (H / 4), b = p / N, n = p - b * N;
+  const size_t r0 = (size_t)b * K * N + n;
+  const float4 gv = *reinterpret_cast<const float4*>(g + (size_t)p * H + 4 * q);
+  float gy[4] = {gv.x, gv.y, gv.z, gv.w}, acc[4], cnt[4];
+  constexpr bool extreme = AGG == kMax || AGG == kMin;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (AGG == kMean) gy[u] = gy[u] / (float)K;
+    acc[u] = 0.f;
+    cnt[u] = 1.f;
+  }
+  if (extreme) {
+    for (int j = 0; j < K; ++j) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(h1 + (r0 + (size_t)j * N) * H + 4 * q);
+      const float yy[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool beyond = AGG == kMax ? yy[u] > acc[u] : yy[u] < acc[u];
+        if (j == 0 || beyond) {
+          acc[u] = yy[u];
+          cnt[u] = 1.f;
+        } else if (yy[u] == acc[u]) {
+          cnt[u] += 1.f;
+        }
+      }
+    }
+  }
+  for (int j = 0; j < K; ++j) {
+    const size_t r = r0 + (size_t)j * N;
+    float4* const hp = reinterpret_cast<float4*>(h1 + r * H + 4 * q);
+    const float4 v = *hp;
+    const float yy[4] = {v.x, v.y, v.z, v.w};
+    const unsigned* const w = sgn + r * S::SW;
+    float da[4], db[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float gu =
+          extreme ? (yy[u] == acc[u] ? gy[u] : 0.f) / cnt[u] : gy[u];
+      da[u] = gu * (sign_at(w, 4 * q + u) ? 1.f : 0.2f);
+      db[u] = gu * (sign_at(w + S::HW, 4 * q + u) ? 1.f : 0.2f);
+    }
+    *hp = make_float4(da[0], da[1], da[2], da[3]);
+    *reinterpret_cast<float4*>(d1b + r * H + 4 * q) =
+        make_float4(db[0], db[1], db[2], db[3]);
+  }
+}
+
+// gctr [B, N, C] = -sum over j ascending of gb [R, C] at the rows of (b, n)
+// (thread i: vec<C>() columns).
+template <int C>
 __global__ void __launch_bounds__(THREADS)
 bwd_gctr(const float* __restrict__ gb, int B, int K, int N,
          float* __restrict__ gctr) {
+  constexpr int V = vec<C>(), Q = C / V;
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= B * N * (C / 4)) return;
-  const int q = i % (C / 4), p = i / (C / 4), b = p / N, n = p - b * N;
-  const float* const g0 = gb + ((size_t)b * K * N + n) * C + 4 * q;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j = 0; j < K; ++j) {
-    const float4 v = *reinterpret_cast<const float4*>(g0 + (size_t)j * N * C);
-    s = make_float4(s.x - v.x, s.y - v.y, s.z - v.z, s.w - v.w);
+  if (i >= B * N * Q) return;
+  const int q = i % Q, p = i / Q, b = p / N, n = p - b * N;
+  const float* const g0 = gb + ((size_t)b * K * N + n) * C + V * q;
+  if constexpr (V == 4) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < K; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(g0 + (size_t)j * N * C);
+      s = make_float4(s.x - v.x, s.y - v.y, s.z - v.z, s.w - v.w);
+    }
+    *reinterpret_cast<float4*>(gctr + (size_t)p * C + 4 * q) = s;
+  } else {
+    float s = 0.f;
+    for (int j = 0; j < K; ++j) s = s - g0[(size_t)j * N * C];
+    gctr[(size_t)p * C + q] = s;
   }
-  *reinterpret_cast<float4*>(gctr + (size_t)p * C + 4 * q) = s;
 }
 
-template <int BN, bool BKC, int EPI>
+template <class S, int BN, bool BKC, int EPI>
 cudaError_t rows_go(const RowArgs& P, int col_tiles, cudaStream_t st) {
-  auto kern = bwd_rows<BN, BKC, EPI>;
+  auto kern = bwd_rows<S, BN, BKC, EPI>;
   static const cudaError_t e = allow_smem(kern, SMEM_LIMIT);
   if (e != cudaSuccess) return e;
   const dim3 grid((P.R + BM - 1) / BM, col_tiles);
@@ -1595,28 +1863,28 @@ cudaError_t rows_go(const RowArgs& P, int col_tiles, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// dW [M, 128 k] = A^T B over the split row ranges, then their sum into out.
-template <int BMW, int AKIND>
+// dW [M, N] = A^T B over the split row ranges in BMW x BNW tiles, then
+// their sum into out.
+template <int BMW, int BNW, int AKIND>
 cudaError_t dw_go(const DwArgs& P, float* out, cudaStream_t st) {
-  auto kern = dw_gemm<BMW, 128, AKIND, kPlain>;
+  auto kern = dw_gemm<BMW, BNW, AKIND, kPlain>;
   static const cudaError_t e = allow_smem(kern, SMEM_LIMIT);
   if (e != cudaSuccess) return e;
   const int splits = (P.R + P.split_rows - 1) / P.split_rows;
   const size_t smem =
-      sizeof(float) * pipe_floats<BMW, 128, false, false, AKIND, kPlain>();
-  kern<<<dim3(P.M / BMW, P.N / 128, splits), THREADS, smem, st>>>(P);
+      sizeof(float) * pipe_floats<BMW, BNW, false, false, AKIND, kPlain>();
+  kern<<<dim3((P.M + BMW - 1) / BMW, (P.N + BNW - 1) / BNW, splits), THREADS,
+         smem, st>>>(P);
   const cudaError_t e2 = cudaGetLastError();
   if (e2 != cudaSuccess) return e2;
   sum_cols_launch(P.part, splits, P.M * P.N, out, st);
   return cudaGetLastError();
 }
 
-template <int AGG>
-cudaError_t ties_go(float* z3, const float* g, int B, int K, int N,
-                    cudaStream_t st) {
-  const int n = B * N * (O / 4);
-  bwd_ties<AGG><<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(z3, g, B, K, N);
-  return cudaGetLastError();
+// The dW product x^T d, x [R, M], d [R, N], on its tiles.
+template <int M, int N>
+cudaError_t dw_product(const DwArgs& P, float* out, cudaStream_t st) {
+  return dw_go<dw_tile(M), dw_tile(N), kPlain>(P, out, st);
 }
 
 Src src(const void* p, int rows, int chans) {
@@ -1640,6 +1908,21 @@ DwArgs dw_args(const Src& a, const Src& b, int R, int M, int N, int split_rows,
   return D;
 }
 
+template <int AGG, class S>
+cudaError_t ties_go(float* x, float* d1b, const unsigned* sgn, const float* g,
+                    int B, int K, int N, cudaStream_t st) {
+  if constexpr (S::MLP) {
+    const int n = B * N * (S::O / 4);
+    bwd_ties<AGG, S::O><<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+        x, g, B, K, N);
+  } else {
+    const int n = B * N * (S::H / 4);
+    bwd_ties_h1<S, AGG><<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+        x, d1b, sgn, g, B, K, N);
+  }
+  return cudaGetLastError();
+}
+
 #define BWDT_TRY(call)                        \
   do {                                        \
     const cudaError_t e_ = (call);            \
@@ -1647,24 +1930,29 @@ DwArgs dw_args(const Src& a, const Src& b, int R, int M, int N, int split_rows,
   } while (0)
 
 // The launches in order (the note above). split: the rows of a dW partial,
-// for dW2, dW1, dWn, dWe.
+// for dW2, dW1 (with the MLP), dWn, dWe (not at a narrow C, whose tail runs
+// on `blocks` blocks). Scratch: x1 [R, H], with the MLP x2 [R, H], x3
+// [R, O], xe [R, C], then R SW sign words.
+template <class S>
 cudaError_t backward(const void* nbr, const void* ctr, const void* wn,
                      const void* we, const void* w1, const void* w2,
                      const void* g, float* gnbr, float* gctr, float* dw,
                      float* scratch, float* part, int B, int K, int N, int agg,
-                     const int (&split)[4], cudaStream_t st) {
+                     const int (&split)[4], int blocks, cudaStream_t st) {
+  constexpr int C = S::C, H = S::H, O = S::O, HW = S::HW;
+  constexpr bool NARROW = C % 4 != 0;   // EdgeConv_0's 6 channels
   const int R = B * K * N;
-  float* const x1 = scratch;                  // h1, then d1a
-  float* const x2 = x1 + (size_t)R * H;       // h2, then d2, then d1b We^T
-  float* const x3 = x2 + (size_t)R * H;       // z3, then d3, then d1b
-  float* const xe = x3 + (size_t)R * O;       // edge
+  float* const x1 = scratch;                            // h1, then d1a
+  float* const x2 = x1 + (size_t)R * H;                 // h2, d2, d1b We^T
+  float* const x3 = x2 + (S::MLP ? (size_t)R * H : 0);  // z3, d3, d1b
+  float* const xe = x3 + (size_t)R * O;                 // edge (no MLP: gb)
   unsigned* const sgn = reinterpret_cast<unsigned*>(xe + (size_t)R * C);
   float* const dwn = dw;
   float* const dwe = dwn + C * H;
   float* const dw1 = dwe + C * H;
   float* const dw2 = dw1 + H * H;
-  const int ne = R * (C / 4);
-  bwd_edge<<<(ne + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+  const int ne = R * (C / vec<C>());
+  bwd_edge<C><<<(ne + THREADS - 1) / THREADS, THREADS, 0, st>>>(
       static_cast<const float*>(nbr), static_cast<const float*>(ctr), B, K, N,
       xe);
   BWDT_TRY(cudaGetLastError());
@@ -1679,66 +1967,441 @@ cudaError_t backward(const void* nbr, const void* ctr, const void* wn,
   P.ldo = H;
   P.w0 = 0;
   P.out = x1;
-  BWDT_TRY((rows_go<H, false, kAct>(P, 1, st)));
-  P.a = edge;
-  P.b = src(we, C, H);
-  P.w0 = 4;
-  BWDT_TRY((rows_go<H, false, kAddAct>(P, 1, st)));
-  P.a = src(x1, R, H);
-  P.b = src(w1, H, H);
-  P.depth = H;
-  P.w0 = 8;
-  P.out = x2;
-  BWDT_TRY((rows_go<H, false, kAct>(P, 1, st)));
-  P.a = src(x2, R, H);
-  P.b = src(w2, H, O);
-  P.ldo = O;
-  P.out = x3;
-  BWDT_TRY((rows_go<128, false, kStore>(P, O / 128, st)));
+  if constexpr (NARROW) {
+    P.a2 = edge;
+    P.b2 = src(we, C, H);
+    BWDT_TRY((rows_go<S, H, false, kH1>(P, 1, st)));
+  } else {
+    BWDT_TRY((rows_go<S, H, false, kAct>(P, 1, st)));
+    P.a = edge;
+    P.b = src(we, C, H);
+    P.w0 = HW;
+    BWDT_TRY((rows_go<S, H, false, kAddAct>(P, 1, st)));
+  }
+  if constexpr (S::MLP) {
+    P.a = src(x1, R, H);
+    P.b = src(w1, H, H);
+    P.depth = H;
+    P.w0 = 2 * HW;
+    P.out = x2;
+    BWDT_TRY((rows_go<S, H, false, kAct>(P, 1, st)));
+    P.a = src(x2, R, H);
+    P.b = src(w2, H, O);
+    P.ldo = O;
+    P.out = x3;
+    BWDT_TRY((rows_go<S, 128, false, kStore>(P, O / 128, st)));
+  }
   const float* gf = static_cast<const float*>(g);
   switch (agg) {
-    case kMax: BWDT_TRY(ties_go<kMax>(x3, gf, B, K, N, st)); break;
-    case kMin: BWDT_TRY(ties_go<kMin>(x3, gf, B, K, N, st)); break;
-    case kSum: BWDT_TRY(ties_go<kSum>(x3, gf, B, K, N, st)); break;
-    default: BWDT_TRY(ties_go<kMean>(x3, gf, B, K, N, st));
+    case kMax: BWDT_TRY((ties_go<kMax, S>(S::MLP ? x3 : x1, x3, sgn, gf, B, K, N, st))); break;
+    case kMin: BWDT_TRY((ties_go<kMin, S>(S::MLP ? x3 : x1, x3, sgn, gf, B, K, N, st))); break;
+    case kSum: BWDT_TRY((ties_go<kSum, S>(S::MLP ? x3 : x1, x3, sgn, gf, B, K, N, st))); break;
+    default: BWDT_TRY((ties_go<kMean, S>(S::MLP ? x3 : x1, x3, sgn, gf, B, K, N, st)));
   }
 
-  BWDT_TRY((dw_go<128, kPlain>(
-      dw_args(src(x2, R, H), src(x3, R, O), R, H, O, split[0], part), dw2, st)));
-  P.a = src(x3, R, O);
-  P.b = src(w2, H, O);          // read transposed: W2^T
-  P.depth = O;
-  P.ldo = H;
-  P.out = x2;
-  BWDT_TRY((rows_go<H, true, kD2>(P, 1, st)));
-  BWDT_TRY((dw_go<128, kPlain>(
-      dw_args(src(x1, R, H), src(x2, R, H), R, H, H, split[1], part), dw1, st)));
-  P.a = src(x2, R, H);
-  P.b = src(w1, H, H);
-  P.depth = H;
-  P.out = x1;
-  P.out2 = x3;
-  BWDT_TRY((rows_go<H, true, kD1>(P, 1, st)));
-  BWDT_TRY((dw_go<64, kPlain>(
-      dw_args(src(nbr, R, C), src(x1, R, H), R, C, H, split[2], part), dwn, st)));
-  BWDT_TRY((dw_go<64, kPlain>(
-      dw_args(edge, src(x3, R, H), R, C, H, split[3], part), dwe, st)));
-  P.a = src(x3, R, H);          // d1b We^T, then d1a Wn^T
-  P.b = src(we, C, H);
-  P.a2 = src(x1, R, H);
-  P.b2 = src(wn, C, H);
-  P.ldo = C;
-  P.out = gnbr;
-  P.out2 = x2;
-  BWDT_TRY((rows_go<C, true, kGnbr>(P, 1, st)));
-  const int n = B * N * (C / 4);
-  bwd_gctr<<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(x2, B, K, N, gctr);
+  if constexpr (S::MLP) {
+    BWDT_TRY((dw_product<H, O>(
+        dw_args(src(x2, R, H), src(x3, R, O), R, H, O, split[0], part), dw2, st)));
+    P.a = src(x3, R, O);
+    P.b = src(w2, H, O);          // read transposed: W2^T
+    P.depth = O;
+    P.ldo = H;
+    P.out = x2;
+    BWDT_TRY((rows_go<S, H, true, kD2>(P, 1, st)));
+    BWDT_TRY((dw_product<H, H>(
+        dw_args(src(x1, R, H), src(x2, R, H), R, H, H, split[1], part), dw1, st)));
+    P.a = src(x2, R, H);
+    P.b = src(w1, H, H);
+    P.depth = H;
+    P.out = x1;
+    P.out2 = x3;
+    BWDT_TRY((rows_go<S, H, true, kD1>(P, 1, st)));
+  }
+  float* const gb = S::MLP ? x2 : xe;   // edge is read no more
+  if constexpr (NARROW) {
+    bwd_narrow<S><<<blocks, THREADS, 0, st>>>(
+        static_cast<const float*>(nbr), xe, x1, x3,
+        static_cast<const float*>(wn), static_cast<const float*>(we), R, gnbr,
+        gb, part);
+    BWDT_TRY(cudaGetLastError());
+    sum_cols_launch(part, blocks, 2 * C * H, dwn, st);
+    BWDT_TRY(cudaGetLastError());
+  } else {
+    BWDT_TRY((dw_product<C, H>(
+        dw_args(src(nbr, R, C), src(x1, R, H), R, C, H, split[2], part), dwn, st)));
+    BWDT_TRY((dw_product<C, H>(
+        dw_args(edge, src(x3, R, H), R, C, H, split[3], part), dwe, st)));
+    P.a = src(x3, R, H);          // d1b We^T, then d1a Wn^T
+    P.b = src(we, C, H);
+    P.a2 = src(x1, R, H);
+    P.b2 = src(wn, C, H);
+    P.depth = H;
+    P.ldo = C;
+    P.out = gnbr;
+    P.out2 = gb;
+    BWDT_TRY((rows_go<S, C, true, kGnbr>(P, 1, st)));
+  }
+  const int n = B * N * (C / vec<C>());
+  bwd_gctr<C><<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(gb, B, K, N, gctr);
   return cudaGetLastError();
 }
 
-#undef BWDT_TRY
-
 }  // namespace bwdt
+
+// The IDGCN's backward, one plane-row a thread (the note above bwdt).
+namespace rowf {
+
+constexpr int C = 32, H = 16, O = 32;
+constexpr int TR = 128;                  // plane-rows a tile, threads a block
+// shared row strides (floats): 4 mod 8 words, so the 8 threads of a
+// 16-byte access phase reading their own rows hit 8 distinct bank groups
+constexpr int LC = C + 4, LH = H + 4;
+// the weights in shared memory, packed as the dW output: Wn, We, W1, W2
+constexpr int WN = 0, WE = WN + C * H, W1 = WE + C * H, W2 = W1 + H * H;
+constexpr int WALL = W2 + H * O;         // 1,792 floats; a block's partials
+// rowf_bwd's shared memory: the weights, nb, edge and d3 rows [TR][LC],
+// h1, h2, d2, d1a, d1b rows [TR][LH]
+constexpr int BWD_FLOATS = WALL + TR * (3 * LC + 5 * LH);
+constexpr int FWD_FLOATS = WALL + TR * 2 * LC;
+
+using bwdt::ld4;
+
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+using bwdt::lrelu_rn;
+
+// The weights into w_s (WALL floats).
+__device__ __forceinline__ void load_weights(const float* wn, const float* we,
+                                             const float* w1, const float* w2,
+                                             float* w_s) {
+  for (int e = threadIdx.x; e < C * H; e += TR) {
+    w_s[WN + e] = wn[e];
+    w_s[WE + e] = we[e];
+  }
+  for (int e = threadIdx.x; e < H * H; e += TR) w_s[W1 + e] = w1[e];
+  for (int e = threadIdx.x; e < H * O; e += TR) w_s[W2 + e] = w2[e];
+}
+
+// The tile's rows r0 .. r0 + nr - 1 of nb and of edge = nb - ctr (and of d3
+// when d3 is given) into [TR][LC] rows; zero past nr.
+__device__ __forceinline__ void load_tile(const float* __restrict__ nbr,
+                                          const float* __restrict__ ctr,
+                                          const float* __restrict__ d3, int r0,
+                                          int nr, int K, int N, float* nb_s,
+                                          float* ed_s, float* d3_s) {
+  for (int e = threadIdx.x; e < TR * (C / 4); e += TR) {
+    const int row = e / (C / 4), q = e % (C / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f), c = v, d = v;
+    if (row < nr) {
+      const int r = r0 + row, p = r / (K * N) * N + r % N;
+      v = ld4(nbr + (size_t)r * C + 4 * q);
+      c = ld4(ctr + (size_t)p * C + 4 * q);
+      if (d3) d = ld4(d3 + (size_t)r * O + 4 * q);
+    }
+    *reinterpret_cast<float4*>(nb_s + row * LC + 4 * q) = v;
+    *reinterpret_cast<float4*>(ed_s + row * LC + 4 * q) =
+        make_float4(v.x - c.x, v.y - c.y, v.z - c.z, v.w - c.w);
+    if (d3) *reinterpret_cast<float4*>(d3_s + row * LC + 4 * q) = d;
+  }
+}
+
+// A row's forward to h2: z1a = nb Wn, z1b = edge We, h1, z2 = h1 W1, h2;
+// the signs of z1a, z1b, z2 as bit masks. One fmaf chain an element, its
+// depth ascending.
+__device__ __forceinline__ void forward_row(const float* nb, const float* ed,
+                                            const float* w_s, float (&h1)[H],
+                                            float (&h2)[H], unsigned& s1a,
+                                            unsigned& s1b, unsigned& s2) {
+  float za[H], zb[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) za[h] = zb[h] = 0.f;
+#pragma unroll 2
+  for (int c0 = 0; c0 < C; c0 += 4) {
+    const float4 x4 = ld4(nb + c0), e4 = ld4(ed + c0);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w}, e[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int h = 0; h < H; h += 4) {
+        const float4 a = ld4(w_s + WN + (c0 + u) * H + h);
+        const float4 b = ld4(w_s + WE + (c0 + u) * H + h);
+        za[h] = fmaf(x[u], a.x, za[h]);
+        za[h + 1] = fmaf(x[u], a.y, za[h + 1]);
+        za[h + 2] = fmaf(x[u], a.z, za[h + 2]);
+        za[h + 3] = fmaf(x[u], a.w, za[h + 3]);
+        zb[h] = fmaf(e[u], b.x, zb[h]);
+        zb[h + 1] = fmaf(e[u], b.y, zb[h + 1]);
+        zb[h + 2] = fmaf(e[u], b.z, zb[h + 2]);
+        zb[h + 3] = fmaf(e[u], b.w, zb[h + 3]);
+      }
+    }
+  }
+  s1a = s1b = s2 = 0u;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    s1a |= (za[h] >= 0.f ? 1u : 0u) << h;
+    s1b |= (zb[h] >= 0.f ? 1u : 0u) << h;
+    h1[h] = __fadd_rn(lrelu_rn(za[h]), lrelu_rn(zb[h]));
+    za[h] = 0.f;                       // z2 from here
+  }
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+#pragma unroll
+    for (int h = 0; h < H; h += 4) {
+      const float4 a = ld4(w_s + W1 + k * H + h);
+      za[h] = fmaf(h1[k], a.x, za[h]);
+      za[h + 1] = fmaf(h1[k], a.y, za[h + 1]);
+      za[h + 2] = fmaf(h1[k], a.z, za[h + 2]);
+      za[h + 3] = fmaf(h1[k], a.w, za[h + 3]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    s2 |= (za[h] >= 0.f ? 1u : 0u) << h;
+    h2[h] = lrelu_rn(za[h]);
+  }
+}
+
+__device__ __forceinline__ float slope(unsigned s, int h) {
+  return (s >> h) & 1u ? 1.f : 0.2f;
+}
+
+// z3 [R, O] = each row's forward (thread t: row t of the tile).
+__global__ void __launch_bounds__(TR, 4)
+rowf_fwd(const float* __restrict__ nbr, const float* __restrict__ ctr,
+         const float* __restrict__ wn, const float* __restrict__ we,
+         const float* __restrict__ w1, const float* __restrict__ w2, int B,
+         int K, int N, float* __restrict__ z3) {
+  extern __shared__ __align__(16) float sm[];
+  float* const w_s = sm;
+  float* const nb_s = w_s + WALL;
+  float* const ed_s = nb_s + TR * LC;
+  const int R = B * K * N, t = threadIdx.x;
+  load_weights(wn, we, w1, w2, w_s);
+  const int r0 = blockIdx.x * TR, nr = min(TR, R - r0);
+  load_tile(nbr, ctr, nullptr, r0, nr, K, N, nb_s, ed_s, nullptr);
+  __syncthreads();
+  if (t >= nr) return;
+  float h1[H], h2[H];
+  unsigned s1a, s1b, s2;
+  forward_row(nb_s + t * LC, ed_s + t * LC, w_s, h1, h2, s1a, s1b, s2);
+  float z[O];
+#pragma unroll
+  for (int o = 0; o < O; ++o) z[o] = 0.f;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+#pragma unroll
+    for (int o = 0; o < O; o += 4) {
+      const float4 a = ld4(w_s + W2 + k * O + o);
+      z[o] = fmaf(h2[k], a.x, z[o]);
+      z[o + 1] = fmaf(h2[k], a.y, z[o + 1]);
+      z[o + 2] = fmaf(h2[k], a.z, z[o + 2]);
+      z[o + 3] = fmaf(h2[k], a.w, z[o + 3]);
+    }
+  }
+  float* const out = z3 + (size_t)(r0 + t) * O;
+#pragma unroll
+  for (int o = 0; o < O; o += 4) st4(out + o, z + o);
+}
+
+// The backward (the note above bwdt): d3 [R, O] in zd, gb over it; part
+// [gridDim.x, WALL] the blocks' dW partials (packed as dw).
+__global__ void __launch_bounds__(TR, 2)
+rowf_bwd(const float* __restrict__ nbr, const float* __restrict__ ctr,
+         const float* __restrict__ wn, const float* __restrict__ we,
+         const float* __restrict__ w1, const float* __restrict__ w2, int B,
+         int K, int N, float* __restrict__ zd, float* __restrict__ gnbr,
+         float* __restrict__ part) {
+  extern __shared__ __align__(16) float sm[];
+  float* const w_s = sm;
+  float* const nb_s = w_s + WALL;
+  float* const ed_s = nb_s + TR * LC;
+  float* const d3_s = ed_s + TR * LC;
+  float* const h1_s = d3_s + TR * LC;
+  float* const h2_s = h1_s + TR * LH;
+  float* const d2_s = h2_s + TR * LH;
+  float* const da_s = d2_s + TR * LH;
+  float* const db_s = da_s + TR * LH;
+  const int R = B * K * N, t = threadIdx.x, tiles = (R + TR - 1) / TR;
+  load_weights(wn, we, w1, w2, w_s);
+
+  // this lane's 4 x 4 block of its warp's dW product: x^T d, x rows of
+  // ldx floats from xs at column 4 mg, d rows of ldd from ds at 4 ng
+  const int warp = t / 32, lane = t % 32;
+  const float *xs, *ds;
+  int ldx, ldd, mg, ng, out0, ldw;
+  if (warp == 0) {          // dWn = nb^T d1a, 32 x 16
+    xs = nb_s; ds = da_s; ldx = LC; ldd = LH; mg = lane / 4; ng = lane % 4;
+    out0 = WN; ldw = H;
+  } else if (warp == 1) {   // dWe = edge^T d1b
+    xs = ed_s; ds = db_s; ldx = LC; ldd = LH; mg = lane / 4; ng = lane % 4;
+    out0 = WE; ldw = H;
+  } else if (warp == 2) {   // dW1 = h1^T d2, 16 x 16: lanes 0-15
+    xs = h1_s; ds = d2_s; ldx = LH; ldd = LH; mg = (lane % 16) / 4; ng = lane % 4;
+    out0 = W1; ldw = H;
+  } else {                  // dW2 = h2^T d3, 16 x 32
+    xs = h2_s; ds = d3_s; ldx = LH; ldd = LC; mg = lane / 8; ng = lane % 8;
+    out0 = W2; ldw = O;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile * TR, nr = min(TR, R - r0);
+    __syncthreads();                   // the previous tile is no longer read
+    load_tile(nbr, ctr, zd, r0, nr, K, N, nb_s, ed_s, d3_s);
+    __syncthreads();
+    if (t < nr) {
+      float h1[H], h2[H];
+      unsigned s1a, s1b, s2;
+      forward_row(nb_s + t * LC, ed_s + t * LC, w_s, h1, h2, s1a, s1b, s2);
+#pragma unroll
+      for (int h = 0; h < H; h += 4) {
+        st4(h1_s + t * LH + h, h1 + h);
+        st4(h2_s + t * LH + h, h2 + h);
+      }
+      // d2 = (d3 W2^T) lrelu'(z2)
+      float d3[O], d2[H];
+#pragma unroll
+      for (int o = 0; o < O; o += 4) {
+        const float4 v = ld4(d3_s + t * LC + o);
+        d3[o] = v.x; d3[o + 1] = v.y; d3[o + 2] = v.z; d3[o + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        float s = 0.f;
+#pragma unroll
+        for (int o = 0; o < O; o += 4) {
+          const float4 a = ld4(w_s + W2 + h * O + o);
+          s = fmaf(d3[o], a.x, s);
+          s = fmaf(d3[o + 1], a.y, s);
+          s = fmaf(d3[o + 2], a.z, s);
+          s = fmaf(d3[o + 3], a.w, s);
+        }
+        d2[h] = s * slope(s2, h);
+      }
+      // gh1 = d2 W1^T; d1a, d1b
+      float da[H], db[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < H; k += 4) {
+          const float4 a = ld4(w_s + W1 + h * H + k);
+          s = fmaf(d2[k], a.x, s);
+          s = fmaf(d2[k + 1], a.y, s);
+          s = fmaf(d2[k + 2], a.z, s);
+          s = fmaf(d2[k + 3], a.w, s);
+        }
+        da[h] = s * slope(s1a, h);
+        db[h] = s * slope(s1b, h);
+      }
+#pragma unroll
+      for (int h = 0; h < H; h += 4) {
+        st4(d2_s + t * LH + h, d2 + h);
+        st4(da_s + t * LH + h, da + h);
+        st4(db_s + t * LH + h, db + h);
+      }
+      // gb = d1b We^T (over the row's d3, read above), gnbr = d1a Wn^T + gb
+      const size_t r = (size_t)(r0 + t);
+#pragma unroll 2
+      for (int c0 = 0; c0 < C; c0 += 4) {
+        float gn[4], gbv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float sa = 0.f, sb = 0.f;
+#pragma unroll
+          for (int h = 0; h < H; h += 4) {
+            const float4 a = ld4(w_s + WN + (c0 + u) * H + h);
+            const float4 b = ld4(w_s + WE + (c0 + u) * H + h);
+            sa = fmaf(da[h], a.x, sa);
+            sa = fmaf(da[h + 1], a.y, sa);
+            sa = fmaf(da[h + 2], a.z, sa);
+            sa = fmaf(da[h + 3], a.w, sa);
+            sb = fmaf(db[h], b.x, sb);
+            sb = fmaf(db[h + 1], b.y, sb);
+            sb = fmaf(db[h + 2], b.z, sb);
+            sb = fmaf(db[h + 3], b.w, sb);
+          }
+          gbv[u] = sb;
+          gn[u] = sa + sb;
+        }
+        st4(gnbr + r * C + c0, gn);
+        st4(zd + r * O + c0, gbv);
+      }
+    }
+    __syncthreads();
+    // the tile's dW products, rows in order
+    if (warp != 2 || lane < 16) {
+#pragma unroll 2
+      for (int row = 0; row < nr; ++row) {
+        const float4 x4 = ld4(xs + row * ldx + 4 * mg);
+        const float4 d4 = ld4(ds + row * ldd + 4 * ng);
+        const float x[4] = {x4.x, x4.y, x4.z, x4.w}, d[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(x[a], d[b], acc[a][b]);
+      }
+    }
+  }
+  if (warp != 2 || lane < 16) {
+    float* const p = part + (size_t)blockIdx.x * WALL + out0;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) st4(p + (4 * mg + a) * ldw + 4 * ng, acc[a]);
+  }
+}
+
+// The launches: rowf_fwd, bwd_ties, rowf_bwd on `blocks` blocks, the dW
+// partials' sum, bwd_gctr. scratch: R O floats; part: blocks WALL.
+cudaError_t backward(const void* nbr, const void* ctr, const void* wn,
+                     const void* we, const void* w1, const void* w2,
+                     const void* g, float* gnbr, float* gctr, float* dw,
+                     float* scratch, float* part, int B, int K, int N, int agg,
+                     int blocks, cudaStream_t st) {
+  const int R = B * K * N;
+  const float* const nb = static_cast<const float*>(nbr);
+  const float* const ct = static_cast<const float*>(ctr);
+  const float* const a = static_cast<const float*>(wn);
+  const float* const b = static_cast<const float*>(we);
+  const float* const c = static_cast<const float*>(w1);
+  const float* const d = static_cast<const float*>(w2);
+  static const cudaError_t e0 = allow_smem(rowf_bwd, sizeof(float) * BWD_FLOATS);
+  BWDT_TRY(e0);
+  static const cudaError_t e1 = cudaFuncSetAttribute(
+      rowf_bwd, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  BWDT_TRY(e1);
+  rowf_fwd<<<(R + TR - 1) / TR, TR, sizeof(float) * FWD_FLOATS, st>>>(
+      nb, ct, a, b, c, d, B, K, N, scratch);
+  BWDT_TRY(cudaGetLastError());
+  const float* gf = static_cast<const float*>(g);
+  const int n3 = B * N * (O / 4), g3 = (n3 + THREADS - 1) / THREADS;
+  switch (agg) {
+    case kMax: bwdt::bwd_ties<kMax, O><<<g3, THREADS, 0, st>>>(scratch, gf, B, K, N); break;
+    case kMin: bwdt::bwd_ties<kMin, O><<<g3, THREADS, 0, st>>>(scratch, gf, B, K, N); break;
+    case kSum: bwdt::bwd_ties<kSum, O><<<g3, THREADS, 0, st>>>(scratch, gf, B, K, N); break;
+    default: bwdt::bwd_ties<kMean, O><<<g3, THREADS, 0, st>>>(scratch, gf, B, K, N);
+  }
+  BWDT_TRY(cudaGetLastError());
+  rowf_bwd<<<blocks, TR, sizeof(float) * BWD_FLOATS, st>>>(
+      nb, ct, a, b, c, d, B, K, N, scratch, gnbr, part);
+  BWDT_TRY(cudaGetLastError());
+  sum_cols_launch(part, blocks, WALL, dw, st);
+  BWDT_TRY(cudaGetLastError());
+  const int n = B * N * (C / 4);
+  bwdt::bwd_gctr<C><<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      scratch, B, K, N, gctr);
+  return cudaGetLastError();
+}
+
+}  // namespace rowf
+
+#undef BWDT_TRY
 
 }  // namespace
 
@@ -1829,25 +2492,47 @@ extern "C" int edgeconv_fwd_f32_tiled(const void* nbr, const void* ctr,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The f32 backward with the SharedMLP at (C, H, O) = (64, 128, 256) on GEMM
-// tiles (bwdt): edgeconv_bwd's contract for bf16 = 0, mlp = 1 at these
-// widths, without dw_part. scratch: R (2 H + O + C) floats and R 12 words, R =
-// B K N; part: max over the dW products of splits M N floats, splits =
-// ceil(R / split_rows) (dW2 128 x 256, dW1 128 x 128, dWn and dWe 64 x 128),
-// split_rows a multiple of 8. Every pointer 16-byte aligned; B * N >= 1,
-// K >= 1, R * 256 < 2^31.
+// The f32 backward at the classes below (mlp, C, H, O): edgeconv_bwd's
+// contract for bf16 = 0, without dw_part; any other class returns
+// cudaErrorInvalidValue. On GEMM tiles (bwdt): scratch R (H + O + C + SW)
+// floats, plus R H with the MLP (R = B K N; SW sign words a row: 12 at
+// (64, 128, 256), 8 at (64, 128, 128), 6 at (6, 64, 128)); part: max over
+// the dW products of splits M N floats, splits = ceil(R / split_rows), the
+// split rows a multiple of 8 for dW2, dW1 (0 without the MLP), dWn and dWe
+// (0 at C = 6, whose tail kernel runs on `blocks` >= 1 blocks, part also
+// at least blocks 2 C H floats).
+// On row tiles (rowf, the IDGCN): scratch R 32 floats, part blocks 1,792
+// (blocks >= 1). Every pointer 16-byte aligned; B * N >= 1, K >= 1, R
+// max(H, O) < 2^31.
 extern "C" int edgeconv_bwd_f32_tiled(const void* nbr, const void* ctr,
                                       const void* wn, const void* we,
                                       const void* w1, const void* w2,
                                       const void* g, void* gnbr, void* gctr,
                                       void* dw, void* scratch, void* part,
-                                      int B, int K, int N, int agg,
-                                      int split_w2, int split_w1, int split_wn,
-                                      int split_we, void* stream) {
+                                      int B, int K, int N, int C, int H, int O,
+                                      int mlp, int agg, int split_w2,
+                                      int split_w1, int split_wn, int split_we,
+                                      int blocks, void* stream) {
   const int split[4] = {split_w2, split_w1, split_wn, split_we};
-  return static_cast<int>(bwdt::backward(
-      nbr, ctr, wn, we, w1, w2, g, static_cast<float*>(gnbr),
-      static_cast<float*>(gctr), static_cast<float*>(dw),
-      static_cast<float*>(scratch), static_cast<float*>(part), B, K, N, agg,
-      split, static_cast<cudaStream_t>(stream)));
+  auto* const fg = static_cast<float*>(gnbr);
+  auto* const fc = static_cast<float*>(gctr);
+  auto* const fd = static_cast<float*>(dw);
+  auto* const fs = static_cast<float*>(scratch);
+  auto* const fp = static_cast<float*>(part);
+  auto st = static_cast<cudaStream_t>(stream);
+  using bwdt::Shape;
+#define EDGECONV_BWDT(c, h, o, m)                                              \
+  if (bool(mlp) == m && C == c && H == h && O == o)                           \
+    return static_cast<int>(bwdt::backward<Shape<c, h, o, m>>(                 \
+        nbr, ctr, wn, we, w1, w2, g, fg, fc, fd, fs, fp, B, K, N, agg, split,  \
+        blocks, st))
+  EDGECONV_BWDT(64, 128, 256, true);    // upsampler and mask head
+  EDGECONV_BWDT(64, 128, 128, false);   // mask head's sum
+  EDGECONV_BWDT(6, 64, 128, true);      // EdgeConv_0
+#undef EDGECONV_BWDT
+  if (mlp && C == rowf::C && H == rowf::H && O == rowf::O)   // IDGCN
+    return static_cast<int>(rowf::backward(nbr, ctr, wn, we, w1, w2, g, fg, fc,
+                                           fd, fs, fp, B, K, N, agg, blocks,
+                                           st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,12 +15,13 @@ those launches alone. An f32 forward at a class of ``F32_TILED_CLASSES``
 launches the register-tiled f32 kernel (``edgeconv_fwd_f32_tiled``)
 through ``KERNEL``, and ``F32_TILED_LAUNCHES`` counts those launches
 alone. Every other forward launches ``edgeconv_fwd``. An f32 backward at
-a class of ``F32_TILED_BWD_CLASSES`` launches the backward on GEMM tiles
-(``edgeconv_bwd_f32_tiled``, its launches and scratch from
-:func:`tiled_bwd_plan`) through ``BWD``, and ``F32_TILED_BWD_LAUNCHES``
-counts those launches alone; every other backward launches
-``edgeconv_bwd``. The kernels' source note says what bounds them on the
-card and how they are laid out.
+a class of ``F32_TILED_BWD_CLASSES`` (every f32 class of the fused train
+step) launches the redesigned backward (``edgeconv_bwd_f32_tiled``:
+layer-wise products on GEMM tiles, or at the IDGCN's class one plane-row
+a thread; its launches, scratch and partials from :func:`tiled_bwd_plan`)
+through ``BWD``, and ``F32_TILED_BWD_LAUNCHES`` counts those launches
+alone; every other backward launches ``edgeconv_bwd``. The kernels'
+source note says what bounds them on the card and how they are laid out.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ KERNEL = CudaKernel("edgeconv",
                      "edgeconv_fwd_f32_tiled": [VOIDP] * 7 + [INT] * 8 + [VOIDP]})
 BWD = CudaKernel("edgeconv",
                  {"edgeconv_bwd": [VOIDP] * 11 + [INT] * 10 + [VOIDP],
-                  "edgeconv_bwd_f32_tiled": [VOIDP] * 12 + [INT] * 8 + [VOIDP]})
+                  "edgeconv_bwd_f32_tiled": [VOIDP] * 12 + [INT] * 13 + [VOIDP]})
 
 AGGREGATES = {"max": 0, "min": 1, "sum": 2, "mean": 3}
 MAX_WIDTH = 256   # widest hidden / output layer (one thread per column)
@@ -52,14 +53,28 @@ TC_LAUNCHES = 0              # launches of the tensor-core kernel
 F32_TILED_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
                                (True, 6, 64, 128), (True, 32, 16, 32)})
 F32_TILED_LAUNCHES = 0       # launches of the f32 register-tiled kernel
-# (mlp, C, H, O) of the f32 backward on GEMM tiles (csrc/edgeconv.cu : bwdt)
-F32_TILED_BWD_CLASSES = frozenset({(True, 64, 128, 256)})
-F32_TILED_BWD_LAUNCHES = 0   # launches of the f32 backward on GEMM tiles
+# (mlp, C, H, O) of the redesigned f32 backward (csrc/edgeconv.cu): the
+# upsampler's and mask head's, the mask head's sum and EdgeConv_0's on GEMM
+# tiles (bwdt), the IDGCN's one plane-row a thread (rowf, ROWF_CLASS)
+DEFAULT_TILED_BWD_CLASS = (True, 64, 128, 256)
+ROWF_CLASS = (True, 32, 16, 32)
+F32_TILED_BWD_CLASSES = frozenset({DEFAULT_TILED_BWD_CLASS,
+                                   (False, 64, 128, 128), (True, 6, 64, 128),
+                                   ROWF_CLASS})
+F32_TILED_BWD_LAUNCHES = 0   # launches of the redesigned f32 backward
 # Its row products take tiles of BWD_ROW_TILE plane-rows; each dW product
 # splits the rows into ranges of a multiple of DW_BK rows, so that about
 # DW_BLOCKS blocks run, each over at least DW_MIN_ROWS rows; each row keeps
-# SIGN_WORDS words of slopes (z1a, z1b, z2) beside h1, h2, z3 and its edge.
+# sign_words(mlp, h) words of slopes (z1a, z1b, z2) beside h1, h2, z3 and
+# its edge (SIGN_WORDS at the default class). At a narrow C (C % 4 != 0:
+# EdgeConv_0) gnbr, dWn and dWe take a tail kernel over NARROW_TILE-row
+# tiles on at most NARROW_BLOCKS blocks, each keeping 2 C H partial sums. The
+# IDGCN's kernel walks tiles of ROWF_TILE plane-rows on at most
+# ROWF_BLOCKS blocks, each block keeping ROWF_PART partial dW sums (dWn,
+# dWe, dW1, dW2).
 BWD_ROW_TILE, DW_BLOCKS, DW_MIN_ROWS, DW_BK, SIGN_WORDS = 128, 264, 64, 8, 12
+NARROW_TILE, NARROW_BLOCKS = 64, 528
+ROWF_TILE, ROWF_BLOCKS, ROWF_PART = 128, 264, 2 * 32 * 16 + 16 * 16 + 16 * 32
 
 
 def _round(x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -208,9 +223,9 @@ def takes_f32_tiled(cdt, mlp, c, h, o) -> bool:
 
 
 def takes_f32_tiled_bwd(cdt, mlp, c, h, o) -> bool:
-    """Whether a backward on the card launches the f32 backward on GEMM
-    tiles: the f32 backward at a class of ``F32_TILED_BWD_CLASSES``, for
-    every aggregate."""
+    """Whether a backward on the card launches the redesigned f32 backward:
+    the f32 backward at a class of ``F32_TILED_BWD_CLASSES``, for every
+    aggregate."""
     return cdt is torch.float32 and (bool(mlp), c, h, o) in F32_TILED_BWD_CLASSES
 
 
@@ -225,33 +240,86 @@ def split_ranges(rows: int, split_rows: int):
     return [(r0, min(rows, r0 + split_rows)) for r0 in range(0, rows, split_rows)]
 
 
-def tiled_bwd_plan(b: int, k: int, n: int) -> dict:
-    """The f32 backward on GEMM tiles for nbr_t [b, k, n, 64] at (C, H, O)
-    = (64, 128, 256): ``rows`` (R = b k n plane-rows), ``row_tiles`` (the
-    row products' tiles), per dW product in launch order (dW2, dW1, dWn,
-    dWe) its (M, N), ``split_rows`` and ``splits``; ``scratch_floats`` (h1,
-    h2, z3 and their cotangents, R (2 H + O), the edges nb - ctr, R C, then
-    R SIGN_WORDS words of slopes) and ``part_floats`` (the largest dW
-    product's partials).
-    Raises ValueError past the kernels' 32-bit indexing."""
-    (_, c, h, o), = F32_TILED_BWD_CLASSES
+def sign_words(mlp: bool, h: int) -> int:
+    """Sign words a plane-row keeps (csrc/edgeconv.cu : bwdt::Shape::SW):
+    h / 32 for each of z1a, z1b and, with the SharedMLP, z2."""
+    return (3 if mlp else 2) * (h // 32)
+
+
+def _dw_tile(m: int) -> int:
+    """A dW product's tile along an extent of m (bwdt::dw_tile)."""
+    return 128 if m >= 128 else 64
+
+
+def tiled_bwd_plan(b: int, k: int, n: int,
+                   cls: tuple = DEFAULT_TILED_BWD_CLASS) -> dict:
+    """The redesigned f32 backward for nbr_t [b, k, n, C] at the class cls
+    = (mlp, C, H, O) of ``F32_TILED_BWD_CLASSES`` (by default the
+    upsampler's (64, 128, 256)): ``rows`` (R = b k n plane-rows),
+    ``design`` and ``part_floats`` (the partial dW sums), ``scratch_floats``.
+
+    ``"gemm"`` (layer-wise products on GEMM tiles): ``row_tiles`` (the row
+    products' tiles), per dW product on GEMM tiles in launch order (dW2,
+    dW1 with the SharedMLP, then dWn, dWe) its name in ``products``, its
+    (M, N) in ``dw``, ``split_rows`` and ``splits``; at a narrow C
+    (``narrow``: C % 4 != 0) dWn and dWe are not among them but in the
+    tail kernel's ``blocks`` partials of 2 C H over ``narrow_tiles`` tiles
+    (else ``blocks`` 0); scratch h1 (and with the SharedMLP h2), z3 or d1b
+    and the cotangents over them, R (2 H + O) or R 2 H, the edges nb - ctr,
+    R C, then R sign_words(mlp, H) words of slopes; part_floats the
+    largest partials. ``"rows"`` (the IDGCN, one plane-row a thread):
+    ``row_tiles`` (ROWF_TILE rows each), ``blocks`` (at most ROWF_BLOCKS,
+    each walking tiles blockIdx, + blocks, ...); scratch z3, then d3, then
+    d1b We^T, R O; part_floats blocks ROWF_PART.
+    Raises ValueError past the kernels' 32-bit indexing or outside the
+    classes."""
+    mlp, c, h, o = cls
+    if (bool(mlp), c, h, o) not in F32_TILED_BWD_CLASSES:
+        raise ValueError(f"edgeconv tiled backward: no class {cls}")
     rows = b * k * n
-    if rows * o >= 2 ** 31:
-        raise ValueError(f"edgeconv tiled backward takes fewer than 2^31 / {o}"
-                         f" plane-rows, got {rows}")
-    dws = [(h, o), (h, h), (c, h), (c, h)]
+    wide = max(h, o)
+    if rows * wide >= 2 ** 31:
+        raise ValueError(f"edgeconv tiled backward takes fewer than 2^31 / "
+                         f"{wide} plane-rows, got {rows}")
+    if (bool(mlp), c, h, o) == ROWF_CLASS:
+        tiles = _cdiv(rows, ROWF_TILE)
+        blocks = max(1, min(ROWF_BLOCKS, tiles))
+        return dict(rows=rows, design="rows", row_tiles=tiles, blocks=blocks,
+                    scratch_floats=rows * o, part_floats=blocks * ROWF_PART)
+    narrow = c % 4 != 0
+    products = (["dW2", "dW1"] if mlp else []) + ([] if narrow else ["dWn", "dWe"])
+    dws = ([(h, o), (h, h)] if mlp else []) + ([] if narrow else [(c, h), (c, h)])
     split_rows, splits, part = [], [], 0
+    narrow_tiles = _cdiv(rows, NARROW_TILE)
+    blocks = max(1, min(NARROW_BLOCKS, narrow_tiles)) if narrow else 0
+    if narrow:
+        part = blocks * 2 * c * h
     for m, nn in dws:
-        tiles = _cdiv(m, 128) * _cdiv(nn, 128)
+        tiles = _cdiv(m, _dw_tile(m)) * _cdiv(nn, _dw_tile(nn))
         s = max(1, min(_cdiv(rows, DW_MIN_ROWS), _cdiv(DW_BLOCKS, tiles)))
         sr = max(DW_BK, _cdiv(_cdiv(rows, s), DW_BK) * DW_BK)
         split_rows.append(sr)
         splits.append(_cdiv(rows, sr))
         part = max(part, splits[-1] * m * nn)
-    return dict(rows=rows, row_tiles=_cdiv(rows, BWD_ROW_TILE), dw=dws,
+    extra = dict(narrow_tiles=narrow_tiles) if narrow else {}
+    return dict(rows=rows, design="gemm", narrow=narrow,
+                row_tiles=_cdiv(rows, BWD_ROW_TILE), products=products, dw=dws,
                 split_rows=tuple(split_rows), splits=tuple(splits),
-                scratch_floats=rows * (2 * h + o + c + SIGN_WORDS),
+                blocks=blocks, **extra,
+                scratch_floats=rows * ((2 * h + o if mlp else 2 * h) + c
+                                       + sign_words(mlp, h)),
                 part_floats=part)
+
+
+def _tiled_ints(plan: dict) -> tuple:
+    """The entry point's split rows of dW2, dW1, dWn, dWe (0 where no GEMM
+    tile computes it) and its blocks (the narrow tail's or the IDGCN
+    kernel's; 0 without either)."""
+    if plan["design"] == "rows":
+        return (0, 0, 0, 0, plan["blocks"])
+    split = dict(zip(plan["products"], plan["split_rows"]))
+    return tuple(split.get(p, 0) for p in ("dW2", "dW1", "dWn", "dWe")) + (
+        plan["blocks"],)
 
 
 def _aligned(args):
@@ -313,12 +381,13 @@ def edgeconv_backward(nbr_t, ctr, wn, we, w1, w2, g, aggregate="max",
     dw = torch.empty(sum(sizes), device=dev)
     if b * n and takes_f32_tiled_bwd(cdt, mlp, c, h, o):
         global F32_TILED_BWD_LAUNCHES
-        plan = tiled_bwd_plan(b, k, n)
+        plan = tiled_bwd_plan(b, k, n, (mlp, c, h, o))
         scratch = torch.empty(plan["scratch_floats"], device=dev)
         part = torch.empty(plan["part_floats"], device=dev)
         BWD.launch("edgeconv_bwd_f32_tiled", *_ptrs(_aligned(args)), ptr(gnbr),
-                   ptr(gctr), ptr(dw), ptr(scratch), ptr(part), b, k, n,
-                   AGGREGATES[aggregate], *plan["split_rows"], stream_of(gnbr))
+                   ptr(gctr), ptr(dw), ptr(scratch), ptr(part), b, k, n, c, h,
+                   o, int(mlp), AGGREGATES[aggregate], *_tiled_ints(plan),
+                   stream_of(gnbr))
         F32_TILED_BWD_LAUNCHES += 1
     elif b * n:
         nblk = min(b * -(-n // TILE), MAX_BLOCKS)
