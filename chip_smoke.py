@@ -14,8 +14,10 @@ Phases, one JSON line each (``phase`` names it):
            kernels' build time and their ptxas register / spill report
            (and the tensor-core and the f32 register-tiled EdgeConv
            kernels' alone, the latter must not spill; the approximate kNN
-           kernel's; the pooled MLP's batch-norm kernels, rows_gemm,
-           dw_gemm and top_kernel, and every instance of the FPS kernel's
+           kernel's; the pooled MLP's kernels of both forms, rows_gemm,
+           dw_gemm and top_kernel, every instance of them and of the
+           cell-grid interp's binned_walk, and every instance of the FPS
+           kernel's
            fps_warp and fps_cluster, of nn1's nn1_split_kernel and
            nn1_finish, of the dense interp's interp_split_kernel and
            interp_finish, of the approximate kNN's approx_kernel and
@@ -93,8 +95,9 @@ Phases, one JSON line each (``phase`` names it):
            every f32 row, the redesigned kernel of F32_TILED_BWD_CLASSES,
            one launch of it a call and two calls equal bit for bit;
            "general": the bf16 row) and the device time of each of its
-           kernels; and the pooled MLP's affine backward at the
-           spatial critic's sa_0 and a group_all shape;
+           kernels; and the pooled MLP's affine form, forward (autograd
+           off) and backward, at the spatial critic's sa_0 and a group_all
+           shape, each with its device time by kernel;
   train    with the launch counts reset: the trainer state of
            checkpoints/fluid_vel_20k.ckpt resumed for 4 full-width
            train_vel steps (B=4, 9,216-point patches, device sampling,
@@ -148,10 +151,11 @@ Phases, one JSON line each (``phase`` names it):
            cutoff 0.05), the capped k = 64 density of a 9,216-point ground
            truth (against the kNN's plain version); launches against
            DENSITY_LAUNCHES; then the binned kernel against its plain
-           version and the dense interp kernel at both shapes, with the
-           pairs within the cutoff (the bound's work) and those its 27
-           cells hold (the walk's), its time, its bound and the dense
-           kernel's time;
+           version and the dense interp kernel at both shapes
+           (check_binned_interp), with the pairs within the cutoff (the
+           bound's work) and those its 27 cells hold (the walk's), its
+           tiles (binned_plan), two launches bit for bit, its time, its
+           device time by kernel, its bound and the dense kernel's time;
   eval_cpu position_metrics, cycle_consistency and the exact density on
            fixed small clouds, on the card and on the CPU.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -1387,23 +1391,6 @@ def check_pooled_mlp(torch, dev, rng):
                              bound_by=b_bound[1]))
         emit({"phase": "kernel", "kernel": "pooled_mlp_fwd", **fwd_rows[-1]})
         emit({"phase": "kernel", "kernel": "pooled_mlp_bwd", **bwd_rows[-1]})
-        if stage == "spatial sa_0":
-            # the eval-mode form (pooled_mlp_affine) through the same launch
-            with torch.no_grad():
-                aff = P.pooled_mlp_affine(tab, ws, fp[4], fp[5], slope)
-                affp = P.pooled_mlp_affine_plain(tab, ws, fp[4], fp[5], slope)
-            e = float((aff - affp).abs().max())
-            if e > 1e-5 * float(affp.abs().max()):
-                raise AssertionError(f"pooled_mlp_affine: err {e}")
-            with torch.no_grad():
-                aff_ms = time_ms(lambda: P.pooled_mlp_affine(
-                    tab, ws, fp[4], fp[5], slope), torch)
-                affp_ms = time_ms(lambda: P.pooled_mlp_affine_plain(
-                    tab, ws, fp[4], fp[5], slope), torch)
-            emit({"phase": "kernel", "kernel": "pooled_mlp_affine",
-                  **common, "max_abs_err": e, "ms": aff_ms,
-                  "plain_ms": affp_ms, "library_ms": None,
-                  "bound_ms": f_bound[0], "bound_by": f_bound[1]})
     return fwd_rows, bwd_rows
 
 
@@ -1537,12 +1524,13 @@ AFFINE_SHAPES = [  # (stage, (B, M, ns, C0), widths, slope)
 
 
 def check_pooled_affine_bwd(torch, dev, rng):
-    """The affine form's backward (a norm-free SetConv trained fused)
-    against its plain version, on tables with exact max ties; limits as
-    for the batch-norm backward (check_pooled_mlp)."""
+    """The affine form (the eval-mode SetConv, a norm-free SetConv trained
+    fused), forward and backward, against its plain versions on tables with
+    exact max ties; limits as for the batch-norm form (check_pooled_mlp).
+    Returns (forward rows, backward rows)."""
     from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
 
-    rows = []
+    fwd_rows, rows = [], []
     for stage, shape, widths, slope in AFFINE_SHAPES:
         b, m, ns, c0 = shape
         tab = _cloud(torch, dev, rng, *shape, scale=1.0)
@@ -1562,33 +1550,51 @@ def check_pooled_affine_bwd(torch, dev, rng):
         pp = P.pooled_mlp_affine_plain(tab, ws, a_s, b_s, slope)
         want = P.pooled_mlp_affine_backward_plain(tab, ws, a_s, b_s, pp, g,
                                                   slope)
+        with torch.no_grad():
+            fwd = lambda: P.pooled_mlp_affine(tab, ws, a_s, b_s, slope)
+            f_nograd = fwd()
         torch.cuda.synchronize()
-        f_err = float((pooled.detach() - pp).abs().max())
+        f_err = max(float((pooled.detach() - pp).abs().max()),
+                    float((f_nograd - pp).abs().max()))
         if f_err > 1e-5 * max(1.0, float(pp.abs().max())):
             raise AssertionError(f"pooled_mlp_affine {stage} forward: {f_err}")
         err, rel, share = _grad_errors(
             got, [want[0], *want[1], *want[2], *want[3]], 1e-2, 1e-3,
             f"pooled_mlp_affine_bwd {stage}")
-        ms = time_ms(lambda: torch.autograd.grad(pooled, leaves, g,
-                                                 retain_graph=True), torch)
+        with torch.no_grad():
+            f_ms = time_ms(fwd, torch)
+            f_dev, f_kernels = device_ms(fwd, torch, by_kernel=True)
+            f_plain = time_ms(lambda: P.pooled_mlp_affine_plain(
+                tab, ws, a_s, b_s, slope), torch)
+        bwd = lambda: torch.autograd.grad(pooled, leaves, g, retain_graph=True)
+        ms = time_ms(bwd, torch)
+        dev_ms, kernels = device_ms(bwd, torch, by_kernel=True)
         with torch.no_grad():
             plain_ms = time_ms(lambda: P.pooled_mlp_affine_backward_plain(
                 tab, ws, a_s, b_s, pp, g, slope), torch)
         rows_n = b * m * ns
         mac = sum(cs[i] * cs[i + 1] for i in range(nl))
         nw = sum(w.numel() for w in ws) + 2 * sum(widths)
+        f_ms_b, f_by = bound(2.0 * rows_n * mac,
+                             4 * (rows_n * c0 + nw + b * m * widths[-1]), "f32")
         # recompute the activations (2), form dX and dW (4), as the
         # batch-norm backward's bound counts
         b_ms, b_by = bound(6.0 * rows_n * mac,
                            4 * (2 * rows_n * c0 + 2 * nw + 2 * b * m * widths[-1]),
                            "f32")
-        rows.append(dict(stage=stage, table=list(shape), widths=list(widths),
-                         slope=slope, per_check=1, max_abs_err=err,
-                         max_norm_rel_err=rel, dtable_share_off=share, ms=ms,
-                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                         bound_by=b_by))
+        common = dict(stage=stage, table=list(shape), widths=list(widths),
+                      slope=slope, per_check=1)
+        fwd_rows.append(dict(**common, max_abs_err=f_err, ms=f_ms,
+                             device_ms=f_dev, device_ms_by_kernel=f_kernels,
+                             plain_ms=f_plain, library_ms=None,
+                             bound_ms=f_ms_b, bound_by=f_by))
+        emit({"phase": "kernel", "kernel": "pooled_mlp_affine", **fwd_rows[-1]})
+        rows.append(dict(**common, max_abs_err=err, max_norm_rel_err=rel,
+                         dtable_share_off=share, ms=ms, device_ms=dev_ms,
+                         device_ms_by_kernel=kernels, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
         emit({"phase": "kernel", "kernel": "pooled_mlp_affine_bwd", **rows[-1]})
-    return rows
+    return fwd_rows, rows
 
 
 def _interp_in_radius(torch, query, cand, bias, cutoff):
@@ -2421,14 +2427,144 @@ def eval_approx(torch, kernels):
     return launches
 
 
+def density_grid(pred):
+    """DENSITY_GRID^3 points over the bounding box of ``pred`` [N, 3]."""
+    lo, hi = pred.min(0), pred.max(0)
+    axes = [np.linspace(lo[a], hi[a], DENSITY_GRID, dtype=np.float32)
+            for a in range(3)]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+
+
+def binned_case(torch, dev, synth_dir):
+    """The density phase's two binned-interp inputs, (pred, grid): the
+    trained SRNet's kept points on the first frame of a synthetic
+    12,000-particle sequence written to ``synth_dir`` as the eval CLI
+    writes its own (seed 100), and the grid over them."""
+    from tpugan_tpu_torch import DT
+    from tpugan_tpu_torch.checkpoint import load_srnet
+    from tpugan_tpu_torch.data.sampling import normalize_point_cloud
+    from tpugan_tpu_torch.data.synthetic import make_synthetic_fluid_dataset
+
+    make_synthetic_fluid_dataset(synth_dir, case_num=1, case_steps=8,
+                                 num_particles=12000, seed=100)
+    with np.load(os.path.join(synth_dir, "case1", "data_1.npz")) as z:
+        frame = normalize_point_cloud(z["pos"].astype(np.float32))[0]
+        vel = z["vel"].astype(np.float32)
+    model = load_srnet(CHECKPOINT, device=dev)
+    pos = torch.from_numpy(frame)[None].to(dev)
+    feat = torch.cat([pos, torch.from_numpy(vel)[None].to(dev) * DT], -1)
+    with torch.no_grad():
+        _, _, padded, valid = model(feat, pos)
+    pred = padded[0][valid[0]].cpu().numpy()
+    return pred, density_grid(pred)
+
+
+def _binned_tiling(torch, BI, q, cells):
+    """binned_plan's tiles of one call: how many, the pairs the kernel tests
+    (tested_pairs), and the tiles and queries at each lane count (None
+    where the checkout has no plan)."""
+    if not hasattr(BI, "binned_plan"):
+        return None
+    bits = BI.sub_bits(q.shape[0], cells.dims)
+    keys = torch.sort(BI.query_keys(q, cells, bits)).values
+    tiles = BI.binned_plan(keys, bits)
+    lanes = tiles[:, 3]
+    return {"tiles": int(tiles.shape[0]), "sub_bits": bits,
+            "occupied_cells": int(torch.unique_consecutive(keys >> bits).numel()),
+            "tested_pairs": int(BI.tested_pairs(q, cells, DENSITY_CUTOFF).sum()),
+            "by_lanes": {str(int(v)): {"tiles": int((lanes == v).sum()),
+                                       "queries": int(tiles[lanes == v, 2].sum())}
+                         for v in torch.unique(lanes)}}
+
+
+def check_binned_interp(torch, dev, pred, grid, cutoff=DENSITY_CUTOFF):
+    """The cell-grid kernel at the density phase's two calls (``pred``'s
+    points, then the ``grid`` points, each over ``pred``) against its plain
+    version and the dense interp kernel, on a random field of values (the
+    density calls pass zeros; C = 1 as there), to 1e-5 of the values' scale
+    and 1e-5 of den. Each row: the pairs within the cutoff (the bound's
+    work) and those the 27 cells hold (the walk's), per query and in all;
+    binned_plan's tiles; ms (CUDA events), device ms (torch.profiler, by
+    kernel), the plain version's and the dense kernel's ms, and a digest of
+    (out, den). Uses only what every checkout's binned_interp module has
+    (tools/compare_knn_torch.py runs it against another checkout)."""
+    import hashlib
+
+    from tpugan_tpu_torch.ops.kernels import binned_interp as BI
+    from tpugan_tpu_torch.ops.kernels import interp as I
+
+    rows = []
+    rng = np.random.default_rng(4)
+    cand = torch.from_numpy(pred)[None].to(dev)
+    bias = torch.zeros(cand.shape[:2], device=dev)
+    vals = torch.from_numpy(rng.standard_normal((1, pred.shape[0], 1))
+                            .astype(np.float32)).to(dev)
+    for name, q_np in (("frame", pred), ("grid", grid)):
+        q = torch.from_numpy(q_np)[None].to(dev)
+        cells = BI.build_grid(cand, vals, bias, cutoff)
+        run = lambda: BI.binned_interp_launch(q, cells, cutoff, "spline1")
+        ok, dk = run()
+        again = run()
+        op, dp = BI.binned_interp_plain(q, cells, cutoff, "spline1")
+        od, dd = I.interp_kernel(q, cand, vals, cutoff, bias, "spline1")
+        torch.cuda.synchronize()
+        scale = float(vals.abs().max())
+        err = max(float((ok - op).abs().max()), float((ok - od).abs().max()))
+        den_rel = max(float(((dk - dp).abs() / dp).max()),
+                      float(((dk - dd).abs() / dd).max()))
+        repeat = bool(torch.equal(ok, again[0]) and torch.equal(dk, again[1]))
+        h = hashlib.sha256()
+        for t in (ok, dk):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        walked, pairs = (t.float() for t in BI.pair_counts(q, cells, cutoff))
+        ms = time_ms(run, torch)
+        dev_ms, by_kernel = device_ms(run, torch, by_kernel=True)
+        grid_ms = time_ms(lambda: BI.build_grid(cand, vals, bias, cutoff),
+                          torch)
+        plain_ms = time_ms(lambda: BI.binned_interp_plain(q, cells, cutoff,
+                                                          "spline1"),
+                           torch, reps=3, warmup=1)
+        dense_ms = time_ms(lambda: I.interp_kernel(q, cand, vals, cutoff,
+                                                   bias, "spline1"),
+                           torch, reps=3, warmup=1)
+        nq, m = q.shape[1], cand.shape[1]
+        # the function's work: about 20 f32 operations and a square root
+        # per pair within the cutoff, and one FMA per value channel; the
+        # walked pairs (the 27 cells') are the design's overhead
+        b_ms, b_by = bound(22.0 * float(pairs.sum()),
+                           4 * (3 * nq + 4 * m + m + 2 * nq), "f32")
+        rows.append(dict(call=name, Nq=nq, M=m, C=1, cutoff=cutoff,
+                         grid_dims=list(cells.dims), per_density=1,
+                         in_radius_mean=float(pairs.mean()),
+                         in_radius_max=int(pairs.max()),
+                         in_radius_pairs=int(pairs.sum()),
+                         walked_mean=float(walked.mean()),
+                         walked_max=int(walked.max()),
+                         walked_pairs=int(walked.sum()),
+                         tiling=_binned_tiling(torch, BI, q, cells),
+                         max_abs_err=err, den_max_rel_err=den_rel,
+                         repeat_bit_equal=repeat, sha=h.hexdigest()[:16],
+                         ms=ms, device_ms=dev_ms,
+                         device_ms_by_kernel=by_kernel,
+                         grid_build_ms=grid_ms, plain_ms=plain_ms,
+                         dense_kernel_ms=dense_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by))
+        emit({"phase": "kernel", "kernel": "binned_interp", **rows[-1]})
+        if not (err <= 1e-5 * scale and den_rel <= 1e-5 and repeat
+                and bool(torch.isfinite(ok).all())):
+            raise AssertionError(f"binned_interp {name}: err {err}, den rel "
+                                 f"{den_rel}, repeat {repeat}")
+    return rows
+
+
 def density_phase(torch, dev, kernels):
     """With the counts reset: the trained SRNet (f32 dynamic) on a whole
     12,000-particle synthetic frame with its velocities (96,000 slots), the
     exact density of its kept points and of a DENSITY_GRID^3 grid over its
     bounding box (cell-grid kernel), and the capped k = 64 density of an
     eval sample's 9,216-point ground truth; then each kernel of the phase
-    against its plain version on the same inputs. Returns (launches, the
-    binned kernel's rows)."""
+    against its plain version on the same inputs (check_binned_interp).
+    Returns (launches, the binned kernel's rows)."""
     from tpugan_tpu_torch import DT
     from tpugan_tpu_torch.checkpoint import load_srnet
     from tpugan_tpu_torch.cli.eval_fluid import SYNTH_DIR
@@ -2436,8 +2572,6 @@ def density_phase(torch, dev, kernels):
     from tpugan_tpu_torch.data.sampling import normalize_point_cloud
     from tpugan_tpu_torch.eval.analysis import (get_particle_density,
                                                 particle_dns2grid_dns)
-    from tpugan_tpu_torch.ops.kernels import binned_interp as BI
-    from tpugan_tpu_torch.ops.kernels import interp as I
 
     with np.load(os.path.join(SYNTH_DIR, "case1", "data_1.npz")) as z:
         frame, vel = normalize_point_cloud(z["pos"].astype(np.float32))[0], \
@@ -2457,10 +2591,7 @@ def density_phase(torch, dev, kernels):
         _, _, padded, valid = model(feat, pos)
     pred = padded[0][valid[0]].cpu().numpy()
     dns = get_particle_density(pred, cutoff, device=dev)
-    lo, hi = pred.min(0), pred.max(0)
-    axes = [np.linspace(lo[a], hi[a], DENSITY_GRID, dtype=np.float32)
-            for a in range(3)]
-    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    grid = density_grid(pred)
     gdns = particle_dns2grid_dns(grid, pred, cutoff, device=dev)
     capped = get_particle_density(gt, cutoff, dense=False, device=dev)
     torch.cuda.synchronize()
@@ -2500,57 +2631,7 @@ def density_phase(torch, dev, kernels):
         emit(summary)
         raise AssertionError(f"capped density vs plain: {cap_err} > {cap_tol}")
 
-    rows = []
-    rng = np.random.default_rng(4)
-    cand = torch.from_numpy(pred)[None].to(dev)
-    bias = torch.zeros(cand.shape[:2], device=dev)
-    # the density calls pass zero values (C = 1); a random field makes the
-    # kernel's numerator checkable at the same shapes
-    vals = torch.from_numpy(rng.standard_normal((1, pred.shape[0], 1))
-                            .astype(np.float32)).to(dev)
-    for name, q_np in (("frame", pred), ("grid", grid)):
-        q = torch.from_numpy(q_np)[None].to(dev)
-        cells = BI.build_grid(cand, vals, bias, cutoff)
-        ok, dk = BI.binned_interp_launch(q, cells, cutoff, "spline1")
-        op, dp = BI.binned_interp_plain(q, cells, cutoff, "spline1")
-        od, dd = I.interp_kernel(q, cand, vals, cutoff, bias, "spline1")
-        torch.cuda.synchronize()
-        scale = float(vals.abs().max())
-        err = max(float((ok - op).abs().max()), float((ok - od).abs().max()))
-        den_rel = max(float(((dk - dp).abs() / dp).max()),
-                      float(((dk - dd).abs() / dd).max()))
-        walked, pairs = (t.float() for t in BI.pair_counts(q, cells, cutoff))
-        ms = time_ms(lambda: BI.binned_interp_launch(q, cells, cutoff,
-                                                     "spline1"), torch)
-        grid_ms = time_ms(lambda: BI.build_grid(cand, vals, bias, cutoff),
-                          torch)
-        plain_ms = time_ms(lambda: BI.binned_interp_plain(q, cells, cutoff,
-                                                          "spline1"),
-                           torch, reps=3, warmup=1)
-        dense_ms = time_ms(lambda: I.interp_kernel(q, cand, vals, cutoff,
-                                                   bias, "spline1"),
-                           torch, reps=3, warmup=1)
-        nq, m = q.shape[1], cand.shape[1]
-        # the function's work: about 20 f32 operations and a square root
-        # per pair within the cutoff, and one FMA per value channel; the
-        # walked pairs (the 27 cells') are the design's overhead
-        b_ms, b_by = bound(22.0 * float(pairs.sum()),
-                           4 * (3 * nq + 4 * m + m + 2 * nq), "f32")
-        rows.append(dict(call=name, Nq=nq, M=m, C=1, cutoff=cutoff,
-                         grid_dims=list(cells.dims), per_density=1,
-                         in_radius_mean=float(pairs.mean()),
-                         in_radius_max=int(pairs.max()),
-                         walked_mean=float(walked.mean()),
-                         walked_max=int(walked.max()),
-                         max_abs_err=err, den_max_rel_err=den_rel, ms=ms,
-                         grid_build_ms=grid_ms, plain_ms=plain_ms,
-                         dense_kernel_ms=dense_ms, library_ms=None,
-                         bound_ms=b_ms, bound_by=b_by))
-        emit({"phase": "kernel", "kernel": "binned_interp", **rows[-1]})
-        if not (err <= 1e-5 * scale and den_rel <= 1e-5
-                and bool(torch.isfinite(ok).all())):
-            raise AssertionError(f"binned_interp {name}: err {err}, den rel "
-                                 f"{den_rel}")
+    rows = check_binned_interp(torch, dev, pred, grid, cutoff)
     emit(summary)
     return launches, rows
 
@@ -2678,9 +2759,23 @@ def main(argv=None) -> int:
     spilled = {n: v for n, v in bwdt_instances.items() if v[1]}
     if spilled:
         raise AssertionError(f"edgeconv backward instances spill: {spilled}")
-    # the pooled-MLP batch-norm form's GEMM blocks
+    # the pooled-MLP GEMM blocks, every instance of both forms (the
+    # affine form's dz operand: kScale)
     pmlp_ptxas = {f: ptxas_summary("pooled_mlp", f)
                   for f in ("rows_gemm", "dw_gemm", "top_kernel")}
+    pmlp_instances = ptxas_instances("pooled_mlp", ("rows_gemm", "dw_gemm",
+                                                    "top_kernel",
+                                                    "pool_extremes"))
+    # the cell-grid interp's walk (every kind and value-width instance), its
+    # tiles and its keys
+    binned_ptxas = {f: ptxas_summary("binned_interp", f)
+                    for f in ("binned_walk", "make_tiles", "query_keys")}
+    binned_instances = ptxas_instances("binned_interp", ("binned_walk",))
+    spilled = {n: v for n, v in {**pmlp_instances, **binned_instances}.items()
+               if v[1]}
+    if spilled:
+        raise AssertionError(f"pooled_mlp / binned_interp instances spill: "
+                             f"{spilled}")
     # the FPS kernel's two variants, every points-per-thread instance
     fps_ptxas = {f: ptxas_summary("fps", f) for f in ("fps_warp", "fps_cluster")}
     # nn1's and the dense interp's split kernels (every C instance) and
@@ -2700,7 +2795,7 @@ def main(argv=None) -> int:
                       *bwdt_ptxas.items(), *pmlp_ptxas.items(),
                       *fps_ptxas.items(), *nn1_ptxas.items(),
                       *interp_ptxas.items(), *approx_ptxas.items(),
-                      *ball_ptxas.items()]:
+                      *ball_ptxas.items(), *binned_ptxas.items()]:
         if rep["functions"] == 0 or rep["spill_store_bytes"]:
             raise AssertionError(f"{name} ptxas: {rep}")
     emit({"phase": "device", "nvidia_smi": smi,
@@ -2713,6 +2808,9 @@ def main(argv=None) -> int:
           "ptxas_edgeconv_bwd_tiled": bwdt_ptxas,
           "ptxas_edgeconv_bwd_instances": bwdt_instances,
           "ptxas_pooled_mlp": pmlp_ptxas,
+          "ptxas_pooled_mlp_instances": pmlp_instances,
+          "ptxas_binned_interp": binned_ptxas,
+          "ptxas_binned_interp_instances": binned_instances,
           "ptxas_fps": fps_ptxas,
           "ptxas_nn1": nn1_ptxas,
           "ptxas_interp": interp_ptxas,
@@ -2723,6 +2821,7 @@ def main(argv=None) -> int:
                "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
                "fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
                "pooled_mlp_fwd": pooled_mlp.FWD, "pooled_mlp_bwd": pooled_mlp.BWD,
+               "pooled_mlp_affine": pooled_mlp.AFFINE_FWD,
                "pooled_mlp_affine_bwd": pooled_mlp.AFFINE_BWD,
                "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL,
                "knn_approx": knn.APPROX}
@@ -2736,7 +2835,7 @@ def main(argv=None) -> int:
     pf_rows, pb_rows = check_pooled_mlp(torch, dev, rng)
     ip_rows = check_interp(torch, dev, rng)
     eb_rows = check_edgeconv_bwd(torch, dev, rng)
-    ab_rows = check_pooled_affine_bwd(torch, dev, rng)
+    af_rows, ab_rows = check_pooled_affine_bwd(torch, dev, rng)
 
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
@@ -2834,6 +2933,10 @@ def main(argv=None) -> int:
         ("pooled_mlp_bwd", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
          pallas + "pooled_mlp_kernel.py:519", pb_rows, *step,
          by_path["pooled_mlp_bwd"]),
+        ("pooled_mlp_affine", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
+         pallas + "pooled_mlp_kernel.py:684", af_rows, ("per_check",),
+         "one call at each of sa_0 and group_all (no main path runs it)",
+         by_path["pooled_mlp_affine"]),
         ("pooled_mlp_affine_bwd", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
          pallas + "pooled_mlp_kernel.py:499", ab_rows, ("per_check",),
          "one call at each of sa_0 and group_all (no main path runs it)",
@@ -2858,7 +2961,10 @@ def main(argv=None) -> int:
                    "edgeconv_bwd": (eb_rows, ("per_step",)),
                    "fps": (fps_rows, ("per_step",)),
                    "interp": (ip_rows, ("per_step",)),
-                   "nn1": (nn1_rows, ("per_gate", "per_step", "per_sample"))}
+                   "nn1": (nn1_rows, ("per_gate", "per_step", "per_sample")),
+                   "pooled_mlp_affine": (af_rows, ("per_check",)),
+                   "pooled_mlp_affine_bwd": (ab_rows, ("per_check",)),
+                   "binned_interp": (bi_rows, ("per_density",))}
     for entry in line["kernels"]:
         if entry["name"] in device_rows:
             rows, weights = device_rows[entry["name"]]

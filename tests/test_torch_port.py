@@ -968,6 +968,149 @@ def test_binned_interp_kernel_matches_plain_on_card(card, gen, kind, cutoff, c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind,cutoff,c", [("bicubic", 0.16, 3),
+                                           ("spline1", 0.05, 1),
+                                           ("linear", 0.6, 8)])
+def test_binned_interp_kernel_repeats_on_card(card, gen, kind, cutoff, c):
+    """Ten calls on the inputs of the test above, each after a NaN-filled
+    allocation is freed (an output the kernel did not write would show):
+    every call equal bit for bit and within its limits."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    q, cand, v = t(2, 300, 3) * 0.2, t(2, 500, 3) * 0.2, t(2, 500, c)
+    q[:, :4] = 999.0
+    bias = torch.zeros(2, 500)
+    bias[:, ::3] = 1e10
+    grid = binned_interp.build_grid(cand, v, bias, cutoff)
+    op, dp = binned_interp.binned_interp_plain(q, grid, cutoff, kind)
+    first = None
+    for _ in range(10):
+        junk = torch.full((1 << 20,), float("nan"), device=card)
+        del junk
+        got = [x.cpu() for x in binned_interp.binned_interp(
+            q.to(card), cand.to(card), v.to(card), cutoff, bias.to(card),
+            kind)]
+        first = first or got
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+        torch.testing.assert_close(got[0], op, rtol=0,
+                                   atol=1e-5 * float(v.abs().max()))
+        torch.testing.assert_close(got[1], dp, rtol=1e-5, atol=1e-6)
+
+
+def _binned_case(gen, case, c=3):
+    """(query, cand, values, bias, cutoff) at an occupancy: "dense" (the
+    frame: the queries are the candidates, about 60 a cell), "sparse" (the
+    grid call: about one query a cell), "mixed" (both in one call, two
+    batch rows), "sentinel" (every query at 999)."""
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    if case == "dense":
+        cand = t(1, 6000, 3) * 0.08
+        return cand.clone(), cand, t(1, 6000, c), torch.zeros(1, 6000), 0.05
+    if case == "sparse":
+        cand = t(1, 4000, 3) * 0.3
+        q = torch.rand(1, 3000, 3) * 1.2 - 0.6
+        return q, cand, t(1, 4000, c), torch.zeros(1, 4000), 0.03
+    if case == "mixed":
+        cand = t(2, 3000, 3) * 0.15
+        q = torch.cat([cand[:, :1500], torch.rand(2, 800, 3) - 0.5], 1)
+        bias = torch.zeros(2, 3000)
+        bias[:, ::7] = 1e10
+        q[:, :5] = 999.0
+        return q, cand, t(2, 3000, c), bias, 0.06
+    cand = t(1, 500, 3) * 0.2
+    return (torch.full((1, 70, 3), 999.0), cand, t(1, 500, c),
+            torch.zeros(1, 500), 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense", "sparse", "mixed", "sentinel"])
+@pytest.mark.parametrize("kind,c", [("spline1", 1), ("bicubic", 5)])
+def test_binned_interp_tiles_match_plain_on_card(card, gen, case, kind, c):
+    """Every occupancy's tiles (one lane a query, split queries), one
+    launch a call, two calls bit for bit."""
+    q, cand, v, bias, cutoff = _binned_case(gen, case, c)
+    args = (q.to(card), cand.to(card), v.to(card), cutoff, bias.to(card),
+            kind)
+    before = binned_interp.KERNEL.launches
+    ok, dk = binned_interp.binned_interp(*args)
+    assert binned_interp.KERNEL.launches == before + 1
+    again = binned_interp.binned_interp(*args)
+    assert torch.equal(ok, again[0]) and torch.equal(dk, again[1])
+    grid = binned_interp.build_grid(cand, v, bias, cutoff)
+    op, dp = binned_interp.binned_interp_plain(q, grid, cutoff, kind)
+    # f32 sums over the same candidates in another order
+    torch.testing.assert_close(ok.cpu(), op, rtol=0,
+                               atol=1e-5 * float(v.abs().max()))
+    torch.testing.assert_close(dk.cpu(), dp, rtol=1e-5, atol=1e-6)
+    if case == "sentinel":
+        assert bool((dk == 1e-6).all()) and bool((ok == 0).all())
+
+
+def _affine_case(gen, shape, dims, mixed):
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    tab = t(*shape)
+    tab[:, :, 1] = tab[:, :, 0]                 # exact max ties
+    cs = (shape[-1],) + dims
+    ws = [t(cs[i], cs[i + 1]) / cs[i] ** 0.5 for i in range(len(dims))]
+    a_s, b_s = [1 + 0.1 * t(d) for d in dims], [0.1 * t(d) for d in dims]
+    if mixed:   # an eval-mode batch norm's a = gamma / sigma of any sign
+        for a in a_s:
+            a[::3] *= -1
+            a[1::5] = 0.0
+    return tab, ws, a_s, b_s, t(shape[0], shape[1], dims[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dims,slope,mixed", [
+    ((2, 64, 16, 6), (32, 64), 0.01, True),
+    ((2, 1, 300, 19), (8,), 0.0, False),
+    ((1, 40, 32, 6), (64, 128, 96), 0.2, True)])
+def test_pooled_mlp_affine_forward_matches_plain_on_card(card, gen, shape,
+                                                         dims, slope, mixed):
+    """Without autograd (no z kept) and with it, one count on FWD and on
+    AFFINE_FWD a call, two calls bit for bit."""
+    tab, ws, a_s, b_s, _ = _affine_case(gen, shape, dims, mixed)
+    want = pooled_mlp.pooled_mlp_affine_plain(tab, ws, a_s, b_s, slope)
+    dev = [x.to(card) for x in (tab, *ws, *a_s, *b_s)]
+    nl = len(dims)
+    run = lambda xs: pooled_mlp.pooled_mlp_affine(
+        xs[0], xs[1:1 + nl], xs[1 + nl:1 + 2 * nl], xs[1 + 2 * nl:], slope)
+    before = (pooled_mlp.FWD.launches, pooled_mlp.AFFINE_FWD.launches)
+    with torch.no_grad():
+        got, again = run(dev), run(dev)
+    assert (pooled_mlp.FWD.launches,
+            pooled_mlp.AFFINE_FWD.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    kept = run([x.clone().requires_grad_() for x in dev])
+    assert torch.equal(got, kept.detach())
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_pooled_mlp_affine_backward_mixed_signs_repeats_on_card(card, gen):
+    """Affines of both signs and zero (the max from the min of z), against
+    the CPU to f32 summation order; one count on AFFINE_BWD a backward, two
+    backwards bit for bit."""
+    tab, ws, a_s, b_s, g = _affine_case(gen, (2, 64, 16, 6), (32, 64), True)
+
+    def run(dev):
+        leaves = [x.to(dev).requires_grad_() for x in [tab, *ws, *a_s, *b_s]]
+        p = pooled_mlp.pooled_mlp_affine(leaves[0], leaves[1:3], leaves[3:5],
+                                         leaves[5:7], 0.01)
+        return [p, *torch.autograd.grad(p, leaves, g.to(dev))]
+
+    before = pooled_mlp.AFFINE_BWD.launches
+    first = run(card)
+    assert pooled_mlp.AFFINE_BWD.launches == before + 1
+    for a, b in zip(first, run(card)):
+        assert torch.equal(a, b)
+    for a, b in zip(first, run("cpu")):
+        b = b.detach()
+        torch.testing.assert_close(a.detach().cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape,dims,slope", [((2, 64, 16, 6), (32, 64), 0.01),
                                               ((2, 1, 300, 19), (8,), 0.0)])
 def test_pooled_mlp_affine_backward_matches_plain_on_card(card, gen, shape,

@@ -6,7 +6,8 @@ dense interp kernels (``tpugan_tpu_torch``) on one CUDA card.
     python3 tools/compare_knn_torch.py --base DIR [--head DIR]
                                        [--check knn|knn_approx|edgeconv|
                                                 edgeconv_bwd|pooled_mlp|fps|
-                                                ball_query|nn1|interp]
+                                                ball_query|nn1|interp|
+                                                binned_interp]
                                        [--out FILE]
 
 Runs ``chip_smoke.check_knn`` (or ``check_edgeconv``, or
@@ -94,6 +95,16 @@ each stage's device time and index digest (which must be equal), then
 ``chip_smoke.train``. Both print each digest row's device time in both
 checkouts and their sum per unit of work (knn_approx: one f32 dynamic +
 bf16 static forward + rollout frame; ball_query: one G+D step).
+
+``--check binned_interp`` runs the head's ``chip_smoke.check_binned_interp``
+against each checkout's kernel (the function uses only what both
+checkouts' ``binned_interp`` modules have) on the density phase's two
+calls, made once by the head (``chip_smoke.binned_case``: the trained
+SRNet's kept points on a synthetic 12,000-particle frame, and the 32^3 grid
+over them) into ``runs/compare_binned_case.pt``: each call's ms, device ms
+(by kernel), plain ms, walked and in-radius pairs, the head's tiles, and a
+digest of (out, den). It prints each call's device time in both checkouts,
+their sums per density phase (the two calls), and which digests agree.
 Last comes the card's name and power limit.
 """
 
@@ -400,6 +411,37 @@ for stage, b, nq, nc, r, ns, per in chip_smoke.BALL_SHAPES:
                       "per_step": per}}), flush=True)
 """
 
+# the cell-grid interp: the head's check on this checkout's kernel, on the
+# density phase's two calls that the head saved
+BINNED_CHILD = """
+import importlib.util, json, sys
+sys.path.insert(0, {root!r})
+import torch
+from tpugan_tpu_torch import _build
+_build.build_all()
+spec = importlib.util.spec_from_file_location("head_smoke", {smoke!r})
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+print(json.dumps({{"ptxas": smoke.ptxas_summary("binned_interp")}}), flush=True)
+pred, grid = torch.load({case!r})
+for row in smoke.check_binned_interp(torch, torch.device("cuda", 0),
+                                     pred.numpy(), grid.numpy()):
+    print(json.dumps({{"digest": [row["call"]], "sha": row["sha"],
+                      "device_ms": row["device_ms"],
+                      "per_step": row["per_density"]}}), flush=True)
+"""
+
+BINNED_CASE = """
+import sys
+sys.path.insert(0, {root!r})
+import os, torch
+import chip_smoke
+pred, grid = chip_smoke.binned_case(torch, torch.device("cuda", 0),
+                                    os.path.join({root!r}, "runs",
+                                                 "compare_binned_synth"))
+torch.save([torch.from_numpy(pred), torch.from_numpy(grid)], {path!r})
+"""
+
 # the train step's dense interp call, written once by the head checkout
 INTERP_CASE = """
 import sys
@@ -459,6 +501,9 @@ CHECKS = {
                    ("knn_approx",)),
     "ball_query": (("stage",), lambda row: {"per_step": row["per_step"]},
                    ("ms", "device_ms", "plain_ms"), ("ball_query",)),
+    "binned_interp": (("call",),
+                      lambda row: {"per_density": row["per_density"]},
+                      ("ms", "device_ms", "plain_ms"), ("binned_interp",)),
 }
 # a key field a checkout's rows may lack (the dense interp's rows before
 # the train step's own call was added: the random-order row)
@@ -490,10 +535,12 @@ def _saved(root: str) -> str:
     return os.path.join(root, "runs", "compare_knn_approx.pt")
 
 
-def run(root: str, kernel: str, case: str = "") -> dict:
+def run(root: str, kernel: str, case: str = "", smoke: str = "") -> dict:
     code = CHILD.format(root=root, kernel=kernel,
                         source=SOURCES.get(kernel, kernel))
-    if kernel == "pooled_mlp":
+    if kernel == "binned_interp":
+        code = BINNED_CHILD.format(root=root, smoke=smoke, case=case)
+    elif kernel == "pooled_mlp":
         code += POOLED_CHILD.format() + POOLED_DIGEST.format()
     elif kernel == "edgeconv_bwd":
         code += EDGECONV_BWD_CHILD.format()
@@ -609,12 +656,16 @@ def main(argv=None) -> int:
     key, weights, cols, _ = CHECKS[args.check]
     roots = {"base": os.path.abspath(args.base), "head": os.path.abspath(args.head)}
     case = ""
-    if args.check == "interp":   # the train step's call, made by the head
-        case = os.path.join(roots["head"], "runs", "compare_interp_train.pt")
+    if args.check in ("interp", "binned_interp"):   # made by the head
+        made = {"interp": ("compare_interp_train.pt", INTERP_CASE),
+                "binned_interp": ("compare_binned_case.pt", BINNED_CASE)}
+        name, script = made[args.check]
+        case = os.path.join(roots["head"], "runs", name)
         os.makedirs(os.path.dirname(case), exist_ok=True)
-        subprocess.run([sys.executable, "-c", INTERP_CASE.format(
+        subprocess.run([sys.executable, "-c", script.format(
             root=roots["head"], path=case)], cwd=roots["head"], check=True)
-    runs = [(name, run(roots[name], args.check, case))
+    smoke = os.path.join(roots["head"], "chip_smoke.py")
+    runs = [(name, run(roots[name], args.check, case, smoke))
             for name in ("base", "head", "head", "base")]
     if args.out:
         with open(args.out, "w") as f:
@@ -678,7 +729,7 @@ def main(argv=None) -> int:
             row: {n: sum(v) / len(v) for n, v in d.items()}
             for row, d in exact.items()}}))
     if args.check in ("edgeconv_bwd", "fps", "nn1", "interp", "knn_approx",
-                      "ball_query", "edgeconv"):
+                      "ball_query", "edgeconv", "binned_interp"):
         # each row's device time on the digest's inputs (torch.profiler;
         # the mean of a checkout's two runs)
         dev = {}
@@ -692,11 +743,12 @@ def main(argv=None) -> int:
             row: {**d, "head_over_base": d["head"] / d["base"]
                   if "head" in d and "base" in d else None}
             for row, d in mean.items()}}))
-    if args.check in ("fps", "nn1", "interp", "knn_approx", "ball_query"):
+    if args.check in ("fps", "nn1", "interp", "knn_approx", "ball_query",
+                      "binned_interp"):
         # the digest rows' device time per unit of work (FPS, the ball query
         # and the dense interp: one G+D step; nn1: one gate + train step +
         # eval sample; knn_approx: one f32 dynamic + bf16 static forward +
-        # rollout frame)
+        # rollout frame; binned_interp: one density phase)
         weight = runs[0][1]["per_step"]
         print(json.dumps({"device_ms_per_step": {
             n: sum(mean[row][n] * w for row, w in weight.items())
@@ -726,7 +778,8 @@ def main(argv=None) -> int:
         print(json.dumps({"agreement_head_vs_base": _agreement(
             roots["head"], roots["base"])}))
     if args.check in ("knn", "edgeconv_bwd", "pooled_mlp", "fps", "nn1",
-                      "interp", "knn_approx", "ball_query", "edgeconv"):
+                      "interp", "knn_approx", "ball_query", "edgeconv",
+                      "binned_interp"):
         # each row's digest per checkout; a checkout's two runs must agree
         shas = {}
         for n, r in runs:

@@ -34,14 +34,16 @@ constexpr int BK = 8;          // depth of a slab
 constexpr int STAGES = 3;      // slabs in flight
 constexpr int PAD = 4;         // floats past each slab row in shared memory
 
-enum SrcKind { kPlain = 0, kAct = 1, kDz = 2 };
+enum SrcKind { kPlain = 0, kAct = 1, kDz = 2, kScale = 3 };
 
 // A row-major [rows, chans] operand read at (row, chan) through a
 // per-channel transform, 0 at row >= lim (lim <= rows) or chan >= chans:
 //   kPlain  p[row, chan];
 //   kAct    act(fmaf(p, v0, v1))                 (p = z of the layer below);
 //   kDz     v0 (p - v3 ninv - (z - v1) v2 v4 ninv)  (p = dpre, v = a, mu,
-//           ivar, S1, S2 of the layer).
+//           ivar, S1, S2 of the layer);
+//   kScale  v0 p                                  (p = dpre, v0 = a of the
+//           layer: the affine form's dz, with no batch-norm terms).
 // The kind is a template argument of the kernels (KIND below), so a slab's
 // loads carry no branch on the values they fetch.
 struct Src {
@@ -118,6 +120,8 @@ struct Slab {
       float& v = S[kk * LD + ix];
       if (KIND == kAct) {
         v = act(fmaf(v, __ldg(s.v[0] + ch), __ldg(s.v[1] + ch)), s.slope);
+      } else if (KIND == kScale) {
+        v = __ldg(s.v[0] + ch) * v;
       } else {
         const float zhat =
             (S[(BK + kk) * LD + ix] - __ldg(s.v[1] + ch)) * __ldg(s.v[2] + ch);

@@ -5,9 +5,9 @@
 // Replaces tpugan_tpu/ops/pallas/pooled_mlp_kernel.py : pooled_mlp_bn_train
 // and its custom VJP: the forward _bn_train_impl (passes _stats_kernel and
 // _final_kernel) and the backward _bwd_pallas_bn (_tie_count_kernel,
-// _bwd_stats_kernel, _bwd_apply_kernel). pooled_mlp_affine's forward (the
-// final pass with given affines) and its backward _bwd_pallas_affine are
-// the affine form below.
+// _bwd_stats_kernel, _bwd_apply_kernel); and pooled_mlp_affine: its
+// forward (_run_final_pass with given affines) and its backward
+// _bwd_pallas_affine, the affine form below.
 //
 // Contract: table [R, C0] f32, R = B*M*ns rows, row r in neighbourhood
 // r / ns; L <= 4 layers W_l [C_l, C_{l+1}]; slope s >= 0 of the leaky ReLU
@@ -23,9 +23,10 @@
 //     S1_p = sum dpre_p = dbeta_p, S2_p = sum dpre_p zhat_p = dgamma_p,
 //     dz_p = a_p (dpre_p - S1_p / R - zhat_p S2_p / R),
 //     dW_p = x_p^T dz_p, dx_p = dz_p W_p^T, dtable = dx_0.
-//   affine form: the forward's final pass with a_p, b_p given; its
+//   affine form: the forward with a_p, b_p given (no moments); its
 //     backward dz_p = a_p dpre_p, da_p = sum dpre_p z_p, db_p = sum dpre_p,
-//     dW_p and dx_p as above.
+//     dW_p and dx_p as above: the batch-norm backward with mu_p = 0,
+//     ivar_p = 1 and no correction terms.
 //
 // What bounds the batch-norm form on the H100: operations. The spatial
 // critic's first stage (4 x 1024 x 32 rows, 6 -> 64 -> 128) does 2 R mac
@@ -75,14 +76,17 @@
 //   Reductions over rows never use float atomics, whose order changes from
 //   run to run: every partial sum has one owner and a fixed order.
 //
-// The affine form keeps the TPU kernel's recompute design (no path users
-// run launches it): a block works on tiles of 32 rows (16 in the backward),
-// each layer a [rows, Cin] x [Cin, Cout] product in which thread t owns
-// column t % Cout, reading activations from shared memory and weights
-// through L2; the tie pass and the apply pass recompute the stack through
-// the same device function, so the tie mask (y == pooled) agrees.
+// The affine form runs on the same blocks, a subset of the batch-norm
+// form's work: pmlp_affine_forward computes each layer's z once
+// (rows_gemm, no column sums), the top layer keeping each neighbourhood's
+// max and min of z (under autograd every z is written for the backward;
+// without it only the layers below the top, and their buffers alternate),
+// and pool_extremes forms pooled with the given a, b as above.
+// pmlp_backward_affine is pmlp_bn_backward given mu = 0 and ivar = 1, whose
+// S1 and S2 are then db and da, with dz = a dpre where the batch-norm form
+// has its correction (the operand transform kScale in place of kDz, which
+// reads no z). What bounds it is what bounds the batch-norm form.
 #include "gemm_tile.cuh"
-#include "reduce.cuh"
 
 namespace {
 
@@ -92,7 +96,7 @@ __device__ __forceinline__ float act_grad(float pre, float slope) {
   return pre >= 0.f ? 1.f : slope;
 }
 
-// ------------------------------------------------------ batch-norm form
+// ---------------------------------------- the GEMM passes of both forms
 
 constexpr int ROW_TILE = 128;  // rows of a row-major product's tile
 
@@ -100,7 +104,8 @@ enum Epi { kStore = 0, kStats = 1, kDpre = 2 };
 
 // out [R, N] = A [R, K] B [K, N] over row tiles of tile_rows rows (chunks of
 // ROW_TILE), by epilogue:
-//   kStore  out = the product (dtable);
+//   kStore  out = the product (dtable; the affine form's z, none when out
+//           is null);
 //   kStats  out = z; part_u / part_v [tiles, N] = the tile's sums of z and
 //           z^2; with zmax: each neighbourhood's max and min of z
 //           ([R / ns, N]), tile_rows a multiple of ns;
@@ -212,7 +217,9 @@ __global__ void __launch_bounds__(THREADS, 2) rows_gemm(RowsArgs P) {
           sv[u] = fmaf(y[u], y[u], sv[u]);
         }
       }
-      if (full) {
+      if (P.out == nullptr) {
+        // the affine form's top layer without autograd: extremes only
+      } else if (full) {
         *reinterpret_cast<float4*>(P.out + o) = make_float4(y[0], y[1], y[2], y[3]);
       } else {
 #pragma unroll
@@ -362,12 +369,15 @@ cudaError_t rows_go(const RowsArgs& P, dim3 grid, cudaStream_t st) {
 }
 
 // The forward's products (A: the table, or act of the layer below's z; B:
-// W) or, with bkc, the backward's dx = dz W^T (A: dz; B: W read
-// transposed).
+// W) or, with bkc, the backward's dx = dz W^T (A: dz by akind, kDz or
+// kScale; B: W read transposed).
 cudaError_t rows_launch(const RowsArgs& P, bool bkc, int akind,
                         cudaStream_t st) {
   const int bn = tile_width(P.N);
   const dim3 grid((P.R + P.tile_rows - 1) / P.tile_rows, (P.N + bn - 1) / bn);
+  if (bkc && akind == kScale)
+    return bn == 64 ? rows_go<64, true, kScale>(P, grid, st)
+                    : rows_go<128, true, kScale>(P, grid, st);
   if (bkc)
     return bn == 64 ? rows_go<64, true, kDz>(P, grid, st)
                     : rows_go<128, true, kDz>(P, grid, st);
@@ -378,31 +388,37 @@ cudaError_t rows_launch(const RowsArgs& P, bool bkc, int akind,
                   : rows_go<128, false, kPlain>(P, grid, st);
 }
 
-template <int BM, int BN, int AKIND>
+template <int BM, int BN, int AKIND, int BKIND>
 cudaError_t dw_go(const DwArgs& P, dim3 grid, cudaStream_t st) {
   const size_t smem =
-      pipe_floats<BM, BN, false, false, AKIND, kDz>() * sizeof(float);
-  static const cudaError_t e = allow_smem(dw_gemm<BM, BN, AKIND, kDz>, SMEM_LIMIT);
+      pipe_floats<BM, BN, false, false, AKIND, BKIND>() * sizeof(float);
+  static const cudaError_t e =
+      allow_smem(dw_gemm<BM, BN, AKIND, BKIND>, SMEM_LIMIT);
   if (e != cudaSuccess) return e;
-  dw_gemm<BM, BN, AKIND, kDz><<<grid, THREADS, smem, st>>>(P);
+  dw_gemm<BM, BN, AKIND, BKIND><<<grid, THREADS, smem, st>>>(P);
   return cudaGetLastError();
 }
 
-template <int AKIND>
+template <int AKIND, int BKIND>
 cudaError_t dw_tiles(const DwArgs& P, cudaStream_t st) {
   const int bm = tile_width(P.M), bn = tile_width(P.N);
   const dim3 grid((P.M + bm - 1) / bm, (P.N + bn - 1) / bn,
                   (P.R + P.split_rows - 1) / P.split_rows);
   if (bm == 64)
-    return bn == 64 ? dw_go<64, 64, AKIND>(P, grid, st)
-                    : dw_go<64, 128, AKIND>(P, grid, st);
-  return bn == 64 ? dw_go<128, 64, AKIND>(P, grid, st)
-                  : dw_go<128, 128, AKIND>(P, grid, st);
+    return bn == 64 ? dw_go<64, 64, AKIND, BKIND>(P, grid, st)
+                    : dw_go<64, 128, AKIND, BKIND>(P, grid, st);
+  return bn == 64 ? dw_go<128, 64, AKIND, BKIND>(P, grid, st)
+                  : dw_go<128, 128, AKIND, BKIND>(P, grid, st);
 }
 
-// dW partials (A: the table, or act of the layer below's z; B: dz).
-cudaError_t dw_launch(const DwArgs& P, int akind, cudaStream_t st) {
-  return akind == kAct ? dw_tiles<kAct>(P, st) : dw_tiles<kPlain>(P, st);
+// dW partials (A: the table, or act of the layer below's z; B: dz by
+// bkind, kDz or kScale).
+cudaError_t dw_launch(const DwArgs& P, int akind, int bkind, cudaStream_t st) {
+  if (bkind == kScale)
+    return akind == kAct ? dw_tiles<kAct, kScale>(P, st)
+                         : dw_tiles<kPlain, kScale>(P, st);
+  return akind == kAct ? dw_tiles<kAct, kDz>(P, st)
+                       : dw_tiles<kPlain, kDz>(P, st);
 }
 
 Src plain_src(const void* p, int rows, int chans) {
@@ -459,350 +475,6 @@ Layers layers(int L, const int* c) {
     Y.tot += c[l + 1];
   }
   return Y;
-}
-
-// ------------------------------------------------------------- affine form
-
-constexpr int FWD_ROWS = 32;
-constexpr int BWD_ROWS = 16;
-
-struct Stack {
-  int L;
-  int c[MAXL + 1];     // widths: c[0] the table's, c[l + 1] layer l's output
-  int woff[MAXL];      // offset of W_l in the packed weights
-  int hoff[MAXL];      // offset of layer l's channels in a packed vector
-  int cmax;            // widest of c[0..L]
-  float slope;
-  const float* W;
-  const float* a;
-  const float* b;
-};
-
-// For every output (r, o), r < RT and o < n, calls epi(r, o, acc) with
-//   acc = sum_{j < k} A[r * lda + j] * B(j, o)   (one fmaf chain, j from 0)
-// where B(j, o) = W[j * n + o], or W[o * k + j] when TRANS. A thread owns
-// column o of a chunk of 256 columns for rows g, g + G, ... (G = 256 / n).
-template <int RT, bool TRANS, typename Epi>
-__device__ __forceinline__ void tile_product(const float* A, int lda, int k,
-                                             const float* __restrict__ W,
-                                             int n, Epi epi) {
-  for (int o0 = 0; o0 < n; o0 += THREADS) {
-    const int cols = min(THREADS, n - o0);
-    const int G = THREADS / cols;
-    const int g = threadIdx.x / cols;
-    const int o = o0 + threadIdx.x % cols;
-    if (g >= G) continue;
-    float acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) acc[i] = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float w = TRANS ? __ldg(W + (size_t)o * k + j)
-                            : __ldg(W + (size_t)j * n + o);
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int r = g + i * G;
-        if (r < RT) acc[i] = fmaf(A[r * lda + j], w, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = g + i * G;
-      if (r < RT) epi(r, o, acc[i]);
-    }
-  }
-}
-
-// Y = act(X W_l a_l + b_l) for one tile; Z (when given) keeps X W_l.
-template <int RT>
-__device__ __forceinline__ void layer_fwd(const Stack& S, int l, const float* X,
-                                          float* Y, float* Z) {
-  const int cin = S.c[l], cout = S.c[l + 1];
-  const float* a = S.a + S.hoff[l];
-  const float* b = S.b + S.hoff[l];
-  const float slope = S.slope;
-  tile_product<RT, false>(X, cin, cin, S.W + S.woff[l], cout,
-                          [&](int r, int o, float z) {
-                            if (Z != nullptr) Z[r * cout + o] = z;
-                            Y[r * cout + o] =
-                                act(fmaf(z, __ldg(a + o), __ldg(b + o)), slope);
-                          });
-}
-
-// X[r][c] = table row row0 + r (zero past row R).
-template <int RT>
-__device__ __forceinline__ void load_rows(const float* __restrict__ table,
-                                          int R, int c0, int row0, float* X) {
-  const size_t base = (size_t)row0 * c0;
-  for (int i = threadIdx.x; i < RT * c0; i += THREADS)
-    X[i] = row0 + i / c0 < R ? table[base + i] : 0.f;
-}
-
-// mode 0: pooled = max over each neighbourhood of x_L.
-// mode 1: cnt = number of the neighbourhood's rows equal to pooled.
-// A block owns TM whole neighbourhoods and walks their rows in tiles.
-__global__ void __launch_bounds__(THREADS)
-pool_kernel(Stack S, const float* __restrict__ table, int R, int ns, int TM,
-            int mode, float* __restrict__ pooled, float* __restrict__ cnt) {
-  constexpr int RT = FWD_ROWS;
-  extern __shared__ float sm[];
-  float* buf[2] = {sm, sm + RT * S.cmax};
-  float* run = sm + 2 * RT * S.cmax;       // [TM, cout]
-  const int cout = S.c[S.L];
-  const int nctr = R / ns;
-  const int ctr0 = blockIdx.x * TM;
-  const int nc = min(TM, nctr - ctr0);
-  for (int i = threadIdx.x; i < nc * cout; i += THREADS)
-    run[i] = mode == 0 ? -CUDART_INF_F : 0.f;
-  const int row_end = (ctr0 + nc) * ns;
-  for (int row0 = ctr0 * ns; row0 < row_end; row0 += RT) {
-    __syncthreads();
-    load_rows<RT>(table, row_end, S.c[0], row0, buf[0]);
-    __syncthreads();
-    int cur = 0;
-    for (int l = 0; l < S.L; ++l) {
-      layer_fwd<RT>(S, l, buf[cur], buf[cur ^ 1], nullptr);
-      __syncthreads();
-      cur ^= 1;
-    }
-    const float* Y = buf[cur];
-    for (int i = threadIdx.x; i < nc * cout; i += THREADS) {
-      const int j = i / cout, o = i % cout;
-      const int lo = max(row0, (ctr0 + j) * ns);
-      const int hi = min(row0 + RT, (ctr0 + j + 1) * ns);
-      float v = run[i];
-      if (mode == 0) {
-        for (int r = lo; r < hi; ++r) v = fmaxf(v, Y[(r - row0) * cout + o]);
-      } else {
-        const float ref = pooled[(size_t)ctr0 * cout + i];
-        for (int r = lo; r < hi; ++r)
-          v += Y[(r - row0) * cout + o] == ref ? 1.f : 0.f;
-      }
-      run[i] = v;
-    }
-  }
-  __syncthreads();
-  float* out = mode == 0 ? pooled : cnt;
-  for (int i = threadIdx.x; i < nc * cout; i += THREADS)
-    out[(size_t)ctr0 * cout + i] = run[i];
-}
-
-// The affine form's backward: one kernel that also held the batch-norm
-// form's passes before that form had the kernels above; it runs with bn = 0
-// and stop = -1, so those paths no longer run. A copy without them measured
-// slower on the same inputs (3.77 against 3.47 ms at sa_0 [4, 1024, 32, 6]
-// 64 -> 128, 0.69 against 0.53 at group_all [4, 1, 128, 259] 256 -> 256;
-// NVIDIA H100 80GB HBM3, 700.00 W): the compiler lays the same affine code
-// out otherwise.
-// Per-thread sums (column t % n, rows t / n + k G) -> one value per column,
-// added over the row groups in order.
-__device__ __forceinline__ void block_sums(float s, float q, int n,
-                                           float* red, float* out_s,
-                                           float* out_q) {
-  red[threadIdx.x] = s;
-  red[THREADS + threadIdx.x] = q;
-  __syncthreads();
-  if (threadIdx.x < n) {
-    const int G = THREADS / n;
-    float ss = 0.f, qq = 0.f;
-    for (int g = 0; g < G; ++g) {
-      ss += red[g * n + threadIdx.x];
-      qq += red[THREADS + g * n + threadIdx.x];
-    }
-    out_s[blockIdx.x * n + threadIdx.x] = ss;
-    out_q[blockIdx.x * n + threadIdx.x] = qq;
-  }
-}
-
-// Backward over the block's tiles. stop >= 0: partial S1, S2 of layer
-// stop (the layers above it use their finished S1, S2). stop < 0: dtable
-// rows and the block's partial dW of every layer, at dw_part + blockIdx.x *
-// pstride. bn == 0 (the affine form; mu, ivar, s1, s2 unused, stop < 0):
-// also the block's partial da and db of every layer, packed per layer after
-// the block's dW, at wtotal + hoff[l] and wtotal + htotal + hoff[l].
-__global__ void __launch_bounds__(THREADS)
-bwd_kernel(Stack S, const float* __restrict__ table, int R, int ns,
-           const float* __restrict__ pooled, const float* __restrict__ gout,
-           const float* __restrict__ cnt, const float* __restrict__ mu,
-           const float* __restrict__ ivar, const float* __restrict__ s1,
-           const float* __restrict__ s2, float ninv, int stop,
-           float* __restrict__ part1, float* __restrict__ part2,
-           float* __restrict__ dtable, float* __restrict__ dw_part,
-           int wtotal, int htotal, int pstride, int bn) {
-  constexpr int RT = BWD_ROWS;
-  extern __shared__ float sm[];
-  const int L = S.L;
-  float* X[MAXL + 1];                      // X[l]: input of layer l; X[L]: output
-  float* Z[MAXL];                          // Z[l] = X[l] W_l
-  float* p = sm;
-  for (int l = 0; l <= L; ++l) {
-    X[l] = p;
-    p += RT * S.c[l];
-  }
-  for (int l = 0; l < L; ++l) {
-    Z[l] = p;
-    p += RT * S.c[l + 1];
-  }
-  float* D = p;                            // cotangent of a layer's output
-  float* DZ = D + RT * S.cmax;             // cotangent of its z
-  float* red = DZ + RT * S.cmax;
-  const float slope = S.slope;
-  const int cL = S.c[L];
-  float acc1 = 0.f, acc2 = 0.f;
-
-  const int ntiles = (R + RT - 1) / RT;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * RT;
-    __syncthreads();
-    load_rows<RT>(table, R, S.c[0], row0, X[0]);
-    __syncthreads();
-    for (int l = 0; l < L; ++l) {
-      layer_fwd<RT>(S, l, X[l], X[l + 1], Z[l]);
-      __syncthreads();
-    }
-    for (int i = threadIdx.x; i < RT * cL; i += THREADS) {
-      const int row = row0 + i / cL, o = i % cL;
-      float d = 0.f;
-      if (row < R) {
-        const size_t k = (size_t)(row / ns) * cL + o;
-        if (X[L][i] == pooled[k]) d = gout[k] / cnt[k];
-      }
-      D[i] = d;
-    }
-    __syncthreads();
-    for (int q = L - 1; q >= 0; --q) {
-      const int n = S.c[q + 1], cin = S.c[q];
-      const float* aq = S.a + S.hoff[q];
-      const float* bq = S.b + S.hoff[q];
-      float* dw = dw_part + (size_t)blockIdx.x * pstride;
-      if (!bn) {
-        // the affine form: dpre (kept in D for da, db), dz = a dpre
-        for (int i = threadIdx.x; i < RT * n; i += THREADS) {
-          const int o = i % n;
-          float dpre = 0.f;
-          if (row0 + i / n < R)
-            dpre = D[i] * act_grad(fmaf(Z[q][i], aq[o], bq[o]), slope);
-          D[i] = dpre;
-          DZ[i] = aq[o] * dpre;
-        }
-        __syncthreads();
-        for (int o = threadIdx.x; o < n; o += THREADS) {
-          float sa = 0.f, sb = 0.f;
-          for (int r = 0; r < RT; ++r) {
-            sa = fmaf(D[r * n + o], Z[q][r * n + o], sa);
-            sb += D[r * n + o];
-          }
-          dw[wtotal + S.hoff[q] + o] += sa;
-          dw[wtotal + htotal + S.hoff[q] + o] += sb;
-        }
-        for (int i = threadIdx.x; i < cin * n; i += THREADS) {
-          const int c = i / n, o = i % n;
-          float acc = 0.f;
-          for (int r = 0; r < RT; ++r)
-            acc = fmaf(X[q][r * cin + c], DZ[r * n + o], acc);
-          dw[S.woff[q] + i] += acc;
-        }
-        __syncthreads();                   // D is read; the product rewrites it
-        tile_product<RT, true>(DZ, n, n, S.W + S.woff[q], cin,
-                               [&](int r, int c, float v) { D[r * cin + c] = v; });
-        __syncthreads();
-        if (q == 0) {
-          const int c0 = S.c[0];
-          for (int i = threadIdx.x; i < RT * c0; i += THREADS)
-            if (row0 + i / c0 < R) dtable[(size_t)row0 * c0 + i] = D[i];
-        }
-        continue;
-      }
-      const float* mq = mu + S.hoff[q];
-      const float* iq = ivar + S.hoff[q];
-      if (q == stop) {
-        const int G = THREADS / n, g = threadIdx.x / n, o = threadIdx.x % n;
-        if (g < G) {
-          for (int r = g; r < RT; r += G) {
-            if (row0 + r >= R) continue;
-            const float z = Z[q][r * n + o];
-            const float pre = fmaf(z, aq[o], bq[o]);
-            const float dpre = D[r * n + o] * act_grad(pre, slope);
-            const float zhat = (z - mq[o]) * iq[o];
-            acc1 += dpre;
-            acc2 = fmaf(dpre, zhat, acc2);
-          }
-        }
-        break;
-      }
-      const float* s1q = s1 + S.hoff[q];
-      const float* s2q = s2 + S.hoff[q];
-      for (int i = threadIdx.x; i < RT * n; i += THREADS) {
-        const int o = i % n;
-        float dz = 0.f;
-        if (row0 + i / n < R) {
-          const float z = Z[q][i];
-          const float pre = fmaf(z, aq[o], bq[o]);
-          const float dpre = D[i] * act_grad(pre, slope);
-          const float zhat = (z - mq[o]) * iq[o];
-          dz = aq[o] * (dpre - s1q[o] * ninv - zhat * (s2q[o] * ninv));
-        }
-        DZ[i] = dz;
-      }
-      __syncthreads();
-      if (stop < 0) {
-        for (int i = threadIdx.x; i < cin * n; i += THREADS) {
-          const int c = i / n, o = i % n;
-          float acc = 0.f;
-          for (int r = 0; r < RT; ++r)
-            acc = fmaf(X[q][r * cin + c], DZ[r * n + o], acc);
-          dw[S.woff[q] + i] += acc;
-        }
-      }
-      tile_product<RT, true>(DZ, n, n, S.W + S.woff[q], cin,
-                             [&](int r, int c, float v) { D[r * cin + c] = v; });
-      __syncthreads();
-      if (q == 0 && stop < 0) {
-        const int c0 = S.c[0];
-        for (int i = threadIdx.x; i < RT * c0; i += THREADS)
-          if (row0 + i / c0 < R) dtable[(size_t)row0 * c0 + i] = D[i];
-      }
-    }
-  }
-  if (stop >= 0) {
-    __syncthreads();
-    block_sums(acc1, acc2, S.c[stop + 1], red, part1, part2);
-  }
-}
-
-Stack make_stack(int L, const int* c, float slope, const void* W,
-                 const void* a, const void* b) {
-  Stack S;
-  S.L = L;
-  S.cmax = 0;
-  int wo = 0, ho = 0;
-  for (int l = 0; l <= MAXL; ++l) S.c[l] = l <= L ? c[l] : 0;
-  for (int l = 0; l <= L; ++l) S.cmax = S.c[l] > S.cmax ? S.c[l] : S.cmax;
-  for (int l = 0; l < MAXL; ++l) {
-    S.woff[l] = wo;
-    S.hoff[l] = ho;
-    if (l < L) {
-      wo += c[l] * c[l + 1];
-      ho += c[l + 1];
-    }
-  }
-  S.slope = slope;
-  S.W = static_cast<const float*>(W);
-  S.a = static_cast<const float*>(a);
-  S.b = static_cast<const float*>(b);
-  return S;
-}
-
-cudaError_t pool(const Stack& S, const float* table, int R, int ns, int mode,
-                 float* pooled, float* cnt, cudaStream_t st) {
-  const int TM = ns < FWD_ROWS ? FWD_ROWS / ns : 1;
-  const int nctr = R / ns;
-  const size_t smem =
-      sizeof(float) * (2 * FWD_ROWS * S.cmax + TM * S.c[S.L]);
-  cudaError_t e = allow_smem(pool_kernel, smem);
-  if (e != cudaSuccess) return e;
-  pool_kernel<<<(nctr + TM - 1) / TM, THREADS, smem, st>>>(S, table, R, ns, TM,
-                                                           mode, pooled, cnt);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -864,37 +536,51 @@ extern "C" int pmlp_bn_forward(const void* table, const void* const* W,
   return (int)cudaGetLastError();
 }
 
-// Backward of pmlp_bn_forward. In: table, W[l], z[l], stats (as the
-// forward wrote them), pooled, gout (the cotangent of pooled). Out: dtable
-// [R, c0], dW[l] [c_l, c_{l+1}], s12 = S1 (dbeta) then S2 (dgamma), each
-// packed over the layers. Scratch: dpre[l] [R, c_{l+1}]; part, 2 *
-// max(ceil(R / tile_rows), ceil(R / 128)) * max(c_1..c_L) floats; dw_part,
-// max over l of splits_l * c_l * c_{l+1} floats (splits_l = ceil(R /
-// split_rows[l])).
-extern "C" int pmlp_bn_backward(const void* table, const void* const* W,
-                                const void* const* z, const void* stats,
-                                const void* pooled, const void* gout,
-                                void* const* dpre, void* part, void* dw_part,
-                                void* dtable, void* const* dW, void* s12,
-                                int R, int ns, int L, const int* c,
-                                int tile_rows, const int* split_rows,
-                                float slope, void* stream) {
+namespace {
+
+// Layer l's a, b, mu, ivar: packed in stats as pmlp_bn_forward writes
+// them, or (the affine form, stats null) a[l], b[l] given, and mu = zeros,
+// ivar = ones (at least as wide as every layer) for all layers.
+struct Vecs {
+  const float* stats;
+  const void* const* a;
+  const void* const* b;
+  const float* zeros;
+  const float* ones;
+  int tot;
+  const float* at(int k, int h, int l) const {
+    if (l < 0) return nullptr;             // layer 0 reads the table
+    if (stats != nullptr) return stats + k * tot + h;
+    if (k == 3) return static_cast<const float*>(a[l]);
+    if (k == 4) return static_cast<const float*>(b[l]);
+    return k == 0 ? zeros : ones;
+  }
+};
+
+// The backward of both forms (pmlp_bn_backward, pmlp_backward_affine);
+// affine: dz = a dpre (kScale), with mu = 0 and ivar = 1 (zhat = z), so
+// S1 is db and S2 da.
+int backward(const void* table, const void* const* W, const void* const* z,
+             const Vecs& V, const void* pooled, const void* gout,
+             void* const* dpre, void* part, void* dw_part, void* dtable,
+             void* const* dW, void* s12, int R, int ns, int L, const int* c,
+             int tile_rows, const int* split_rows, float slope, bool affine,
+             void* stream) {
   const Layers Y = layers(L, c);
   auto st = static_cast<cudaStream_t>(stream);
-  const float* mu = static_cast<const float*>(stats);
-  const float* ivar = mu + 2 * Y.tot;
-  const float* a = mu + 3 * Y.tot;
-  const float* b = mu + 4 * Y.tot;
+  enum { MU = 0, IVAR = 2, A = 3, B = 4 };
   float* s1 = static_cast<float*>(s12);
   float* s2 = s1 + Y.tot;
   float* pu = static_cast<float*>(part);
   const float ninv = 1.f / (float)R;
+  const int dz_kind = affine ? kScale : kDz;
   cudaError_t e;
 
   const int top_tiles = (R + tile_rows - 1) / tile_rows;
   const int cL = c[L], hL = Y.hoff[L - 1];
-  const TopArgs T = {static_cast<const float*>(z[L - 1]), a + hL, b + hL,
-                     mu + hL, ivar + hL, static_cast<const float*>(pooled),
+  const TopArgs T = {static_cast<const float*>(z[L - 1]), V.at(A, hL, L - 1),
+                     V.at(B, hL, L - 1), V.at(MU, hL, L - 1),
+                     V.at(IVAR, hL, L - 1), static_cast<const float*>(pooled),
                      static_cast<const float*>(gout),
                      static_cast<float*>(dpre[L - 1]), pu,
                      pu + (size_t)top_tiles * cL, R, ns, cL, tile_rows, slope};
@@ -909,23 +595,26 @@ extern "C" int pmlp_bn_backward(const void* table, const void* const* W,
     const int C = c[q], N1 = c[q + 1], h = Y.hoff[q];
     const int hb = q > 0 ? Y.hoff[q - 1] : 0;
     Src dz = plain_src(dpre[q], R, N1);
-    dz.z = static_cast<const float*>(z[q]);
-    dz.v[0] = a + h;
-    dz.v[1] = mu + h;
-    dz.v[2] = ivar + h;
-    dz.v[3] = s1 + h;
-    dz.v[4] = s2 + h;
-    dz.ninv = ninv;
+    dz.v[0] = V.at(A, h, q);
+    if (!affine) {
+      dz.z = static_cast<const float*>(z[q]);
+      dz.v[1] = V.at(MU, h, q);
+      dz.v[2] = V.at(IVAR, h, q);
+      dz.v[3] = s1 + h;
+      dz.v[4] = s2 + h;
+      dz.ninv = ninv;
+    }
 
     DwArgs D = {};
-    D.A = input_src(q, table, z, a + hb, b + hb, R, C, slope);
+    D.A = input_src(q, table, z, V.at(A, hb, q - 1), V.at(B, hb, q - 1), R, C,
+                    slope);
     D.B = dz;
     D.R = R;
     D.M = C;
     D.N = N1;
     D.split_rows = split_rows[q];
     D.part = static_cast<float*>(dw_part);
-    e = dw_launch(D, q == 0 ? kPlain : kAct, st);
+    e = dw_launch(D, q == 0 ? kPlain : kAct, dz_kind, st);
     if (e != cudaSuccess) return (int)e;
     sum_cols_launch(D.part, (R + D.split_rows - 1) / D.split_rows, C * N1,
                     static_cast<float*>(dW[q]), st);
@@ -946,14 +635,14 @@ extern "C" int pmlp_bn_backward(const void* table, const void* const* W,
       P.epi = kDpre;
       P.out = static_cast<float*>(dpre[q - 1]);
       P.zp = static_cast<const float*>(z[q - 1]);
-      P.pv[0] = a + hb;
-      P.pv[1] = b + hb;
-      P.pv[2] = mu + hb;
-      P.pv[3] = ivar + hb;
+      P.pv[0] = V.at(A, hb, q - 1);
+      P.pv[1] = V.at(B, hb, q - 1);
+      P.pv[2] = V.at(MU, hb, q - 1);
+      P.pv[3] = V.at(IVAR, hb, q - 1);
       P.part_u = pu;
       P.part_v = pu + (size_t)row_tiles * C;
     }
-    e = rows_launch(P, true, kDz, st);
+    e = rows_launch(P, true, dz_kind, st);
     if (e != cudaSuccess) return (int)e;
     if (q > 0) {
       sum_cols_launch(P.part_u, row_tiles, C, s1 + hb, st);
@@ -965,58 +654,89 @@ extern "C" int pmlp_bn_backward(const void* table, const void* const* W,
   return 0;
 }
 
-// Forward of the affine form: pooled = max over ns of the stack with the
-// given a, b (packed), weights packed one layer after another.
-// c = (c0, ..., cL); R % ns == 0; every c[l + 1] <= 256.
-extern "C" int pmlp_affine_forward(const void* table, const void* W,
-                                   const void* a, const void* b, void* pooled,
-                                   int R, int ns, int L, int c0, int c1,
-                                   int c2, int c3, int c4, float slope,
-                                   void* stream) {
-  const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
-  const Stack S = make_stack(L, c, slope, W, a, b);
-  return (int)pool(S, static_cast<const float*>(table), R, ns, 0,
-                   static_cast<float*>(pooled), nullptr,
-                   static_cast<cudaStream_t>(stream));
+}  // namespace
+
+// Backward of pmlp_bn_forward. In: table, W[l], z[l], stats (as the
+// forward wrote them), pooled, gout (the cotangent of pooled). Out: dtable
+// [R, c0], dW[l] [c_l, c_{l+1}], s12 = S1 (dbeta) then S2 (dgamma), each
+// packed over the layers. Scratch: dpre[l] [R, c_{l+1}]; part, 2 *
+// max(ceil(R / tile_rows), ceil(R / 128)) * max(c_1..c_L) floats; dw_part,
+// max over l of splits_l * c_l * c_{l+1} floats (splits_l = ceil(R /
+// split_rows[l])).
+extern "C" int pmlp_bn_backward(const void* table, const void* const* W,
+                                const void* const* z, const void* stats,
+                                const void* pooled, const void* gout,
+                                void* const* dpre, void* part, void* dw_part,
+                                void* dtable, void* const* dW, void* s12,
+                                int R, int ns, int L, const int* c,
+                                int tile_rows, const int* split_rows,
+                                float slope, void* stream) {
+  const Vecs V = {static_cast<const float*>(stats), nullptr, nullptr,
+                  nullptr, nullptr, layers(L, c).tot};
+  return backward(table, W, z, V, pooled, gout, dpre, part, dw_part, dtable,
+                  dW, s12, R, ns, L, c, tile_rows, split_rows, slope, false,
+                  stream);
 }
 
-// Backward of the affine forward. In: table, W, a, b, pooled, gout. Out:
-// dtable [R, c0] and grads = (dW packed, then da packed, then db packed).
-// Scratch: cnt [R / ns, cL], dw_part of nblk * (size of grads) floats,
-// ZEROED.
-extern "C" int pmlp_backward_affine(const void* table, const void* W,
-                                    const void* a, const void* b,
-                                    const void* pooled, const void* gout,
-                                    void* cnt, void* dw_part, void* dtable,
-                                    void* grads, int R, int ns, int L, int c0,
-                                    int c1, int c2, int c3, int c4,
-                                    float slope, int nblk, void* stream) {
-  const int c[MAXL + 1] = {c0, c1, c2, c3, c4};
-  const Stack S = make_stack(L, c, slope, W, a, b);
+// Forward of the affine form. In: table [R, c0], W[l] [c_l, c_{l+1}],
+// a[l], b[l] [c_{l+1}]. Out: pooled [R / ns, cL]; z[l] [R, c_{l+1}] where
+// z[l] is not null (the backward reads them; layer l + 1 reads z[l], so
+// every z[l] below the top is given, and z[l] and z[l + 2] may share a
+// buffer). Scratch: ext, 2 * (R / ns) * cL floats. tile_rows: a multiple
+// of ns.
+extern "C" int pmlp_affine_forward(const void* table, const void* const* W,
+                                   const void* const* a, const void* const* b,
+                                   void* const* z, void* ext, void* pooled,
+                                   int R, int ns, int L, const int* c,
+                                   int tile_rows, float slope, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  auto tbl = static_cast<const float*>(table);
-  auto pl = static_cast<const float*>(pooled);
-  auto ct = static_cast<float*>(cnt);
-  cudaError_t e = pool(S, tbl, R, ns, 1, const_cast<float*>(pl), ct, st);
-  if (e != cudaSuccess) return (int)e;
-
-  int wtotal = 0, htotal = 0, widths = 0;
-  for (int l = 0; l < L; ++l) {
-    wtotal += c[l] * c[l + 1];
-    htotal += c[l + 1];
-    widths += c[l] + c[l + 1];
+  const int nout = (R / ns) * c[L];
+  float* zmax = static_cast<float*>(ext);
+  for (int p = 0; p < L; ++p) {
+    RowsArgs P = {};
+    P.A = input_src(p, table, z, p > 0 ? static_cast<const float*>(a[p - 1]) : nullptr,
+                    p > 0 ? static_cast<const float*>(b[p - 1]) : nullptr, R,
+                    c[p], slope);
+    P.B = plain_src(W[p], c[p], c[p + 1]);
+    P.R = R;
+    P.K = c[p];
+    P.N = c[p + 1];
+    P.tile_rows = tile_rows;
+    P.ns = ns;
+    P.epi = kStore;
+    P.out = static_cast<float*>(z[p]);
+    if (p == L - 1) {
+      P.zmax = zmax;
+      P.zmin = zmax + nout;
+    }
+    const cudaError_t e = rows_launch(P, false, p == 0 ? kPlain : kAct, st);
+    if (e != cudaSuccess) return (int)e;
   }
-  widths += c[L];                          // X[0..L] and Z[0..L-1]
-  const size_t smem =
-      sizeof(float) * (BWD_ROWS * (widths + 2 * S.cmax) + 2 * THREADS);
-  e = allow_smem(bwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int pstride = wtotal + 2 * htotal;
-  bwd_kernel<<<nblk, THREADS, smem, st>>>(
-      S, tbl, R, ns, pl, static_cast<const float*>(gout), ct, nullptr, nullptr,
-      nullptr, nullptr, 0.f, -1, nullptr, nullptr, static_cast<float*>(dtable),
-      static_cast<float*>(dw_part), wtotal, htotal, pstride, 0);
-  sum_parts<<<(pstride + 255) / 256, 256, 0, st>>>(
-      static_cast<float*>(dw_part), nblk, pstride, static_cast<float*>(grads));
+  pool_extremes<<<(nout + 255) / 256, 256, 0, st>>>(
+      zmax, zmax + nout, static_cast<const float*>(a[L - 1]),
+      static_cast<const float*>(b[L - 1]), nout, c[L], slope,
+      static_cast<float*>(pooled));
   return (int)cudaGetLastError();
+}
+
+// Backward of pmlp_affine_forward: the arguments of pmlp_bn_backward, with
+// a[l], b[l], and zeros and ones of at least max(c_1..c_L) floats, in
+// place of stats, and z[l] the forward's; s12 = db then da, each packed
+// over the layers.
+extern "C" int pmlp_backward_affine(const void* table, const void* const* W,
+                                    const void* const* z,
+                                    const void* const* a,
+                                    const void* const* b, const void* zeros,
+                                    const void* ones, const void* pooled,
+                                    const void* gout, void* const* dpre,
+                                    void* part, void* dw_part, void* dtable,
+                                    void* const* dW, void* s12, int R, int ns,
+                                    int L, const int* c, int tile_rows,
+                                    const int* split_rows, float slope,
+                                    void* stream) {
+  const Vecs V = {nullptr, a, b, static_cast<const float*>(zeros),
+                  static_cast<const float*>(ones), layers(L, c).tot};
+  return backward(table, W, z, V, pooled, gout, dpre, part, dw_part, dtable,
+                  dW, s12, R, ns, L, c, tile_rows, split_rows, slope, true,
+                  stream);
 }

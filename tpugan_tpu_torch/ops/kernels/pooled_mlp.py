@@ -6,14 +6,15 @@ Replaces ``tpugan_tpu/ops/pallas/pooled_mlp_kernel.py``:
 ``pooled_mlp_bn_train`` with its Pallas backward (``_bwd_pallas_bn``), and
 ``pooled_mlp_affine`` with its Pallas backward (``_bwd_pallas_affine``).
 
-``FWD`` counts forward launches (one per call: the batch-norm form's layer
-products, moment sums and pooling, or the affine form's pass), ``BWD``
-backward launches of the batch-norm form (one per call: the tie pass, then
-each layer's dW and dx products), ``AFFINE_BWD`` those of the affine form
-(one per call: tie count and the apply pass). The handles load the same
-library. :func:`launch_plan` gives the batch-norm form's tiles, passes and
-scratch for a table shape. The kernel's source note says what bounds it on
-the card and how it is laid out.
+``FWD`` counts forward launches of both forms (one per call: the layer
+products, the batch-norm form's moment sums, and the pooling), and
+``AFFINE_FWD`` those of the affine form alone; ``BWD`` backward launches of
+the batch-norm form (one per call: the tie pass, then each layer's dW and
+dx products), ``AFFINE_BWD`` those of the affine form (one per call: the
+same passes without the batch-norm terms). The handles load the same
+library. :func:`launch_plan` gives either form's tiles, passes and scratch
+for a table shape. The kernel's source note says what bounds it on the
+card and how it is laid out.
 """
 
 from __future__ import annotations
@@ -29,20 +30,26 @@ from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 _F = ctypes.c_float
 FWD = CudaKernel("pooled_mlp", {
     "pmlp_bn_forward": [VOIDP] * 9 + [INT] * 3 + [VOIDP, INT, _F, _F, VOIDP],
-    "pmlp_affine_forward": [VOIDP] * 5 + [INT] * 8 + [_F, VOIDP]})
-BWD = CudaKernel("pooled_mlp", {
-    "pmlp_bn_backward": [VOIDP] * 12 + [INT] * 3 + [VOIDP, INT, VOIDP, _F,
-                                                    VOIDP]})
+    "pmlp_affine_forward": [VOIDP] * 7 + [INT] * 3 + [VOIDP, INT, _F, VOIDP]})
+_BWD_TAIL = [INT] * 3 + [VOIDP, INT, VOIDP, _F, VOIDP]
+BWD = CudaKernel("pooled_mlp", {"pmlp_bn_backward": [VOIDP] * 12 + _BWD_TAIL})
 AFFINE_BWD = CudaKernel("pooled_mlp", {
-    "pmlp_backward_affine": [VOIDP] * 10 + [INT] * 8 + [_F, INT, VOIDP]})
+    "pmlp_backward_affine": [VOIDP] * 15 + _BWD_TAIL})
+
+
+class LaunchCount:
+    """A count of one form's launches, which its library's handle also
+    counts."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+AFFINE_FWD = LaunchCount()
 
 MAX_LAYERS = 4
 MAX_WIDTH = 256       # widest layer output (the tie pass: a thread a column)
-# The affine form's kernels: blocks of its apply pass (2 per SM), at most
-# one per tile of BWD_ROWS rows.
-MAX_BLOCKS = 264
-BWD_ROWS = 16
-# The batch-norm form's GEMM blocks (csrc/pooled_mlp.cu): 256 threads, slabs
+# The GEMM blocks of both forms (csrc/pooled_mlp.cu): 256 threads, slabs
 # BK deep padded by PAD floats, STAGES slabs in flight, row tiles of
 # ROW_TILE rows; a forward row tile holds at most MAX_NBHD whole
 # neighbourhoods; the dW product splits the rows so that about DW_BLOCKS
@@ -192,9 +199,11 @@ def _rows_bytes(bn: int, nbh: int, a_dz: bool = False) -> int:
 
 
 def launch_plan(shape: Sequence[int], widths: Sequence[int],
-                slope: float) -> dict:
-    """The batch-norm form's launches for a table [B, M, ns, C0] and layer
-    widths: ``tile_rows`` (rows of a forward / tie-pass tile: whole
+                slope: float, affine: bool = False) -> dict:
+    """The launches of the batch-norm form (``affine``: of the affine form,
+    whose dz operand reads no z and whose forward sums no moments) for a
+    table [B, M, ns, C0] and layer widths: ``tile_rows`` (rows of a forward
+    / tie-pass tile: whole
     neighbourhoods, at most ROW_TILE rows unless ns is larger),
     ``split_rows`` (rows of a dW partial, per layer), ``passes`` (kernel,
     layer, grid, dynamic shared memory in bytes, in launch order) and the
@@ -234,11 +243,11 @@ def launch_plan(shape: Sequence[int], widths: Sequence[int],
         dw_part = max(dw_part, splits * c[q] * c[q + 1])
         passes.append(dict(kernel="dw_gemm", pass_="backward", layer=q,
                            grid=(_cdiv(c[q], bm), _cdiv(c[q + 1], bn), splits),
-                           smem=4 * _pipe_floats(bm, bn, b_dz=True)))
+                           smem=4 * _pipe_floats(bm, bn, b_dz=not affine)))
         bn = tile_width(c[q])
         passes.append(dict(kernel="rows_gemm", pass_="backward", layer=q,
                            grid=(row_tiles, _cdiv(c[q], bn)),
-                           smem=_rows_bytes(bn, 0, a_dz=True)))
+                           smem=_rows_bytes(bn, 0, a_dz=not affine)))
     return dict(rows=rows, tile_rows=tile_rows, split_rows=split_rows,
                 passes=passes,
                 part_floats=2 * max(tiles, row_tiles) * max(widths),
@@ -246,9 +255,10 @@ def launch_plan(shape: Sequence[int], widths: Sequence[int],
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(shape: Tuple[int, ...], widths: Tuple[int, ...], slope: float):
+def _plan(shape: Tuple[int, ...], widths: Tuple[int, ...], slope: float,
+          affine: bool = False):
     """launch_plan, once per configuration (the train step repeats a few)."""
-    return launch_plan(shape, widths, slope)
+    return launch_plan(shape, widths, slope, affine)
 
 
 def _widths(table, ws) -> List[int]:
@@ -264,24 +274,11 @@ def _widths(table, ws) -> List[int]:
     return c + [0] * (MAX_LAYERS + 1 - len(c))
 
 
-def _pack(ts: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.cat([t.reshape(-1).float() for t in ts]).contiguous()
-
-
-def _split(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
-    out, o = [], 0
-    for s in shapes:
-        k = 1
-        for d in s:
-            k *= d
-        out.append(flat[o:o + k].view(s).clone())
-        o += k
-    return out
-
-
 def _ptrs(ts: Sequence[torch.Tensor]):
-    """A host array of the tensors' device pointers, for a C entry point."""
-    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    """A host array of the tensors' device pointers (None: a null pointer),
+    for a C entry point."""
+    return (ctypes.c_void_p * len(ts))(
+        *[None if t is None else t.data_ptr() for t in ts])
 
 
 def _ints(xs: Sequence[int]):
@@ -295,19 +292,44 @@ def _check_card(table, *ts):
         raise TypeError("pooled_mlp kernel takes a float32 table")
 
 
-def _launch_affine_forward(table, ws, a_s, b_s, slope):
+@functools.lru_cache(maxsize=8)
+def _units(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MAX_WIDTH zeros and ones on ``device``: the affine backward's mu and
+    ivar (made once a device)."""
+    return (torch.zeros(MAX_WIDTH, device=device),
+            torch.ones(MAX_WIDTH, device=device))
+
+
+def _launch_affine_forward(table, ws, a_s, b_s, slope, keep):
+    """(pooled, zs, ws, a_s, b_s): with ``keep``, every layer's z [R,
+    C_{l+1}] for the backward, with the contiguous f32 weights and affines
+    it launches with; otherwise zs is empty and the layers below the top
+    write their z into two alternating buffers, the top none."""
     b, m, ns, c0 = table.shape
-    c = _widths(table, ws)
-    rows = b * m * ns
-    pooled = torch.empty((b, m, ws[-1].shape[1]), dtype=torch.float32,
-                         device=table.device)
-    # packed inputs stay referenced until the launch returns
-    w_flat, a_flat, b_flat = _pack(ws), _pack(a_s), _pack(b_s)
+    _widths(table, ws)
+    hs = [w.shape[1] for w in ws]
+    plan = _plan(tuple(table.shape), tuple(hs), slope, True)
+    rows, dev = plan["rows"], table.device
+    ws, a_s, b_s = ([x.float().contiguous() for x in xs]
+                    for xs in (ws, a_s, b_s))
+    pooled = torch.empty((b, m, hs[-1]), dtype=torch.float32, device=dev)
+    if keep:
+        zs = [torch.empty((rows, h), device=dev) for h in hs]
+        out = zs
+    else:
+        zs = []
+        bufs = [torch.empty(rows * max(hs[:-1]), device=dev)
+                for _ in range(min(2, len(hs) - 1))]
+        out = [bufs[p % 2][:rows * h].view(rows, h)
+               for p, h in enumerate(hs[:-1])] + [None]
     if rows:
-        FWD.launch("pmlp_affine_forward", ptr(table), ptr(w_flat), ptr(a_flat),
-                   ptr(b_flat), ptr(pooled), rows, ns, len(ws), *c, _F(slope),
+        ext = torch.empty(plan["ext_floats"], device=dev)
+        FWD.launch("pmlp_affine_forward", ptr(table), _ptrs(ws), _ptrs(a_s),
+                   _ptrs(b_s), _ptrs(out), ptr(ext), ptr(pooled), rows, ns,
+                   len(ws), _ints([c0, *hs]), plan["tile_rows"], _F(slope),
                    stream_of(table))
-    return pooled
+        AFFINE_FWD.launches += 1
+    return pooled, zs, ws, a_s, b_s
 
 
 def _launch_bn_forward(table, ws, gammas, betas, slope, eps):
@@ -335,37 +357,14 @@ def _launch_bn_forward(table, ws, gammas, betas, slope, eps):
     return pooled, zs, stats, ws
 
 
-def _launch_affine_backward(table, ws, a_s, b_s, pooled, g, slope):
-    b, m, ns, c0 = table.shape
-    c = _widths(table, ws)
-    rows = b * m * ns
-    dev = table.device
-    hs = [w.shape[1] for w in ws]
-    nblk = min(_cdiv(rows, BWD_ROWS), MAX_BLOCKS)
-    w_flat = _pack(ws)
-    # packed inputs stay referenced until the launch returns
-    a_flat, b_flat = _pack(a_s), _pack(b_s)
-    total = w_flat.numel() + 2 * sum(hs)
-    dtable = torch.zeros((b, m, ns, c0), dtype=torch.float32, device=dev)
-    grads = torch.zeros(total, device=dev)
-    if rows:
-        cnt = torch.empty_like(pooled)
-        dw_part = torch.zeros((nblk, total), device=dev)
-        AFFINE_BWD.launch("pmlp_backward_affine", ptr(table), ptr(w_flat),
-                          ptr(a_flat), ptr(b_flat), ptr(pooled),
-                          ptr(g.float().contiguous()), ptr(cnt), ptr(dw_part),
-                          ptr(dtable), ptr(grads), rows, ns, len(ws), *c,
-                          _F(slope), nblk, stream_of(table))
-    vec = [(h,) for h in hs]
-    return (dtable, _split(grads, [tuple(w.shape) for w in ws] + vec + vec))
-
-
-def _launch_bn_backward(table, ws, zs, stats, pooled, g, slope):
+def _launch_bn_backward(table, ws, zs, stats, pooled, g, slope,
+                        affine=None):
     """(dtable, dws, dgammas, dbetas) from the forward's saved z and
-    moments."""
+    moments; ``affine`` (a_s, b_s): (dtable, dws, das, dbs) of the affine
+    form from its saved z and its affines (``stats`` unused)."""
     b, m, ns, c0 = table.shape
     hs = [w.shape[1] for w in ws]
-    plan = _plan(tuple(table.shape), tuple(hs), slope)
+    plan = _plan(tuple(table.shape), tuple(hs), slope, affine is not None)
     rows, dev = plan["rows"], table.device
     dtable = torch.empty((b, m, ns, c0), dtype=torch.float32, device=dev)
     dws = [torch.empty(w.shape, device=dev) for w in ws]
@@ -376,8 +375,14 @@ def _launch_bn_backward(table, ws, zs, stats, pooled, g, slope):
                                           plan["dw_part_floats"]]
         *dpre, part, dw_part = torch.empty(sum(sizes), device=dev).split(sizes)
         g = g.float().contiguous()
-        BWD.launch("pmlp_bn_backward", ptr(table), _ptrs(ws), _ptrs(zs),
-                   ptr(stats), ptr(pooled), ptr(g),
+        if affine is None:
+            handle, symbol, vecs = BWD, "pmlp_bn_backward", (ptr(stats),)
+        else:
+            handle, symbol = AFFINE_BWD, "pmlp_backward_affine"
+            zeros, ones = _units(dev)
+            vecs = (_ptrs(affine[0]), _ptrs(affine[1]), ptr(zeros), ptr(ones))
+        handle.launch(symbol, ptr(table), _ptrs(ws), _ptrs(zs),
+                   *vecs, ptr(pooled), ptr(g),
                    _ptrs(dpre), ptr(part), ptr(dw_part), ptr(dtable),
                    _ptrs(dws), ptr(s12), rows, ns, len(ws),
                    _ints([c0, *hs]), plan["tile_rows"],
@@ -460,37 +465,46 @@ def pooled_mlp_bn_train(table: torch.Tensor, ws: Sequence[torch.Tensor],
 
 class _PooledAffine(torch.autograd.Function):
     """pooled_mlp_affine with its kernel backward. Inputs: table, slope, L,
-    then W_0..W_{L-1}, a_0.., b_0..; saves them and the pooled output (the
-    tie pass compares the recomputed rows with it)."""
+    then W_0..W_{L-1}, a_0.., b_0..; on the CPU saves them and the pooled
+    output (the plain backward recomputes the stack), on the card the
+    forward's every z, when a gradient is wanted."""
 
     @staticmethod
     def forward(ctx, table, slope, n_layers, *params):
         ws, a_s = params[:n_layers], params[n_layers:2 * n_layers]
         b_s = params[2 * n_layers:]
-        if table.device.type == "cpu":
-            pooled = pooled_mlp_affine_plain(table, ws, a_s, b_s, slope)
-        else:
-            _check_card(table, *params)
-            table = table.contiguous()
-            pooled = _launch_affine_forward(table, ws, a_s, b_s, slope)
         ctx.slope, ctx.n_layers = slope, n_layers
-        ctx.save_for_backward(table, pooled, *params)
+        ctx.dtypes = [table.dtype] + [p.dtype for p in params]
+        ctx.on_card = table.device.type != "cpu"
+        if not ctx.on_card:
+            pooled = pooled_mlp_affine_plain(table, ws, a_s, b_s, slope)
+            ctx.save_for_backward(table, pooled, *params)
+            return pooled
+        _check_card(table, *params)
+        keep = any(ctx.needs_input_grad)
+        pooled, zs, ws, a_s, b_s = _launch_affine_forward(
+            table.contiguous(), ws, a_s, b_s, slope, keep)
+        if keep:
+            ctx.save_for_backward(table.contiguous(), pooled, *ws, *zs, *a_s,
+                                  *b_s)
         return pooled
 
     @staticmethod
     def backward(ctx, g):
-        table, pooled, *params = ctx.saved_tensors
         l = ctx.n_layers
-        ws, a_s, b_s = params[:l], params[l:2 * l], params[2 * l:]
-        if table.device.type == "cpu":
+        if ctx.on_card:
+            table, pooled, *rest = ctx.saved_tensors
+            dtable, dws, das, dbs = _launch_bn_backward(
+                table, rest[:l], rest[l:2 * l], None, pooled, g, ctx.slope,
+                affine=(rest[2 * l:3 * l], rest[3 * l:]))
+        else:
+            table, pooled, *params = ctx.saved_tensors
+            ws, a_s, b_s = params[:l], params[l:2 * l], params[2 * l:]
             dtable, dws, das, dbs = pooled_mlp_affine_backward_plain(
                 table, ws, a_s, b_s, pooled, g, ctx.slope)
-        else:
-            dtable, flat = _launch_affine_backward(table, ws, a_s, b_s, pooled,
-                                                   g, ctx.slope)
-            dws, das, dbs = flat[:l], flat[l:2 * l], flat[2 * l:]
-        grads = [d.to(p.dtype) for d, p in zip([*dws, *das, *dbs], params)]
-        return (dtable.to(table.dtype), None, None, *grads)
+        grads = [d.to(t) for d, t in zip([dtable, *dws, *das, *dbs],
+                                         ctx.dtypes)]
+        return (grads[0], None, None, *grads[1:])
 
 
 def pooled_mlp_affine(table: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -501,5 +515,14 @@ def pooled_mlp_affine(table: torch.Tensor, ws: Sequence[torch.Tensor],
     Differentiable in the table, the weights and the affines through the
     kernel backward, whose max splits the gradient over ties as ``jnp.max``
     does. A CPU table takes the plain versions; a CUDA table launches the
-    kernels or raises."""
-    return _PooledAffine.apply(table, float(slope), len(ws), *ws, *a_s, *b_s)
+    kernels or raises, and takes slope >= 0 (the max is taken from the
+    extremes of the last layer's z, as in :func:`pooled_mlp_bn_train`)."""
+    params = [*ws, *a_s, *b_s]
+    if table.device.type != "cpu" and not (
+            torch.is_grad_enabled()
+            and any(t.requires_grad for t in [table, *params])):
+        # no gradient can be asked for: the launch alone, no z kept
+        _check_card(table, *params)
+        return _launch_affine_forward(table.contiguous(), ws, a_s, b_s,
+                                      float(slope), False)[0]
+    return _PooledAffine.apply(table, float(slope), len(ws), *params)
