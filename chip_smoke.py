@@ -157,7 +157,31 @@ Phases, one JSON line each (``phase`` names it):
            tiles (binned_plan), two launches bit for bit, its time, its
            device time by kernel, its bound and the dense kernel's time;
   eval_cpu position_metrics, cycle_consistency and the exact density on
-           fixed small clouds, on the card and on the CPU.
+           fixed small clouds, on the card and on the CPU;
+  kernel   (action) the affine pooled-MLP forward at the action towers'
+           SetConvs (sa1 [24, 512, 64, 6] 64 -> 64 -> 128, sa2 [24, 256,
+           32, 131] 128 -> 256, the classifier's pooling [24, 1, 256, 259]
+           512 -> 512 and the critic's 256 -> 512), folded affines of both
+           signs, two launches bit for bit, with its forward instances'
+           ptxas report, and a gradient above MAX_WIDTH and the batch-norm
+           form above it refused; kNN at 128-point frames and the flow's
+           k = 32 at B = 24, FPS on 72 rows of 2,048 and of 512, the ball
+           query at nsample 64 and 32, the general EdgeConv forward at
+           (1, 3, 64, 128); each against its plain version (run with the
+           kernel checks above);
+  action_serving with the launch counts reset: checkpoints/
+           action_tempo_20k.ckpt's NoMaskSRNet through the action demo
+           twin's upsample_clip, 24 frames of 128 -> 2,048 points of a
+           synthetic clip (runs/chip_smoke_action/), launches against
+           ACTION_FRAME a frame (6 f32t, 1 general EdgeConv), the same
+           model on the CPU with the card's graphs replayed, ms per frame;
+  tempo_feat with the launch counts reset: ActionCls transferred from the
+           checkpoint's temporal critic, one infer batch of 24 clips x 3
+           frames x 2,048 points (TEMPO_INFER: 7 affine pooled-MLP
+           forwards, 512-wide layers included), logits against the CPU's
+           with the flow graphs replayed; then the eval_tempo_feat twin
+           for 2 epochs on its synthetic set (runs/chip_smoke_tempo_feat/),
+           clip and video accuracy, ms per train step and per infer batch.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -387,45 +411,53 @@ def tie_grid(torch, dev):
     return torch.from_numpy(np.concatenate([g, g])[None].astype(np.float32)).to(dev)
 
 
+def _knn_row(torch, dev, rng, what, b, nq, nc, d, k, own, scale):
+    """The exact kNN kernel against its plain version on a cloud of
+    ``scale`` (a graph over itself with ``own``), its times and bound.
+    Distances to 1e-5 of 2 max |q|^2 (the f32 error of max(|q|^2 + |c|^2 -
+    2 q.c, 0)); an index may differ only where the two candidates' exact
+    distances tie within twice that."""
+    from tpugan_tpu_torch.ops.kernels import knn as K
+
+    q_np = (rng.standard_normal((b, nq, d)) * scale).astype(np.float32)
+    c_np = q_np if own else (rng.standard_normal((b, nc, d)) * scale
+                             ).astype(np.float32)
+    q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
+    bias = torch.zeros((b, nc), device=dev)
+    d2k, ik = K.knn_kernel(q, c, bias, k)
+    d2p, ip = K.knn_plain(q, c, bias, k)
+    torch.cuda.synchronize()
+    tol = 1e-5 * 2 * float(max((q * q).sum(-1).max(), (c * c).sum(-1).max()))
+    err = float((d2k - d2p).abs().max())
+    bad, gap = index_gaps(q_np, c_np, ik, ip)
+    if not (err <= tol and gap <= 2 * tol):
+        raise AssertionError(f"knn {what} B={b} N={nq} D={d} k={k}: err "
+                             f"{err} tol {tol}, index gaps up to {gap}")
+    ms = time_ms(lambda: K.knn_kernel(q, c, bias, k), torch)
+    plain_ms = time_ms(lambda: K.knn_plain(q, c, bias, k), torch)
+    lib_ms = time_ms(lambda: torch.topk(torch.cdist(q, c), k, largest=False),
+                     torch)
+    flops = b * nq * nc * (2 * d + 3)
+    nbytes = 4 * b * (nq * d + nc * d + nc) + b * nq * k * 12
+    b_ms, b_by = bound(flops, nbytes, "f32")
+    return dict(B=b, Nq=nq, Nc=nc, D=d, k=k, max_abs_err=err, tol=tol,
+                index_mismatch=bad, max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def check_knn(torch, dev, rng):
     """Every kNN graph shape of the serving forward and of the train step
-    (the step's graphs are rows of one launch each). Distances to 1e-5 of
-    2 max |q|^2 (the f32 error of max(|q|^2 + |c|^2 - 2 q.c, 0)); an index
-    may differ only where the two candidates' exact distances tie within
-    twice that."""
+    (the step's graphs are rows of one launch each), by ``_knn_row``."""
     from tpugan_tpu_torch.ops.kernels import knn as K
 
     rows = []
     for (path, b, nq, nc, d, k, own, per_fwd, per_step, per_sample,
          per_density) in KNN_SHAPES:
-        scale = 0.3 if d == 3 else 1.0
-        q_np = (rng.standard_normal((b, nq, d)) * scale).astype(np.float32)
-        c_np = q_np if own else (rng.standard_normal((b, nc, d)) * scale
-                                 ).astype(np.float32)
-        q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
-        bias = torch.zeros((b, nc), device=dev)
-        d2k, ik = K.knn_kernel(q, c, bias, k)
-        d2p, ip = K.knn_plain(q, c, bias, k)
-        torch.cuda.synchronize()
-        tol = 1e-5 * 2 * float(max((q * q).sum(-1).max(), (c * c).sum(-1).max()))
-        err = float((d2k - d2p).abs().max())
-        bad, gap = index_gaps(q_np, c_np, ik, ip)
-        if not (err <= tol and gap <= 2 * tol):
-            raise AssertionError(f"knn {path} B={b} N={nq} D={d} k={k}: err "
-                                 f"{err} tol {tol}, index gaps up to {gap}")
-        ms = time_ms(lambda: K.knn_kernel(q, c, bias, k), torch)
-        plain_ms = time_ms(lambda: K.knn_plain(q, c, bias, k), torch)
-        lib_ms = time_ms(lambda: torch.topk(torch.cdist(q, c), k, largest=False),
-                         torch)
-        flops = b * nq * nc * (2 * d + 3)
-        nbytes = 4 * b * (nq * d + nc * d + nc) + b * nq * k * 12
-        b_ms, b_by = bound(flops, nbytes, "f32")
-        rows.append(dict(path=path, B=b, Nq=nq, Nc=nc, D=d, k=k,
-                         per_forward=per_fwd, per_step=per_step,
+        row = _knn_row(torch, dev, rng, path, b, nq, nc, d, k, own,
+                       0.3 if d == 3 else 1.0)
+        rows.append(dict(path=path, per_forward=per_fwd, per_step=per_step,
                          per_sample=per_sample, per_density=per_density,
-                         max_abs_err=err, tol=tol, index_mismatch=bad,
-                         max_tie_gap=gap, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         **row))
         emit({"phase": "kernel", "kernel": "knn", **rows[-1]})
 
     # exact ties at serving width: 5,120 integer grid points, each twice, so
@@ -612,6 +644,51 @@ def check_knn_approx(torch, dev, rng):
     return rows
 
 
+def _edgeconv_row(torch, dev, rng, name, cdt, kind, n, c, h, o, k, agg, mlp):
+    """The fused EdgeConv forward of one frame of ``n`` points against its
+    plain version (f32: to 1e-4 of the scale, summation order only; bf16:
+    3e-2, a 1-ulp rounding flip of one layer's value may carry through the
+    next layers), launching the variant its class takes, with its times and
+    bound."""
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    nbr = t(1, k, n, c)
+    ctr = t(1, n, c)
+    wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
+    w1 = t(h, h) / np.sqrt(h) if mlp else None
+    w2 = t(h, o) / np.sqrt(h) if mlp else None
+    args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, agg, cdt)
+    variant = ("tc" if E.takes_tensor_cores(cdt, mlp, c, h, o) else
+               "f32t" if E.takes_f32_tiled(cdt, mlp, c, h, o) else "simt")
+    tc0, f0 = E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
+    out_k = E.edgeconv_fused(*args).float()
+    got = (E.TC_LAUNCHES - tc0, E.F32_TILED_LAUNCHES - f0)
+    if got != (int(variant == "tc"), int(variant == "f32t")):
+        raise AssertionError(f"edgeconv {name} {kind}: (tensor-core, f32t) "
+                             f"launches {got}, variant {variant}")
+    out_p = E.edgeconv_plain(*args).float()
+    torch.cuda.synchronize()
+    scale = float(out_p.abs().max())
+    tol = (1e-4 if kind == "f32" else 3e-2) * scale
+    err = float((out_k - out_p).abs().max())
+    if not (err <= tol and bool(torch.isfinite(out_k).all())):
+        raise AssertionError(f"edgeconv {name} {kind}: err {err} tol {tol}")
+    ms = time_ms(lambda: E.edgeconv_fused(*args), torch)
+    dev_ms = device_ms(lambda: E.edgeconv_fused(*args), torch)
+    plain_ms = time_ms(lambda: E.edgeconv_plain(*args), torch)
+    esz = 4 if kind == "f32" else 2
+    flops = 2 * n * k * (2 * c * h + ((h * h + h * o) if mlp else 0))
+    nbytes = esz * (k * n * c + n * c + 2 * c * h
+                    + ((h * h + h * o) if mlp else 0) + n * o)
+    b_ms, b_by = bound(flops, nbytes, kind)
+    return dict(dtype=kind, variant=variant, C=c, H=h, O=o, K=k,
+                aggregate=agg, max_abs_err=err, tol=tol, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def check_edgeconv(torch, dev, rng):
     """Each EdgeConv shape class of the serving forward in f32 and bf16; a
     bf16 class of ``TC_CLASSES`` must launch the tensor-core kernel
@@ -619,50 +696,12 @@ def check_edgeconv(torch, dev, rng):
     register-tiled kernel ("f32t") once, every other row the general
     kernel ("simt"). Then exact inputs at those classes and serving width,
     bit for bit."""
-    from tpugan_tpu_torch.ops.kernels import edgeconv as E
-
     rows = []
     for name, c, h, o, k, agg, mlp, per_fwd in EDGECONV_SHAPES:
         for cdt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            t = lambda *s: torch.from_numpy(
-                rng.standard_normal(s).astype(np.float32)).to(dev)
-            nbr = t(1, k, N_POINTS, c)
-            ctr = t(1, N_POINTS, c)
-            wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
-            w1 = t(h, h) / np.sqrt(h) if mlp else None
-            w2 = t(h, o) / np.sqrt(h) if mlp else None
-            args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, agg, cdt)
-            variant = ("tc" if E.takes_tensor_cores(cdt, mlp, c, h, o) else
-                       "f32t" if E.takes_f32_tiled(cdt, mlp, c, h, o) else
-                       "simt")
-            tc0, f0 = E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
-            out_k = E.edgeconv_fused(*args).float()
-            got = (E.TC_LAUNCHES - tc0, E.F32_TILED_LAUNCHES - f0)
-            if got != (int(variant == "tc"), int(variant == "f32t")):
-                raise AssertionError(f"edgeconv {name} {kind}: (tensor-core, "
-                                     f"f32t) launches {got}, variant {variant}")
-            out_p = E.edgeconv_plain(*args).float()
-            torch.cuda.synchronize()
-            scale = float(out_p.abs().max())
-            # f32: summation order only; bf16: a 1-ulp rounding flip of one
-            # layer's value may carry through the next layers
-            tol = (1e-4 if kind == "f32" else 3e-2) * scale
-            err = float((out_k - out_p).abs().max())
-            if not (err <= tol and bool(torch.isfinite(out_k).all())):
-                raise AssertionError(f"edgeconv {name} {kind}: err {err} tol {tol}")
-            ms = time_ms(lambda: E.edgeconv_fused(*args), torch)
-            dev_ms = device_ms(lambda: E.edgeconv_fused(*args), torch)
-            plain_ms = time_ms(lambda: E.edgeconv_plain(*args), torch)
-            esz = 4 if kind == "f32" else 2
-            flops = 2 * N_POINTS * k * (2 * c * h + ((h * h + h * o) if mlp else 0))
-            nbytes = esz * (k * N_POINTS * c + N_POINTS * c + 2 * c * h
-                            + ((h * h + h * o) if mlp else 0) + N_POINTS * o)
-            b_ms, b_by = bound(flops, nbytes, kind)
-            rows.append(dict(config=name, dtype=kind, variant=variant, C=c,
-                             H=h, O=o, K=k, aggregate=agg, per_forward=per_fwd,
-                             max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
-                             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                             bound_by=b_by))
+            rows.append(dict(config=name, per_forward=per_fwd, **_edgeconv_row(
+                torch, dev, rng, name, cdt, kind, N_POINTS, c, h, o, k, agg,
+                mlp)))
             emit({"phase": "kernel", "kernel": "edgeconv", **rows[-1]})
     check_edgeconv_exact(torch, dev)
     return rows
@@ -896,41 +935,50 @@ class GraphReplay:
     round |q|^2 + |c|^2 - 2 q.c, or their features, differently, and under
     the IDGCN's ::2 dilation one such swap changes a point's features and
     then its neighbours'). With equal graphs the outputs must agree to f32
-    noise."""
+    noise. ``flow``: the flow embeddings' kNN from one frame's points to
+    the next frame's, in place of the generator's graphs."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, flow=False):
         import tpugan_tpu_torch.models.generator as generator
         import tpugan_tpu_torch.nn.edgeconv as edgeconv
+        import tpugan_tpu_torch.nn.flow as flow_mod
 
-        self.torch, self.modules = torch, (generator, edgeconv)
-        self.own = generator.graph_knn
+        self.torch = torch
+        if flow:     # knn(query, cand, k)
+            self.modules, self.name = (flow_mod,), "knn"
+            self.pair = lambda args: (args[0], args[1])
+        else:        # graph_knn(x, k, c_valid): a graph over x itself
+            self.modules, self.name = (generator, edgeconv), "graph_knn"
+            self.pair = lambda args: (args[0], args[0])
+        self.own = getattr(self.modules[0], self.name)
         self.lists, self.swaps = [], 0
 
     def _run(self, knn_fn, call, *args):
         for m in self.modules:
-            m.graph_knn = knn_fn
+            setattr(m, self.name, knn_fn)
         try:
             return call(*args)
         finally:
             for m in self.modules:
-                m.graph_knn = self.own
+                setattr(m, self.name, self.own)
 
     def record(self, call, *args):
         """``call(*args)`` (a forward or a train step), recording."""
-        def recording(x, k, c_valid=None):
-            d2, idx = self.own(x, k, c_valid)
+        def recording(*a, **kw):
+            d2, idx = self.own(*a, **kw)
             self.lists.append(idx.cpu())
             return d2, idx
         return self._run(recording, call, *args)
 
     def replay(self, call, *args):
-        def replaying(x, k, c_valid=None):
-            d2, own = self.own(x, k, c_valid)
+        def replaying(*a, **kw):
+            d2, own = self.own(*a, **kw)
             rec = self.lists.pop(0).to(own.device)
-            xf = x.detach().double()
+            qf, cf = (x.detach().double() for x in self.pair(a))
             b, r, s = (rec != own).nonzero(as_tuple=True)
-            exact = lambda idx: ((xf[b, r] - xf[b, idx[b, r, s]]) ** 2).sum(-1)
-            tol = 1e-5 * 2 * float((xf * xf).sum(-1).max())
+            exact = lambda idx: ((qf[b, r] - cf[b, idx[b, r, s]]) ** 2).sum(-1)
+            tol = 1e-5 * 2 * float(max((qf * qf).sum(-1).max(),
+                                       (cf * cf).sum(-1).max()))
             gap = (exact(rec) - exact(own)).abs()
             if gap.numel() and float(gap.max()) > tol:
                 raise AssertionError(f"kNN differs beyond f32 noise: {gap.max()}")
@@ -1248,49 +1296,72 @@ def check_fps(torch, dev, rng):
     return rows
 
 
-def check_ball_query(torch, dev, rng):
-    """Each train stage's ball query index for index against the plain
-    version, with its launch plan, two launches bit for bit, its device
+def _ball_row(torch, dev, rng, stage, b, nq, nc, r, ns, scale=0.3,
+              masked=True):
+    """The ball query index for index against the plain version on queries
+    drawn from a cloud of ``scale`` (every ninth candidate masked with
+    ``masked``), with its launch plan, two launches bit for bit, its device
     time (torch.profiler) and its bound over the pairs this data scans."""
     from tpugan_tpu_torch.ops.kernels import ball_query as BQ
 
+    cand = _cloud(torch, dev, rng, b, nc, 3, scale=scale)
+    query = cand[:, torch.randperm(nc, device=dev)[:nq]]
+    bias = torch.zeros((b, nc), device=dev)
+    if masked:
+        bias[:, ::9] = 2.0
+    ik = BQ.ball_query_kernel(query, cand, r, ns, bias)
+    ip = BQ.ball_query_plain(query, cand, r, ns, bias)
+    again = BQ.ball_query_kernel(query, cand, r, ns, bias)
+    torch.cuda.synchronize()
+    # both evaluate the same f32 expression in the same order: equal
+    bad = int((ik != ip).sum())
+    repeat = bool(torch.equal(ik, again))
+    if bad or not repeat:
+        raise AssertionError(f"ball_query {stage}: {bad} indices differ, "
+                             f"repeat {repeat}")
+    run = lambda: BQ.ball_query_kernel(query, cand, r, ns, bias)
+    ms = time_ms(run, torch)
+    dev_ms = device_ms(run, torch)
+    plain_ms = time_ms(lambda: BQ.ball_query_plain(query, cand, r, ns, bias),
+                       torch)
+    # the scan ends at the nsample-th hit: count the candidates this data
+    # needs (a full ball's indices rise strictly to the last slot)
+    full = ik[..., -1] > ik[..., -2]
+    scanned = float(torch.where(full, ik[..., -1] + 1, nc).sum())
+    b_ms, b_by = bound(8.0 * scanned,
+                       4 * (b * nq * 3 + b * nc * 4) + 8 * b * nq * ns, "f32")
+    return dict(stage=stage, B=b, Nq=nq, Nc=nc, radius=r, nsample=ns,
+                full_balls=float(full.float().mean()), warps=BQ.WARPS,
+                tile=BQ.TILE, blocks=BQ.blocks(b, nq), max_abs_err=0.0,
+                index_mismatch=bad, repeat_bit_equal=repeat, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_ball_query(torch, dev, rng):
+    """Each train stage's ball query, by ``_ball_row``."""
     rows = []
     for stage, b, nq, nc, r, ns, per in BALL_SHAPES:
-        cand = _cloud(torch, dev, rng, b, nc, 3)
-        query = cand[:, torch.randperm(nc, device=dev)[:nq]]
-        bias = torch.zeros((b, nc), device=dev)
-        bias[:, ::9] = 2.0                           # masked candidates
-        ik = BQ.ball_query_kernel(query, cand, r, ns, bias)
-        ip = BQ.ball_query_plain(query, cand, r, ns, bias)
-        again = BQ.ball_query_kernel(query, cand, r, ns, bias)
-        torch.cuda.synchronize()
-        # both evaluate the same f32 expression in the same order: equal
-        bad = int((ik != ip).sum())
-        repeat = bool(torch.equal(ik, again))
-        if bad or not repeat:
-            raise AssertionError(f"ball_query {stage}: {bad} indices differ, "
-                                 f"repeat {repeat}")
-        run = lambda: BQ.ball_query_kernel(query, cand, r, ns, bias)
-        ms = time_ms(run, torch)
-        dev_ms = device_ms(run, torch)
-        plain_ms = time_ms(lambda: BQ.ball_query_plain(query, cand, r, ns,
-                                                       bias), torch)
-        # the scan ends at the nsample-th hit: count the candidates this
-        # data needs (a full ball's indices rise strictly to the last slot)
-        full = ik[..., -1] > ik[..., -2]
-        scanned = float(torch.where(full, ik[..., -1] + 1, nc).sum())
-        b_ms, b_by = bound(8.0 * scanned,
-                           4 * (b * nq * 3 + b * nc * 4) + 8 * b * nq * ns,
-                           "f32")
-        rows.append(dict(stage=stage, B=b, Nq=nq, Nc=nc, radius=r, nsample=ns,
-                         per_step=per, full_balls=float(full.float().mean()),
-                         warps=BQ.WARPS, tile=BQ.TILE,
-                         blocks=BQ.blocks(b, nq), max_abs_err=0.0,
-                         index_mismatch=bad, repeat_bit_equal=repeat, ms=ms,
-                         device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=b_ms, bound_by=b_by))
+        rows.append(dict(_ball_row(torch, dev, rng, stage, b, nq, nc, r, ns),
+                         per_step=per))
         emit({"phase": "kernel", "kernel": "ball_query", **rows[-1]})
     return rows
+
+
+def pooled_bounds(shape, widths):
+    """((ms, by) of the forward, (ms, by) of the backward) of a pooled MLP
+    over a table [B, M, ns, C0]: 2 flops a MAC over every row forward; the
+    backward recomputes the activations (2) and forms dX and dW (4). Bytes:
+    the table, the weights and per-layer vectors, the pooled output (twice
+    each backward)."""
+    b, m, ns, c0 = shape
+    cs = (c0,) + tuple(widths)
+    rows_n = b * m * ns
+    mac = sum(cs[i] * cs[i + 1] for i in range(len(widths)))
+    nw = sum(cs[i] * cs[i + 1] for i in range(len(widths))) + 2 * sum(widths)
+    once = rows_n * c0 + nw + b * m * widths[-1]
+    return (bound(2.0 * rows_n * mac, 4 * once, "f32"),
+            bound(6.0 * rows_n * mac, 8 * once, "f32"))
 
 
 def check_pooled_mlp(torch, dev, rng):
@@ -1310,7 +1381,7 @@ def check_pooled_mlp(torch, dev, rng):
 
     fwd_rows, bwd_rows = [], []
     for stage, shape, widths, slope, per, gammas in POOLED_SHAPES:
-        b, m, ns, c0 = shape
+        b, m, _, c0 = shape
         tab = _cloud(torch, dev, rng, *shape, scale=1.0)
         tab[:, :, 1] = tab[:, :, 0]
         tab[:, :, -1] = tab[:, :, 0]
@@ -1366,15 +1437,7 @@ def check_pooled_mlp(torch, dev, rng):
         bwd = lambda: torch.autograd.grad(pooled, leaves, g, retain_graph=True)
         bwd_ms = time_ms(bwd, torch)
         bwd_dev_ms, bwd_kernels = device_ms(bwd, torch, by_kernel=True)
-        rows_n = b * m * ns
-        mac = sum(cs[i] * cs[i + 1] for i in range(nl))
-        nw = sum(w.numel() for w in ws) + 2 * sum(widths)
-        f_bound = bound(2.0 * rows_n * mac,
-                        4 * (rows_n * c0 + nw + b * m * widths[-1]), "f32")
-        # the backward recomputes the activations (2) and forms dX, dW (4)
-        b_bound = bound(6.0 * rows_n * mac,
-                        4 * (2 * rows_n * c0 + 2 * nw + 2 * b * m * widths[-1]),
-                        "f32")
+        f_bound, b_bound = pooled_bounds(shape, widths)
         common = dict(stage=stage, table=list(shape), widths=list(widths),
                       slope=slope, gammas=gammas, per_step=per)
         fwd_rows.append(dict(**common, max_abs_err=f_err, ms=ms,
@@ -1532,7 +1595,7 @@ def check_pooled_affine_bwd(torch, dev, rng):
 
     fwd_rows, rows = [], []
     for stage, shape, widths, slope in AFFINE_SHAPES:
-        b, m, ns, c0 = shape
+        b, m, _, c0 = shape
         tab = _cloud(torch, dev, rng, *shape, scale=1.0)
         tab[:, :, 1] = tab[:, :, 0]
         cs = (c0,) + widths
@@ -1572,16 +1635,7 @@ def check_pooled_affine_bwd(torch, dev, rng):
         with torch.no_grad():
             plain_ms = time_ms(lambda: P.pooled_mlp_affine_backward_plain(
                 tab, ws, a_s, b_s, pp, g, slope), torch)
-        rows_n = b * m * ns
-        mac = sum(cs[i] * cs[i + 1] for i in range(nl))
-        nw = sum(w.numel() for w in ws) + 2 * sum(widths)
-        f_ms_b, f_by = bound(2.0 * rows_n * mac,
-                             4 * (rows_n * c0 + nw + b * m * widths[-1]), "f32")
-        # recompute the activations (2), form dX and dW (4), as the
-        # batch-norm backward's bound counts
-        b_ms, b_by = bound(6.0 * rows_n * mac,
-                           4 * (2 * rows_n * c0 + 2 * nw + 2 * b * m * widths[-1]),
-                           "f32")
+        (f_ms_b, f_by), (b_ms, b_by) = pooled_bounds(shape, widths)
         common = dict(stage=stage, table=list(shape), widths=list(widths),
                       slope=slope, per_check=1)
         fwd_rows.append(dict(**common, max_abs_err=f_err, ms=f_ms,
@@ -2700,6 +2754,372 @@ def eval_card_vs_cpu(torch, dev):
         raise AssertionError(f"eval card vs CPU: checks {checks}")
 
 
+# ------------------------------------------------------- the action workload
+
+ACTION_CHECKPOINT = os.path.join(ROOT, "checkpoints", "action_tempo_20k.ckpt")
+ACTION_DEMO_DIR = os.path.join(ROOT, "runs", "chip_smoke_action")    # gitignored
+TEMPO_FEAT_DIR = os.path.join(ROOT, "runs", "chip_smoke_tempo_feat")  # gitignored
+ACTION_FRAMES = 24        # the demo's clip: 24 frames of 2,048 points
+ACTION_CLIPS = 24         # an eval_tempo_feat batch: 24 clips of 3 frames
+ACTION_POINTS = 2048      # of 2,048 points (eval_tempo_feat's default)
+ACTION_CUTOFF = 2.0       # eval_tempo_feat's default cutoff
+TEMPO_FEAT_EPOCHS = 2
+
+# Launches per action_demo frame (NoMaskSRNet, width 128, r 16, f32 dynamic
+# graphs over a 128-point frame): EdgeConv_0's, the two IDGCN layers' and
+# the upsampler's two graphs; 7 EdgeConvs, of which EdgeConv_0's class (1,
+# 3, 64, 128) is in neither TC_CLASSES nor F32_TILED_CLASSES and takes the
+# general kernel, the other 6 the f32 register-tiled one.
+ACTION_FRAME = {"knn": 5, "edgeconv": 7}
+ACTION_FRAME_F32T = 6
+# Launches per ActionCls.infer call (3 frames): the two stacked FPS (sa1
+# over 3 x B rows, sa2), 3 ball queries each of sa1 and sa2, 3 flow kNN
+# (2 + 1 embeddings), and one affine pooled-MLP forward per SetConv call
+# (3 sa1, 3 sa2, 1 sa_pooling); the FWD handle counts both forms.
+TEMPO_INFER = {"fps": 2, "ball_query": 6, "knn": 3, "pooled_mlp_fwd": 7,
+               "pooled_mlp_affine": 7}
+# ... per train step of the head: the tower in train mode runs the plain
+# grouped stacks (no pooled-MLP kernel), the same graph ops.
+TEMPO_STEP = {"fps": 2, "ball_query": 6, "knn": 3}
+
+# The action paths' shapes for the kernels that already run elsewhere (the
+# same checks, weighted per action frame or per inference batch)
+ACTION_KNN_SHAPES = [  # (graph, B, Nq, Nc, D, k, self, per frame, per infer)
+    ("EdgeConv_0", 1, 128, 128, 3, 20, True, 1, 0),
+    ("IDGCN", 1, 128, 128, 32, 20, True, 2, 0),
+    ("upsampler k=12", 1, 128, 128, 64, 12, True, 1, 0),
+    ("upsampler k=4", 1, 128, 128, 64, 4, True, 1, 0),
+    ("flow embedding", ACTION_CLIPS, 256, 256, 3, 32, False, 0, 3),
+]
+ACTION_FPS_SHAPES = [  # (stage, rows, N, m, per infer)
+    ("action sa1 (3 frames stacked)", 3 * ACTION_CLIPS, 2048, 512, 1),
+    ("action sa2 (3 frames stacked)", 3 * ACTION_CLIPS, 512, 256, 1),
+]
+ACTION_BALL_SHAPES = [  # (stage, B, Nq, Nc, radius, nsample, per infer)
+    ("action sa1 (per frame)", ACTION_CLIPS, 512, 2048, 0.8, 64, 3),
+    ("action sa2 (per frame)", ACTION_CLIPS, 256, 512, 1.2, 32, 3),
+]
+# The affine pooled MLP at the action towers' SetConvs (eval, ReLU; the
+# folded batch norm's a may be negative): (stage, (B, M, ns, C0), widths,
+# launches per ActionCls.infer)
+ACTION_AFFINE_SHAPES = [
+    ("action sa1 (per frame)", (ACTION_CLIPS, 512, 64, 6), (64, 64, 128), 3),
+    ("action sa2 (per frame)", (ACTION_CLIPS, 256, 32, 131), (128, 256), 3),
+    ("ActionCls sa_pooling", (ACTION_CLIPS, 1, 256, 259), (512, 512), 1),
+    ("ActionTempoDis sa_pooling", (ACTION_CLIPS, 1, 256, 259), (256, 512), 0),
+]
+# the action demo's general-kernel EdgeConv class: (C, H, O, K, frame rows)
+ACTION_EDGECONV = (3, 64, 128, 20, 128)
+
+
+def check_action_kernels(torch, dev):
+    """The action paths' shapes: the affine pooled-MLP forward at the
+    towers' three SetConvs (and the critic's 256 -> 512 pooling) against
+    its plain version on tables with exact max ties and folded affines of
+    both signs, to 1e-5 of the scale (as the pooled rows), with its times,
+    device time by kernel, bound and the forward instances' ptxas report;
+    that a gradient through a layer above MAX_WIDTH and the batch-norm form
+    above it are refused on the card; then kNN at Nc = 128 and the flow's
+    k = 32, FPS on 72 rows, the ball query at nsample 64 and the general
+    EdgeConv forward at (1, 3, 64, 128), each against its plain version by
+    the limits of its own rows. Its own generator keeps the other checks'
+    data. Returns {kernel: rows}."""
+    from tpugan_tpu_torch.ops.kernels import fps as F
+    from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
+
+    rng = np.random.default_rng(19)
+    out = {k: [] for k in ("pooled_mlp_affine", "knn", "fps", "ball_query",
+                           "edgeconv")}
+    fwd_instances = {n: v for n, v in ptxas_instances(
+        "pooled_mlp", ("rows_gemm", "pool_extremes")).items()
+        if "Lb0E" in n or "pool_extremes" in n}
+    for stage, shape, widths, per in ACTION_AFFINE_SHAPES:
+        b, m, ns, c0 = shape
+        tab = _cloud(torch, dev, rng, *shape, scale=1.0)
+        tab[:, :, 1] = tab[:, :, 0]
+        cs = (c0,) + widths
+        nl = len(widths)
+        ws = [_cloud(torch, dev, rng, cs[i], cs[i + 1], scale=cs[i] ** -0.5)
+              for i in range(nl)]
+        a_s = [1.0 + _cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+        for a in a_s:
+            a[::3] *= -1
+        b_s = [_cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+        run = lambda: P.pooled_mlp_affine(tab, ws, a_s, b_s, 0.0)
+        with torch.no_grad():
+            n0 = P.AFFINE_FWD.launches
+            got = run()
+            again = run()
+            launched = P.AFFINE_FWD.launches - n0
+            want = P.pooled_mlp_affine_plain(tab, ws, a_s, b_s, 0.0)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if (launched != 2 or err > 1e-5 * max(1.0, float(want.abs().max()))
+                or not torch.equal(got, again)):
+            raise AssertionError(f"pooled_mlp_affine {stage}: err {err}, "
+                                 f"{launched} launches")
+        refused = {}
+        if max(widths) > P.MAX_WIDTH:
+            # no backward above MAX_WIDTH: a gradient is refused up front,
+            # and so is the batch-norm form
+            for name, call in (
+                    ("affine_with_grad", lambda: P.pooled_mlp_affine(
+                        tab, [w.clone().requires_grad_() for w in ws], a_s,
+                        b_s, 0.0)),
+                    ("bn_train", lambda: P.pooled_mlp_bn_train(
+                        tab, ws, a_s, b_s, 0.0))):
+                try:
+                    call()
+                    refused[name] = False
+                except ValueError:
+                    refused[name] = True
+            if not all(refused.values()):
+                raise AssertionError(f"pooled_mlp {stage}: above "
+                                     f"{P.MAX_WIDTH} not refused: {refused}")
+        with torch.no_grad():
+            ms = time_ms(run, torch)
+            dev_ms, by_kernel = device_ms(run, torch, by_kernel=True)
+            plain_ms = time_ms(lambda: P.pooled_mlp_affine_plain(
+                tab, ws, a_s, b_s, 0.0), torch)
+        b_ms, b_by = pooled_bounds(shape, widths)[0]
+        plan = P.forward_plan(shape, widths, 0.0, affine=True)
+        out["pooled_mlp_affine"].append(dict(
+            stage=stage, table=list(shape), widths=list(widths), slope=0.0,
+            per_infer=per, per_check=0, tile_rows=plan["tile_rows"],
+            grids=[p["grid"] for p in plan["passes"]], refused=refused,
+            max_abs_err=err, repeat_bit_equal=True, ms=ms, device_ms=dev_ms,
+            device_ms_by_kernel=by_kernel, plain_ms=plain_ms, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, ptxas_forward=fwd_instances))
+        emit({"phase": "kernel", "kernel": "pooled_mlp_affine",
+              **out["pooled_mlp_affine"][-1]})
+
+    # clouds at the action clips' extent (depth units / 300: about 0.2)
+    for graph, b, nq, nc, d, k, own, per_frame, per_infer in ACTION_KNN_SHAPES:
+        row = _knn_row(torch, dev, rng, f"action {graph}", b, nq, nc, d, k,
+                       own, 0.2 if d == 3 else 1.0)
+        out["knn"].append(dict(path="action", graph=graph,
+                               per_action_frame=per_frame,
+                               per_infer=per_infer, **row))
+        emit({"phase": "kernel", "kernel": "knn", **out["knn"][-1]})
+
+    for stage, b, n, m, per in ACTION_FPS_SHAPES:
+        pos = _cloud(torch, dev, rng, b, n, 3, scale=0.2)
+        pen = torch.zeros((b, n), device=dev)
+        start = torch.from_numpy(rng.integers(0, n, b)).to(dev)
+        out["fps"].append(dict(_fps_row(torch, F, stage, b, n, m, pos, pen,
+                                        start), per_step=0, per_infer=per))
+        emit({"phase": "kernel", "kernel": "fps", **out["fps"][-1]})
+
+    for stage, b, nq, nc, r, ns, per in ACTION_BALL_SHAPES:
+        out["ball_query"].append(dict(
+            _ball_row(torch, dev, rng, stage, b, nq, nc, r, ns, scale=0.2,
+                      masked=False), per_step=0, per_infer=per))
+        emit({"phase": "kernel", "kernel": "ball_query",
+              **out["ball_query"][-1]})
+
+    c, h, o, k, n = ACTION_EDGECONV
+    row = _edgeconv_row(torch, dev, rng, "action EdgeConv_0", torch.float32,
+                        "f32", n, c, h, o, k, "max", True)
+    if row["variant"] != "simt":
+        raise AssertionError(f"edgeconv action EdgeConv_0: {row['variant']}")
+    out["edgeconv"].append(dict(config="action EdgeConv_0", N=n,
+                                per_forward=0, per_action_frame=1, **row))
+    emit({"phase": "kernel", "kernel": "edgeconv", **out["edgeconv"][-1]})
+    return out
+
+
+def action_serving(torch, dev, kernels):
+    """With the counts reset by the caller: the action demo's clip (the
+    first test clip of a synthetic MSR-schema set, 4 videos x 30 frames x
+    3,000 points, seed 0, written under runs/chip_smoke_action/) through
+    ``cli/action_demo.upsample_clip`` with the trained NoMaskSRNet, 24
+    frames of 128 points -> 2,048; each frame's launches against
+    ACTION_FRAME (6 on the f32 register-tiled EdgeConv, 1 on the general
+    kernel); the same model on the CPU (plain versions) with the card's
+    graphs replayed, positions to 1e-4; ms per frame (CUDA events) and its
+    device time. Returns the phase's launches."""
+    from tpugan_tpu_torch.checkpoint import load_nomask_srnet
+    from tpugan_tpu_torch.cli import action_demo
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.data.msr import MSRAction3DDataset
+    from tpugan_tpu_torch.data.synthetic import make_synthetic_action_dataset
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+
+    make_synthetic_action_dataset(ACTION_DEMO_DIR, num_videos=4, frames=30,
+                                  points=3000, seed=0)
+    ds = MSRAction3DDataset(ACTION_DEMO_DIR, frames_per_clip=ACTION_FRAMES,
+                            num_points=ActionTrainConfig.num_points,
+                            train=False, fps_ratio=ActionTrainConfig.fps_ratio)
+    item = ds[0]
+    model = load_nomask_srnet(ACTION_CHECKPOINT, device=dev)
+    replay = GraphReplay(torch)
+    c0, ft0, tc0 = counts(kernels), E.F32_TILED_LAUNCHES, E.TC_LAUNCHES
+    preds = replay.record(action_demo.upsample_clip, model, item, dev)
+    torch.cuda.synchronize()
+    got = delta(c0, counts(kernels))
+    want = {n: v * ACTION_FRAMES for n, v in ACTION_FRAME.items()}
+    expect(got, want, "action demo clip")
+    f32t, tc = E.F32_TILED_LAUNCHES - ft0, E.TC_LAUNCHES - tc0
+    general = got["edgeconv"] - f32t - tc
+    if (f32t, tc, general) != (ACTION_FRAME_F32T * ACTION_FRAMES, 0,
+                               (ACTION_FRAME["edgeconv"] - ACTION_FRAME_F32T)
+                               * ACTION_FRAMES):
+        raise AssertionError(f"action demo EdgeConv launches: f32t {f32t}, "
+                             f"tc {tc}, general {general}")
+    r = model.upsample_ratio
+    n_low = ActionTrainConfig().lowres_size
+    if (preds.shape != (ACTION_FRAMES, n_low * r, 3)
+            or not np.isfinite(preds).all()):
+        raise AssertionError(f"action demo output {preds.shape}")
+    cpu = load_nomask_srnet(ACTION_CHECKPOINT, device="cpu")
+    ref = replay.replay(action_demo.upsample_clip, cpu, item, "cpu")
+    err = float(np.abs(preds - ref).max())
+    if err > 1e-4:
+        raise AssertionError(f"action demo card vs CPU: {err}")
+    low = torch.from_numpy(item["lowres_pos"][:1]).to(dev)
+    with torch.no_grad():
+        fwd = lambda: model(low, low)
+        ms = time_ms(fwd, torch)
+        dev_ms, by_kernel = device_ms(fwd, torch, by_kernel=True)
+    emit({"phase": "action_serving",
+          "checkpoint": os.path.relpath(ACTION_CHECKPOINT, ROOT),
+          "frames": ACTION_FRAMES, "points_in": n_low, "ratio": r,
+          "points_out": n_low * r, "label": int(item["label"]),
+          "launches": got, "edgeconv_f32t": f32t, "edgeconv_general": general,
+          "cpu_position_err": err, "knn_tie_swaps": replay.swaps,
+          "ms_per_frame": ms, "device_ms_per_frame": dev_ms,
+          "device_idle_share": 1.0 - dev_ms / ms,
+          "device_ms_by_kernel": by_kernel})
+    return got
+
+
+def tempo_feat(torch, dev, kernels):
+    """With the counts reset by the caller: ActionCls with its tower
+    transferred from the action checkpoint's temporal critic
+    (``cli/eval_tempo_feat.build_classifier``), one ``infer`` batch of 24
+    test clips x 3 frames x 2,048 points of the CLI's synthetic set (8
+    videos, seed 0, under runs/chip_smoke_tempo_feat/), its launches
+    against TEMPO_INFER, its probabilities held against the same model on
+    the CPU (plain versions, the flow kNN replayed) to 1e-4 of the scale;
+    then the eval_tempo_feat twin (``main``, called as a function) for
+    TEMPO_FEAT_EPOCHS epochs on the same set, its launches against
+    TEMPO_STEP a train step and TEMPO_INFER a test batch. Returns the
+    phase's launches."""
+    import shutil
+
+    from tpugan_tpu_torch.cli import eval_tempo_feat as cli
+    from tpugan_tpu_torch.data.msr import (MSRAction3DDataset,
+                                           action_batch_iterator)
+    from tpugan_tpu_torch.data.synthetic import make_synthetic_action_dataset
+
+    shutil.rmtree(TEMPO_FEAT_DIR, ignore_errors=True)
+    data = make_synthetic_action_dataset(
+        os.path.join(TEMPO_FEAT_DIR, "synthetic_msr"), num_videos=8,
+        frames=10, points=3000, num_classes=3, seed=0)
+    test_ds = MSRAction3DDataset(data, num_points=ACTION_POINTS, train=False,
+                                 return_lowres=False)
+    batch = next(action_batch_iterator(test_ds, ACTION_CLIPS, shuffle=False,
+                                       endless=False))
+    pos_np = batch["highres_pos"]                          # [3, 24, 2048, 3]
+    cls, _ = cli.build_classifier(3, 20, ACTION_CHECKPOINT, dev, True)
+    pos = [torch.from_numpy(p).to(dev) for p in pos_np]
+    c0 = counts(kernels)
+    probs = cls.infer(pos, ACTION_CUTOFF)
+    torch.cuda.synchronize()
+    infer_launches = delta(c0, counts(kernels))
+    expect(infer_launches, TEMPO_INFER, "ActionCls.infer")
+    # the same forward's logits on the card and, its flow graphs replayed,
+    # on the CPU
+    cpu_cls, _ = cli.build_classifier(3, 20, ACTION_CHECKPOINT, "cpu", True)
+    replay = GraphReplay(torch, flow=True)
+    with torch.no_grad():
+        logits = replay.record(cls, pos, ACTION_CUTOFF).cpu()
+        ref_logits = replay.replay(cpu_cls, [torch.from_numpy(p)
+                                             for p in pos_np], ACTION_CUTOFF)
+    err = float((probs.cpu() - torch.softmax(ref_logits, -1)).abs().max())
+    logit_err = float((logits - ref_logits).abs().max())
+    logit_tol = 1e-4 * max(1.0, float(ref_logits.abs().max()))
+    if not (err <= 1e-4 and logit_err <= logit_tol
+            and bool(torch.isfinite(probs).all())
+            and tuple(probs.shape) == (ACTION_CLIPS, 20)):
+        raise AssertionError(f"ActionCls card vs CPU: probabilities {err}, "
+                             f"logits {logit_err} (tol {logit_tol})")
+    with torch.no_grad():
+        infer_ms = time_ms(lambda: cls.infer(pos, ACTION_CUTOFF), torch,
+                           reps=5)
+        infer_dev, by_kernel = device_ms(lambda: cls.infer(pos, ACTION_CUTOFF),
+                                         torch, reps=5, by_kernel=True)
+
+    c2 = counts(kernels)
+    t0 = time.perf_counter()
+    res = cli.main(["--synthetic", "--ckpt_path", ACTION_CHECKPOINT,
+                    "--epochs", str(TEMPO_FEAT_EPOCHS), "--log_dir",
+                    TEMPO_FEAT_DIR, "--batch_size", str(ACTION_CLIPS),
+                    "--num_points", str(ACTION_POINTS), "--device", str(dev)])
+    cli_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cli_launches = delta(c2, counts(kernels))
+    steps, batches = len(res["train_step_s"]), len(res["infer_batch_s"])
+    want = {n: TEMPO_STEP.get(n, 0) * steps + TEMPO_INFER.get(n, 0) * batches
+            for n in set(TEMPO_STEP) | set(TEMPO_INFER)}
+    expect(cli_launches, want, "eval_tempo_feat CLI")
+    accs = [(e["clip_acc"], e["video_acc"]) for e in res["epochs"]]
+    if not (len(accs) == TEMPO_FEAT_EPOCHS
+            and all(np.isfinite(e["nll"]) for e in res["epochs"])):
+        raise AssertionError(f"eval_tempo_feat CLI: {res['epochs']}")
+    emit({"phase": "tempo_feat",
+          "checkpoint": os.path.relpath(ACTION_CHECKPOINT, ROOT),
+          "clips": ACTION_CLIPS, "frames": 3, "points": int(pos_np.shape[2]),
+          "infer_launches": infer_launches,
+          "cpu_probability_err": err, "cpu_logit_err": logit_err,
+          "logit_tol": logit_tol, "flow_knn_tie_swaps": replay.swaps,
+          "infer_ms": infer_ms, "infer_device_ms": infer_dev,
+          "infer_device_idle_share": 1.0 - infer_dev / infer_ms,
+          "infer_device_ms_by_kernel": by_kernel,
+          "cli": {"epochs": res["epochs"],
+                  "best_video_acc": res["best_video_acc"],
+                  "train_clips": res["train_clips"],
+                  "test_clips": res["test_clips"],
+                  "ms_per_train_step": [s * 1e3 for s in res["train_step_s"]],
+                  "ms_per_infer_batch": [s * 1e3 for s in res["infer_batch_s"]],
+                  "launches": cli_launches, "wall_s": cli_s}})
+    return {n: infer_launches[n] + cli_launches[n] for n in cli_launches}
+
+
+def add_action_units(line, act_rows, af_rows):
+    """Into the kernel line's entries: each kernel's times per action demo
+    frame and per ActionCls.infer batch at the action shapes (the rows of
+    check_action_kernels) under "action", their errors in max_abs_err; the
+    affine form's fluid-shape checks under "fluid_shape_checks"."""
+    def totals(rows, weight, per):
+        keys = [k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                            "library_ms") if rows[0].get(k) is not None]
+        return {"times_are": per, **{
+            k: sum(r[k] * r.get(weight, 0) for r in rows) for k in keys}}
+
+    frame = "one action demo frame (NoMaskSRNet, 128 -> 2,048 points)"
+    infer = "one ActionCls.infer batch (24 clips x 3 frames x 2,048 points)"
+    units = {"knn": [("per_action_frame", frame), ("per_infer", infer)],
+             "edgeconv": [("per_action_frame", frame)],
+             "fps": [("per_infer", infer)],
+             "ball_query": [("per_infer", infer)]}
+    for entry in line["kernels"]:
+        rows = act_rows.get(entry["name"])
+        if not rows:
+            continue
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   max(r["max_abs_err"] for r in rows))
+        for weight, per in units.get(entry["name"], []):
+            entry.setdefault("action", {})[weight] = totals(rows, weight, per)
+        if entry["name"] == "pooled_mlp_affine":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["max_abs_err"] for r in af_rows))
+            entry["fluid_shape_checks"] = totals(
+                af_rows, "per_check", "one call at each of sa_0 and group_all "
+                "(the fluid critics' shapes; no fluid path runs the affine "
+                "form)")
+
+
 def kernel_line(groups):
     """One entry per kernel. ``groups``: (name, source, replaces, rows,
     weight keys, what the times sum over, launches by path); times are sums
@@ -2836,6 +3256,7 @@ def main(argv=None) -> int:
     ip_rows = check_interp(torch, dev, rng)
     eb_rows = check_edgeconv_bwd(torch, dev, rng)
     af_rows, ab_rows = check_pooled_affine_bwd(torch, dev, rng)
+    act_rows = check_action_kernels(torch, dev)
 
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
@@ -2889,11 +3310,23 @@ def main(argv=None) -> int:
     density_launches, bi_rows = density_phase(torch, dev, kernels)
     eval_card_vs_cpu(torch, dev)
 
+    # the action paths: the demo's clip, then ActionCls inference and the
+    # eval_tempo_feat CLI (counts reset before each, read inside)
+    for k in kernels.values():
+        k.launches = 0
+    edgeconv.TC_LAUNCHES = edgeconv.F32_TILED_LAUNCHES = 0
+    action_launches = action_serving(torch, dev, kernels)
+    for k in kernels.values():
+        k.launches = 0
+    tempo_launches = tempo_feat(torch, dev, kernels)
+
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
                    "density": density_launches[n],
                    "serving_approx": serving_approx_launches[n],
-                   "eval_approx": eval_approx_launches[n]}
+                   "eval_approx": eval_approx_launches[n],
+                   "action_serving": action_launches[n],
+                   "tempo_feat": tempo_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
@@ -2934,8 +3367,9 @@ def main(argv=None) -> int:
          pallas + "pooled_mlp_kernel.py:519", pb_rows, *step,
          by_path["pooled_mlp_bwd"]),
         ("pooled_mlp_affine", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
-         pallas + "pooled_mlp_kernel.py:684", af_rows, ("per_check",),
-         "one call at each of sa_0 and group_all (no main path runs it)",
+         pallas + "pooled_mlp_kernel.py:684", act_rows["pooled_mlp_affine"],
+         ("per_infer",), "one ActionCls.infer batch (24 clips x 3 frames x "
+         "2,048 points: 3 sa1, 3 sa2 and 1 sa_pooling forwards)",
          by_path["pooled_mlp_affine"]),
         ("pooled_mlp_affine_bwd", "tpugan_tpu_torch/csrc/pooled_mlp.cu",
          pallas + "pooled_mlp_kernel.py:499", ab_rows, ("per_check",),
@@ -2962,7 +3396,8 @@ def main(argv=None) -> int:
                    "fps": (fps_rows, ("per_step",)),
                    "interp": (ip_rows, ("per_step",)),
                    "nn1": (nn1_rows, ("per_gate", "per_step", "per_sample")),
-                   "pooled_mlp_affine": (af_rows, ("per_check",)),
+                   "pooled_mlp_affine": (act_rows["pooled_mlp_affine"],
+                                         ("per_infer",)),
                    "pooled_mlp_affine_bwd": (ab_rows, ("per_check",)),
                    "binned_interp": (bi_rows, ("per_density",))}
     for entry in line["kernels"]:
@@ -2976,6 +3411,7 @@ def main(argv=None) -> int:
             entry["train_fused_general_launches"] = (
                 fused_launches["edgeconv_bwd"]
                 - fused_launches["edgeconv_bwd_tiled"])
+    add_action_units(line, act_rows, af_rows)
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")
@@ -2996,6 +3432,10 @@ def main(argv=None) -> int:
     ec_entry["serving_launches_by_variant"] = {
         **serving_variants,
         "simt": by_path["edgeconv"]["serving"] - sum(serving_variants.values())}
+    ec_entry["action_serving_launches_by_variant"] = {
+        "f32t": ACTION_FRAME_F32T * ACTION_FRAMES,
+        "simt": by_path["edgeconv"]["action_serving"]
+        - ACTION_FRAME_F32T * ACTION_FRAMES}
     emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,9 @@ import torch
 import tpugan_tpu_torch
 from tpugan_tpu_torch import PAD_SENTINEL
 from tpugan_tpu_torch.checkpoint import load_srnet
-from tpugan_tpu_torch.models.generator import RolloutMaskState, SRNet
+from tpugan_tpu_torch.models.discriminator import ActionCls
+from tpugan_tpu_torch.models.generator import (NoMaskSRNet, RolloutMaskState,
+                                               SRNet)
 from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp, edgeconv,
                                           fps, interp, knn, nn1, pooled_mlp)
 
@@ -37,7 +39,8 @@ def test_port_imports_no_jax():
         "'data.fluid', 'ops.kernels.pooled_mlp', 'data.sampling', "
         "'eval.analysis', 'cli.eval_fluid', 'ops.kernels.binned_interp', "
         "'ops.metrics', 'cli.train_fluid', 'train.checkpoint', "
-        "'utils.logging', 'config', 'data.prefetch'):\n"
+        "'utils.logging', 'config', 'data.prefetch', 'data.msr', "
+        "'cli.action_demo', 'cli.eval_tempo_feat'):\n"
         "    assert 'tpugan_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpugan_tpu')]\n"
@@ -53,7 +56,9 @@ def test_entry_points_need_a_card(monkeypatch):
     for call in (tpugan_tpu_torch.default_device,
                  lambda: SRNet(in_feats=6),
                  lambda: load_srnet(CKPT),
-                 lambda: RolloutMaskState.create(1, 64)):
+                 lambda: RolloutMaskState.create(1, 64),
+                 lambda: NoMaskSRNet(in_feats=3),
+                 lambda: ActionCls(3)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -1084,6 +1089,39 @@ def test_pooled_mlp_affine_forward_matches_plain_on_card(card, gen, shape,
     assert torch.equal(got, kept.detach())
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dims", [
+    ((2, 1, 256, 259), (512, 512)),     # ActionCls's SA pooling
+    ((2, 1, 256, 259), (256, 512)),     # ActionTempoDis's
+    ((2, 64, 64, 6), (64, 64, 128)),    # the action towers' sa1 (ns 64)
+    ((1, 3, 100, 40), (384, 300))])     # ragged row and column tiles
+def test_pooled_mlp_affine_forward_up_to_512_wide_on_card(card, gen, shape,
+                                                          dims):
+    """Without autograd the affine forward takes layers up to
+    MAX_AFFINE_FWD_WIDTH wide, folded affines of both signs, two calls bit
+    for bit; a gradient through a layer wider than MAX_WIDTH (the
+    backward's tie pass) and the batch-norm form that wide are refused."""
+    tab, ws, a_s, b_s, _ = _affine_case(gen, shape, dims, True)
+    want = pooled_mlp.pooled_mlp_affine_plain(tab, ws, a_s, b_s, 0.0)
+    tab, *rest = [x.to(card) for x in (tab, *ws, *a_s, *b_s)]
+    nl = len(dims)
+    ws, a_s, b_s = rest[:nl], rest[nl:2 * nl], rest[2 * nl:]
+    before = pooled_mlp.AFFINE_FWD.launches
+    with torch.no_grad():
+        got = pooled_mlp.pooled_mlp_affine(tab, ws, a_s, b_s, 0.0)
+        again = pooled_mlp.pooled_mlp_affine(tab, ws, a_s, b_s, 0.0)
+    assert pooled_mlp.AFFINE_FWD.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    if max(dims) > pooled_mlp.MAX_WIDTH:
+        with pytest.raises(ValueError, match="widths <= 256"):
+            pooled_mlp.pooled_mlp_affine(
+                tab, [w.clone().requires_grad_() for w in ws], a_s, b_s, 0.0)
+        with pytest.raises(ValueError, match="widths <= 256"):
+            pooled_mlp.pooled_mlp_bn_train(tab, ws, a_s, b_s, 0.0)
 
 
 @pytest.mark.gpu

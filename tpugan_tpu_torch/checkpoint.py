@@ -11,8 +11,10 @@ into a ``state_dict``: the torch modules carry the flax scope names, so
 ``a/b/Dense_0/kernel [in, out]`` becomes ``a.b.Dense_0.weight [out, in]``,
 ``bias`` / ``scale`` / ``mean`` / ``var`` keep their names, and a spectral
 norm's ``a/SpectralNorm_0/Dense_0/kernel/u`` becomes ``a.SpectralNorm_0.u``.
-``load_srnet`` builds the serving generator from a checkpoint;
-``load_trainer_state`` the whole trainer (three networks, three Adam
+``load_srnet`` builds the serving generator from a checkpoint,
+``load_nomask_srnet`` the action workload's generator and
+``load_action_tempo_dis`` its temporal critic; ``load_trainer_state`` the
+whole fluid trainer (three networks, three Adam
 states, the iteration count).
 """
 
@@ -265,6 +267,24 @@ def resolve_checkpoint(path) -> str:
     return path
 
 
+def _generator_kwargs(params: Dict[str, Any]) -> Dict[str, int]:
+    """in_feats, node_emb_dim, upsample_ratio and feature_extractor_depth
+    of a generator's flax params, read off the weight shapes."""
+    fe = params["feature_extractor"]
+    in_feats, half = fe["EdgeConv_0"]["ConvLayer_0"]["Dense_0"]["kernel"].shape
+    return dict(
+        in_feats=int(in_feats), node_emb_dim=2 * int(half),
+        upsample_ratio=int(params["upsampling_block"]["Dense_0"]["bias"].shape[0]) // 3,
+        feature_extractor_depth=1 + sum(k.startswith("IDGCNLayer_") for k in fe))
+
+
+def _load_generator(cls, path, device, model_kwargs):
+    params = read_flax_msgpack(resolve_checkpoint(path))["sr_net"]["params"]
+    model = cls(**_generator_kwargs(params), device=device, **model_kwargs)
+    model.load_state_dict(srnet_params_from_flax(params, model), strict=True)
+    return model
+
+
 def load_srnet(path, device=None, **model_kwargs):
     """Build an :class:`SRNet` matching a trained checkpoint and load its
     ``sr_net`` weights. ``path`` is a checkpoint file or a directory with a
@@ -273,14 +293,29 @@ def load_srnet(path, device=None, **model_kwargs):
     ``model_kwargs`` sets the rest (``compute_dtype``, ``graph_mode``, ...)."""
     from tpugan_tpu_torch.models.generator import SRNet
 
-    params = read_flax_msgpack(resolve_checkpoint(path))["sr_net"]["params"]
-    fe = params["feature_extractor"]
-    in_feats, half = fe["EdgeConv_0"]["ConvLayer_0"]["Dense_0"]["kernel"].shape
-    model = SRNet(
-        in_feats=int(in_feats), node_emb_dim=2 * int(half),
-        upsample_ratio=int(params["upsampling_block"]["Dense_0"]["bias"].shape[0]) // 3,
-        feature_extractor_depth=1 + sum(k.startswith("IDGCNLayer_") for k in fe),
-        device=device, **model_kwargs)
-    sd = srnet_params_from_flax(params, model)
-    model.load_state_dict(sd, strict=True)
+    return _load_generator(SRNet, path, device, model_kwargs)
+
+
+def load_nomask_srnet(path, device=None, **model_kwargs):
+    """The action workload's :class:`NoMaskSRNet` of a trained checkpoint's
+    ``sr_net`` weights, shaped and built as :func:`load_srnet` builds the
+    SRNet (the committed ``checkpoints/action_tempo_20k.ckpt``: in_feats 3,
+    width 128, r 16, depth 3)."""
+    from tpugan_tpu_torch.models.generator import NoMaskSRNet
+
+    return _load_generator(NoMaskSRNet, path, device, model_kwargs)
+
+
+def load_action_tempo_dis(path, device=None):
+    """The action temporal critic :class:`ActionTempoDis` of a checkpoint's
+    ``tempo_dis`` tree: params, BatchNorm running moments and spectral-norm
+    u / sigma; its sequence length is read off the flow module's depth.
+    Raises on any leaf left over or tensor left unfilled."""
+    from tpugan_tpu_torch.models.discriminator import ActionTempoDis
+
+    tree = read_flax_msgpack(resolve_checkpoint(path))["tempo_dis"]
+    flow = tree["params"]["tower"]["flow_module"]
+    model = ActionTempoDis(1 + sum(k.startswith("flow_emb_layers_")
+                                   for k in flow), device=device)
+    model.load_state_dict(state_dict_from_flax(tree, model, "tempo_dis"))
     return model

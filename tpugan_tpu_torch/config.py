@@ -1,10 +1,14 @@
-"""The ``train_fluid`` presets and their parser, the port's copy of that part
-of ``tpugan_tpu/config.py``: each preset is a reference shell script's flag
-set (train_fluid/train_vel/train.sh, train_fluid/train_novel/train.sh),
-applied as argparse defaults, so flags given explicitly still win.
+"""The port's copy of parts of ``tpugan_tpu/config.py``: the presets of the
+``train_fluid`` and ``eval_tempo_feat`` CLIs and their parser (each preset
+is a reference shell script's flag set, applied as argparse defaults, so
+flags given explicitly still win); the action data settings of
+``ActionTrainConfig`` that the clip loader and the demo read; and
+``EvalTempoFeatConfig``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 PRESETS = {
     "train_fluid": {
@@ -16,7 +20,41 @@ PRESETS = {
         "train_novel": dict(ckpt_every=10000, iters=80000,
                             dump_visualization=True, batch_size=4),
     },
+    "eval_tempo_feat": {
+        # train_action/eval_dis/run.sh (its data and checkpoint paths are
+        # its machine's; the recipe is the default hyperparameters)
+        "eval_dis": dict(lr=1e-3, epochs=60, batch_size=24, cutoff=2.0,
+                         frames_per_clip=3),
+    },
 }
+
+
+@dataclasses.dataclass
+class ActionTrainConfig:
+    """The action workload's clip sampling (``ActionTrainConfig`` of the JAX
+    package: the fields the clip loader and the demo read). The training
+    fields come with the port of the action GAN step."""
+
+    num_points: int = 2048
+    fps_ratio: float = 0.0625    # reference msr_dataset.py:93
+
+    @property
+    def lowres_size(self) -> int:
+        return int(self.num_points * self.fps_ratio)
+
+
+@dataclasses.dataclass
+class EvalTempoFeatConfig:
+    # reference eval_tempo_feat.py:20-31
+    lr: float = 1e-3
+    epochs: int = 60
+    batch_size: int = 24
+    data_dir: str = "data/MSR-Action3D"
+    ckpt_path: str = ""
+    log_dir: str = "./eval_dis"
+    cutoff: float = 2.0
+    frames_per_clip: int = 3
+    seed: int = 0
 
 
 def parse_with_preset(parser, cli: str, argv=None):

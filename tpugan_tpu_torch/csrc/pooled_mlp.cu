@@ -81,7 +81,11 @@
 // (rows_gemm, no column sums), the top layer keeping each neighbourhood's
 // max and min of z (under autograd every z is written for the backward;
 // without it only the layers below the top, and their buffers alternate),
-// and pool_extremes forms pooled with the given a, b as above.
+// and pool_extremes forms pooled with the given a, b as above. Its widths
+// are bounded only by the column tiles (a grid column of 64 or 128 columns
+// each) and the packed channel count (rows x width < 2^31): the action
+// towers' 512-wide SA pooling is four column tiles of the same instances.
+// What caps the other passes at 256 is top_kernel, a thread a column.
 // pmlp_backward_affine is pmlp_bn_backward given mu = 0 and ivar = 1, whose
 // S1 and S2 are then db and da, with dz = a dpre where the batch-norm form
 // has its correction (the operand transform kScale in place of kDz, which

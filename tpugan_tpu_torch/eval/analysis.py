@@ -1,7 +1,7 @@
 """Quantitative evaluation (``tpugan_tpu/eval/analysis.py``): normalised
 Chamfer, auction EMD and Gaussian MMD against ground truth, upsample-advect
-cycle consistency, SPH particle densities (exact and capped) and
-free-surface particle counts.
+cycle consistency, SPH particle densities (exact and capped),
+free-surface particle counts, and the action workload's clip metrics.
 
 The metric functions take tensors and run where the tensors lie; the
 density functions take numpy clouds and run on ``device`` (the CUDA card
@@ -81,6 +81,52 @@ def position_metrics(pos_pred: torch.Tensor, pos_gt: torch.Tensor,
     mmd = gaussian_mmd(p, t, blur=0.01).mean()
     _warn_duplicates(int(n_dup), p.shape[0] * n, emd_iters)
     return float(cd), float(emd), float(mmd)
+
+
+def pc_normalize(pc: np.ndarray) -> np.ndarray:
+    """Centre on the centroid and scale by the largest point norm."""
+    pc = pc - np.mean(pc, axis=0)
+    return pc / np.max(np.sqrt(np.sum(pc ** 2, axis=1)))
+
+
+def action_position_metrics(pos_pred: torch.Tensor, pos_gt: torch.Tensor,
+                            emd_eps: float = 0.002, emd_iters: int = 3000,
+                            emd_phases: int = 3) -> Tuple[float, float]:
+    """The MSR-Action3D protocol (reference
+    train_action/analysis_helper.py:60-68): (the bidirectional summed
+    Chamfer over the fixed 2,048, the auction EMD of the clouds halved, at
+    eps 0.002, doubled back)."""
+    if pos_pred.dim() == 2:
+        pos_pred, pos_gt = pos_pred[None], pos_gt[None]
+    cd = chamfer(pos_pred, pos_gt).mean() / 2048.0
+    emd, n_dup = _assignment_emd(pos_pred / 2.0, pos_gt / 2.0, emd_eps,
+                                 emd_iters, phases=emd_phases)
+    _warn_duplicates(int(n_dup), pos_pred.shape[0] * pos_pred.shape[1],
+                     emd_iters)
+    return float(cd), float(emd * 2.0)
+
+
+def pad_clip_with_appropriate_size(pos_lst, num_points: int = 2048,
+                                   rng: Optional[np.random.Generator] = None
+                                   ) -> np.ndarray:
+    """The action eval's clip preparation: every frame resampled to exactly
+    ``num_points`` (a random subset when larger; whole repeats and a random
+    residue when smaller), y flipped, :func:`pc_normalize`d. [F,
+    num_points, 3] f32."""
+    rng = rng or np.random.default_rng()
+    clip = []
+    for frame in pos_lst:
+        p = np.asarray(frame, np.float32).copy()
+        if p.shape[0] > num_points:
+            r = rng.choice(p.shape[0], size=num_points, replace=False)
+        else:
+            repeat, residue = divmod(num_points, p.shape[0])
+            r = np.concatenate([np.arange(p.shape[0])] * repeat
+                               + [rng.choice(p.shape[0], size=residue,
+                                             replace=False)])
+        p[:, 1] = -p[:, 1]
+        clip.append(pc_normalize(p[r])[None])
+    return np.concatenate(clip, axis=0)
 
 
 def cycle_consistency(sr_apply, lowres_pos_left: torch.Tensor,

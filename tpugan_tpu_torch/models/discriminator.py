@@ -1,7 +1,9 @@
-"""The fluid critics (``tpugan_tpu/models/discriminator.py``): the spatial
-critic on one frame and the temporal critic over a frame window, with their
-scoring head. Channels-last; hard-masked (999-sentinel) generator outputs
-enter through ``valid`` masks of the first (mask_dummy) stage.
+"""The critics (``tpugan_tpu/models/discriminator.py``): the fluid spatial
+critic on one frame and the fluid temporal critic over a frame window, with
+their scoring head; the action workload's temporal critic and the transfer
+classifier that probes its features (``ActionTempoDis``, ``ActionCls``,
+``transfer_feature_extractor``). Channels-last; hard-masked (999-sentinel)
+generator outputs enter through ``valid`` masks of the first stage.
 
 Every call in training mode advances each spectral norm and BatchNorm it
 passes through, in call order: the temporal critic runs ``sa1`` and
@@ -12,7 +14,7 @@ variant (``stack_frames`` / ``--fast_d``) is not ported yet.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -194,3 +196,125 @@ class FluidTempoDis(nn.Module):
 def dropout_widths(model: nn.Module) -> List[int]:
     """Widths of a critic's dropout layers, one multiplier tensor each."""
     return model.fc.dropout_widths()
+
+
+class ActionTempoTower(nn.Module):
+    """The tower shared by :class:`ActionTempoDis` and :class:`ActionCls`:
+    two SSG stages per frame (ReLU; their FPS centres stacked over the
+    frames), FlowEmbedding mixing and SA pooling to one feature per clip,
+    [B, pool_mlp[-1]]. The cutoff goes to the flow module as given."""
+
+    def __init__(self, sequence_length: int, spectral_norm: bool,
+                 pool_mlp: Sequence[int],
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        sn = spectral_norm
+        kw = dict(generator=seeded(generator), device=resolve_device(device))
+        self.sa1 = SetConv(3, [64, 64, 128], npoint=512, radius=0.8,
+                           nsample=64, spectral_norm=sn, **kw)
+        self.sa2 = SetConv(128, [128, 256], npoint=256, radius=1.2,
+                           nsample=32, spectral_norm=sn, **kw)
+        self.flow_module = FlowModule(256, 256, 256, sequence_length,
+                                      spectral_norm=sn, **kw)
+        self.sa_pooling = SetConv(256, pool_mlp, spectral_norm=sn, **kw)
+
+    def forward(self, pos_lst: List[torch.Tensor], cutoff: float,
+                valid_lst: Optional[List[Optional[torch.Tensor]]] = None,
+                train: bool = False) -> torch.Tensor:
+        c1 = _stacked_fps(self.sa1, pos_lst, valid_lst)
+        mid_p, mid_f = [], []
+        for i, pos in enumerate(pos_lst):
+            p, f = self.sa1(pos, pos,
+                            valid=valid_lst[i] if valid_lst is not None else None,
+                            train=train, centers=c1[i])
+            mid_p.append(p)
+            mid_f.append(f)
+        c2 = _stacked_fps(self.sa2, mid_p, None)
+        poss, feats = [], []
+        for i in range(len(pos_lst)):
+            p, f = self.sa2(mid_p[i], mid_f[i], train=train, centers=c2[i])
+            poss.append(p)
+            feats.append(f)
+        feature = self.flow_module(feats, poss, cutoff, train=train)
+        _, feature = self.sa_pooling(poss[0], feature, train=train)
+        return feature[:, 0, :]
+
+
+ACTION_FC_WIDTHS, ACTION_FC_DROPOUT = (256, 64), (0.3, 0.1)
+
+
+class ActionTempoDis(nn.Module):
+    """Temporal critic of the action workload: the tower with spectral
+    norms, a [256, 512] SA pooling and a spectral-normed scoring head."""
+
+    def __init__(self, sequence_length: int,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        kw = dict(generator=seeded(generator), device=resolve_device(device))
+        self.tower = ActionTempoTower(sequence_length, True, [256, 512], **kw)
+        self.fc = FCHead(512, ACTION_FC_WIDTHS, ACTION_FC_DROPOUT, **kw)
+
+    def forward(self, pos_lst: List[torch.Tensor], cutoff: float,
+                valid_lst: Optional[List[Optional[torch.Tensor]]] = None,
+                train: bool = False, keep: Optional[List[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """pos_lst: one [B, N, 3] per frame -> scores [B, 1]."""
+        feature = self.tower(pos_lst, cutoff, valid_lst, train)
+        return self.fc(feature, train, keep, generator)
+
+
+class ActionCls(nn.Module):
+    """Transfer classifier probing the temporal critic's features: the
+    tower without spectral norm, a [512, 512] SA pooling and a
+    ``num_classes``-way head. ``infer`` is its serving call: eval mode, no
+    autograd, softmax probabilities."""
+
+    def __init__(self, sequence_length: int, num_classes: int = 20,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        kw = dict(generator=seeded(generator), device=resolve_device(device))
+        self.tower = ActionTempoTower(sequence_length, False, [512, 512], **kw)
+        self.fc = FCHead(512, ACTION_FC_WIDTHS, ACTION_FC_DROPOUT,
+                         out_features=num_classes, spectral_norm=False, **kw)
+
+    def forward(self, pos_lst: List[torch.Tensor], cutoff: float,
+                train: bool = False, keep: Optional[List[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """pos_lst: one [B, N, 3] per frame -> logits [B, num_classes]."""
+        return self.fc(self.tower(pos_lst, cutoff, train=train), train, keep,
+                       generator)
+
+    @torch.no_grad()
+    def infer(self, pos_lst: List[torch.Tensor], cutoff: float) -> torch.Tensor:
+        """Class probabilities [B, num_classes] at eval (the fused
+        pooled-MLP kernel in every SetConv)."""
+        return torch.softmax(self(pos_lst, cutoff, train=False), -1)
+
+
+TRANSFERRED = ("tower.sa1.", "tower.sa2.", "tower.flow_module.")
+
+_Weights = Union[nn.Module, Dict[str, torch.Tensor]]
+
+
+def transfer_feature_extractor(cls: _Weights, dis: _Weights) -> _Weights:
+    """Copy a trained temporal critic's ``tower.sa1``, ``tower.sa2`` and
+    ``tower.flow_module`` parameters and BatchNorm running moments into a
+    classifier, wherever the name and the shape match (the reference's
+    ``init_feature_extractor``). The raw (not spectral-normalised) kernels
+    go across, as flax stores them; spectral-norm state has no counterpart
+    in the classifier and stays behind.
+
+    ``cls`` and ``dis`` are modules or state_dicts. A module ``cls`` is
+    filled in place and returned; a state_dict ``cls`` gives a new one."""
+    src = dis.state_dict() if isinstance(dis, nn.Module) else dis
+    dst = cls.state_dict() if isinstance(cls, nn.Module) else dict(cls)
+    moved = {k: v for k, v in src.items()
+             if k.startswith(TRANSFERRED) and k in dst
+             and tuple(dst[k].shape) == tuple(v.shape)}
+    if not isinstance(cls, nn.Module):
+        dst.update({k: v.detach().clone() for k, v in moved.items()})
+        return dst
+    with torch.no_grad():
+        for k, v in moved.items():
+            dst[k].copy_(v)
+    return cls

@@ -1,4 +1,5 @@
-"""The masked upsampling generator SRNet and its rollout mask ring
+"""The masked upsampling generator SRNet and its rollout mask ring, and the
+unmasked NoMaskSRNet of the action workload
 (``tpugan_tpu/models/generator.py``). ``train=False`` is the serving
 forward (fused EdgeConv kernels, no autograd); ``train=True`` the training
 forward (differentiable: the grouped EdgeConv formulation, or with
@@ -207,6 +208,50 @@ class SRNet(nn.Module):
         expanded, padded, valid = expand_pos_with_masking(
             pos, edge, mask, self.upsample_ratio, self.epsilon)
         return expanded, mask, padded, valid
+
+
+class NoMaskSRNet(nn.Module):
+    """Unmasked upsampling generator of the action workload: the feature
+    extractor and the offset head of :class:`SRNet`, no mask head; every
+    copy is kept. ``graph_mode`` "dynamic" builds each layer's kNN graph
+    from its own features; "static" one k=20 graph from the input feature,
+    which every layer reuses. f32; weights drawn as :class:`SRNet` draws
+    them."""
+
+    def __init__(self, in_feats: int, node_emb_dim: int = 128,
+                 upsample_ratio: int = 8, feature_extractor_depth: int = 3,
+                 graph_mode: str = "dynamic",
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if graph_mode not in ("dynamic", "static"):
+            raise ValueError(f"graph_mode {graph_mode!r}")
+        self.in_feats, self.upsample_ratio = in_feats, upsample_ratio
+        self.graph_mode = graph_mode
+        kw = dict(generator=seeded(generator), device=resolve_device(device))
+        self.feature_extractor = GCNFeatureExtractor(
+            in_feats, feature_extractor_depth, node_emb_dim, **kw)
+        enc = (feature_extractor_depth - 1) * node_emb_dim
+        self.upsampling_block = UpsamplingModule(enc, upsample_ratio, **kw)
+
+    def forward(self, feature: torch.Tensor, pos: torch.Tensor,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feature [B, N, in_feats] (or [N, in_feats]), pos [B, N, 3] ->
+        (expanded [B, N*r, 3], edge [B, N*r, 3]). Autograd records the
+        forward only at ``train=True``."""
+        if feature.dim() == 2:
+            feature = feature[None]
+        if pos.dim() == 2:
+            pos = pos[None]
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            shared_idx = None
+            if self.graph_mode == "static":
+                _, shared_idx = graph_knn(feature, k=20)
+            encoding = self.feature_extractor(feature, shared_idx=shared_idx,
+                                              train=train)
+            edge = self.upsampling_block(encoding, shared_idx=shared_idx,
+                                         train=train)
+            out = expand_pos(pos, edge, self.upsample_ratio)
+            return out, edge.reshape(out.shape[0], -1, 3)
 
 
 @dataclasses.dataclass

@@ -49,6 +49,10 @@ AFFINE_FWD = LaunchCount()
 
 MAX_LAYERS = 4
 MAX_WIDTH = 256       # widest layer output (the tie pass: a thread a column)
+# widest layer output of the affine form's forward, which has no tie pass:
+# its products tile the output columns, 128 a block (the action towers'
+# SA pooling is 512 wide)
+MAX_AFFINE_FWD_WIDTH = 512
 # The GEMM blocks of both forms (csrc/pooled_mlp.cu): 256 threads, slabs
 # BK deep padded by PAD floats, STAGES slabs in flight, row tiles of
 # ROW_TILE rows; a forward row tile holds at most MAX_NBHD whole
@@ -198,40 +202,59 @@ def _rows_bytes(bn: int, nbh: int, a_dz: bool = False) -> int:
     return 4 * (head + 2 * (THREADS // (bn // 4)) * bn + 2 * nbh * bn)
 
 
-def launch_plan(shape: Sequence[int], widths: Sequence[int],
-                slope: float, affine: bool = False) -> dict:
-    """The launches of the batch-norm form (``affine``: of the affine form,
-    whose dz operand reads no z and whose forward sums no moments) for a
-    table [B, M, ns, C0] and layer widths: ``tile_rows`` (rows of a forward
-    / tie-pass tile: whole
-    neighbourhoods, at most ROW_TILE rows unless ns is larger),
-    ``split_rows`` (rows of a dW partial, per layer), ``passes`` (kernel,
-    layer, grid, dynamic shared memory in bytes, in launch order) and the
-    scratch sizes in floats. Raises ValueError for what the kernels do not
-    take: more than MAX_LAYERS layers, a width above MAX_WIDTH, a slope < 0
+def _check_widths(widths: Sequence[int], cap: int) -> None:
+    if not 1 <= len(widths) <= MAX_LAYERS:
+        raise ValueError(f"pooled_mlp: {len(widths)} layers, at most {MAX_LAYERS}")
+    if max(widths) > cap:
+        raise ValueError(f"pooled_mlp kernel takes layer widths <= {cap}")
+
+
+def forward_plan(shape: Sequence[int], widths: Sequence[int], slope: float,
+                 affine: bool = False) -> dict:
+    """The forward's launches for a table [B, M, ns, C0] and layer widths:
+    ``tile_rows`` (rows of a forward tile: whole neighbourhoods, at most
+    ROW_TILE rows unless ns is larger), ``passes`` (kernel, layer, grid,
+    dynamic shared memory in bytes, in launch order) and the scratch sizes
+    in floats. Raises ValueError for what the kernels do not take: more
+    than MAX_LAYERS layers, a width above MAX_WIDTH (MAX_AFFINE_FWD_WIDTH
+    for the ``affine`` form, whose forward sums no moments), a slope < 0
     (the pooled max is taken from the extremes of z)."""
     b, m, ns, c0 = shape
     c = [c0, *widths]
-    n_layers = len(widths)
-    if not 1 <= n_layers <= MAX_LAYERS:
-        raise ValueError(f"pooled_mlp: {n_layers} layers, at most {MAX_LAYERS}")
-    if max(widths) > MAX_WIDTH:
-        raise ValueError(f"pooled_mlp kernel takes layer widths <= {MAX_WIDTH}")
+    _check_widths(widths, MAX_AFFINE_FWD_WIDTH if affine else MAX_WIDTH)
     _check_slope(slope)
     rows = b * m * ns
     if rows * max(c) >= 2 ** 31:
         raise ValueError(f"pooled_mlp kernel takes fewer than 2^31 elements "
                          f"per layer, got {rows} rows of up to {max(c)}")
     tile_rows = ns * max(1, min(ROW_TILE // ns, MAX_NBHD))
-    tiles, row_tiles = _cdiv(rows, tile_rows), _cdiv(rows, ROW_TILE)
+    tiles = _cdiv(rows, tile_rows)
     passes = []
-    for p in range(n_layers):
+    for p in range(len(widths)):
         bn = tile_width(c[p + 1])
-        smem = _rows_bytes(bn, tile_rows // ns if p == n_layers - 1 else 0)
+        smem = _rows_bytes(bn, tile_rows // ns if p == len(widths) - 1 else 0)
         passes.append(dict(kernel="rows_gemm", pass_="forward", layer=p,
                            grid=(tiles, _cdiv(c[p + 1], bn)), smem=smem))
+    return dict(rows=rows, tile_rows=tile_rows, tiles=tiles, passes=passes,
+                ext_floats=2 * b * m * widths[-1])
+
+
+def launch_plan(shape: Sequence[int], widths: Sequence[int],
+                slope: float, affine: bool = False) -> dict:
+    """The forward and backward launches of the batch-norm form (``affine``:
+    of the affine form, whose dz operand reads no z and whose forward sums
+    no moments) for a table [B, M, ns, C0] and layer widths:
+    :func:`forward_plan`'s, then ``split_rows`` (rows of a dW partial, per
+    layer) and the backward's passes and scratch. Both forms' backwards
+    take widths up to MAX_WIDTH (the tie pass)."""
+    _check_widths(widths, MAX_WIDTH)
+    plan = forward_plan(shape, widths, slope, affine)
+    c = [shape[-1], *widths]
+    rows, n_layers = plan["rows"], len(widths)
+    row_tiles = _cdiv(rows, ROW_TILE)
+    passes = plan["passes"]
     passes.append(dict(kernel="top_kernel", pass_="backward",
-                       layer=n_layers - 1, grid=(tiles,), smem=0))
+                       layer=n_layers - 1, grid=(plan["tiles"],), smem=0))
     split_rows, dw_part = [0] * n_layers, 0
     for q in reversed(range(n_layers)):
         bm, bn = tile_width(c[q]), tile_width(c[q + 1])
@@ -248,29 +271,28 @@ def launch_plan(shape: Sequence[int], widths: Sequence[int],
         passes.append(dict(kernel="rows_gemm", pass_="backward", layer=q,
                            grid=(row_tiles, _cdiv(c[q], bn)),
                            smem=_rows_bytes(bn, 0, a_dz=not affine)))
-    return dict(rows=rows, tile_rows=tile_rows, split_rows=split_rows,
-                passes=passes,
-                part_floats=2 * max(tiles, row_tiles) * max(widths),
-                ext_floats=2 * b * m * widths[-1], dw_part_floats=dw_part)
+    return dict(plan, split_rows=split_rows, passes=passes,
+                part_floats=2 * max(plan["tiles"], row_tiles) * max(widths),
+                dw_part_floats=dw_part)
 
 
 @functools.lru_cache(maxsize=64)
 def _plan(shape: Tuple[int, ...], widths: Tuple[int, ...], slope: float,
-          affine: bool = False):
-    """launch_plan, once per configuration (the train step repeats a few)."""
+          affine: bool = False, forward_only: bool = False):
+    """launch_plan (forward_plan with ``forward_only``), once per
+    configuration (the train step repeats a few)."""
+    if forward_only:
+        return forward_plan(shape, widths, slope, affine)
     return launch_plan(shape, widths, slope, affine)
 
 
 def _widths(table, ws) -> List[int]:
     c = [table.shape[-1]] + [w.shape[1] for w in ws]
-    if not 1 <= len(ws) <= MAX_LAYERS:
-        raise ValueError(f"pooled_mlp: {len(ws)} layers, at most {MAX_LAYERS}")
+    _check_widths(c[1:], MAX_AFFINE_FWD_WIDTH)
     for l, w in enumerate(ws):
         if w.shape[0] != c[l]:
             raise ValueError(f"pooled_mlp: layer {l} takes {w.shape[0]} "
                              f"channels, gets {c[l]}")
-    if max(c[1:]) > MAX_WIDTH:
-        raise ValueError(f"pooled_mlp kernel takes layer widths <= {MAX_WIDTH}")
     return c + [0] * (MAX_LAYERS + 1 - len(c))
 
 
@@ -303,12 +325,15 @@ def _units(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
 def _launch_affine_forward(table, ws, a_s, b_s, slope, keep):
     """(pooled, zs, ws, a_s, b_s): with ``keep``, every layer's z [R,
     C_{l+1}] for the backward, with the contiguous f32 weights and affines
-    it launches with; otherwise zs is empty and the layers below the top
-    write their z into two alternating buffers, the top none."""
+    it launches with (widths up to MAX_WIDTH, the backward's); otherwise zs
+    is empty and the layers below the top write their z into two
+    alternating buffers, the top none (widths up to
+    MAX_AFFINE_FWD_WIDTH)."""
     b, m, ns, c0 = table.shape
     _widths(table, ws)
     hs = [w.shape[1] for w in ws]
-    plan = _plan(tuple(table.shape), tuple(hs), slope, True)
+    # the backward (which reads the kept z) takes widths up to MAX_WIDTH
+    plan = _plan(tuple(table.shape), tuple(hs), slope, True, not keep)
     rows, dev = plan["rows"], table.device
     ws, a_s, b_s = ([x.float().contiguous() for x in xs]
                     for xs in (ws, a_s, b_s))
@@ -516,7 +541,9 @@ def pooled_mlp_affine(table: torch.Tensor, ws: Sequence[torch.Tensor],
     kernel backward, whose max splits the gradient over ties as ``jnp.max``
     does. A CPU table takes the plain versions; a CUDA table launches the
     kernels or raises, and takes slope >= 0 (the max is taken from the
-    extremes of the last layer's z, as in :func:`pooled_mlp_bn_train`)."""
+    extremes of the last layer's z, as in :func:`pooled_mlp_bn_train`) and
+    layer widths up to MAX_AFFINE_FWD_WIDTH where no gradient can be asked
+    for, up to MAX_WIDTH (the backward's) where one can."""
     params = [*ws, *a_s, *b_s]
     if table.device.type != "cpu" and not (
             torch.is_grad_enabled()
