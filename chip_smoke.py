@@ -181,7 +181,33 @@ Phases, one JSON line each (``phase`` names it):
            forwards, 512-wide layers included), logits against the CPU's
            with the flow graphs replayed; then the eval_tempo_feat twin
            for 2 epochs on its synthetic set (runs/chip_smoke_tempo_feat/),
-           clip and video accuracy, ms per train step and per infer batch.
+           clip and video accuracy, ms per train step and per infer batch;
+  kernel   (action train) the action GAN step's shapes: kNN at the
+           generator's 12 x 128 graphs and the flow's k = 32 at B = 4, FPS
+           at device sampling's 12 x 2,048 -> 128 and every critic stage,
+           the ball query at the spatial critic's radii 0.3 / 0.6 / 1.0
+           and the temporal critic's, nn1 at [4, 2,048]^2, EdgeConv_0's
+           (1, 3, 64, 128) on the general forward and the general f32
+           backward (12 frames of 128 points, random and exact ties); each
+           against its plain version (run with the kernel checks above);
+  train_action with the launch counts reset: the action train CLI twin
+           (cli/train_action.main, called as a function) with
+           TPUGAN_FUSED_EDGECONV_TRAIN=1, --preset train_dir
+           --device_sampling --synthetic, resumed from
+           checkpoints/action_tempo_20k.ckpt for iterations 20001-20004
+           (runs/chip_smoke_train_action/): each step's launches against
+           ACTION_STEP_* (7 fused EdgeConv forwards and backwards, 6 on the
+           f32t forward and the redesigned backward, EdgeConv_0's on the
+           general kernels; no pooled-MLP launch), the checkpoint
+           iterations' test split against ACTION_CKPT_EVAL, every loss
+           finite, the last checkpoint read back equal, ms per step (G only
+           and G+D), the peak memory, and a profile of 2 more steps; then
+           one step with the switch off and on from the same state and
+           draws (graphs and flow kNN replayed), the generator's gradients
+           against ACTION_FUSED_GRAD_TOL with a lossy control that must fail
+           it; then one step on the card and on the CPU from the same state
+           and draws, the updates by norm, and a card step without the
+           generator's adversarial losses that must fail the comparison.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -644,8 +670,9 @@ def check_knn_approx(torch, dev, rng):
     return rows
 
 
-def _edgeconv_row(torch, dev, rng, name, cdt, kind, n, c, h, o, k, agg, mlp):
-    """The fused EdgeConv forward of one frame of ``n`` points against its
+def _edgeconv_row(torch, dev, rng, name, cdt, kind, n, c, h, o, k, agg, mlp,
+                  b=1):
+    """The fused EdgeConv forward of ``b`` frames of ``n`` points against its
     plain version (f32: to 1e-4 of the scale, summation order only; bf16:
     3e-2, a 1-ulp rounding flip of one layer's value may carry through the
     next layers), launching the variant its class takes, with its times and
@@ -654,8 +681,8 @@ def _edgeconv_row(torch, dev, rng, name, cdt, kind, n, c, h, o, k, agg, mlp):
 
     t = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(dev)
-    nbr = t(1, k, n, c)
-    ctr = t(1, n, c)
+    nbr = t(b, k, n, c)
+    ctr = t(b, n, c)
     wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
     w1 = t(h, h) / np.sqrt(h) if mlp else None
     w2 = t(h, o) / np.sqrt(h) if mlp else None
@@ -679,9 +706,9 @@ def _edgeconv_row(torch, dev, rng, name, cdt, kind, n, c, h, o, k, agg, mlp):
     dev_ms = device_ms(lambda: E.edgeconv_fused(*args), torch)
     plain_ms = time_ms(lambda: E.edgeconv_plain(*args), torch)
     esz = 4 if kind == "f32" else 2
-    flops = 2 * n * k * (2 * c * h + ((h * h + h * o) if mlp else 0))
-    nbytes = esz * (k * n * c + n * c + 2 * c * h
-                    + ((h * h + h * o) if mlp else 0) + n * o)
+    flops = 2 * b * n * k * (2 * c * h + ((h * h + h * o) if mlp else 0))
+    nbytes = esz * (b * (k * n * c + n * c + n * o) + 2 * c * h
+                    + ((h * h + h * o) if mlp else 0))
     b_ms, b_by = bound(flops, nbytes, kind)
     return dict(dtype=kind, variant=variant, C=c, H=h, O=o, K=k,
                 aggregate=agg, max_abs_err=err, tol=tol, ms=ms,
@@ -771,66 +798,72 @@ NN1_SHAPES = [
 ]
 
 
-def check_nn1(torch, dev, rng):
-    """Distances and the tie rule as in :func:`check_knn` over the live
-    queries; no index may point into a masked tail. Sentinel queries (the
-    999 rows of a padded prediction) are held to 1e-5 of their distance.
-    Each row also carries its launch plan, the device time of the wrapper's
-    launches and whether two launches agree bit for bit."""
+def _nn1_row(torch, dev, rng, path, b, nq, m, masked=0, q_tail=0):
+    """nn1 against its plain version: distances and the tie rule as in
+    :func:`check_knn` over the live queries; no index may point into a
+    masked tail; sentinel queries (the 999 rows of a padded prediction) to
+    1e-5 of their distance. With its launch plan, the device time of the
+    wrapper's launches and whether two launches agree bit for bit."""
     from tpugan_tpu_torch.ops.kernels import nn1 as N1
 
+    q_np = (rng.standard_normal((b, nq, 3)) * 0.3).astype(np.float32)
+    c_np = (rng.standard_normal((b, m, 3)) * 0.3).astype(np.float32)
+    live = nq - q_tail
+    q_np[:, live:] = 999.0
+    q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
+    bias = torch.zeros((b, m), device=dev)
+    if masked:
+        bias[:, -masked:] = 1e10
+    d2k, ik = N1.nn1_kernel(q, c, bias)
+    d2p, ip = N1.nn1_plain(q, c, bias)
+    again = N1.nn1_kernel(q, c, bias)
+    torch.cuda.synchronize()
+    repeat = bool(torch.equal(d2k, again[0]) and torch.equal(ik, again[1]))
+    tol = 1e-5 * 2 * float(max((q[:, :live] ** 2).sum(-1).max(),
+                               (c * c).sum(-1).max()))
+    err = float((d2k - d2p)[:, :live].abs().max())
+    bad, gap = index_gaps(q_np[:, :live], c_np, ik[:, :live], ip[:, :live])
+    tail_rel = (float(((d2k - d2p)[:, live:].abs() / d2p[:, live:]).max())
+                if q_tail else 0.0)
+    if not (err <= tol and gap <= 2 * tol and tail_rel <= 1e-5
+            and int(ik.max()) < m - masked and repeat):
+        raise AssertionError(f"nn1 {path} B={b} Nq={nq} M={m}: err {err} "
+                             f"tol {tol}, index gaps up to {gap}, "
+                             f"sentinel rows {tail_rel}, repeat {repeat}")
+    run = lambda: N1.nn1_kernel(q, c, bias)
+    ms = time_ms(run, torch)
+    dev_ms = device_ms(run, torch)
+    plain_ms = time_ms(lambda: N1.nn1_plain(q, c, bias), torch)
+
+    def yardstick():
+        for s in range(0, nq, 8192):
+            torch.cdist(q[:, s:s + 8192], c).min(-1)
+
+    lib_ms = time_ms(yardstick, torch)
+    # the least work of a pair: three FMAs and a min (7 flops)
+    b_ms, b_by = bound(7.0 * b * nq * m,
+                       4 * b * (3 * nq + 3 * m + m) + 12 * b * nq, "f32")
+    plan = N1.nn1_plan(b, nq, m, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    return dict(path=path, B=b, Nq=nq, M=m, masked=masked,
+                sentinel_queries=q_tail, threads=plan.threads, qpt=N1.QPT,
+                splits=plan.splits, span=plan.span, blocks=plan.blocks(b, nq),
+                max_abs_err=err, tol=tol, index_mismatch=bad, max_tie_gap=gap,
+                repeat_bit_equal=repeat, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_nn1(torch, dev, rng):
+    """Every NN1_SHAPES row by :func:`_nn1_row`, weighted per gate, train
+    step and eval sample."""
     rows = []
     for (path, b, nq, m, masked, q_tail, per_gate, per_step,
          per_sample) in NN1_SHAPES:
-        q_np = (rng.standard_normal((b, nq, 3)) * 0.3).astype(np.float32)
-        c_np = (rng.standard_normal((b, m, 3)) * 0.3).astype(np.float32)
-        live = nq - q_tail
-        q_np[:, live:] = 999.0
-        q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
-        bias = torch.zeros((b, m), device=dev)
-        if masked:
-            bias[:, -masked:] = 1e10
-        d2k, ik = N1.nn1_kernel(q, c, bias)
-        d2p, ip = N1.nn1_plain(q, c, bias)
-        again = N1.nn1_kernel(q, c, bias)
-        torch.cuda.synchronize()
-        repeat = bool(torch.equal(d2k, again[0]) and torch.equal(ik, again[1]))
-        tol = 1e-5 * 2 * float(max((q[:, :live] ** 2).sum(-1).max(),
-                                   (c * c).sum(-1).max()))
-        err = float((d2k - d2p)[:, :live].abs().max())
-        bad, gap = index_gaps(q_np[:, :live], c_np, ik[:, :live], ip[:, :live])
-        tail_rel = (float(((d2k - d2p)[:, live:].abs() / d2p[:, live:]).max())
-                    if q_tail else 0.0)
-        if not (err <= tol and gap <= 2 * tol and tail_rel <= 1e-5
-                and int(ik.max()) < m - masked and repeat):
-            raise AssertionError(f"nn1 {path} B={b} Nq={nq} M={m}: err {err} "
-                                 f"tol {tol}, index gaps up to {gap}, "
-                                 f"sentinel rows {tail_rel}, repeat {repeat}")
-        run = lambda: N1.nn1_kernel(q, c, bias)
-        ms = time_ms(run, torch)
-        dev_ms = device_ms(run, torch)
-        plain_ms = time_ms(lambda: N1.nn1_plain(q, c, bias), torch)
-
-        def yardstick():
-            for s in range(0, nq, 8192):
-                torch.cdist(q[:, s:s + 8192], c).min(-1)
-
-        lib_ms = time_ms(yardstick, torch)
-        # the least work of a pair: three FMAs and a min (7 flops)
-        b_ms, b_by = bound(7.0 * b * nq * m,
-                           4 * b * (3 * nq + 3 * m + m) + 12 * b * nq, "f32")
-        plan = N1.nn1_plan(b, nq, m, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-        rows.append(dict(path=path, B=b, Nq=nq, M=m, masked=masked,
-                         sentinel_queries=q_tail, per_gate=per_gate,
-                         per_step=per_step, per_sample=per_sample,
-                         threads=plan.threads, qpt=N1.QPT,
-                         splits=plan.splits, span=plan.span,
-                         blocks=plan.blocks(b, nq),
-                         max_abs_err=err, tol=tol, index_mismatch=bad,
-                         max_tie_gap=gap, repeat_bit_equal=repeat, ms=ms,
-                         device_ms=dev_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        rows.append(dict(_nn1_row(torch, dev, rng, path, b, nq, m, masked,
+                                  q_tail),
+                         per_gate=per_gate, per_step=per_step,
+                         per_sample=per_sample))
         emit({"phase": "kernel", "kernel": "nn1", **rows[-1]})
     return rows
 
@@ -961,6 +994,13 @@ class GraphReplay:
         finally:
             for m in self.modules:
                 setattr(m, self.name, self.own)
+
+    def saved(self):
+        """The recorded lists, to replay once more (:meth:`restore`)."""
+        return list(self.lists)
+
+    def restore(self, saved):
+        self.lists = list(saved)
 
     def record(self, call, *args):
         """``call(*args)`` (a forward or a train step), recording."""
@@ -1504,78 +1544,88 @@ def _grad_errors(got, want, tol, share_tol, what):
     return err, rel, share
 
 
-def check_edgeconv_bwd(torch, dev, rng):
+def _edgeconv_bwd_row(torch, dev, rng, name, c, h, o, k, agg, mlp, kind,
+                      ties, b, n, tiled_expected):
     """The backward kernel against its plain version (the kernel's rounding
-    points, max ties recomputed) at the fused train step's shapes; in the
-    exact-tie case, planes 1 and 5 repeat planes 0 and 3, so a max shared by
-    two planes must split its cotangent evenly between them. Each row names
-    its path ("tiled": every f32 row, a class of F32_TILED_BWD_CLASSES, one
-    launch of the redesigned kernel a call and a second call equal bit for
-    bit; "general": the bf16 row on the general kernel, none) and the
-    device time of each of its kernels."""
+    points, max ties recomputed) on [b, k, n] planes; with ``ties``,
+    planes 1 and 5 repeat planes 0 and 3, so a max shared by two planes
+    must split its cotangent evenly between them. The row names its path
+    ("tiled": a class of F32_TILED_BWD_CLASSES, one launch of the
+    redesigned kernel a call and a second call equal bit for bit;
+    "general": the general kernel, none), which must be
+    ``tiled_expected``, and the device time of each of its kernels."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
+    cdt = torch.float32 if kind == "f32" else torch.bfloat16
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    nbr, ctr = t(b, k, n, c), t(b, n, c)
+    if ties:
+        nbr[:, 1], nbr[:, 5] = nbr[:, 0], nbr[:, 3]
+    wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
+    w1 = t(h, h) / np.sqrt(h) if mlp else None
+    w2 = t(h, o) / np.sqrt(h) if mlp else None
+    g = t(b, n, o if mlp else h).to(cdt)
+    args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, g, agg, cdt)
+    tiled = E.takes_f32_tiled_bwd(cdt, mlp, c, h, o)
+    if tiled != tiled_expected:
+        raise AssertionError(f"edgeconv_bwd {name}: path "
+                             f"{'tiled' if tiled else 'general'}")
+    f0, l0 = E.F32_TILED_BWD_LAUNCHES, E.BWD.launches
+    got = E.edgeconv_backward(*args)
+    if (E.F32_TILED_BWD_LAUNCHES - f0, E.BWD.launches - l0) != (int(tiled), 1):
+        raise AssertionError(f"edgeconv_bwd {name}: tiled launches "
+                             f"{E.F32_TILED_BWD_LAUNCHES - f0}, launches "
+                             f"{E.BWD.launches - l0}")
+    want = E.edgeconv_backward_plain(*args)
+    torch.cuda.synchronize()
+    tol, share_tol = EC_BWD_TOL[kind]
+    err, rel, share = _grad_errors(got, want, tol, share_tol,
+                                   f"edgeconv_bwd {name}")
+    split = None
+    if ties:
+        # the duplicated planes' gradients are equal, both sides
+        split = float(max((got[0][:, 1] - got[0][:, 0]).abs().max(),
+                          (got[0][:, 5] - got[0][:, 3]).abs().max()))
+        if split != 0.0:
+            raise AssertionError(f"edgeconv_bwd ties: planes differ {split}")
+    repeat = None
+    if tiled:
+        repeat = all(torch.equal(x, y) for x, y in
+                     zip(got, E.edgeconv_backward(*args)) if x is not None)
+        if not repeat:
+            raise AssertionError(f"edgeconv_bwd {name}: two calls differ")
+    ms = time_ms(lambda: E.edgeconv_backward(*args), torch)
+    dev_ms, by_kernel = device_ms(lambda: E.edgeconv_backward(*args),
+                                  torch, by_kernel=True)
+    plain_ms = time_ms(lambda: E.edgeconv_backward_plain(*args), torch)
+    esz = 4 if kind == "f32" else 2
+    # the function recomputes the forward and forms two products per
+    # layer (the inputs' and the weights' gradients): 3x the forward
+    mac = 2 * c * h + ((h * h + h * o) if mlp else 0)
+    flops = 3 * 2 * b * k * n * mac
+    nbytes = (esz * (2 * b * k * n * c + 2 * b * n * c + b * n * (o if mlp else h))
+              + 4 * 2 * mac)
+    b_ms, b_by = bound(flops, nbytes, kind)
+    return dict(config=name, dtype=kind, B=b, N=n, C=c, H=h, O=o, K=k,
+                aggregate=agg, exact_ties=ties,
+                path="tiled" if tiled else "general", max_abs_err=err,
+                max_norm_rel_err=rel, gnbr_share_off=share,
+                tie_split_err=split, tol=tol, repeat_bit_equal=repeat, ms=ms,
+                device_ms=dev_ms, device_ms_by_kernel=by_kernel,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_edgeconv_bwd(torch, dev, rng):
+    """The backward at the fused train step's shapes (EDGECONV_BWD_SHAPES,
+    by :func:`_edgeconv_bwd_row`): every f32 row on the redesigned kernel,
+    the bf16 row on the general one."""
     rows = []
-    b, n = TRAIN_ROWS, TRAIN_POINTS
     for name, c, h, o, k, agg, mlp, kind, ties, per in EDGECONV_BWD_SHAPES:
-        cdt = torch.float32 if kind == "f32" else torch.bfloat16
-        t = lambda *s: torch.from_numpy(
-            rng.standard_normal(s).astype(np.float32)).to(dev)
-        nbr, ctr = t(b, k, n, c), t(b, n, c)
-        if ties:
-            nbr[:, 1], nbr[:, 5] = nbr[:, 0], nbr[:, 3]
-        wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
-        w1 = t(h, h) / np.sqrt(h) if mlp else None
-        w2 = t(h, o) / np.sqrt(h) if mlp else None
-        g = t(b, n, o if mlp else h).to(cdt)
-        args = (nbr.to(cdt), ctr.to(cdt), wn, we, w1, w2, g, agg, cdt)
-        tiled = E.takes_f32_tiled_bwd(cdt, mlp, c, h, o)
-        if tiled != (kind == "f32"):
-            raise AssertionError(f"edgeconv_bwd {name}: path "
-                                 f"{'tiled' if tiled else 'general'}")
-        f0 = E.F32_TILED_BWD_LAUNCHES
-        got = E.edgeconv_backward(*args)
-        if E.F32_TILED_BWD_LAUNCHES - f0 != int(tiled):
-            raise AssertionError(f"edgeconv_bwd {name}: tiled launches "
-                                 f"{E.F32_TILED_BWD_LAUNCHES - f0}")
-        want = E.edgeconv_backward_plain(*args)
-        torch.cuda.synchronize()
-        tol, share_tol = EC_BWD_TOL[kind]
-        err, rel, share = _grad_errors(got, want, tol, share_tol,
-                                       f"edgeconv_bwd {name}")
-        split = None
-        if ties:
-            # the duplicated planes' gradients are equal, both sides
-            split = float(max((got[0][:, 1] - got[0][:, 0]).abs().max(),
-                              (got[0][:, 5] - got[0][:, 3]).abs().max()))
-            if split != 0.0:
-                raise AssertionError(f"edgeconv_bwd ties: planes differ {split}")
-        repeat = None
-        if tiled:
-            repeat = all(torch.equal(a, b) for a, b in
-                         zip(got, E.edgeconv_backward(*args)) if a is not None)
-            if not repeat:
-                raise AssertionError(f"edgeconv_bwd {name}: two calls differ")
-        ms = time_ms(lambda: E.edgeconv_backward(*args), torch)
-        dev_ms, by_kernel = device_ms(lambda: E.edgeconv_backward(*args),
-                                      torch, by_kernel=True)
-        plain_ms = time_ms(lambda: E.edgeconv_backward_plain(*args), torch)
-        esz = 4 if kind == "f32" else 2
-        # the function recomputes the forward and forms two products per
-        # layer (the inputs' and the weights' gradients): 3x the forward
-        mac = 2 * c * h + ((h * h + h * o) if mlp else 0)
-        flops = 3 * 2 * b * k * n * mac
-        nbytes = (esz * (2 * b * k * n * c + 2 * b * n * c + b * n * (o if mlp else h))
-                  + 4 * 2 * mac)
-        b_ms, b_by = bound(flops, nbytes, kind)
-        rows.append(dict(config=name, dtype=kind, B=b, N=n, C=c, H=h, O=o,
-                         K=k, aggregate=agg, exact_ties=ties, per_step=per,
-                         path="tiled" if tiled else "general",
-                         max_abs_err=err, max_norm_rel_err=rel,
-                         gnbr_share_off=share, tie_split_err=split, tol=tol,
-                         repeat_bit_equal=repeat, ms=ms, device_ms=dev_ms,
-                         device_ms_by_kernel=by_kernel, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        rows.append(dict(_edgeconv_bwd_row(
+            torch, dev, rng, name, c, h, o, k, agg, mlp, kind, ties,
+            TRAIN_ROWS, TRAIN_POINTS, kind == "f32"), per_step=per))
         emit({"phase": "kernel", "kernel": "edgeconv_bwd", **rows[-1]})
     return rows
 
@@ -2008,42 +2058,59 @@ def train_card_vs_cpu(torch, dev, patch=1024):
                              f"{m_cpu['gate']}, shut {m_shut['gate']}")
     out = {"phase": "train_cpu", "batch": 2, "patch": patch,
            "iteration": states["cpu"].n_iter, "knn_tie_swaps": replay.swaps,
-           "card_s": t1 - t0, "cpu_s": t2 - t1, "loss_rel_err": {},
-           "change_tol": CARD_CPU_CHANGE_TOL, "change_err_over_limit": {},
-           "bias_grad_over_limit": {}}
+           "card_s": t1 - t0, "cpu_s": t2 - t1}
+    hold_card_to_cpu(out, states, dev, m_card, m_cpu, before, mu_before,
+                     CARD_CPU_LOSS_TOL, CARD_CPU_CHANGE_TOL)
+
+
+def hold_card_to_cpu(out, states, dev, m_card, m_cpu, before, mu_before,
+                     loss_tol, change_tol):
+    """The card's step against the CPU's from one state and one set of
+    draws: each loss to ``loss_tol`` relative, each network's parameter
+    changes by :func:`_change_over_limit` to ``change_tol[net]``, the
+    gradients of Dense biases under a batch norm to zero on both sides
+    (:func:`_bias_grads_over_limit`); then ``states["no_adv"]``, the
+    card's step without the generator's adversarial losses, must fail the
+    generator's comparison. Fills and emits ``out``; raises past a limit."""
+    out.update(loss_rel_err={}, change_tol=change_tol,
+               change_err_over_limit={}, bias_grad_over_limit={})
+
+    def fail(msg):
+        emit(out)
+        raise AssertionError(f"{out['phase']}: {msg}")
+
     for k, v in m_cpu.items():
         if k == "gate":
             continue
         rel = abs(m_card[k] - v) / max(abs(v), 1e-5)
         out["loss_rel_err"][k] = rel
-        if rel > CARD_CPU_LOSS_TOL:
-            raise AssertionError(f"card vs CPU {k}: {m_card[k]} vs {v}")
-    for n in nets:
+        if rel > loss_tol:
+            fail(f"{k}: {m_card[k]} vs {v}")
+    for n in ("sr", "tempo", "spatial"):
         module = getattr(states["cpu"], n).module
         cpu = dict(module.named_parameters())
         card = dict(getattr(states[dev], n).module.named_parameters())
         worst, k = _change_over_limit(module, before[n], card, cpu,
-                                      CARD_CPU_CHANGE_TOL[n])
+                                      change_tol[n])
         out["change_err_over_limit"][n] = worst
         if worst > 1.0:
-            raise AssertionError(f"card vs CPU {n} {k}: change err "
-                                 f"{worst} of the limit")
+            fail(f"{n} {k}: change err {worst} of the limit")
         bias = max(_bias_grads_over_limit(getattr(states[d], n),
                                           mu_before[d][n]) for d in (dev, "cpu"))
         out["bias_grad_over_limit"][n] = bias
         if bias > 1.0:
-            raise AssertionError(f"card vs CPU {n}: a Dense bias under a "
-                                 f"batch norm has a gradient ({bias})")
+            fail(f"{n}: a Dense bias under a batch norm has a gradient "
+                 f"({bias})")
     sr_cpu = dict(states["cpu"].sr.module.named_parameters())
     lost, _ = _change_over_limit(
         states["cpu"].sr.module, before["sr"],
         dict(states["no_adv"].sr.module.named_parameters()), sr_cpu,
-        CARD_CPU_CHANGE_TOL["sr"])
+        change_tol["sr"])
     out["no_adversarial_sr_change_over_limit"] = lost
-    emit(out)
     if lost <= 1.0:
-        raise AssertionError("card vs CPU: the generator's change without "
-                             f"its adversarial losses passes the check ({lost})")
+        fail(f"the generator's change without its adversarial losses passes "
+             f"the check ({lost})")
+    emit(out)
 
 
 # ------------------------------------------------------ fused-train phase
@@ -2223,39 +2290,25 @@ def fused_train(torch, dev, kernels):
     return launches
 
 
-def fused_vs_grouped(torch, dev, profile_dir=None):
-    """One step from the trained state with the same draws, the switch off
-    (grouped formulation) and on (fused kernels), the graphs of the first
-    replayed into the second: the losses to FUSED_LOSS_TOL relative, each
-    generator parameter's step gradient to FUSED_GRAD_TOL of its norm (the
-    largest relative error of the changes is reported beside it). A control
-    step with the switch on and LOSSY_NBR_GRAD of every EdgeConv's
-    neighbour-table gradient dropped must fail that check. Then the ms per
-    step of both, G only (odd iterations) and G+D (even), and a profile of
-    two more fused steps. The gate is held open, so the adversarial losses
-    reach the generator through the fused backward in every step."""
+def switch_check(torch, step, states, control, batches, draws, replay,
+                 grad_tol, phase):
+    """One step of ``states[False]`` (the switch off) and ``states[True]``
+    (on) from one state with ``draws[0]``, the first run's graphs replayed
+    into the second by ``replay``: the losses to FUSED_LOSS_TOL relative,
+    each generator parameter's step gradient (recovered from Adam's first
+    moment) to ``grad_tol`` of its norm, the largest relative error of the
+    changes reported beside it; ``control`` (switch on), stepped with
+    LOSSY_NBR_GRAD of every EdgeConv's neighbour-table gradient dropped,
+    must fail that check. Then ms per step of both, G only (odd
+    iterations) and G+D (even), in turns over the other batches. Emits and
+    returns the phase's line."""
     import tpugan_tpu_torch.ops.kernels.edgeconv as ek
-    from tpugan_tpu_torch.checkpoint import load_trainer_state
-    from tpugan_tpu_torch.models.discriminator import dropout_widths
-    from tpugan_tpu_torch.train.step import (FluidGanStep, FluidTrainConfig,
-                                             StepDraws)
 
-    cfg = FluidTrainConfig(ml_gate=1e9)
-    steps = 4
-    batches = fluid_batches(torch, dev, cfg.patch_size, cfg.batch_size, steps)
-    states = {on: load_trainer_state(CHECKPOINT, cfg, dev, fused_train=on)
-              for on in (False, True)}
-    control = load_trainer_state(CHECKPOINT, cfg, dev, fused_train=True)
     before = {k: v.detach().cpu().clone()
               for k, v in states[False].sr.module.named_parameters()}
     mu_before = {k: v.clone() for k, v in states[False].sr.opt.mu.items()}
-    widths = dropout_widths(states[False].spatial.module)
-    draws = [StepDraws.draw(torch.Generator().manual_seed(3 + i), cfg,
-                            cfg.patch_size, widths) for i in range(steps)]
-    step = FluidGanStep(cfg)
-    replay = GraphReplay(torch)
     m_off = replay.record(step, states[False], batches[0], draws[0])
-    graphs = list(replay.lists)
+    graphs = replay.saved()
     m_on = replay.replay(step, states[True], batches[0], draws[0])
     own_bwd = ek.edgeconv_backward
 
@@ -2263,32 +2316,31 @@ def fused_vs_grouped(torch, dev, profile_dir=None):
         gnbr, *rest = own_bwd(*args, **kw)
         return ((1.0 - LOSSY_NBR_GRAD) * gnbr, *rest)
 
-    replay.lists, ek.edgeconv_backward = graphs, lossy_bwd
+    replay.restore(graphs)
+    ek.edgeconv_backward = lossy_bwd
     try:
         replay.replay(step, control, batches[0], draws[0])
     finally:
         ek.edgeconv_backward = own_bwd
     lossy, _ = _grads_rel_err(control.sr, states[False].sr, mu_before)
-    del control
     loss_rel = {k: abs(m_on[k] - v) / max(abs(v), 1e-5)
                 for k, v in m_off.items() if k != "gate"}
     worst, worst_k = _grads_rel_err(states[True].sr, states[False].sr,
                                     mu_before)
-    out = {"phase": "train_fused_vs_grouped", "iteration": states[True].n_iter,
-           "gate": [m_off["gate"], m_on["gate"]], "knn_tie_swaps": replay.swaps,
-           "loss_rel_err": loss_rel, "grad_tol": FUSED_GRAD_TOL,
-           "sr_grad_rel_err": worst, "worst_parameter": worst_k,
+    out = {"phase": phase, "iteration": states[True].n_iter,
+           "gate": [m_off.get("gate"), m_on.get("gate")],
+           "knn_tie_swaps": replay.swaps, "loss_rel_err": loss_rel,
+           "grad_tol": grad_tol, "sr_grad_rel_err": worst,
+           "worst_parameter": worst_k,
            "sr_change_rel_err": _changes_rel_err(
                states[True].sr.module, states[False].sr.module, before),
            "lossy_nbr_grad": LOSSY_NBR_GRAD, "lossy_sr_grad_rel_err": lossy}
-    if (m_off["gate"] != m_on["gate"] or worst > FUSED_GRAD_TOL
-            or lossy <= FUSED_GRAD_TOL
-            or max(loss_rel.values()) > FUSED_LOSS_TOL):
+    if (m_off.get("gate") != m_on.get("gate") or worst > grad_tol
+            or lossy <= grad_tol or max(loss_rel.values()) > FUSED_LOSS_TOL):
         emit(out)
-        raise AssertionError(f"fused vs grouped step: {out}")
-    # ms per step of both paths from here on, in turns
+        raise AssertionError(f"{phase}: {out}")
     ms = {False: [], True: []}
-    for i in range(1, steps):
+    for i in range(1, len(batches)):
         for on in (False, True):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2301,6 +2353,39 @@ def fused_vs_grouped(torch, dev, profile_dir=None):
         out[f"{name}_ms"] = {"g_only": [t for n, t in ms[on] if n % 2],
                              "g_and_d": [t for n, t in ms[on] if n % 2 == 0]}
     emit(out)
+    return out
+
+
+def fused_vs_grouped(torch, dev, profile_dir=None):
+    """One step from the trained state with the same draws, the switch off
+    (grouped formulation) and on (fused kernels), the graphs of the first
+    replayed into the second: the losses to FUSED_LOSS_TOL relative, each
+    generator parameter's step gradient to FUSED_GRAD_TOL of its norm (the
+    largest relative error of the changes is reported beside it). A control
+    step with the switch on and LOSSY_NBR_GRAD of every EdgeConv's
+    neighbour-table gradient dropped must fail that check. Then the ms per
+    step of both, G only (odd iterations) and G+D (even), and a profile of
+    two more fused steps. The gate is held open, so the adversarial losses
+    reach the generator through the fused backward in every step
+    (:func:`switch_check`)."""
+    from tpugan_tpu_torch.checkpoint import load_trainer_state
+    from tpugan_tpu_torch.models.discriminator import dropout_widths
+    from tpugan_tpu_torch.train.step import (FluidGanStep, FluidTrainConfig,
+                                             StepDraws)
+
+    cfg = FluidTrainConfig(ml_gate=1e9)
+    steps = 4
+    batches = fluid_batches(torch, dev, cfg.patch_size, cfg.batch_size, steps)
+    states = {on: load_trainer_state(CHECKPOINT, cfg, dev, fused_train=on)
+              for on in (False, True)}
+    control = load_trainer_state(CHECKPOINT, cfg, dev, fused_train=True)
+    widths = dropout_widths(states[False].spatial.module)
+    draws = [StepDraws.draw(torch.Generator().manual_seed(3 + i), cfg,
+                            cfg.patch_size, widths) for i in range(steps)]
+    step = FluidGanStep(cfg)
+    out = switch_check(torch, step, states, control, batches, draws,
+                       GraphReplay(torch), FUSED_GRAD_TOL,
+                       "train_fused_vs_grouped")
     train_profile(torch, step, states[True], batches[2:], profile_dir,
                   of="train_fused")
     return out
@@ -3086,6 +3171,382 @@ def tempo_feat(torch, dev, kernels):
     return {n: infer_launches[n] + cli_launches[n] for n in cli_launches}
 
 
+# ------------------------------------------------ the action GAN training
+
+ACTION_TRAIN_DIR = os.path.join(ROOT, "runs", "chip_smoke_train_action")  # gitignored
+ACTION_TRAIN_ITERS = 20004
+# Launches per action train step, read off tpugan_tpu_torch/train/step.py :
+# ActionGanStep (the wrappers count one per call; B = 4 clips of 3 frames of
+# 2,048 points, device sampling):
+#   every step: device sampling's FPS over the 12 frames; the generator's 5
+#     kNN graphs (one [3B] batch: EdgeConv_0, the two IDGCN layers, the
+#     upsampler's two); the Chamfer's 2 nn1;
+#   the generator's pass of both critics (no gate: every step): the spatial
+#     critic's 3 FPS and 3 ball queries, the temporal critic's 2 stacked
+#     FPS, 6 ball queries (sa1 and sa2 per frame) and 3 flow kNN;
+#   critic update (even iterations): the temporal critic twice (fake, real),
+#     then the spatial critic twice. The action critics train on the plain
+#     grouped stacks: no pooled-MLP launch anywhere.
+ACTION_STEP_ALWAYS = {"fps": 1, "knn": 5, "nn1": 2}
+ACTION_STEP_G = {"fps": 5, "ball_query": 9, "knn": 3}
+ACTION_STEP_CRITICS = {"fps": 10, "ball_query": 18, "knn": 6}
+# With TPUGAN_FUSED_EDGECONV_TRAIN=1 the generator's 7 EdgeConvs run the
+# fused forward and backward kernels: 6 of each on the f32 register-tiled
+# forward and the redesigned backward, EdgeConv_0's class (1, 3, 64, 128) on
+# the general kernels (in neither F32_TILED_CLASSES nor
+# F32_TILED_BWD_CLASSES).
+ACTION_STEP_FUSED = {"edgeconv": 7, "edgeconv_bwd": 7, "edgeconv_f32t": 6,
+                     "edgeconv_bwd_tiled": 6}
+# After a checkpoint iteration (20001 and 20004 at the train_dir preset's
+# --ckpt_every 10000): the test split's 4 batches, one serving forward of
+# frame 0 each (5 kNN, 7 EdgeConvs, 6 of them f32t) and its Chamfer (2 nn1).
+ACTION_CKPT_EVAL = {"knn": 4 * 5, "edgeconv": 4 * 7, "edgeconv_f32t": 4 * 6,
+                    "nn1": 4 * 2}
+# Limit of the generator's gradients with the switch on against off (by
+# norm, as FUSED_GRAD_TOL; one state, one set of draws, the generator graphs
+# and the flow kNN replayed): about 5x the error measured on an NVIDIA H100
+# 80GB HBM3 at 700 W (1.83e-6, PERF.md section 6), so a fused
+# backward off by 1e-5 in any parameter fails; LOSSY_NBR_GRAD's control
+# measured 0.098.
+ACTION_FUSED_GRAD_TOL = 1e-5
+# The card-vs-CPU step (B = 4 clips of 3 frames of ACTION_CPU_POINTS, 64
+# inputs, iteration 20,002: both critics update), held as the fluid one.
+ACTION_CPU_POINTS = 1024
+ACTION_CARD_CPU_LOSS_TOL = 5e-3
+ACTION_CARD_CPU_CHANGE_TOL = {"sr": 0.02, "tempo": 0.1, "spatial": 0.1}
+# The action train step's kernel shapes, each weighted by its launches per
+# G+D step with the fused switch on:
+ACTION_TRAIN_KNN = [  # (graph, B, Nq, Nc, D, k, self, per G+D step)
+    ("generator EdgeConv_0", 12, 128, 128, 3, 20, True, 1),
+    ("generator IDGCN", 12, 128, 128, 32, 20, True, 2),
+    ("generator upsampler k=12", 12, 128, 128, 64, 12, True, 1),
+    ("generator upsampler k=4", 12, 128, 128, 64, 4, True, 1),
+    ("tempo flow embedding", 4, 256, 256, 3, 32, False, 9),
+]
+ACTION_TRAIN_FPS = [  # (stage, rows, N, m, per G+D step)
+    ("device sampling (12 frames)", 12, 2048, 128, 1),
+    ("spatial sa_0", 4, 2048, 512, 3),
+    ("spatial sa_1", 4, 512, 256, 3),
+    ("spatial sa_2", 4, 256, 128, 3),
+    ("tempo sa1 (3 frames stacked)", 12, 2048, 512, 3),
+    ("tempo sa2 (3 frames stacked)", 12, 512, 256, 3),
+]
+ACTION_TRAIN_BALL = [  # (stage, B, Nq, Nc, radius, nsample, per G+D step)
+    ("spatial sa_0", 4, 512, 2048, 0.3, 32, 3),
+    ("spatial sa_1", 4, 256, 512, 0.6, 32, 3),
+    ("spatial sa_2", 4, 128, 256, 1.0, 32, 3),
+    ("tempo sa1 (per frame)", 4, 512, 2048, 0.8, 64, 9),
+    ("tempo sa2 (per frame)", 4, 256, 512, 1.2, 32, 9),
+]
+# the Chamfer (both directions) and EdgeConv_0's general forward and
+# backward at 12 frames of 128 points, k = 20 (random and exact ties)
+ACTION_TRAIN_NN1 = ("action Chamfer", 4, 2048, 2048, 2)
+ACTION_TRAIN_EC0 = (3, 64, 128, 20, 12, 128)   # C, H, O, K, frames, points
+
+
+def check_action_train_kernels(torch, dev):
+    """The action train step's kernel shapes, each against its plain
+    version by the limits of its own rows: kNN at the generator's 12 x 128
+    graphs and the flow's k = 32 at B = 4; FPS at device sampling's 12 rows
+    of 2,048 -> 128 and every critic stage, index for index; the ball query
+    at the spatial critic's radii 0.3 / 0.6 / 1.0 and the temporal
+    critic's, bit for bit; nn1 at [4, 2,048]^2; EdgeConv_0's (1, 3, 64,
+    128) on the general forward and the general f32 backward (random and
+    exact ties). Its own generator keeps the other checks' data. Returns
+    {kernel: rows}, each row with ``per_action_step``."""
+    from tpugan_tpu_torch.ops.kernels import fps as F
+
+    rng = np.random.default_rng(20)
+    out = {k: [] for k in ("knn", "fps", "ball_query", "nn1", "edgeconv",
+                           "edgeconv_bwd")}
+
+    def add(kernel, row, per):
+        out[kernel].append(dict({"path": "action_train"}, **row,
+                                per_action_step=per))
+        emit({"phase": "kernel", "kernel": kernel, **out[kernel][-1]})
+
+    for graph, b, nq, nc, d, k, own, per in ACTION_TRAIN_KNN:
+        add("knn", dict(graph=graph, **_knn_row(
+            torch, dev, rng, f"action train {graph}", b, nq, nc, d, k, own,
+            0.2 if d == 3 else 1.0)), per)
+    for stage, b, n, m, per in ACTION_TRAIN_FPS:
+        pos = _cloud(torch, dev, rng, b, n, 3, scale=0.2)
+        pen = torch.zeros((b, n), device=dev)
+        start = torch.from_numpy(rng.integers(0, n, b)).to(dev)
+        add("fps", _fps_row(torch, F, f"action {stage}", b, n, m, pos, pen,
+                            start), per)
+    for stage, b, nq, nc, r, ns, per in ACTION_TRAIN_BALL:
+        add("ball_query", _ball_row(torch, dev, rng, f"action {stage}", b, nq,
+                                    nc, r, ns, scale=0.2, masked=False), per)
+    path, b, nq, m, per = ACTION_TRAIN_NN1
+    add("nn1", _nn1_row(torch, dev, rng, path, b, nq, m), per)
+    c, h, o, k, frames, n = ACTION_TRAIN_EC0
+    row = _edgeconv_row(torch, dev, rng, "action train EdgeConv_0",
+                        torch.float32, "f32", n, c, h, o, k, "max", True,
+                        b=frames)
+    if row["variant"] != "simt":
+        raise AssertionError(f"edgeconv action EdgeConv_0: {row['variant']}")
+    add("edgeconv", dict(config="action train EdgeConv_0", B=frames, N=n,
+                         **row), 1)
+    for ties in (False, True):
+        add("edgeconv_bwd", _edgeconv_bwd_row(
+            torch, dev, rng, "action EdgeConv_0" + (" exact ties" if ties
+                                                    else ""),
+            c, h, o, k, "max", True, "f32", ties, frames, n, False),
+            0 if ties else 1)
+    return out
+
+
+def action_batches(torch, dev, root, cfg, count, seed=1):
+    """``count`` device-sampling batches (``highres_pos`` [3, B, P, 3]) of
+    the MSR-schema set at ``root``, as the train CLI's loader draws them."""
+    from tpugan_tpu_torch.data.msr import (MSRAction3DDataset,
+                                           action_batch_iterator)
+
+    ds = MSRAction3DDataset(root, frames_per_clip=cfg.frames_per_clip,
+                            num_points=cfg.num_points, fps_ratio=cfg.fps_ratio,
+                            seed=seed, return_lowres=False)
+    it = action_batch_iterator(ds, cfg.batch_size, seed=seed)
+    return [{"highres_pos": torch.from_numpy(next(it)["highres_pos"]).to(dev)}
+            for _ in range(count)]
+
+
+class StepReplay:
+    """:class:`GraphReplay` over a whole action step: the generator's
+    graphs and the temporal critic's flow kNN, each recorded in one run and
+    replayed, in order, into the next."""
+
+    def __init__(self, torch):
+        self.graphs, self.flow = GraphReplay(torch), GraphReplay(torch, flow=True)
+
+    def record(self, call, *args):
+        return self.graphs.record(lambda *a: self.flow.record(call, *a), *args)
+
+    def replay(self, call, *args):
+        return self.graphs.replay(lambda *a: self.flow.replay(call, *a), *args)
+
+    def saved(self):
+        return self.graphs.saved(), self.flow.saved()
+
+    def restore(self, saved):
+        self.graphs.restore(saved[0])
+        self.flow.restore(saved[1])
+
+    @property
+    def swaps(self):
+        return {"graph": self.graphs.swaps, "flow": self.flow.swaps}
+
+
+def action_train(torch, dev, kernels, profile_dir=None):
+    """The action train CLI twin (``cli/train_action.main``, called as a
+    function) with TPUGAN_FUSED_EDGECONV_TRAIN=1, --preset train_dir
+    --device_sampling --synthetic, resumed from the action checkpoint for
+    iterations 20001-20004 (log dir runs/chip_smoke_train_action/). Counts
+    reset just before; each step's launches against ACTION_STEP_* (the
+    f32t forwards and redesigned backwards counted apart, no tensor-core
+    launch), the windows between steps against ACTION_CKPT_EVAL after a
+    checkpoint iteration (0 else); every loss finite; the last checkpoint
+    read back equal to the state in memory; ms per step by CUDA events
+    (G only on odd iterations, G+D on even), the peak device memory of the
+    CLI; then a profile of 2 more steps (device idle share). Returns the
+    phase's launches."""
+    import shutil
+
+    from tpugan_tpu_torch.checkpoint import load_action_trainer_state
+    from tpugan_tpu_torch.cli import train_action as cli
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+    from tpugan_tpu_torch.train.step import ActionGanStep
+
+    shutil.rmtree(ACTION_TRAIN_DIR, ignore_errors=True)
+    argv = ["--preset", "train_dir", "--device_sampling", "--synthetic",
+            "--resume", "--path_to_resume", ACTION_CHECKPOINT, "--iters",
+            str(ACTION_TRAIN_ITERS), "--log_dir", ACTION_TRAIN_DIR]
+    marks = []
+    tally = lambda: {**counts(kernels), "edgeconv_tc": E.TC_LAUNCHES,
+                     "edgeconv_f32t": E.F32_TILED_LAUNCHES,
+                     "edgeconv_bwd_tiled": E.F32_TILED_BWD_LAUNCHES}
+
+    def hook(event, n_iter, metrics):
+        if event in ("start", "end"):
+            torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((event, n_iter, tally(), ev, metrics,
+                      time.perf_counter()))
+
+    for k in kernels.values():
+        k.launches = 0
+    E.TC_LAUNCHES = E.F32_TILED_LAUNCHES = E.F32_TILED_BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ[cli.FUSED_SWITCH] = "1"
+    t0 = time.perf_counter()
+    try:
+        out = cli.main(argv, hook=hook)
+    finally:
+        del os.environ[cli.FUSED_SWITCH]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = tally()
+    for k in kernels.values():
+        k.launches = 0
+
+    ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= ACTION_TRAIN_ITERS
+    steps, prev_counts, prev_iter = [], {n: 0 for n in launches}, None
+    by = {}
+    for event, n_iter, c, ev, metrics, wall in marks:
+        by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
+    for n_iter in sorted(by):
+        m = by[n_iter]
+        between = delta(prev_counts, m["start"][0])
+        expect(between, ACTION_CKPT_EVAL if prev_iter and ckpt_iter(prev_iter)
+               else {}, f"action CLI before iteration {n_iter}")
+        metrics = m["end"][2]
+        d_update = n_iter % 2 == 0
+        want = {}
+        for part in [ACTION_STEP_ALWAYS, ACTION_STEP_G, ACTION_STEP_FUSED] + (
+                [ACTION_STEP_CRITICS] if d_update else []):
+            for name, v in part.items():
+                want[name] = want.get(name, 0) + v
+        got = delta(m["start"][0], m["end"][0])
+        expect(got, want, f"action train step {n_iter}")
+        for name, v in metrics.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"action step {n_iter}: {name} = {v}")
+        if (metrics["tempo_D_loss"] != 0.0) != d_update:
+            raise AssertionError(f"action step {n_iter}: critic update "
+                                 f"{metrics}")
+        start, gen, crit = m["start"][1], m["generator"][1], m["critics"][1]
+        steps.append(dict(iteration=n_iter, **metrics, critic_update=d_update,
+                          launches=got, ms=start.elapsed_time(crit),
+                          generator_ms=start.elapsed_time(gen),
+                          critics_ms=gen.elapsed_time(crit),
+                          wall_ms=(m["end"][3] - m["start"][3]) * 1e3))
+        emit({"phase": "train_action", **steps[-1]})
+        prev_counts, prev_iter = m["end"][0], n_iter
+    expect(delta(prev_counts, launches), ACTION_CKPT_EVAL,
+           "action CLI after the last step")
+    if [s["iteration"] for s in steps] != list(range(20001,
+                                                     ACTION_TRAIN_ITERS + 1)):
+        raise AssertionError(f"action CLI ran {[s['iteration'] for s in steps]}")
+    cfg = ActionTrainConfig(iters=ACTION_TRAIN_ITERS, device_sampling=True)
+    back = load_action_trainer_state(out["checkpoint"], cfg, dev)
+    differs = _state_equal(out["state"], back)
+    if differs is not None:
+        raise AssertionError(f"action checkpoint read back differs: {differs}")
+    test_cd = out["test_chamfer"]
+    if len(test_cd) != 2 or not all(np.isfinite(test_cd)):
+        raise AssertionError(f"action test Chamfer {test_cd}")
+    emit({"phase": "train_action",
+          "resumed_from": os.path.relpath(ACTION_CHECKPOINT, ROOT),
+          "checkpoint": os.path.relpath(out["checkpoint"], ROOT),
+          "checkpoint_read_back_equal": True, "test_chamfer": test_cd,
+          "steps": len(steps), "cli_s": total_s, "launches": launches,
+          "g_only_ms": [s["ms"] for s in steps if not s["critic_update"]],
+          "g_and_d_ms": [s["ms"] for s in steps if s["critic_update"]],
+          "peak_memory_gib": peak_gib})
+    batches = action_batches(torch, dev, os.path.join(ACTION_TRAIN_DIR,
+                                                      "synthetic_msr"), cfg, 2)
+    train_profile(torch, ActionGanStep(cfg), out["state"], batches,
+                  profile_dir, of="train_action")
+    return launches
+
+
+def action_fused_vs_grouped(torch, dev):
+    """One action step from the checkpoint (iteration 20,001: the
+    generator's update, through both critics' losses) with the same draws,
+    the switch off and on, the generator graphs and flow kNN of the first
+    replayed into the second: the losses to FUSED_LOSS_TOL relative, each
+    generator parameter's step gradient to ACTION_FUSED_GRAD_TOL of its
+    norm; a control step with the switch on and LOSSY_NBR_GRAD of every
+    EdgeConv's neighbour-table gradient dropped must fail that check. Then
+    ms per step of both, G only and G+D, in turns (:func:`switch_check`)."""
+    from tpugan_tpu_torch.checkpoint import load_action_trainer_state
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.models.discriminator import dropout_layers
+    from tpugan_tpu_torch.train.step import ActionGanStep, ActionStepDraws
+
+    cfg = ActionTrainConfig(iters=ACTION_TRAIN_ITERS, device_sampling=True)
+    steps = 4
+    batches = action_batches(torch, dev, os.path.join(ACTION_TRAIN_DIR,
+                                                      "synthetic_msr"), cfg,
+                             steps, seed=3)
+    load = lambda on: load_action_trainer_state(ACTION_CHECKPOINT, cfg, dev,
+                                                fused_train=on)
+    states = {on: load(on) for on in (False, True)}
+    layers = (dropout_layers(states[False].spatial.module),
+              dropout_layers(states[False].tempo.module))
+    draws = [ActionStepDraws.draw(
+        torch.Generator().manual_seed(3 + i), cfg,
+        tuple(batches[i]["highres_pos"].shape[:3]), *layers)
+        for i in range(steps)]
+    return switch_check(torch, ActionGanStep(cfg), states, load(True), batches,
+                        draws, StepReplay(torch), ACTION_FUSED_GRAD_TOL,
+                        "train_action_fused_vs_grouped")
+
+
+def action_card_vs_cpu(torch, dev):
+    """One action step (B = 4 clips of 3 frames of ACTION_CPU_POINTS;
+    iteration 20,002, so both critics update) from the checkpoint's state
+    and the same draws on the card and on the CPU (plain versions), the
+    card's generator graphs and flow kNN replayed on the CPU: the losses to
+    ACTION_CARD_CPU_LOSS_TOL relative, each parameter's change to
+    ACTION_CARD_CPU_CHANGE_TOL of its norm, Dense biases under a batch
+    norm to a zero gradient on both sides (as train_card_vs_cpu). Then the
+    card's step with the generator's adversarial losses cut to zero must
+    fail the generator's comparison: the check sees a lost adversarial
+    path."""
+    import tpugan_tpu_torch.train.step as step_mod
+    from tpugan_tpu_torch.checkpoint import load_action_trainer_state
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.models.discriminator import dropout_layers
+    from tpugan_tpu_torch.train.step import ActionGanStep, ActionStepDraws
+
+    cfg = ActionTrainConfig(iters=ACTION_TRAIN_ITERS, device_sampling=True,
+                            num_points=ACTION_CPU_POINTS)
+    batch = action_batches(torch, "cpu", os.path.join(ACTION_TRAIN_DIR,
+                                                      "synthetic_msr"), cfg,
+                           1, seed=5)[0]
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    states = {d: load_action_trainer_state(ACTION_CHECKPOINT, cfg, d)
+              for d in (dev, "cpu")}
+    states["no_adv"] = load_action_trainer_state(ACTION_CHECKPOINT, cfg, dev)
+    nets = ("sr", "tempo", "spatial")
+    for s in states.values():
+        s.n_iter += 1                                   # the step is even
+    before = {n: {k: v.detach().clone() for k, v in
+                  getattr(states["cpu"], n).module.named_parameters()}
+              for n in nets}
+    mu_before = {d: {n: {k: v.clone() for k, v in
+                         getattr(states[d], n).opt.mu.items()} for n in nets}
+                 for d in (dev, "cpu")}
+    draws = ActionStepDraws.draw(
+        torch.Generator().manual_seed(2), cfg,
+        tuple(batch["highres_pos"].shape[:3]),
+        dropout_layers(states["cpu"].spatial.module),
+        dropout_layers(states["cpu"].tempo.module))
+    step = ActionGanStep(cfg)
+    replay = StepReplay(torch)
+    t0 = time.perf_counter()
+    m_card = replay.record(step, states[dev], card_batch, draws)
+    t1 = time.perf_counter()
+    m_cpu = replay.replay(step, states["cpu"], batch, draws)
+    t2 = time.perf_counter()
+    own = step_mod.lsgan_generator_loss
+    step_mod.lsgan_generator_loss = lambda score, target: 0.0 * score.sum()
+    try:
+        step(states["no_adv"], card_batch, draws)
+    finally:
+        step_mod.lsgan_generator_loss = own
+    out = {"phase": "train_action_cpu", "batch": cfg.batch_size,
+           "points": cfg.num_points, "iteration": states["cpu"].n_iter,
+           "knn_tie_swaps": replay.swaps, "card_s": t1 - t0, "cpu_s": t2 - t1}
+    hold_card_to_cpu(out, states, dev, m_card, m_cpu, before, mu_before,
+                     ACTION_CARD_CPU_LOSS_TOL, ACTION_CARD_CPU_CHANGE_TOL)
+
+
 def add_action_units(line, act_rows, af_rows):
     """Into the kernel line's entries: each kernel's times per action demo
     frame and per ActionCls.infer batch at the action shapes (the rows of
@@ -3118,6 +3579,36 @@ def add_action_units(line, act_rows, af_rows):
                 af_rows, "per_check", "one call at each of sa_0 and group_all "
                 "(the fluid critics' shapes; no fluid path runs the affine "
                 "form)")
+
+
+def add_action_train_units(line, rows, launches):
+    """Into the kernel line's entries: each kernel's times per action G+D
+    train step with the fused switch (the rows of
+    check_action_train_kernels, weighted by ``per_action_step``) under
+    "action_train", their errors in max_abs_err; the EdgeConv entries'
+    action-train launches by variant (``launches``: the train_action
+    phase's)."""
+    per = ("one action G+D train step with the fused switch (4 clips x 3 "
+           "frames x 2,048 points)")
+    for entry in line["kernels"]:
+        rs = rows.get(entry["name"])
+        if not rs:
+            continue
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   max(r["max_abs_err"] for r in rs))
+        keys = [k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                            "library_ms") if all(r.get(k) is not None
+                                                 for r in rs)]
+        entry["action_train"] = {"times_are": per, **{
+            k: sum(r[k] * r["per_action_step"] for r in rs) for k in keys}}
+        if entry["name"] == "edgeconv":
+            entry["train_action_launches_by_variant"] = {
+                "f32t": launches["edgeconv_f32t"],
+                "simt": launches["edgeconv"] - launches["edgeconv_f32t"]}
+        if entry["name"] == "edgeconv_bwd":
+            entry["train_action_tiled_launches"] = launches["edgeconv_bwd_tiled"]
+            entry["train_action_general_launches"] = (
+                launches["edgeconv_bwd"] - launches["edgeconv_bwd_tiled"])
 
 
 def kernel_line(groups):
@@ -3257,6 +3748,7 @@ def main(argv=None) -> int:
     eb_rows = check_edgeconv_bwd(torch, dev, rng)
     af_rows, ab_rows = check_pooled_affine_bwd(torch, dev, rng)
     act_rows = check_action_kernels(torch, dev)
+    act_train_rows = check_action_train_kernels(torch, dev)
 
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
@@ -3320,13 +3812,21 @@ def main(argv=None) -> int:
         k.launches = 0
     tempo_launches = tempo_feat(torch, dev, kernels)
 
+    # the action GAN training: the CLI twin with the fused switch (counts
+    # reset inside, read after each step and after the CLI returns), then
+    # the switch's and the card-vs-CPU checks
+    action_train_launches = action_train(torch, dev, kernels, args.profile)
+    action_fused_vs_grouped(torch, dev)
+    action_card_vs_cpu(torch, dev)
+
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
                    "density": density_launches[n],
                    "serving_approx": serving_approx_launches[n],
                    "eval_approx": eval_approx_launches[n],
                    "action_serving": action_launches[n],
-                   "tempo_feat": tempo_launches[n]}
+                   "tempo_feat": tempo_launches[n],
+                   "train_action": action_train_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
@@ -3412,6 +3912,7 @@ def main(argv=None) -> int:
                 fused_launches["edgeconv_bwd"]
                 - fused_launches["edgeconv_bwd_tiled"])
     add_action_units(line, act_rows, af_rows)
+    add_action_train_units(line, act_train_rows, action_train_launches)
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

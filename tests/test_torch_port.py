@@ -15,15 +15,18 @@ import torch
 
 import tpugan_tpu_torch
 from tpugan_tpu_torch import PAD_SENTINEL
-from tpugan_tpu_torch.checkpoint import load_srnet
-from tpugan_tpu_torch.models.discriminator import ActionCls
+from tpugan_tpu_torch.checkpoint import load_action_trainer_state, load_srnet
+from tpugan_tpu_torch.config import ActionTrainConfig
+from tpugan_tpu_torch.models.discriminator import ActionCls, ActionSpatialDis
 from tpugan_tpu_torch.models.generator import (NoMaskSRNet, RolloutMaskState,
                                                SRNet)
 from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp, edgeconv,
                                           fps, interp, knn, nn1, pooled_mlp)
+from tpugan_tpu_torch.train.state import init_action_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "checkpoints", "fluid_vel_20k.ckpt")
+ACTION_CKPT = os.path.join(ROOT, "checkpoints", "action_tempo_20k.ckpt")
 
 
 def test_port_imports_no_jax():
@@ -40,7 +43,7 @@ def test_port_imports_no_jax():
         "'eval.analysis', 'cli.eval_fluid', 'ops.kernels.binned_interp', "
         "'ops.metrics', 'cli.train_fluid', 'train.checkpoint', "
         "'utils.logging', 'config', 'data.prefetch', 'data.msr', "
-        "'cli.action_demo', 'cli.eval_tempo_feat'):\n"
+        "'cli.action_demo', 'cli.eval_tempo_feat', 'cli.train_action'):\n"
         "    assert 'tpugan_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpugan_tpu')]\n"
@@ -58,7 +61,10 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: load_srnet(CKPT),
                  lambda: RolloutMaskState.create(1, 64),
                  lambda: NoMaskSRNet(in_feats=3),
-                 lambda: ActionCls(3)):
+                 lambda: ActionCls(3),
+                 lambda: ActionSpatialDis(),
+                 lambda: init_action_state(ActionTrainConfig()),
+                 lambda: load_action_trainer_state(ACTION_CKPT)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -633,6 +639,83 @@ def test_ball_query_kernel_matches_plain_on_card(card, gen):
     ik = ball_query.ball_query_kernel(q.to(card), c.to(card), 0.4, 32,
                                       bias.to(card))
     assert torch.equal(ik.cpu(), ball_query.ball_query_plain(q, c, 0.4, 32, bias))
+
+
+# The action GAN step's shapes (B = 4 clips of 3 frames, 2,048 high-res
+# points, 128 inputs; chip_smoke.py's action-train kernel rows)
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+def test_edgeconv_general_backward_at_action_class_on_card(card, gen, ties):
+    """EdgeConv_0 of the action generator under the fused switch, (mlp, C,
+    H, O) = (True, 3, 64, 128), 12 frames of 128 points, k = 20: not a
+    class of F32_TILED_BWD_CLASSES, so the general f32 backward (one BWD
+    launch, no redesigned one); every gradient to 1e-3 of its norm, as the
+    general kernel's test; duplicated planes split their cotangent
+    exactly."""
+    assert not edgeconv.takes_f32_tiled_bwd(torch.float32, True, 3, 64, 128)
+    t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
+    nbr = t(12, 20, 128, 3) * 0.2
+    if ties:
+        nbr[:, 1], nbr[:, 5] = nbr[:, 0], nbr[:, 3]
+    args = [nbr, t(12, 128, 3) * 0.2, t(3, 64) / 3 ** 0.5, t(3, 64) / 3 ** 0.5,
+            t(64, 64) / 8.0, t(64, 128) / 8.0, t(12, 128, 128)]
+    before = edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES
+    got = edgeconv.edgeconv_backward(*[a.to(card) for a in args], "max")
+    assert (edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES) == (
+        before[0] + 1, before[1])
+    want = edgeconv.edgeconv_backward_plain(*args, "max")
+    for a, w in zip(got, want):
+        a = a.cpu()
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert float((a - w).norm()) <= 1e-3 * float(w.norm())
+    if ties:
+        assert torch.equal(got[0][:, 1], got[0][:, 0])
+        assert torch.equal(got[0][:, 5], got[0][:, 3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m", [(12, 2048, 128), (4, 2048, 512),
+                                   (12, 2048, 512)])
+def test_fps_kernel_at_action_train_shapes_on_card(card, gen, b, n, m):
+    """Device sampling's 12 frames 2,048 -> 128, the spatial critic's 4
+    clips 2,048 -> 512 and the temporal critic's 12 frames: index for
+    index, from random starts."""
+    pos = torch.from_numpy((gen.standard_normal((b, n, 3)) * 0.2)
+                           .astype(np.float32))
+    pen = torch.zeros(b, n)
+    start = torch.from_numpy(gen.integers(0, n, b))
+    ik = fps.fps_kernel(pos.to(card), m, pen.to(card), start.to(card))
+    assert torch.equal(ik.cpu(), fps.fps_plain(pos, m, pen, start))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nc,radius", [(512, 2048, 0.3), (256, 512, 0.6),
+                                          (128, 256, 1.0)])
+def test_ball_query_kernel_at_action_spatial_stages_on_card(card, gen, nq, nc,
+                                                            radius):
+    """The action spatial critic's three stages (4 clips, nsample 32), the
+    queries a subset of the candidates: bit for bit."""
+    c = torch.from_numpy((gen.standard_normal((4, nc, 3)) * 0.2)
+                         .astype(np.float32))
+    q = c[:, :nq].contiguous()
+    bias = torch.zeros(4, nc)
+    ik = ball_query.ball_query_kernel(q.to(card), c.to(card), radius, 32,
+                                      bias.to(card))
+    assert torch.equal(ik.cpu(), ball_query.ball_query_plain(q, c, radius, 32,
+                                                             bias))
+
+
+@pytest.mark.gpu
+def test_nn1_kernel_at_action_chamfer_on_card(card, gen):
+    """The action step's Chamfer, 4 clips of 2,048 predicted points against
+    2,048 ground-truth points (both directions run this shape)."""
+    q = torch.from_numpy((gen.standard_normal((4, 2048, 3)) * 0.2)
+                         .astype(np.float32))
+    c = torch.from_numpy((gen.standard_normal((4, 2048, 3)) * 0.2)
+                         .astype(np.float32))
+    bias = torch.zeros(4, 2048)
+    d2k, ik = nn1.nn1_kernel(q.to(card), c.to(card), bias.to(card))
+    _assert_nn1_like_plain(q, c, bias, d2k.cpu(), ik.cpu(), False)
 
 
 def _approx_case(gen, case):

@@ -16,9 +16,11 @@ The layout mirrors the JAX package so each counterpart is found by path:
   nn/setconv.py          SetConv;  nn/flow.py  FlowEmbedding, FlowModule
   models/generator.py    SRNet, the mask-history ring; NoMaskSRNet (action)
   models/discriminator.py  the fluid spatial and temporal critics; the
-                         action temporal critic, ActionCls, the transfer
+                         action spatial and temporal critics, ActionCls,
+                         the transfer
   losses/                geometric and LSGAN losses
-  train/                 Adam with the staircase schedule, the fluid GAN step
+  train/                 Adam with the staircase schedule, the fluid and the
+                         action GAN steps, the checkpoint writer
   data/                  synthetic fluid sequences and action videos,
                          dataset, batches; data/msr.py: action clips;
                          data/sampling.py: host FPS, kd-tree patches,
@@ -26,10 +28,11 @@ The layout mirrors the JAX package so each counterpart is found by path:
   eval/rollout.py        the serving rollout loop
   eval/analysis.py       Chamfer / EMD / MMD metrics, cycle consistency,
                          particle densities, free-surface counts
-  cli/eval_fluid.py      the evaluation CLI; cli/action_demo.py,
-                         cli/eval_tempo_feat.py: the action twins
+  cli/eval_fluid.py      the evaluation CLI; cli/train_fluid.py, the fluid
+                         trainer; cli/action_demo.py, cli/eval_tempo_feat.py,
+                         cli/train_action.py: the action twins
   checkpoint.py          flax msgpack reader, SRNet, NoMaskSRNet, action
-                         critic and trainer-state bridges
+                         critic and trainer-state bridges (fluid and action)
 
 The package imports torch, numpy and scipy only. Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``; a wrapper around a

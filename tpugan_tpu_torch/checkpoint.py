@@ -13,9 +13,9 @@ into a ``state_dict``: the torch modules carry the flax scope names, so
 norm's ``a/SpectralNorm_0/Dense_0/kernel/u`` becomes ``a.SpectralNorm_0.u``.
 ``load_srnet`` builds the serving generator from a checkpoint,
 ``load_nomask_srnet`` the action workload's generator and
-``load_action_tempo_dis`` its temporal critic; ``load_trainer_state`` the
-whole fluid trainer (three networks, three Adam
-states, the iteration count).
+``load_action_tempo_dis`` its temporal critic; ``load_trainer_state`` and
+``load_action_trainer_state`` the whole fluid and action trainer (three
+networks, three Adam states, the iteration count).
 """
 
 from __future__ import annotations
@@ -217,6 +217,35 @@ def adam_from_flax(opt_state: Dict[str, Any], net) -> None:
     opt.sched_count = int(sched["count"])
 
 
+_TRAINER_ENTRIES = {"sr_net", "tempo_dis", "spatial_dis", "sr_optim",
+                    "tempo_optim", "spatial_optim", "n_iter"}
+
+
+def _load_trainer(path, cfg, sr_cls, critics, device, fused_train):
+    """The trainer state of a checkpoint (file or directory) as a
+    :class:`~tpugan_tpu_torch.train.state.GanTrainState`: the generator of
+    ``sr_cls`` shaped by its weights, ``critics`` (name -> module, built on
+    ``device``) filled from ``tempo_dis`` / ``spatial_dis``, the three Adam
+    states and ``n_iter``; learning rates and schedule from ``cfg``.
+    Raises on an unexpected entry, a leaf left over or a tensor left
+    unfilled."""
+    from tpugan_tpu_torch.train.state import trainer_state
+
+    tree = read_flax_msgpack(resolve_checkpoint(path))
+    extra = set(tree) - _TRAINER_ENTRIES
+    if extra:
+        raise ValueError(f"unexpected trainer-state entries {sorted(extra)}")
+    nets = {"sr": _generator(sr_cls, tree["sr_net"]["params"], device,
+                             dict(fused_train=fused_train)), **critics}
+    for name, flax_name in (("tempo", "tempo_dis"), ("spatial", "spatial_dis")):
+        nets[name].load_state_dict(state_dict_from_flax(
+            tree[flax_name], nets[name], flax_name))
+    state = trainer_state(cfg, int(tree["n_iter"]), nets)
+    for name in ("sr", "tempo", "spatial"):
+        adam_from_flax(tree[f"{name}_optim"], getattr(state, name))
+    return state
+
+
 def load_trainer_state(path, cfg=None, device=None, fused_train=False):
     """The whole fluid trainer state of a flax msgpack checkpoint (a file,
     or a directory through its ``latest_checkpoint.txt`` manifest):
@@ -231,30 +260,39 @@ def load_trainer_state(path, cfg=None, device=None, fused_train=False):
     from tpugan_tpu_torch import resolve_device
     from tpugan_tpu_torch.models.discriminator import (FluidSpatialDis,
                                                        FluidTempoDis)
-    from tpugan_tpu_torch.train.state import GanTrainState, NetState
+    from tpugan_tpu_torch.models.generator import SRNet
     from tpugan_tpu_torch.train.step import FluidTrainConfig
 
-    cfg = cfg or FluidTrainConfig()
     device = resolve_device(device)
-    path = resolve_checkpoint(path)
-    tree = read_flax_msgpack(path)
-    extra = set(tree) - {"sr_net", "tempo_dis", "spatial_dis", "sr_optim",
-                         "tempo_optim", "spatial_optim", "n_iter"}
-    if extra:
-        raise ValueError(f"unexpected trainer-state entries {sorted(extra)}")
-    sr = load_srnet(path, device=device, fused_train=fused_train)
-    nets = {"sr": sr, "tempo": FluidTempoDis(3, device=device),
-            "spatial": FluidSpatialDis(device=device)}
-    for name, flax_name in (("tempo", "tempo_dis"), ("spatial", "spatial_dis")):
-        nets[name].load_state_dict(state_dict_from_flax(
-            tree[flax_name], nets[name], flax_name))
-    d_lr = cfg.dis_lr_factor * cfg.lr
-    states = {}
-    for name, lr in (("sr", cfg.lr), ("tempo", d_lr), ("spatial", d_lr)):
-        states[name] = NetState.create(nets[name], lr, cfg.lr_decay_steps,
-                                       cfg.lr_decay_rate)
-        adam_from_flax(tree[f"{name}_optim"], states[name])
-    return GanTrainState(n_iter=int(tree["n_iter"]), **states)
+    return _load_trainer(path, cfg or FluidTrainConfig(), SRNet,
+                         {"tempo": FluidTempoDis(3, device=device),
+                          "spatial": FluidSpatialDis(device=device)},
+                         device, fused_train)
+
+
+def load_action_trainer_state(path, cfg=None, device=None, fused_train=False):
+    """The whole action trainer state of a flax msgpack checkpoint (a file,
+    or a directory through its manifest; the committed
+    ``checkpoints/action_tempo_20k.ckpt`` holds one at n_iter 20,000):
+    NoMaskSRNet, ActionTempoDis over ``cfg.frames_per_clip`` frames and
+    ActionSpatialDis (params, BatchNorm running moments, spectral-norm u /
+    sigma), their three Adam states and ``n_iter``, on ``device`` (the card
+    when None). ``cfg`` (an ``ActionTrainConfig``, its defaults when None)
+    gives the learning rates and schedule; ``fused_train`` goes to the
+    NoMaskSRNet. Raises on any leaf left over or tensor left unfilled."""
+    from tpugan_tpu_torch import resolve_device
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.models.discriminator import (ActionSpatialDis,
+                                                       ActionTempoDis)
+    from tpugan_tpu_torch.models.generator import NoMaskSRNet
+
+    cfg = cfg or ActionTrainConfig()
+    device = resolve_device(device)
+    return _load_trainer(path, cfg, NoMaskSRNet,
+                         {"tempo": ActionTempoDis(cfg.frames_per_clip,
+                                                  device=device),
+                          "spatial": ActionSpatialDis(device=device)},
+                         device, fused_train)
 
 
 def resolve_checkpoint(path) -> str:
@@ -278,11 +316,17 @@ def _generator_kwargs(params: Dict[str, Any]) -> Dict[str, int]:
         feature_extractor_depth=1 + sum(k.startswith("IDGCNLayer_") for k in fe))
 
 
-def _load_generator(cls, path, device, model_kwargs):
-    params = read_flax_msgpack(resolve_checkpoint(path))["sr_net"]["params"]
+def _generator(cls, params, device, model_kwargs):
+    """A generator of ``cls`` shaped by and loaded with ``params`` (a
+    checkpoint's ``sr_net/params``)."""
     model = cls(**_generator_kwargs(params), device=device, **model_kwargs)
     model.load_state_dict(srnet_params_from_flax(params, model), strict=True)
     return model
+
+
+def _load_generator(cls, path, device, model_kwargs):
+    params = read_flax_msgpack(resolve_checkpoint(path))["sr_net"]["params"]
+    return _generator(cls, params, device, model_kwargs)
 
 
 def load_srnet(path, device=None, **model_kwargs):

@@ -1,7 +1,8 @@
 """The critics (``tpugan_tpu/models/discriminator.py``): the fluid spatial
 critic on one frame and the fluid temporal critic over a frame window, with
-their scoring head; the action workload's temporal critic and the transfer
-classifier that probes its features (``ActionTempoDis``, ``ActionCls``,
+their scoring head; the action workload's spatial and temporal critics and
+the transfer classifier that probes the latter's features
+(``ActionSpatialDis``, ``ActionTempoDis``, ``ActionCls``,
 ``transfer_feature_extractor``). Channels-last; hard-masked (999-sentinel)
 generator outputs enter through ``valid`` masks of the first stage.
 
@@ -14,7 +15,7 @@ variant (``stack_frames`` / ``--fast_d``) is not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -85,7 +86,13 @@ class FCHead(nn.Module):
 
     def dropout_widths(self) -> List[int]:
         """Widths of the layers with dropout (one keep-mask each)."""
-        return [getattr(self, f"Dense_{i}").out_features
+        return [w for w, _ in self.dropout_layers()]
+
+    def dropout_layers(self) -> List[Tuple[int, float]]:
+        """(width, rate) of each layer with dropout, in call order: the
+        keep-masks ``keep`` takes are [B, width] multipliers drawn at that
+        rate (the action heads drop 0.3, then 0.1)."""
+        return [(getattr(self, f"Dense_{i}").out_features, p)
                 for i, p in enumerate(self.dropouts) if p > 0]
 
     def _dense(self, i, x, train):
@@ -198,6 +205,11 @@ def dropout_widths(model: nn.Module) -> List[int]:
     return model.fc.dropout_widths()
 
 
+def dropout_layers(model: nn.Module) -> List[Tuple[int, float]]:
+    """(width, rate) of a critic's dropout layers (``FCHead.dropout_layers``)."""
+    return model.fc.dropout_layers()
+
+
 class ActionTempoTower(nn.Module):
     """The tower shared by :class:`ActionTempoDis` and :class:`ActionCls`:
     two SSG stages per frame (ReLU; their FPS centres stacked over the
@@ -241,6 +253,40 @@ class ActionTempoTower(nn.Module):
 
 
 ACTION_FC_WIDTHS, ACTION_FC_DROPOUT = (256, 64), (0.3, 0.1)
+
+
+class ActionSpatialDis(nn.Module):
+    """Single-frame critic of the action workload (reference
+    discriminator.py:405-470): three spectral-normed SSG stages with ReLU
+    and no dummy masking (512 centres in radius 0.3, 256 in 0.6, 128 in
+    1.0, 32 samples each), a [256, 512] SA pooling and a spectral-normed
+    scoring head dropping 0.3 and 0.1. In training its SetConvs run the
+    plain grouped stacks (no ``fused_train``, as in the JAX package)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        kw = dict(generator=seeded(generator), device=resolve_device(device))
+        self.sa_0 = SetConv(3, [64, 64, 128], npoint=512, radius=0.3,
+                            nsample=32, **kw)
+        self.sa_1 = SetConv(128, [128, 128], npoint=256, radius=0.6,
+                            nsample=32, **kw)
+        self.sa_2 = SetConv(128, [128, 256], npoint=128, radius=1.0,
+                            nsample=32, **kw)
+        self.sa_pooling = SetConv(256, [256, 512], **kw)
+        self.fc = FCHead(512, ACTION_FC_WIDTHS, ACTION_FC_DROPOUT, **kw)
+
+    def forward(self, pos: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                train: bool = False, keep: Optional[List[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """pos [B, N, 3], valid [B, N] (the first stage's ball-query
+        candidates; its FPS masks nothing) -> scores [B, 1]."""
+        feature = None
+        for i, sa in enumerate((self.sa_0, self.sa_1, self.sa_2)):
+            pos, feature = sa(pos, pos if feature is None else feature,
+                              valid=valid if i == 0 else None, train=train)
+        _, feature = self.sa_pooling(pos, feature, train=train)
+        return self.fc(feature[:, 0, :], train, keep, generator)
 
 
 class ActionTempoDis(nn.Module):

@@ -215,19 +215,21 @@ class NoMaskSRNet(nn.Module):
     extractor and the offset head of :class:`SRNet`, no mask head; every
     copy is kept. ``graph_mode`` "dynamic" builds each layer's kNN graph
     from its own features; "static" one k=20 graph from the input feature,
-    which every layer reuses. f32; weights drawn as :class:`SRNet` draws
-    them."""
+    which every layer reuses. f32; ``fused_train`` as in :class:`SRNet`
+    (its 7 EdgeConvs train through the fused kernels and their backward);
+    weights drawn as :class:`SRNet` draws them."""
 
     def __init__(self, in_feats: int, node_emb_dim: int = 128,
                  upsample_ratio: int = 8, feature_extractor_depth: int = 3,
-                 graph_mode: str = "dynamic",
+                 graph_mode: str = "dynamic", fused_train: bool = False,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if graph_mode not in ("dynamic", "static"):
             raise ValueError(f"graph_mode {graph_mode!r}")
         self.in_feats, self.upsample_ratio = in_feats, upsample_ratio
         self.graph_mode = graph_mode
-        kw = dict(generator=seeded(generator), device=resolve_device(device))
+        kw = dict(fused_train=fused_train, generator=seeded(generator),
+                  device=resolve_device(device))
         self.feature_extractor = GCNFeatureExtractor(
             in_feats, feature_extractor_depth, node_emb_dim, **kw)
         enc = (feature_extractor_depth - 1) * node_emb_dim

@@ -12,10 +12,12 @@ staircase=True))`` step for step: its state is optax's chain, Adam's
 and a parameter without a gradient takes g = 0, as optax sees a zero
 gradient for a parameter the loss does not reach.
 
-:func:`init_fluid_state` builds a fresh trainer (``tpugan_tpu/train/step.py
-: init_fluid_state``): the three networks from a seed and zero Adam states,
-the generator at ``cfg.lr`` and the critics at ``cfg.dis_lr_factor *
-cfg.lr``, all with the staircase decay.
+:func:`init_fluid_state` and :func:`init_action_state` build a fresh
+trainer (``tpugan_tpu/train/step.py : init_fluid_state``,
+``init_action_state``): the three networks from a seed and zero Adam
+states, the generator at ``cfg.lr`` and the critics at ``cfg.dis_lr_factor
+* cfg.lr``, all with the staircase decay of ``cfg.lr_decay_steps`` and
+``cfg.lr_decay_rate``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ class Adam:
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
 
     def learning_rate(self) -> float:
+        if self.decay_steps <= 0 or self.decay_rate == 0:
+            return self.lr     # optax.exponential_decay's constant schedule
         return self.lr * self.decay_rate ** (self.sched_count // self.decay_steps)
 
     @torch.no_grad()
@@ -89,7 +93,9 @@ class NetState:
 
 @dataclasses.dataclass
 class GanTrainState:
-    """The three networks of the fluid GAN and the iteration count."""
+    """The three networks of a GAN trainer and the iteration count: the
+    fluid workload's SRNet, FluidTempoDis and FluidSpatialDis, or the
+    action workload's NoMaskSRNet, ActionTempoDis and ActionSpatialDis."""
 
     n_iter: int
     sr: NetState
@@ -110,14 +116,47 @@ def init_fluid_state(cfg, seed: int = 0, device=None,
 
     device = resolve_device(device)
     gens = [torch.Generator().manual_seed(seed + i) for i in range(3)]
-    nets = {
+    return trainer_state(cfg, 0, {
         "sr": SRNet(in_feats=cfg.in_node_feats, node_emb_dim=cfg.node_embedding,
                     upsample_ratio=cfg.upsample_ratio, fused_train=fused_train,
                     generator=gens[0], device=device),
         "tempo": FluidTempoDis(3, generator=gens[1], device=device),
-        "spatial": FluidSpatialDis(generator=gens[2], device=device)}
+        "spatial": FluidSpatialDis(generator=gens[2], device=device)})
+
+
+def init_action_state(cfg, seed: int = 1, device=None,
+                      fused_train: bool = False) -> GanTrainState:
+    """A fresh action trainer of ``cfg`` (an ``ActionTrainConfig``):
+    NoMaskSRNet of its widths and depth (``fused_train``: see
+    :class:`NoMaskSRNet`), ActionTempoDis over ``cfg.frames_per_clip``
+    frames and ActionSpatialDis, weights drawn from ``seed`` on the CPU,
+    zero Adam states, ``n_iter`` 0, on ``device`` (the card when None)."""
+    from tpugan_tpu_torch import resolve_device
+    from tpugan_tpu_torch.models.discriminator import (ActionSpatialDis,
+                                                       ActionTempoDis)
+    from tpugan_tpu_torch.models.generator import NoMaskSRNet
+
+    device = resolve_device(device)
+    gens = [torch.Generator().manual_seed(seed + i) for i in range(3)]
+    return trainer_state(cfg, 0, {
+        "sr": NoMaskSRNet(cfg.in_node_feats, node_emb_dim=cfg.node_embedding,
+                          upsample_ratio=cfg.upsample_ratio,
+                          feature_extractor_depth=cfg.feature_extractor_depth,
+                          fused_train=fused_train, generator=gens[0],
+                          device=device),
+        "tempo": ActionTempoDis(cfg.frames_per_clip, generator=gens[1],
+                                device=device),
+        "spatial": ActionSpatialDis(generator=gens[2], device=device)})
+
+
+def trainer_state(cfg, n_iter: int, nets: Dict[str, nn.Module]
+                  ) -> GanTrainState:
+    """A :class:`GanTrainState` of ``nets`` ({"sr", "tempo", "spatial"})
+    with fresh Adam states: the generator at ``cfg.lr``, the critics at
+    ``cfg.dis_lr_factor * cfg.lr``, both decaying by ``cfg.lr_decay_rate``
+    every ``cfg.lr_decay_steps``."""
     d_lr = cfg.dis_lr_factor * cfg.lr
-    return GanTrainState(n_iter=0, **{
+    return GanTrainState(n_iter=n_iter, **{
         name: NetState.create(net, cfg.lr if name == "sr" else d_lr,
                               cfg.lr_decay_steps, cfg.lr_decay_rate)
         for name, net in nets.items()})

@@ -1,7 +1,8 @@
-"""The fluid GAN train step (``tpugan_tpu/train/step.py :
-make_fluid_gan_step``, sequential-critic path) and its helpers.
+"""The fluid and the action GAN train steps (``tpugan_tpu/train/step.py :
+make_fluid_gan_step`` and ``make_action_gan_step``, sequential-critic
+paths) and their helpers.
 
-One step, in order:
+One fluid step, in order:
 
 * the low-res inputs: with ``device_sampling``, FPS of each item's centre
   frame (the same indices for all three frames) from a random start, plus
@@ -27,6 +28,23 @@ Every random number of a step comes from one :class:`StepDraws`: drawn from
 a ``torch.Generator`` by default, or given (a test rebuilds the JAX step's
 draws and hands them over). The step's only host synchronisations are the
 gate and the per-step metrics.
+
+The action GAN step (``make_action_gan_step``), :class:`ActionGanStep`,
+is not the fluid step with a flag:
+
+* device sampling is one FPS over the flattened [F*B] clip frames, each
+  from its own random start (independent per frame), and no jitter;
+* the generator (NoMaskSRNet) runs the F frames as one batch, the Chamfer
+  loss on the centre frame with the masking loss pinned at 1.0; there is
+  no gate, so both critics' generator losses run on every iteration: the
+  spatial critic on the shuffled centre frame, the temporal critic on
+  every frame shuffled (the centre frame too);
+* on even iterations, unless ``freeze_D``: the temporal and then the
+  spatial critic's update on (fake, real), with no rotations, the spatial
+  update's fake cloud the centre frame under a fresh permutation;
+* six dropout draws, one per critic call, at the heads' two rates.
+
+Its random numbers come from an :class:`ActionStepDraws`.
 """
 
 from __future__ import annotations
@@ -41,7 +59,8 @@ from tpugan_tpu_torch import DT
 from tpugan_tpu_torch.losses.gan import (lsgan_discriminator_loss,
                                          lsgan_generator_loss, lsgan_labels)
 from tpugan_tpu_torch.losses.geometry import tpugan_sr_loss
-from tpugan_tpu_torch.models.discriminator import (dropout_multipliers,
+from tpugan_tpu_torch.models.discriminator import (dropout_layers,
+                                                   dropout_multipliers,
                                                    dropout_widths)
 from tpugan_tpu_torch.ops.interpolate import (cubic_interpolation,
                                               cubic_interpolation_dense)
@@ -370,3 +389,161 @@ class FluidGanStep:
                 "masking_loss": float(ml.detach()),
                 "spatial_G_loss": float(spatial_loss.detach()),
                 "spatial_D_loss": float(s_loss.detach()), "gate": gate}
+
+
+# ---------------------------------------------------------------- action
+
+@dataclasses.dataclass
+class ActionStepDraws:
+    """Every random number of one action step.
+
+    labels: (valid, invalid) LSGAN labels; perms: point permutations
+    [F, nr] of the frames for the temporal critic's generator pass; sp_perm:
+    [nr], the spatial critic's; sp_target / tp_target: the generator's
+    LSGAN targets; sp_perm_d: [nr], the spatial update's fake cloud;
+    fps_start: [F*B] device sampling's starts (frame-major rows); keep:
+    dropout multipliers by critic call (``StepDraws.CALLS``), one list
+    each, drawn at each layer's own rate (see ``FCHead``; all ones turn
+    dropout off).
+    """
+
+    labels: tuple
+    perms: torch.Tensor
+    sp_perm: torch.Tensor
+    sp_target: float
+    tp_target: float
+    sp_perm_d: torch.Tensor
+    fps_start: torch.Tensor
+    keep: Dict[str, List[torch.Tensor]]
+
+    CALLS = StepDraws.CALLS
+
+    @classmethod
+    def draw(cls, gen: torch.Generator, cfg, shape,
+             spatial_layers: List[tuple], tempo_layers: List[tuple]
+             ) -> "ActionStepDraws":
+        """Draws on the CPU from ``gen`` for a batch of ``shape`` (F, B, M)
+        (frames, clips, high-res points); ``*_layers``: each critic's
+        dropout layers, (width, rate) (``dropout_layers``)."""
+        f, b, m = shape
+        nr = cfg.lowres_size * cfg.upsample_ratio
+        target = lambda: float(0.8 + 0.4 * torch.rand(1, generator=gen))
+        return cls(
+            labels=lsgan_labels(gen),
+            perms=torch.stack([torch.randperm(nr, generator=gen)
+                               for _ in range(f)]),
+            sp_perm=torch.randperm(nr, generator=gen),
+            sp_target=target(), tp_target=target(),
+            sp_perm_d=torch.randperm(nr, generator=gen),
+            fps_start=torch.randint(0, m, (f * b,), generator=gen),
+            keep={c: [dropout_multipliers((b, w), p, gen) for w, p in
+                      (spatial_layers if c.startswith("spatial")
+                       else tempo_layers)]
+                  for c in cls.CALLS})
+
+    def to(self, device) -> "ActionStepDraws":
+        return dataclasses.replace(
+            self, perms=self.perms.to(device), sp_perm=self.sp_perm.to(device),
+            sp_perm_d=self.sp_perm_d.to(device),
+            fps_start=self.fps_start.to(device),
+            keep={c: [m.to(device) for m in ms] for c, ms in self.keep.items()})
+
+
+def device_sample_frames(highres_pos: torch.Tensor, n_low: int,
+                         start: torch.Tensor) -> torch.Tensor:
+    """Per-frame FPS of every frame of every clip, independently, as one
+    call over the [F*B] rows from ``start`` [F*B]; [F, B, M, 3] ->
+    [F, B, n_low, 3]."""
+    f, b, m = highres_pos.shape[:3]
+    flat = highres_pos.reshape(f * b, m, 3)
+    idx = fps(flat, n_low, start=start)                         # [F*B, n]
+    low = torch.gather(flat, 1, idx[:, :, None].expand(-1, -1, 3))
+    return low.reshape(f, b, n_low, 3)
+
+
+class ActionGanStep:
+    """``step(state, batch, draws=None, mark=None)`` runs one action train
+    step in place on ``state`` (a :class:`GanTrainState` of NoMaskSRNet,
+    ActionTempoDis and ActionSpatialDis) and returns its five metrics as
+    floats. ``batch`` holds ``highres_pos`` [F, B, M, 3] (and
+    ``lowres_pos`` [F, B, n, 3] without device sampling) on the networks'
+    device; ``cfg`` is an ``ActionTrainConfig``; ``draws`` defaults to
+    ``ActionStepDraws.draw(generator)``; ``mark`` as for
+    :class:`FluidGanStep`."""
+
+    def __init__(self, cfg, generator: Optional[torch.Generator] = None):
+        self.cfg = cfg
+        self.generator = generator or torch.Generator().manual_seed(0)
+
+    def __call__(self, state: GanTrainState, batch: Dict[str, torch.Tensor],
+                 draws: Optional[ActionStepDraws] = None,
+                 mark: Optional[Callable[[str], None]] = None
+                 ) -> Dict[str, float]:
+        cfg = self.cfg
+        sr, tempo, spatial = (state.sr.module, state.tempo.module,
+                              state.spatial.module)
+        dev = next(sr.parameters()).device
+        highres_pos = batch["highres_pos"]
+        f, b, m = highres_pos.shape[:3]
+        if draws is None:
+            draws = ActionStepDraws.draw(self.generator, cfg, (f, b, m),
+                                         dropout_layers(spatial),
+                                         dropout_layers(tempo))
+        draws = draws.to(dev)
+        cur_iter = state.n_iter + 1
+        valid_lbl, invalid_lbl = draws.labels
+        n = cfg.lowres_size
+        if cfg.device_sampling and "lowres_pos" not in batch:
+            lowres_pos = device_sample_frames(highres_pos, n, draws.fps_start)
+        else:
+            lowres_pos = batch["lowres_pos"]
+
+        # ----- generator update: no gate, both critics every iteration
+        flat = lowres_pos.reshape((f * b,) + lowres_pos.shape[2:])
+        out, _ = sr(flat, flat, train=True)
+        pred = out.reshape((f, b) + out.shape[1:])
+        position_loss, cd, _ = tpugan_sr_loss(0, highres_pos[1], pred[1], None,
+                                              None, 0.0, cur_iter)
+        sp_fake = spatial(pred[1][:, draws.sp_perm], None, train=True,
+                          keep=draws.keep["spatial_g"])
+        spatial_loss = lsgan_generator_loss(sp_fake, draws.sp_target)
+        # every frame shuffled for the temporal critic (reference
+        # train_step_final.py:270-274)
+        pred_seq = torch.stack([pred[i][:, draws.perms[i]] for i in range(f)])
+        tp_fake = tempo(list(pred_seq), cfg.R, valid_lst=None, train=True,
+                        keep=draws.keep["tempo_g"])
+        tempo_loss = lsgan_generator_loss(tp_fake, draws.tp_target)
+        sr_loss = tempo_loss + spatial_loss + cfg.w * position_loss
+        state.sr.opt.step(state.sr.grads(sr_loss))
+        if mark is not None:
+            mark("generator")
+
+        # ----- critic updates (every 2nd iteration)
+        zero = torch.zeros((), device=dev)
+        t_loss = s_loss = zero
+        if cur_iter % 2 == 0 and not cfg.freeze_D:
+            pred_seq, pred_center = pred_seq.detach(), pred[1].detach()
+            fake = tempo(list(pred_seq), cfg.R, valid_lst=None, train=True,
+                         keep=draws.keep["tempo_fake"])
+            true = tempo(list(highres_pos), cfg.R, valid_lst=None, train=True,
+                         keep=draws.keep["tempo_real"])
+            t_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
+                                              invalid_lbl)
+            state.tempo.opt.step(state.tempo.grads(t_loss))
+
+            fake = spatial(pred_center[:, draws.sp_perm_d], None, train=True,
+                           keep=draws.keep["spatial_fake"])
+            true = spatial(highres_pos[1], None, train=True,
+                           keep=draws.keep["spatial_real"])
+            s_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
+                                              invalid_lbl)
+            state.spatial.opt.step(state.spatial.grads(s_loss))
+
+        if mark is not None:
+            mark("critics")
+        state.n_iter = cur_iter
+        return {"tempo_G_loss": float(tempo_loss.detach()),
+                "tempo_D_loss": float(t_loss.detach()),
+                "Chamfer_distance_no_norm": float(cd.detach()),
+                "spatial_G_loss": float(spatial_loss.detach()),
+                "spatial_D_loss": float(s_loss.detach())}
