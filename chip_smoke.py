@@ -207,7 +207,34 @@ Phases, one JSON line each (``phase`` names it):
            against ACTION_FUSED_GRAD_TOL with a lossy control that must fail
            it; then one step on the card and on the CPU from the same state
            and draws, the updates by norm, and a card step without the
-           generator's adversarial losses that must fail the comparison.
+           generator's adversarial losses that must fail the comparison;
+  kernel   (fluid demo) kNN at the f32 dynamic forward's five graph shapes
+           and the f32 EdgeConv forward at its six classes over 512 inputs,
+           nn1 at 4,096 points both ways; each against its plain version
+           (run with the kernel checks above);
+  rollout_cli with the launch counts reset: the rollout CLI twin
+           (cli/rollout.main, called as a function) on the checkpoint with
+           --use_vel over its synthetic sequence of 25 frames of 10,240
+           particles, f32 dynamic and bf16 static through the
+           device-resident rollout, bf16 static through the host pipeline
+           with --export_bgeo, and f32 dynamic with --approx_graph
+           (runs/chip_smoke_rollout_cli/); each run's launches a frame (7
+           kNN and 9 f32t EdgeConvs; 1 kNN and 9 tensor-core EdgeConvs; 7
+           approximate kNN and 9 f32t EdgeConvs), the switch off again
+           after the approximate run, the host pipeline's frames equal to
+           the device path's bit for bit, every bf16 static and every
+           approximate frame against the f32 dynamic one under GATE, every
+           bgeo read back equal to its npy; frames/s, ms a frame in events
+           and in device time;
+  bench_metrics with the launch counts reset: the bench_metrics twin at
+           its defaults (8 x 79,872, 100 auction rounds), its nn1 launches
+           and auction rounds; nn1 on its own clouds against the plain
+           version both ways, and a kernel row at that shape;
+  fluid_demo with the launch counts reset: the fluid demo twin with the
+           checkpoint and --use_vel at its defaults (24 frames of 4,096
+           synthetic particles, runs/chip_smoke_fluid_demo/), launches
+           against FLUID_DEMO_FRAME a frame, the mean normalised Chamfer
+           and the wall time.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -798,16 +825,22 @@ NN1_SHAPES = [
 ]
 
 
-def _nn1_row(torch, dev, rng, path, b, nq, m, masked=0, q_tail=0):
+def _nn1_row(torch, dev, rng, path, b, nq, m, masked=0, q_tail=0,
+             clouds=None):
     """nn1 against its plain version: distances and the tie rule as in
     :func:`check_knn` over the live queries; no index may point into a
     masked tail; sentinel queries (the 999 rows of a padded prediction) to
     1e-5 of their distance. With its launch plan, the device time of the
-    wrapper's launches and whether two launches agree bit for bit."""
+    wrapper's launches and whether two launches agree bit for bit. The
+    clouds are drawn from ``rng`` unless given (``clouds``: query and
+    candidate arrays of the row's shapes)."""
     from tpugan_tpu_torch.ops.kernels import nn1 as N1
 
-    q_np = (rng.standard_normal((b, nq, 3)) * 0.3).astype(np.float32)
-    c_np = (rng.standard_normal((b, m, 3)) * 0.3).astype(np.float32)
+    if clouds is None:
+        q_np = (rng.standard_normal((b, nq, 3)) * 0.3).astype(np.float32)
+        c_np = (rng.standard_normal((b, m, 3)) * 0.3).astype(np.float32)
+    else:
+        q_np, c_np = (np.array(a, np.float32) for a in clouds)
     live = nq - q_tail
     q_np[:, live:] = 999.0
     q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
@@ -3547,6 +3580,299 @@ def action_card_vs_cpu(torch, dev):
                      ACTION_CARD_CPU_LOSS_TOL, ACTION_CARD_CPU_CHANGE_TOL)
 
 
+# ------------------------------------- the fluid serving and data surfaces
+
+ROLLOUT_CLI_DIR = os.path.join(ROOT, "runs", "chip_smoke_rollout_cli")  # gitignored
+FLUID_DEMO_DIR = os.path.join(ROOT, "runs", "chip_smoke_fluid_demo")    # gitignored
+ROLLOUT_CLI_FRAMES = 25
+# The rollout CLI's three runs on its synthetic sequence of N_POINTS
+# particles a frame (a multiple of the rollout's ALIGN: no padding rows),
+# one frame of input a forward: (name, flags, the mode's launches a frame,
+# of which tensor-core and f32 register-tiled EdgeConvs), read off
+# models/generator.py: the f32 dynamic forward's 7 graphs and 9 EdgeConvs,
+# every one on the f32 register-tiled kernel; the bf16 static forward's one
+# graph and 9 EdgeConvs, every one on the tensor-core kernel. With
+# --approx_graph every graph of the f32 dynamic forward takes the
+# approximate kNN (a frame's 10,240 rows are a multiple of 128).
+ROLLOUT_CLI_RUNS = [
+    ("f32_dynamic", [], {"knn": 7, "edgeconv": 9}, 0, 9),
+    ("bf16_static", ["--compute_dtype", "bf16", "--graph_mode", "static"],
+     {"knn": 1, "edgeconv": 9}, 9, 0),
+    ("bf16_static_host", ["--compute_dtype", "bf16", "--graph_mode",
+                          "static", "--host_pipeline", "--export_bgeo"],
+     {"knn": 1, "edgeconv": 9}, 9, 0),
+    ("f32_dynamic_approx", ["--approx_graph"],
+     {"knn_approx": 7, "edgeconv": 9}, 0, 9),
+]
+# bench_metrics at its defaults: 8 x 79,872 points, 10 reps, 100 auction
+# rounds. The Chamfer's nn1 launches: 2 a call, a warm-up and max(3, reps)
+# timed calls; the EMD's: one nearest-target nn1 over the batch a call (the
+# one-phase auction's fallback), a warm-up and EMD_REPS timed calls.
+BENCH_BATCH, BENCH_POINTS, BENCH_REPS = 8, 79872, 10
+BENCH_EMD_POINTS = 79872
+# Launches per fluid demo frame (f32 dynamic SRNet on 512 FPS inputs of a
+# 4,096-particle frame): 7 graphs, 9 EdgeConvs (all f32 register-tiled),
+# the normalised Chamfer (2 nn1).
+FLUID_DEMO_FRAMES = 24
+FLUID_DEMO_POINTS = 4096
+FLUID_DEMO_FRAME = {"knn": 7, "edgeconv": 9, "nn1": 2}
+
+
+def check_surface_kernels(torch, dev):
+    """The kernels at the fluid demo's shapes, each against its plain version
+    by the limits of its serving rows: kNN at the f32 dynamic forward's five
+    graph shapes over 512 inputs, the f32 EdgeConv forward at its six
+    classes over 512 points, nn1 at the demo's Chamfer (4,096 points both
+    ways, the most a frame keeps). Weighted per demo frame. Its own
+    generator keeps the other checks' data. Returns {kernel: rows}."""
+    rng = np.random.default_rng(21)
+    n = FLUID_DEMO_POINTS // 8
+    out = {"knn": [], "edgeconv": [], "nn1": []}
+    for path, b, _, _, d, k, own, per, *_ in KNN_SHAPES:
+        if path != "serving":
+            continue
+        row = _knn_row(torch, dev, rng, "fluid_demo", b, n, n, d, k, own,
+                       0.3 if d == 3 else 1.0)
+        out["knn"].append(dict(path="fluid_demo", per_demo_frame=per, **row))
+        emit({"phase": "kernel", "kernel": "knn", **out["knn"][-1]})
+    for name, c, h, o, k, agg, mlp, per in EDGECONV_SHAPES:
+        row = _edgeconv_row(torch, dev, rng, name, torch.float32, "f32", n,
+                            c, h, o, k, agg, mlp)
+        out["edgeconv"].append(dict(config=f"fluid_demo {name}", N=n,
+                                    per_forward=0, per_demo_frame=per, **row))
+        emit({"phase": "kernel", "kernel": "edgeconv", **out["edgeconv"][-1]})
+    out["nn1"].append(dict(_nn1_row(torch, dev, rng, "fluid_demo", 1,
+                                    FLUID_DEMO_POINTS, FLUID_DEMO_POINTS),
+                           per_demo_frame=2))
+    emit({"phase": "kernel", "kernel": "nn1", **out["nn1"][-1]})
+    return out
+
+
+def rollout_cli(torch, dev, kernels):
+    """With the counts reset by the caller: the rollout CLI twin
+    (cli/rollout.main, called as a function) on the trained checkpoint
+    (--use_vel --in_node_feats 6) over its synthetic sequence of 25 frames
+    of N_POINTS particles, four runs (ROLLOUT_CLI_RUNS: f32 dynamic and
+    bf16 static through the device-resident rollout, bf16 static through
+    the host pipeline with bgeo, f32 dynamic with --approx_graph), outputs
+    under runs/chip_smoke_rollout_cli/; each run's launches against its
+    mode's a frame, and the approximate switch off after every run; the
+    host pipeline's frames equal to the device path's bit for bit; each
+    bf16 static and each approximate frame against the f32 dynamic one
+    under GATE (the Chamfer over the f32 frame's points times their mean
+    squared distance to their centroid: the serving gate's normalisation
+    for a cloud not centred at 0); every pred_{i}.bgeo read back equal to
+    pred_{i}.npy. Then, past the counted runs, ms a frame of each device
+    run's rollout (the CLI's dispatch, copies included) in CUDA events and
+    in device time. Returns the phase's launches."""
+    import shutil
+
+    from tpugan_tpu_torch.cli import rollout as cli
+    from tpugan_tpu_torch.data.bgeo import read_bgeo
+    from tpugan_tpu_torch.ops import neighbors
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+    from tpugan_tpu_torch.ops.metrics import chamfer
+
+    frames = ROLLOUT_CLI_FRAMES
+    base = ["--ckpt", CHECKPOINT, "--use_vel", "--in_node_feats", "6",
+            "--synthetic", "--synthetic_particles", str(N_POINTS),
+            "--num_frames", str(frames)]
+    line = {"phase": "rollout_cli", "frames": frames, "points": N_POINTS}
+    preds, c_start = {}, counts(kernels)
+    for name, extra, per, tc, ft in ROLLOUT_CLI_RUNS:
+        out_dir = os.path.join(ROLLOUT_CLI_DIR, name)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        c0, tc0, ft0 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
+        res = cli.main(base + extra + ["--out_dir", out_dir])
+        torch.cuda.synchronize()
+        if neighbors.APPROX_GRAPH_KNN:
+            raise AssertionError(f"rollout CLI {name}: the approximate "
+                                 "graph kNN left on")
+        got = delta(c0, counts(kernels))
+        expect(got, {k: v * frames for k, v in per.items()},
+               f"rollout CLI {name}")
+        expect({"tc": E.TC_LAUNCHES - tc0, "f32t": E.F32_TILED_LAUNCHES - ft0},
+               {"tc": tc * frames, "f32t": ft * frames},
+               f"rollout CLI {name} EdgeConv variants")
+        preds[name] = [np.load(os.path.join(out_dir, f"pred_{i}.npy"))
+                       for i in range(frames)]
+        for p in preds[name]:
+            if not (N_POINTS <= p.shape[0] <= 8 * N_POINTS
+                    and np.isfinite(p).all()):
+                raise AssertionError(f"rollout CLI {name}: a frame of "
+                                     f"{p.shape}")
+        line[name] = {"launches": got, "frames_per_s": res["frames_per_s"],
+                      "seconds": res["seconds"], "device": res["device"],
+                      "points_out_first_last": [int(preds[name][0].shape[0]),
+                                                int(preds[name][-1].shape[0])]}
+    launches = delta(c_start, counts(kernels))
+
+    host_equal = all(np.array_equal(a, b) for a, b in
+                     zip(preds["bf16_static"], preds["bf16_static_host"]))
+    gates = {"bf16_static": [], "f32_dynamic_approx": []}
+    for name, got in gates.items():
+        for a, b in zip(preds["f32_dynamic"], preds[name]):
+            ta = torch.from_numpy(a).to(dev)[None]
+            tb = torch.from_numpy(b).to(dev)[None]
+            scale = float(((ta - ta.mean(1, keepdim=True)) ** 2).sum(-1)
+                          .mean())
+            with torch.no_grad():
+                got.append(float(chamfer(ta, tb)[0]) / (a.shape[0] * scale))
+    bgeo_equal = True
+    for i, p in enumerate(preds["bf16_static_host"]):
+        pos, attrs = read_bgeo(os.path.join(ROLLOUT_CLI_DIR,
+                                            "bf16_static_host",
+                                            f"pred_{i}.bgeo"))
+        bgeo_equal &= bool(np.array_equal(pos, p) and attrs == {})
+    worst = {f"{name}_vs_f32_dynamic_max": max(g) for name, g in gates.items()}
+    line.update(host_pipeline_equals_device=host_equal, gate=GATE,
+                bgeo_reads_back_equal=bgeo_equal, **worst)
+    if not (host_equal and max(worst.values()) < GATE and bgeo_equal):
+        raise AssertionError(f"rollout CLI: {line}")
+
+    for name, extra, *_ in ROLLOUT_CLI_RUNS:
+        if "--host_pipeline" in extra:
+            continue
+        opt = cli.parser().parse_args(base + extra)
+        model, _ = cli.build_model(opt, dev)
+        seq = cli.load_frames(opt)
+        run = lambda: cli.run_rollout(model, seq, opt)
+        ms = time_ms(run, torch, reps=3, warmup=1) / frames
+        dev_ms = device_ms(run, torch, reps=1) / frames
+        line[name].update(ms_per_frame=ms, device_ms_per_frame=dev_ms,
+                          device_idle_share=1.0 - dev_ms / ms)
+    emit(line)
+    return launches
+
+
+def bench_metrics_phase(torch, dev, kernels):
+    """With the counts reset by the caller: the bench_metrics twin at its
+    defaults (BENCH_BATCH x BENCH_POINTS, 100 auction rounds; the EMD at
+    BENCH_EMD_POINTS), its launches against the counts above, the rounds
+    its auctions bid (ops/metrics.py : auction_rounds); then, past the
+    counted run, nn1 on the harness's own clouds against its plain version
+    both ways (to 1e-5 of 2 max |p|^2 a distance, the tie rule of the nn1
+    rows; the Chamfer of each item to the sum of those limits), and an nn1
+    row at this shape for the kernel line. Returns (launches, nn1 row)."""
+    import tpugan_tpu_torch.ops.metrics as metrics
+    from tpugan_tpu_torch.cli import bench_metrics
+    from tpugan_tpu_torch.ops.kernels import nn1 as N1
+
+    c0 = counts(kernels)
+    metrics.auction_rounds = 0
+    t0 = time.perf_counter()
+    lines = bench_metrics.main([
+        "--batch", str(BENCH_BATCH), "--points", str(BENCH_POINTS),
+        "--emd_points", str(BENCH_EMD_POINTS), "--reps", str(BENCH_REPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = delta(c0, counts(kernels))
+    calls = 1 + bench_metrics.EMD_REPS
+    expect(launches, {"nn1": 2 * (1 + max(3, BENCH_REPS)) + calls},
+           "bench_metrics")
+
+    x, y = bench_metrics.clouds(BENCH_BATCH, BENCH_POINTS, dev)
+    bias = torch.zeros((BENCH_BATCH, BENCH_POINTS), device=dev)
+    tol = 1e-5 * 2 * float(max((x * x).sum(-1).max(), (y * y).sum(-1).max()))
+    cd_k = cd_p = 0
+    errs, gaps = [], []
+    with torch.no_grad():
+        for q, c in ((x, y), (y, x)):
+            dk, ik = N1.nn1_kernel(q, c, bias)
+            dp, ip = N1.nn1_plain(q, c, bias)
+            errs.append(float((dk - dp).abs().max()))
+            gaps.append(index_gaps(q.cpu().numpy(), c.cpu().numpy(), ik, ip)[1])
+            cd_k = cd_k + dk.double().sum(-1)
+            cd_p = cd_p + dp.double().sum(-1)
+    cd_err = float((cd_k - cd_p).abs().max())
+    cd_tol = 2 * BENCH_POINTS * tol
+    line = {"phase": "bench_metrics", "batch": BENCH_BATCH,
+            "points": BENCH_POINTS, "emd_points": BENCH_EMD_POINTS,
+            "metrics": lines, "wall_s": wall, "launches": launches,
+            "auction_calls": calls,
+            "auction_rounds_per_call": metrics.auction_rounds / calls,
+            "nn1_max_abs_err": max(errs), "nn1_tol": tol,
+            "nn1_max_tie_gap": max(gaps), "chamfer_max_abs_err": cd_err,
+            "chamfer_tol": cd_tol,
+            "chamfer_rel_err": float(((cd_k - cd_p).abs() / cd_p).max())}
+    if not (max(errs) <= tol and max(gaps) <= 2 * tol and cd_err <= cd_tol):
+        raise AssertionError(f"bench_metrics Chamfer vs plain: {line}")
+    emit(line)
+    row = dict(_nn1_row(torch, dev, None, "bench_metrics", BENCH_BATCH,
+                        BENCH_POINTS, BENCH_POINTS,
+                        clouds=(x.cpu().numpy(), y.cpu().numpy())),
+               per_bench_chamfer=2)
+    emit({"phase": "kernel", "kernel": "nn1", **row})
+    return launches, row
+
+
+def fluid_demo_phase(torch, kernels):
+    """With the counts reset by the caller: the fluid demo twin
+    (cli/fluid_demo.main, called as a function) with the trained checkpoint
+    and --use_vel at its defaults (24 synthetic frames of 4,096 particles,
+    seed 7; outputs under runs/chip_smoke_fluid_demo/), its launches
+    against FLUID_DEMO_FRAME a frame, every Chamfer finite. Returns the
+    phase's launches."""
+    from tpugan_tpu_torch.cli import fluid_demo
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+
+    c0, tc0, ft0 = counts(kernels), E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
+    t0 = time.perf_counter()
+    res = fluid_demo.main(["--ckpt", CHECKPOINT, "--use_vel", "--num_frames",
+                           str(FLUID_DEMO_FRAMES), "--out_dir",
+                           FLUID_DEMO_DIR])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = delta(c0, counts(kernels))
+    expect(launches, {k: v * FLUID_DEMO_FRAMES
+                      for k, v in FLUID_DEMO_FRAME.items()}, "fluid demo")
+    expect({"tc": E.TC_LAUNCHES - tc0, "f32t": E.F32_TILED_LAUNCHES - ft0},
+           {"f32t": FLUID_DEMO_FRAME["edgeconv"] * FLUID_DEMO_FRAMES},
+           "fluid demo EdgeConv variants")
+    line = {"phase": "fluid_demo", "frames": res["frames"],
+            "rollout_s": res["seconds"], "wall_s": wall,
+            "chamfer_mean": res["chamfer_mean"],
+            "chamfer_min_max": [min(res["chamfers"]), max(res["chamfers"])],
+            "launches": launches}
+    if not (res["frames"] == FLUID_DEMO_FRAMES
+            and np.isfinite(res["chamfers"]).all()):
+        raise AssertionError(f"fluid demo: {line}")
+    emit(line)
+    return launches
+
+
+def add_surface_units(line, rows, bench_row):
+    """Into the kernel line's entries: each kernel's times per fluid demo
+    frame (the rows of check_surface_kernels, weighted by per_demo_frame)
+    under "fluid_demo", nn1's per bench_metrics Chamfer under
+    "bench_metrics", their errors in max_abs_err; the rollout CLI's frames
+    are serving forwards at N_POINTS (the serving rows' shapes)."""
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
+
+    def totals(rs, weight, per):
+        return {"times_are": per, **{
+            k: sum(r[k] * r[weight] for r in rs) for k in keys
+            if all(r.get(k) is not None for r in rs)}}
+
+    for entry in line["kernels"]:
+        rs = rows.get(entry["name"])
+        if rs:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["max_abs_err"] for r in rs))
+            entry["fluid_demo"] = totals(
+                rs, "per_demo_frame", "one fluid demo frame (f32 dynamic, "
+                "512 inputs -> 4,096 slots, and its 4,096-point Chamfer)")
+        if entry["name"] == "nn1":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       bench_row["max_abs_err"])
+            entry["bench_metrics"] = totals(
+                [bench_row], "per_bench_chamfer", "one bench_metrics Chamfer "
+                "(8 x 79,872 points, both directions)")
+        if entry["name"] in ("knn", "edgeconv"):
+            entry["rollout_cli_shapes"] = ("the serving rows (frames of "
+                                           f"{N_POINTS} points)")
+
+
 def add_action_units(line, act_rows, af_rows):
     """Into the kernel line's entries: each kernel's times per action demo
     frame and per ActionCls.infer batch at the action shapes (the rows of
@@ -3749,6 +4075,7 @@ def main(argv=None) -> int:
     af_rows, ab_rows = check_pooled_affine_bwd(torch, dev, rng)
     act_rows = check_action_kernels(torch, dev)
     act_train_rows = check_action_train_kernels(torch, dev)
+    surface_rows = check_surface_kernels(torch, dev)
 
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
@@ -3819,6 +4146,18 @@ def main(argv=None) -> int:
     action_fused_vs_grouped(torch, dev)
     action_card_vs_cpu(torch, dev)
 
+    # the fluid serving and data surfaces: the rollout CLI, bench_metrics
+    # and the fluid demo (counts reset before each, read inside)
+    for k in kernels.values():
+        k.launches = 0
+    rollout_cli_launches = rollout_cli(torch, dev, kernels)
+    for k in kernels.values():
+        k.launches = 0
+    bench_launches, bench_row = bench_metrics_phase(torch, dev, kernels)
+    for k in kernels.values():
+        k.launches = 0
+    demo_launches = fluid_demo_phase(torch, kernels)
+
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
                    "density": density_launches[n],
@@ -3826,7 +4165,10 @@ def main(argv=None) -> int:
                    "eval_approx": eval_approx_launches[n],
                    "action_serving": action_launches[n],
                    "tempo_feat": tempo_launches[n],
-                   "train_action": action_train_launches[n]}
+                   "train_action": action_train_launches[n],
+                   "rollout_cli": rollout_cli_launches[n],
+                   "bench_metrics": bench_launches[n],
+                   "fluid_demo": demo_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
@@ -3913,6 +4255,7 @@ def main(argv=None) -> int:
                 - fused_launches["edgeconv_bwd_tiled"])
     add_action_units(line, act_rows, af_rows)
     add_action_train_units(line, act_train_rows, action_train_launches)
+    add_surface_units(line, surface_rows, bench_row)
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

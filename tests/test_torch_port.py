@@ -16,6 +16,8 @@ import torch
 import tpugan_tpu_torch
 from tpugan_tpu_torch import PAD_SENTINEL
 from tpugan_tpu_torch.checkpoint import load_action_trainer_state, load_srnet
+from tpugan_tpu_torch.cli import bench_metrics, fluid_demo
+from tpugan_tpu_torch.cli import rollout as rollout_cli
 from tpugan_tpu_torch.config import ActionTrainConfig
 from tpugan_tpu_torch.models.discriminator import ActionCls, ActionSpatialDis
 from tpugan_tpu_torch.models.generator import (NoMaskSRNet, RolloutMaskState,
@@ -43,7 +45,10 @@ def test_port_imports_no_jax():
         "'eval.analysis', 'cli.eval_fluid', 'ops.kernels.binned_interp', "
         "'ops.metrics', 'cli.train_fluid', 'train.checkpoint', "
         "'utils.logging', 'config', 'data.prefetch', 'data.msr', "
-        "'cli.action_demo', 'cli.eval_tempo_feat', 'cli.train_action'):\n"
+        "'cli.action_demo', 'cli.eval_tempo_feat', 'cli.train_action', "
+        "'data.bgeo', 'datagen', 'datagen.mesh', 'datagen.scene_gen', "
+        "'datagen.process', 'datagen.splishsplash_config', 'cli.rollout', "
+        "'cli.bench_metrics', 'cli.fluid_demo', 'cli.sim_fluid_sequence'):\n"
         "    assert 'tpugan_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpugan_tpu')]\n"
@@ -64,7 +69,10 @@ def test_entry_points_need_a_card(monkeypatch):
                  lambda: ActionCls(3),
                  lambda: ActionSpatialDis(),
                  lambda: init_action_state(ActionTrainConfig()),
-                 lambda: load_action_trainer_state(ACTION_CKPT)):
+                 lambda: load_action_trainer_state(ACTION_CKPT),
+                 lambda: rollout_cli.main(["--ckpt", CKPT]),
+                 lambda: bench_metrics.main([]),
+                 lambda: fluid_demo.main(["--ckpt", CKPT])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -70,4 +70,10 @@ def resolve_device(device=None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
+def device_name(device: torch.device) -> str:
+    """The name results carry: the CUDA card's, or "cpu"."""
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
 __version__ = "0.1.0"

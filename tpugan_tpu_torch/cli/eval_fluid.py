@@ -66,9 +66,11 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def _generator(opt, device, compute_dtype, graph_mode):
+def generator_for_flags(opt, device, compute_dtype, graph_mode, seed):
     """(SRNet of the flags, checkpoint path or None): the checkpoint's
-    weights (which must have the flags' widths), or seeded random ones."""
+    weights (which must have the widths of ``opt.in_node_feats``,
+    ``opt.node_embedding`` and ``opt.upsample_ratio``), or random ones drawn
+    from a generator seeded ``seed`` without ``opt.ckpt``."""
     import torch
 
     from tpugan_tpu_torch.checkpoint import load_srnet, resolve_checkpoint
@@ -79,7 +81,7 @@ def _generator(opt, device, compute_dtype, graph_mode):
                      node_emb_dim=opt.node_embedding,
                      upsample_ratio=opt.upsample_ratio,
                      compute_dtype=compute_dtype, graph_mode=graph_mode,
-                     generator=torch.Generator().manual_seed(opt.seed),
+                     generator=torch.Generator().manual_seed(seed),
                      device=device), None
     path = resolve_checkpoint(opt.ckpt)
     model = load_srnet(path, device=device, compute_dtype=compute_dtype,
@@ -132,10 +134,11 @@ def _evaluate(opt, on_sample):
                           jitter=0.0, seed=opt.seed, emit_lowres=True)
 
     compute_dtype = torch.bfloat16 if opt.compute_dtype == "bf16" else None
-    model, path = _generator(opt, dev, compute_dtype, opt.graph_mode)
+    model, path = generator_for_flags(opt, dev, compute_dtype,
+                                      opt.graph_mode, opt.seed)
     if path:
         print(f"restored generator from {path}")
-    exact = (_generator(opt, dev, None, "dynamic")[0]
+    exact = (generator_for_flags(opt, dev, None, "dynamic", opt.seed)[0]
              if opt.agreement_vs_exact else None)
 
     def sr_apply(feature, pos):
