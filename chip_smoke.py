@@ -234,7 +234,36 @@ Phases, one JSON line each (``phase`` names it):
            checkpoint and --use_vel at its defaults (24 frames of 4,096
            synthetic particles, runs/chip_smoke_fluid_demo/), launches
            against FLUID_DEMO_FRAME a frame, the mean normalised Chamfer
-           and the wall time.
+           and the wall time;
+  kernel   (fast_d) FPS, the ball query and the flow kNN at the shapes the
+           critics' stacked applies give them (FAST_D_FPS, FAST_D_BALL,
+           FAST_D_KNN: [2B] and frame-stacked rows, FPS mask-aware on the
+           fake half's rows), each index for index against its plain
+           version, with its launch plan, device time and two launches bit
+           for bit (run with the kernel checks above);
+  fast_d_critics the checkpoints' critics at full width, spectral norm
+           frozen: (a) the fluid temporal critic's frame-stacked apply
+           against its per-frame loop, (b) the action tower on [fake; real]
+           under stat_groups(2) against two applies, (c) the fluid spatial
+           critic on [fake; real] under stat_groups(2) (the plain stack, no
+           pooled-MLP launch) against two calls on the pooled-MLP kernel;
+           scores and every running moment against the FAST_D_* tolerances,
+           and the stacked apply with G = 1 as a control that must fail;
+  train_fast_d with the launch counts reset: the train CLI twin with
+           --fast_d and TPUGAN_FUSED_EDGECONV_TRAIN=1, --preset train_vel
+           --device_sampling --synthetic, resumed from the checkpoint for
+           iterations 20001-20004 (runs/chip_smoke_train_fast_d/): each
+           step's launches against STEP_GATE_FAST_D / STEP_CRITICS_FAST_D,
+           every loss finite, the critics' parameters moved exactly on the
+           critic updates, the last checkpoint read back equal, ms per step
+           (G only and G+D), the peak memory; then fast-d and sequential
+           steps in turns from one state and one set of draws (ms, and a
+           profile of 2 more steps of each: device time, idle share), and
+           one fast-d step on the card and on the CPU (StepReplay), the
+           updates by norm;
+  train_action_fast_d the same with the action CLI twin (--preset
+           train_dir, checkpoints/action_tempo_20k.ckpt,
+           runs/chip_smoke_train_action_fast_d/, ACTION_STEP_*_FAST_D).
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -3580,6 +3609,659 @@ def action_card_vs_cpu(torch, dev):
                      ACTION_CARD_CPU_LOSS_TOL, ACTION_CARD_CPU_CHANGE_TOL)
 
 
+# ------------------------------------- the stacked-critic train path (fast_d)
+
+FAST_D_DIR = os.path.join(ROOT, "runs", "chip_smoke_train_fast_d")   # gitignored
+ACTION_FAST_D_DIR = os.path.join(ROOT, "runs",
+                                 "chip_smoke_train_action_fast_d")    # gitignored
+FAST_D_ITERS = 20004
+# Launches per step with --fast_d, read off tpugan_tpu_torch/train/step.py
+# and models/discriminator.py (the wrappers count one per call):
+#   fluid, gate open: the spatial critic's generator pass as without fast_d
+#     (3 FPS, 3 ball queries, 4 pooled-MLP forwards and backwards), the
+#     dense interp, the temporal critic's frames stacked: 2 FPS and 2 ball
+#     queries (sa1 and sa2 once each), 3 flow kNN;
+#   fluid critic update: one temporal apply on [fake; real] with the frames
+#     stacked (2 FPS, 2 ball queries, 3 flow kNN on [2B] rows) and one
+#     spatial apply on [fake; real] (3 FPS, 3 ball queries), whose stages
+#     take the plain stack under stat_groups(2): no pooled-MLP launch;
+#   action generator pass: the spatial critic's 3 FPS and 3 ball queries,
+#     the stacked temporal critic's 2 and 2 and 3 flow kNN; its critic
+#     update: the same counts on [2B] rows.
+STEP_GATE_FAST_D = {"fps": 5, "ball_query": 5, "pooled_mlp_fwd": 4,
+                    "pooled_mlp_bwd": 4, "interp": 1, "knn": 3}
+STEP_CRITICS_FAST_D = {"fps": 5, "ball_query": 5, "knn": 3}
+ACTION_STEP_G_FAST_D = {"fps": 5, "ball_query": 5, "knn": 3}
+ACTION_STEP_CRITICS_FAST_D = {"fps": 5, "ball_query": 5, "knn": 3}
+# The shapes that stacking gives the kernels (B = 4), each with its launches
+# per fast-d G+D step of the fluid and of the action workload; the shapes
+# the fast-d step shares with the sequential one are the kernel rows above.
+# (The generator pass's frame-stacked FPS is the sequential step's own,
+# _stacked_fps: FPS_SHAPES and ACTION_TRAIN_FPS hold it.)
+FAST_D_FPS = [  # (stage, rows, N, m, rows masked, per fluid, per action)
+    ("fluid tempo sa1 update (fake; real)", 24, 9216, 1024, 12, 1, 0),
+    ("fluid tempo sa2 update (fake; real)", 24, 1024, 256, 0, 1, 0),
+    ("fluid spatial sa_0 update (fake; real)", 8, 9216, 1024, 4, 1, 0),
+    ("fluid spatial sa_1 update (fake; real)", 8, 1024, 512, 0, 1, 0),
+    ("fluid spatial sa_2 update (fake; real)", 8, 512, 128, 0, 1, 0),
+    ("action tempo sa1 update (fake; real)", 24, 2048, 512, 0, 0, 1),
+    ("action tempo sa2 update (fake; real)", 24, 512, 256, 0, 0, 1),
+    ("action spatial sa_0 update (fake; real)", 8, 2048, 512, 0, 0, 1),
+    ("action spatial sa_1 update (fake; real)", 8, 512, 256, 0, 0, 1),
+    ("action spatial sa_2 update (fake; real)", 8, 256, 128, 0, 0, 1),
+]
+FAST_D_BALL = [  # (stage, B, Nq, Nc, radius, nsample, scale, per fluid,
+    #               per action)
+    ("fluid tempo sa1 (frames stacked)", 12, 1024, 9216, 0.10, 32, 0.3, 1, 0),
+    ("fluid tempo sa2 (frames stacked)", 12, 256, 1024, 0.20, 32, 0.3, 1, 0),
+    ("fluid tempo sa1 update (fake; real)", 24, 1024, 9216, 0.10, 32, 0.3,
+     1, 0),
+    ("fluid tempo sa2 update (fake; real)", 24, 256, 1024, 0.20, 32, 0.3,
+     1, 0),
+    ("fluid spatial sa_0 update (fake; real)", 8, 1024, 9216, 0.15, 32, 0.3,
+     1, 0),
+    ("fluid spatial sa_1 update (fake; real)", 8, 512, 1024, 0.30, 32, 0.3,
+     1, 0),
+    ("fluid spatial sa_2 update (fake; real)", 8, 128, 512, 0.60, 16, 0.3,
+     1, 0),
+    ("action tempo sa1 (frames stacked)", 12, 512, 2048, 0.8, 64, 0.2, 0, 2),
+    ("action tempo sa2 (frames stacked)", 12, 256, 512, 1.2, 32, 0.2, 0, 2),
+    ("action tempo sa1 update (fake; real)", 24, 512, 2048, 0.8, 64, 0.2,
+     0, 1),
+    ("action tempo sa2 update (fake; real)", 24, 256, 512, 1.2, 32, 0.2,
+     0, 1),
+    ("action spatial sa_0 update (fake; real)", 8, 512, 2048, 0.3, 32, 0.2,
+     0, 1),
+    ("action spatial sa_1 update (fake; real)", 8, 256, 512, 0.6, 32, 0.2,
+     0, 1),
+    ("action spatial sa_2 update (fake; real)", 8, 128, 256, 1.0, 32, 0.2,
+     0, 1),
+]
+# the flow embeddings' kNN on the stacked update's [2B] rows of the 256 sa2
+# centres (3 a G+D step of each workload)
+FAST_D_KNN = ("flow embedding update (fake; real)", 8, 256, 256, 3, 32, 3, 3)
+# fast_d_critics: stacked against sequential applies with the checkpoints'
+# critic weights, spectral norm frozen. Scores to FAST_D_SCORE_TOL of
+# max(1, |score|), running moments to FAST_D_BN_TOL of max(1, |moment|)
+# (the action tower's under FAST_D_BN_ORDER_TOL: the stacked apply steps
+# its averages frame-major over (fake, real), the sequential applies
+# source-major, as in the JAX package's tests/test_fast_d.py).
+FAST_D_SCORE_TOL = 1e-3
+FAST_D_BN_TOL = 1e-4
+FAST_D_BN_ORDER_TOL = 5e-3
+# The fast-d card-vs-CPU step: B = 4 (at 2 the heads' batch norms over
+# two items amplify f32 noise past the tolerances, see
+# tests/test_torch_fast_d.py) of 1,024-point patches.
+FAST_D_CPU_BATCH = 4
+
+
+def _fps_half_masked(torch, dev, rng, rows, n, masked):
+    """(pos, penalty, start) of a stacked FPS stage whose first ``masked``
+    rows (the fake half) carry a hard-masked tail (the last n // 8 points
+    at 999 and -1e10), the rest none."""
+    pos = _cloud(torch, dev, rng, rows, n, 3)
+    pen = torch.zeros((rows, n), device=dev)
+    cut = n - n // 8
+    pen[:masked, cut:] = -1e10
+    pos[:masked, cut:] = 999.0
+    start = torch.from_numpy(rng.integers(0, cut, rows)).to(dev)
+    return pos, pen, start
+
+
+def check_fast_d_kernels(torch, dev):
+    """The kernels at the shapes stacking gives them: FPS (mask-aware on
+    the fake half's rows), the ball query and the flow kNN on [2B] rows,
+    each against its plain version index for index (kNN within f32 ties),
+    with its launch plan, its device time and two launches bit for bit.
+    Returns {kernel: rows}, each row with ``per_fast_d_step`` and
+    ``per_action_fast_d_step``."""
+    from tpugan_tpu_torch.ops.kernels import fps as F
+    from tpugan_tpu_torch.ops.kernels import knn as K
+
+    rng = np.random.default_rng(22)
+    out = {"fps": [], "ball_query": [], "knn": []}
+
+    def add(kernel, row, per, per_action):
+        out[kernel].append(dict({"path": "fast_d"}, **row,
+                                per_fast_d_step=per,
+                                per_action_fast_d_step=per_action))
+        emit({"phase": "kernel", "kernel": kernel, **out[kernel][-1]})
+
+    for stage, rows, n, m, masked, per, per_a in FAST_D_FPS:
+        pos, pen, start = _fps_half_masked(torch, dev, rng, rows, n, masked)
+        row = _fps_row(torch, F, stage, rows, n, m, pos, pen, start)
+        again = [F.fps_kernel(pos, m, pen, start) for _ in range(2)]
+        row["repeat_bit_equal"] = bool(torch.equal(*again))
+        row["masked_rows"] = masked
+        if not row["repeat_bit_equal"]:
+            raise AssertionError(f"fps {stage}: two launches differ")
+        add("fps", row, per, per_a)
+    for stage, b, nq, nc, r, ns, scale, per, per_a in FAST_D_BALL:
+        # every ninth candidate masked on the fluid rows, as check_ball_query
+        add("ball_query", _ball_row(torch, dev, rng, stage, b, nq, nc, r, ns,
+                                    scale=scale, masked=per > 0), per, per_a)
+    graph, b, nq, nc, d, k, per, per_a = FAST_D_KNN
+    row = _knn_row(torch, dev, rng, graph, b, nq, nc, d, k, False, 0.2)
+    q = _cloud(torch, dev, rng, b, nq, d, scale=0.2)
+    c = _cloud(torch, dev, rng, b, nc, d, scale=0.2)
+    bias = torch.zeros((b, nc), device=dev)
+    again = [K.knn_kernel(q, c, bias, k)[1] for _ in range(2)]
+    run = lambda: K.knn_kernel(q, c, bias, k)
+    # csrc/knn.cu: 4 queries a warp, 256 threads a block
+    add("knn", dict(graph=graph, **row, threads=256, queries_a_block=32,
+                    blocks=-(-nq // 32) * b, device_ms=device_ms(run, torch),
+                    repeat_bit_equal=bool(torch.equal(*again))), per, per_a)
+    if not out["knn"][-1]["repeat_bit_equal"]:
+        raise AssertionError("knn fast_d: two launches differ")
+    return out
+
+
+class frozen_spectral_norm:
+    """Spectral norms that use their one power step but never store it, so
+    every call sees the same normalised weights: a stacked apply advances
+    each once, the sequential calls once each."""
+
+    def __enter__(self):
+        from tpugan_tpu_torch.nn.layers import SpectralNorm
+
+        self.cls, self.own = SpectralNorm, SpectralNorm.forward
+        SpectralNorm.forward = lambda m, w, update_stats: self.own(m, w, False)
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.own
+
+
+class pooled_moments:
+    """Runs the critics' stacked applies with G = 1 (the lossy control):
+    every ``stat_groups`` a module enters keeps 1 group, so each batch norm
+    pools the moments of all the stacked calls."""
+
+    def __enter__(self):
+        import tpugan_tpu_torch.models.discriminator as disc
+        import tpugan_tpu_torch.train.step as step_mod
+        from tpugan_tpu_torch.nn.layers import stat_groups
+
+        self.mods, self.own = (disc, step_mod), stat_groups
+        for m in self.mods:
+            m.stat_groups = lambda n: stat_groups(1)
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.stat_groups = self.own
+
+
+def _rel_err(got, want):
+    """max |got - want| / max(1, max |want|)."""
+    want = want.detach().float()
+    return float((got.detach().float() - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def _bn_errors(module, ref):
+    """Largest ``_rel_err`` of each BatchNorm running moment of two modules,
+    and its key."""
+    a, b = module.state_dict(), ref.state_dict()
+    errs = {k: _rel_err(a[k], b[k]) for k in a
+            if k.endswith((".mean", ".var"))}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _critic_case(name, stacked, sequential, lossy, bn_tol):
+    """The row of one fast_d_critics check: ``stacked``, ``sequential`` and
+    ``lossy`` are (scores, module) after their applies; raises unless the
+    stacked apply holds the tolerances and the lossy control fails them."""
+    score_err = _rel_err(stacked[0], sequential[0])
+    bn_err, bn_key = _bn_errors(stacked[1], sequential[1])
+    lossy_score = _rel_err(lossy[0], sequential[0])
+    lossy_bn, _ = _bn_errors(lossy[1], sequential[1])
+    row = {"phase": "fast_d_critics", "check": name,
+           "score_rel_err": score_err, "score_tol": FAST_D_SCORE_TOL,
+           "bn_rel_err": bn_err, "bn_worst": bn_key, "bn_tol": bn_tol,
+           "lossy_score_rel_err": lossy_score, "lossy_bn_rel_err": lossy_bn}
+    emit(row)
+    if score_err > FAST_D_SCORE_TOL or bn_err > bn_tol:
+        raise AssertionError(f"fast_d_critics {name}: {row}")
+    if lossy_score <= FAST_D_SCORE_TOL and lossy_bn <= bn_tol:
+        raise AssertionError(f"fast_d_critics {name}: the G = 1 control "
+                             f"passes: {row}")
+    return row
+
+
+def fast_d_critics(torch, dev):
+    """Stacked against sequential critic applies at full width with the
+    checkpoints' critic weights, spectral norm frozen, dropout off, train
+    mode: (a) the fluid temporal critic's frame-stacked apply against its
+    per-frame loop on 4 x 3 frames of 9,216 points (each frame rotated, as
+    the critic update rotates them, a hard-masked tail on every frame);
+    (b) the action temporal tower on [fake; real] under stat_groups(2)
+    against its two sequential applies (4 clips x 3 frames of 2,048
+    points, "fake" another batch of clips than "real"); (c)
+    the fluid spatial critic on [fake; real] under stat_groups(2), whose
+    stages take the plain stack, against its two sequential calls, which
+    take the pooled-MLP batch-norm kernel (G = 1). Each: the scores and
+    every batch norm's running moments against the tolerances; then the
+    stacked apply with G = 1, which pools the moments, must fail them."""
+    import copy
+
+    from tpugan_tpu_torch import DT
+    from tpugan_tpu_torch.checkpoint import (load_action_trainer_state,
+                                             load_trainer_state)
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.nn.layers import stat_groups
+    from tpugan_tpu_torch.ops.kernels import pooled_mlp
+    from tpugan_tpu_torch.train.step import (FluidTrainConfig, rotate_frames,
+                                             rotation_matrix)
+
+    gen = torch.Generator().manual_seed(22)
+    cfg = FluidTrainConfig()
+    state = load_trainer_state(CHECKPOINT, cfg, device=dev)
+    batch = fluid_batches(torch, dev, cfg.patch_size, cfg.batch_size, 1)[0]
+    b, n = cfg.batch_size, cfg.patch_size
+    rots = rotation_matrix(torch.rand(3, 3, generator=gen) * 2 * math.pi)
+    pos = rotate_frames(batch["highres_pos"], rots.to(dev))
+    feat = rotate_frames(batch["highres_vel"] * DT, rots.to(dev))
+    valid = torch.ones((3, b, n), dtype=torch.bool, device=dev)
+    valid[:, :, n - n // 8:] = False
+    pos[~valid] = 999.0
+    keep = lambda rows: [torch.ones(rows, 256, device=dev)]
+    rows = []
+    with frozen_spectral_norm(), torch.no_grad():
+        # (a) the fluid temporal critic: frames stacked against the loop
+        tempo = {k: copy.deepcopy(state.tempo.module) for k in ("stk", "seq",
+                                                                "lossy")}
+        call = lambda m, stack: m(list(pos), cfg.R, feat_lst=list(feat),
+                                  valid_lst=list(valid), train=True,
+                                  keep=keep(b), stack_frames=stack)
+        seq = call(tempo["seq"], False)
+        stk = call(tempo["stk"], True)
+        with pooled_moments():
+            lossy = call(tempo["lossy"], True)
+        rows.append(_critic_case(
+            "fluid tempo: frames stacked vs per-frame loop",
+            (stk, tempo["stk"]), (seq, tempo["seq"]), (lossy, tempo["lossy"]),
+            FAST_D_BN_TOL))
+
+        # (c) the fluid spatial critic: [fake; real] against two calls
+        spatial = {k: copy.deepcopy(state.spatial.module)
+                   for k in ("stk", "seq", "lossy")}
+        fake, real = pos[2], batch["highres_pos"][1]
+        both = torch.cat([fake, real])
+        both_valid = torch.cat([valid[2], torch.ones_like(valid[2])])
+        f0 = pooled_mlp.FWD.launches
+        f_seq = spatial["seq"](fake, valid[2], train=True, keep=keep(b))
+        t_seq = spatial["seq"](real, None, train=True, keep=keep(b))
+        fused = pooled_mlp.FWD.launches - f0
+        f0 = pooled_mlp.FWD.launches
+        with stat_groups(2):
+            s_stk = spatial["stk"](both, both_valid, train=True,
+                                   keep=keep(2 * b))
+        stacked_fused = pooled_mlp.FWD.launches - f0
+        s_lossy = spatial["lossy"](both, both_valid, train=True,
+                                   keep=keep(2 * b))
+        if (fused, stacked_fused) != (8, 0):
+            raise AssertionError(f"fast_d_critics: pooled-MLP launches "
+                                 f"{fused} sequential, {stacked_fused} "
+                                 f"stacked; expected 8 and 0")
+        row = _critic_case(
+            "fluid spatial: [fake; real] plain stack (G = 2) vs two calls "
+            "on the pooled-MLP kernel", (s_stk, spatial["stk"]),
+            (torch.cat([f_seq, t_seq]), spatial["seq"]),
+            (s_lossy, spatial["lossy"]), FAST_D_BN_TOL)
+        row.update(pooled_mlp_fwd_sequential=fused,
+                   pooled_mlp_fwd_stacked=stacked_fused)
+        rows.append(row)
+
+        # (b) the action temporal tower: [fake; real] against two applies
+        acfg = ActionTrainConfig(device_sampling=True)
+        astate = load_action_trainer_state(ACTION_CHECKPOINT, acfg, dev)
+        root = os.path.join(ACTION_TRAIN_DIR, "synthetic_msr")
+        real, fake = (b["highres_pos"] for b in action_batches(
+            torch, dev, root, acfg, 2, seed=22))
+        tower = {k: copy.deepcopy(astate.tempo.module.tower)
+                 for k in ("stk", "seq", "lossy")}
+        f_seq = tower["seq"](list(fake), acfg.R, train=True)
+        t_seq = tower["seq"](list(real), acfg.R, train=True)
+        both = [torch.cat([f, t]) for f, t in zip(fake, real)]
+        with stat_groups(2):
+            s_stk = tower["stk"](both, acfg.R, train=True, stack_frames=True)
+        with pooled_moments():
+            s_lossy = tower["lossy"](both, acfg.R, train=True,
+                                     stack_frames=True)
+        rows.append(_critic_case(
+            "action tower: [fake; real] under stat_groups(2) vs two applies",
+            (s_stk, tower["stk"]), (torch.cat([f_seq, t_seq]), tower["seq"]),
+            (s_lossy, tower["lossy"]), FAST_D_BN_ORDER_TOL))
+    return rows
+
+
+def _fast_d_spec(action):
+    """What differs between the two workloads' fast-d phases."""
+    from tpugan_tpu_torch.checkpoint import (load_action_trainer_state,
+                                             load_trainer_state)
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.train.step import FluidTrainConfig
+
+    if action:
+        from tpugan_tpu_torch.cli import train_action as cli
+        from tpugan_tpu_torch.train.step import ActionGanStep as Step
+
+        cfg = ActionTrainConfig(iters=FAST_D_ITERS, device_sampling=True,
+                                fast_d=True)
+        return dict(
+            phase="train_action_fast_d", cli=cli, step=Step, cfg=cfg,
+            tally=("edgeconv_tc", "edgeconv_f32t", "edgeconv_bwd_tiled"),
+            argv=["--preset", "train_dir"], log_dir=ACTION_FAST_D_DIR,
+            checkpoint=ACTION_CHECKPOINT, load=load_action_trainer_state,
+            between=ACTION_CKPT_EVAL,
+            per_step=[ACTION_STEP_ALWAYS, ACTION_STEP_FUSED,
+                      ACTION_STEP_G_FAST_D],
+            critics=ACTION_STEP_CRITICS_FAST_D)
+    from tpugan_tpu_torch.cli import train_fluid as cli
+    from tpugan_tpu_torch.train.step import FluidGanStep as Step
+
+    return dict(
+        phase="train_fast_d", cli=cli, step=Step,
+        tally=("edgeconv_bwd_tiled",),
+        cfg=FluidTrainConfig(fast_d=True), argv=["--preset", "train_vel"],
+        log_dir=FAST_D_DIR, checkpoint=CHECKPOINT, load=load_trainer_state,
+        between=CKPT_EVAL,
+        per_step=[STEP_ALWAYS, STEP_FUSED, {"edgeconv_bwd_tiled":
+                                            STEP_TILED_BWD}],
+        gate=STEP_GATE_FAST_D, critics=STEP_CRITICS_FAST_D)
+
+
+def train_fast_d(torch, dev, kernels, action=False, profile_dir=None):
+    """The train CLI twin (fluid, or with ``action`` the action one) called
+    as a function with --fast_d and TPUGAN_FUSED_EDGECONV_TRAIN=1, its
+    preset (train_vel / train_dir), --device_sampling --synthetic, resumed
+    from the checkpoint for iterations 20001-20004 (log dir under runs/).
+    Counts reset just before; each step's launches against the fast-d
+    counts, the windows between steps against the checkpoint iterations'
+    evals; every loss finite; the critics' parameters moved on the
+    iterations whose critics update (even, the gate open) and only there;
+    the last checkpoint read back equal to the state in memory; ms per step
+    (G only and G+D) in CUDA events and the peak device memory of the CLI.
+    Then (:func:`fast_d_turns`) fast-d and sequential steps in turns, and
+    one fast-d step on the card and on the CPU. Returns the CLI's
+    launches."""
+    import shutil
+
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+
+    spec = _fast_d_spec(action)
+    cli, step_cls = spec["cli"], spec["step"]
+    shutil.rmtree(spec["log_dir"], ignore_errors=True)
+    argv = spec["argv"] + [
+        "--device_sampling", "--synthetic", "--fast_d", "--resume",
+        "--path_to_resume", spec["checkpoint"], "--iters", str(FAST_D_ITERS),
+        "--log_dir", spec["log_dir"]]
+    variants = {"edgeconv_tc": lambda: E.TC_LAUNCHES,
+                "edgeconv_f32t": lambda: E.F32_TILED_LAUNCHES,
+                "edgeconv_bwd_tiled": lambda: E.F32_TILED_BWD_LAUNCHES}
+    tally = lambda: {**counts(kernels),
+                     **{n: variants[n]() for n in spec["tally"]}}
+    marks, moved = {}, {}
+    own_call = step_cls.__call__
+
+    def watched(self, state, batch, draws=None, mark=None):
+        """The step between two snapshots of the critics, timed apart from
+        them: launches, CUDA events at its start, after the generator's and
+        after the critics' update, and its host wall time."""
+        cur = state.n_iter + 1
+        before = _critic_state(state)
+        torch.cuda.synchronize()
+        ev = {n: torch.cuda.Event(enable_timing=True)
+              for n in ("start", "generator", "critics")}
+        c0 = tally()
+        ev["start"].record()
+        t0 = time.perf_counter()
+        metrics = own_call(self, state, batch, draws,
+                           lambda n: (ev[n].record(),
+                                      mark(n) if mark else None))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        marks[cur] = (c0, tally(), ev, wall, metrics)
+        after = _critic_state(state)
+        moved[cur] = {f"{n}_{k}": _moved(before, after, n, k)
+                      for n in ("tempo", "spatial")
+                      for k in ("param", "bn", "u")}
+        return metrics
+
+    for k in kernels.values():
+        k.launches = 0
+    E.TC_LAUNCHES = E.F32_TILED_LAUNCHES = E.F32_TILED_BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ[cli.FUSED_SWITCH] = "1"
+    step_cls.__call__ = watched
+    t0 = time.perf_counter()
+    try:
+        out = cli.main(argv)
+    finally:
+        step_cls.__call__ = own_call
+        del os.environ[cli.FUSED_SWITCH]
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = tally()
+    for k in kernels.values():
+        k.launches = 0
+
+    ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= FAST_D_ITERS
+    steps, prev, prev_iter = [], {n: 0 for n in launches}, None
+    for n_iter in sorted(marks):
+        c0, c1, ev, wall, metrics = marks[n_iter]
+        expect(delta(prev, c0), spec["between"] if prev_iter and
+               ckpt_iter(prev_iter) else {},
+               f"{spec['phase']} before iteration {n_iter}")
+        gate = metrics.get("gate", True)
+        d_update = gate and n_iter % 2 == 0
+        want = {}
+        for part in spec["per_step"] + ([spec["gate"]] if gate and "gate"
+                                        in spec else []) + (
+                [spec["critics"]] if d_update else []):
+            for name, v in part.items():
+                want[name] = want.get(name, 0) + v
+        got = delta(c0, c1)
+        expect(got, want, f"{spec['phase']} step {n_iter}")
+        for name, v in metrics.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"{spec['phase']} {n_iter}: {name} = {v}")
+        mv = moved[n_iter]
+        if any(mv[f"{n}_param"] != d_update for n in ("tempo", "spatial")):
+            raise AssertionError(f"{spec['phase']} {n_iter}: critic params "
+                                 f"moved {mv}, critic update {d_update}")
+        steps.append(dict(iteration=n_iter, **metrics, critic_update=d_update,
+                          launches=got, moved=mv,
+                          ms=ev["start"].elapsed_time(ev["critics"]),
+                          generator_ms=ev["start"].elapsed_time(
+                              ev["generator"]),
+                          critics_ms=ev["generator"].elapsed_time(
+                              ev["critics"]), wall_ms=wall))
+        emit({"phase": spec["phase"], **steps[-1]})
+        prev, prev_iter = c1, n_iter
+    expect(delta(prev, launches), spec["between"],
+           f"{spec['phase']} after the last step")
+    if [s["iteration"] for s in steps] != list(range(20001, FAST_D_ITERS + 1)):
+        raise AssertionError(f"{spec['phase']} ran "
+                             f"{[s['iteration'] for s in steps]}")
+    if not any(s["critic_update"] for s in steps):
+        raise AssertionError(f"{spec['phase']}: no critic update ran")
+    back = spec["load"](out["checkpoint"], spec["cfg"], dev)
+    differs = _state_equal(out["state"], back)
+    if differs is not None:
+        raise AssertionError(f"{spec['phase']} checkpoint read back differs: "
+                             f"{differs}")
+    test_cd = out["test_chamfer"]
+    if len(test_cd) != 2 or not all(np.isfinite(test_cd)):
+        raise AssertionError(f"{spec['phase']} test Chamfer {test_cd}")
+    emit({"phase": spec["phase"],
+          "resumed_from": os.path.relpath(spec["checkpoint"], ROOT),
+          "checkpoint": os.path.relpath(out["checkpoint"], ROOT),
+          "checkpoint_read_back_equal": True, "test_chamfer": test_cd,
+          "steps": len(steps), "cli_s": total_s, "launches": launches,
+          "g_only_ms": [s["ms"] for s in steps if not s["critic_update"]],
+          "g_and_d_ms": [s["ms"] for s in steps if s["critic_update"]],
+          "peak_memory_gib": peak_gib})
+    fast_d_turns(torch, dev, spec, action, profile_dir)
+    return launches
+
+
+def _fast_d_batches(torch, dev, spec, action, count, seed):
+    if action:
+        root = os.path.join(spec["log_dir"], "synthetic_msr")
+        return action_batches(torch, dev, root, spec["cfg"], count, seed=seed)
+    cfg = spec["cfg"]
+    return fluid_batches(torch, dev, cfg.patch_size, cfg.batch_size, count)
+
+
+def _draws(torch, cfg, batch, state, action, seed):
+    """One step's draws for ``state``'s critics under ``cfg`` (a fast-d cfg
+    draws the stacked multipliers too: the same draws serve both paths)."""
+    from tpugan_tpu_torch.models.discriminator import (dropout_layers,
+                                                       dropout_widths)
+    from tpugan_tpu_torch.train.step import ActionStepDraws, StepDraws
+
+    gen = torch.Generator().manual_seed(seed)
+    shape = tuple(batch["highres_pos"].shape[:3])
+    if action:
+        return ActionStepDraws.draw(gen, cfg, shape,
+                                    dropout_layers(state.spatial.module),
+                                    dropout_layers(state.tempo.module))
+    return StepDraws.draw(gen, cfg, shape[2],
+                          dropout_widths(state.spatial.module))
+
+
+def fast_d_turns(torch, dev, spec, action, profile_dir=None, steps=4):
+    """Fast-d and sequential steps in turns from the same checkpoint state
+    and the same draws in one process (the fused switch on, the fluid gate
+    held open): ms per step of each, G only (odd iterations) and G+D
+    (even), in CUDA events; then 2 more steps of each under torch.profiler
+    (device time, idle share); then one fast-d step on the card and on the
+    CPU (:func:`fast_d_card_vs_cpu`)."""
+    import dataclasses
+
+    cfg = spec["cfg"]
+    if not action:
+        cfg = dataclasses.replace(cfg, ml_gate=1e9)
+    cfgs = {"fast_d": cfg, "sequential": dataclasses.replace(cfg,
+                                                             fast_d=False)}
+    states = {k: spec["load"](spec["checkpoint"], c, dev, fused_train=True)
+              for k, c in cfgs.items()}
+    batches = _fast_d_batches(torch, dev, spec, action, steps + 2, seed=3)
+    draws = [_draws(torch, cfg, batches[i], states["fast_d"], action, 30 + i)
+             for i in range(steps)]
+    run = {k: spec["step"](c) for k, c in cfgs.items()}
+    ms = {k: [] for k in cfgs}
+    for i in range(steps):
+        for k in ("sequential", "fast_d"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = run[k](states[k], batches[i], draws[i])
+            end.record()
+            end.synchronize()
+            for name, v in metrics.items():
+                if not np.isfinite(v):
+                    raise AssertionError(f"{spec['phase']} turns {k}: "
+                                         f"{name} = {v}")
+            ms[k].append((states[k].n_iter, start.elapsed_time(end)))
+    emit({"phase": spec["phase"] + "_turns", "steps": steps,
+          **{f"{k}_ms": {"g_only": [t for n, t in v if n % 2],
+                         "g_and_d": [t for n, t in v if n % 2 == 0]}
+             for k, v in ms.items()}})
+    for k in ("sequential", "fast_d"):
+        train_profile(torch, run[k], states[k], batches[steps:], profile_dir,
+                      of=f"{spec['phase']}_{k}")
+    fast_d_card_vs_cpu(torch, dev, spec, action)
+
+
+def fast_d_card_vs_cpu(torch, dev, spec, action):
+    """One fast-d step (B = FAST_D_CPU_BATCH; 1,024-point patches or
+    ACTION_CPU_POINTS-point frames; iteration 20,002, so both critics
+    update) from the checkpoint's state and the same draws on the card and
+    on the CPU (plain versions), the card's generator graphs and flow kNN
+    replayed on the CPU (StepReplay): held as the sequential card-vs-CPU
+    steps are (:func:`hold_card_to_cpu`), with the card's step without the
+    generator's adversarial losses as the control that must fail."""
+    import dataclasses
+
+    import tpugan_tpu_torch.train.step as step_mod
+
+    if action:
+        cfg = dataclasses.replace(spec["cfg"], num_points=ACTION_CPU_POINTS)
+        batch = action_batches(torch, "cpu", os.path.join(
+            spec["log_dir"], "synthetic_msr"), cfg, 1, seed=5)[0]
+        loss_tol, change_tol = (ACTION_CARD_CPU_LOSS_TOL,
+                                ACTION_CARD_CPU_CHANGE_TOL)
+    else:
+        cfg = dataclasses.replace(spec["cfg"], batch_size=FAST_D_CPU_BATCH,
+                                  patch_size=1024, ml_gate=1e9)
+        batch = fluid_batches(torch, "cpu", cfg.patch_size, cfg.batch_size,
+                              1)[0]
+        loss_tol, change_tol = CARD_CPU_LOSS_TOL, CARD_CPU_CHANGE_TOL
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    states = {d: spec["load"](spec["checkpoint"], cfg, d)
+              for d in (dev, "cpu")}
+    states["no_adv"] = spec["load"](spec["checkpoint"], cfg, dev)
+    nets = ("sr", "tempo", "spatial")
+    for s in states.values():
+        s.n_iter += 1                                   # the step is even
+    before = {n: {k: v.detach().clone() for k, v in
+                  getattr(states["cpu"], n).module.named_parameters()}
+              for n in nets}
+    mu_before = {d: {n: {k: v.clone() for k, v in
+                         getattr(states[d], n).opt.mu.items()} for n in nets}
+                 for d in (dev, "cpu")}
+    draws = _draws(torch, cfg, batch, states["cpu"], action, 2)
+    step = spec["step"](cfg)
+    replay = StepReplay(torch)
+    t0 = time.perf_counter()
+    m_card = replay.record(step, states[dev], card_batch, draws)
+    t1 = time.perf_counter()
+    m_cpu = replay.replay(step, states["cpu"], batch, draws)
+    t2 = time.perf_counter()
+    own = step_mod.lsgan_generator_loss
+    step_mod.lsgan_generator_loss = lambda score, target: 0.0 * score.sum()
+    try:
+        step(states["no_adv"], card_batch, draws)
+    finally:
+        step_mod.lsgan_generator_loss = own
+    out = {"phase": spec["phase"] + "_cpu", "batch": cfg.batch_size,
+           "points": batch["highres_pos"].shape[2],
+           "iteration": states["cpu"].n_iter, "knn_tie_swaps": replay.swaps,
+           "card_s": t1 - t0, "cpu_s": t2 - t1}
+    hold_card_to_cpu(out, states, dev, m_card, m_cpu, before, mu_before,
+                     loss_tol, change_tol)
+
+
+def add_fast_d_units(line, rows, launches):
+    """Into the kernel line's fps, ball_query and knn entries: their times
+    at the shapes stacking gives them (the rows of check_fast_d_kernels),
+    per fast-d G+D step of each workload, under "fast_d"; their errors in
+    max_abs_err; and each fast-d path's launches (``launches``: path ->
+    the phase's counts)."""
+    for entry in line["kernels"]:
+        rs = rows.get(entry["name"])
+        if not rs:
+            continue
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   max(r["max_abs_err"] for r in rs))
+        keys = [k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                            "library_ms") if all(r.get(k) is not None
+                                                 for r in rs)]
+        entry["fast_d"] = {
+            "times_are": "the stacked shapes of one fast-d G+D step (fluid: "
+                         "train_vel, B = 4; action: train_dir, B = 4); the "
+                         "shapes it shares with the sequential step are in "
+                         "the entry's own times",
+            **{path: {k: sum(r[k] * r[w] for r in rs) for k in keys}
+               for path, w in (("fluid", "per_fast_d_step"),
+                               ("action", "per_action_fast_d_step"))},
+            "launches": {p: c[entry["name"]] for p, c in launches.items()}}
+
+
 # ------------------------------------- the fluid serving and data surfaces
 
 ROLLOUT_CLI_DIR = os.path.join(ROOT, "runs", "chip_smoke_rollout_cli")  # gitignored
@@ -4076,6 +4758,7 @@ def main(argv=None) -> int:
     act_rows = check_action_kernels(torch, dev)
     act_train_rows = check_action_train_kernels(torch, dev)
     surface_rows = check_surface_kernels(torch, dev)
+    fast_d_rows = check_fast_d_kernels(torch, dev)
 
     # the serving path: counts start at 0 here and are read after the rollout
     for k in kernels.values():
@@ -4158,6 +4841,14 @@ def main(argv=None) -> int:
         k.launches = 0
     demo_launches = fluid_demo_phase(torch, kernels)
 
+    # the stacked-critic train path (--fast_d): the critics' stacked applies
+    # against their sequential ones, then both CLI twins with --fast_d
+    # (counts reset inside, read after each step and after the CLI returns)
+    fast_d_critics(torch, dev)
+    fast_d_launches = train_fast_d(torch, dev, kernels, False, args.profile)
+    action_fast_d_launches = train_fast_d(torch, dev, kernels, True,
+                                          args.profile)
+
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
                    "density": density_launches[n],
@@ -4168,7 +4859,9 @@ def main(argv=None) -> int:
                    "train_action": action_train_launches[n],
                    "rollout_cli": rollout_cli_launches[n],
                    "bench_metrics": bench_launches[n],
-                   "fluid_demo": demo_launches[n]}
+                   "fluid_demo": demo_launches[n],
+                   "train_fast_d": fast_d_launches[n],
+                   "train_action_fast_d": action_fast_d_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"
@@ -4256,6 +4949,9 @@ def main(argv=None) -> int:
     add_action_units(line, act_rows, af_rows)
     add_action_train_units(line, act_train_rows, action_train_launches)
     add_surface_units(line, surface_rows, bench_row)
+    add_fast_d_units(line, fast_d_rows,
+                     {"train_fast_d": fast_d_launches,
+                      "train_action_fast_d": action_fast_d_launches})
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

@@ -19,7 +19,8 @@ tolerances under f32 noise):
 * the trainer-state bridge both ways, every leaf equal;
 * the ``train_action`` twin for 3 iterations of synthetic data, resumed
   from a JAX-written checkpoint, with the test split and a checkpoint read
-  back by the JAX package; its refused flags;
+  back by the JAX package; ``--fast_d`` for 2 iterations and the refused
+  ``--data_parallel``;
 * NoMaskSRNet's fused-EdgeConv training path against the grouped one;
   Adam's schedule against optax's, constant below 10 iterations.
 
@@ -351,9 +352,27 @@ def test_cli_resumes_jax_state_and_writes_checkpoints(jax_run, tmp_path,
 
 @pytest.mark.parametrize("flag", ["--fast_d", "--data_parallel"])
 def test_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(ValueError, match=flag):
-        cli.main(TINY_CLI + [flag, "--iters", "1", "--log_dir",
-                             str(tmp_path)])
+    """``--data_parallel`` is refused; ``--fast_d`` (ported) trains 2
+    iterations through the stacked critics and writes its checkpoint."""
+    if flag != "--fast_d":
+        with pytest.raises(ValueError, match=flag):
+            cli.main(TINY_CLI + [flag, "--iters", "1", "--log_dir",
+                                 str(tmp_path)])
+        return
+    log = str(tmp_path / "run")
+    out = cli.main(TINY_CLI + [flag, "--device_sampling", "--iters", "2",
+                               "--log_dir", log])
+    assert out["n_iter"] == 2
+    with open(os.path.join(log, "metrics.jsonl")) as fh:
+        steps = [r for r in map(json.loads, fh) if "tempo_G_loss" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(v) for r in steps for v in r.values())
+    assert [r["tempo_D_loss"] != 0 and r["spatial_D_loss"] != 0
+            for r in steps] == [False, True]
+    back = load_action_trainer_state(out["checkpoint"],
+                                     port_config(replace(CFG, iters=2)),
+                                     device="cpu")
+    assert back.n_iter == 2
 
 
 def test_nomask_fused_training_matches_grouped():

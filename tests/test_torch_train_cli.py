@@ -8,7 +8,8 @@ port's checkpoint writer.
   device sampling and the fused switch, resumed for 2 more with ``--interp
   capped``; ``train_novel`` with the loader's lowres inputs and
   ``--freeze_D``; finite metrics, manifest rotation, ``--resume``
-  continuing at ``n_iter``, ``--profile``, and the refused flags raising.
+  continuing at ``n_iter``, ``--profile``, ``--fast_d`` for 2 iterations,
+  and ``--data_parallel`` raising.
   The adversarial gate is held open (a trainer from random weights does not
   pass the masking-loss gate in a few steps), so the critics' paths run.
 """
@@ -151,6 +152,25 @@ def test_cli_profile(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--fast_d"])
-def test_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(ValueError, match=flag):
-        cli.main([flag, "--log_dir", str(tmp_path)] + TINY)
+def test_cli_refuses_unported_flags(tmp_path, gate_open, flag):
+    """``--data_parallel`` is refused; ``--fast_d`` (ported) trains 2
+    iterations through the stacked critics and writes its checkpoint."""
+    if flag != "--fast_d":
+        with pytest.raises(ValueError, match=flag):
+            cli.main([flag, "--log_dir", str(tmp_path)] + TINY)
+        return
+    # train_vel's flags without its sample dumps (PNG renders are slow),
+    # at 128-point patches
+    tiny = [v if v != "256" else "128" for v in TINY]
+    out = cli.main(["--use_vel", "--in_node_feats", "6", "--device_sampling",
+                    flag, "--iters", "2", "--ckpt_every", "5", "--log_dir",
+                    str(tmp_path)] + tiny)
+    rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert all(np.isfinite(v) for row in rows for v in row.values())
+    assert out["n_iter"] == 2 and out["metrics"]["gate"]
+    steps = [r for r in rows if "masking_loss" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert [r["tempo_D_loss"] != 0 and r["spatial_D_loss"] != 0
+            for r in steps] == [False, True]
+    back = load_trainer_state(out["checkpoint"], device="cpu")
+    assert back.n_iter == 2

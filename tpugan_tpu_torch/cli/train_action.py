@@ -26,7 +26,8 @@ generator EdgeConv through the fused kernels and their backward
 environment variable. ``--exact_graph`` is accepted and changes nothing:
 the port's graph kNN is exact unless ``set_approx_graph_knn`` turns the
 approximate one on, which this CLI never does (and 128-point graphs never
-reach it). ``--data_parallel`` and ``--fast_d`` are refused.
+reach it). ``--fast_d`` trains the critics through their stacked applies
+(``tpugan_tpu_torch/train/step.py``). ``--data_parallel`` is refused.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ def get_arguments(argv=None) -> argparse.Namespace:
              "graphs are always exact")
     add("--freeze_D", action="store_true")
     add("--fast_d", action="store_true",
-        help="refused: the stacked-apply critics (GroupedBatchNorm) are not "
-             "ported")
+        help="stack the critics' per-frame and fake/real applies into one "
+             "batched apply (see train_fluid --fast_d)")
     add("--dump_visualization", action="store_true")
     add("--device_sampling", action="store_true",
         help="per-frame FPS downsample on the card inside the step instead "
@@ -115,9 +116,6 @@ def main(argv=None,
         raise ValueError("--data_parallel: data-parallel training is not "
                          "ported yet (it comes with the parallelism slice, "
                          "torch.distributed)")
-    if opt.fast_d:
-        raise ValueError("--fast_d: the stacked-apply critics "
-                         "(GroupedBatchNorm / stat_groups) are not ported yet")
     fused = os.environ.get(FUSED_SWITCH, "0") == "1"
     dev = resolve_device(opt.device)
 
@@ -135,8 +133,8 @@ def main(argv=None,
         node_embedding=opt.node_embedding, R=opt.R, data_dir=data_dir,
         batch_size=opt.batch_size, num_points=opt.num_points, w=opt.w,
         device_sampling=opt.device_sampling, freeze_D=opt.freeze_D,
-        dump_visualization=opt.dump_visualization, log_dir=opt.log_dir,
-        seed=opt.seed)
+        fast_d=opt.fast_d, dump_visualization=opt.dump_visualization,
+        log_dir=opt.log_dir, seed=opt.seed)
 
     print("Preparing the data")
     dataset = MSRAction3DDataset(

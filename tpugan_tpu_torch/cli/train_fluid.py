@@ -23,8 +23,9 @@ generator EdgeConv through the fused kernels and their backward
 (``SRNet(fused_train=True)``); the package itself reads no environment
 variable. ``--exact_graph`` is accepted and changes nothing: the port's
 graph kNN is exact unless ``set_approx_graph_knn`` turns the approximate
-one on, which this CLI never does. ``--data_parallel`` and ``--fast_d``
-are refused.
+one on, which this CLI never does. ``--fast_d`` trains the critics
+through their stacked applies (``tpugan_tpu_torch/train/step.py``).
+``--data_parallel`` is refused.
 """
 
 from __future__ import annotations
@@ -78,8 +79,11 @@ def get_arguments(argv=None) -> argparse.Namespace:
              "graphs are always exact")
     add("--freeze_D", action="store_true")
     add("--fast_d", action="store_true",
-        help="refused: the stacked-apply critics (GroupedBatchNorm) are not "
-             "ported")
+        help="stack the critics' per-frame and fake/real applies into one "
+             "batched apply (grouped batch statistics keep per-call batch "
+             "norm semantics; spectral-norm power iterations advance once "
+             "per stacked apply). Requires fps_ratio * upsample_ratio == 1 "
+             "so fake and real clouds share a point count")
     add("--dump_visualization", action="store_true")
     add("--synthetic", action="store_true",
         help="generate and train on synthetic SPH-like fixtures")
@@ -129,9 +133,6 @@ def main(argv=None,
         raise ValueError("--data_parallel: data-parallel training is not "
                          "ported yet (it comes with the parallelism slice, "
                          "torch.distributed)")
-    if opt.fast_d:
-        raise ValueError("--fast_d: the stacked-apply critics "
-                         "(GroupedBatchNorm / stat_groups) are not ported yet")
     fused = os.environ.get(FUSED_SWITCH, "0") == "1"
     dev = resolve_device(opt.device)
 
@@ -152,7 +153,7 @@ def main(argv=None,
         in_node_feats=opt.in_node_feats, node_embedding=opt.node_embedding,
         R=opt.R, w=opt.w, cutoff=opt.cutoff, use_vel=opt.use_vel,
         interp=opt.interp, device_sampling=opt.device_sampling,
-        freeze_D=opt.freeze_D)
+        freeze_D=opt.freeze_D, fast_d=opt.fast_d)
 
     print("Preparing the data")
     dataset = SiamFluidDataset(

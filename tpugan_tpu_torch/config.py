@@ -39,9 +39,10 @@ class ActionTrainConfig:
     """The action GAN trainer's settings (reference train_msr.py:30-83,
     133-141), the JAX package's ``ActionTrainConfig`` with the same
     defaults; ``device_sampling``: per-frame independent FPS of the
-    low-res inputs inside the step instead of in the loader. Its
-    ``data_parallel``, ``mesh_shape`` and ``fast_d`` are not ported (the
-    CLI refuses the flags)."""
+    low-res inputs inside the step instead of in the loader; ``fast_d``:
+    the critics' stacked applies (``tpugan_tpu_torch/train/step.py``). Its
+    ``data_parallel`` and ``mesh_shape`` are not ported (the CLI refuses
+    ``--data_parallel``)."""
 
     lr: float = 3e-4
     iters: int = 100000
@@ -61,6 +62,7 @@ class ActionTrainConfig:
     w: float = 2.0
     device_sampling: bool = False
     freeze_D: bool = False
+    fast_d: bool = False
     dump_visualization: bool = False
     log_dir: str = "./"
     seed: int = 1

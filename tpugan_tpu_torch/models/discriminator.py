@@ -9,8 +9,16 @@ generator outputs enter through ``valid`` masks of the first stage.
 Every call in training mode advances each spectral norm and BatchNorm it
 passes through, in call order: the temporal critic runs ``sa1`` and
 ``sa2`` once per frame, so their spectral norms advance three times per
-tower call, as the JAX package's per-frame loop does. The frame-stacked
-variant (``stack_frames`` / ``--fast_d``) is not ported yet.
+tower call, as the JAX package's per-frame loop does.
+
+``stack_frames`` (the trainers' ``--fast_d``) runs the temporal towers'
+per-frame ``sa1`` and ``sa2`` as one apply on the frames stacked along the
+batch axis, under ``stat_groups(F * outer)``: every frame (times every
+block of an enclosing ``stat_groups``, e.g. the fake and real halves of a
+stacked critic update) keeps its own batch moments, and the running
+averages replay in that block order (frame-major). Each spectral norm then
+advances once per stacked apply, not once per frame. The scoring heads'
+and the flow embeddings' batch norms honour the enclosing groups.
 """
 
 from __future__ import annotations
@@ -22,8 +30,9 @@ from torch import nn
 
 from tpugan_tpu_torch import resolve_device
 from tpugan_tpu_torch.nn.flow import FlowModule
-from tpugan_tpu_torch.nn.layers import (BatchNorm, SpectralNorm, dense,
-                                        leaky_relu_001, seeded)
+from tpugan_tpu_torch.nn.layers import (BatchNorm, SpectralNorm,
+                                        current_stat_groups, dense,
+                                        leaky_relu_001, seeded, stat_groups)
 from tpugan_tpu_torch.nn.setconv import SetConv
 
 # the critics' scoring heads: (hidden widths, dropout rates)
@@ -46,6 +55,53 @@ def _stacked_fps(sa: SetConv, pos_lst, valid_lst):
     return list(torch.chunk(sa.fps_centers(torch.cat(pos_lst, 0), valid), f, 0))
 
 
+def _stacked_sa_frames(sa1: SetConv, sa2: SetConv, pos_lst, feat_lst,
+                       valid_lst, train: bool):
+    """A temporal tower's per-frame ``sa1`` then ``sa2`` as one apply on the
+    frames stacked along the batch axis (the JAX package's
+    ``_stacked_sa_frames``): the convolutions and gathers are
+    row-independent, and the batch norms run under ``stat_groups(F *
+    outer)`` so each frame (of each enclosing block) keeps its own moments.
+    Frames of unequal shape and valid masks that are neither all given nor
+    all absent raise. Returns the per-frame (positions, features) lists."""
+    f = len(pos_lst)
+    if any(p.shape != pos_lst[0].shape for p in pos_lst):
+        raise ValueError("stack_frames requires uniform frame shapes")
+    spos = torch.cat(pos_lst, 0)
+    sfeat = torch.cat(feat_lst, 0) if feat_lst is not None else spos
+    svalid = None
+    if valid_lst is not None:
+        if any(v is None for v in valid_lst):
+            raise ValueError("stack_frames needs all-or-none valid masks")
+        svalid = torch.cat(valid_lst, 0)
+    with stat_groups(f * current_stat_groups()):
+        p1, f1 = sa1(spos, sfeat, valid=svalid, train=train)
+        p2, f2 = sa2(p1, f1, train=train)
+    return list(torch.chunk(p2, f, 0)), list(torch.chunk(f2, f, 0))
+
+
+def _per_frame_sa(sa1: SetConv, sa2: SetConv, pos_lst, feat_lst, valid_lst,
+                  train: bool):
+    """The per-frame loop of ``sa1`` then ``sa2`` (each stage's FPS
+    centres stacked over the frames). Returns the per-frame (positions,
+    features) lists."""
+    c1 = _stacked_fps(sa1, pos_lst, valid_lst)
+    mid_p, mid_f = [], []
+    for i, pos in enumerate(pos_lst):
+        p, f = sa1(pos, feat_lst[i] if feat_lst is not None else pos,
+                   valid=valid_lst[i] if valid_lst is not None else None,
+                   train=train, centers=c1[i])
+        mid_p.append(p)
+        mid_f.append(f)
+    c2 = _stacked_fps(sa2, mid_p, None)
+    poss, feats = [], []
+    for i in range(len(pos_lst)):
+        p, f = sa2(mid_p[i], mid_f[i], train=train, centers=c2[i])
+        poss.append(p)
+        feats.append(f)
+    return poss, feats
+
+
 def dropout_multipliers(shape, p: float,
                         generator: Optional[torch.Generator] = None,
                         device=None) -> torch.Tensor:
@@ -59,11 +115,11 @@ class FCHead(nn.Module):
     """Spectral-normed Dense / BatchNorm / leaky ReLU 0.01 / dropout layers
     and a spectral-normed Dense to ``out_features``.
 
-    Dropout follows flax: a kept unit is rescaled by 1 / keep. Its
-    multipliers [B, width] (0 for a dropped unit, 1 / keep for a kept one;
-    all ones turn dropout off) come from ``keep``, a list with one per
-    dropout layer (e.g. from the train step's draws), or else are drawn
-    from ``generator``.
+    Its batch norms honour ``stat_groups``. Dropout follows flax: a kept
+    unit is rescaled by 1 / keep. Its multipliers [B, width] (0 for a
+    dropped unit, 1 / keep for a kept one; all ones turn dropout off) come
+    from ``keep``, a list with one per dropout layer (e.g. from the train
+    step's draws), or else are drawn from ``generator``.
     """
 
     def __init__(self, in_features: int, widths: Sequence[int] = FC_WIDTHS,
@@ -179,22 +235,13 @@ class FluidTempoDis(nn.Module):
                 feat_lst: Optional[List[torch.Tensor]] = None,
                 valid_lst: Optional[List[Optional[torch.Tensor]]] = None,
                 train: bool = False, keep: Optional[List[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """pos_lst / feat_lst: one [B, N, 3] per frame -> scores [B, 1]."""
-        c1 = _stacked_fps(self.sa1, pos_lst, valid_lst)
-        mid_p, mid_f = [], []
-        for i, pos in enumerate(pos_lst):
-            p, f = self.sa1(pos, feat_lst[i] if feat_lst is not None else pos,
-                            valid=valid_lst[i] if valid_lst is not None else None,
-                            train=train, centers=c1[i])
-            mid_p.append(p)
-            mid_f.append(f)
-        c2 = _stacked_fps(self.sa2, mid_p, None)
-        poss, feats = [], []
-        for i in range(len(pos_lst)):
-            p, f = self.sa2(mid_p[i], mid_f[i], train=train, centers=c2[i])
-            poss.append(p)
-            feats.append(f)
+                generator: Optional[torch.Generator] = None,
+                stack_frames: bool = False) -> torch.Tensor:
+        """pos_lst / feat_lst: one [B, N, 3] per frame -> scores [B, 1];
+        ``stack_frames``: sa1 and sa2 as one stacked apply."""
+        frames = _stacked_sa_frames if stack_frames else _per_frame_sa
+        poss, feats = frames(self.sa1, self.sa2, pos_lst, feat_lst, valid_lst,
+                             train)
         feature = self.flow_module(feats, poss, 20 * cutoff, train=train)
         _, feature = self.sa_pooling(poss[0], feature, train=train)
         return self.fc(feature[:, 0, :], train, keep, generator)
@@ -232,21 +279,11 @@ class ActionTempoTower(nn.Module):
 
     def forward(self, pos_lst: List[torch.Tensor], cutoff: float,
                 valid_lst: Optional[List[Optional[torch.Tensor]]] = None,
-                train: bool = False) -> torch.Tensor:
-        c1 = _stacked_fps(self.sa1, pos_lst, valid_lst)
-        mid_p, mid_f = [], []
-        for i, pos in enumerate(pos_lst):
-            p, f = self.sa1(pos, pos,
-                            valid=valid_lst[i] if valid_lst is not None else None,
-                            train=train, centers=c1[i])
-            mid_p.append(p)
-            mid_f.append(f)
-        c2 = _stacked_fps(self.sa2, mid_p, None)
-        poss, feats = [], []
-        for i in range(len(pos_lst)):
-            p, f = self.sa2(mid_p[i], mid_f[i], train=train, centers=c2[i])
-            poss.append(p)
-            feats.append(f)
+                train: bool = False, stack_frames: bool = False
+                ) -> torch.Tensor:
+        frames = _stacked_sa_frames if stack_frames else _per_frame_sa
+        poss, feats = frames(self.sa1, self.sa2, pos_lst, None, valid_lst,
+                             train)
         feature = self.flow_module(feats, poss, cutoff, train=train)
         _, feature = self.sa_pooling(poss[0], feature, train=train)
         return feature[:, 0, :]
@@ -303,9 +340,10 @@ class ActionTempoDis(nn.Module):
     def forward(self, pos_lst: List[torch.Tensor], cutoff: float,
                 valid_lst: Optional[List[Optional[torch.Tensor]]] = None,
                 train: bool = False, keep: Optional[List[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                stack_frames: bool = False) -> torch.Tensor:
         """pos_lst: one [B, N, 3] per frame -> scores [B, 1]."""
-        feature = self.tower(pos_lst, cutoff, valid_lst, train)
+        feature = self.tower(pos_lst, cutoff, valid_lst, train, stack_frames)
         return self.fc(feature, train, keep, generator)
 
 

@@ -22,7 +22,8 @@ class FlowEmbedding(nn.Module):
     """Correlate two frames: for each point of frame 1 gather its 32
     nearest points of frame 2, concat [pos_diff, feat2, feat1], then
     (Dense, spectral norm, BatchNorm, leaky ReLU 0.01) per width of
-    ``mlp``, then max over the neighbours."""
+    ``mlp``, then max over the neighbours. Its ``BatchNorm_{i}`` honour
+    ``stat_groups`` (a stacked critic apply keeps each call's moments)."""
 
     def __init__(self, in_features: int, mlp: Sequence[int], nsample: int = 32,
                  spectral_norm: bool = False,

@@ -13,6 +13,14 @@ Module, parameter and buffer names follow the flax scopes (``ConvLayer_0``,
 their names, and a spectral norm's ``.../SpectralNorm_0/Dense_0/kernel/u``
 is the buffer ``...SpectralNorm_0.u``: see ``tpugan_tpu_torch/checkpoint.py``.
 
+Grouped batch statistics (``stat_groups``, the JAX package's
+``stat_groups`` / ``GroupedBatchNorm`` / ``ambient_batch_norm``): the
+critics' stacked applies (``--fast_d``) run several calls of one module as
+one call on their rows stacked along the leading axis. Inside
+``with stat_groups(G):`` every ``BatchNorm`` in train mode treats that axis
+as G equal blocks, each normalised with its own moments, and steps its
+running averages once per block in block order: G sequential calls in one.
+
 Compute dtype follows flax ``nn.Dense``: with ``dtype`` set, input and
 weight are cast to it and the output has it; with ``dtype=None`` the input
 is promoted to the f32 parameter dtype.
@@ -25,6 +33,7 @@ Activations are written as the JAX package writes them:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence
 
@@ -35,6 +44,29 @@ from torch import nn
 from tpugan_tpu_torch import resolve_device
 from tpugan_tpu_torch.ops.kernels.pooled_mlp import (pooled_mlp_affine,
                                                      pooled_mlp_bn_train)
+
+
+# The stat groups of every train-mode BatchNorm (1: the whole batch). Set
+# around a stacked apply by ``stat_groups``; read by ``BatchNorm.forward``
+# and checked by ``SharedMLP.pooled``.
+_STAT_GROUPS = 1
+
+
+@contextlib.contextmanager
+def stat_groups(n: int):
+    """Every train-mode ``BatchNorm`` called inside computes its moments
+    over ``n`` equal blocks of the leading axis (restored on exit)."""
+    global _STAT_GROUPS
+    prev, _STAT_GROUPS = _STAT_GROUPS, int(n)
+    try:
+        yield
+    finally:
+        _STAT_GROUPS = prev
+
+
+def current_stat_groups() -> int:
+    """The stat groups in force (1 outside any ``stat_groups``)."""
+    return _STAT_GROUPS
 
 
 def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
@@ -91,7 +123,14 @@ class BatchNorm(nn.Module):
     every point below). Train: batch moments in f32 over all other axes,
     the fast biased variance ``max(0, E[x^2] - E[x]^2)`` for both the
     normalisation and the running variance, and running averages
-    ``ra = 0.99 ra + 0.01 batch``. Eval: the running moments. eps 1e-5."""
+    ``ra = 0.99 ra + 0.01 batch``. Eval: the running moments. eps 1e-5.
+
+    Under ``stat_groups(G)`` with G > 1, train mode takes the leading axis
+    as G equal blocks (a ``ValueError`` when it does not divide): f32
+    moments per block, each block normalised with its own, the running
+    averages stepped once per block in block order (the JAX package's
+    ``GroupedBatchNorm``). The parameters and buffers are the same in
+    both modes."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-5, device=None):
@@ -112,6 +151,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x32 = x.float()
+        g = _STAT_GROUPS
+        if train and g > 1:
+            return self._grouped(x32, g)
         if train:
             dims = tuple(range(x32.dim() - 1))
             mu = x32.mean(dims)
@@ -120,6 +162,21 @@ class BatchNorm(nn.Module):
         else:
             mu, var = self.mean, self.var
         return (x32 - mu) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+    def _grouped(self, x32: torch.Tensor, g: int) -> torch.Tensor:
+        if x32.shape[0] % g:
+            raise ValueError(f"leading axis {x32.shape[0]} not divisible into "
+                             f"{g} stat groups")
+        xg = x32.reshape((g, x32.shape[0] // g) + x32.shape[1:])
+        dims = tuple(range(1, xg.dim() - 1))
+        mu = xg.mean(dims)                                        # [G, C]
+        var = torch.clamp_min((xg * xg).mean(dims) - mu * mu, 0.0)
+        for i in range(g):                    # block order, as G calls
+            self.update_stats(mu[i].detach(), var[i].detach())
+        shape = (g,) + (1,) * len(dims) + (x32.shape[-1],)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xg - mu.reshape(shape)) * mul.reshape(shape) + self.bias
+        return y.reshape(x32.shape)
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -236,7 +293,14 @@ class SharedMLP(nn.Module):
         batch moments come from the kernel and each BatchNorm's running
         average takes one step from the 2-point probe ``[mu - s, mu + s]``
         (s = sqrt(max(var, 0))), whose moments are the batch's, as the JAX
-        package's ``bn_update`` probe does."""
+        package's ``bn_update`` probe does.
+
+        The kernel pools the moments of all rows, so it refuses to run under
+        ``stat_groups`` with G > 1: a caller takes the plain stack there (the
+        JAX package's ``_fusable``)."""
+        if _STAT_GROUPS != 1:
+            raise ValueError(f"the pooled-MLP kernel pools the moments of all "
+                             f"rows: not under stat_groups({_STAT_GROUPS})")
         layers = list(self.children())
         slope = act_slope(self.act)
         if self.dtype is not None or slope is None:

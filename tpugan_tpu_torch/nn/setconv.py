@@ -8,7 +8,9 @@ neighbourhood. ``npoint=None`` pools one group over the whole cloud.
 The shared MLP and the pool run as one fused op (the pooled-MLP kernels) at
 eval everywhere, and in training where ``fused_train`` is set (the fluid
 spatial critic's stages), as in the JAX package; otherwise as the plain
-grouped stack and ``amax``.
+grouped stack and ``amax``. Under ``stat_groups`` with G > 1 (a critic's
+stacked apply) every stage takes the plain stack: the kernel's batch
+moments pool all rows, and the stack's ``BatchNorm`` keeps each block's.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 from torch import nn
 
 from tpugan_tpu_torch import resolve_device
-from tpugan_tpu_torch.nn.layers import SharedMLP, relu, seeded
+from tpugan_tpu_torch.nn.layers import (SharedMLP, current_stat_groups, relu,
+                                        seeded)
 from tpugan_tpu_torch.ops.neighbors import (fps, gather, group_all,
                                             query_and_group)
 
@@ -30,7 +33,7 @@ class SetConv(nn.Module):
     layers; False: norm-free layers with a Dense bias (``use_bias = not
     bn``). ``mlp`` lists the MLP output widths; the input width is 3 + the
     feature width (``use_xyz``). The fused op runs at eval and, with
-    ``fused_train``, in training."""
+    ``fused_train``, in training, outside ``stat_groups`` (G = 1)."""
 
     def __init__(self, in_features: int, mlp: Sequence[int],
                  npoint: Optional[int] = None, radius: Optional[float] = None,
@@ -77,6 +80,6 @@ class SetConv(nn.Module):
         else:
             new_xyz = None
             grouped = group_all(xyz, features, use_xyz=self.use_xyz)
-        if (not train) or self.fused_train:
+        if ((not train) or self.fused_train) and current_stat_groups() == 1:
             return new_xyz, self.SharedMLP_0.pooled(grouped, train)
         return new_xyz, self.SharedMLP_0(grouped, train).amax(dim=2)

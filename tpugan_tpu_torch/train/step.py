@@ -1,6 +1,7 @@
 """The fluid and the action GAN train steps (``tpugan_tpu/train/step.py :
-make_fluid_gan_step`` and ``make_action_gan_step``, sequential-critic
-paths) and their helpers.
+make_fluid_gan_step`` and ``make_action_gan_step``, with their
+sequential-critic and their stacked-critic (``fast_d``) paths) and their
+helpers.
 
 One fluid step, in order:
 
@@ -24,6 +25,16 @@ One fluid step, in order:
   and then the spatial critic's update on (fake, real), with random
   rotations (p = 0.3).
 
+With ``fast_d`` (the JAX package's ``fast_d`` contract): the temporal
+critic's generator pass stacks its frames (``stack_frames``); each critic
+update scores fake and real as one apply on their rows stacked along the
+batch axis under ``stat_groups(2)`` (the temporal one with the frames
+stacked as well, the real half's valid mask all ones), the scores split at
+B. Every batch norm keeps each call's moments, the running averages replay
+in the stacked block order (frame-major over fake, real), and each
+spectral norm advances once per stacked apply. The padded prediction
+bucket must equal the high-res point count.
+
 Every random number of a step comes from one :class:`StepDraws`: drawn from
 a ``torch.Generator`` by default, or given (a test rebuilds the JAX step's
 draws and hands them over). The step's only host synchronisations are the
@@ -42,7 +53,8 @@ is not the fluid step with a flag:
 * on even iterations, unless ``freeze_D``: the temporal and then the
   spatial critic's update on (fake, real), with no rotations, the spatial
   update's fake cloud the centre frame under a fresh permutation;
-* six dropout draws, one per critic call, at the heads' two rates.
+* six dropout draws, one per critic call, at the heads' two rates (with
+  ``fast_d`` two more, [2B] rows each, for the stacked updates).
 
 Its random numbers come from an :class:`ActionStepDraws`.
 """
@@ -62,6 +74,7 @@ from tpugan_tpu_torch.losses.geometry import tpugan_sr_loss
 from tpugan_tpu_torch.models.discriminator import (dropout_layers,
                                                    dropout_multipliers,
                                                    dropout_widths)
+from tpugan_tpu_torch.nn.layers import stat_groups
 from tpugan_tpu_torch.ops.interpolate import (cubic_interpolation,
                                               cubic_interpolation_dense)
 from tpugan_tpu_torch.ops.neighbors import fps
@@ -98,6 +111,9 @@ class FluidTrainConfig:
     interp: str = "dense"            # velocity transfer: "dense" or "capped"
     device_sampling: bool = True
     freeze_D: bool = False
+    # the critics' stacked applies (grouped batch statistics); needs
+    # lowres_size * upsample_ratio == patch_size
+    fast_d: bool = False
 
     @property
     def lowres_size(self) -> int:
@@ -145,7 +161,9 @@ class StepDraws:
     fps_start [B] and jitter [3, B, n, 3]: device sampling; keep: dropout
     multipliers by critic call ("spatial_g", "tempo_g", "tempo_fake",
     "tempo_real", "spatial_fake", "spatial_real"), one list each (see
-    ``FCHead``; all ones turn dropout off).
+    ``FCHead``; all ones turn dropout off); with ``fast_d`` also
+    "tempo_both" and "spatial_both", the stacked updates' [2B, w]
+    multipliers (one draw, shared as the JAX step shares its key).
     """
 
     labels: tuple
@@ -166,6 +184,7 @@ class StepDraws:
 
     CALLS = ("spatial_g", "tempo_g", "tempo_fake", "tempo_real",
              "spatial_fake", "spatial_real")
+    STACKED = ("tempo_both", "spatial_both")
 
     @classmethod
     def draw(cls, gen: torch.Generator, cfg: FluidTrainConfig, m: int,
@@ -191,17 +210,22 @@ class StepDraws:
             rots1=rotation_matrix(angles(b)),
             fps_start=torch.randint(0, m, (b,), generator=gen),
             jitter=torch.randn(3, b, n, 3, generator=gen),
-            keep=cls._keep(gen, b, keep_widths, p_drop))
+            keep=cls._keep(gen, b, keep_widths, p_drop, cfg.fast_d))
 
     @classmethod
-    def _keep(cls, gen, b, widths, p_drop):
+    def _keep(cls, gen, b, widths, p_drop, stacked=False):
         """Dropout multipliers by critic call. The critic updates share
         theirs as the JAX step shares its dropout keys: the temporal and
-        spatial fake calls one, the two real calls another."""
+        spatial fake calls one, the two real calls another, and the two
+        stacked calls (drawn last, only when ``stacked``) one."""
         keep = {c: [dropout_multipliers((b, w), p_drop, gen) for w in widths]
                 for c in ("spatial_g", "tempo_g", "tempo_fake", "tempo_real")}
         keep["spatial_fake"] = keep["tempo_fake"]
         keep["spatial_real"] = keep["tempo_real"]
+        if stacked:
+            keep["tempo_both"] = [dropout_multipliers((2 * b, w), p_drop, gen)
+                                  for w in widths]
+            keep["spatial_both"] = keep["tempo_both"]
         return keep
 
     def to(self, device) -> "StepDraws":
@@ -261,6 +285,22 @@ def _frames(feat: Optional[torch.Tensor]) -> Optional[List[torch.Tensor]]:
     return None if feat is None else list(feat)
 
 
+def _both(fake, true) -> Optional[List[torch.Tensor]]:
+    """Per-frame [fake; true] along the batch axis (None stays None)."""
+    if fake is None:
+        return None
+    return [torch.cat([f, t], 0) for f, t in zip(fake, true)]
+
+
+def stacked_scores(critic: Callable, b: int, *args, **kw):
+    """One train-mode critic apply on fake and real stacked along the batch
+    axis under ``stat_groups(2)``; returns the (fake, true) scores, split
+    at ``b``."""
+    with stat_groups(2):
+        score = critic(*args, train=True, **kw)
+    return score[:b], score[b:]
+
+
 # ---------------------------------------------------------------- the step
 
 class FluidGanStep:
@@ -295,6 +335,14 @@ class FluidGanStep:
         valid_lbl, invalid_lbl = draws.labels
         radius = cfg.cutoff               # furthest distance is pinned to 1
         n = cfg.lowres_size
+        if cfg.fast_d and n * cfg.upsample_ratio != m:
+            raise ValueError(
+                "--fast_d stacks the fake and real clouds along the batch "
+                "axis, which requires the padded prediction bucket "
+                f"({n * cfg.upsample_ratio} = lowres_size * upsample_ratio) "
+                f"to equal the high-res point count ({m}); configs with "
+                "fps_ratio * upsample_ratio != 1 must use the sequential "
+                "critic path")
 
         if cfg.device_sampling and "lowres_pos" not in batch:
             lowres_pos, lowres_vel = device_sample_lowres(
@@ -336,7 +384,8 @@ class FluidGanStep:
                 gt_adv = pred_adv = None
             tp_fake = tempo(list(pred_seq), cfg.R, feat_lst=_frames(pred_adv),
                             valid_lst=list(pred_valid), train=True,
-                            keep=draws.keep["tempo_g"])
+                            keep=draws.keep["tempo_g"],
+                            stack_frames=cfg.fast_d)
             tempo_loss = lsgan_generator_loss(tp_fake, draws.tp_target)
         sr_loss = tempo_loss + spatial_loss + cfg.w * position_loss
         state.sr.opt.step(state.sr.grads(sr_loss))
@@ -358,12 +407,21 @@ class FluidGanStep:
                 if cfg.use_vel:
                     fake_feat = rotate_frames(pred_adv, draws.rots_fake)
                     true_feat = rotate_frames(gt_adv, draws.rots_true)
-            fake = tempo(list(fake_pos), cfg.R, feat_lst=_frames(fake_feat),
-                         valid_lst=list(pred_valid), train=True,
-                         keep=draws.keep["tempo_fake"])
-            true = tempo(list(true_pos), cfg.R, feat_lst=_frames(true_feat),
-                         valid_lst=None, train=True,
-                         keep=draws.keep["tempo_real"])
+            if cfg.fast_d:
+                ones = torch.ones_like(pred_valid[0])
+                fake, true = stacked_scores(
+                    tempo, b, _both(fake_pos, true_pos), cfg.R,
+                    feat_lst=_both(_frames(fake_feat), _frames(true_feat)),
+                    valid_lst=[torch.cat([v, ones]) for v in pred_valid],
+                    keep=draws.keep["tempo_both"], stack_frames=True)
+            else:
+                fake = tempo(list(fake_pos), cfg.R,
+                             feat_lst=_frames(fake_feat),
+                             valid_lst=list(pred_valid), train=True,
+                             keep=draws.keep["tempo_fake"])
+                true = tempo(list(true_pos), cfg.R,
+                             feat_lst=_frames(true_feat), valid_lst=None,
+                             train=True, keep=draws.keep["tempo_real"])
             t_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
             state.tempo.opt.step(state.tempo.grads(t_loss))
@@ -372,10 +430,16 @@ class FluidGanStep:
             if draws.do_rot_s:
                 true_center = rotate_items(true_center, draws.rots0)
                 fake_cloud = rotate_items(fake_cloud, draws.rots1)
-            fake = spatial(fake_cloud, last_valid, train=True,
-                           keep=draws.keep["spatial_fake"])
-            true = spatial(true_center, None, train=True,
-                           keep=draws.keep["spatial_real"])
+            if cfg.fast_d:
+                fake, true = stacked_scores(
+                    spatial, b, torch.cat([fake_cloud, true_center]),
+                    torch.cat([last_valid, torch.ones_like(last_valid)]),
+                    keep=draws.keep["spatial_both"])
+            else:
+                fake = spatial(fake_cloud, last_valid, train=True,
+                               keep=draws.keep["spatial_fake"])
+                true = spatial(true_center, None, train=True,
+                               keep=draws.keep["spatial_real"])
             s_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
             state.spatial.opt.step(state.spatial.grads(s_loss))
@@ -404,7 +468,9 @@ class ActionStepDraws:
     fps_start: [F*B] device sampling's starts (frame-major rows); keep:
     dropout multipliers by critic call (``StepDraws.CALLS``), one list
     each, drawn at each layer's own rate (see ``FCHead``; all ones turn
-    dropout off).
+    dropout off); with ``fast_d`` also "tempo_both" and "spatial_both",
+    the stacked updates' [2B, w] multipliers (two draws, as the JAX step's
+    two keys).
     """
 
     labels: tuple
@@ -417,6 +483,7 @@ class ActionStepDraws:
     keep: Dict[str, List[torch.Tensor]]
 
     CALLS = StepDraws.CALLS
+    STACKED = StepDraws.STACKED
 
     @classmethod
     def draw(cls, gen: torch.Generator, cfg, shape,
@@ -428,7 +495,9 @@ class ActionStepDraws:
         f, b, m = shape
         nr = cfg.lowres_size * cfg.upsample_ratio
         target = lambda: float(0.8 + 0.4 * torch.rand(1, generator=gen))
-        return cls(
+        layers = lambda c: (spatial_layers if c.startswith("spatial")
+                            else tempo_layers)
+        draws = cls(
             labels=lsgan_labels(gen),
             perms=torch.stack([torch.randperm(nr, generator=gen)
                                for _ in range(f)]),
@@ -437,9 +506,13 @@ class ActionStepDraws:
             sp_perm_d=torch.randperm(nr, generator=gen),
             fps_start=torch.randint(0, m, (f * b,), generator=gen),
             keep={c: [dropout_multipliers((b, w), p, gen) for w, p in
-                      (spatial_layers if c.startswith("spatial")
-                       else tempo_layers)]
+                      layers(c)]
                   for c in cls.CALLS})
+        if cfg.fast_d:
+            for c in cls.STACKED:
+                draws.keep[c] = [dropout_multipliers((2 * b, w), p, gen)
+                                 for w, p in layers(c)]
+        return draws
 
     def to(self, device) -> "ActionStepDraws":
         return dataclasses.replace(
@@ -511,7 +584,7 @@ class ActionGanStep:
         # train_step_final.py:270-274)
         pred_seq = torch.stack([pred[i][:, draws.perms[i]] for i in range(f)])
         tp_fake = tempo(list(pred_seq), cfg.R, valid_lst=None, train=True,
-                        keep=draws.keep["tempo_g"])
+                        keep=draws.keep["tempo_g"], stack_frames=cfg.fast_d)
         tempo_loss = lsgan_generator_loss(tp_fake, draws.tp_target)
         sr_loss = tempo_loss + spatial_loss + cfg.w * position_loss
         state.sr.opt.step(state.sr.grads(sr_loss))
@@ -523,18 +596,30 @@ class ActionGanStep:
         t_loss = s_loss = zero
         if cur_iter % 2 == 0 and not cfg.freeze_D:
             pred_seq, pred_center = pred_seq.detach(), pred[1].detach()
-            fake = tempo(list(pred_seq), cfg.R, valid_lst=None, train=True,
-                         keep=draws.keep["tempo_fake"])
-            true = tempo(list(highres_pos), cfg.R, valid_lst=None, train=True,
-                         keep=draws.keep["tempo_real"])
+            if cfg.fast_d:
+                fake, true = stacked_scores(
+                    tempo, b, _both(pred_seq, highres_pos), cfg.R,
+                    valid_lst=None, keep=draws.keep["tempo_both"],
+                    stack_frames=True)
+            else:
+                fake = tempo(list(pred_seq), cfg.R, valid_lst=None, train=True,
+                             keep=draws.keep["tempo_fake"])
+                true = tempo(list(highres_pos), cfg.R, valid_lst=None,
+                             train=True, keep=draws.keep["tempo_real"])
             t_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
             state.tempo.opt.step(state.tempo.grads(t_loss))
 
-            fake = spatial(pred_center[:, draws.sp_perm_d], None, train=True,
-                           keep=draws.keep["spatial_fake"])
-            true = spatial(highres_pos[1], None, train=True,
-                           keep=draws.keep["spatial_real"])
+            if cfg.fast_d:
+                fake, true = stacked_scores(
+                    spatial, b, torch.cat([pred_center[:, draws.sp_perm_d],
+                                           highres_pos[1]]), None,
+                    keep=draws.keep["spatial_both"])
+            else:
+                fake = spatial(pred_center[:, draws.sp_perm_d], None,
+                               train=True, keep=draws.keep["spatial_fake"])
+                true = spatial(highres_pos[1], None, train=True,
+                               keep=draws.keep["spatial_real"])
             s_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
             state.spatial.opt.step(state.spatial.grads(s_loss))
