@@ -263,7 +263,37 @@ Phases, one JSON line each (``phase`` names it):
            updates by norm;
   train_action_fast_d the same with the action CLI twin (--preset
            train_dir, checkpoints/action_tempo_20k.ckpt,
-           runs/chip_smoke_train_action_fast_d/, ACTION_STEP_*_FAST_D).
+           runs/chip_smoke_train_action_fast_d/, ACTION_STEP_*_FAST_D);
+  kernel   (sharded_rollout) the kNN at each graph of the f32 dynamic frame
+           as 20,480 local rows against the gathered 40,960 and each
+           EdgeConv class on 20,480 centres over a table gathered from a
+           40,960-row feature, against their plain versions;
+  sharded_rollout the rollout CLI with --shard_points over 5 synthetic
+           frames of 40,960 particles (SHARD_POINTS, four times the serving
+           frame), f32 dynamic and bf16 static, in ranks launched by
+           torchrun (this file with --rank-worker): one rank over NCCL and
+           two ranks on the one card over gloo (runs/chip_smoke_parallel/);
+           each world's frames against the unsharded CLI's (GATE), each
+           rank's launches a frame against SHARD_RUNS (counts reset in the
+           rank before each run, read after), ms a frame in CUDA events and
+           on the host clock;
+  data_parallel in the same ranks: the fluid train CLI twin with
+           --data_parallel --preset train_vel --device_sampling
+           --synthetic and the fused switch, resumed from the checkpoint
+           for iterations 20001-20004 (B = 4); at one rank (NCCL) in turns
+           with the same run without --data_parallel (DP_TURNS: the same
+           launches every step, the first step's losses equal bit for
+           bit), its checkpoint read back equal; at two ranks (gloo) both
+           ranks' parameters and buffers equal bit for bit after every
+           step, no pooled-MLP launch and every other launch as at one
+           rank, the gate's decisions equal, the first step's losses within
+           DP_LOSS_TOL_FIRST of one rank's and every later step's within
+           the one-rank runs' spread at that step widened by
+           DP_SPREAD_WIDEN times it on each side; then the action twin with
+           --data_parallel --fast_d for iterations 20001-20002 at two
+           ranks, ranks equal after every step; ms a step (G only and G+D),
+           the collectives' share of a step at two ranks (each collective
+           synchronised and timed), the peak memory of each rank.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -495,15 +525,19 @@ def tie_grid(torch, dev):
 
 def _knn_row(torch, dev, rng, what, b, nq, nc, d, k, own, scale):
     """The exact kNN kernel against its plain version on a cloud of
-    ``scale`` (a graph over itself with ``own``), its times and bound.
+    ``scale`` (a graph over itself with ``own``; with ``own="rows"`` the
+    queries are the first ``nq`` candidates, a rank's rows of a sharded
+    graph), its times and bound.
     Distances to 1e-5 of 2 max |q|^2 (the f32 error of max(|q|^2 + |c|^2 -
     2 q.c, 0)); an index may differ only where the two candidates' exact
     distances tie within twice that."""
     from tpugan_tpu_torch.ops.kernels import knn as K
 
     q_np = (rng.standard_normal((b, nq, d)) * scale).astype(np.float32)
-    c_np = q_np if own else (rng.standard_normal((b, nc, d)) * scale
-                             ).astype(np.float32)
+    c_np = q_np if own is True else (rng.standard_normal((b, nc, d)) * scale
+                                     ).astype(np.float32)
+    if own == "rows":
+        q_np = np.ascontiguousarray(c_np[:, :nq])
     q, c = torch.from_numpy(q_np).to(dev), torch.from_numpy(c_np).to(dev)
     bias = torch.zeros((b, nc), device=dev)
     d2k, ik = K.knn_kernel(q, c, bias, k)
@@ -727,18 +761,18 @@ def check_knn_approx(torch, dev, rng):
 
 
 def _edgeconv_row(torch, dev, rng, name, cdt, kind, n, c, h, o, k, agg, mlp,
-                  b=1):
+                  b=1, table=None):
     """The fused EdgeConv forward of ``b`` frames of ``n`` points against its
     plain version (f32: to 1e-4 of the scale, summation order only; bf16:
     3e-2, a 1-ulp rounding flip of one layer's value may carry through the
     next layers), launching the variant its class takes, with its times and
-    bound."""
+    bound. ``table``: the (neighbour-major table, centres) to run on
+    (default: random)."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     t = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(dev)
-    nbr = t(b, k, n, c)
-    ctr = t(b, n, c)
+    nbr, ctr = table if table is not None else (t(b, k, n, c), t(b, n, c))
     wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
     w1 = t(h, h) / np.sqrt(h) if mlp else None
     w2 = t(h, o) / np.sqrt(h) if mlp else None
@@ -4619,6 +4653,562 @@ def add_action_train_units(line, rows, launches):
                 launches["edgeconv_bwd"] - launches["edgeconv_bwd_tiled"])
 
 
+# ------------------------------------------ parallelism over torch.distributed
+
+PARALLEL_DIR = os.path.join(ROOT, "runs", "chip_smoke_parallel")   # gitignored
+SHARD_POINTS = 40960      # four times the serving frame
+SHARD_FRAMES = 5
+SHARD_RUNS = [  # (name, the rollout CLI's flags, launches a frame on a rank)
+    ("f32_dynamic", [], {"knn": 7, "edgeconv": 9}),
+    ("bf16_static", ["--compute_dtype", "bf16", "--graph_mode", "static"],
+     {"knn": 1, "edgeconv": 9}),
+]
+# The sharded kernels' shapes on one of two ranks: its 20,480 rows of a
+# 40,960-point frame against the gathered cloud (the f32 dynamic frame's
+# graph widths of KNN_SHAPES' serving rows; the EdgeConv classes of
+# EDGECONV_SHAPES on neighbour tables gathered from the whole frame)
+SHARD_ROWS = SHARD_POINTS // 2
+DP_ITERS = 20004          # the fluid DP runs: iterations 20001-20004
+DP_ACTION_ITERS = 20002   # the action DP run: iterations 20001-20002
+DP_TURNS = ("dp", "plain") * 3   # world size 1, in turns
+# Every run's first step starts from the checkpoint with the same draws, so
+# its losses repeat: bit for bit at one rank, to the order of the
+# cross-rank sums at two (relative). Later steps differ from run to run:
+# the plain versions' atomic scatter-adds change the gradients' last bits
+# and the GAN steps amplify them (on an H100, two plain runs'
+# spatial_G_loss read 0.051 and 0.073 at the fourth step). So a two-rank step
+# after the first must lie within the one-rank runs' spread at that step
+# widened by DP_SPREAD_WIDEN times that spread on each side (six runs'
+# spread understates the run-to-run range; a two-rank step that lost or
+# doubled a rank's gradient moves the second step's losses by far more).
+DP_LOSS_TOL_FIRST = 1e-4
+DP_SPREAD_WIDEN = 3.0
+RANK_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(nproc: int, backend: str, out_dir: str) -> list:
+    """``torchrun --nproc_per_node nproc chip_smoke.py --rank-worker
+    out_dir``: each rank runs :func:`rank_worker` over ``backend`` and
+    writes ``out_dir/rank{r}.json``, returned in rank order. Output of the
+    ranks goes to ``out_dir/ranks.log``; a failed rank raises with its
+    tail."""
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with open(os.path.join(out_dir, "spec.json"), "w") as fh:
+        json.dump({"backend": backend, "world": nproc}, fh)
+    log = os.path.join(out_dir, "ranks.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), os.path.abspath(__file__),
+           "--rank-worker", out_dir]
+    with open(log, "w") as fh:
+        rc = subprocess.run(cmd, cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT,
+                            timeout=RANK_TIMEOUT_S).returncode
+    if rc != 0:
+        with open(log) as fh:
+            raise AssertionError(f"{nproc} rank(s) over {backend}: exit {rc}\n"
+                                 + fh.read()[-6000:])
+    outs = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            outs.append(json.load(fh))
+    return outs
+
+
+def _kernels():
+    """Every kernel's launch counter, by name."""
+    from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp,
+                                              edgeconv, fps, interp, knn, nn1,
+                                              pooled_mlp)
+
+    return {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
+            "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
+            "fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
+            "pooled_mlp_fwd": pooled_mlp.FWD, "pooled_mlp_bwd": pooled_mlp.BWD,
+            "pooled_mlp_affine": pooled_mlp.AFFINE_FWD,
+            "pooled_mlp_affine_bwd": pooled_mlp.AFFINE_BWD,
+            "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL,
+            "knn_approx": knn.APPROX}
+
+
+def _shard_argv(name, extra, out_dir, shard, world=1, backend=None):
+    argv = ["--ckpt", CHECKPOINT, "--use_vel", "--in_node_feats", "6",
+            "--synthetic", "--synthetic_particles", str(SHARD_POINTS),
+            "--num_frames", str(SHARD_FRAMES), "--out_dir", out_dir] + extra
+    if shard:
+        argv += ["--shard_points", "--mesh_devices", str(world),
+                 "--device", "cuda:0"]
+        if backend:
+            argv += ["--dist_backend", backend]
+    return argv
+
+
+def _worker_sharded(torch, kernels, spec, out_dir):
+    """On each rank: the rollout CLI with --shard_points for each mode of
+    SHARD_RUNS (counts reset before, read after; rank 0 writes the frames),
+    then, past the counted run, ms a frame of the sharded rollout in CUDA
+    events and on the host clock."""
+    from tpugan_tpu_torch.cli import rollout as cli
+    from tpugan_tpu_torch.parallel import mesh
+    from tpugan_tpu_torch.parallel.sharded_serving import \
+        rollout_sequence_sharded
+
+    res = {}
+    for name, extra, _ in SHARD_RUNS:
+        argv = _shard_argv(name, extra, os.path.join(out_dir, name), True,
+                           spec["world"], spec["backend"])
+        for k in kernels.values():
+            k.launches = 0
+        cli.main(argv)
+        torch.cuda.synchronize()
+        launches = counts(kernels)
+        for k in kernels.values():
+            k.launches = 0
+        opt = cli.parser().parse_args(argv)
+        model, _ = cli.build_model(opt, torch.device("cuda", 0))
+        frames = cli.load_frames(opt)
+        pos = np.stack([p for p, _ in frames])
+        vel = np.stack([v for _, v in frames])
+        run = lambda: rollout_sequence_sharded(model, pos, vel, use_vel=True)
+        run()
+        mesh_sync = lambda: mesh.all_reduce_(torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        mesh_sync()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[name] = {"launches": launches,
+                     "ms_per_frame": e0.elapsed_time(e1) / SHARD_FRAMES,
+                     "wall_ms_per_frame": wall * 1e3 / SHARD_FRAMES}
+    return res
+
+
+def _digest(torch, state) -> str:
+    """sha1 of every parameter and buffer of the trainer state's three
+    networks (bit for bit)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for name in ("sr", "tempo", "spatial"):
+        for k, v in sorted(getattr(state, name).module.state_dict().items()):
+            h.update(k.encode())
+            h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False):
+    """One train CLI run called as a function: each step's launches, metrics,
+    ms (G only and G+D, CUDA events), the state's digest after it, the
+    seconds in collectives (with ``timed_collectives``: every collective
+    synchronised and timed on the host clock) and the peak memory."""
+    from tpugan_tpu_torch.parallel import mesh
+
+    marks, digests, coll = [], [], [0.0]
+    own_call = step_cls.__call__
+
+    def call(self, state, *a, **k):
+        out = own_call(self, state, *a, **k)
+        digests.append(_digest(torch, state))
+        return out
+
+    own = {f: getattr(mesh, f) for f in ("all_reduce_", "gather_cat")}
+
+    def timed(f):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = own[f](*a, **k)
+            torch.cuda.synchronize()
+            coll[0] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def hook(event, n_iter, metrics):
+        if event in ("start", "end"):
+            torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((event, n_iter, counts(kernels), ev, metrics, coll[0]))
+
+    step_cls.__call__ = call
+    if timed_collectives:
+        for f in own:
+            setattr(mesh, f, timed(f))
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["TPUGAN_FUSED_EDGECONV_TRAIN"] = "1"
+    try:
+        out = cli.main(argv, hook=hook)
+    finally:
+        del os.environ["TPUGAN_FUSED_EDGECONV_TRAIN"]
+        step_cls.__call__ = own_call
+        for f, fn in own.items():
+            setattr(mesh, f, fn)
+    torch.cuda.synchronize()
+    by = {}
+    for event, n_iter, c, ev, metrics, cs in marks:
+        by.setdefault(n_iter, {})[event] = (c, ev, metrics, cs)
+    steps = []
+    for (n_iter, m), dig in zip(sorted(by.items()), digests):
+        start, gen, end = m["start"], m["generator"], m["end"]
+        ms = start[1].elapsed_time(end[1])
+        steps.append({"iteration": n_iter, "metrics": m["end"][2],
+                      "launches": delta(start[0], end[0]), "digest": dig,
+                      "ms": ms, "generator_ms": start[1].elapsed_time(gen[1]),
+                      "collective_share": ((end[3] - start[3]) * 1e3 / ms
+                                           if timed_collectives else None)})
+    return {"steps": steps, "checkpoint": out["checkpoint"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "state": out["state"]}
+
+
+def _worker_dp(torch, kernels, spec, out_dir):
+    """On each rank: the fluid train CLI twin (--preset train_vel
+    --device_sampling --synthetic, resumed from the checkpoint, the fused
+    switch on) with --data_parallel; at world size 1 in turns with the
+    same run without it (DP_TURNS); at world size 2 also the action twin
+    with --data_parallel --fast_d. Rank 0 reads its last fluid checkpoint
+    back."""
+    from tpugan_tpu_torch.checkpoint import load_trainer_state
+    from tpugan_tpu_torch.cli import train_action, train_fluid
+    from tpugan_tpu_torch.train.step import (ActionGanStep, FluidGanStep,
+                                             FluidTrainConfig)
+
+    world, backend = spec["world"], spec["backend"]
+    par = ["--device", "cuda:0", "--dist_backend", backend]
+    log = lambda n: os.path.join(out_dir, n)
+    fluid = ["--preset", "train_vel", "--device_sampling", "--synthetic",
+             "--resume", "--path_to_resume", CHECKPOINT, "--iters",
+             str(DP_ITERS), "--ckpt_every", "100000"]
+    res = {}
+    turns = DP_TURNS if world == 1 else ("dp",)
+    for i, turn in enumerate(turns):
+        argv = fluid + ["--log_dir", log(f"fluid_{i}")]
+        if turn == "dp":
+            argv += ["--data_parallel"] + par
+        else:
+            argv += ["--device", "cuda:0"]
+        got = _dp_cli(torch, kernels, train_fluid, argv, FluidGanStep,
+                      timed_collectives=world > 1)
+        state = got.pop("state")
+        if turn == "dp" and i == 0:
+            from tpugan_tpu_torch.parallel import mesh
+
+            if mesh.rank() == 0:
+                back = load_trainer_state(got["checkpoint"],
+                                          FluidTrainConfig(), "cuda:0")
+                got["checkpoint_read_back_equal"] = (
+                    _digest(torch, back) == _digest(torch, state))
+        res[f"fluid_{i}_{turn}"] = got
+    if world > 1:
+        argv = ["--preset", "train_dir", "--device_sampling", "--synthetic",
+                "--fast_d", "--resume", "--path_to_resume", ACTION_CHECKPOINT,
+                "--iters", str(DP_ACTION_ITERS), "--ckpt_every", "100000",
+                "--log_dir", log("action"), "--data_parallel"] + par
+        got = _dp_cli(torch, kernels, train_action, argv, ActionGanStep,
+                      timed_collectives=True)
+        got.pop("state")
+        res["action_dp"] = got
+    return res
+
+
+def rank_worker(out_dir: str) -> int:
+    """A rank of :func:`launch_ranks`: joins the group, runs the sharded
+    rollout and the data-parallel runs, writes its results."""
+    import torch
+
+    from tpugan_tpu_torch.parallel import mesh
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    with open(os.path.join(out_dir, "spec.json")) as fh:
+        spec = json.load(fh)
+    mesh.initialize_distributed(spec["backend"], device="cuda:0")
+    if mesh.world_size() != spec["world"]:
+        raise AssertionError(f"world {mesh.world_size()}, spec {spec}")
+    kernels = _kernels()
+    res = {"rank": mesh.rank(), "world": mesh.world_size(),
+           "backend": spec["backend"],
+           "sharded": _worker_sharded(torch, kernels, spec, out_dir),
+           "dp": _worker_dp(torch, kernels, spec, out_dir)}
+    with open(os.path.join(out_dir, f"rank{mesh.rank()}.json"), "w") as fh:
+        json.dump(res, fh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def check_shard_kernels(torch, dev):
+    """The kNN and the EdgeConv kernels at the sharded frame's shapes on
+    one of two ranks, against their plain versions: each graph of the f32
+    dynamic frame as 20,480 local rows against the gathered 40,960 (the
+    rows are the first half of the candidates), and each EdgeConv class
+    (f32 and bf16) on 20,480 centres whose neighbour-major table is
+    gathered from a 40,960-row feature."""
+    from tpugan_tpu_torch.nn.edgeconv import gather_neighbor_major
+
+    rng = np.random.default_rng(23)
+    rows = {"knn": [], "edgeconv": []}
+    for _, _, _, _, d, k, own, per_fwd, *_ in KNN_SHAPES[:5]:
+        row = _knn_row(torch, dev, rng, "sharded", 1, SHARD_ROWS,
+                       SHARD_POINTS, d, k, "rows", 0.3 if d == 3 else 1.0)
+        rows["knn"].append(dict(path="sharded_rollout", per_frame=per_fwd,
+                                **row))
+        emit({"phase": "kernel", "kernel": "knn", **rows["knn"][-1]})
+    for name, c, h, o, k, agg, mlp, per_fwd in EDGECONV_SHAPES:
+        feat = torch.from_numpy(rng.standard_normal((1, SHARD_POINTS, c))
+                                .astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, SHARD_POINTS, (1, SHARD_ROWS, k))
+                               ).to(dev)
+        table = (gather_neighbor_major(feat, idx), feat[:, :SHARD_ROWS])
+        for cdt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            rows["edgeconv"].append(dict(
+                path="sharded_rollout", config=name, per_frame=per_fwd,
+                **_edgeconv_row(torch, dev, rng, name, cdt, kind, SHARD_ROWS,
+                                c, h, o, k, agg, mlp, table=table)))
+            emit({"phase": "kernel", "kernel": "edgeconv",
+                  **rows["edgeconv"][-1]})
+    return rows
+
+
+def _frames_close(torch, dev, got, want):
+    """(normalised Chamfer as rollout_cli's gate takes it, max abs error
+    where the shapes agree else None, bit for bit) of two frames."""
+    from tpugan_tpu_torch.ops.metrics import chamfer
+
+    ta = torch.from_numpy(want).to(dev)[None]
+    tb = torch.from_numpy(got).to(dev)[None]
+    scale = float(((ta - ta.mean(1, keepdim=True)) ** 2).sum(-1).mean())
+    with torch.no_grad():
+        cd = float(chamfer(ta, tb)[0]) / (want.shape[0] * scale)
+    same = got.shape == want.shape
+    err = float(np.abs(got - want).max()) if same else None
+    return cd, err, bool(same and np.array_equal(got, want))
+
+
+def _unsharded_ms(torch, cli, argv) -> dict:
+    """ms a frame of the unsharded device rollout of the CLI's frames, warm,
+    in CUDA events and on the host clock (as the ranks time theirs)."""
+    from tpugan_tpu_torch.eval.rollout import rollout_sequence_device
+
+    opt = cli.parser().parse_args(argv)
+    model, _ = cli.build_model(opt, torch.device("cuda", 0))
+    frames = cli.load_frames(opt)
+    pos = np.stack([p for p, _ in frames])
+    vel = np.stack([v for _, v in frames])
+    run = lambda: rollout_sequence_device(model, pos, vel, use_vel=True)
+    run()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    run()
+    e1.record()
+    torch.cuda.synchronize()
+    return {"ms_per_frame": e0.elapsed_time(e1) / SHARD_FRAMES,
+            "wall_ms_per_frame": (time.perf_counter() - t0) * 1e3
+            / SHARD_FRAMES}
+
+
+def sharded_rollout(torch, dev, ranks):
+    """The phase line of the point-sharded rollout: each world's frames
+    (rank 0's files) against the unsharded rollout CLI's of the same
+    frames (GATE on the normalised Chamfer; the largest error where the
+    frame shapes agree), its launches a frame on each rank against
+    SHARD_RUNS', ms a frame. ``ranks``: world size -> the ranks' results
+    (world size 1 over NCCL, 2 over gloo on the one card)."""
+    from tpugan_tpu_torch.cli import rollout as cli
+
+    line = {"phase": "sharded_rollout", "frames": SHARD_FRAMES,
+            "points": SHARD_POINTS}
+    launches = {n: 0 for n in ranks[1][0]["sharded"]["f32_dynamic"]["launches"]}
+    for name, extra, per in SHARD_RUNS:
+        ref_dir = os.path.join(PARALLEL_DIR, "unsharded", name)
+        cli.main(_shard_argv(name, extra, ref_dir, False))
+        ref = [np.load(os.path.join(ref_dir, f"pred_{i}.npy"))
+               for i in range(SHARD_FRAMES)]
+        entry = {"unsharded": _unsharded_ms(torch, cli, _shard_argv(
+            name, extra, ref_dir, False))}
+        for world, outs in sorted(ranks.items()):
+            wdir = os.path.join(PARALLEL_DIR, f"world{world}", name)
+            got = [np.load(os.path.join(wdir, f"pred_{i}.npy"))
+                   for i in range(SHARD_FRAMES)]
+            close = [_frames_close(torch, dev, g, w) for g, w in zip(got, ref)]
+            errs = [e for _, e, _ in close if e is not None]
+            for r, o in enumerate(outs):
+                sh = o["sharded"][name]
+                expect(sh["launches"], {k: v * SHARD_FRAMES
+                                        for k, v in per.items()},
+                       f"sharded rollout {name}, world {world}, rank {r}")
+                for k, v in sh["launches"].items():
+                    launches[k] += v
+            entry[f"world{world}"] = {
+                "backend": outs[0]["backend"],
+                "chamfer_norm_max": max(c for c, _, _ in close),
+                "max_abs_err": max(errs) if errs else None,
+                "frames_same_shape": len(errs),
+                "bit_for_bit": all(b for _, _, b in close),
+                "launches_per_frame_per_rank": per,
+                "ms_per_frame": [o["sharded"][name]["ms_per_frame"]
+                                 for o in outs],
+                "wall_ms_per_frame": [o["sharded"][name]["wall_ms_per_frame"]
+                                      for o in outs]}
+            if not entry[f"world{world}"]["chamfer_norm_max"] < GATE:
+                raise AssertionError(f"sharded rollout {name}, world {world}: "
+                                     f"{entry[f'world{world}']}")
+        line[name] = entry
+    line["gate"] = GATE
+    emit(line)
+    return launches
+
+
+def _rel_errs(got: dict, want: dict) -> list:
+    """Relative errors of every loss (the gate left out)."""
+    return [abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()
+            if k != "gate"]
+
+
+def _outside_spread(value: float, seen: list) -> float:
+    """How far ``value`` lies outside [min, max] of ``seen``, in units of
+    that spread (0 inside; a spread of 0 counts as 1e-12)."""
+    lo, hi = min(seen), max(seen)
+    return max(0.0, lo - value, value - hi) / max(hi - lo, 1e-12)
+
+
+def data_parallel(torch, ranks):
+    """The phase lines of the data-parallel runs (the module docstring's
+    data_parallel). ms a step (G only and G+D), the collectives' share at
+    world size 2, peak memory a rank. Returns the runs' launches."""
+    one, two = ranks[1][0]["dp"], ranks[2]
+    keys = sorted(one)
+    runs1 = [one[k] for k in keys]
+    dp_runs = [one[k] for k in keys if k.endswith("_dp")]
+    plain_runs = [one[k] for k in keys if k.endswith("_plain")]
+    ref = dp_runs[0]["steps"]
+    for run in runs1:
+        if run["steps"][0]["metrics"] != ref[0]["metrics"]:
+            raise AssertionError(f"world 1: first step {run['steps'][0]} vs "
+                                 f"{ref[0]}")
+        for s, r in zip(run["steps"], ref):
+            if (s["launches"] != r["launches"]
+                    or s["metrics"]["gate"] != r["metrics"]["gate"]):
+                raise AssertionError(f"world 1: iteration {s['iteration']} "
+                                     f"{s['metrics']} {s['launches']} vs "
+                                     f"{r['metrics']} {r['launches']}")
+    if not dp_runs[0].get("checkpoint_read_back_equal"):
+        raise AssertionError("world 1: the DP checkpoint read back differs")
+    fl = [o["dp"]["fluid_0_dp"] for o in two]
+    first = max(_rel_errs(fl[0]["steps"][0]["metrics"], ref[0]["metrics"]))
+    outside = []
+    for i, (a, b, r) in enumerate(zip(fl[0]["steps"], fl[1]["steps"], ref)):
+        if a["digest"] != b["digest"] or a["metrics"] != b["metrics"]:
+            raise AssertionError(f"world 2, iteration {a['iteration']}: the "
+                                 f"ranks differ")
+        want = {k: v for k, v in r["launches"].items()
+                if not k.startswith("pooled_mlp")}
+        for o in fl:
+            expect(o["steps"][i]["launches"], want,
+                   f"world 2 step {a['iteration']}")
+        if a["metrics"]["gate"] != r["metrics"]["gate"]:
+            raise AssertionError(f"world 2 iteration {a['iteration']}: gate")
+        if i:
+            outside.append(max(
+                _outside_spread(v, [run["steps"][i]["metrics"][k]
+                                    for run in runs1])
+                for k, v in a["metrics"].items() if k != "gate"))
+    if not (first <= DP_LOSS_TOL_FIRST and max(outside) <= DP_SPREAD_WIDEN):
+        raise AssertionError(f"world 2 vs 1: first step off by {first}, "
+                             f"later steps outside the spread by {outside}")
+    act = [o["dp"]["action_dp"] for o in two]
+    for a, b in zip(act[0]["steps"], act[1]["steps"]):
+        if a["digest"] != b["digest"] or not all(
+                np.isfinite(v) for v in a["metrics"].values()):
+            raise AssertionError(f"action world 2 iteration {a['iteration']}")
+    if len(act[0]["steps"]) != DP_ACTION_ITERS - 20000:
+        raise AssertionError("action world 2: steps")
+    summary = lambda runs: {
+        "ms": [s["ms"] for r in runs for s in r["steps"]],
+        "generator_ms": [s["generator_ms"] for r in runs for s in r["steps"]]}
+    spread = [{k: [min(run["steps"][i]["metrics"][k] for run in runs1),
+                   max(run["steps"][i]["metrics"][k] for run in runs1)]
+               for k in ref[i]["metrics"] if k != "gate"}
+              for i in range(len(ref))]
+    emit({"phase": "data_parallel", "world": 1, "backend": "nccl",
+          "iterations": [s["iteration"] for s in ref],
+          "turns": list(DP_TURNS), "dp": summary(dp_runs),
+          "plain": summary(plain_runs), "first_step_equal": True,
+          "loss_spread_by_step": spread,
+          "launches": [s["launches"] for s in ref],
+          "peak_gib": [r["peak_gib"] for r in runs1]})
+    emit({"phase": "data_parallel", "world": 2, "backend": "gloo",
+          "ranks_equal_every_step": True, "first_step_rel_err": first,
+          "first_step_tol": DP_LOSS_TOL_FIRST,
+          "outside_spread_by_step": outside, "spread_widen": DP_SPREAD_WIDEN,
+          "fluid": {**summary([fl[0]]),
+                    "metrics": [s["metrics"] for s in fl[0]["steps"]],
+                    "collective_share": [s["collective_share"]
+                                         for s in fl[0]["steps"]],
+                    "launches": [s["launches"] for s in fl[0]["steps"]],
+                    "peak_gib": [o["peak_gib"] for o in fl]},
+          "action_fast_d": {**summary([act[0]]),
+                            "collective_share": [s["collective_share"]
+                                                 for s in act[0]["steps"]],
+                            "launches": [s["launches"] for s in act[0]["steps"]],
+                            "peak_gib": [o["peak_gib"] for o in act]}})
+    launches = {}
+    for run in dp_runs:
+        for s in run["steps"]:
+            for k, v in s["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for o in two:
+        for run in (o["dp"]["fluid_0_dp"], o["dp"]["action_dp"]):
+            for s in run["steps"]:
+                for k, v in s["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def add_parallel_units(line, rows, launches):
+    """Into the kernel line's knn and edgeconv entries: their times at the
+    sharded shapes (check_shard_kernels' rows) per f32 dynamic frame on one
+    of two ranks, under "sharded_rollout"; and every entry's launches on
+    the two new paths (``launches``: path -> counts)."""
+    for entry in line["kernels"]:
+        rs = rows.get(entry["name"])
+        if rs:
+            rs = [r for r in rs if r.get("dtype", "f32") == "f32"]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["max_abs_err"] for r in rs))
+            keys = [k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "library_ms") if all(r.get(k) is not None
+                                                     for r in rs)]
+            entry["sharded_rollout"] = {
+                "times_are": "one f32 dynamic frame of 40,960 points on one "
+                             "of two ranks (20,480 rows against the gathered "
+                             "cloud)",
+                **{k: sum(r[k] * r["per_frame"] for r in rs) for k in keys}}
+        entry["launches_by_path"].update(
+            {p: c.get(entry["name"], 0) for p, c in launches.items()})
+        entry["launches"] = sum(entry["launches_by_path"].values())
+
+
 def kernel_line(groups):
     """One entry per kernel. ``groups``: (name, source, replaces, rows,
     weight keys, what the times sum over, launches by path); times are sums
@@ -4651,7 +5241,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one forward of each serving mode, and "
                          "write the profile tables into DIR")
+    ap.add_argument("--rank-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank_worker:
+        return rank_worker(args.rank_worker)
 
     import torch
 
@@ -4660,9 +5253,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from tpugan_tpu_torch import _build
-    from tpugan_tpu_torch.ops.kernels import (ball_query, binned_interp,
-                                              edgeconv, fps, interp, knn, nn1,
-                                              pooled_mlp)
+    from tpugan_tpu_torch.ops.kernels import edgeconv
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -4736,14 +5327,7 @@ def main(argv=None) -> int:
           "ptxas_knn_approx": approx_ptxas,
           "ptxas_ball_query": ball_ptxas})
 
-    kernels = {"knn": knn.KERNEL, "edgeconv": edgeconv.KERNEL,
-               "edgeconv_bwd": edgeconv.BWD, "nn1": nn1.KERNEL,
-               "fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
-               "pooled_mlp_fwd": pooled_mlp.FWD, "pooled_mlp_bwd": pooled_mlp.BWD,
-               "pooled_mlp_affine": pooled_mlp.AFFINE_FWD,
-               "pooled_mlp_affine_bwd": pooled_mlp.AFFINE_BWD,
-               "interp": interp.KERNEL, "binned_interp": binned_interp.KERNEL,
-               "knn_approx": knn.APPROX}
+    kernels = _kernels()
     rng = np.random.default_rng(0)
     knn_rows = check_knn(torch, dev, rng)
     approx_rows = check_knn_approx(torch, dev, rng)
@@ -4849,6 +5433,16 @@ def main(argv=None) -> int:
     action_fast_d_launches = train_fast_d(torch, dev, kernels, True,
                                           args.profile)
 
+    # the parallel paths: the kNN and EdgeConv kernels at the sharded
+    # shapes, then one rank over NCCL and two ranks over gloo on the one
+    # card, each running the sharded rollout CLI and the data-parallel
+    # train CLIs (counts reset inside each rank before each run, read after)
+    shard_rows = check_shard_kernels(torch, dev)
+    ranks = {w: launch_ranks(w, b, os.path.join(PARALLEL_DIR, f"world{w}"))
+             for w, b in ((1, "nccl"), (2, "gloo"))}
+    parallel_launches = {"sharded_rollout": sharded_rollout(torch, dev, ranks),
+                         "data_parallel": data_parallel(torch, ranks)}
+
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
                    "density": density_launches[n],
@@ -4952,6 +5546,7 @@ def main(argv=None) -> int:
     add_fast_d_units(line, fast_d_rows,
                      {"train_fast_d": fast_d_launches,
                       "train_action_fast_d": action_fast_d_launches})
+    add_parallel_units(line, shard_rows, parallel_launches)
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

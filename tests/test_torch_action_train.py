@@ -19,8 +19,8 @@ tolerances under f32 noise):
 * the trainer-state bridge both ways, every leaf equal;
 * the ``train_action`` twin for 3 iterations of synthetic data, resumed
   from a JAX-written checkpoint, with the test split and a checkpoint read
-  back by the JAX package; ``--fast_d`` for 2 iterations and the refused
-  ``--data_parallel``;
+  back by the JAX package; ``--fast_d`` for 2 iterations and
+  ``--data_parallel`` refused without a torchrun process group;
 * NoMaskSRNet's fused-EdgeConv training path against the grouped one;
   Adam's schedule against optax's, constant below 10 iterations.
 
@@ -352,8 +352,10 @@ def test_cli_resumes_jax_state_and_writes_checkpoints(jax_run, tmp_path,
 
 @pytest.mark.parametrize("flag", ["--fast_d", "--data_parallel"])
 def test_cli_refuses_unported_flags(tmp_path, flag):
-    """``--data_parallel`` is refused; ``--fast_d`` (ported) trains 2
-    iterations through the stacked critics and writes its checkpoint."""
+    """``--data_parallel`` without a torchrun process group is refused
+    (tests/test_torch_data_parallel.py runs the data-parallel steps on two
+    ranks); ``--fast_d`` trains 2 iterations through the stacked critics
+    and writes its checkpoint."""
     if flag != "--fast_d":
         with pytest.raises(ValueError, match=flag):
             cli.main(TINY_CLI + [flag, "--iters", "1", "--log_dir",

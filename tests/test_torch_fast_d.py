@@ -26,13 +26,21 @@ the JAX package's, on the CPU at tiny widths.
   ``SharedMLP.pooled`` raising under G > 1; ``SetConv`` with an all-ones
   valid mask equal to ``valid=None``.
 * Both fast-d steps against ``make_fluid_gan_step`` /
-  ``make_action_gan_step`` with ``fast_d``, an odd and an even iteration,
+  ``make_action_gan_step`` with ``fast_d`` and ``mesh=make_mesh(2)``
+  (GSPMD's data-parallel step on the global batch, which the JAX
+  package's own slow-tier ``tests/test_parallel.py`` holds to the
+  one-device step), an odd and an even iteration,
   with the draws rebuilt from the JAX step keys, the trainer-state bridge
   and the tolerances of ``tests/test_torch_train_step.py`` and
   ``tests/test_torch_action_train.py`` (dropout off on both sides); the
   bucket-mismatch ``ValueError``.
+* The same four steps on two gloo ranks (``data_parallel=True``, each
+  rank on 2 of the 4 items, one ``torchrun`` launch) against the same JAX
+  mesh steps, to the same tolerances, both ranks bit for bit.
 
-One JAX step is compiled per workload, in module-scope fixtures: the
+One JAX step is compiled per workload, in module-scope fixtures (fed
+host arrays every call, so the second iteration reuses the executable the
+first compiled: the mesh step's outputs are committed to the mesh): the
 fluid one from the JAX init that tests/test_torch_train_step.py uses (at 4
 items), the action one from the port's initial weights carried over in the
 checkpoint payload.
@@ -55,7 +63,10 @@ from test_torch_train_step import draws_from_key as fluid_draws_from_key
 from test_torch_train_step import port_config as fluid_port_config
 from test_torch_train_step import step_keys, with_adam_state
 from test_train_step import TINY_ACTION, TINY_FLUID
+import torch_threads  # noqa: F401  (the cores among xdist workers)
+from torch_dist_worker import run_ranks
 from tpugan_tpu.config import replace
+from tpugan_tpu.parallel import make_mesh
 from tpugan_tpu.models.discriminator import FluidSpatialDis as JSpatial
 from tpugan_tpu.models.discriminator import FluidTempoDis as JTempo
 from tpugan_tpu.models.discriminator import _ActionTempoTower as JTower
@@ -395,8 +406,9 @@ def _jax_run(step, jstate, batch, keys, root):
             path = str(root / f"state_{int(jstate.n_iter)}.ckpt")
             jax_save_checkpoint(jstate, path)
             before = {n: _params(getattr(jstate, n)) for n in NETS}
-            jstate, jm = step(jstate, {k: jnp.asarray(v)
-                                       for k, v in batch.items()}, key)
+            # host inputs every call: the mesh step's executable takes
+            # uncommitted arrays, and its outputs are committed to the mesh
+            jstate, jm = step(jax.device_get(jstate), batch, np.asarray(key))
             out.append(dict(path=path, key=key, before=before,
                             after=jax.device_get(jstate),
                             metrics={k: float(v) for k, v in jm.items()}))
@@ -412,7 +424,7 @@ def fluid_run(tmp_path_factory):
     ``default_rng(0)``), at 4 items."""
     models, txs, jstate = jax_init_fluid_state(FLUID_CFG,
                                                jax.random.PRNGKey(0))
-    step = make_fluid_gan_step(models, txs, FLUID_CFG)
+    step = make_fluid_gan_step(models, txs, FLUID_CFG, mesh=make_mesh(2))
     b, m = FLUID_CFG.batch_size, FLUID_CFG.patch_size
     rng = np.random.default_rng(0)
     batch = {"highres_pos": (rng.standard_normal((3, b, m, 3)) * 0.3)
@@ -429,7 +441,8 @@ def action_run(tmp_path_factory):
     state = _with_adam(init_action_state(action_port_config(ACTION_CFG), 0,
                                          "cpu"))
     step = make_action_gan_step(build_action_models(ACTION_CFG),
-                                _make_optimizers(ACTION_CFG), ACTION_CFG)
+                                _make_optimizers(ACTION_CFG), ACTION_CFG,
+                                mesh=make_mesh(2))
     f, b, m = (ACTION_CFG.frames_per_clip, ACTION_CFG.batch_size,
                ACTION_CFG.num_points)
     rng = np.random.default_rng(7)
@@ -462,18 +475,36 @@ def _before(state, it):
                 it["before"][n]) for n in NETS}
 
 
-@pytest.mark.parametrize("iteration", ["odd", "even"])
-def test_fluid_fast_d_step_matches_jax(fluid_run, iteration):
-    it = fluid_run["iterations"][["odd", "even"].index(iteration)]
+def _fluid_case(fluid_run, it):
+    """The port's fast-d fluid config, the state of the JAX checkpoint
+    ``it["path"]``, the draws of its key (dropout off) and the batch."""
     pcfg = fluid_port_config(FLUID_CFG)
-    assert pcfg.fast_d
     state = load_trainer_state(it["path"], pcfg, device="cpu")
-    before = _before(state, it)
     widths = state.spatial.module.fc.dropout_widths()
     draws = _stacked_ones(fluid_draws_from_key(
         it["key"], FLUID_CFG, FLUID_CFG.patch_size, widths),
         FLUID_CFG.batch_size, widths)
     batch = {k: T(v) for k, v in fluid_run["batch"].items()}
+    return pcfg, state, draws, batch
+
+
+def _action_case(action_run, it):
+    """The same for the action workload."""
+    pcfg = action_port_config(ACTION_CFG)
+    state = load_action_trainer_state(it["path"], pcfg, device="cpu")
+    draws = _stacked_ones(action_draws_from_key(
+        it["key"], ACTION_CFG, ACTION_CFG.num_points),
+        ACTION_CFG.batch_size, (256, 64))
+    batch = {"highres_pos": T(action_run["batch"]["highres_pos"])}
+    return pcfg, state, draws, batch
+
+
+@pytest.mark.parametrize("iteration", ["odd", "even"])
+def test_fluid_fast_d_step_matches_jax(fluid_run, iteration):
+    it = fluid_run["iterations"][["odd", "even"].index(iteration)]
+    pcfg, state, draws, batch = _fluid_case(fluid_run, it)
+    assert pcfg.fast_d
+    before = _before(state, it)
     got = FluidGanStep(pcfg)(state, batch, draws)
     assert got["gate"]
     _hold(state, it, got, iteration)
@@ -485,19 +516,65 @@ def test_fluid_fast_d_step_matches_jax(fluid_run, iteration):
 @pytest.mark.parametrize("iteration", ["odd", "even"])
 def test_action_fast_d_step_matches_jax(action_run, iteration):
     it = action_run["iterations"][["odd", "even"].index(iteration)]
-    pcfg = action_port_config(ACTION_CFG)
+    pcfg, state, draws, batch = _action_case(action_run, it)
     assert pcfg.fast_d
-    state = load_action_trainer_state(it["path"], pcfg, device="cpu")
     before = _before(state, it)
-    draws = _stacked_ones(action_draws_from_key(
-        it["key"], ACTION_CFG, ACTION_CFG.num_points),
-        ACTION_CFG.batch_size, (256, 64))
-    batch = {"highres_pos": T(action_run["batch"]["highres_pos"])}
     got = ActionGanStep(pcfg)(state, batch, draws)
     _hold(state, it, got, iteration)
     for n in NETS:
         assert_net_close(getattr(state, n), getattr(it["after"], n), before[n],
                          n)
+
+
+@pytest.fixture(scope="module")
+def dp_run(fluid_run, action_run, tmp_path_factory):
+    """Both fast-d steps of each workload, each from its JAX state, on two
+    gloo ranks (``tests/torch_dist_worker.py``, one launch), each rank on
+    its 2 of the 4 items: the data-parallel step (``data_parallel=True``:
+    the stacked halves' batch norms pool their moments across the ranks,
+    the gradients are averaged), the twin of the JAX mesh step the
+    fixtures run."""
+    runs = {}
+    for name, run, case in (("fluid", fluid_run, _fluid_case),
+                            ("action", action_run, _action_case)):
+        runs[name] = []
+        for it in run["iterations"]:
+            pcfg, state, draws, batch = case(run, it)
+            runs[name].append(dict(state=state, cfg=pcfg, batch=batch,
+                                   draws=draws))
+    outs = run_ranks("steps", {n: {"runs": r} for n, r in runs.items()},
+                     tmp_path_factory.mktemp("fast_d_dp"))
+    return runs, outs
+
+
+@pytest.mark.parametrize("workload", ["fluid", "action"])
+def test_fast_d_data_parallel_step_matches_jax(fluid_run, action_run, dp_run,
+                                                workload):
+    """Each rank's state after the 2-rank step against the JAX step's, an
+    odd and an even iteration, to the single-process tolerances; both
+    ranks bit for bit."""
+    runs, outs = dp_run
+    jax_run = fluid_run if workload == "fluid" else action_run
+    for i, iteration in enumerate(("odd", "even")):
+        it = jax_run["iterations"][i]
+        a, b = (o[workload][i]["dp"] for o in outs)
+        assert a["metrics"] == b["metrics"]
+        for n in NETS:
+            for part in ("sd", "mu", "nu"):
+                for k, v in a["state"][n][part].items():
+                    assert torch.equal(v, b["state"][n][part][k]), (n, k)
+        state = runs[workload][i]["state"]
+        before = _before(state, it)
+        for n in NETS:
+            net = getattr(state, n)
+            net.module.load_state_dict(a["state"][n]["sd"])
+            net.opt.mu, net.opt.nu = a["state"][n]["mu"], a["state"][n]["nu"]
+            net.opt.count = a["state"][n]["count"]
+        state.n_iter = a["state"]["n_iter"]
+        _hold(state, it, a["metrics"], iteration)
+        for n in NETS:
+            assert_net_close(getattr(state, n), getattr(it["after"], n),
+                             before[n], n)
 
 
 def test_fluid_fast_d_refuses_bucket_mismatch():

@@ -48,7 +48,9 @@ def test_port_imports_no_jax():
         "'cli.action_demo', 'cli.eval_tempo_feat', 'cli.train_action', "
         "'data.bgeo', 'datagen', 'datagen.mesh', 'datagen.scene_gen', "
         "'datagen.process', 'datagen.splishsplash_config', 'cli.rollout', "
-        "'cli.bench_metrics', 'cli.fluid_demo', 'cli.sim_fluid_sequence'):\n"
+        "'cli.bench_metrics', 'cli.fluid_demo', 'cli.sim_fluid_sequence', "
+        "'parallel', 'parallel.mesh', 'parallel.sharded_ops', "
+        "'parallel.sharded_serving'):\n"
         "    assert 'tpugan_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpugan_tpu')]\n"

@@ -80,7 +80,13 @@ def test_rollout_cli_bgeo_reads_back(port_run):
 @pytest.mark.parametrize("flags", [["--shard_points"],
                                    ["--mesh_devices", "2"]])
 def test_rollout_cli_refuses_point_sharding(flags, tmp_path):
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
+    """Point sharding runs over the ranks of a torchrun launch: without a
+    process group ``--shard_points`` is refused, and ``--mesh_devices``
+    without ``--shard_points`` too (tests/test_torch_sharded_serving.py
+    runs it under torchrun)."""
+    why = ("launch with torchrun" if "--shard_points" in flags
+           else "needs --shard_points")
+    with pytest.raises(SystemExit, match=why):
         rollout_cli.main(ARGS + flags + ["--out_dir", str(tmp_path),
                                          "--device", "cpu"])
 

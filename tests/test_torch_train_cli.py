@@ -9,7 +9,7 @@ port's checkpoint writer.
   capped``; ``train_novel`` with the loader's lowres inputs and
   ``--freeze_D``; finite metrics, manifest rotation, ``--resume``
   continuing at ``n_iter``, ``--profile``, ``--fast_d`` for 2 iterations,
-  and ``--data_parallel`` raising.
+  and ``--data_parallel`` raising without a torchrun process group.
   The adversarial gate is held open (a trainer from random weights does not
   pass the masking-loss gate in a few steps), so the critics' paths run.
 """
@@ -153,8 +153,10 @@ def test_cli_profile(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--fast_d"])
 def test_cli_refuses_unported_flags(tmp_path, gate_open, flag):
-    """``--data_parallel`` is refused; ``--fast_d`` (ported) trains 2
-    iterations through the stacked critics and writes its checkpoint."""
+    """``--data_parallel`` without a torchrun process group is refused
+    (tests/test_torch_data_parallel.py runs the data-parallel steps on two
+    ranks); ``--fast_d`` trains 2 iterations through the stacked critics
+    and writes its checkpoint."""
     if flag != "--fast_d":
         with pytest.raises(ValueError, match=flag):
             cli.main([flag, "--log_dir", str(tmp_path)] + TINY)

@@ -14,8 +14,19 @@ points, 24 frames unless ``--num_frames``). A uniform-size sequence runs
 the device-resident rollout (one copy to the device per ``--chunk``
 frames) unless ``--host_pipeline``; a ragged one the per-frame loop.
 ``--approx_graph`` turns the approximate bf16 graph kNN on for the rollout
-(it reaches the kernel from 4,096 input points on). ``--shard_points`` and
-``--mesh_devices`` are refused: point-sharded serving is not ported yet.
+(it reaches the kernel from 4,096 input points on).
+
+``--shard_points`` shards every frame's points over the ranks of a
+``torchrun`` launch (a uniform-size sequence only;
+``parallel/sharded_serving.py``): each rank runs its rows on its own card
+(``cuda:LOCAL_RANK``, or ``--device``), rank 0 gathers the frames and
+writes the files. ``--mesh_devices``, when given, must equal the number of
+ranks; the backend is NCCL on the card and gloo on the CPU unless
+``--dist_backend`` names one (two ranks sharing one card need gloo):
+
+    torchrun --nproc_per_node 2 -m tpugan_tpu_torch.cli.rollout \
+        --ckpt checkpoints/fluid_vel_20k.ckpt --use_vel --in_node_feats 6 \
+        --synthetic_particles 40960 --shard_points
 """
 
 from __future__ import annotations
@@ -29,9 +40,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 Frame = Tuple[np.ndarray, Optional[np.ndarray]]
-
-NOT_PORTED = ("point-sharded serving is not ported yet; it comes with the "
-              "parallelism slice (ROADMAP.md, Queue 1 item 4)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -68,9 +76,14 @@ def parser() -> argparse.ArgumentParser:
                    help="allow the approximate bf16 graph-kNN kernel "
                         "(default: exact)")
     p.add_argument("--shard_points", action="store_true",
-                   help="refused: " + NOT_PORTED)
+                   help="shard each frame's points over the ranks of a "
+                        "torchrun launch (uniform-N sequences)")
     p.add_argument("--mesh_devices", type=int, default=None,
-                   help="refused: " + NOT_PORTED)
+                   help="ranks to shard over: must equal the number "
+                        "torchrun started (default: all of them)")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (default: nccl on the "
+                        "card, gloo on the CPU)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     return p
@@ -109,18 +122,55 @@ def build_model(opt, device):
                                seed=0)
 
 
+def join_ranks(opt):
+    """With ``--shard_points``: join the ranks' process group (refusing
+    ``--mesh_devices`` other than its size) and return (this rank's
+    device, rank, whether this call made the group); else None."""
+    if not opt.shard_points:
+        if opt.mesh_devices is not None:
+            raise SystemExit("--mesh_devices shards frames: it needs "
+                             "--shard_points")
+        return None
+    from tpugan_tpu_torch.parallel import mesh
+
+    made = not mesh.is_distributed()
+    world = mesh.initialize_distributed(opt.dist_backend, device=opt.device)
+    if opt.mesh_devices is not None and opt.mesh_devices != world:
+        raise SystemExit(
+            f"--mesh_devices {opt.mesh_devices}, but {world} rank(s) run: "
+            f"launch with torchrun --nproc_per_node {opt.mesh_devices}")
+    if not mesh.is_distributed():
+        raise SystemExit("--shard_points runs over a torch.distributed "
+                         "process group: launch with torchrun "
+                         "--nproc_per_node N -m tpugan_tpu_torch.cli.rollout")
+    return mesh.rank_device(opt.device), mesh.rank(), made
+
+
 def run_rollout(model, frames: List[Frame], opt) -> List[np.ndarray]:
-    """The CLI's dispatch: the device-resident rollout for a uniform-size
-    sequence (unless ``--host_pipeline``), else the per-frame loop, with the
-    approximate graph kNN as ``--approx_graph`` says (restored after)."""
+    """The CLI's dispatch: the point-sharded rollout with
+    ``--shard_points`` (rank 0 returns the frames, the others nothing), the
+    device-resident rollout for a uniform-size sequence (unless
+    ``--host_pipeline``), else the per-frame loop, with the approximate
+    graph kNN as ``--approx_graph`` says (restored after)."""
     from tpugan_tpu_torch.eval.rollout import (rollout_sequence,
                                                rollout_sequence_device)
     from tpugan_tpu_torch.ops import neighbors
 
     uniform = len({p.shape[0] for p, _ in frames}) == 1
+    if opt.shard_points and not uniform:
+        raise SystemExit("--shard_points needs a uniform-N sequence")
     prev = neighbors.APPROX_GRAPH_KNN
     neighbors.set_approx_graph_knn(opt.approx_graph)
     try:
+        if opt.shard_points:
+            from tpugan_tpu_torch.parallel.sharded_serving import (
+                rollout_sequence_sharded)
+
+            pos_seq = np.stack([p for p, _ in frames])
+            vel_seq = (np.stack([v for _, v in frames])
+                       if frames[0][1] is not None else None)
+            return rollout_sequence_sharded(model, pos_seq, vel_seq,
+                                            use_vel=opt.use_vel)
         if uniform and not opt.host_pipeline:
             pos_seq = np.stack([p for p, _ in frames])
             vel_seq = (np.stack([v for _, v in frames])
@@ -152,30 +202,37 @@ def write_outputs(outputs: List[np.ndarray], out_dir: str,
 
 def main(argv=None) -> dict:
     """Run the CLI on ``argv``; returns the frame count, the rollout's
-    seconds and frames per second, and the device it ran on."""
+    seconds and frames per second, the device it ran on and the rank
+    (0 without ``--shard_points``)."""
     from tpugan_tpu_torch import device_name, resolve_device
 
     opt = parser().parse_args(argv)
-    if opt.shard_points or opt.mesh_devices is not None:
-        raise SystemExit("--shard_points / --mesh_devices: " + NOT_PORTED)
-    dev = resolve_device(opt.device)
-    model, path = build_model(opt, dev)
-    if path:
-        print(f"restored generator from {path}")
-    frames = load_frames(opt)
+    ranks = join_ranks(opt)
+    dev, rank, made = ranks if ranks else (resolve_device(opt.device), 0,
+                                           False)
+    try:
+        model, path = build_model(opt, dev)
+        if path and rank == 0:
+            print(f"restored generator from {path}")
+        frames = load_frames(opt)
 
-    os.makedirs(opt.out_dir, exist_ok=True)
-    t0 = time.time()
-    outputs = run_rollout(model, frames, opt)      # ends with the copy back
-    used = time.time() - t0
+        os.makedirs(opt.out_dir, exist_ok=True)
+        t0 = time.time()
+        outputs = run_rollout(model, frames, opt)  # ends with the copy back
+        used = time.time() - t0
+    finally:
+        if made:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     name = device_name(dev)
-    print(f"Used: {used:.2f}s for {len(frames)} frames "
-          f"({len(frames) / used:.2f} frames/s) on {name}")
-
-    write_outputs(outputs, opt.out_dir, opt.export_bgeo)
-    print(f"wrote {len(outputs)} frames to {opt.out_dir}")
+    if rank == 0:
+        print(f"Used: {used:.2f}s for {len(frames)} frames "
+              f"({len(frames) / used:.2f} frames/s) on {name}")
+        write_outputs(outputs, opt.out_dir, opt.export_bgeo)
+        print(f"wrote {len(outputs)} frames to {opt.out_dir}")
     return {"frames": len(frames), "seconds": used,
-            "frames_per_s": len(frames) / used, "device": name}
+            "frames_per_s": len(frames) / used, "device": name, "rank": rank}
 
 
 if __name__ == "__main__":

@@ -27,7 +27,13 @@ environment variable. ``--exact_graph`` is accepted and changes nothing:
 the port's graph kNN is exact unless ``set_approx_graph_knn`` turns the
 approximate one on, which this CLI never does (and 128-point graphs never
 reach it). ``--fast_d`` trains the critics through their stacked applies
-(``tpugan_tpu_torch/train/step.py``). ``--data_parallel`` is refused.
+(``tpugan_tpu_torch/train/step.py``). ``--data_parallel`` trains on the
+ranks of a ``torchrun`` launch as ``cli/train_fluid.py``'s does
+(``ActionGanStep(data_parallel=True)``; rank 0 writes the data, the
+checkpoints, the test evaluations and the logs):
+
+    torchrun --nproc_per_node 4 -m tpugan_tpu_torch.cli.train_action \
+        --preset train_dir --device_sampling --synthetic --data_parallel
 """
 
 from __future__ import annotations
@@ -40,7 +46,11 @@ from typing import Callable, Optional
 import numpy as np
 
 from tpugan_tpu_torch.cli.train_fluid import (FUSED_SWITCH, _profiler,
-                                              _write_profile)
+                                              _write_profile,
+                                              join_data_parallel,
+                                              leave_data_parallel, local_rows,
+                                              print_network_sizes, rank0_first,
+                                              rank0_writer)
 
 
 def get_arguments(argv=None) -> argparse.Namespace:
@@ -76,8 +86,11 @@ def get_arguments(argv=None) -> argparse.Namespace:
     add("--synthetic_classes", type=int, default=3)
     add("--synthetic_frames", type=int, default=10)
     add("--data_parallel", action="store_true",
-        help="refused: data-parallel training comes with the parallelism "
-             "slice")
+        help="train on the ranks of a torchrun launch, each on its rows of "
+             "the global batch")
+    add("--dist_backend", choices=["nccl", "gloo"], default=None,
+        help="torch.distributed backend of --data_parallel (default: nccl "
+             "on the card, gloo on the CPU)")
     add("--profile", action="store_true",
         help="write a torch.profiler trace of steps 10-15 into "
              "<log_dir>/profile")
@@ -97,7 +110,6 @@ def main(argv=None,
     "metrics", "test_chamfer"}``."""
     import torch
 
-    from tpugan_tpu_torch import resolve_device
     from tpugan_tpu_torch.checkpoint import load_action_trainer_state
     from tpugan_tpu_torch.config import ActionTrainConfig
     from tpugan_tpu_torch.data.msr import (MSRAction3DDataset,
@@ -107,26 +119,23 @@ def main(argv=None,
     from tpugan_tpu_torch.train.checkpoint import save_checkpoint_async
     from tpugan_tpu_torch.train.state import init_action_state
     from tpugan_tpu_torch.train.step import ActionGanStep
-    from tpugan_tpu_torch.utils.logging import MetricWriter, StepTimer
+    from tpugan_tpu_torch.utils.logging import StepTimer
 
     opt = get_arguments(argv)
-    print("Using following options")
-    print(opt)
-    if opt.data_parallel:
-        raise ValueError("--data_parallel: data-parallel training is not "
-                         "ported yet (it comes with the parallelism slice, "
-                         "torch.distributed)")
+    dev, rank, made = join_data_parallel(opt)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say("Using following options")
+    say(opt)
     fused = os.environ.get(FUSED_SWITCH, "0") == "1"
-    dev = resolve_device(opt.device)
 
     data_dir = opt.data_dir
     if opt.synthetic:
         data_dir = os.path.join(opt.log_dir, "synthetic_msr")
-        print(f"Generating synthetic MSR dataset at {data_dir}")
-        make_synthetic_action_dataset(data_dir, num_videos=opt.synthetic_videos,
-                                      frames=opt.synthetic_frames, points=3000,
-                                      num_classes=opt.synthetic_classes,
-                                      seed=opt.seed)
+        say(f"Generating synthetic MSR dataset at {data_dir}")
+        rank0_first(rank, lambda: make_synthetic_action_dataset(
+            data_dir, num_videos=opt.synthetic_videos,
+            frames=opt.synthetic_frames, points=3000,
+            num_classes=opt.synthetic_classes, seed=opt.seed))
 
     cfg = ActionTrainConfig(
         lr=opt.lr, iters=opt.iters, ckpt_every=opt.ckpt_every,
@@ -136,7 +145,7 @@ def main(argv=None,
         fast_d=opt.fast_d, dump_visualization=opt.dump_visualization,
         log_dir=opt.log_dir, seed=opt.seed)
 
-    print("Preparing the data")
+    say("Preparing the data")
     dataset = MSRAction3DDataset(
         cfg.data_dir, frames_per_clip=cfg.frames_per_clip,
         num_points=cfg.num_points, fps_ratio=cfg.fps_ratio, seed=cfg.seed,
@@ -150,18 +159,14 @@ def main(argv=None,
         num_points=cfg.num_points, fps_ratio=cfg.fps_ratio, seed=cfg.seed,
         train=False)
     test_batches = None
-    if len(test_dataset) >= cfg.batch_size:
+    if len(test_dataset) < cfg.batch_size:
+        say("no held-out test clips found; skipping test-split eval")
+    elif rank == 0:
         test_batches = action_batch_iterator(test_dataset, cfg.batch_size,
                                              seed=cfg.seed + 7)
-    else:
-        print("no held-out test clips found; skipping test-split eval")
 
-    print("Building network")
     state = init_action_state(cfg, cfg.seed, dev, fused_train=fused)
-    for name, net in (("sr_net", state.sr), ("tempo_dis", state.tempo),
-                      ("spatial_dis", state.spatial)):
-        count = sum(p.numel() for p in net.module.parameters())
-        print(f"Total trainable parameters ({name}): {count}")
+    print_network_sizes(state, say)
     checkpoint_dir = os.path.join(cfg.log_dir, "model_ckpt")
     os.makedirs(checkpoint_dir, exist_ok=True)
     if opt.resume:
@@ -172,20 +177,21 @@ def main(argv=None,
         if got != [tuple(p.shape) for p in fresh.parameters()]:
             raise ValueError("--resume: the checkpoint's generator has other "
                              "widths than the flags (--node_embedding)")
-        print("last checkpoint restored")
+        say("last checkpoint restored")
 
-    writer, timer = MetricWriter(cfg.log_dir), StepTimer()
-    step = ActionGanStep(cfg, generator=torch.Generator().manual_seed(cfg.seed + 1))
+    writer, timer = rank0_writer(rank, cfg.log_dir), StepTimer()
+    step = ActionGanStep(cfg, generator=torch.Generator().manual_seed(cfg.seed + 1),
+                         data_parallel=opt.data_parallel)
     n_iter = start_iter = state.n_iter
     start = time.time()
     ckpt_future, ckpt_path, metrics, test_cds = None, None, {}, []
     profiler = None
     while n_iter < cfg.iters:
-        batch = next(batches)
+        batch = local_rows(opt, next(batches))
         feed = {k: torch.from_numpy(batch[k]).to(dev)
                 for k in ("lowres_pos", "highres_pos") if k in batch}
         timer.data_ready()
-        if opt.profile and n_iter == 10:
+        if opt.profile and n_iter == 10 and rank == 0:
             profiler = _profiler(torch)
             profiler.start()
         cur = n_iter + 1
@@ -203,12 +209,13 @@ def main(argv=None,
 
         if n_iter % 50 == 0:
             rate = (n_iter - start_iter) / (time.time() - start)
-            print(f"iter {n_iter}/{cfg.iters} ({rate:.2f} it/s, "
+            say(f"iter {n_iter}/{cfg.iters} ({rate:.2f} it/s, "
                   f"eff {timer.compute_efficiency:.2f}): "
                   + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()),
                   flush=True)
 
-        if (n_iter - 1) % cfg.ckpt_every == 0 or n_iter >= cfg.iters:
+        if rank == 0 and ((n_iter - 1) % cfg.ckpt_every == 0
+                          or n_iter >= cfg.iters):
             if test_batches is not None:
                 test_cd = _test_eval(state.sr.module, test_batches, cfg,
                                      n_iter, dev)
@@ -225,7 +232,8 @@ def main(argv=None,
     if ckpt_future is not None:
         ckpt_future.result()            # join the writer before returning
     writer.close()
-    print("exiting...")
+    leave_data_parallel(made)
+    say("exiting...")
     return {"n_iter": n_iter, "state": state, "checkpoint": ckpt_path,
             "metrics": metrics, "test_chamfer": test_cds}
 

@@ -25,7 +25,18 @@ variable. ``--exact_graph`` is accepted and changes nothing: the port's
 graph kNN is exact unless ``set_approx_graph_knn`` turns the approximate
 one on, which this CLI never does. ``--fast_d`` trains the critics
 through their stacked applies (``tpugan_tpu_torch/train/step.py``).
-``--data_parallel`` is refused.
+
+``--data_parallel`` trains on the ranks of a ``torchrun`` launch, one card
+each (``cuda:LOCAL_RANK``, or ``--device``): every rank draws the same
+global batch of ``--batch_size`` items and steps on its rows of it, and
+the step equals the global batch's (``FluidGanStep(data_parallel=True)``).
+Rank 0 writes the synthetic data, the checkpoints, the test evaluations,
+the samples, the logs and the profile. The backend is NCCL on the card and
+gloo on the CPU unless ``--dist_backend`` names one (two ranks sharing one
+card need gloo):
+
+    torchrun --nproc_per_node 4 -m tpugan_tpu_torch.cli.train_fluid \
+        --preset train_vel --device_sampling --synthetic --data_parallel
 """
 
 from __future__ import annotations
@@ -93,8 +104,11 @@ def get_arguments(argv=None) -> argparse.Namespace:
     add("--patch_size", type=int, default=None,
         help="override patch size (default: 9216, or 4096 for small batch)")
     add("--data_parallel", action="store_true",
-        help="refused: data-parallel training comes with the parallelism "
-             "slice")
+        help="train on the ranks of a torchrun launch, each on its rows of "
+             "the global batch")
+    add("--dist_backend", choices=["nccl", "gloo"], default=None,
+        help="torch.distributed backend of --data_parallel (default: nccl "
+             "on the card, gloo on the CPU)")
     add("--profile", action="store_true",
         help="write a torch.profiler trace of steps 10-15 into "
              "<log_dir>/profile")
@@ -115,7 +129,6 @@ def main(argv=None,
     ``{"n_iter", "state", "checkpoint", "metrics", "test_chamfer"}``."""
     import torch
 
-    from tpugan_tpu_torch import resolve_device
     from tpugan_tpu_torch.checkpoint import load_trainer_state
     from tpugan_tpu_torch.data.fluid import (SiamFluidDataset,
                                              fluid_batch_iterator)
@@ -124,17 +137,14 @@ def main(argv=None,
     from tpugan_tpu_torch.train.checkpoint import save_checkpoint_async
     from tpugan_tpu_torch.train.state import init_fluid_state
     from tpugan_tpu_torch.train.step import FluidGanStep, FluidTrainConfig
-    from tpugan_tpu_torch.utils.logging import MetricWriter, StepTimer
+    from tpugan_tpu_torch.utils.logging import StepTimer
 
     opt = get_arguments(argv)
-    print("Using following options")
-    print(opt)
-    if opt.data_parallel:
-        raise ValueError("--data_parallel: data-parallel training is not "
-                         "ported yet (it comes with the parallelism slice, "
-                         "torch.distributed)")
+    dev, rank, made = join_data_parallel(opt)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say("Using following options")
+    say(opt)
     fused = os.environ.get(FUSED_SWITCH, "0") == "1"
-    dev = resolve_device(opt.device)
 
     patch_size = opt.patch_size or (
         9216 if opt.batch_size <= 4 and not opt.small_batch else 4096)
@@ -143,10 +153,10 @@ def main(argv=None,
     if opt.synthetic:
         train_path = os.path.join(opt.log_dir, "synthetic_data")
         train_seq, seq_len = opt.synthetic_cases, opt.synthetic_steps
-        print(f"Generating synthetic dataset at {train_path}")
-        make_synthetic_fluid_dataset(
+        say(f"Generating synthetic dataset at {train_path}")
+        rank0_first(rank, lambda: make_synthetic_fluid_dataset(
             train_path, case_num=train_seq, case_steps=seq_len,
-            num_particles=opt.synthetic_particles, seed=opt.seed)
+            num_particles=opt.synthetic_particles, seed=opt.seed))
 
     cfg = FluidTrainConfig(
         lr=opt.lr, batch_size=opt.batch_size, patch_size=patch_size,
@@ -155,7 +165,7 @@ def main(argv=None,
         interp=opt.interp, device_sampling=opt.device_sampling,
         freeze_D=opt.freeze_D, fast_d=opt.fast_d)
 
-    print("Preparing the data")
+    say("Preparing the data")
     dataset = SiamFluidDataset(
         train_path, train_seq, seq_len, sample_num=patch_size,
         fps_ratio=cfg.fps_ratio, jitter=cfg.jitter, seed=opt.seed,
@@ -168,23 +178,19 @@ def main(argv=None,
     if opt.synthetic:
         test_path = os.path.join(opt.log_dir, "synthetic_test_data")
         test_seq = max(1, opt.synthetic_cases // 2)
-        make_synthetic_fluid_dataset(
+        rank0_first(rank, lambda: make_synthetic_fluid_dataset(
             test_path, case_num=test_seq, case_steps=seq_len,
-            num_particles=opt.synthetic_particles, seed=opt.seed + 7919)
+            num_particles=opt.synthetic_particles, seed=opt.seed + 7919))
     test_batches = None
-    if test_path and os.path.isdir(test_path):
+    if rank == 0 and test_path and os.path.isdir(test_path):
         test_batches = fluid_batch_iterator(
             SiamFluidDataset(test_path, test_seq, seq_len,
                              sample_num=patch_size, fps_ratio=cfg.fps_ratio,
                              jitter=0.0, seed=opt.seed + 1, emit_lowres=True),
             cfg.batch_size, seed=opt.seed + 1)
 
-    print("Building network")
     state = init_fluid_state(cfg, opt.seed, dev, fused_train=fused)
-    for name, net in (("sr_net", state.sr), ("tempo_dis", state.tempo),
-                      ("spatial_dis", state.spatial)):
-        count = sum(p.numel() for p in net.module.parameters())
-        print(f"Total trainable parameters ({name}): {count}")
+    print_network_sizes(state, say)
     checkpoint_dir = os.path.join(opt.log_dir, "model_ckpt")
     os.makedirs(checkpoint_dir, exist_ok=True)
     if opt.resume:
@@ -196,20 +202,21 @@ def main(argv=None,
             raise ValueError("--resume: the checkpoint's generator has other "
                              "widths than the flags (--in_node_feats, "
                              "--node_embedding)")
-        print("last checkpoint restored")
+        say("last checkpoint restored")
 
-    writer, timer = MetricWriter(opt.log_dir), StepTimer()
-    step = FluidGanStep(cfg, generator=torch.Generator().manual_seed(opt.seed + 1))
+    writer, timer = rank0_writer(rank, opt.log_dir), StepTimer()
+    step = FluidGanStep(cfg, generator=torch.Generator().manual_seed(opt.seed + 1),
+                        data_parallel=opt.data_parallel)
     n_iter = start_iter = state.n_iter
     start = time.time()
     ckpt_future, ckpt_path, metrics, test_cds = None, None, {}, []
     profiler = None
     while n_iter < opt.iters:
         batch = next(batches)
-        feed = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
-                if k != "h"}
+        feed = {k: torch.from_numpy(v).to(dev)
+                for k, v in local_rows(opt, batch).items() if k != "h"}
         timer.data_ready()
-        if opt.profile and n_iter == 10:
+        if opt.profile and n_iter == 10 and rank == 0:
             profiler = _profiler(torch)
             profiler.start()
         cur = n_iter + 1
@@ -227,12 +234,13 @@ def main(argv=None,
 
         if n_iter % 50 == 0:
             rate = (n_iter - start_iter) / (time.time() - start)
-            print(f"iter {n_iter}/{opt.iters} ({rate:.2f} it/s, "
+            say(f"iter {n_iter}/{opt.iters} ({rate:.2f} it/s, "
                   f"eff {timer.compute_efficiency:.2f}): "
                   + ", ".join(f"{k}={float(v):.4f}"
                               for k, v in metrics.items()), flush=True)
 
-        if (n_iter - 1) % opt.ckpt_every == 0 or n_iter >= opt.iters:
+        if rank == 0 and ((n_iter - 1) % opt.ckpt_every == 0
+                          or n_iter >= opt.iters):
             ckpt_path = os.path.join(checkpoint_dir,
                                      f"tpugan_checkpoint{n_iter}.ckpt")
             ckpt_future = save_checkpoint_async(state, ckpt_path,
@@ -252,9 +260,86 @@ def main(argv=None,
     if ckpt_future is not None:
         ckpt_future.result()            # join the writer before returning
     writer.close()
-    print("exiting...")
+    leave_data_parallel(made)
+    say("exiting...")
     return {"n_iter": n_iter, "state": state, "checkpoint": ckpt_path,
             "metrics": metrics, "test_chamfer": test_cds}
+
+
+def join_data_parallel(opt):
+    """(device, rank, whether this call made the process group). With
+    ``--data_parallel`` this rank's device and rank in the ``torchrun``
+    group (a ``ValueError`` without one); else the resolved ``--device``,
+    rank 0 and no group."""
+    from tpugan_tpu_torch import resolve_device
+
+    if not opt.data_parallel:
+        return resolve_device(opt.device), 0, False
+    from tpugan_tpu_torch.parallel import mesh
+
+    made = not mesh.is_distributed()
+    mesh.initialize_distributed(opt.dist_backend, device=opt.device)
+    if not mesh.is_distributed():
+        raise ValueError("--data_parallel runs over a torch.distributed "
+                         "process group: launch with torchrun "
+                         "--nproc_per_node N -m <this CLI> --data_parallel")
+    return mesh.rank_device(opt.device), mesh.rank(), made
+
+
+def leave_data_parallel(made: bool) -> None:
+    """Destroy the process group :func:`join_data_parallel` made."""
+    if made:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def local_rows(opt, batch: dict) -> dict:
+    """This rank's rows of a frame-major global batch with
+    ``--data_parallel``, else the batch."""
+    if not opt.data_parallel:
+        return batch
+    from tpugan_tpu_torch.parallel.mesh import batch_sharded
+
+    return {k: np.ascontiguousarray(v) for k, v in batch_sharded(batch).items()}
+
+
+def rank0_first(rank: int, make: Callable[[], None]) -> None:
+    """``make()`` on rank 0, then every rank waits for it (data on a
+    shared disk written once)."""
+    if rank == 0:
+        make()
+    from tpugan_tpu_torch.parallel.mesh import is_distributed
+
+    if is_distributed():
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+class _NoWriter:
+    """The metric writer of ranks other than 0."""
+
+    def add(self, step, metrics) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def rank0_writer(rank: int, log_dir: str):
+    """Rank 0's metric writer; the other ranks write nothing."""
+    from tpugan_tpu_torch.utils.logging import MetricWriter
+
+    return MetricWriter(log_dir) if rank == 0 else _NoWriter()
+
+
+def print_network_sizes(state, say=print) -> None:
+    say("Building network")
+    for name, net in (("sr_net", state.sr), ("tempo_dis", state.tempo),
+                      ("spatial_dis", state.spatial)):
+        count = sum(p.numel() for p in net.module.parameters())
+        say(f"Total trainable parameters ({name}): {count}")
 
 
 def _profiler(torch):

@@ -41,8 +41,9 @@ class ActionTrainConfig:
     defaults; ``device_sampling``: per-frame independent FPS of the
     low-res inputs inside the step instead of in the loader; ``fast_d``:
     the critics' stacked applies (``tpugan_tpu_torch/train/step.py``). Its
-    ``data_parallel`` and ``mesh_shape`` are not ported (the CLI refuses
-    ``--data_parallel``)."""
+    ``data_parallel`` is the CLI's ``--data_parallel`` (the step's
+    ``data_parallel`` argument) and its ``mesh_shape`` the ``torchrun``
+    world, so neither is a field here."""
 
     lr: float = 3e-4
     iters: int = 100000

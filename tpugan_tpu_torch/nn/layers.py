@@ -21,6 +21,13 @@ one call on their rows stacked along the leading axis. Inside
 as G equal blocks, each normalised with its own moments, and steps its
 running averages once per block in block order: G sequential calls in one.
 
+Cross-rank batch statistics (``cross_rank_stats``, the data-parallel
+steps' twin of GSPMD's global-batch moments): inside the context every
+train-mode ``BatchNorm`` sums its moments over this rank's rows (per stat
+group) and all-reduces the sums with the autograd-aware all-reduce it is
+given, so each rank normalises with the global batch's moments and the
+backward carries the other ranks' terms, as SyncBatchNorm does.
+
 Compute dtype follows flax ``nn.Dense``: with ``dtype`` set, input and
 weight are cast to it and the output has it; with ``dtype=None`` the input
 is promoted to the f32 parameter dtype.
@@ -67,6 +74,33 @@ def stat_groups(n: int):
 def current_stat_groups() -> int:
     """The stat groups in force (1 outside any ``stat_groups``)."""
     return _STAT_GROUPS
+
+
+# (reduce, world) of the cross-rank batch statistics, or None: set around a
+# data-parallel step by ``cross_rank_stats``; read by ``BatchNorm.forward``
+# and checked by ``SharedMLP.pooled``.
+_STAT_REDUCE = None
+
+
+@contextlib.contextmanager
+def cross_rank_stats(reduce: Callable[[torch.Tensor], torch.Tensor],
+                     world: int):
+    """Every train-mode ``BatchNorm`` called inside pools its moment sums
+    over ``world`` ranks of equal row counts through ``reduce`` (an
+    autograd-aware sum over the ranks; restored on exit)."""
+    global _STAT_REDUCE
+    prev, _STAT_REDUCE = _STAT_REDUCE, (reduce, int(world))
+    try:
+        yield
+    finally:
+        _STAT_REDUCE = prev
+
+
+def local_batch_stats() -> bool:
+    """True when a train-mode batch norm's moments are those of all the
+    rows of its call: no ``stat_groups`` (G = 1), no ``cross_rank_stats``.
+    Only then may the pooled-MLP kernel compute them."""
+    return _STAT_GROUPS == 1 and _STAT_REDUCE is None
 
 
 def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
@@ -129,8 +163,9 @@ class BatchNorm(nn.Module):
     as G equal blocks (a ``ValueError`` when it does not divide): f32
     moments per block, each block normalised with its own, the running
     averages stepped once per block in block order (the JAX package's
-    ``GroupedBatchNorm``). The parameters and buffers are the same in
-    both modes."""
+    ``GroupedBatchNorm``). Under ``cross_rank_stats`` the moment sums of
+    every block are all-reduced over the ranks first. The parameters and
+    buffers are the same in every mode."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-5, device=None):
@@ -152,7 +187,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x32 = x.float()
         g = _STAT_GROUPS
-        if train and g > 1:
+        if train and (g > 1 or _STAT_REDUCE is not None):
             return self._grouped(x32, g)
         if train:
             dims = tuple(range(x32.dim() - 1))
@@ -169,8 +204,15 @@ class BatchNorm(nn.Module):
                              f"{g} stat groups")
         xg = x32.reshape((g, x32.shape[0] // g) + x32.shape[1:])
         dims = tuple(range(1, xg.dim() - 1))
-        mu = xg.mean(dims)                                        # [G, C]
-        var = torch.clamp_min((xg * xg).mean(dims) - mu * mu, 0.0)
+        if _STAT_REDUCE is None:
+            mu = xg.mean(dims)                                    # [G, C]
+            var = torch.clamp_min((xg * xg).mean(dims) - mu * mu, 0.0)
+        else:
+            reduce, world = _STAT_REDUCE
+            rows = math.prod(xg.shape[1:-1]) * world
+            sums = reduce(torch.stack([xg.sum(dims), (xg * xg).sum(dims)]))
+            mu = sums[0] / rows
+            var = torch.clamp_min(sums[1] / rows - mu * mu, 0.0)
         for i in range(g):                    # block order, as G calls
             self.update_stats(mu[i].detach(), var[i].detach())
         shape = (g,) + (1,) * len(dims) + (x32.shape[-1],)
@@ -295,12 +337,14 @@ class SharedMLP(nn.Module):
         (s = sqrt(max(var, 0))), whose moments are the batch's, as the JAX
         package's ``bn_update`` probe does.
 
-        The kernel pools the moments of all rows, so it refuses to run under
-        ``stat_groups`` with G > 1: a caller takes the plain stack there (the
-        JAX package's ``_fusable``)."""
-        if _STAT_GROUPS != 1:
+        The kernel pools the moments of all rows of this call, so it refuses
+        to run under ``stat_groups`` with G > 1 and under
+        ``cross_rank_stats``: a caller takes the plain stack there (the JAX
+        package's ``_fusable``)."""
+        if not local_batch_stats():
             raise ValueError(f"the pooled-MLP kernel pools the moments of all "
-                             f"rows: not under stat_groups({_STAT_GROUPS})")
+                             f"rows of its call: not under stat_groups("
+                             f"{_STAT_GROUPS}) or cross_rank_stats")
         layers = list(self.children())
         slope = act_slope(self.act)
         if self.dtype is not None or slope is None:

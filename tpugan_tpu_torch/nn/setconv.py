@@ -11,6 +11,8 @@ spatial critic's stages), as in the JAX package; otherwise as the plain
 grouped stack and ``amax``. Under ``stat_groups`` with G > 1 (a critic's
 stacked apply) every stage takes the plain stack: the kernel's batch
 moments pool all rows, and the stack's ``BatchNorm`` keeps each block's.
+So does every stage under ``cross_rank_stats`` (a data-parallel step at
+more than one rank): the kernel's moments are this rank's rows alone.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 
 from tpugan_tpu_torch import resolve_device
-from tpugan_tpu_torch.nn.layers import (SharedMLP, current_stat_groups, relu,
+from tpugan_tpu_torch.nn.layers import (SharedMLP, local_batch_stats, relu,
                                         seeded)
 from tpugan_tpu_torch.ops.neighbors import (fps, gather, group_all,
                                             query_and_group)
@@ -33,7 +35,8 @@ class SetConv(nn.Module):
     layers; False: norm-free layers with a Dense bias (``use_bias = not
     bn``). ``mlp`` lists the MLP output widths; the input width is 3 + the
     feature width (``use_xyz``). The fused op runs at eval and, with
-    ``fused_train``, in training, outside ``stat_groups`` (G = 1)."""
+    ``fused_train``, in training, outside ``stat_groups`` (G = 1) and
+    ``cross_rank_stats``."""
 
     def __init__(self, in_features: int, mlp: Sequence[int],
                  npoint: Optional[int] = None, radius: Optional[float] = None,
@@ -80,6 +83,6 @@ class SetConv(nn.Module):
         else:
             new_xyz = None
             grouped = group_all(xyz, features, use_xyz=self.use_xyz)
-        if ((not train) or self.fused_train) and current_stat_groups() == 1:
+        if ((not train) or self.fused_train) and local_batch_stats():
             return new_xyz, self.SharedMLP_0.pooled(grouped, train)
         return new_xyz, self.SharedMLP_0(grouped, train).amax(dim=2)

@@ -16,10 +16,20 @@ kNN distances are differentiable (:class:`_Knn`: the gather and
 scatter-add formula of the JAX kNN kernel's VJP); FPS and ball-query
 indices carry no gradient, and gradients reach the points through
 :func:`gather` / :func:`group`.
+
+Point-sharded serving (``point_shard_axis``, ``tpugan_tpu/ops/neighbors.py``):
+inside the context every point and feature tensor is this rank's
+contiguous N-shard of one cloud. ``graph_knn`` then all-gathers the
+candidate side (and its valid mask) and returns GLOBAL indices, so each
+rank finds the exact neighbours of its rows in the whole cloud, and
+``gather`` all-gathers the table before indexing. Everything between graph
+builds and gathers in the generator is pointwise, so the model runs
+unmodified. Outside the context neither makes a collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -44,6 +54,31 @@ APPROX_GRAPH_KNN = False
 def set_approx_graph_knn(enabled: bool) -> None:
     global APPROX_GRAPH_KNN
     APPROX_GRAPH_KNN = bool(enabled)
+
+
+# The group the point axis is sharded over (None: not sharded). Set by
+# ``point_shard_axis`` around a sharded serving step; read by ``graph_knn``
+# and ``gather`` at call time.
+_POINT_SHARD_AXIS = None
+
+
+@contextlib.contextmanager
+def point_shard_axis(group):
+    """Declare the process group (``parallel.mesh.DATA_AXIS`` for the
+    default one) the point axis is sharded over, restored on exit."""
+    global _POINT_SHARD_AXIS
+    prev, _POINT_SHARD_AXIS = _POINT_SHARD_AXIS, group
+    try:
+        yield
+    finally:
+        _POINT_SHARD_AXIS = prev
+
+
+def _gather_points(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's shard of ``x`` [B, N/w, ...] concatenated along N."""
+    from tpugan_tpu_torch.parallel.mesh import all_gather
+
+    return all_gather(x, 1, _POINT_SHARD_AXIS)
 
 
 # [..., Nq, D] x [..., Nc, D] -> [..., Nq, Nc] squared distances
@@ -172,12 +207,22 @@ def graph_knn(x: torch.Tensor, k: int,
               c_valid: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN graph of a point or feature cloud over itself; approximate where
-    ``APPROX_GRAPH_KNN`` is on and the shape takes the approximate kernel."""
+    ``APPROX_GRAPH_KNN`` is on and the shape takes the approximate kernel.
+    Under ``point_shard_axis``: this rank's rows against the gathered cloud,
+    global indices."""
+    if _POINT_SHARD_AXIS is not None:
+        cv = _gather_points(c_valid) if c_valid is not None else None
+        return knn(x, _gather_points(x), k=k, c_valid=cv,
+                   approx=APPROX_GRAPH_KNN)
     return knn(x, k=k, c_valid=c_valid, approx=APPROX_GRAPH_KNN)
 
 
 def gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """points [B, N, C], idx [B, M] -> [B, M, C]."""
+    """points [B, N, C], idx [B, M] -> [B, M, C]. Under
+    ``point_shard_axis`` ``points`` is this rank's shard and ``idx`` global:
+    the table is gathered first."""
+    if _POINT_SHARD_AXIS is not None:
+        points = _gather_points(points)
     return torch.gather(points, 1,
                         idx[..., None].expand(-1, -1, points.shape[-1]))
 

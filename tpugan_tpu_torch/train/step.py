@@ -57,10 +57,27 @@ is not the fluid step with a flag:
   ``fast_d`` two more, [2B] rows each, for the stacked updates).
 
 Its random numbers come from an :class:`ActionStepDraws`.
+
+Data parallelism (``data_parallel=True``, the twin of ``_finalize_step`` /
+``shard_gan_step``, which GSPMD makes a global-batch step): each rank of a
+``torch.distributed`` group takes its contiguous rows of the batch, and
+the step on those rows equals the step on the global batch:
+
+* the draws are global, the same on every rank (one generator, one seed),
+  and each rank takes its rows of the per-item ones (``rows``);
+* every train-mode batch norm pools its moments over the ranks
+  (``cross_rank_stats``, at more than one rank; the pooled-MLP kernel
+  then gives way to the plain stack);
+* the masking-loss gate is decided on the all-reduced mean, so every rank
+  takes the same branch;
+* each update's gradients are averaged in one flattened all-reduce (every
+  loss is a mean over equal shards, so the average is the global mean),
+  and the metrics are all-reduced before they leave the step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional
@@ -74,11 +91,12 @@ from tpugan_tpu_torch.losses.geometry import tpugan_sr_loss
 from tpugan_tpu_torch.models.discriminator import (dropout_layers,
                                                    dropout_multipliers,
                                                    dropout_widths)
-from tpugan_tpu_torch.nn.layers import stat_groups
+from tpugan_tpu_torch.nn.layers import cross_rank_stats, stat_groups
 from tpugan_tpu_torch.ops.interpolate import (cubic_interpolation,
                                               cubic_interpolation_dense)
 from tpugan_tpu_torch.ops.neighbors import fps
-from tpugan_tpu_torch.train.state import GanTrainState
+from tpugan_tpu_torch.parallel import mesh
+from tpugan_tpu_torch.train.state import GanTrainState, NetState
 
 
 @dataclasses.dataclass
@@ -228,6 +246,21 @@ class StepDraws:
             keep["spatial_both"] = keep["tempo_both"]
         return keep
 
+    def items(self) -> int:
+        """The batch size the draws were made for."""
+        return self.fps_start.shape[0]
+
+    def rows(self, rank: int, world: int) -> "StepDraws":
+        """This rank's rows of the per-item draws (``fps_start``,
+        ``jitter``, ``rots0`` / ``rots1``, the dropout multipliers; of a
+        stacked [2B, w] multiplier its rows of each half); the rest is
+        shared."""
+        sl = mesh.rows_of(self.fps_start.shape[0], world, rank)
+        return dataclasses.replace(
+            self, rots0=self.rots0[sl], rots1=self.rots1[sl],
+            fps_start=self.fps_start[sl], jitter=self.jitter[:, sl],
+            keep=_keep_rows(self.keep, self.STACKED, sl))
+
     def to(self, device) -> "StepDraws":
         moved = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
         for k, v in moved.items():
@@ -236,6 +269,78 @@ class StepDraws:
         moved["keep"] = {c: [m.to(device) for m in ms]
                          for c, ms in self.keep.items()}
         return StepDraws(**moved)
+
+
+def _keep_rows(keep, stacked, sl: slice):
+    """Dropout multipliers by call cut to the rows ``sl`` of the batch; a
+    stacked [2B, w] multiplier keeps those rows of each half."""
+    def cut(c, m):
+        if c not in stacked:
+            return m[sl]
+        b = m.shape[0] // 2
+        return torch.cat([m[:b][sl], m[b:][sl]])
+
+    return {c: [cut(c, m) for m in ms] for c, ms in keep.items()}
+
+
+class DataParallel:
+    """The collectives of a data-parallel step over ``group``; at one rank
+    the batch norms run as in a single-process step (the pooled-MLP kernel
+    included). Raises without a process group."""
+
+    def __init__(self, group=mesh.DATA_AXIS):
+        mesh.require_group("a data-parallel train step")
+        self.group = group
+        self.world, self.rank = mesh.world_size(group), mesh.rank(group)
+
+    def batch_stats(self):
+        """The context of the step's critic applies."""
+        if self.world == 1:
+            return contextlib.nullcontext()
+        return cross_rank_stats(
+            lambda t: mesh.all_reduce(t, self.group), self.world)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s mean over the ranks (no autograd)."""
+        return mesh.mean_over_ranks(t, self.group)
+
+    def grads(self, net: NetState, loss: torch.Tensor):
+        """``net``'s gradients of ``loss``, the mean over the ranks."""
+        return mesh.average_gradients(net.grads(loss), self.group)
+
+    def check_batch(self, b: int, global_b: int) -> None:
+        if b * self.world != global_b:
+            raise ValueError(f"data-parallel step: {b} rows on each of "
+                             f"{self.world} ranks, but the global batch is "
+                             f"{global_b}")
+
+
+def _grads(dp: Optional[DataParallel], net: NetState, loss: torch.Tensor):
+    """``net``'s gradients of ``loss``, averaged over the ranks under data
+    parallelism."""
+    return net.grads(loss) if dp is None else dp.grads(net, loss)
+
+
+def _run(step, state, batch, draws, b, mark):
+    """``step._step`` on this rank's rows of the (global) draws, under the
+    data-parallel batch statistics when ``step.dp`` is set."""
+    dp = step.dp
+    dev = next(state.sr.module.parameters()).device
+    if dp is None:
+        return step._step(state, batch, draws.to(dev), mark)
+    dp.check_batch(b, draws.items())
+    with dp.batch_stats():
+        return step._step(state, batch,
+                          draws.rows(dp.rank, dp.world).to(dev), mark)
+
+
+def _metrics(dp: Optional[DataParallel], names, values) -> Dict[str, float]:
+    """Floats of the step's scalar metrics, averaged over the ranks in one
+    all-reduce under data parallelism."""
+    v = torch.stack([x.detach().float() for x in values])
+    if dp is not None:
+        v = dp.mean(v)
+    return dict(zip(names, v.tolist()))
 
 
 # ---------------------------------------------------------------- helpers
@@ -310,27 +415,36 @@ class FluidGanStep:
     on the networks' device; ``draws`` defaults to
     ``StepDraws.draw(generator)``. ``mark``, when given, is called with
     "generator" after the generator's update and "critics" after the
-    critics' (a timer's hook)."""
+    critics' (a timer's hook).
+
+    ``data_parallel``: ``batch`` holds this rank's rows of the global batch
+    of ``cfg.batch_size`` items, ``draws`` (and the default draws) are the
+    global batch's; see the module note."""
 
     def __init__(self, cfg: FluidTrainConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 data_parallel: bool = False):
         self.cfg = cfg
         self.generator = generator or torch.Generator().manual_seed(0)
+        self.dp = DataParallel() if data_parallel else None
 
     def __call__(self, state: GanTrainState, batch: Dict[str, torch.Tensor],
                  draws: Optional[StepDraws] = None,
                  mark: Optional[Callable[[str], None]] = None
                  ) -> Dict[str, float]:
-        cfg = self.cfg
+        _, b, m = batch["highres_pos"].shape[:3]
+        if draws is None:
+            draws = StepDraws.draw(self.generator, self.cfg, m,
+                                   dropout_widths(state.spatial.module))
+        return _run(self, state, batch, draws, b, mark)
+
+    def _step(self, state, batch, draws, mark):
+        cfg, dp = self.cfg, self.dp
         sr, tempo, spatial = (state.sr.module, state.tempo.module,
                               state.spatial.module)
         dev = next(sr.parameters()).device
         highres_pos, highres_vel = batch["highres_pos"], batch["highres_vel"]
         f, b, m = highres_pos.shape[:3]
-        if draws is None:
-            draws = StepDraws.draw(self.generator, cfg, m,
-                                   dropout_widths(spatial))
-        draws = draws.to(dev)
         cur_iter = state.n_iter + 1
         valid_lbl, invalid_lbl = draws.labels
         radius = cfg.cutoff               # furthest distance is pinned to 1
@@ -364,7 +478,7 @@ class FluidGanStep:
         position_loss, cd, ml = tpugan_sr_loss(
             cfg.masking_w, highres_pos[1], expanded[1], lowres_pos[1], mask[1],
             radius, cur_iter)
-        gate = bool(ml < cfg.ml_gate)
+        gate = bool((ml if dp is None else dp.mean(ml)) < cfg.ml_gate)
         zero = torch.zeros((), device=dev)
         tempo_loss = spatial_loss = zero
         if gate:
@@ -388,7 +502,7 @@ class FluidGanStep:
                             stack_frames=cfg.fast_d)
             tempo_loss = lsgan_generator_loss(tp_fake, draws.tp_target)
         sr_loss = tempo_loss + spatial_loss + cfg.w * position_loss
-        state.sr.opt.step(state.sr.grads(sr_loss))
+        state.sr.opt.step(_grads(dp, state.sr, sr_loss))
         if mark is not None:
             mark("generator")
 
@@ -424,7 +538,7 @@ class FluidGanStep:
                              train=True, keep=draws.keep["tempo_real"])
             t_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
-            state.tempo.opt.step(state.tempo.grads(t_loss))
+            state.tempo.opt.step(_grads(dp, state.tempo, t_loss))
 
             true_center, fake_cloud = highres_pos[1], padded_last
             if draws.do_rot_s:
@@ -442,17 +556,16 @@ class FluidGanStep:
                                keep=draws.keep["spatial_real"])
             s_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
-            state.spatial.opt.step(state.spatial.grads(s_loss))
+            state.spatial.opt.step(_grads(dp, state.spatial, s_loss))
 
         if mark is not None:
             mark("critics")
         state.n_iter = cur_iter
-        return {"tempo_G_loss": float(tempo_loss.detach()),
-                "tempo_D_loss": float(t_loss.detach()),
-                "Chamfer_distance_no_norm": float(cd.detach()),
-                "masking_loss": float(ml.detach()),
-                "spatial_G_loss": float(spatial_loss.detach()),
-                "spatial_D_loss": float(s_loss.detach()), "gate": gate}
+        out = _metrics(dp, ("tempo_G_loss", "tempo_D_loss",
+                            "Chamfer_distance_no_norm", "masking_loss",
+                            "spatial_G_loss", "spatial_D_loss"),
+                       (tempo_loss, t_loss, cd, ml, spatial_loss, s_loss))
+        return {**out, "gate": gate}
 
 
 # ---------------------------------------------------------------- action
@@ -514,6 +627,20 @@ class ActionStepDraws:
                                  for w, p in layers(c)]
         return draws
 
+    def items(self) -> int:
+        """The batch size the draws were made for."""
+        return self.fps_start.shape[0] // self.perms.shape[0]
+
+    def rows(self, rank: int, world: int) -> "ActionStepDraws":
+        """This rank's rows of the per-item draws: of the frame-major
+        ``fps_start`` [F*B] rows f*B + its items for each frame, and of the
+        dropout multipliers as :meth:`StepDraws.rows` takes them."""
+        b = self.items()
+        sl = mesh.rows_of(b, world, rank)
+        return dataclasses.replace(
+            self, fps_start=self.fps_start.reshape(-1, b)[:, sl].reshape(-1),
+            keep=_keep_rows(self.keep, self.STACKED, sl))
+
     def to(self, device) -> "ActionStepDraws":
         return dataclasses.replace(
             self, perms=self.perms.to(device), sp_perm=self.sp_perm.to(device),
@@ -541,28 +668,35 @@ class ActionGanStep:
     floats. ``batch`` holds ``highres_pos`` [F, B, M, 3] (and
     ``lowres_pos`` [F, B, n, 3] without device sampling) on the networks'
     device; ``cfg`` is an ``ActionTrainConfig``; ``draws`` defaults to
-    ``ActionStepDraws.draw(generator)``; ``mark`` as for
-    :class:`FluidGanStep`."""
+    ``ActionStepDraws.draw(generator)``; ``mark`` and ``data_parallel``
+    as for :class:`FluidGanStep`."""
 
-    def __init__(self, cfg, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg, generator: Optional[torch.Generator] = None,
+                 data_parallel: bool = False):
         self.cfg = cfg
         self.generator = generator or torch.Generator().manual_seed(0)
+        self.dp = DataParallel() if data_parallel else None
 
     def __call__(self, state: GanTrainState, batch: Dict[str, torch.Tensor],
                  draws: Optional[ActionStepDraws] = None,
                  mark: Optional[Callable[[str], None]] = None
                  ) -> Dict[str, float]:
-        cfg = self.cfg
+        f, b, m = batch["highres_pos"].shape[:3]
+        if draws is None:
+            world = 1 if self.dp is None else self.dp.world
+            draws = ActionStepDraws.draw(
+                self.generator, self.cfg, (f, b * world, m),
+                dropout_layers(state.spatial.module),
+                dropout_layers(state.tempo.module))
+        return _run(self, state, batch, draws, b, mark)
+
+    def _step(self, state, batch, draws, mark):
+        cfg, dp = self.cfg, self.dp
         sr, tempo, spatial = (state.sr.module, state.tempo.module,
                               state.spatial.module)
         dev = next(sr.parameters()).device
         highres_pos = batch["highres_pos"]
         f, b, m = highres_pos.shape[:3]
-        if draws is None:
-            draws = ActionStepDraws.draw(self.generator, cfg, (f, b, m),
-                                         dropout_layers(spatial),
-                                         dropout_layers(tempo))
-        draws = draws.to(dev)
         cur_iter = state.n_iter + 1
         valid_lbl, invalid_lbl = draws.labels
         n = cfg.lowres_size
@@ -587,7 +721,7 @@ class ActionGanStep:
                         keep=draws.keep["tempo_g"], stack_frames=cfg.fast_d)
         tempo_loss = lsgan_generator_loss(tp_fake, draws.tp_target)
         sr_loss = tempo_loss + spatial_loss + cfg.w * position_loss
-        state.sr.opt.step(state.sr.grads(sr_loss))
+        state.sr.opt.step(_grads(dp, state.sr, sr_loss))
         if mark is not None:
             mark("generator")
 
@@ -608,7 +742,7 @@ class ActionGanStep:
                              train=True, keep=draws.keep["tempo_real"])
             t_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
-            state.tempo.opt.step(state.tempo.grads(t_loss))
+            state.tempo.opt.step(_grads(dp, state.tempo, t_loss))
 
             if cfg.fast_d:
                 fake, true = stacked_scores(
@@ -622,13 +756,12 @@ class ActionGanStep:
                                keep=draws.keep["spatial_real"])
             s_loss = lsgan_discriminator_loss(true, fake, valid_lbl,
                                               invalid_lbl)
-            state.spatial.opt.step(state.spatial.grads(s_loss))
+            state.spatial.opt.step(_grads(dp, state.spatial, s_loss))
 
         if mark is not None:
             mark("critics")
         state.n_iter = cur_iter
-        return {"tempo_G_loss": float(tempo_loss.detach()),
-                "tempo_D_loss": float(t_loss.detach()),
-                "Chamfer_distance_no_norm": float(cd.detach()),
-                "spatial_G_loss": float(spatial_loss.detach()),
-                "spatial_D_loss": float(s_loss.detach())}
+        return _metrics(dp, ("tempo_G_loss", "tempo_D_loss",
+                             "Chamfer_distance_no_norm", "spatial_G_loss",
+                             "spatial_D_loss"),
+                        (tempo_loss, t_loss, cd, spatial_loss, s_loss))
