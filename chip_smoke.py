@@ -264,19 +264,19 @@ Phases, one JSON line each (``phase`` names it):
   train_action_fast_d the same with the action CLI twin (--preset
            train_dir, checkpoints/action_tempo_20k.ckpt,
            runs/chip_smoke_train_action_fast_d/, ACTION_STEP_*_FAST_D);
-  kernel   (sharded_rollout) the kNN at each graph of the f32 dynamic frame
-           as 20,480 local rows against the gathered 40,960 and each
-           EdgeConv class on 20,480 centres over a table gathered from a
-           40,960-row feature, against their plain versions;
   sharded_rollout the rollout CLI with --shard_points over 5 synthetic
            frames of 40,960 particles (SHARD_POINTS, four times the serving
            frame), f32 dynamic and bf16 static, in ranks launched by
            torchrun (this file with --rank-worker): one rank over NCCL and
-           two ranks on the one card over gloo (runs/chip_smoke_parallel/);
-           each world's frames against the unsharded CLI's (GATE), each
-           rank's launches a frame against SHARD_RUNS (counts reset in the
-           rank before each run, read after), ms a frame in CUDA events and
-           on the host clock;
+           two ranks on the one card over gloo (runs/chip_smoke_parallel/;
+           the backend each rank's group took is checked); each world's
+           frames against the unsharded CLI's (SHARD_GATE), each rank's
+           launches a frame against SHARD_RUNS (counts reset in the rank
+           before each run, read after), ms a frame in CUDA events and on
+           the host clock; past the counted runs, every graph of the f32
+           dynamic rollout on each rank against the unsharded kNN of the
+           same gathered cloud (indices may differ only between candidates
+           whose exact distances tie within f32 noise);
   data_parallel in the same ranks: the fluid train CLI twin with
            --data_parallel --preset train_vel --device_sampling
            --synthetic and the fused switch, resumed from the checkpoint
@@ -293,7 +293,13 @@ Phases, one JSON line each (``phase`` names it):
            --data_parallel --fast_d for iterations 20001-20002 at two
            ranks, ranks equal after every step; ms a step (G only and G+D),
            the collectives' share of a step at two ranks (each collective
-           synchronised and timed), the peak memory of each rank.
+           synchronised and timed), the peak memory of each rank;
+  kernel   (sharded_rollout, data_parallel) each kernel at every shape the
+           ranks' counted runs gave it (the wrappers' call sites record the
+           shapes, and their calls must add up to the runs' launches): the
+           sharded rollout's at one and two ranks, the data-parallel runs'
+           at two (one rank's are the train phases' shapes), each against
+           its plain version by the limits of its own rows above.
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -761,18 +767,18 @@ def check_knn_approx(torch, dev, rng):
 
 
 def _edgeconv_row(torch, dev, rng, name, cdt, kind, n, c, h, o, k, agg, mlp,
-                  b=1, table=None):
+                  b=1):
     """The fused EdgeConv forward of ``b`` frames of ``n`` points against its
     plain version (f32: to 1e-4 of the scale, summation order only; bf16:
     3e-2, a 1-ulp rounding flip of one layer's value may carry through the
     next layers), launching the variant its class takes, with its times and
-    bound. ``table``: the (neighbour-major table, centres) to run on
-    (default: random)."""
+    bound."""
     from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
     t = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(dev)
-    nbr, ctr = table if table is not None else (t(b, k, n, c), t(b, n, c))
+    nbr = t(b, k, n, c)
+    ctr = t(b, n, c)
     wn, we = t(c, h) / np.sqrt(c), t(c, h) / np.sqrt(c)
     w1 = t(h, h) / np.sqrt(h) if mlp else None
     w2 = t(h, o) / np.sqrt(h) if mlp else None
@@ -4663,11 +4669,12 @@ SHARD_RUNS = [  # (name, the rollout CLI's flags, launches a frame on a rank)
     ("bf16_static", ["--compute_dtype", "bf16", "--graph_mode", "static"],
      {"knn": 1, "edgeconv": 9}),
 ]
-# The sharded kernels' shapes on one of two ranks: its 20,480 rows of a
-# 40,960-point frame against the gathered cloud (the f32 dynamic frame's
-# graph widths of KNN_SHAPES' serving rows; the EdgeConv classes of
-# EDGECONV_SHAPES on neighbour tables gathered from the whole frame)
-SHARD_ROWS = SHARD_POINTS // 2
+# Limit of the normalised Chamfer (as GATE takes it) of every sharded frame
+# against the unsharded CLI's. On an NVIDIA H100 80GB HBM3 at 700 W it read
+# 1.2e-7 to 3.5e-7 at one and two ranks (PERF.md section 6), 1.2e-7 where
+# the frames were equal bit for bit (the measure's own f32 noise); the
+# limit lies about 30x above the largest reading.
+SHARD_GATE = 1e-5
 DP_ITERS = 20004          # the fluid DP runs: iterations 20001-20004
 DP_ACTION_ITERS = 20002   # the action DP run: iterations 20001-20002
 DP_TURNS = ("dp", "plain") * 3   # world size 1, in turns
@@ -4741,23 +4748,142 @@ def _kernels():
             "knn_approx": knn.APPROX}
 
 
-def _shard_argv(name, extra, out_dir, shard, world=1, backend=None):
+def _shard_argv(name, extra, out_dir, shard, world=1):
     argv = ["--ckpt", CHECKPOINT, "--use_vel", "--in_node_feats", "6",
             "--synthetic", "--synthetic_particles", str(SHARD_POINTS),
             "--num_frames", str(SHARD_FRAMES), "--out_dir", out_dir] + extra
     if shard:
         argv += ["--shard_points", "--mesh_devices", str(world),
                  "--device", "cuda:0"]
-        if backend:
-            argv += ["--dist_backend", backend]
     return argv
+
+
+# the kernels whose wrappers' call sites _record_shapes patches
+RECORDED = ("knn", "fps", "ball_query", "nn1", "interp", "edgeconv")
+
+
+def _record_shapes(torch):
+    """Patch the kernel wrappers' call sites (ops/neighbors.py: the exact
+    kNN, FPS, the ball query; ops/metrics.py: nn1; ops/interpolate.py: the
+    dense interp; nn/edgeconv.py: the fused EdgeConv) to count their calls
+    by shape, from host metadata only (no sync). Returns (counts, undo):
+    counts maps a key (kernel name, then the shape the row of that kernel
+    is made from) to its calls."""
+    import collections
+
+    import tpugan_tpu_torch.nn.edgeconv as EC
+    from tpugan_tpu_torch.ops import interpolate, metrics, neighbors
+
+    seen, own = collections.Counter(), []
+
+    def wrap(mod, attr, key):
+        fn = getattr(mod, attr)
+
+        def recorded(*a, **k):
+            seen[key(*a, **k)] += 1
+            return fn(*a, **k)
+
+        own.append((mod, attr, fn))
+        setattr(mod, attr, recorded)
+
+    def edgeconv(nbr, ctr, wn, we, w1=None, w2=None, aggregate="max",
+                 compute_dtype=torch.float32):
+        grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (nbr, ctr, wn, we, w1, w2))
+        b, k, n, c = nbr.shape
+        h = wn.shape[1]
+        return ("edgeconv", b, k, n, c, h, h if w2 is None else w2.shape[1],
+                aggregate, w1 is not None,
+                "bf16" if compute_dtype == torch.bfloat16 else "f32", grad)
+
+    wrap(neighbors, "knn_kernel", lambda q, c, bias, k: (
+        "knn", q.shape[0], q.shape[1], c.shape[1], q.shape[2], k,
+        q.data_ptr() == c.data_ptr()))
+    wrap(neighbors, "fps_kernel", lambda pos, m, pen, start, plan=None: (
+        "fps", pos.shape[0], pos.shape[1], m))
+    wrap(neighbors, "ball_query_kernel", lambda q, c, r, ns, bias: (
+        "ball_query", q.shape[0], q.shape[1], c.shape[1], float(r), ns))
+    wrap(metrics, "nn1_kernel", lambda q, c, bias: (
+        "nn1", q.shape[0], q.shape[1], c.shape[1]))
+    wrap(interpolate, "interp_kernel",
+         lambda q, c, v, cutoff, bias, kind="bicubic": (
+             "interp", q.shape[0], q.shape[1], c.shape[1], v.shape[-1],
+             float(cutoff), kind))
+    wrap(EC, "edgeconv_fused", edgeconv)
+
+    def undo():
+        for mod, attr, fn in own:
+            setattr(mod, attr, fn)
+
+    return seen, undo
+
+
+def _calls_match(shapes: list, launches: dict, what: str) -> None:
+    """The recorded calls (``[[key, calls], ...]``) of each kernel of
+    RECORDED add up to its launches in the run (each wrapper launches once
+    a call): every launch ran at a recorded shape."""
+    for name in RECORDED:
+        calls = sum(n for key, n in shapes if key[0] == name)
+        if calls != launches.get(name, 0):
+            raise AssertionError(f"{what}: {calls} recorded {name} calls, "
+                                 f"{launches.get(name, 0)} launches")
+
+
+def _graph_ties(torch, model, pos, vel) -> dict:
+    """Every kNN graph of the sharded rollout of these frames on this rank
+    against the unsharded kNN of the same gathered cloud and valid mask:
+    indices may differ only between candidates whose exact (float64)
+    distances tie within 1e-5 of 2 max |x|^2 over the valid rows (as
+    tests/test_torch_sharded_serving.py holds the CPU's graphs). Returns
+    the graphs, the slots that differ and the largest gap over its
+    limit."""
+    import tpugan_tpu_torch.models.generator as G
+    import tpugan_tpu_torch.nn.edgeconv as EC
+    from tpugan_tpu_torch.ops.neighbors import _gather_points, graph_knn, knn
+    from tpugan_tpu_torch.parallel import mesh
+    from tpugan_tpu_torch.parallel.sharded_serving import \
+        rollout_sequence_sharded
+
+    graphs = []
+
+    def recording(x, k, c_valid=None):
+        d2, idx = graph_knn(x, k, c_valid)
+        graphs.append((_gather_points(x), idx, None if c_valid is None
+                       else _gather_points(c_valid)))
+        return d2, idx
+
+    G.graph_knn = EC.graph_knn = recording
+    try:
+        rollout_sequence_sharded(model, pos, vel, use_vel=True)
+    finally:
+        G.graph_knn = EC.graph_knn = graph_knn
+    world, r = mesh.world_size(), mesh.rank()
+    differ, ratio = 0, 0.0
+    for x, idx, cv in graphs:
+        rows = mesh.rows_of(x.shape[1], world, r)
+        own = knn(x, k=idx.shape[-1], c_valid=cv)[1][:, rows]
+        b, q, s = torch.nonzero(idx != own, as_tuple=True)
+        differ += int(b.numel())
+        if b.numel():
+            xd = x.double()
+            live = xd if cv is None else xd[cv]
+            tol = 1e-5 * 2 * float((live ** 2).sum(-1).max())
+            qi = q + rows.start
+            gap = (((xd[b, qi] - xd[b, idx[b, q, s]]) ** 2).sum(-1)
+                   - ((xd[b, qi] - xd[b, own[b, q, s]]) ** 2).sum(-1))
+            ratio = max(ratio, float(gap.abs().max()) / tol)
+    return {"graphs": len(graphs), "differing_slots": differ,
+            "max_gap_over_limit": ratio}
 
 
 def _worker_sharded(torch, kernels, spec, out_dir):
     """On each rank: the rollout CLI with --shard_points for each mode of
-    SHARD_RUNS (counts reset before, read after; rank 0 writes the frames),
-    then, past the counted run, ms a frame of the sharded rollout in CUDA
-    events and on the host clock."""
+    SHARD_RUNS (counts reset before, read after, the kernels' shapes
+    recorded; rank 0 writes the frames), then, past the counted run, ms a
+    frame of the sharded rollout in CUDA events and on the host clock, and
+    the f32 dynamic rollout's graphs against the unsharded kNN
+    (:func:`_graph_ties`)."""
     from tpugan_tpu_torch.cli import rollout as cli
     from tpugan_tpu_torch.parallel import mesh
     from tpugan_tpu_torch.parallel.sharded_serving import \
@@ -4766,10 +4892,14 @@ def _worker_sharded(torch, kernels, spec, out_dir):
     res = {}
     for name, extra, _ in SHARD_RUNS:
         argv = _shard_argv(name, extra, os.path.join(out_dir, name), True,
-                           spec["world"], spec["backend"])
+                           spec["world"])
+        shapes, undo = _record_shapes(torch)
         for k in kernels.values():
             k.launches = 0
-        cli.main(argv)
+        try:
+            cli.main(argv)
+        finally:
+            undo()
         torch.cuda.synchronize()
         launches = counts(kernels)
         for k in kernels.values():
@@ -4792,8 +4922,11 @@ def _worker_sharded(torch, kernels, spec, out_dir):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         res[name] = {"launches": launches,
+                     "shapes": [[list(k), n] for k, n in shapes.items()],
                      "ms_per_frame": e0.elapsed_time(e1) / SHARD_FRAMES,
                      "wall_ms_per_frame": wall * 1e3 / SHARD_FRAMES}
+        if name == "f32_dynamic":
+            res[name]["graph_ties"] = _graph_ties(torch, model, pos, vel)
     return res
 
 
@@ -4810,11 +4943,14 @@ def _digest(torch, state) -> str:
     return h.hexdigest()
 
 
-def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False):
+def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
+            record=False):
     """One train CLI run called as a function: each step's launches, metrics,
     ms (G only and G+D, CUDA events), the state's digest after it, the
     seconds in collectives (with ``timed_collectives``: every collective
-    synchronised and timed on the host clock) and the peak memory."""
+    synchronised and timed on the host clock), the peak memory, and with
+    ``record`` the kernels' shapes (:func:`_record_shapes`) and the whole
+    run's launches."""
     from tpugan_tpu_torch.parallel import mesh
 
     marks, digests, coll = [], [], [0.0]
@@ -4848,6 +4984,7 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False):
     if timed_collectives:
         for f in own:
             setattr(mesh, f, timed(f))
+    shapes, undo = _record_shapes(torch) if record else ({}, lambda: None)
     for k in kernels.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -4859,7 +4996,9 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False):
         step_cls.__call__ = own_call
         for f, fn in own.items():
             setattr(mesh, f, fn)
+        undo()
     torch.cuda.synchronize()
+    run_launches = counts(kernels)
     by = {}
     for event, n_iter, c, ev, metrics, cs in marks:
         by.setdefault(n_iter, {})[event] = (c, ev, metrics, cs)
@@ -4874,7 +5013,8 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False):
                                            if timed_collectives else None)})
     return {"steps": steps, "checkpoint": out["checkpoint"],
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "state": out["state"]}
+            "state": out["state"], "run_launches": run_launches,
+            "shapes": [[list(k), n] for k, n in shapes.items()]}
 
 
 def _worker_dp(torch, kernels, spec, out_dir):
@@ -4882,15 +5022,15 @@ def _worker_dp(torch, kernels, spec, out_dir):
     --device_sampling --synthetic, resumed from the checkpoint, the fused
     switch on) with --data_parallel; at world size 1 in turns with the
     same run without it (DP_TURNS); at world size 2 also the action twin
-    with --data_parallel --fast_d. Rank 0 reads its last fluid checkpoint
-    back."""
+    with --data_parallel --fast_d; the kernels' shapes recorded at world
+    size 2. Rank 0 reads its last fluid checkpoint back."""
     from tpugan_tpu_torch.checkpoint import load_trainer_state
     from tpugan_tpu_torch.cli import train_action, train_fluid
     from tpugan_tpu_torch.train.step import (ActionGanStep, FluidGanStep,
                                              FluidTrainConfig)
 
-    world, backend = spec["world"], spec["backend"]
-    par = ["--device", "cuda:0", "--dist_backend", backend]
+    world = spec["world"]
+    par = ["--device", "cuda:0"]
     log = lambda n: os.path.join(out_dir, n)
     fluid = ["--preset", "train_vel", "--device_sampling", "--synthetic",
              "--resume", "--path_to_resume", CHECKPOINT, "--iters",
@@ -4904,7 +5044,7 @@ def _worker_dp(torch, kernels, spec, out_dir):
         else:
             argv += ["--device", "cuda:0"]
         got = _dp_cli(torch, kernels, train_fluid, argv, FluidGanStep,
-                      timed_collectives=world > 1)
+                      timed_collectives=world > 1, record=world > 1)
         state = got.pop("state")
         if turn == "dp" and i == 0:
             from tpugan_tpu_torch.parallel import mesh
@@ -4921,16 +5061,18 @@ def _worker_dp(torch, kernels, spec, out_dir):
                 "--iters", str(DP_ACTION_ITERS), "--ckpt_every", "100000",
                 "--log_dir", log("action"), "--data_parallel"] + par
         got = _dp_cli(torch, kernels, train_action, argv, ActionGanStep,
-                      timed_collectives=True)
+                      timed_collectives=True, record=True)
         got.pop("state")
         res["action_dp"] = got
     return res
 
 
 def rank_worker(out_dir: str) -> int:
-    """A rank of :func:`launch_ranks`: joins the group, runs the sharded
+    """A rank of :func:`launch_ranks`: joins the group (the backend the
+    port picks for ranks on cuda:0 must be the spec's), runs the sharded
     rollout and the data-parallel runs, writes its results."""
     import torch
+    import torch.distributed as dist
 
     from tpugan_tpu_torch.parallel import mesh
 
@@ -4939,9 +5081,11 @@ def rank_worker(out_dir: str) -> int:
         return 2
     with open(os.path.join(out_dir, "spec.json")) as fh:
         spec = json.load(fh)
-    mesh.initialize_distributed(spec["backend"], device="cuda:0")
-    if mesh.world_size() != spec["world"]:
-        raise AssertionError(f"world {mesh.world_size()}, spec {spec}")
+    mesh.initialize_distributed(device="cuda:0")
+    if (mesh.world_size(), dist.get_backend()) != (spec["world"],
+                                                   spec["backend"]):
+        raise AssertionError(f"world {mesh.world_size()} over "
+                             f"{dist.get_backend()}, spec {spec}")
     kernels = _kernels()
     res = {"rank": mesh.rank(), "world": mesh.world_size(),
            "backend": spec["backend"],
@@ -4949,43 +5093,114 @@ def rank_worker(out_dir: str) -> int:
            "dp": _worker_dp(torch, kernels, spec, out_dir)}
     with open(os.path.join(out_dir, f"rank{mesh.rank()}.json"), "w") as fh:
         json.dump(res, fh)
-    import torch.distributed as dist
-
     dist.destroy_process_group()
     return 0
 
 
-def check_shard_kernels(torch, dev):
-    """The kNN and the EdgeConv kernels at the sharded frame's shapes on
-    one of two ranks, against their plain versions: each graph of the f32
-    dynamic frame as 20,480 local rows against the gathered 40,960 (the
-    rows are the first half of the candidates), and each EdgeConv class
-    (f32 and bf16) on 20,480 centres whose neighbour-major table is
-    gathered from a 40,960-row feature."""
-    from tpugan_tpu_torch.nn.edgeconv import gather_neighbor_major
+def path_shapes(ranks) -> dict:
+    """{(path, world, key): rank 0's calls} of the kernels' shapes in the
+    ranks' counted runs: the sharded rollout's at every world size, the
+    data-parallel runs' at two ranks (at one they are the train phases'
+    shapes). Each run's recorded calls must add up to its launches on
+    every rank."""
+    out = {}
+
+    def add(path, world, rank, run, launches, what):
+        _calls_match(run, launches, what)
+        if rank == 0:
+            for key, n in run:
+                k = (path, world, tuple(key))
+                out[k] = out.get(k, 0) + n
+
+    for world, outs in sorted(ranks.items()):
+        for r, o in enumerate(outs):
+            for name, _, _ in SHARD_RUNS:
+                sh = o["sharded"][name]
+                add("sharded_rollout", world, r, sh["shapes"], sh["launches"],
+                    f"sharded rollout {name}, world {world}, rank {r}")
+            if world > 1:
+                for run_name in ("fluid_0_dp", "action_dp"):
+                    run = o["dp"][run_name]
+                    add("data_parallel", world, r, run["shapes"],
+                        run["run_launches"],
+                        f"{run_name}, world {world}, rank {r}")
+    return out
+
+
+def _interp_case(torch, dev, rng, b, nq, m, c):
+    """(query, cand, values, bias) as check_interp's random layout: queries
+    near random candidates, a tenth of them at the 999 sentinel."""
+    cand = _cloud(torch, dev, rng, b, m, 3)
+    pick = torch.from_numpy(rng.integers(0, m, (b, nq))).to(dev)
+    query = (torch.gather(cand, 1, pick[..., None].expand(b, nq, 3))
+             + _cloud(torch, dev, rng, b, nq, 3, scale=0.01))
+    query[:, -nq // 10:] = 999.0
+    vals = _cloud(torch, dev, rng, b, m, c, scale=0.025)
+    return query, cand, vals, torch.zeros((b, m), device=dev)
+
+
+def check_path_kernels(torch, dev, shapes) -> dict:
+    """Each kernel at each shape of :func:`path_shapes` against its plain
+    version by the limits of its own rows above (random data of the
+    recorded shape: a kNN graph over itself where the run's was, a
+    sharded graph's queries the first rows of its candidates; FPS with a
+    hard-masked tail; the ball query with every ninth candidate masked;
+    an EdgeConv called with gradients also backward). Returns {kernel:
+    rows}, each row with its path, world size and rank 0's calls."""
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+    from tpugan_tpu_torch.ops.kernels import fps as F
 
     rng = np.random.default_rng(23)
-    rows = {"knn": [], "edgeconv": []}
-    for _, _, _, _, d, k, own, per_fwd, *_ in KNN_SHAPES[:5]:
-        row = _knn_row(torch, dev, rng, "sharded", 1, SHARD_ROWS,
-                       SHARD_POINTS, d, k, "rows", 0.3 if d == 3 else 1.0)
-        rows["knn"].append(dict(path="sharded_rollout", per_frame=per_fwd,
-                                **row))
-        emit({"phase": "kernel", "kernel": "knn", **rows["knn"][-1]})
-    for name, c, h, o, k, agg, mlp, per_fwd in EDGECONV_SHAPES:
-        feat = torch.from_numpy(rng.standard_normal((1, SHARD_POINTS, c))
-                                .astype(np.float32)).to(dev)
-        idx = torch.from_numpy(rng.integers(0, SHARD_POINTS, (1, SHARD_ROWS, k))
-                               ).to(dev)
-        table = (gather_neighbor_major(feat, idx), feat[:, :SHARD_ROWS])
-        for cdt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            rows["edgeconv"].append(dict(
-                path="sharded_rollout", config=name, per_frame=per_fwd,
-                **_edgeconv_row(torch, dev, rng, name, cdt, kind, SHARD_ROWS,
-                                c, h, o, k, agg, mlp, table=table)))
-            emit({"phase": "kernel", "kernel": "edgeconv",
-                  **rows["edgeconv"][-1]})
-    return rows
+    out = {}
+
+    def add(kernel, row, path, world, calls):
+        out.setdefault(kernel, []).append(
+            dict(row, path=path, world=world, calls=calls))
+        if kernel != "interp":      # _interp_row prints its own row
+            emit({"phase": "kernel", "kernel": kernel, **out[kernel][-1]})
+
+    for (path, world, key), calls in sorted(shapes.items(), key=str):
+        name, *shape = key
+        what = f"{path} world {world}"
+        if name == "knn":
+            b, nq, nc, d, k, own = shape
+            own = "rows" if path == "sharded_rollout" else own
+            add(name, _knn_row(torch, dev, rng, what, b, nq, nc, d, k, own,
+                               0.3 if d == 3 else 1.0), path, world, calls)
+        elif name == "fps":
+            b, n, m = shape
+            pos, pen, start = _fps_case(torch, dev, rng, b, n,
+                                        m <= n - n // 8)
+            add(name, _fps_row(torch, F, what, b, n, m, pos, pen, start),
+                path, world, calls)
+        elif name == "ball_query":
+            b, nq, nc, r, ns = shape
+            add(name, _ball_row(torch, dev, rng, what, b, nq, nc, r, ns),
+                path, world, calls)
+        elif name == "nn1":
+            b, nq, m = shape
+            add(name, _nn1_row(torch, dev, rng, what, b, nq, m), path, world,
+                calls)
+        elif name == "interp":
+            b, nq, m, c, cutoff, kind = shape
+            query, cand, vals, bias = _interp_case(torch, dev, rng, b, nq, m,
+                                                   c)
+            add(name, _interp_row(torch, what, query, cand, vals, bias,
+                                  cutoff, kind, 0), path, world, calls)
+        elif name == "edgeconv":
+            b, k, n, c, h, o, agg, mlp, kind, grad = shape
+            cdt = torch.float32 if kind == "f32" else torch.bfloat16
+            add(name, dict(config=what, B=b, N=n, **_edgeconv_row(
+                torch, dev, rng, what, cdt, kind, n, c, h, o, k, agg, mlp,
+                b=b)), path, world, calls)
+            if grad:
+                add("edgeconv_bwd", _edgeconv_bwd_row(
+                    torch, dev, rng, what, c, h, o, k, agg, mlp, kind, False,
+                    b, n, E.takes_f32_tiled_bwd(cdt, mlp, c, h, o)),
+                    path, world, calls)
+        else:
+            raise AssertionError(f"no kernel row for {key}")
+    return out
 
 
 def _frames_close(torch, dev, got, want):
@@ -5030,10 +5245,12 @@ def _unsharded_ms(torch, cli, argv) -> dict:
 def sharded_rollout(torch, dev, ranks):
     """The phase line of the point-sharded rollout: each world's frames
     (rank 0's files) against the unsharded rollout CLI's of the same
-    frames (GATE on the normalised Chamfer; the largest error where the
-    frame shapes agree), its launches a frame on each rank against
-    SHARD_RUNS', ms a frame. ``ranks``: world size -> the ranks' results
-    (world size 1 over NCCL, 2 over gloo on the one card)."""
+    frames (SHARD_GATE on the normalised Chamfer; the largest error where
+    the frame shapes agree), its launches a frame on each rank against
+    SHARD_RUNS', ms a frame, the f32 dynamic graphs' ties
+    (:func:`_graph_ties`, every gap within its limit). ``ranks``: world
+    size -> the ranks' results (world size 1 over NCCL, 2 over gloo on the
+    one card)."""
     from tpugan_tpu_torch.cli import rollout as cli
 
     line = {"phase": "sharded_rollout", "frames": SHARD_FRAMES,
@@ -5070,11 +5287,16 @@ def sharded_rollout(torch, dev, ranks):
                                  for o in outs],
                 "wall_ms_per_frame": [o["sharded"][name]["wall_ms_per_frame"]
                                       for o in outs]}
-            if not entry[f"world{world}"]["chamfer_norm_max"] < GATE:
+            ties = [o["sharded"][name].get("graph_ties") for o in outs]
+            if ties[0] is not None:
+                entry[f"world{world}"]["graph_ties"] = ties
+            if not (entry[f"world{world}"]["chamfer_norm_max"] < SHARD_GATE
+                    and all(t is None or t["max_gap_over_limit"] <= 1.0
+                            for t in ties)):
                 raise AssertionError(f"sharded rollout {name}, world {world}: "
                                      f"{entry[f'world{world}']}")
         line[name] = entry
-    line["gate"] = GATE
+    line["gate"] = SHARD_GATE
     emit(line)
     return launches
 
@@ -5186,24 +5408,33 @@ def data_parallel(torch, ranks):
 
 
 def add_parallel_units(line, rows, launches):
-    """Into the kernel line's knn and edgeconv entries: their times at the
-    sharded shapes (check_shard_kernels' rows) per f32 dynamic frame on one
-    of two ranks, under "sharded_rollout"; and every entry's launches on
-    the two new paths (``launches``: path -> counts)."""
+    """Into the kernel line's entries: the largest f32 error of the rows
+    at the parallel paths' shapes (:func:`check_path_kernels`), their
+    times summed over rank 0's calls at two ranks under "sharded_rollout"
+    and "data_parallel", and every entry's launches on the two new paths
+    (``launches``: path -> counts)."""
+    per = {"sharded_rollout": "the counted runs' calls on rank 0 of two: 5 "
+                              "frames of 40,960 points in each of f32 "
+                              "dynamic and bf16 static",
+           "data_parallel": "the counted runs' calls on rank 0 of two: the "
+                            "fluid run's 4 steps and the action --fast_d "
+                            "run's 2, each rank on its half of the batch"}
     for entry in line["kernels"]:
-        rs = rows.get(entry["name"])
-        if rs:
-            rs = [r for r in rs if r.get("dtype", "f32") == "f32"]
+        rs = rows.get(entry["name"], [])
+        f32 = [r for r in rs if r.get("dtype", "f32") == "f32"]
+        if f32:
             entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       max(r["max_abs_err"] for r in rs))
+                                       max(r["max_abs_err"] for r in f32))
+        for path, what in per.items():
+            prs = [r for r in rs if r["path"] == path and r["world"] == 2]
+            if not prs:
+                continue
             keys = [k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                 "library_ms") if all(r.get(k) is not None
-                                                     for r in rs)]
-            entry["sharded_rollout"] = {
-                "times_are": "one f32 dynamic frame of 40,960 points on one "
-                             "of two ranks (20,480 rows against the gathered "
-                             "cloud)",
-                **{k: sum(r[k] * r["per_frame"] for r in rs) for k in keys}}
+                                                     for r in prs)]
+            entry[path] = {"times_are": what, "shapes": len(prs),
+                           **{k: sum(r[k] * r["calls"] for r in prs)
+                              for k in keys}}
         entry["launches_by_path"].update(
             {p: c.get(entry["name"], 0) for p, c in launches.items()})
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -5433,15 +5664,15 @@ def main(argv=None) -> int:
     action_fast_d_launches = train_fast_d(torch, dev, kernels, True,
                                           args.profile)
 
-    # the parallel paths: the kNN and EdgeConv kernels at the sharded
-    # shapes, then one rank over NCCL and two ranks over gloo on the one
-    # card, each running the sharded rollout CLI and the data-parallel
-    # train CLIs (counts reset inside each rank before each run, read after)
-    shard_rows = check_shard_kernels(torch, dev)
+    # the parallel paths: one rank over NCCL and two ranks over gloo on the
+    # one card, each running the sharded rollout CLI and the data-parallel
+    # train CLIs (counts reset inside each rank before each run, read
+    # after), then every kernel at the shapes the ranks recorded
     ranks = {w: launch_ranks(w, b, os.path.join(PARALLEL_DIR, f"world{w}"))
              for w, b in ((1, "nccl"), (2, "gloo"))}
     parallel_launches = {"sharded_rollout": sharded_rollout(torch, dev, ranks),
                          "data_parallel": data_parallel(torch, ranks)}
+    path_rows = check_path_kernels(torch, dev, path_shapes(ranks))
 
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
@@ -5546,7 +5777,7 @@ def main(argv=None) -> int:
     add_fast_d_units(line, fast_d_rows,
                      {"train_fast_d": fast_d_launches,
                       "train_action_fast_d": action_fast_d_launches})
-    add_parallel_units(line, shard_rows, parallel_launches)
+    add_parallel_units(line, path_rows, parallel_launches)
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

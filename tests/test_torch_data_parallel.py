@@ -1,5 +1,6 @@
 """Data-parallel train steps of the port on two gloo ranks on the CPU
-against the port's single-process step on the global batch.
+against the JAX package's data-parallel step and the port's single-process
+step on the global batch.
 
 One ``torchrun`` launch of two ranks (``tests/torch_dist_worker.py``, case
 ``steps``), each rank on its contiguous rows of a global batch of 4 items
@@ -17,6 +18,12 @@ mu 0 and nu 1 (``tests/test_torch_train_step.py`` says why):
   (f32 noise: the moments' sums and the gradients' averages run in
   another order, and the toy critics' batch norms amplify it; measured
   at most 0.023, 0.043 and 0.024 of a norm, 7.6e-5 of a metric);
+* the sequential fluid step, from a JAX state carried over by the
+  trainer-state bridge with draws rebuilt from the JAX step key (dropout
+  off on both sides), on an even iteration against
+  ``make_fluid_gan_step(..., mesh=make_mesh(2))`` (GSPMD's data-parallel
+  step on the two-device CPU mesh), to the tolerances of
+  ``tests/test_torch_train_step.py``; the JAX step is compiled once;
 * both ranks bit for bit;
 * at two ranks no call reaches the pooled-MLP batch-norm kernel (every
   batch norm pools its moments across the ranks); the fluid step again in
@@ -26,14 +33,16 @@ mu 0 and nu 1 (``tests/test_torch_train_step.py`` says why):
 The single-process steps run in the ranks (the fluid ones on rank 0, the
 action ones on rank 1: the same processes and thread counts as the
 data-parallel steps, so bit-for-bit comparisons hold); the test process
-only builds the states, batches and draws.
+only builds the states, batches and draws, and runs the JAX step.
 
-The data-parallel steps against the JAX package's data-parallel steps
-(``mesh=make_mesh(2)``) are in ``tests/test_torch_fast_d.py`` (the
-``fast_d`` steps of both workloads, whose JAX programs that file compiles
-anyway).
+The ``fast_d`` steps of both workloads on two ranks are held to the JAX
+package's steps on the global batch in ``tests/test_torch_fast_d.py``,
+whose JAX programs that file compiles anyway.
 """
 
+import flax
+import flax.linen as fnn
+import jax
 import numpy as np
 import pytest
 import torch
@@ -41,11 +50,17 @@ import torch
 import tpugan_tpu_torch.nn.layers as layers
 from test_torch_action_train import port_config as action_port_config
 from test_torch_train_step import CFG as FLUID_CFG
-from test_torch_train_step import port_config
+from test_torch_train_step import (assert_net_close, draws_from_key,
+                                   port_config, step_keys, with_adam_state)
 from test_train_step import TINY_ACTION
 import torch_threads  # noqa: F401  (the cores among xdist workers)
-from torch_dist_worker import run_ranks
+from torch_dist_worker import start_ranks
 from tpugan_tpu.config import replace
+from tpugan_tpu.parallel import make_mesh
+from tpugan_tpu.train import init_fluid_state as jax_init_fluid_state
+from tpugan_tpu.train import make_fluid_gan_step
+from tpugan_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+from tpugan_tpu_torch.checkpoint import _tree_to_torch, load_trainer_state
 from tpugan_tpu_torch.models.discriminator import (dropout_layers,
                                                    dropout_widths)
 from tpugan_tpu_torch.nn.layers import (BatchNorm, SharedMLP,
@@ -109,6 +124,38 @@ def _assert_close(got, want, before):
                                                                err)
 
 
+JAX_CFG = replace(FLUID_CFG, batch_size=4)
+
+
+def _jax_fluid_state(root):
+    """The JAX fluid state at 4 items (its init at key 0, Adam from count
+    START_ITER as ``_prepared``), written for the trainer-state bridge:
+    (models, optimisers, state, checkpoint path, params)."""
+    models, txs, jstate = jax_init_fluid_state(JAX_CFG, jax.random.PRNGKey(0))
+    jstate = with_adam_state(jstate, START_ITER)
+    path = str(root / "jax_state.ckpt")
+    jax_save_checkpoint(jstate, path)
+    params = {n: _tree_to_torch(flax.core.unfreeze(getattr(jstate, n).params),
+                                "params") for n in NETS}
+    return models, txs, jstate, path, params
+
+
+def _jax_mesh_step(models, txs, jstate, batch, key):
+    """One step of ``make_fluid_gan_step`` on ``make_mesh(2)``, dropout
+    off: (state after, metrics)."""
+    step = make_fluid_gan_step(models, txs, JAX_CFG, mesh=make_mesh(2))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+    try:
+        # host inputs: the mesh step's executable takes uncommitted arrays
+        after, jm = step(jax.device_get(jstate),
+                         {k: v.numpy() for k, v in batch.items()},
+                         np.asarray(key))
+    finally:
+        mp.undo()
+    return jax.device_get(after), {k: float(v) for k, v in jm.items()}
+
+
 @pytest.fixture(scope="module")
 def steps(tmp_path_factory):
     rng = np.random.default_rng(0)
@@ -121,6 +168,13 @@ def steps(tmp_path_factory):
     draws = StepDraws.draw(torch.Generator().manual_seed(3), cfg, m,
                            dropout_widths(state.spatial.module))
     fluid = [dict(state=state, cfg=cfg, batch=batch, draws=draws)]
+    work = tmp_path_factory.mktemp("dp")
+    models, txs, jstate, path, jparams = _jax_fluid_state(work)
+    key = step_keys()[1]          # an even iteration that rotates
+    state = load_trainer_state(path, cfg, device="cpu")
+    fluid.append(dict(state=state, cfg=cfg, batch=batch, references=False,
+                      draws=draws_from_key(key, cfg, m,
+                                           dropout_widths(state.spatial.module))))
     action = []
     for fast_d in (False, True):
         acfg = action_port_config(replace(TINY_ACTION, batch_size=4,
@@ -136,13 +190,18 @@ def steps(tmp_path_factory):
             dropout_layers(state.tempo.module))
         action.append(dict(state=state, cfg=acfg,
                            batch={"highres_pos": hp}, draws=draws))
-    outs = run_ranks("steps", {"fluid": {"runs": fluid},
-                               "action": {"runs": action}, "references": True},
-                     tmp_path_factory.mktemp("dp"))
+    # the ranks run while this process compiles and runs the JAX step
+    ranks = start_ranks("steps", {"fluid": {"runs": fluid},
+                                  "action": {"runs": action},
+                                  "references": True}, work / "ranks")
+    after, metrics = _jax_mesh_step(models, txs, jstate, batch, key)
+    outs = ranks()
+    jax_run = dict(before=jparams, after=after, metrics=metrics)
     before = lambda run: {n: {k: p.detach().clone() for k, p in
                               getattr(run["state"], n).module
                               .named_parameters()} for n in NETS}
-    return ([before(r) for r in fluid], [before(r) for r in action], outs)
+    return ([before(r) for r in fluid], [before(r) for r in action], outs,
+            fluid[1]["state"], jax_run)
 
 
 def _hold(got, want, before):
@@ -154,18 +213,44 @@ def _hold(got, want, before):
 
 
 def test_fluid_dp_step_matches_single_process(steps):
-    before, _, outs = steps
+    before, _, outs, *_ = steps
     a, b = (o["fluid"][0]["dp"] for o in outs)
     _assert_same(a["state"], b["state"])
     assert a["metrics"] == b["metrics"] and a["metrics"]["gate"]
     _hold(a, outs[0]["fluid"][0]["plain"], before[0])
 
 
+def test_fluid_dp_step_matches_jax_mesh_step(steps):
+    """Both ranks bit for bit; rank 0's state and metrics against the JAX
+    step on ``make_mesh(2)``, as ``tests/test_torch_train_step.py`` holds
+    the single-process step to the JAX one."""
+    _, _, outs, state, jax_run = steps
+    a, b = (o["fluid"][1]["dp"] for o in outs)
+    _assert_same(a["state"], b["state"])
+    assert a["metrics"] == b["metrics"] and a["metrics"]["gate"]
+    assert a["metrics"]["tempo_D_loss"] != 0          # the critics updated
+    for k, v in jax_run["metrics"].items():
+        np.testing.assert_allclose(a["metrics"][k], v, rtol=3e-2, atol=1e-5,
+                                   err_msg=k)
+    before = {n: ({k: p.detach().clone() for k, p in
+                   getattr(state, n).module.named_parameters()},
+                  jax_run["before"][n]) for n in NETS}
+    for n in NETS:
+        net = getattr(state, n)
+        net.module.load_state_dict(a["state"][n]["sd"])
+        net.opt.mu, net.opt.nu = a["state"][n]["mu"], a["state"][n]["nu"]
+        net.opt.count = a["state"][n]["count"]
+    assert a["state"]["n_iter"] == int(jax_run["after"].n_iter)
+    for n in NETS:
+        assert_net_close(getattr(state, n), getattr(jax_run["after"], n),
+                         before[n], n)
+
+
 def test_fluid_dp_at_one_rank_is_the_single_process_step(steps):
     """A group of one rank on the whole batch: the single-process step bit
     for bit, with the same pooled-MLP kernel calls (4 forwards in the
     generator's gated spatial-critic pass, 8 in the critics' update)."""
-    _, _, outs = steps
+    _, _, outs, *_ = steps
     got, want = outs[0]["fluid"][0]["alone"], outs[0]["fluid"][0]["plain"]
     _assert_same(got["state"], want["state"])
     assert got["metrics"] == want["metrics"]
@@ -173,15 +258,15 @@ def test_fluid_dp_at_one_rank_is_the_single_process_step(steps):
 
 
 def test_dp_at_two_ranks_keeps_the_pooled_kernel_out(steps):
-    _, _, outs = steps
+    _, _, outs, *_ = steps
     for o in outs:
-        assert [x["dp"]["pooled_calls"] for x in o["fluid"]] == [0]
+        assert [x["dp"]["pooled_calls"] for x in o["fluid"]] == [0, 0]
         assert [x["dp"]["pooled_calls"] for x in o["action"]] == [0, 0]
 
 
 @pytest.mark.parametrize("fast_d", [False, True])
 def test_action_dp_step_matches_single_process(steps, fast_d):
-    _, before, outs = steps
+    _, before, outs, *_ = steps
     a, b = (o["action"][int(fast_d)]["dp"] for o in outs)
     _assert_same(a["state"], b["state"])
     assert a["metrics"] == b["metrics"]

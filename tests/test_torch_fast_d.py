@@ -26,21 +26,17 @@ the JAX package's, on the CPU at tiny widths.
   ``SharedMLP.pooled`` raising under G > 1; ``SetConv`` with an all-ones
   valid mask equal to ``valid=None``.
 * Both fast-d steps against ``make_fluid_gan_step`` /
-  ``make_action_gan_step`` with ``fast_d`` and ``mesh=make_mesh(2)``
-  (GSPMD's data-parallel step on the global batch, which the JAX
-  package's own slow-tier ``tests/test_parallel.py`` holds to the
-  one-device step), an odd and an even iteration,
+  ``make_action_gan_step`` with ``fast_d``, an odd and an even iteration,
   with the draws rebuilt from the JAX step keys, the trainer-state bridge
   and the tolerances of ``tests/test_torch_train_step.py`` and
   ``tests/test_torch_action_train.py`` (dropout off on both sides); the
   bucket-mismatch ``ValueError``.
 * The same four steps on two gloo ranks (``data_parallel=True``, each
   rank on 2 of the 4 items, one ``torchrun`` launch) against the same JAX
-  mesh steps, to the same tolerances, both ranks bit for bit.
+  steps on the global batch (a data-parallel step is the global batch's
+  step), to the same tolerances, both ranks bit for bit.
 
-One JAX step is compiled per workload, in module-scope fixtures (fed
-host arrays every call, so the second iteration reuses the executable the
-first compiled: the mesh step's outputs are committed to the mesh): the
+One JAX step is compiled per workload, in module-scope fixtures: the
 fluid one from the JAX init that tests/test_torch_train_step.py uses (at 4
 items), the action one from the port's initial weights carried over in the
 checkpoint payload.
@@ -66,7 +62,6 @@ from test_train_step import TINY_ACTION, TINY_FLUID
 import torch_threads  # noqa: F401  (the cores among xdist workers)
 from torch_dist_worker import run_ranks
 from tpugan_tpu.config import replace
-from tpugan_tpu.parallel import make_mesh
 from tpugan_tpu.models.discriminator import FluidSpatialDis as JSpatial
 from tpugan_tpu.models.discriminator import FluidTempoDis as JTempo
 from tpugan_tpu.models.discriminator import _ActionTempoTower as JTower
@@ -406,9 +401,8 @@ def _jax_run(step, jstate, batch, keys, root):
             path = str(root / f"state_{int(jstate.n_iter)}.ckpt")
             jax_save_checkpoint(jstate, path)
             before = {n: _params(getattr(jstate, n)) for n in NETS}
-            # host inputs every call: the mesh step's executable takes
-            # uncommitted arrays, and its outputs are committed to the mesh
-            jstate, jm = step(jax.device_get(jstate), batch, np.asarray(key))
+            jstate, jm = step(jstate, {k: jnp.asarray(v)
+                                       for k, v in batch.items()}, key)
             out.append(dict(path=path, key=key, before=before,
                             after=jax.device_get(jstate),
                             metrics={k: float(v) for k, v in jm.items()}))
@@ -424,7 +418,7 @@ def fluid_run(tmp_path_factory):
     ``default_rng(0)``), at 4 items."""
     models, txs, jstate = jax_init_fluid_state(FLUID_CFG,
                                                jax.random.PRNGKey(0))
-    step = make_fluid_gan_step(models, txs, FLUID_CFG, mesh=make_mesh(2))
+    step = make_fluid_gan_step(models, txs, FLUID_CFG)
     b, m = FLUID_CFG.batch_size, FLUID_CFG.patch_size
     rng = np.random.default_rng(0)
     batch = {"highres_pos": (rng.standard_normal((3, b, m, 3)) * 0.3)
@@ -441,8 +435,7 @@ def action_run(tmp_path_factory):
     state = _with_adam(init_action_state(action_port_config(ACTION_CFG), 0,
                                          "cpu"))
     step = make_action_gan_step(build_action_models(ACTION_CFG),
-                                _make_optimizers(ACTION_CFG), ACTION_CFG,
-                                mesh=make_mesh(2))
+                                _make_optimizers(ACTION_CFG), ACTION_CFG)
     f, b, m = (ACTION_CFG.frames_per_clip, ACTION_CFG.batch_size,
                ACTION_CFG.num_points)
     rng = np.random.default_rng(7)
@@ -532,8 +525,8 @@ def dp_run(fluid_run, action_run, tmp_path_factory):
     gloo ranks (``tests/torch_dist_worker.py``, one launch), each rank on
     its 2 of the 4 items: the data-parallel step (``data_parallel=True``:
     the stacked halves' batch norms pool their moments across the ranks,
-    the gradients are averaged), the twin of the JAX mesh step the
-    fixtures run."""
+    the gradients are averaged), which must equal the global batch's
+    step the fixtures run."""
     runs = {}
     for name, run, case in (("fluid", fluid_run, _fluid_case),
                             ("action", action_run, _action_case)):

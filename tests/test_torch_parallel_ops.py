@@ -144,3 +144,23 @@ def test_one_process_without_torchrun(monkeypatch):
         mesh.initialize_distributed(device="cpu")
     with pytest.raises(RuntimeError, match="torchrun"):
         FluidGanStep(FluidTrainConfig(), data_parallel=True)
+
+
+@pytest.mark.parametrize("local, cards, device, shared", [
+    (None, 1, None, False),       # no torchrun: one process
+    (1, 1, "cuda:0", False),      # one rank on its card: NCCL
+    (2, 1, None, True),           # two ranks, one card
+    (2, 2, None, False),          # a card each
+    (2, 4, "cuda:0", True),       # both ranks told to take card 0
+])
+def test_ranks_sharing_a_card_take_gloo(monkeypatch, local, cards, device,
+                                        shared):
+    """``shares_a_card`` (the backend ``initialize_distributed`` picks for
+    a CUDA device: gloo where it is True, NCCL otherwise) from torchrun's
+    ``LOCAL_WORLD_SIZE``, the number of cards and the device named."""
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", str(local))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert mesh.shares_a_card(device) is shared

@@ -23,6 +23,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def run_ranks(case, inputs, workdir, nproc=2, timeout=240):
     """Run ``case`` on ``nproc`` gloo ranks; their outputs in rank order."""
+    return start_ranks(case, inputs, workdir, nproc, timeout)()
+
+
+def start_ranks(case, inputs, workdir, nproc=2, timeout=240):
+    """Start ``case`` on ``nproc`` gloo ranks and return at once a function
+    that waits for them and returns their outputs in rank order (the
+    caller works meanwhile)."""
     workdir = str(workdir)
     os.makedirs(workdir, exist_ok=True)
     torch.save(inputs, os.path.join(workdir, "inputs.pt"))
@@ -31,14 +38,25 @@ def run_ranks(case, inputs, workdir, nproc=2, timeout=240):
     threads = str(min(2, torch.get_num_threads()))
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS=threads)
     env.pop("JAX_PLATFORMS", None)
-    out = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", str(nproc), os.path.abspath(__file__), case,
          workdir],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
-    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-8000:]
-    return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
-                       weights_only=False) for r in range(nproc)]
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def wait():
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        assert proc.returncode == 0, out[-4000:] + err[-8000:]
+        return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(nproc)]
+
+    return wait
 
 
 # ---------------------------------------------------------------- cases
@@ -94,7 +112,9 @@ def _srnet(inp):
 
 def case_serving(inp):
     """The sharded rollout (pipelined and serial), the graph lists it
-    built, and the rollout CLI with ``--shard_points``."""
+    built (each with the gathered cloud and valid mask it searched), the
+    rollout CLI with ``--shard_points``, and the pipelined rollout and
+    graph lists of the dynamic-graph model ``inp["dynamic"]``."""
     import tpugan_tpu_torch.models.generator as generator_mod
     import tpugan_tpu_torch.nn.edgeconv as edgeconv_mod
     from tpugan_tpu_torch.cli import rollout as rollout_cli
@@ -102,23 +122,32 @@ def case_serving(inp):
     from tpugan_tpu_torch.parallel.sharded_serving import \
         rollout_sequence_sharded
 
-    model = _srnet(inp)
     graphs = []
 
     def recording(x, k, c_valid=None):
         d2, idx = graph_knn(x, k, c_valid)
-        graphs.append((_gather_points(x), idx))
+        graphs.append((_gather_points(x), idx, None if c_valid is None
+                       else _gather_points(c_valid)))
         return d2, idx
 
-    generator_mod.graph_knn = edgeconv_mod.graph_knn = recording
+    def recorded(model, **kw):
+        del graphs[:]
+        generator_mod.graph_knn = edgeconv_mod.graph_knn = recording
+        try:
+            return rollout_sequence_sharded(model, inp["pos"], inp["vel"],
+                                            max_pending=4, **kw), list(graphs)
+        finally:
+            generator_mod.graph_knn = edgeconv_mod.graph_knn = graph_knn
+
+    model = _srnet(inp)
     kw = dict(use_vel=True, history=inp["history"])
-    piped = rollout_sequence_sharded(model, inp["pos"], inp["vel"],
-                                     max_pending=4, **kw)
-    generator_mod.graph_knn = edgeconv_mod.graph_knn = graph_knn
+    piped, static = recorded(model, **kw)
     serial = rollout_sequence_sharded(model, inp["pos"], inp["vel"],
                                       max_pending=0, **kw)
     cli = rollout_cli.main(inp["cli_args"])
-    return {"piped": piped, "serial": serial, "graphs": graphs, "cli": cli}
+    dynamic, dynamic_graphs = recorded(_srnet(inp["dynamic"]), **kw)
+    return {"piped": piped, "serial": serial, "graphs": static, "cli": cli,
+            "dynamic": dynamic, "dynamic_graphs": dynamic_graphs}
 
 
 def _pooled_counter():
@@ -152,7 +181,8 @@ def _steps(inp, make_step, groups):
     """For each run of ``inp["runs"]`` (a trainer state, the global batch
     and the global draws) one step per ``groups`` entry (its name, its
     group, None for the single-process step, and whether the rank takes
-    the whole batch), each from a copy of the state."""
+    the whole batch), each from a copy of the state; a run with
+    ``references`` False takes the data-parallel step alone."""
     import copy
 
     from tpugan_tpu_torch.parallel import mesh
@@ -163,6 +193,8 @@ def _steps(inp, make_step, groups):
     for run in inp["runs"]:
         got = {}
         for what, group, whole in groups:
+            if what != "dp" and not run.get("references", True):
+                continue
             state = copy.deepcopy(run["state"])
             step = make_step(run["cfg"])
             step.dp = None if group is None else DataParallel(group)

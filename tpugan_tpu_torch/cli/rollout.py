@@ -21,8 +21,8 @@ frames) unless ``--host_pipeline``; a ragged one the per-frame loop.
 ``parallel/sharded_serving.py``): each rank runs its rows on its own card
 (``cuda:LOCAL_RANK``, or ``--device``), rank 0 gathers the frames and
 writes the files. ``--mesh_devices``, when given, must equal the number of
-ranks; the backend is NCCL on the card and gloo on the CPU unless
-``--dist_backend`` names one (two ranks sharing one card need gloo):
+ranks; the backend is NCCL on the card and gloo on the CPU or where the
+ranks share a card (``parallel/mesh.py : initialize_distributed``):
 
     torchrun --nproc_per_node 2 -m tpugan_tpu_torch.cli.rollout \
         --ckpt checkpoints/fluid_vel_20k.ckpt --use_vel --in_node_feats 6 \
@@ -81,9 +81,6 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_devices", type=int, default=None,
                    help="ranks to shard over: must equal the number "
                         "torchrun started (default: all of them)")
-    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
-                   help="torch.distributed backend (default: nccl on the "
-                        "card, gloo on the CPU)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
     return p
@@ -134,7 +131,7 @@ def join_ranks(opt):
     from tpugan_tpu_torch.parallel import mesh
 
     made = not mesh.is_distributed()
-    world = mesh.initialize_distributed(opt.dist_backend, device=opt.device)
+    world = mesh.initialize_distributed(device=opt.device)
     if opt.mesh_devices is not None and opt.mesh_devices != world:
         raise SystemExit(
             f"--mesh_devices {opt.mesh_devices}, but {world} rank(s) run: "

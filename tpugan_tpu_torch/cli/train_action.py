@@ -88,9 +88,6 @@ def get_arguments(argv=None) -> argparse.Namespace:
     add("--data_parallel", action="store_true",
         help="train on the ranks of a torchrun launch, each on its rows of "
              "the global batch")
-    add("--dist_backend", choices=["nccl", "gloo"], default=None,
-        help="torch.distributed backend of --data_parallel (default: nccl "
-             "on the card, gloo on the CPU)")
     add("--profile", action="store_true",
         help="write a torch.profiler trace of steps 10-15 into "
              "<log_dir>/profile")

@@ -32,8 +32,8 @@ global batch of ``--batch_size`` items and steps on its rows of it, and
 the step equals the global batch's (``FluidGanStep(data_parallel=True)``).
 Rank 0 writes the synthetic data, the checkpoints, the test evaluations,
 the samples, the logs and the profile. The backend is NCCL on the card and
-gloo on the CPU unless ``--dist_backend`` names one (two ranks sharing one
-card need gloo):
+gloo on the CPU or where the ranks share a card
+(``parallel/mesh.py : initialize_distributed``):
 
     torchrun --nproc_per_node 4 -m tpugan_tpu_torch.cli.train_fluid \
         --preset train_vel --device_sampling --synthetic --data_parallel
@@ -106,9 +106,6 @@ def get_arguments(argv=None) -> argparse.Namespace:
     add("--data_parallel", action="store_true",
         help="train on the ranks of a torchrun launch, each on its rows of "
              "the global batch")
-    add("--dist_backend", choices=["nccl", "gloo"], default=None,
-        help="torch.distributed backend of --data_parallel (default: nccl "
-             "on the card, gloo on the CPU)")
     add("--profile", action="store_true",
         help="write a torch.profiler trace of steps 10-15 into "
              "<log_dir>/profile")
@@ -278,7 +275,7 @@ def join_data_parallel(opt):
     from tpugan_tpu_torch.parallel import mesh
 
     made = not mesh.is_distributed()
-    mesh.initialize_distributed(opt.dist_backend, device=opt.device)
+    mesh.initialize_distributed(device=opt.device)
     if not mesh.is_distributed():
         raise ValueError("--data_parallel runs over a torch.distributed "
                          "process group: launch with torchrun "

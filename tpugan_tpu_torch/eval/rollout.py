@@ -34,6 +34,7 @@ ALIGN = 128
 # sentinel rows would enter real points' neighbour lists.
 _MAX_GRAPH_K = 20
 
+
 def _device_of(model: SRNet) -> torch.device:
     return next(model.parameters()).device
 
@@ -130,14 +131,10 @@ def rollout_sequence(model: SRNet,
 def rollout_sequence_device(model: SRNet, pos_seq: np.ndarray,
                             vel_seq: Optional[np.ndarray] = None,
                             use_vel: bool = False, history: int = 25,
-                            chunk: int = 100, max_pending: int = 16
-                            ) -> List[np.ndarray]:
+                            chunk: int = 100) -> List[np.ndarray]:
     """Rollout over a uniform-N sequence pos_seq [T, N, 3]: one copy to the
     device per chunk of frames, a loop over the chunk's frames with no host
-    sync, and after each chunk one copy back of every frame but the last
-    ``max_pending`` enqueued, which stay on the device while the next
-    chunk is uploaded and enqueued (0: a chunk's frames are all copied back
-    before the next chunk; the outputs are the same)."""
+    sync, and one copy back per chunk."""
     device = _device_of(model)
     t, n, _ = pos_seq.shape
     if vel_seq is None:
@@ -148,16 +145,7 @@ def rollout_sequence_device(model: SRNet, pos_seq: np.ndarray,
                          f"k ({_MAX_GRAPH_K}) cannot be padded")
     step = make_rollout_step(model, use_vel)
     state = RolloutMaskState.create(1, bucket, history, device=device)
-    outputs, pending = [], []
-
-    def drain(keep: int):
-        if len(pending) > keep:
-            done = pending[:len(pending) - keep]
-            del pending[:len(done)]
-            outs = torch.stack([o for o, _ in done]).cpu().numpy()
-            valids = torch.stack([v for _, v in done]).cpu().numpy()
-            outputs.extend(o[v] for o, v in zip(outs, valids))
-
+    outputs = []
     for c in range(0, t, chunk):
         pos_c = np.full((min(chunk, t - c), bucket, 3), PAD_SENTINEL, np.float32)
         vel_c = np.zeros_like(pos_c)
@@ -165,9 +153,12 @@ def rollout_sequence_device(model: SRNet, pos_seq: np.ndarray,
         vel_c[:, :n] = vel_seq[c:c + chunk]
         pos_d = torch.from_numpy(pos_c).to(device)
         vel_d = torch.from_numpy(vel_c).to(device)
+        outs, valids = [], []
         for f in range(pos_d.shape[0]):
             out, valid, state = step(state, pos_d[f:f + 1], vel_d[f:f + 1], n)
-            pending.append((out[0], valid[0]))
-        drain(max_pending)
-    drain(0)
+            outs.append(out[0])
+            valids.append(valid[0])
+        outs = torch.stack(outs).cpu().numpy()
+        valids = torch.stack(valids).cpu().numpy()
+        outputs.extend(o[v] for o, v in zip(outs, valids))
     return outputs

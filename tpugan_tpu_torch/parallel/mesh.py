@@ -22,10 +22,10 @@ the global batch:
 * :func:`average_gradients` averages a network's gradients in one
   flattened all-reduce.
 
-The backend is NCCL on the card and gloo on the CPU. Two ranks that share
-one card need gloo (NCCL refuses two ranks on one device); gloo's
-collectives on CUDA tensors are staged through host memory here, one copy
-each way (:func:`_staged`). A collective that fails raises; nothing falls
+The backend is NCCL on the card and gloo on the CPU. Ranks that share a
+card get gloo (NCCL refuses two ranks on one device, :func:`shares_a_card`);
+gloo's collectives on CUDA tensors are staged through host memory here,
+one copy each way (:func:`_staged`). A collective that fails raises; nothing falls
 back to a single process once a group is asked for.
 """
 
@@ -64,16 +64,28 @@ def rank_device(device=None) -> torch.device:
     return torch.device("cuda", local_rank())
 
 
-def initialize_distributed(backend: Optional[str] = None,
-                           init_method: Optional[str] = None,
+def shares_a_card(device=None) -> bool:
+    """Whether this host's ranks share a card: more than one of them
+    (``LOCAL_WORLD_SIZE``, which torchrun sets) and either a card named
+    with its index (every rank gets the same arguments, so every rank runs
+    on that card) or fewer cards than ranks. Every rank answers the same."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    if local <= 1:
+        return False
+    named = device is not None and torch.device(device).index is not None
+    return named or local > torch.cuda.device_count()
+
+
+def initialize_distributed(init_method: Optional[str] = None,
                            world_size: Optional[int] = None,
                            rank: Optional[int] = None,
                            device=None) -> int:
     """Join the process group and return the world size.
 
     With explicit arguments, or the variables ``torchrun`` sets, this
-    calls ``init_process_group`` (``backend`` default: NCCL for a CUDA
-    device, gloo for the CPU) and any failure raises. Without either the
+    calls ``init_process_group`` (NCCL for a CUDA device, gloo for the CPU
+    or where the ranks share a card, :func:`shares_a_card`) and any
+    failure raises. Without either the
     world is one process and no group is made (1 is returned). A second
     call returns the existing group's size."""
     if is_distributed():
@@ -87,8 +99,8 @@ def initialize_distributed(backend: Optional[str] = None,
             raise RuntimeError(f"torch.distributed environment incomplete: "
                                f"{missing} unset (launch with torchrun)")
     dev = rank_device(device)
-    if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = ("nccl" if dev.type == "cuda" and not shares_a_card(device)
+               else "gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method or "env://",
