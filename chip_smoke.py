@@ -158,6 +158,17 @@ Phases, one JSON line each (``phase`` names it):
            device time by kernel, its bound and the dense kernel's time;
   eval_cpu position_metrics, cycle_consistency and the exact density on
            fixed small clouds, on the card and on the CPU;
+  library  with the launch counts reset: the library functions that reach a
+           kernel, at sizes users run (after the eval paths): the geometry
+           losses (repulsion, density, refinement, temporal, free-particle,
+           edge) with their gradient and the graph builders on the trained
+           SRNet's [4, 9,216] output, the density of the density phase's
+           12,000-particle frame, the EMD loss on [4, 2,048], a multi-scale
+           SetConv at the fluid spatial critic's first stage (two scales,
+           1,024 centres) in train (forward, backward) and eval; launches
+           read after (every one of LIBRARY_KERNELS at least once), then the
+           same calls with every kernel's plain version, held to the
+           LIBRARY_* limits (clouds on a 2^-10 grid, on_grid);
   kernel   (action) the affine pooled-MLP forward at the action towers'
            SetConvs (sa1 [24, 512, 64, 6] 64 -> 64 -> 128, sa2 [24, 256,
            32, 131] 128 -> 256, the classifier's pooling [24, 1, 256, 259]
@@ -285,21 +296,29 @@ Phases, one JSON line each (``phase`` names it):
            launches every step, the first step's losses equal bit for
            bit), its checkpoint read back equal; at two ranks (gloo) both
            ranks' parameters and buffers equal bit for bit after every
-           step, no pooled-MLP launch and every other launch as at one
-           rank, the gate's decisions equal, the first step's losses within
+           step, every launch as at one rank (the pooled-MLP batch-norm
+           kernel's too, 4 a G-only and 12 a G+D step, its moments summed
+           over the ranks), the gate's decisions equal, the first step's losses within
            DP_LOSS_TOL_FIRST of one rank's and every later step's within
            the one-rank runs' spread at that step widened by
            DP_SPREAD_WIDEN times it on each side; then the action twin with
            --data_parallel --fast_d for iterations 20001-20002 at two
            ranks, ranks equal after every step; ms a step (G only and G+D),
-           the collectives' share of a step at two ranks (each collective
-           synchronised and timed), the peak memory of each rank;
+           the collectives' share and count a step at two ranks (each
+           collective synchronised, timed and counted), and the count of
+           the same fluid run for 2 iterations with every SetConv on the
+           plain stack (the kernel's must not exceed it), the peak memory of
+           each rank; in the ranks, the pooled-MLP batch-norm kernel
+           forward and backward at every shape the two-rank fluid run gave
+           it, against its plain versions under the same real two-rank sum
+           (check_pooled_mlp's limits);
   kernel   (sharded_rollout, data_parallel) each kernel at every shape the
            ranks' counted runs gave it (the wrappers' call sites record the
            shapes, and their calls must add up to the runs' launches): the
            sharded rollout's at one and two ranks, the data-parallel runs'
            at two (one rank's are the train phases' shapes), each against
-           its plain version by the limits of its own rows above.
+           its plain version by the limits of its own rows above (the
+           pooled-MLP rows made in the ranks, on the real two-rank sum).
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
@@ -1506,6 +1525,87 @@ def pooled_bounds(shape, widths):
             bound(6.0 * rows_n * mac, 8 * once, "f32"))
 
 
+def _pooled_row(torch, dev, rng, stage, shape, widths, slope, per, gammas,
+                reduce=None, world=1, tries=3):
+    """(forward row, backward row) of the pooled-MLP batch-norm kernel at
+    one table shape against its plain versions (check_pooled_mlp's limits),
+    each with ``per_step`` = ``per``. With ``reduce`` (a sum over ``world``
+    ranks, made in every rank in the same order) both sides sum their
+    moments over the ranks through it."""
+    from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
+
+    b, m, _, c0 = shape
+    kw = dict(reduce=reduce, world=world)
+    tab = _cloud(torch, dev, rng, *shape, scale=1.0)
+    tab[:, :, 1] = tab[:, :, 0]
+    tab[:, :, -1] = tab[:, :, 0]
+    cs = (c0,) + tuple(widths)
+    ws = [_cloud(torch, dev, rng, cs[i], cs[i + 1], scale=cs[i] ** -0.5)
+          for i in range(len(widths))]
+    gs = [1.0 + _cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+    if gammas == "mixed":
+        for gamma in gs:
+            gamma[::3] *= -1
+            gamma[1::5] = 0.0
+    bs = [_cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+    g = _cloud(torch, dev, rng, b, m, widths[-1], scale=1.0)
+    leaves = [x.clone().requires_grad_() for x in [tab, *ws, *gs, *bs]]
+    nl = len(widths)
+    pooled, mus, vars_ = P.pooled_mlp_bn_train(
+        leaves[0], leaves[1:1 + nl], leaves[1 + nl:1 + 2 * nl],
+        leaves[1 + 2 * nl:], slope, **kw)
+    grads = torch.autograd.grad(pooled, leaves, g, retain_graph=True)
+    with torch.no_grad():
+        fp = P.pooled_mlp_bn_forward_plain(tab, ws, gs, bs, slope, **kw)
+        gp = P.pooled_mlp_bn_backward_plain(tab, ws, fp[4], fp[5], fp[1],
+                                            fp[3], fp[0], g, slope, **kw)
+    torch.cuda.synchronize()
+    f_err = 0.0
+    for got, want in zip([pooled, *mus, *vars_], [fp[0], *fp[1], *fp[2]]):
+        e = float((got.detach() - want).abs().max())
+        f_err = max(f_err, e)
+        if e > 1e-5 * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"pooled_mlp {stage} forward: err {e}")
+    b_err, b_rel = 0.0, 0.0
+    names = ["dtable"] + [f"{n}{i}" for n in ("dW", "dgamma", "dbeta")
+                          for i in range(nl)]
+    for name, got, want in zip(names, grads, [gp[0], *gp[1], *gp[2], *gp[3]]):
+        diff = (got - want).abs()
+        b_err = max(b_err, float(diff.max()))
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        b_rel = max(b_rel, rel)
+        off = float((diff > 1e-3 * want.abs().max()).float().mean())
+        if rel > 1e-2 or (name == "dtable" and off > 1e-3):
+            raise AssertionError(f"pooled_mlp {stage} backward {name}: "
+                                 f"norm rel {rel}, share off {off}")
+        if name == "dtable":
+            dtable_off = off
+    with torch.no_grad():
+        fwd = lambda: P.pooled_mlp_bn_train(tab, ws, gs, bs, slope, **kw)
+        ms = time_ms(fwd, torch)
+        dev_ms, fwd_kernels = device_ms(fwd, torch, by_kernel=True,
+                                        tries=tries)
+        plain_ms = time_ms(lambda: P.pooled_mlp_bn_forward_plain(
+            tab, ws, gs, bs, slope, **kw), torch)
+        bwd_plain_ms = time_ms(lambda: P.pooled_mlp_bn_backward_plain(
+            tab, ws, fp[4], fp[5], fp[1], fp[3], fp[0], g, slope, **kw),
+            torch)
+    bwd = lambda: torch.autograd.grad(pooled, leaves, g, retain_graph=True)
+    bwd_ms = time_ms(bwd, torch)
+    bwd_dev_ms, bwd_kernels = device_ms(bwd, torch, by_kernel=True,
+                                        tries=tries)
+    f_bound, b_bound = pooled_bounds(shape, widths)
+    common = dict(stage=stage, table=list(shape), widths=list(widths),
+                  slope=slope, gammas=gammas, per_step=per)
+    return (dict(**common, max_abs_err=f_err, ms=ms, device_ms=dev_ms,
+                 device_ms_by_kernel=fwd_kernels, plain_ms=plain_ms,
+                 library_ms=None, bound_ms=f_bound[0], bound_by=f_bound[1]),
+            dict(**common, max_abs_err=b_err, max_norm_rel_err=b_rel,
+                 dtable_share_off=dtable_off, ms=bwd_ms, device_ms=bwd_dev_ms,
+                 device_ms_by_kernel=bwd_kernels, plain_ms=bwd_plain_ms,
+                 library_ms=None, bound_ms=b_bound[0], bound_by=b_bound[1]))
+
+
 def check_pooled_mlp(torch, dev, rng):
     """Forward (pooled, moments) and backward (dtable, dW, dgamma, dbeta)
     against the plain versions, on tables with exact max ties (the ball
@@ -1518,84 +1618,45 @@ def check_pooled_mlp(torch, dev, rng):
     send a cotangent to another row, and a leaky-ReLU pre-activation
     within f32 noise of 0 can take the other slope: a few rows of dtable
     move by order 1, which a norm over millions of entries hides and an
-    elementwise bound does not."""
+    elementwise bound does not. Then, at the first stage, the kernel's
+    stages with the identity for the cross-rank sum (world 1) against its
+    one-call launch, bit for bit (the split the data-parallel step takes
+    at more than one rank)."""
     from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
 
     fwd_rows, bwd_rows = [], []
     for stage, shape, widths, slope, per, gammas in POOLED_SHAPES:
-        b, m, _, c0 = shape
-        tab = _cloud(torch, dev, rng, *shape, scale=1.0)
-        tab[:, :, 1] = tab[:, :, 0]
-        tab[:, :, -1] = tab[:, :, 0]
-        cs = (c0,) + widths
-        ws = [_cloud(torch, dev, rng, cs[i], cs[i + 1], scale=cs[i] ** -0.5)
+        fwd, bwd = _pooled_row(torch, dev, rng, stage, shape, widths, slope,
+                               per, gammas)
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
+        emit({"phase": "kernel", "kernel": "pooled_mlp_fwd", **fwd})
+        emit({"phase": "kernel", "kernel": "pooled_mlp_bwd", **bwd})
+    stage, shape, widths, slope, _, _ = POOLED_SHAPES[0]
+    rng = np.random.default_rng(24)      # the caller's draws stay as they were
+    tab = _cloud(torch, dev, rng, *shape, scale=1.0)
+    cs = (shape[-1],) + widths
+    params = [_cloud(torch, dev, rng, cs[i], cs[i + 1], scale=cs[i] ** -0.5)
               for i in range(len(widths))]
-        gs = [1.0 + _cloud(torch, dev, rng, h, scale=0.1) for h in widths]
-        if gammas == "mixed":
-            for gamma in gs:
-                gamma[::3] *= -1
-                gamma[1::5] = 0.0
-        bs = [_cloud(torch, dev, rng, h, scale=0.1) for h in widths]
-        g = _cloud(torch, dev, rng, b, m, widths[-1], scale=1.0)
-        leaves = [x.clone().requires_grad_() for x in [tab, *ws, *gs, *bs]]
-        nl = len(widths)
-        pooled, mus, vars_ = P.pooled_mlp_bn_train(
-            leaves[0], leaves[1:1 + nl], leaves[1 + nl:1 + 2 * nl],
-            leaves[1 + 2 * nl:], slope)
-        grads = torch.autograd.grad(pooled, leaves, g, retain_graph=True)
-        fp = P.pooled_mlp_bn_forward_plain(tab, ws, gs, bs, slope)
-        gp = P.pooled_mlp_bn_backward_plain(tab, ws, fp[4], fp[5], fp[1],
-                                            fp[3], fp[0], g, slope)
-        torch.cuda.synchronize()
-        f_err = 0.0
-        for got, want in zip([pooled, *mus, *vars_], [fp[0], *fp[1], *fp[2]]):
-            e = float((got.detach() - want).abs().max())
-            f_err = max(f_err, e)
-            if e > 1e-5 * max(1.0, float(want.abs().max())):
-                raise AssertionError(f"pooled_mlp {stage} forward: err {e}")
-        b_err, b_rel = 0.0, 0.0
-        names = ["dtable"] + [f"{n}{i}" for n in ("dW", "dgamma", "dbeta")
-                              for i in range(nl)]
-        for name, got, want in zip(names, grads,
-                                   [gp[0], *gp[1], *gp[2], *gp[3]]):
-            diff = (got - want).abs()
-            b_err = max(b_err, float(diff.max()))
-            rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
-            b_rel = max(b_rel, rel)
-            off = float((diff > 1e-3 * want.abs().max()).float().mean())
-            if rel > 1e-2 or (name == "dtable" and off > 1e-3):
-                raise AssertionError(f"pooled_mlp {stage} backward {name}: "
-                                     f"norm rel {rel}, share off {off}")
-            if name == "dtable":
-                dtable_off = off
-        with torch.no_grad():
-            fwd = lambda: P.pooled_mlp_bn_train(tab, ws, gs, bs, slope)
-            ms = time_ms(fwd, torch)
-            dev_ms, fwd_kernels = device_ms(fwd, torch, by_kernel=True)
-            plain_ms = time_ms(lambda: P.pooled_mlp_bn_forward_plain(
-                tab, ws, gs, bs, slope), torch)
-            bwd_plain_ms = time_ms(lambda: P.pooled_mlp_bn_backward_plain(
-                tab, ws, fp[4], fp[5], fp[1], fp[3], fp[0], g, slope), torch)
-        bwd = lambda: torch.autograd.grad(pooled, leaves, g, retain_graph=True)
-        bwd_ms = time_ms(bwd, torch)
-        bwd_dev_ms, bwd_kernels = device_ms(bwd, torch, by_kernel=True)
-        f_bound, b_bound = pooled_bounds(shape, widths)
-        common = dict(stage=stage, table=list(shape), widths=list(widths),
-                      slope=slope, gammas=gammas, per_step=per)
-        fwd_rows.append(dict(**common, max_abs_err=f_err, ms=ms,
-                             device_ms=dev_ms, device_ms_by_kernel=fwd_kernels,
-                             plain_ms=plain_ms,
-                             library_ms=None, bound_ms=f_bound[0],
-                             bound_by=f_bound[1]))
-        bwd_rows.append(dict(**common, max_abs_err=b_err, max_norm_rel_err=b_rel,
-                             dtable_share_off=dtable_off, ms=bwd_ms,
-                             device_ms=bwd_dev_ms,
-                             device_ms_by_kernel=bwd_kernels,
-                             plain_ms=bwd_plain_ms,
-                             library_ms=None, bound_ms=b_bound[0],
-                             bound_by=b_bound[1]))
-        emit({"phase": "kernel", "kernel": "pooled_mlp_fwd", **fwd_rows[-1]})
-        emit({"phase": "kernel", "kernel": "pooled_mlp_bwd", **bwd_rows[-1]})
+    params += [1.0 + _cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+    params += [_cloud(torch, dev, rng, h, scale=0.1) for h in widths]
+    g = _cloud(torch, dev, rng, *shape[:2], widths[-1], scale=1.0)
+
+    def run(**kw):
+        leaves = [x.clone().requires_grad_() for x in [tab, *params]]
+        n = len(widths)
+        out = P.pooled_mlp_bn_train(leaves[0], leaves[1:1 + n],
+                                    leaves[1 + n:1 + 2 * n],
+                                    leaves[1 + 2 * n:], slope, **kw)
+        pooled, mus, vars_ = out
+        return [pooled, *mus, *vars_, *torch.autograd.grad(pooled, leaves, g)]
+
+    if not all(torch.equal(a, b) for a, b in zip(
+            run(), run(reduce=lambda t: t, world=1))):
+        raise AssertionError("pooled_mlp: the stages with the identity sum "
+                             "differ from the one-call launch")
+    emit({"phase": "kernel", "kernel": "pooled_mlp_fwd", "stage": stage,
+          "stages_equal_one_call": True})
     return fwd_rows, bwd_rows
 
 
@@ -2942,6 +3003,219 @@ def eval_card_vs_cpu(torch, dev):
 
 
 # ------------------------------------------------------- the action workload
+
+# The library phase: the port's library functions that reach a kernel, at
+# sizes users run, on the card against the same calls with every kernel's
+# plain version on the card. Its clouds lie on a grid of 2^-10 of their
+# largest coordinate (:func:`on_grid`): every squared distance,
+# |q|^2 + |c|^2 - 2 q.c, is then exact in f32 whatever the order of its
+# sums, as the reference's masks need (they keep a pair whose squared
+# distance exceeds 1e-8 or 1e-9, so a point's distance to itself, f32
+# noise of about that size off the grid, would be kept or dropped by how
+# each side rounds, each self pair adding about 1 to its point's sum; the
+# first card run, off the grid, read the radius losses 9% apart and the
+# densities 64%). Losses and densities to LIBRARY_RTOL of their value (f32
+# sums in another order); gradients to 1e-2 of their norms
+# (check_pooled_mlp's limit; the scatter-adds of both sides add in another
+# order); graph indices equal (equal distances go to the lower index on
+# both sides); the EMD to EMD_RTOL (its auction's bids may tie
+# differently); the multi-scale SetConv's outputs and running moments to
+# LIBRARY_RTOL of their scale.
+LIBRARY_RTOL = 1e-4
+LIBRARY_RADIUS = 0.025        # the reference's particle radius
+LIBRARY_EMD_POINTS = 2048
+# the fluid spatial critic's first stage (sa_0: 1,024 centres, radius 0.15,
+# 32 samples, 64 -> 128) as two scales
+LIBRARY_MSG = dict(mlps=[[32, 64], [64, 128]], npoint=1024,
+                   radii=[0.075, 0.15], nsamples=[16, 32])
+# kernels every library drive must launch
+LIBRARY_KERNELS = ("knn", "nn1", "fps", "ball_query", "pooled_mlp_fwd",
+                   "pooled_mlp_bwd", "pooled_mlp_affine")
+
+
+class plain_kernels:
+    """Every kernel wrapper the library functions reach replaced by its
+    plain version (on the card), and every SetConv on the plain stack."""
+
+    def __enter__(self):
+        import tpugan_tpu_torch.nn.setconv as S
+        from tpugan_tpu_torch.ops import metrics, neighbors
+        from tpugan_tpu_torch.ops.kernels import ball_query, fps, knn, nn1
+
+        self.own = [(neighbors, "knn_kernel"), (metrics, "nn1_kernel"),
+                    (neighbors, "fps_kernel"), (neighbors, "ball_query_kernel"),
+                    (S, "fusable_stats")]
+        self.own = [(m, a, getattr(m, a)) for m, a in self.own]
+        neighbors.knn_kernel = knn.knn_plain
+        metrics.nn1_kernel = nn1.nn1_plain
+        neighbors.fps_kernel = (lambda pos, m, pen, start, plan=None:
+                                fps.fps_plain(pos, m, pen, start))
+        neighbors.ball_query_kernel = ball_query.ball_query_plain
+        S.fusable_stats = lambda: False
+
+    def __exit__(self, *exc):
+        for m, a, fn in self.own:
+            setattr(m, a, fn)
+
+
+def on_grid(torch, x):
+    """``x`` rounded to multiples of 2^-10 of its largest magnitude (a power
+    of two): coordinates of at most 11 bits, whose squared distances are
+    exact in f32."""
+    step = 2.0 ** (math.ceil(math.log2(float(x.abs().max()))) - 10)
+    return torch.round(x / step) * step
+
+
+def _library_inputs(torch, dev):
+    """The trained SRNet's [4, 9,216] output on a train_vel batch (device
+    sampling's 1,152 inputs a patch), the batch's three frames and
+    velocities, and the density phase's 12,000-particle frame; the clouds
+    on their grids (:func:`on_grid`)."""
+    from tpugan_tpu_torch import DT
+    from tpugan_tpu_torch.checkpoint import load_srnet
+    from tpugan_tpu_torch.cli.eval_fluid import SYNTH_DIR
+    from tpugan_tpu_torch.data.sampling import normalize_point_cloud
+    from tpugan_tpu_torch.data.synthetic import make_synthetic_fluid_dataset
+    from tpugan_tpu_torch.ops.neighbors import fps, gather
+
+    batch = fluid_batches(torch, dev, 9216, 4, 1)[0]
+    hp, hv = batch["highres_pos"], batch["highres_vel"]
+    idx = fps(hp[1], 1152)
+    low = gather(hp[1], idx)
+    feat = torch.cat([low, gather(hv[1], idx) * DT], -1)
+    with torch.no_grad():
+        pred = load_srnet(CHECKPOINT, device=dev)(feat, low)[0]
+    path = os.path.join(SYNTH_DIR, "case1", "data_1.npz")
+    if not os.path.exists(path):    # the eval CLI's synthetic set, seed 100
+        make_synthetic_fluid_dataset(SYNTH_DIR, case_num=1, case_steps=8,
+                                     num_particles=12000, seed=100)
+    with np.load(path) as z:
+        frame = normalize_point_cloud(z["pos"].astype(np.float32))[0]
+    frame = torch.from_numpy(frame).to(dev)
+    return (on_grid(torch, pred).contiguous(), on_grid(torch, hp), hv,
+            on_grid(torch, frame))
+
+
+def _library_drive(torch, pred, hp, hv, frame, msg):
+    """One call of every library function (losses with their gradient in
+    the prediction; the multi-scale SetConv train, forward and backward,
+    then eval): their outputs, by name."""
+    from tpugan_tpu_torch.losses import geometry as G
+    from tpugan_tpu_torch.ops import neighbors as N
+    from tpugan_tpu_torch.train.step import advect_particle
+
+    r = LIBRARY_RADIUS
+    out = {}
+    p = pred.detach().clone().requires_grad_()
+    losses = {
+        "repulsion_loss": G.repulsion_loss(p, r),
+        "density_loss": G.density_loss(p, r),
+        "refinement_loss": G.refinement_loss(0.5, hp[1], p, r)[0],
+        "temporal_loss": G.temporal_loss(advect_particle(hp[1], hv[1], 1),
+                                         advect_particle(hp[1], hv[1], -1),
+                                         p, p),
+        "free_particle_loss": G.free_particle_loss(hp[1], p)}
+    sum(losses.values()).backward()
+    out.update({k: v.detach() for k, v in losses.items()})
+    out["losses_grad"] = p.grad
+    with torch.no_grad():
+        out["dilated_knn_graph"] = N.dilated_knn_graph(pred, 20, 2)
+        out["knn_graph"] = N.knn_graph(pred, 16)
+        idx, near = N.fixed_radius_graph(pred, 2 * r, 32)
+        out["fixed_radius_graph"] = torch.where(near, idx, -1)
+        edge = N.gather(pred, out["knn_graph"].flatten(1)).reshape(
+            *out["knn_graph"].shape, 3) - pred[:, :, None]
+        out["edge_uniform_loss"] = G.edge_uniform_loss(edge, r)
+        out["density"] = G.density(frame, r)
+        n = LIBRARY_EMD_POINTS
+        out["earth_mover_distance_loss"] = G.earth_mover_distance_loss(
+            pred[:, :n], hp[1][:, :n])
+    x = pred.detach().clone().requires_grad_()
+    _, feats = msg(x, x, train=True)
+    g = torch.from_numpy(np.random.default_rng(41).standard_normal(
+        tuple(feats.shape)).astype(np.float32)).to(x.device)
+    (feats * g).sum().backward()
+    out["msg_train"] = feats.detach()
+    out["msg_grads"] = [x.grad] + [q.grad for q in msg.parameters()]
+    out["msg_state"] = [b.clone() for b in msg.buffers()]
+    with torch.no_grad():
+        out["msg_eval"] = msg(pred, pred, train=False)[1]
+    return out
+
+
+def library_errors(torch, got, want):
+    """({name: error by its LIBRARY_* measure}, the names off their limit or
+    not finite) of two library drives."""
+    errs, bad = {}, []
+    for name, w in want.items():
+        a = got[name]
+        if name.endswith("graph"):
+            errs[name] = float((a != w).float().mean())
+            ok = errs[name] == 0.0
+        elif name in ("msg_grads", "losses_grad"):
+            a, w = (a, w) if name == "msg_grads" else ([a], [w])
+            errs[name] = max(float((u - v).norm() / v.norm().clamp_min(1e-30))
+                             for u, v in zip(a, w))
+            ok = errs[name] <= 1e-2
+        elif name == "msg_state":
+            errs[name] = max(float((u - v).abs().max()
+                                   / max(1.0, float(v.abs().max())))
+                             for u, v in zip(a, w))
+            ok = errs[name] <= LIBRARY_RTOL
+        else:
+            scale = max(float(w.abs().max()), 1e-30)
+            errs[name] = float((a - w).abs().max()) / scale
+            ok = errs[name] <= (EMD_RTOL if name == "earth_mover_distance_loss"
+                                else LIBRARY_RTOL)
+        if not (ok and all(bool(torch.isfinite(t).all()) for t in
+                           (a if isinstance(a, list) else [a]))):
+            bad.append(name)
+    return errs, bad
+
+
+def library_phase(torch, dev, kernels):
+    """With the launch counts reset: one call of each library function
+    that reaches a kernel (module docstring's library), launches read
+    after; then the same calls with every kernel's plain version (on the
+    card, from the same module state), held to the LIBRARY_* limits, and
+    the wall time of both. Returns the launches."""
+    import copy
+
+    from tpugan_tpu_torch.nn.layers import leaky_relu_001
+    from tpugan_tpu_torch.nn.setconv import SetConv
+
+    pred, hp, hv, frame = _library_inputs(torch, dev)
+    msg = SetConv.msg(3, act=leaky_relu_001, mask_dummy=True,
+                      fused_train=True,
+                      generator=torch.Generator().manual_seed(5), device=dev,
+                      **LIBRARY_MSG)
+    plain_msg = copy.deepcopy(msg)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    got = _library_drive(torch, pred, hp, hv, frame, msg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels)
+    missing = [k for k in LIBRARY_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"library: no launch of {missing}: {launches}")
+    t0 = time.perf_counter()
+    with plain_kernels():
+        want = _library_drive(torch, pred, hp, hv, frame, plain_msg)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    errs, bad = library_errors(torch, got, want)
+    line = {"phase": "library", "prediction": list(pred.shape),
+            "density_frame": list(frame.shape), "msg": LIBRARY_MSG,
+            "emd_points": LIBRARY_EMD_POINTS, "rel_errs": errs,
+            "launches": launches, "wall_s": wall, "plain_wall_s": plain_wall}
+    emit(line)
+    if bad:
+        raise AssertionError(f"library: {bad} off their limits: {errs}")
+    return launches
+
 
 ACTION_CHECKPOINT = os.path.join(ROOT, "checkpoints", "action_tempo_20k.ckpt")
 ACTION_DEMO_DIR = os.path.join(ROOT, "runs", "chip_smoke_action")    # gitignored
@@ -4676,6 +4950,7 @@ SHARD_RUNS = [  # (name, the rollout CLI's flags, launches a frame on a rank)
 # limit lies about 30x above the largest reading.
 SHARD_GATE = 1e-5
 DP_ITERS = 20004          # the fluid DP runs: iterations 20001-20004
+DP_PLAIN_STACK_ITERS = 20002   # its plain-stack twin: 20001-20002
 DP_ACTION_ITERS = 20002   # the action DP run: iterations 20001-20002
 DP_TURNS = ("dp", "plain") * 3   # world size 1, in turns
 # Every run's first step starts from the checkpoint with the same draws, so
@@ -4759,19 +5034,22 @@ def _shard_argv(name, extra, out_dir, shard, world=1):
 
 
 # the kernels whose wrappers' call sites _record_shapes patches
-RECORDED = ("knn", "fps", "ball_query", "nn1", "interp", "edgeconv")
+RECORDED = ("knn", "fps", "ball_query", "nn1", "interp", "edgeconv",
+            "pooled_mlp_fwd")
 
 
 def _record_shapes(torch):
     """Patch the kernel wrappers' call sites (ops/neighbors.py: the exact
     kNN, FPS, the ball query; ops/metrics.py: nn1; ops/interpolate.py: the
-    dense interp; nn/edgeconv.py: the fused EdgeConv) to count their calls
-    by shape, from host metadata only (no sync). Returns (counts, undo):
-    counts maps a key (kernel name, then the shape the row of that kernel
-    is made from) to its calls."""
+    dense interp; nn/edgeconv.py: the fused EdgeConv; nn/layers.py: the
+    pooled-MLP batch-norm kernel, with the world its moments are summed
+    over) to count their calls by shape, from host metadata only (no
+    sync). Returns (counts, undo): counts maps a key (kernel name, then the
+    shape the row of that kernel is made from) to its calls."""
     import collections
 
     import tpugan_tpu_torch.nn.edgeconv as EC
+    import tpugan_tpu_torch.nn.layers as L
     from tpugan_tpu_torch.ops import interpolate, metrics, neighbors
 
     seen, own = collections.Counter(), []
@@ -4811,6 +5089,11 @@ def _record_shapes(torch):
              "interp", q.shape[0], q.shape[1], c.shape[1], v.shape[-1],
              float(cutoff), kind))
     wrap(EC, "edgeconv_fused", edgeconv)
+    wrap(L, "pooled_mlp_bn_train",
+         lambda table, ws, gammas, betas, slope=0.0, eps=1e-5, reduce=None,
+         world=1: ("pooled_mlp_fwd", *table.shape,
+                   "x".join(str(w.shape[1]) for w in ws), float(slope),
+                   world))
 
     def undo():
         for mod, attr, fn in own:
@@ -4947,13 +5230,13 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
             record=False):
     """One train CLI run called as a function: each step's launches, metrics,
     ms (G only and G+D, CUDA events), the state's digest after it, the
-    seconds in collectives (with ``timed_collectives``: every collective
-    synchronised and timed on the host clock), the peak memory, and with
-    ``record`` the kernels' shapes (:func:`_record_shapes`) and the whole
-    run's launches."""
+    seconds in collectives and their number (with ``timed_collectives``:
+    every collective synchronised and timed on the host clock), the peak
+    memory, and with ``record`` the kernels' shapes (:func:`_record_shapes`)
+    and the whole run's launches."""
     from tpugan_tpu_torch.parallel import mesh
 
-    marks, digests, coll = [], [], [0.0]
+    marks, digests, coll = [], [], [0.0, 0]
     own_call = step_cls.__call__
 
     def call(self, state, *a, **k):
@@ -4970,6 +5253,7 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
             out = own[f](*a, **k)
             torch.cuda.synchronize()
             coll[0] += time.perf_counter() - t0
+            coll[1] += 1
             return out
         return wrapped
 
@@ -4978,7 +5262,8 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
             torch.cuda.synchronize()
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        marks.append((event, n_iter, counts(kernels), ev, metrics, coll[0]))
+        marks.append((event, n_iter, counts(kernels), ev, metrics,
+                      tuple(coll)))
 
     step_cls.__call__ = call
     if timed_collectives:
@@ -5009,8 +5294,11 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
         steps.append({"iteration": n_iter, "metrics": m["end"][2],
                       "launches": delta(start[0], end[0]), "digest": dig,
                       "ms": ms, "generator_ms": start[1].elapsed_time(gen[1]),
-                      "collective_share": ((end[3] - start[3]) * 1e3 / ms
-                                           if timed_collectives else None)})
+                      "collective_share": ((end[3][0] - start[3][0]) * 1e3
+                                           / ms if timed_collectives
+                                           else None),
+                      "collectives": (end[3][1] - start[3][1]
+                                      if timed_collectives else None)})
     return {"steps": steps, "checkpoint": out["checkpoint"],
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "state": out["state"], "run_launches": run_launches,
@@ -5022,8 +5310,12 @@ def _worker_dp(torch, kernels, spec, out_dir):
     --device_sampling --synthetic, resumed from the checkpoint, the fused
     switch on) with --data_parallel; at world size 1 in turns with the
     same run without it (DP_TURNS); at world size 2 also the action twin
-    with --data_parallel --fast_d; the kernels' shapes recorded at world
-    size 2. Rank 0 reads its last fluid checkpoint back."""
+    with --data_parallel --fast_d, the pooled-MLP kernel's rows at the
+    fluid run's recorded shapes (:func:`_pooled_dp_rows`) and the fluid run
+    again for DP_PLAIN_STACK_ITERS with every SetConv on the plain stack
+    (the rule before the kernel took cross-rank moments: its collectives
+    a step); the kernels' shapes recorded at world size 2. Rank 0 reads
+    its last fluid checkpoint back."""
     from tpugan_tpu_torch.checkpoint import load_trainer_state
     from tpugan_tpu_torch.cli import train_action, train_fluid
     from tpugan_tpu_torch.train.step import (ActionGanStep, FluidGanStep,
@@ -5064,7 +5356,66 @@ def _worker_dp(torch, kernels, spec, out_dir):
                       timed_collectives=True, record=True)
         got.pop("state")
         res["action_dp"] = got
+        res["pooled_rows"] = _pooled_dp_rows(
+            torch, res["fluid_0_dp"]["shapes"], world)
+        argv = fluid[:-3] + [str(DP_PLAIN_STACK_ITERS), "--ckpt_every",
+                             "100000", "--log_dir", log("fluid_plain_stack"),
+                             "--data_parallel"] + par
+        with plain_stack_under_cross_rank_stats():
+            got = _dp_cli(torch, kernels, train_fluid, argv, FluidGanStep,
+                          timed_collectives=True)
+        got.pop("state")
+        res["fluid_plain_stack"] = got
     return res
+
+
+class plain_stack_under_cross_rank_stats:
+    """Every SetConv on the plain stack under ``cross_rank_stats``: the
+    port's rule before the pooled-MLP kernel took cross-rank moments."""
+
+    def __enter__(self):
+        import tpugan_tpu_torch.nn.layers as L
+        import tpugan_tpu_torch.nn.setconv as S
+
+        self.own = own = S.fusable_stats
+        S.fusable_stats = lambda: own() and L._STAT_REDUCE is None
+
+    def __exit__(self, *exc):
+        import tpugan_tpu_torch.nn.setconv as S
+
+        S.fusable_stats = self.own
+
+
+def _pooled_dp_rows(torch, shapes, world):
+    """On each rank, the pooled-MLP batch-norm kernel at every shape the
+    data-parallel fluid run called it at (``shapes``: _record_shapes'
+    [key, calls] pairs), forward and backward against the plain versions
+    under the same real sum over the ranks (each rank its own table, the
+    moments every rank's): :func:`_pooled_row`'s rows with the path, world
+    and this rank's calls. Every rank calls the same shapes in the same
+    order, so their collectives pair up; each device profile is taken
+    once (a retry on one rank only would leave the other waiting)."""
+    from tpugan_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(31 + mesh.rank())
+    reduce = lambda t: mesh.all_reduce_(t.clone())
+    fwd, bwd = [], []
+    for key, calls in sorted(shapes, key=str):
+        if key[0] != "pooled_mlp_fwd":
+            continue
+        _, b, m, ns, c0, widths, slope, w = key
+        if w != world:
+            raise AssertionError(f"pooled call at world {w} in a {world}-rank "
+                                 f"run")
+        widths = tuple(int(h) for h in widths.split("x"))
+        f, g = _pooled_row(torch, torch.device("cuda", 0), rng,
+                           f"data_parallel world {world}", (b, m, ns, c0),
+                           widths, slope, 0, "positive", reduce=reduce,
+                           world=world, tries=1)
+        for rows, row in ((fwd, f), (bwd, g)):
+            rows.append(dict(row, path="data_parallel", world=world,
+                             calls=calls))
+    return {"pooled_mlp_fwd": fwd, "pooled_mlp_bwd": bwd}
 
 
 def rank_worker(out_dir: str) -> int:
@@ -5198,6 +5549,8 @@ def check_path_kernels(torch, dev, shapes) -> dict:
                     torch, dev, rng, what, c, h, o, k, agg, mlp, kind, False,
                     b, n, E.takes_f32_tiled_bwd(cdt, mlp, c, h, o)),
                     path, world, calls)
+        elif name == "pooled_mlp_fwd":
+            continue    # held in the ranks, on the real two-rank sum
         else:
             raise AssertionError(f"no kernel row for {key}")
     return out
@@ -5316,8 +5669,10 @@ def _outside_spread(value: float, seen: list) -> float:
 
 def data_parallel(torch, ranks):
     """The phase lines of the data-parallel runs (the module docstring's
-    data_parallel). ms a step (G only and G+D), the collectives' share at
-    world size 2, peak memory a rank. Returns the runs' launches."""
+    data_parallel). ms a step (G only and G+D), the collectives' share and
+    count a step at world size 2 (and the plain-stack run's count, which
+    the kernel's must not exceed), peak memory a rank. Returns (the runs'
+    launches, rank 0's pooled-MLP rows at the two-rank shapes)."""
     one, two = ranks[1][0]["dp"], ranks[2]
     keys = sorted(one)
     runs1 = [one[k] for k in keys]
@@ -5343,10 +5698,8 @@ def data_parallel(torch, ranks):
         if a["digest"] != b["digest"] or a["metrics"] != b["metrics"]:
             raise AssertionError(f"world 2, iteration {a['iteration']}: the "
                                  f"ranks differ")
-        want = {k: v for k, v in r["launches"].items()
-                if not k.startswith("pooled_mlp")}
         for o in fl:
-            expect(o["steps"][i]["launches"], want,
+            expect(o["steps"][i]["launches"], r["launches"],
                    f"world 2 step {a['iteration']}")
         if a["metrics"]["gate"] != r["metrics"]["gate"]:
             raise AssertionError(f"world 2 iteration {a['iteration']}: gate")
@@ -5365,6 +5718,15 @@ def data_parallel(torch, ranks):
             raise AssertionError(f"action world 2 iteration {a['iteration']}")
     if len(act[0]["steps"]) != DP_ACTION_ITERS - 20000:
         raise AssertionError("action world 2: steps")
+    stack = [o["dp"]["fluid_plain_stack"] for o in two]
+    coll = [s["collectives"] for s in fl[0]["steps"]]
+    coll_stack = [s["collectives"] for s in stack[0]["steps"]]
+    if (len(coll_stack) != DP_PLAIN_STACK_ITERS - 20000
+            or any(a > b for a, b in zip(coll, coll_stack))
+            or any(s["launches"].get("pooled_mlp_fwd", 0)
+                   for s in stack[0]["steps"])):
+        raise AssertionError(f"world 2: {coll} collectives a step with the "
+                             f"pooled kernel, {coll_stack} on the plain stack")
     summary = lambda runs: {
         "ms": [s["ms"] for r in runs for s in r["steps"]],
         "generator_ms": [s["generator_ms"] for r in runs for s in r["steps"]]}
@@ -5387,6 +5749,14 @@ def data_parallel(torch, ranks):
                     "metrics": [s["metrics"] for s in fl[0]["steps"]],
                     "collective_share": [s["collective_share"]
                                          for s in fl[0]["steps"]],
+                    "collectives_per_step": coll,
+                    "plain_stack": {
+                        **summary([stack[0]]),
+                        "collectives_per_step": coll_stack,
+                        "collective_share": [s["collective_share"]
+                                             for s in stack[0]["steps"]],
+                        "launches": [s["launches"]
+                                     for s in stack[0]["steps"]]},
                     "launches": [s["launches"] for s in fl[0]["steps"]],
                     "peak_gib": [o["peak_gib"] for o in fl]},
           "action_fast_d": {**summary([act[0]]),
@@ -5404,7 +5774,11 @@ def data_parallel(torch, ranks):
             for s in run["steps"]:
                 for k, v in s["launches"].items():
                     launches[k] = launches.get(k, 0) + v
-    return launches
+    rows = two[0]["dp"]["pooled_rows"]
+    for kernel, rs in rows.items():
+        for r in rs:
+            emit({"phase": "kernel", "kernel": kernel, **r})
+    return launches, rows
 
 
 def add_parallel_units(line, rows, launches):
@@ -5627,6 +6001,9 @@ def main(argv=None) -> int:
     density_launches, bi_rows = density_phase(torch, dev, kernels)
     eval_card_vs_cpu(torch, dev)
 
+    # the library functions (counts reset inside, read after their drive)
+    library_launches = library_phase(torch, dev, kernels)
+
     # the action paths: the demo's clip, then ActionCls inference and the
     # eval_tempo_feat CLI (counts reset before each, read inside)
     for k in kernels.values():
@@ -5670,9 +6047,12 @@ def main(argv=None) -> int:
     # after), then every kernel at the shapes the ranks recorded
     ranks = {w: launch_ranks(w, b, os.path.join(PARALLEL_DIR, f"world{w}"))
              for w, b in ((1, "nccl"), (2, "gloo"))}
-    parallel_launches = {"sharded_rollout": sharded_rollout(torch, dev, ranks),
-                         "data_parallel": data_parallel(torch, ranks)}
+    sharded_launches = sharded_rollout(torch, dev, ranks)
+    dp_launches, dp_pooled_rows = data_parallel(torch, ranks)
+    parallel_launches = {"sharded_rollout": sharded_launches,
+                         "data_parallel": dp_launches}
     path_rows = check_path_kernels(torch, dev, path_shapes(ranks))
+    path_rows.update(dp_pooled_rows)
 
     by_path = {n: {"serving": serving_launches[n], "train": train_launches[n],
                    "train_fused": fused_launches[n], "eval": eval_launches[n],
@@ -5686,7 +6066,8 @@ def main(argv=None) -> int:
                    "bench_metrics": bench_launches[n],
                    "fluid_demo": demo_launches[n],
                    "train_fast_d": fast_d_launches[n],
-                   "train_action_fast_d": action_fast_d_launches[n]}
+                   "train_action_fast_d": action_fast_d_launches[n],
+                   "library": library_launches[n]}
                for n in kernels}
     ec_f32 = [r for r in ec_rows if r["dtype"] == "f32"]
     pallas = "tpugan_tpu/ops/pallas/"

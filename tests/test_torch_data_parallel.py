@@ -25,10 +25,17 @@ mu 0 and nu 1 (``tests/test_torch_train_step.py`` says why):
   step on the two-device CPU mesh), to the tolerances of
   ``tests/test_torch_train_step.py``; the JAX step is compiled once;
 * both ranks bit for bit;
-* at two ranks no call reaches the pooled-MLP batch-norm kernel (every
-  batch norm pools its moments across the ranks); the fluid step again in
-  a group of rank 0 alone on the whole batch (world size 1) equals the
-  single-process step bit for bit, with the same kernel calls.
+* at two ranks each rank calls the pooled-MLP batch-norm kernel as one
+  rank does (12 calls in the fluid G+D step; its plain split here, which
+  sums each layer's moment sums over the ranks), with as many collectives
+  as the same step on the plain stack, to whose state and metrics it
+  holds; the fluid step again in a group of rank 0 alone on the whole
+  batch (world size 1) equals the single-process step bit for bit, with
+  the same kernel calls;
+* the kernel's plain split on each rank's rows against the plain stack
+  under ``cross_rank_stats`` (``POOLED_TOL``) and against the whole
+  table's single-process op (the moments, each rank's slice of dtable,
+  the ranks' dW, dgamma and dbeta summed).
 
 The single-process steps run in the ranks (the fluid ones on rank 0, the
 action ones on rank 1: the same processes and thread counts as the
@@ -39,6 +46,9 @@ The ``fast_d`` steps of both workloads on two ranks are held to the JAX
 package's steps on the global batch in ``tests/test_torch_fast_d.py``,
 whose JAX programs that file compiles anyway.
 """
+
+import contextlib
+import copy
 
 import flax
 import flax.linen as fnn
@@ -64,12 +74,18 @@ from tpugan_tpu_torch.checkpoint import _tree_to_torch, load_trainer_state
 from tpugan_tpu_torch.models.discriminator import (dropout_layers,
                                                    dropout_widths)
 from tpugan_tpu_torch.nn.layers import (BatchNorm, SharedMLP,
-                                        cross_rank_stats, relu)
+                                        cross_rank_stats, leaky_relu_001,
+                                        relu, stat_groups)
 from tpugan_tpu_torch.nn.setconv import SetConv
+from tpugan_tpu_torch.ops.kernels import pooled_mlp as P
 from tpugan_tpu_torch.train.state import init_action_state, init_fluid_state
 from tpugan_tpu_torch.train.step import ActionStepDraws, StepDraws
 
 NETS = ("sr", "tempo", "spatial")
+# the pooled split against the plain stack and the single-process op, of
+# each tensor's largest magnitude (f32 sums in another order)
+POOLED_TOL = 1e-5
+POOLED_WIDTHS = [16, 24]
 START_ITER = 101            # the step is the even iteration 102
 # a rank's step against the single process, by norm (see _assert_close)
 TOL = {"sr": 0.05, "tempo": 0.1, "spatial": 0.1}
@@ -193,6 +209,7 @@ def steps(tmp_path_factory):
     # the ranks run while this process compiles and runs the JAX step
     ranks = start_ranks("steps", {"fluid": {"runs": fluid},
                                   "action": {"runs": action},
+                                  "pooled": _pooled_case(),
                                   "references": True}, work / "ranks")
     after, metrics = _jax_mesh_step(models, txs, jstate, batch, key)
     outs = ranks()
@@ -202,6 +219,30 @@ def steps(tmp_path_factory):
                               .named_parameters()} for n in NETS}
     return ([before(r) for r in fluid], [before(r) for r in action], outs,
             fluid[1]["state"], jax_run)
+
+
+def _pooled_case():
+    """A batch-norm SharedMLP's weights (gammas of both signs) and a table
+    of 4 items with exact max ties, split over the ranks by item."""
+    rng = np.random.default_rng(11)
+    mlp = SharedMLP(5, POOLED_WIDTHS, act=leaky_relu_001, norm="batch",
+                    use_bias=False, generator=torch.Generator().manual_seed(7),
+                    device="cpu")
+    with torch.no_grad():
+        for layer in mlp.children():
+            bn = layer.BatchNorm_0
+            bn.scale.copy_(1 + 0.2 * torch.from_numpy(
+                rng.standard_normal(bn.scale.shape).astype(np.float32)))
+            bn.scale[::3] *= -1
+            bn.bias.copy_(0.1 * torch.from_numpy(
+                rng.standard_normal(bn.bias.shape).astype(np.float32)))
+    table = torch.from_numpy(rng.standard_normal((4, 6, 8, 5))
+                             .astype(np.float32))
+    table[:, :, 1] = table[:, :, 0]
+    g = torch.from_numpy(rng.standard_normal((4, 6, POOLED_WIDTHS[-1]))
+                         .astype(np.float32))
+    return {"table": table, "g": g, "widths": POOLED_WIDTHS, "seed": 7,
+            "state_dict": mlp.state_dict()}
 
 
 def _hold(got, want, before):
@@ -258,10 +299,21 @@ def test_fluid_dp_at_one_rank_is_the_single_process_step(steps):
 
 
 def test_dp_at_two_ranks_keeps_the_pooled_kernel_out(steps):
-    _, _, outs, *_ = steps
+    """(The name is the parent's, whose two-rank steps kept the kernel out.)
+    At two ranks each rank calls the pooled-MLP batch-norm kernel as the
+    single-process step does, 12 times in the fluid G+D step (the action
+    critics take no fused stage), with as many collectives as the same
+    data-parallel step with every SetConv on the plain stack, and holds to
+    that step's metrics and state as the rank holds to the single
+    process."""
+    before, _, outs, *_ = steps
     for o in outs:
-        assert [x["dp"]["pooled_calls"] for x in o["fluid"]] == [0, 0]
+        assert [x["dp"]["pooled_calls"] for x in o["fluid"]] == [12, 12]
         assert [x["dp"]["pooled_calls"] for x in o["action"]] == [0, 0]
+        kernel, stack = o["fluid"][0]["dp"], o["fluid"][0]["dp_plain_stack"]
+        assert stack["pooled_calls"] == 0
+        assert kernel["collectives"] == stack["collectives"] > 0
+        _hold(kernel, stack, before[0])
 
 
 @pytest.mark.parametrize("fast_d", [False, True])
@@ -301,10 +353,13 @@ def test_draws_rows_take_each_half_of_a_stacked_multiplier():
 
 def test_cross_rank_stats_pool_moments_and_refuse_the_pooled_kernel(
         monkeypatch):
-    """Under ``cross_rank_stats`` a train-mode batch norm normalises with
-    the reduced moment sums (two ranks holding the same rows: the moments
-    of those rows), and the pooled-MLP kernel, whose moments are its own
-    call's rows, refuses: a fused SetConv takes the plain stack."""
+    """(The name is the parent's, whose pooled-MLP kernel refused under
+    ``cross_rank_stats``.) Under ``cross_rank_stats`` a train-mode batch
+    norm normalises with the reduced moment sums (two ranks holding the
+    same rows: the moments of those rows), and so does the pooled-MLP
+    kernel's split, to the same pooled output, running moments and
+    gradients as the single-process kernel path; a fused SetConv takes the
+    kernel there, and the plain stack under stat_groups(2)."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(4, 5, 8, generator=gen) * 2 + 0.5
     plain, synced = BatchNorm(8, device="cpu"), BatchNorm(8, device="cpu")
@@ -315,15 +370,72 @@ def test_cross_rank_stats_pool_moments_and_refuse_the_pooled_kernel(
     torch.testing.assert_close(synced.var, plain.var, rtol=1e-5, atol=1e-6)
     mlp = SharedMLP(6, [8, 8], act=relu, norm="batch", use_bias=False,
                     generator=gen, device="cpu")
-    with cross_rank_stats(lambda t: t, 1):
-        with pytest.raises(ValueError, match="cross_rank_stats"):
-            mlp.pooled(torch.randn(2, 3, 4, 6, generator=gen), True)
+    table = torch.randn(2, 3, 4, 6, generator=gen)
+    runs = []
+    for ctx in (contextlib.nullcontext(), cross_rank_stats(lambda t: t + t, 2)):
+        m, x = copy.deepcopy(mlp), table.clone().requires_grad_()
+        with ctx:
+            y = m.pooled(x, True)
+        y.sum().backward()
+        runs.append([y, x.grad, *m.state_dict().values(),
+                     *[p.grad for p in m.parameters()]])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     calls = []
     monkeypatch.setattr(layers, "pooled_mlp_bn_train",
-                        lambda *a, **k: calls.append(1))
+                        lambda *a, **k: calls.append(k) or
+                        P.pooled_mlp_bn_train(*a, **k))
     sa = SetConv(3, [8, 8], npoint=4, radius=0.5, nsample=4,
                  fused_train=True, generator=gen, device="cpu")
     xyz = torch.randn(2, 16, 3, generator=gen)
     with cross_rank_stats(lambda t: t, 1):
         _, pooled = sa(xyz, xyz, train=True)
-    assert pooled.shape == (2, 4, 8) and not calls
+    assert pooled.shape == (2, 4, 8) and len(calls) == 1
+    assert calls[0]["world"] == 1 and calls[0]["reduce"] is not None
+    with stat_groups(2):
+        sa(torch.cat([xyz, xyz]), torch.cat([xyz, xyz]), train=True)
+    assert len(calls) == 1
+
+
+def test_pooled_split_on_two_ranks_matches_the_plain_stack(steps):
+    """Each rank's pooled split (the kernel's plain version summing each
+    layer's moment sums over the ranks) against the plain stack + max
+    under ``cross_rank_stats`` on its rows: pooled output, running moments,
+    dtable, dW, dgamma, dbeta; its moments, each rank's dtable and the
+    ranks' summed parameter gradients against the single-process op on
+    the whole table."""
+    _, _, outs, *_ = steps
+    case = _pooled_case()
+    mlp = SharedMLP(5, POOLED_WIDTHS, act=leaky_relu_001, norm="batch",
+                    use_bias=False, generator=torch.Generator().manual_seed(7),
+                    device="cpu")
+    mlp.load_state_dict(case["state_dict"])
+    x = case["table"].clone().requires_grad_()
+    y = mlp.pooled(x, True)
+    (y * case["g"]).sum().backward()
+    whole = {k: p.grad for k, p in mlp.named_parameters()}
+    close = lambda a, b: torch.testing.assert_close(
+        a, b, rtol=0, atol=POOLED_TOL * float(b.abs().max()))
+    for r, o in enumerate(outs):
+        split, stack = o["pooled"]["split"], o["pooled"]["stack"]
+        for k in ("pooled", "table_grad"):
+            close(split[k], stack[k])
+        for k, v in stack["state"].items():
+            close(split["state"][k], v)
+        for k, v in stack["grads"].items():
+            close(split["grads"][k], v)
+        close(split["pooled"], y.detach()[2 * r:2 * r + 2])
+        close(split["table_grad"], x.grad[2 * r:2 * r + 2])
+        for k, v in mlp.state_dict().items():
+            close(split["state"][k], v)
+        layers_ = list(mlp.children())
+        mus, vars_ = o["pooled"]["moments"]
+        _, wmus, wvars, *_ = P.pooled_mlp_bn_forward_plain(
+            case["table"], [l.weight(False).t().detach() for l in layers_],
+            [l.BatchNorm_0.scale.detach() for l in layers_],
+            [l.BatchNorm_0.bias.detach() for l in layers_], 0.01)
+        for got, want in zip([*mus, *vars_], [*wmus, *wvars]):
+            close(got, want)
+    for k, v in whole.items():
+        close(outs[0]["pooled"]["split"]["grads"][k]
+              + outs[1]["pooled"]["split"]["grads"][k], v)

@@ -172,3 +172,36 @@ def test_negative_slope_is_refused_on_the_cpu_too(rng):
     t = lambda *s: T(rng.standard_normal(s).astype(np.float32))
     with pytest.raises(ValueError, match="slope"):
         P.pooled_mlp_bn_train(t(1, 2, 4, 6), [t(6, 8)], [t(8)], [t(8)], -0.1)
+
+
+def _pooled_bn_run(table, ws, gs, bs, g, slope, **kw):
+    leaves = [x.clone().requires_grad_() for x in [table, *ws, *gs, *bs]]
+    nl = len(ws)
+    p, mus, vs = P.pooled_mlp_bn_train(leaves[0], leaves[1:1 + nl],
+                                       leaves[1 + nl:1 + 2 * nl],
+                                       leaves[1 + 2 * nl:], slope, **kw)
+    (p * g).sum().backward()
+    return [p, *mus, *vs] + [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("stage,shape,widths,slope", STAGES[:2] + STAGES[3:],
+                         ids=["sa_0", "sa_1", "sa_pooling"])
+def test_split_without_a_cross_rank_sum_is_the_single_call(rng, stage, shape,
+                                                            widths, slope):
+    """The split op (each layer's moment sums through ``reduce``, world 1)
+    with the identity for ``reduce`` equals the op without it bit for bit:
+    pooled output, moments and every gradient; and a sum over two ranks
+    holding the same rows (t + t, world 2) equals it to f32 rounding."""
+    t = lambda *s: T(rng.standard_normal(s).astype(np.float32))
+    cs = (shape[-1],) + widths
+    ws = [t(cs[i], cs[i + 1]) / cs[i] ** 0.5 for i in range(len(widths))]
+    gs = [T(x) for x in _gammas(rng, widths, "mixed")]
+    bs = [0.1 * t(h) for h in widths]
+    case = (t(*shape), ws, gs, bs, t(*shape[:2], widths[-1]), slope)
+    one = _pooled_bn_run(*case)
+    for a, b in zip(one, _pooled_bn_run(*case, reduce=lambda x: x, world=1)):
+        assert torch.equal(a, b)
+    for a, b in zip(one, _pooled_bn_run(*case, reduce=lambda x: x + x,
+                                        world=2)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))

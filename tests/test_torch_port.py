@@ -1010,10 +1010,10 @@ def _pooled_bn_case(gen):
     return tab, ws, gs, bs, t(2, 64, 64)
 
 
-def _run_pooled_bn(dev, tab, ws, gs, bs, g):
+def _run_pooled_bn(dev, tab, ws, gs, bs, g, **kw):
     leaves = [x.to(dev).requires_grad_() for x in [tab, *ws, *gs, *bs]]
     p, mus, vs = pooled_mlp.pooled_mlp_bn_train(
-        leaves[0], leaves[1:3], leaves[3:5], leaves[5:7], 0.01)
+        leaves[0], leaves[1:3], leaves[3:5], leaves[5:7], 0.01, **kw)
     (p * g.to(dev)).sum().backward()
     return [p, *mus, *vs] + [x.grad for x in leaves]
 
@@ -1026,6 +1026,27 @@ def test_pooled_mlp_kernels_match_plain_on_card(card, gen):
         b = b.detach()
         torch.testing.assert_close(a.detach().cpu(), b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_pooled_mlp_stages_without_a_cross_rank_sum_are_one_call_on_card(
+        card, gen):
+    """The kernel's stages (each layer's moment sums through ``reduce``)
+    with the identity at world 1 equal the one-call kernel bit for bit,
+    each counting one forward and one backward launch; with two ranks
+    holding the same rows (t + t, world 2) they equal it to f32 rounding."""
+    case = _pooled_bn_case(gen)
+    one = _run_pooled_bn(card, *case)
+    before = (pooled_mlp.FWD.launches, pooled_mlp.BWD.launches)
+    staged = _run_pooled_bn(card, *case, reduce=lambda t: t, world=1)
+    assert (pooled_mlp.FWD.launches,
+            pooled_mlp.BWD.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(one, staged):
+        assert torch.equal(a, b)
+    for a, b in zip(one, _run_pooled_bn(card, *case, reduce=lambda t: t + t,
+                                        world=2)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 @pytest.mark.gpu

@@ -12,6 +12,7 @@ the test process computes the JAX side and compares.
     torchrun --standalone --nproc_per_node 2 tests/torch_dist_worker.py CASE DIR
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -165,6 +166,40 @@ def _pooled_counter():
     return calls
 
 
+def _collective_counter():
+    """Counts the collectives the port's ``parallel.mesh`` makes (every
+    all-reduce, autograd-aware or not, and every gather)."""
+    from tpugan_tpu_torch.parallel import mesh
+
+    calls = [0]
+
+    def counted(fn):
+        def run(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return run
+
+    mesh.all_reduce_ = counted(mesh.all_reduce_)
+    mesh.gather_cat = counted(mesh.gather_cat)
+    return calls
+
+
+@contextlib.contextmanager
+def _plain_stack_under_cross_rank_stats():
+    """The rule of the port before the pooled-MLP kernel took cross-rank
+    moments: under ``cross_rank_stats`` every SetConv takes the plain
+    stack."""
+    import tpugan_tpu_torch.nn.layers as layers
+    import tpugan_tpu_torch.nn.setconv as setconv
+
+    own = setconv.fusable_stats
+    setconv.fusable_stats = lambda: own() and layers._STAT_REDUCE is None
+    try:
+        yield
+    finally:
+        setconv.fusable_stats = own
+
+
 def _state_tensors(state):
     """Parameters, buffers and Adam moments of the three networks."""
     out = {"n_iter": state.n_iter}
@@ -181,14 +216,16 @@ def _steps(inp, make_step, groups):
     """For each run of ``inp["runs"]`` (a trainer state, the global batch
     and the global draws) one step per ``groups`` entry (its name, its
     group, None for the single-process step, and whether the rank takes
-    the whole batch), each from a copy of the state; a run with
-    ``references`` False takes the data-parallel step alone."""
+    the whole batch), each from a copy of the state, with its calls of the
+    pooled-MLP kernel and its collectives; a run with ``references`` False
+    takes the data-parallel step alone. The entry "dp_plain_stack" is the
+    data-parallel step with every SetConv on the plain stack."""
     import copy
 
     from tpugan_tpu_torch.parallel import mesh
     from tpugan_tpu_torch.train.step import DataParallel
 
-    calls = _pooled_counter()
+    calls, collectives = _pooled_counter(), _collective_counter()
     out = []
     for run in inp["runs"]:
         got = {}
@@ -199,18 +236,68 @@ def _steps(inp, make_step, groups):
             step = make_step(run["cfg"])
             step.dp = None if group is None else DataParallel(group)
             batch = run["batch"] if whole else mesh.batch_sharded(run["batch"])
-            calls[0] = 0
-            metrics = step(state, {k: v.contiguous() for k, v in batch.items()},
-                           run["draws"])
+            calls[0] = collectives[0] = 0
+            with (_plain_stack_under_cross_rank_stats()
+                  if what == "dp_plain_stack" else contextlib.nullcontext()):
+                metrics = step(state, {k: v.contiguous()
+                                       for k, v in batch.items()},
+                               run["draws"])
             got[what] = {"metrics": metrics, "state": _state_tensors(state),
-                         "pooled_calls": calls[0]}
+                         "pooled_calls": calls[0],
+                         "collectives": collectives[0]}
         out.append(got)
+    return out
+
+
+def _pooled_split(inp):
+    """The fused pooled SharedMLP in train mode on this rank's rows of
+    ``inp["table"]`` under ``cross_rank_stats`` (the kernel's plain split
+    with the cross-rank sum) and the plain stack + max under the same
+    context, each from the same module state, with the cotangent's rows:
+    pooled output, running moments, the gradients of the table, weights,
+    scales and biases; and the moments ``pooled_mlp_bn_train`` returns."""
+    import copy
+
+    from tpugan_tpu_torch.nn.layers import (SharedMLP, cross_rank_stats,
+                                            leaky_relu_001)
+    from tpugan_tpu_torch.ops.kernels.pooled_mlp import pooled_mlp_bn_train
+    from tpugan_tpu_torch.parallel import mesh
+
+    world, r = mesh.world_size(), mesh.rank()
+    table = mesh.shard_rows(inp["table"], 0, world, r)
+    g = mesh.shard_rows(inp["g"], 0, world, r)
+    mlp = SharedMLP(table.shape[-1], inp["widths"], act=leaky_relu_001,
+                    norm="batch", use_bias=False,
+                    generator=torch.Generator().manual_seed(inp["seed"]),
+                    device="cpu")
+    mlp.load_state_dict(inp["state_dict"])
+    out = {}
+    for name, fused in (("split", True), ("stack", False)):
+        m = copy.deepcopy(mlp)
+        x = table.clone().requires_grad_()
+        with cross_rank_stats(lambda t: mesh.all_reduce(t), world):
+            y = m.pooled(x, True) if fused else m(x, True).amax(dim=2)
+        (y * g).sum().backward()
+        out[name] = {"pooled": y.detach(), "table_grad": x.grad,
+                     "state": {k: v.clone() for k, v in m.state_dict().items()},
+                     "grads": {k: p.grad.clone()
+                               for k, p in m.named_parameters()}}
+    layers_ = list(mlp.children())
+    with torch.no_grad():
+        _, mus, vars_ = pooled_mlp_bn_train(
+            table, [l.weight(False).t() for l in layers_],
+            [l.BatchNorm_0.scale for l in layers_],
+            [l.BatchNorm_0.bias for l in layers_], 0.01,
+            reduce=lambda t: mesh.all_reduce_(t.clone()), world=world)
+    out["moments"] = (mus, vars_)
     return out
 
 
 def case_steps(inp):
     """The data-parallel fluid and action steps of ``inp["fluid"]`` and
-    ``inp["action"]`` at the world's size; then, with
+    ``inp["action"]`` at the world's size (the fluid ones also with every
+    SetConv on the plain stack); the pooled split of ``inp["pooled"]``
+    (:func:`_pooled_split`), where given; then, with
     ``inp["references"]``, the single-process references on the whole
     batch, shared out so the ranks work at once: rank 0 runs the fluid ones
     in a group of that rank alone (world size 1) and without data
@@ -223,8 +310,11 @@ def case_steps(inp):
     fluid = lambda cfg: FluidGanStep(cfg, data_parallel=True)
     action = lambda cfg: ActionGanStep(cfg, data_parallel=True)
     dp = [("dp", mesh.DATA_AXIS, False)]
-    out = {"fluid": _steps(inp["fluid"], fluid, dp),
+    out = {"fluid": _steps(inp["fluid"], fluid,
+                           dp + [("dp_plain_stack", mesh.DATA_AXIS, False)]),
            "action": _steps(inp["action"], action, dp)}
+    if "pooled" in inp:
+        out["pooled"] = _pooled_split(inp["pooled"])
     if inp.get("references"):
         world, r = mesh.world_size(), mesh.rank()
         alone = [dist.new_group([i]) for i in range(world)][0]

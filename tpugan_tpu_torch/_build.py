@@ -118,15 +118,17 @@ class CudaKernel:
         lib.error_string.restype = ctypes.c_char_p
         return lib
 
-    def launch(self, symbol: str, *args) -> None:
-        """Call ``symbol``; raise if the launch was refused or failed."""
+    def launch(self, symbol: str, *args, count: bool = True) -> None:
+        """Call ``symbol``; raise if the launch was refused or failed.
+        ``count=False``: one part of a launch made of several calls, whose
+        caller counts it once."""
         if self._lib is None:
             self._lib = self._load()
         rc = getattr(self._lib, symbol)(*args)
         if rc != 0:
             msg = self._lib.error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{symbol}: CUDA error {rc}: {msg}")
-        self.launches += 1
+        self.launches += count
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -332,11 +332,15 @@ def rank0_writer(rank: int, log_dir: str):
 
 
 def print_network_sizes(state, say=print) -> None:
+    """The three networks' parameter totals, as the JAX train CLIs print
+    them."""
+    from tpugan_tpu_torch.train.state import param_count
+
     say("Building network")
     for name, net in (("sr_net", state.sr), ("tempo_dis", state.tempo),
                       ("spatial_dis", state.spatial)):
-        count = sum(p.numel() for p in net.module.parameters())
-        say(f"Total trainable parameters ({name}): {count}")
+        say(f"Total trainable parameters ({name}): "
+            f"{param_count(net.module)}")
 
 
 def _profiler(torch):

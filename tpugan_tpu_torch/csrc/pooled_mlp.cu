@@ -75,6 +75,13 @@
 //     prologue of both products.
 //   Reductions over rows never use float atomics, whose order changes from
 //   run to run: every partial sum has one owner and a fixed order.
+//   Moments over more rows than a call's (a batch split over ranks, the
+//   port's twin of GSPMD's global-batch moments): pmlp_bn_forward_sums /
+//   pmlp_bn_forward_finish and pmlp_bn_backward_stage run the same passes
+//   a layer at a time, so that the caller can sum each layer's column sums
+//   (forward, double) and its S1, S2 (backward) over the ranks between
+//   them; mu, var and dz then take the summed sums and row count, while
+//   dW, dgamma and dbeta stay sums over this call's rows.
 //
 // The affine form runs on the same blocks, a subset of the batch-norm
 // form's work: pmlp_affine_forward computes each layer's z once
@@ -444,6 +451,26 @@ Src input_src(int l, const void* table, const void* const* z, const float* a,
   return s;
 }
 
+// mu, var, ivar, a, b of channel o from its column sum s and sum of squares
+// q over count rows.
+__device__ __forceinline__ void bn_moments(double s, double q, double count,
+                                           const float* __restrict__ gamma,
+                                           const float* __restrict__ beta,
+                                           float eps, float* mu, float* var,
+                                           float* ivar, float* a, float* b,
+                                           int o) {
+  const double m = s / count;
+  const float mf = (float)m;
+  const float vf = (float)(q / count - m * m);
+  const float iv = 1.f / sqrtf(fmaxf(vf, 0.f) + eps);
+  const float af = gamma[o] * iv;
+  mu[o] = mf;
+  var[o] = vf;
+  ivar[o] = iv;
+  a[o] = af;
+  b[o] = beta[o] - mf * af;
+}
+
 // mu, var, ivar, a, b of one layer from per-tile sums and sums of squares.
 __global__ void __launch_bounds__(RX * RY)
 bn_stats(const float* __restrict__ part_s, const float* __restrict__ part_q,
@@ -455,16 +482,33 @@ bn_stats(const float* __restrict__ part_s, const float* __restrict__ part_q,
   const double q = col_sum(part_q, nblk, n, red);
   const int o = blockIdx.x * RX + threadIdx.x;
   if (threadIdx.y != 0 || o >= n) return;
-  const double m = s / count;
-  const float mf = (float)m;
-  const float vf = (float)(q / count - m * m);
-  const float iv = 1.f / sqrtf(fmaxf(vf, 0.f) + eps);
-  const float af = gamma[o] * iv;
-  mu[o] = mf;
-  var[o] = vf;
-  ivar[o] = iv;
-  a[o] = af;
-  b[o] = beta[o] - mf * af;
+  bn_moments(s, q, count, gamma, beta, eps, mu, var, ivar, a, b, o);
+}
+
+// The split forward's halves of bn_stats: bn_sums writes one layer's column
+// sums and sums of squares, sums [2, n] in double (added in the same fixed
+// order as bn_stats adds them), which the caller may sum over ranks;
+// bn_finish forms the moments from them.
+__global__ void __launch_bounds__(RX * RY)
+bn_sums(const float* __restrict__ part_s, const float* __restrict__ part_q,
+        int nblk, int n, double* __restrict__ sums) {
+  __shared__ double red[RY][RX];
+  const double s = col_sum(part_s, nblk, n, red);
+  const double q = col_sum(part_q, nblk, n, red);
+  const int o = blockIdx.x * RX + threadIdx.x;
+  if (threadIdx.y != 0 || o >= n) return;
+  sums[o] = s;
+  sums[n + o] = q;
+}
+
+__global__ void bn_finish(const double* __restrict__ sums, int n,
+                          double count, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, float eps, float* mu,
+                          float* var, float* ivar, float* a, float* b) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  bn_moments(sums[o], sums[n + o], count, gamma, beta, eps, mu, var, ivar, a,
+             b, o);
 }
 
 struct Layers {
@@ -479,6 +523,57 @@ Layers layers(int L, const int* c) {
     Y.tot += c[l + 1];
   }
   return Y;
+}
+
+// The packed moments of the batch-norm form's forward.
+struct Moments {
+  float *mu, *var, *ivar, *a, *b;
+};
+
+Moments moments(void* stats, int tot) {
+  float* mu = static_cast<float*>(stats);
+  return {mu, mu + tot, mu + 2 * tot, mu + 3 * tot, mu + 4 * tot};
+}
+
+// Layer p's product pass of the batch-norm forward: z_p = x_p W_p with its
+// per-tile column sums and sums of squares in part; the last layer also
+// keeps each neighbourhood's extremes of z in ext.
+RowsArgs stats_pass(const void* table, const void* const* W, void* const* z,
+                    const Moments& S, const Layers& Y, void* part, void* ext,
+                    int R, int ns, int L, const int* c, int tile_rows,
+                    float slope, int p) {
+  const int K = c[p], N = c[p + 1];
+  const int hb = p > 0 ? Y.hoff[p - 1] : 0;
+  const int tiles = (R + tile_rows - 1) / tile_rows;
+  const int nout = (R / ns) * c[L];
+  RowsArgs P = {};
+  P.A = input_src(p, table, z, S.a + hb, S.b + hb, R, K, slope);
+  P.B = plain_src(W[p], K, N);
+  P.R = R;
+  P.K = K;
+  P.N = N;
+  P.tile_rows = tile_rows;
+  P.ns = ns;
+  P.epi = kStats;
+  P.out = static_cast<float*>(z[p]);
+  P.part_u = static_cast<float*>(part);
+  P.part_v = P.part_u + (size_t)tiles * N;
+  if (p == L - 1) {
+    P.zmax = static_cast<float*>(ext);
+    P.zmin = P.zmax + nout;
+  }
+  return P;
+}
+
+cudaError_t pool_top(const Moments& S, const Layers& Y, const void* ext,
+                     void* pooled, int R, int ns, int L, const int* c,
+                     float slope, cudaStream_t st) {
+  const int nout = (R / ns) * c[L], hL = Y.hoff[L - 1];
+  const float* zmax = static_cast<const float*>(ext);
+  pool_extremes<<<(nout + 255) / 256, 256, 0, st>>>(
+      zmax, zmax + nout, S.a + hL, S.b + hL, nout, c[L], slope,
+      static_cast<float*>(pooled));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -497,47 +592,68 @@ extern "C" int pmlp_bn_forward(const void* table, const void* const* W,
                                float eps, void* stream) {
   const Layers Y = layers(L, c);
   auto st = static_cast<cudaStream_t>(stream);
-  float* mu = static_cast<float*>(stats);
-  float* var = mu + Y.tot;
-  float* ivar = var + Y.tot;
-  float* a = ivar + Y.tot;
-  float* b = a + Y.tot;
+  const Moments S = moments(stats, Y.tot);
   const int tiles = (R + tile_rows - 1) / tile_rows;
-  const int nout = (R / ns) * c[L];
-  float* zmax = static_cast<float*>(ext);
   for (int p = 0; p < L; ++p) {
-    const int K = c[p], N = c[p + 1], h = Y.hoff[p];
-    const int hb = p > 0 ? Y.hoff[p - 1] : 0;
-    RowsArgs P = {};
-    P.A = input_src(p, table, z, a + hb, b + hb, R, K, slope);
-    P.B = plain_src(W[p], K, N);
-    P.R = R;
-    P.K = K;
-    P.N = N;
-    P.tile_rows = tile_rows;
-    P.ns = ns;
-    P.epi = kStats;
-    P.out = static_cast<float*>(z[p]);
-    P.part_u = static_cast<float*>(part);
-    P.part_v = P.part_u + (size_t)tiles * N;
-    if (p == L - 1) {
-      P.zmax = zmax;
-      P.zmin = zmax + nout;
-    }
+    const int N = c[p + 1], h = Y.hoff[p];
+    const RowsArgs P = stats_pass(table, W, z, S, Y, part, ext, R, ns, L, c,
+                                  tile_rows, slope, p);
     cudaError_t e = rows_launch(P, false, p == 0 ? kPlain : kAct, st);
     if (e != cudaSuccess) return (int)e;
     bn_stats<<<(N + RX - 1) / RX, dim3(RX, RY), 0, st>>>(
         P.part_u, P.part_v, tiles, N, (double)R,
         static_cast<const float*>(gamma[p]), static_cast<const float*>(beta[p]),
-        eps, mu + h, var + h, ivar + h, a + h, b + h);
+        eps, S.mu + h, S.var + h, S.ivar + h, S.a + h, S.b + h);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const int hL = Y.hoff[L - 1];
-  pool_extremes<<<(nout + 255) / 256, 256, 0, st>>>(
-      zmax, zmax + nout, a + hL, b + hL, nout, c[L], slope,
-      static_cast<float*>(pooled));
+  return (int)pool_top(S, Y, ext, pooled, R, ns, L, c, slope, st);
+}
+
+// pmlp_bn_forward split at each layer's moments, for moments over more rows
+// than this call's (a batch split over ranks): pmlp_bn_forward_sums runs
+// layer p's product (reading layer p - 1's a, b from stats) and writes
+// sums [2, c_{p+1}] (double): its column sums and sums of squares over this
+// call's R rows; pmlp_bn_forward_finish forms layer p's moments from sums
+// over count rows (the caller may have summed them over ranks) and, after
+// the last layer, pooled. Called for p = 0..L-1 in turn with the arguments
+// of pmlp_bn_forward, they compute what it computes, bit for bit when sums
+// are this call's own and count is R.
+extern "C" int pmlp_bn_forward_sums(const void* table, const void* const* W,
+                                    void* const* z, void* stats, void* part,
+                                    void* ext, void* sums, int R, int ns,
+                                    int L, const int* c, int tile_rows,
+                                    float slope, int p, void* stream) {
+  const Layers Y = layers(L, c);
+  auto st = static_cast<cudaStream_t>(stream);
+  const RowsArgs P = stats_pass(table, W, z, moments(stats, Y.tot), Y, part,
+                                ext, R, ns, L, c, tile_rows, slope, p);
+  const cudaError_t e = rows_launch(P, false, p == 0 ? kPlain : kAct, st);
+  if (e != cudaSuccess) return (int)e;
+  const int N = c[p + 1];
+  bn_sums<<<(N + RX - 1) / RX, dim3(RX, RY), 0, st>>>(
+      P.part_u, P.part_v, (R + tile_rows - 1) / tile_rows, N,
+      static_cast<double*>(sums));
   return (int)cudaGetLastError();
+}
+
+extern "C" int pmlp_bn_forward_finish(const void* sums, double count,
+                                      const void* gamma, const void* beta,
+                                      void* stats, const void* ext,
+                                      void* pooled, int R, int ns, int L,
+                                      const int* c, float slope, float eps,
+                                      int p, void* stream) {
+  const Layers Y = layers(L, c);
+  auto st = static_cast<cudaStream_t>(stream);
+  const Moments S = moments(stats, Y.tot);
+  const int N = c[p + 1], h = Y.hoff[p];
+  bn_finish<<<(N + 127) / 128, 128, 0, st>>>(
+      static_cast<const double*>(sums), N, count,
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), eps,
+      S.mu + h, S.var + h, S.ivar + h, S.a + h, S.b + h);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p < L - 1) return (int)e;
+  return (int)pool_top(S, Y, ext, pooled, R, ns, L, c, slope, st);
 }
 
 namespace {
@@ -563,39 +679,49 @@ struct Vecs {
 
 // The backward of both forms (pmlp_bn_backward, pmlp_backward_affine);
 // affine: dz = a dpre (kScale), with mu = 0 and ivar = 1 (zhat = z), so
-// S1 is db and S2 da.
+// S1 is db and S2 da. Each pass writes its layer's S1, S2 (this call's
+// rows) into s12; the batch-norm form's dz reads them from s12g (packed as
+// s12) with ninv = 1 / the rows they sum over. stage < 0 runs every pass;
+// stage L the top pass alone, stage q < L layer q's products alone (the
+// split backward, pmlp_bn_backward_stage).
 int backward(const void* table, const void* const* W, const void* const* z,
              const Vecs& V, const void* pooled, const void* gout,
              void* const* dpre, void* part, void* dw_part, void* dtable,
-             void* const* dW, void* s12, int R, int ns, int L, const int* c,
-             int tile_rows, const int* split_rows, float slope, bool affine,
-             void* stream) {
+             void* const* dW, void* s12, const void* s12g, int R, int ns,
+             int L, const int* c, int tile_rows, const int* split_rows,
+             float slope, float ninv, bool affine, int stage, void* stream) {
   const Layers Y = layers(L, c);
   auto st = static_cast<cudaStream_t>(stream);
   enum { MU = 0, IVAR = 2, A = 3, B = 4 };
   float* s1 = static_cast<float*>(s12);
   float* s2 = s1 + Y.tot;
+  const float* g1 = static_cast<const float*>(s12g);
+  const float* g2 = g1 + Y.tot;
   float* pu = static_cast<float*>(part);
-  const float ninv = 1.f / (float)R;
   const int dz_kind = affine ? kScale : kDz;
   cudaError_t e;
 
-  const int top_tiles = (R + tile_rows - 1) / tile_rows;
-  const int cL = c[L], hL = Y.hoff[L - 1];
-  const TopArgs T = {static_cast<const float*>(z[L - 1]), V.at(A, hL, L - 1),
-                     V.at(B, hL, L - 1), V.at(MU, hL, L - 1),
-                     V.at(IVAR, hL, L - 1), static_cast<const float*>(pooled),
-                     static_cast<const float*>(gout),
-                     static_cast<float*>(dpre[L - 1]), pu,
-                     pu + (size_t)top_tiles * cL, R, ns, cL, tile_rows, slope};
-  top_kernel<<<top_tiles, THREADS, 0, st>>>(T);
-  sum_cols_launch(T.part_u, top_tiles, cL, s1 + hL, st);
-  sum_cols_launch(T.part_v, top_tiles, cL, s2 + hL, st);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (stage < 0 || stage == L) {
+    const int top_tiles = (R + tile_rows - 1) / tile_rows;
+    const int cL = c[L], hL = Y.hoff[L - 1];
+    const TopArgs T = {static_cast<const float*>(z[L - 1]),
+                       V.at(A, hL, L - 1), V.at(B, hL, L - 1),
+                       V.at(MU, hL, L - 1), V.at(IVAR, hL, L - 1),
+                       static_cast<const float*>(pooled),
+                       static_cast<const float*>(gout),
+                       static_cast<float*>(dpre[L - 1]), pu,
+                       pu + (size_t)top_tiles * cL, R, ns, cL, tile_rows,
+                       slope};
+    top_kernel<<<top_tiles, THREADS, 0, st>>>(T);
+    sum_cols_launch(T.part_u, top_tiles, cL, s1 + hL, st);
+    sum_cols_launch(T.part_v, top_tiles, cL, s2 + hL, st);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
 
   const int row_tiles = (R + ROW_TILE - 1) / ROW_TILE;
   for (int q = L - 1; q >= 0; --q) {
+    if (stage >= 0 && stage != q) continue;
     const int C = c[q], N1 = c[q + 1], h = Y.hoff[q];
     const int hb = q > 0 ? Y.hoff[q - 1] : 0;
     Src dz = plain_src(dpre[q], R, N1);
@@ -604,8 +730,8 @@ int backward(const void* table, const void* const* W, const void* const* z,
       dz.z = static_cast<const float*>(z[q]);
       dz.v[1] = V.at(MU, h, q);
       dz.v[2] = V.at(IVAR, h, q);
-      dz.v[3] = s1 + h;
-      dz.v[4] = s2 + h;
+      dz.v[3] = g1 + h;
+      dz.v[4] = g2 + h;
       dz.ninv = ninv;
     }
 
@@ -678,8 +804,32 @@ extern "C" int pmlp_bn_backward(const void* table, const void* const* W,
   const Vecs V = {static_cast<const float*>(stats), nullptr, nullptr,
                   nullptr, nullptr, layers(L, c).tot};
   return backward(table, W, z, V, pooled, gout, dpre, part, dw_part, dtable,
-                  dW, s12, R, ns, L, c, tile_rows, split_rows, slope, false,
-                  stream);
+                  dW, s12, s12, R, ns, L, c, tile_rows, split_rows, slope,
+                  1.f / (float)R, false, -1, stream);
+}
+
+// pmlp_bn_backward in stages, for moments over more rows than this call's:
+// stage L runs the top pass (S1, S2 of layer L - 1 into s12), then stage q
+// = L - 1..0 layer q's products, whose dz reads S1, S2 of layer q from
+// s12g (summed over count rows: the caller may have summed s12's over
+// ranks) and which write S1, S2 of layer q - 1 into s12. The other
+// arguments are pmlp_bn_backward's; with s12g equal to s12 and count R the
+// stages compute what it computes, bit for bit.
+extern "C" int pmlp_bn_backward_stage(const void* table, const void* const* W,
+                                      const void* const* z, const void* stats,
+                                      const void* pooled, const void* gout,
+                                      void* const* dpre, void* part,
+                                      void* dw_part, void* dtable,
+                                      void* const* dW, void* s12,
+                                      const void* s12g, int R, int ns, int L,
+                                      const int* c, int tile_rows,
+                                      const int* split_rows, float slope,
+                                      int count, int stage, void* stream) {
+  const Vecs V = {static_cast<const float*>(stats), nullptr, nullptr,
+                  nullptr, nullptr, layers(L, c).tot};
+  return backward(table, W, z, V, pooled, gout, dpre, part, dw_part, dtable,
+                  dW, s12, s12g, R, ns, L, c, tile_rows, split_rows, slope,
+                  1.f / (float)count, false, stage, stream);
 }
 
 // Forward of the affine form. In: table [R, c0], W[l] [c_l, c_{l+1}],
@@ -741,6 +891,6 @@ extern "C" int pmlp_backward_affine(const void* table, const void* const* W,
   const Vecs V = {nullptr, a, b, static_cast<const float*>(zeros),
                   static_cast<const float*>(ones), layers(L, c).tot};
   return backward(table, W, z, V, pooled, gout, dpre, part, dw_part, dtable,
-                  dW, s12, R, ns, L, c, tile_rows, split_rows, slope, true,
-                  stream);
+                  dW, s12, s12, R, ns, L, c, tile_rows, split_rows, slope,
+                  1.f / (float)R, true, -1, stream);
 }

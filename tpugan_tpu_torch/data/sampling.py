@@ -1,7 +1,8 @@
-"""Host-side numpy sampling of the input pipeline: the port's own copy of the
-parts of ``tpugan_tpu/data/sampling.py`` that the dataset and the eval path
-use (numpy farthest point sampling, the kd-tree patch with its FPS
-downsample, bucket padding, radius counts and free-surface particles).
+"""Host-side numpy sampling of the input pipeline: the port's own copy of
+``tpugan_tpu/data/sampling.py`` (numpy farthest point sampling, the kd-tree
+patch with its FPS downsample, voxel downsampling with and without
+features, the voxel-downsampled patch sampler, overlap filtering, bucket
+padding, a cloud's bounds, radius counts and free-surface particles).
 
 The JAX package takes its native C++ FPS and patch search when that library
 is built; the port has no native code. Its FPS is the numpy loop, which
@@ -132,3 +133,95 @@ def get_free_surface_particles(pos: np.ndarray, radius: float) -> np.ndarray:
     n = pos.shape[0]
     threshold = np.mean(sorted_nbr[int(n * 0.95): n - int(n * 0.01)])
     return pos[nbr < 0.85 * threshold]
+
+
+def _voxel_means(pos: np.ndarray, voxel: float, *cols: np.ndarray):
+    """The f32 means of ``pos`` and of each of ``cols`` over each occupied
+    voxel of edge ``voxel`` (anchored at the cloud's minimum), in the
+    voxels' lexicographic key order."""
+    keys = np.floor((pos - pos.min(0)) / voxel).astype(np.int64)
+    _, inverse, counts = np.unique(keys, axis=0, return_inverse=True,
+                                   return_counts=True)
+    inverse = inverse.reshape(-1)
+    out = []
+    for a in (pos, *cols):
+        sums = np.zeros((counts.shape[0], a.shape[1]), np.float64)
+        np.add.at(sums, inverse, a)
+        out.append((sums / counts[:, None]).astype(np.float32))
+    return out
+
+
+def voxel_downsample(pos: np.ndarray, radius: float, ds_ratio: float,
+                     rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """One point per occupied voxel of edge radius / ds_ratio (its
+    centroid), then a random subset of ds_ratio times the input count
+    where more voxels are occupied (the reference's Open3D
+    ``voxel_down_sample``, train_utils.py:13-30)."""
+    rng = rng or np.random.default_rng()
+    pos = pos.reshape(-1, 3)
+    (ds_pos,) = _voxel_means(pos, (1.0 / ds_ratio) * radius + 1e-9)
+    target = int(ds_ratio * pos.shape[0])
+    if ds_pos.shape[0] > target:
+        ds_pos = ds_pos[rng.choice(ds_pos.shape[0], target, replace=False)]
+    return ds_pos
+
+
+def voxel_downsample_with_feat(pos: np.ndarray, feat: np.ndarray,
+                               radius: float, ds_ratio: float,
+                               rng: Optional[np.random.Generator] = None
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`voxel_downsample` carrying per-point features as voxel means
+    (reference train_utils.py:68-95)."""
+    rng = rng or np.random.default_rng()
+    pos = pos.reshape(-1, 3)
+    ds_pos, ds_feat = _voxel_means(pos, (1.0 / ds_ratio) * radius + 1e-9,
+                                   feat)
+    target = int(ds_ratio * pos.shape[0])
+    if ds_pos.shape[0] > target:
+        sel = rng.choice(ds_pos.shape[0], target, replace=False)
+        ds_pos, ds_feat = ds_pos[sel], ds_feat[sel]
+    return ds_pos, ds_feat
+
+
+def sample_patch(input_pos: np.ndarray, h: float = 1.0,
+                 return_free_surface_particles: bool = True,
+                 rng: Optional[np.random.Generator] = None):
+    """The voxel-downsampled patch sampler (reference train_utils.py:33-65):
+    a kd-tree patch around a random seed, of 32,768, 16,384 or 8,192
+    points by the cloud's size (the whole cloud up to 10,000), downsampled
+    by voxels at ratio 0.5, drawn again until the downsample keeps at least
+    500 points (at most 100 draws). (patch, downsample[, free-surface
+    particles of the patch])."""
+    rng = rng or np.random.default_rng()
+    total = input_pos.shape[0]
+    patch_num = (32768 if total > 80000 else 16384 if total > 40000
+                 else 8192 if total > 10000 else total)
+    tree = cKDTree(input_pos)
+    for _ in range(100):
+        seed = input_pos[rng.integers(total)]
+        _, patch = tree.query(seed, patch_num)
+        patch_pos = input_pos[patch]
+        ds_pos = voxel_downsample(patch_pos, radius=BASE_RADIUS / h,
+                                  ds_ratio=0.50, rng=rng)
+        if ds_pos.shape[0] >= 500 or patch_num < 1000:
+            break
+    else:
+        raise RuntimeError("Abnormal sampling times!")
+    if return_free_surface_particles:
+        surface = get_free_surface_particles(patch_pos, 2.2 * BASE_RADIUS / h)
+        return patch_pos, ds_pos, surface
+    return patch_pos, ds_pos
+
+
+def filter_overlap_particles(pos: np.ndarray, h: float = BASE_RADIUS * 0.5
+                             ) -> np.ndarray:
+    """Near-coincident particles merged by voxel hashing: one centroid per
+    occupied voxel of edge h (reference train_utils.py:241-255)."""
+    pos = np.asarray(pos, np.float32).reshape(-1, 3)
+    return _voxel_means(pos, h + 1e-8)[0]
+
+
+def get_distribution_info(points: np.ndarray):
+    """(centroid, min bound, max bound) of a cloud (reference
+    train_utils.py:201-211)."""
+    return points.mean(0), points.min(0), points.max(0)

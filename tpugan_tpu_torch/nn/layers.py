@@ -1,6 +1,7 @@
 """Pointwise layers (``tpugan_tpu/nn/layers.py``): Dense with flax
 initialisation, a BatchNorm and a SpectralNorm with flax semantics, the
-ConvLayer and the SharedMLP (with its fused pooled path).
+ConvLayer, the SharedMLP (with its fused pooled path) and the dense MLP
+head.
 
 Bias quirk kept from the reference: the generator's norm-free convs carry
 no bias (gcn_lib enables the conv bias exactly when a norm follows); the
@@ -26,7 +27,11 @@ steps' twin of GSPMD's global-batch moments): inside the context every
 train-mode ``BatchNorm`` sums its moments over this rank's rows (per stat
 group) and all-reduces the sums with the autograd-aware all-reduce it is
 given, so each rank normalises with the global batch's moments and the
-backward carries the other ranks' terms, as SyncBatchNorm does.
+backward carries the other ranks' terms, as SyncBatchNorm does. A fused
+``SharedMLP.pooled`` in train mode hands the same sum to the pooled-MLP
+kernel, which sums each layer's moment sums over the ranks between its
+passes (the JAX package's kernel runs there too, on GSPMD's global
+batch).
 
 Compute dtype follows flax ``nn.Dense``: with ``dtype`` set, input and
 weight are cast to it and the output has it; with ``dtype=None`` the input
@@ -78,7 +83,7 @@ def current_stat_groups() -> int:
 
 # (reduce, world) of the cross-rank batch statistics, or None: set around a
 # data-parallel step by ``cross_rank_stats``; read by ``BatchNorm.forward``
-# and checked by ``SharedMLP.pooled``.
+# and handed to the kernel by ``SharedMLP.pooled``.
 _STAT_REDUCE = None
 
 
@@ -96,11 +101,12 @@ def cross_rank_stats(reduce: Callable[[torch.Tensor], torch.Tensor],
         _STAT_REDUCE = prev
 
 
-def local_batch_stats() -> bool:
+def fusable_stats() -> bool:
     """True when a train-mode batch norm's moments are those of all the
-    rows of its call: no ``stat_groups`` (G = 1), no ``cross_rank_stats``.
-    Only then may the pooled-MLP kernel compute them."""
-    return _STAT_GROUPS == 1 and _STAT_REDUCE is None
+    rows of its call, or of all the rows of every rank's call under
+    ``cross_rank_stats``: no ``stat_groups`` with G > 1 (the JAX package's
+    ``_fusable``). Only then may the pooled-MLP kernel compute them."""
+    return _STAT_GROUPS == 1
 
 
 def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
@@ -337,14 +343,15 @@ class SharedMLP(nn.Module):
         (s = sqrt(max(var, 0))), whose moments are the batch's, as the JAX
         package's ``bn_update`` probe does.
 
-        The kernel pools the moments of all rows of this call, so it refuses
-        to run under ``stat_groups`` with G > 1 and under
-        ``cross_rank_stats``: a caller takes the plain stack there (the JAX
-        package's ``_fusable``)."""
-        if not local_batch_stats():
+        The kernel pools the moments of all rows of this call (under
+        ``cross_rank_stats``, of every rank's call: it sums each layer's
+        moment sums over the ranks through the context's sum), so it refuses
+        to run under ``stat_groups`` with G > 1: a caller takes the plain
+        stack there (the JAX package's ``_fusable``)."""
+        if not fusable_stats():
             raise ValueError(f"the pooled-MLP kernel pools the moments of all "
                              f"rows of its call: not under stat_groups("
-                             f"{_STAT_GROUPS}) or cross_rank_stats")
+                             f"{_STAT_GROUPS})")
         layers = list(self.children())
         slope = act_slope(self.act)
         if self.dtype is not None or slope is None:
@@ -363,8 +370,10 @@ class SharedMLP(nn.Module):
             return pooled_mlp_affine(x, ws, ones, bs, slope)
         bns = [layer.BatchNorm_0 for layer in layers]
         if train:
+            reduce, world = _STAT_REDUCE or (None, 1)
             pooled, mus, vars_ = pooled_mlp_bn_train(
-                x, ws, [bn.scale for bn in bns], [bn.bias for bn in bns], slope)
+                x, ws, [bn.scale for bn in bns], [bn.bias for bn in bns], slope,
+                reduce=reduce, world=world)
             for bn, mu, var in zip(bns, mus, vars_):
                 s = torch.sqrt(torch.clamp_min(var, 0.0))
                 probe = torch.stack([mu - s, mu + s])
@@ -376,3 +385,45 @@ class SharedMLP(nn.Module):
                for bn in bns]
         b_s = [bn.bias - bn.mean * a for bn, a in zip(bns, a_s)]
         return pooled_mlp_affine(x, ws, a_s, b_s, slope)
+
+
+class MLP(nn.Module):
+    """The plain dense MLP head (reference gcn_lib/nn.py:7-54):
+    ``hidden_layers`` Dense layers, ``hidden_dim`` wide but the last
+    (``out_features``), ``act`` after each but the last and, with
+    ``activation_first``, before the first; with ``spectral_norm`` each
+    Dense kernel spectral-normalised (one power step a call, its ``u``
+    stored in train mode). Parameter names follow flax: ``Dense_l`` and
+    ``SpectralNorm_l``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 hidden_dim: int = 128, hidden_layers: int = 3,
+                 act: Callable = relu, activation_first: bool = False,
+                 spectral_norm: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        generator, device = seeded(generator), resolve_device(device)
+        self.act, self.activation_first = act, activation_first
+        self.hidden_layers, self.spectral_norm = hidden_layers, spectral_norm
+        for l in range(hidden_layers):
+            width = out_features if l == hidden_layers - 1 else hidden_dim
+            self.add_module(f"Dense_{l}", dense(in_features, width, True,
+                                                generator, device))
+            if spectral_norm:
+                self.add_module(f"SpectralNorm_{l}",
+                                SpectralNorm(width, generator, device))
+            in_features = width
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if self.activation_first:
+            x = self.act(x)
+        for l in range(self.hidden_layers):
+            lin = getattr(self, f"Dense_{l}")
+            w = lin.weight
+            if self.spectral_norm:
+                w = getattr(self, f"SpectralNorm_{l}")(w, update_stats=train)
+            x = F.linear(x, w, lin.bias)
+            if l < self.hidden_layers - 1:
+                x = self.act(x)
+        return x

@@ -29,6 +29,20 @@ def spline(q: torch.Tensor) -> torch.Tensor:
                        torch.where(q <= 1.0, 2.0 * (1.0 - q) ** 3, 0.0))
 
 
+def exponential_kernel(r: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """Gaussian SPH weight of a distance (reference
+    gcn_lib/interpolation.py:83-85): pi^(-3/2) cutoff^3 exp(-(r / cutoff)^2),
+    the reference's coefficient as written."""
+    coeff = 1.0 / math.sqrt(math.pi ** 3) * cutoff ** 3
+    return coeff * torch.exp(-((r / cutoff) ** 2))
+
+
+def linear_kernel(r: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """Tent weight max(1 - r / cutoff, 0) (reference
+    gcn_lib/interpolation.py:88-89)."""
+    return torch.clamp_min(1.0 - r / cutoff, 0.0)
+
+
 def bicubic_kernel(r: torch.Tensor, cutoff: float) -> torch.Tensor:
     """Cubic B-spline SPH kernel of a distance, scaled by 8 / (pi cutoff^3)."""
     q = r / cutoff

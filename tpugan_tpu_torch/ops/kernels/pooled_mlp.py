@@ -11,7 +11,9 @@ products, the batch-norm form's moment sums, and the pooling), and
 ``AFFINE_FWD`` those of the affine form alone; ``BWD`` backward launches of
 the batch-norm form (one per call: the tie pass, then each layer's dW and
 dx products), ``AFFINE_BWD`` those of the affine form (one per call: the
-same passes without the batch-norm terms). The handles load the same
+same passes without the batch-norm terms). A batch-norm launch whose
+moments are summed over ranks (``reduce``) is several calls into the
+library, one layer at a time, and counts once. The handles load the same
 library. :func:`launch_plan` gives either form's tiles, passes and scratch
 for a table shape. The kernel's source note says what bounds it on the
 card and how it is laid out.
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,9 +32,16 @@ from tpugan_tpu_torch._build import INT, VOIDP, CudaKernel, ptr, stream_of
 _F = ctypes.c_float
 FWD = CudaKernel("pooled_mlp", {
     "pmlp_bn_forward": [VOIDP] * 9 + [INT] * 3 + [VOIDP, INT, _F, _F, VOIDP],
+    "pmlp_bn_forward_sums": [VOIDP] * 7 + [INT] * 3 + [VOIDP, INT, _F, INT,
+                                                       VOIDP],
+    "pmlp_bn_forward_finish": [VOIDP, ctypes.c_double] + [VOIDP] * 5
+    + [INT] * 3 + [VOIDP, _F, _F, INT, VOIDP],
     "pmlp_affine_forward": [VOIDP] * 7 + [INT] * 3 + [VOIDP, INT, _F, VOIDP]})
 _BWD_TAIL = [INT] * 3 + [VOIDP, INT, VOIDP, _F, VOIDP]
-BWD = CudaKernel("pooled_mlp", {"pmlp_bn_backward": [VOIDP] * 12 + _BWD_TAIL})
+BWD = CudaKernel("pooled_mlp", {
+    "pmlp_bn_backward": [VOIDP] * 12 + _BWD_TAIL,
+    "pmlp_bn_backward_stage": [VOIDP] * 13 + _BWD_TAIL[:-1] + [INT, INT,
+                                                               VOIDP]})
 AFFINE_BWD = CudaKernel("pooled_mlp", {
     "pmlp_backward_affine": [VOIDP] * 15 + _BWD_TAIL})
 
@@ -99,18 +108,31 @@ def _check_slope(slope: float) -> None:
                          "is taken from the extremes of z")
 
 
-def pooled_mlp_bn_forward_plain(table, ws, gammas, betas, slope, eps=1e-5):
+def _rows(table) -> int:
+    return table.shape[0] * table.shape[1] * table.shape[2]
+
+
+def pooled_mlp_bn_forward_plain(table, ws, gammas, betas, slope, eps=1e-5,
+                                reduce=None, world=1):
     """(pooled, mus, vars, ivars, a_s, b_s) of the train-mode stack, pooled
-    from the last layer's extremes as the kernel pools."""
+    from the last layer's extremes as the kernel pools. With ``reduce`` (a
+    sum over ``world`` ranks of equal row counts) each layer's column sums
+    and sums of squares, packed [2, C], are summed over the ranks, and the
+    moments are those of every rank's rows; ``reduce`` the identity at
+    world 1 gives the moments without it, bit for bit."""
     _check_slope(slope)
     x = table.float()
+    n = _rows(table) * world
     mus, vars_, ivars, a_s, b_s = [], [], [], [], []
     for w, g, bt in zip(ws, gammas, betas):
         if a_s:
             x = act(z * a_s[-1] + b_s[-1], slope)
         z = torch.matmul(x, w)
-        mu = z.mean(dim=(0, 1, 2))
-        var = (z * z).mean(dim=(0, 1, 2)) - mu * mu
+        sums = torch.stack([z.sum(dim=(0, 1, 2)), (z * z).sum(dim=(0, 1, 2))])
+        if reduce is not None:
+            sums = reduce(sums)
+        mu = sums[0] / n
+        var = sums[1] / n - mu * mu
         iv = torch.rsqrt(torch.clamp_min(var, 0.0) + eps)
         a = g * iv
         mus.append(mu)
@@ -124,12 +146,16 @@ def pooled_mlp_bn_forward_plain(table, ws, gammas, betas, slope, eps=1e-5):
 
 
 def pooled_mlp_bn_backward_plain(table, ws, a_s, b_s, mus, ivars, pooled, g,
-                                 slope):
+                                 slope, reduce=None, world=1):
     """(dtable, dws, dgammas, dbetas) by the kernel's formulas: the pooled
     cotangent split over the ties of the max, then the layers top down with
     the batch-norm terms S1 = sum dpre (dbeta), S2 = sum dpre zhat
-    (dgamma)."""
-    n = table.shape[0] * table.shape[1] * table.shape[2]
+    (dgamma). With ``reduce`` (the forward's) each layer's S1 and S2,
+    packed [2, C], are summed over the ranks before its dz reads them, over
+    ``world`` times the rows; dW, dgamma and dbeta stay sums over this
+    rank's rows (what autograd gives a rank through the plain stack under
+    ``cross_rank_stats``)."""
+    n = _rows(table) * world
     xs, zs = [table.float()], []
     for w, a, b in zip(ws, a_s, b_s):
         zs.append(torch.matmul(xs[-1], w))
@@ -143,7 +169,8 @@ def pooled_mlp_bn_backward_plain(table, ws, a_s, b_s, mus, ivars, pooled, g,
         zhat = (zs[q] - mus[q]) * ivars[q]
         s1 = dpre.sum(dim=(0, 1, 2))
         s2 = (dpre * zhat).sum(dim=(0, 1, 2))
-        dz = a_s[q] * (dpre - s1 / n - zhat * (s2 / n))
+        g1, g2 = (s1, s2) if reduce is None else reduce(torch.stack([s1, s2]))
+        dz = a_s[q] * (dpre - g1 / n - zhat * (g2 / n))
         dws[q] = torch.einsum("bmnc,bmnh->ch", xs[q], dz)
         dgammas[q], dbetas[q] = s2, s1
         dx = torch.matmul(dz, ws[q].t())
@@ -357,10 +384,13 @@ def _launch_affine_forward(table, ws, a_s, b_s, slope, keep):
     return pooled, zs, ws, a_s, b_s
 
 
-def _launch_bn_forward(table, ws, gammas, betas, slope, eps):
+def _launch_bn_forward(table, ws, gammas, betas, slope, eps, reduce=None,
+                       world=1):
     """(pooled, zs, stats, ws): the layer outputs z_l [R, C_{l+1}] and the
     packed moments (mu, var, ivar, a, b) that the backward reads, and the
-    contiguous f32 weights it launches with."""
+    contiguous f32 weights it launches with. With ``reduce``, one layer at
+    a time: its column sums [2, C_{l+1}] (f64) summed over the ranks before
+    its moments are formed over ``world`` times the rows."""
     b, m, ns, c0 = table.shape
     c = _widths(table, ws)
     hs = [w.shape[1] for w in ws]
@@ -372,21 +402,42 @@ def _launch_bn_forward(table, ws, gammas, betas, slope, eps):
     zs = [torch.empty((rows, h), device=dev) for h in hs]
     stats = torch.empty(5 * sum(hs), device=dev)
     pooled = torch.empty((b, m, hs[-1]), dtype=torch.float32, device=dev)
+    if reduce is not None and not rows:
+        raise ValueError("pooled_mlp: an empty table takes no cross-rank "
+                         "moments")
     if rows:
         part = torch.empty(plan["part_floats"] + plan["ext_floats"], device=dev)
-        FWD.launch("pmlp_bn_forward", ptr(table), _ptrs(ws), _ptrs(gammas),
-                   _ptrs(betas), _ptrs(zs), ptr(stats), ptr(part),
-                   ptr(part[plan["part_floats"]:]), ptr(pooled), rows, ns,
-                   len(ws), _ints(c), plan["tile_rows"], _F(slope), _F(eps),
-                   stream_of(table))
+        ext = part[plan["part_floats"]:]
+        if reduce is None:
+            FWD.launch("pmlp_bn_forward", ptr(table), _ptrs(ws), _ptrs(gammas),
+                       _ptrs(betas), _ptrs(zs), ptr(stats), ptr(part),
+                       ptr(ext), ptr(pooled), rows, ns, len(ws), _ints(c),
+                       plan["tile_rows"], _F(slope), _F(eps),
+                       stream_of(table))
+            return pooled, zs, stats, ws
+        for p, h in enumerate(hs):
+            sums = torch.empty((2, h), dtype=torch.float64, device=dev)
+            FWD.launch("pmlp_bn_forward_sums", ptr(table), _ptrs(ws),
+                       _ptrs(zs), ptr(stats), ptr(part), ptr(ext), ptr(sums),
+                       rows, ns, len(ws), _ints(c), plan["tile_rows"],
+                       _F(slope), p, stream_of(table), count=False)
+            sums = reduce(sums).contiguous()
+            FWD.launch("pmlp_bn_forward_finish", ptr(sums),
+                       ctypes.c_double(rows * world), ptr(gammas[p]),
+                       ptr(betas[p]), ptr(stats), ptr(ext), ptr(pooled), rows,
+                       ns, len(ws), _ints(c), _F(slope), _F(eps), p,
+                       stream_of(table), count=False)
+        FWD.launches += 1
     return pooled, zs, stats, ws
 
 
 def _launch_bn_backward(table, ws, zs, stats, pooled, g, slope,
-                        affine=None):
+                        affine=None, reduce=None, world=1):
     """(dtable, dws, dgammas, dbetas) from the forward's saved z and
     moments; ``affine`` (a_s, b_s): (dtable, dws, das, dbs) of the affine
-    form from its saved z and its affines (``stats`` unused)."""
+    form from its saved z and its affines (``stats`` unused). With
+    ``reduce`` (the batch-norm form's forward's), in stages: each layer's
+    S1, S2 [2, C_{l+1}] summed over the ranks before its dz reads them."""
     b, m, ns, c0 = table.shape
     hs = [w.shape[1] for w in ws]
     plan = _plan(tuple(table.shape), tuple(hs), slope, affine is not None)
@@ -406,12 +457,17 @@ def _launch_bn_backward(table, ws, zs, stats, pooled, g, slope,
             handle, symbol = AFFINE_BWD, "pmlp_backward_affine"
             zeros, ones = _units(dev)
             vecs = (_ptrs(affine[0]), _ptrs(affine[1]), ptr(zeros), ptr(ones))
-        handle.launch(symbol, ptr(table), _ptrs(ws), _ptrs(zs),
-                   *vecs, ptr(pooled), ptr(g),
-                   _ptrs(dpre), ptr(part), ptr(dw_part), ptr(dtable),
-                   _ptrs(dws), ptr(s12), rows, ns, len(ws),
-                   _ints([c0, *hs]), plan["tile_rows"],
-                   _ints(plan["split_rows"]), _F(slope), stream_of(table))
+        if reduce is None:
+            handle.launch(symbol, ptr(table), _ptrs(ws), _ptrs(zs), *vecs,
+                          ptr(pooled), ptr(g), _ptrs(dpre), ptr(part),
+                          ptr(dw_part), ptr(dtable), _ptrs(dws), ptr(s12),
+                          rows, ns, len(ws), _ints([c0, *hs]),
+                          plan["tile_rows"], _ints(plan["split_rows"]),
+                          _F(slope), stream_of(table))
+        else:
+            _staged_bn_backward(table, ws, zs, stats, pooled, g, dpre, part,
+                                dw_part, dtable, dws, s12, plan, slope,
+                                reduce, world)
     else:
         dws = [w.zero_() for w in dws]
         s12.zero_()
@@ -419,29 +475,78 @@ def _launch_bn_backward(table, ws, zs, stats, pooled, g, slope,
     return dtable, dws, list(s2), list(s1)
 
 
+def _staged_bn_backward(table, ws, zs, stats, pooled, g, dpre, part,
+                        dw_part, dtable, dws, s12, plan, slope, reduce,
+                        world):
+    """pmlp_bn_backward in stages (``pmlp_bn_backward_stage``): the top
+    pass, then each layer's products top down; after each pass that wrote
+    a layer's S1, S2 into ``s12`` they are summed over the ranks into the
+    copy that the next pass's dz reads. Counted once."""
+    b, m, ns, c0 = table.shape
+    hs = [w.shape[1] for w in ws]
+    tot, offs = sum(hs), [sum(hs[:l]) for l in range(len(hs))]
+    s12g = torch.empty_like(s12)
+    c = _ints([c0, *hs])
+
+    def stage(st):
+        BWD.launch("pmlp_bn_backward_stage", ptr(table), _ptrs(ws),
+                   _ptrs(zs), ptr(stats), ptr(pooled), ptr(g), _ptrs(dpre),
+                   ptr(part), ptr(dw_part), ptr(dtable), _ptrs(dws), ptr(s12),
+                   ptr(s12g), plan["rows"], ns, len(ws), c, plan["tile_rows"],
+                   _ints(plan["split_rows"]), _F(slope), plan["rows"] * world,
+                   st, stream_of(table), count=False)
+
+    def summed(q):
+        h, n = offs[q], hs[q]
+        both = reduce(torch.stack([s12[h:h + n], s12[tot + h:tot + h + n]]))
+        s12g[h:h + n] = both[0]
+        s12g[tot + h:tot + h + n] = both[1]
+
+    stage(len(ws))
+    summed(len(ws) - 1)
+    for q in reversed(range(len(ws))):
+        stage(q)
+        if q:
+            summed(q - 1)
+    BWD.launches += 1
+
+
+def _plain_sum(reduce):
+    """``reduce`` outside autograd: the kernels' sums carry no graph."""
+    if reduce is None:
+        return None
+
+    def summed(t):
+        with torch.no_grad():
+            return reduce(t)
+
+    return summed
+
+
 # ------------------------------------------------------------ entry points
 
 class _PooledBNTrain(torch.autograd.Function):
     """pooled_mlp_bn_train with its kernel backward. Inputs: table, slope,
-    eps, L, then W_0..W_{L-1}, gamma_0.., beta_0..; outputs: pooled, then
-    the L means and L variances (non-differentiable). On the card the
-    forward keeps every layer's z for the backward."""
+    eps, L, reduce, world, then W_0..W_{L-1}, gamma_0.., beta_0..; outputs:
+    pooled, then the L means and L variances (non-differentiable). On the
+    card the forward keeps every layer's z for the backward."""
 
     @staticmethod
-    def forward(ctx, table, slope, eps, n_layers, *params):
+    def forward(ctx, table, slope, eps, n_layers, reduce, world, *params):
         ws = params[:n_layers]
         gammas = params[n_layers:2 * n_layers]
         betas = params[2 * n_layers:]
         ctx.slope, ctx.n_layers = slope, n_layers
+        ctx.reduce, ctx.world = reduce, world
         if table.device.type == "cpu":
             pooled, mus, vars_, ivars, a_s, b_s = pooled_mlp_bn_forward_plain(
-                table, ws, gammas, betas, slope, eps)
+                table, ws, gammas, betas, slope, eps, reduce, world)
             ctx.save_for_backward(table, pooled, *ws, *a_s, *b_s, *mus, *ivars)
         else:
             _check_card(table, *params)
             table = table.contiguous()
-            pooled, zs, stats, ws = _launch_bn_forward(table, ws, gammas,
-                                                       betas, slope, eps)
+            pooled, zs, stats, ws = _launch_bn_forward(
+                table, ws, gammas, betas, slope, eps, reduce, world)
             hs = [w.shape[1] for w in ws]
             mus = stats[:sum(hs)].split(hs)
             vars_ = stats[sum(hs):2 * sum(hs)].split(hs)
@@ -457,18 +562,23 @@ class _PooledBNTrain(torch.autograd.Function):
             ws, a_s, b_s = rest[:l], rest[l:2 * l], rest[2 * l:3 * l]
             mus, ivars = rest[3 * l:4 * l], rest[4 * l:]
             dtable, dws, dgs, dbs = pooled_mlp_bn_backward_plain(
-                table, ws, a_s, b_s, mus, ivars, pooled, g, ctx.slope)
+                table, ws, a_s, b_s, mus, ivars, pooled, g, ctx.slope,
+                ctx.reduce, ctx.world)
         else:
             table, pooled, stats, *rest = ctx.saved_tensors
             dtable, dws, dgs, dbs = _launch_bn_backward(
-                table, rest[:l], rest[l:], stats, pooled, g, ctx.slope)
-        return (dtable, None, None, None, *dws, *dgs, *dbs)
+                table, rest[:l], rest[l:], stats, pooled, g, ctx.slope,
+                reduce=ctx.reduce, world=ctx.world)
+        return (dtable, None, None, None, None, None, *dws, *dgs, *dbs)
 
 
 def pooled_mlp_bn_train(table: torch.Tensor, ws: Sequence[torch.Tensor],
                         gammas: Sequence[torch.Tensor],
                         betas: Sequence[torch.Tensor], slope: float = 0.0,
-                        eps: float = 1e-5
+                        eps: float = 1e-5,
+                        reduce: Optional[Callable[[torch.Tensor],
+                                                  torch.Tensor]] = None,
+                        world: int = 1
                         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...],
                                    Tuple[torch.Tensor, ...]]:
     """Train-mode batch-norm stack + max-pool: (pooled [B, M, C_out],
@@ -481,10 +591,22 @@ def pooled_mlp_bn_train(table: torch.Tensor, ws: Sequence[torch.Tensor],
     gammas / betas [C_{l+1}], slope >= 0 (the max is taken from the
     extremes of the last layer's pre-norm output). A CPU table takes the
     plain versions; a CUDA table launches the kernels or raises.
+
+    ``reduce`` (a sum of a tensor over ``world`` ranks of equal row counts,
+    called outside autograd; the data-parallel step's cross-rank moments):
+    each layer's column sums and sums of squares are summed over the ranks
+    before its moments are formed, in the forward, and its S1, S2 before
+    its dz, in the backward: one call of ``reduce`` a layer each way. The
+    moments are then every rank's rows', and the gradients this rank's
+    share of the global batch's (dW, dgamma, dbeta sums over its rows),
+    as autograd gives them through the plain stack. Without it the kernel
+    runs as one call, and with the identity at world 1 its stages give
+    the same result bit for bit.
     """
     n = len(ws)
-    out = _PooledBNTrain.apply(table, float(slope), float(eps), n, *ws,
-                               *gammas, *betas)
+    out = _PooledBNTrain.apply(table, float(slope), float(eps), n,
+                               _plain_sum(reduce), int(world), *ws, *gammas,
+                               *betas)
     return out[0], tuple(out[1:1 + n]), tuple(out[1 + n:])
 
 

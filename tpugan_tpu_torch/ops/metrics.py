@@ -159,31 +159,54 @@ def _auction_phase(x: torch.Tensor, y: torch.Tensor, price: torch.Tensor,
     return price, assign
 
 
+# clouds this large are auctioned one batch item at a time with eps scaling
+# (the JAX package's threshold)
+SPLIT_ITEMS_AT = 32768
+
+
 def auction_assignment(x: torch.Tensor, y: torch.Tensor, eps: float = 0.05,
-                       iters: int = 100, phases: int = 1) -> torch.Tensor:
+                       iters: int = 100, phases: int = 1,
+                       theta: Optional[float] = None,
+                       final_iters: Optional[int] = None) -> torch.Tensor:
     """Approximate min-cost bijection x[i] -> y[assignment[i]] (cost the
     squared distance) by the Bertsekas auction, as a Jacobi auction.
 
     ``phases > 1`` turns on eps scaling anchored at the data's scale: the
     first phase runs at eps0 = max(|bounding-box diagonal|^2 / 4, eps) of
     the joint cloud, later phases step down by about ``_THETA`` to ``eps``
-    (more phases than ``phases`` when the ratio needs them). Each phase
-    restarts the assignment and keeps the prices. The final phase gets 10x
-    ``iters`` rounds, run in segments of ``iters`` that carry the prices
-    and the partial bijection, with a check for completion between
-    segments; then the bidders still unassigned are matched to the free
-    objects exactly by scipy's Hungarian solver, so the result is a full
-    permutation. With one phase (``iters`` rounds), bidders left unassigned
+    (more phases than ``phases`` when the ratio needs them); with ``theta``
+    the schedule is the fixed ladder eps theta^p, p = phases - 1 .. 0,
+    instead. Each phase restarts the assignment and keeps the prices. The
+    final phase gets ``final_iters`` rounds (default 10x ``iters``), run in
+    segments of ``iters`` that carry the prices and the partial bijection,
+    with a check for completion between segments; then the bidders still
+    unassigned are matched to the free objects exactly by scipy's
+    Hungarian solver, so the result is a full permutation. With one phase
+    (``final_iters`` rounds, default ``iters``), bidders left unassigned
     take their nearest target (duplicates possible).
+
+    At N >= 32,768 and B > 1 the JAX package solves the items one at a
+    time. Its result is then each item's own: with eps scaling the
+    schedule is anchored at that item's cloud, so the port splits there
+    too. With one phase the items' auctions are independent and the
+    whole batch gives the same assignment, so the port keeps one batched
+    solve (one host read a round, not B).
 
     x, y: [B, N, 3]. Returns [B, N] int64.
     """
     b, n, _ = x.shape
+    if n >= SPLIT_ITEMS_AT and b > 1 and phases > 1:
+        return torch.cat([auction_assignment(x[i:i + 1], y[i:i + 1], eps,
+                                             iters, phases, theta, final_iters)
+                          for i in range(b)])
     x, y = x.detach().float(), y.detach().float()
     price = torch.zeros((b, n), dtype=torch.float32, device=x.device)
-    final_iters = 10 * iters if phases > 1 else iters
+    if final_iters is None:
+        final_iters = 10 * iters if phases > 1 else iters
     if phases <= 1:
         schedule = [eps]
+    elif theta is not None:
+        schedule = [eps * theta ** p for p in range(phases - 1, -1, -1)]
     else:
         lo = torch.minimum(x.amin((0, 1)), y.amin((0, 1)))
         hi = torch.maximum(x.amax((0, 1)), y.amax((0, 1)))

@@ -166,6 +166,32 @@ def radius_mask_knn(query: torch.Tensor, cand: Optional[torch.Tensor] = None,
     return d2, idx, d2 < float(np.float32(radius) ** 2)
 
 
+def dilated_knn_graph(x: torch.Tensor, k: int = 9, dilation: int = 1,
+                      c_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """k // dilation neighbour indices by dilated kNN (reference
+    ``DilatedKnnGraph`` / ``Dilated``, gcn_lib/pointnet/gcn.py:48-93): every
+    ``dilation``-th of the k nearest, [B, N, k // dilation]."""
+    return knn(x, k=k, c_valid=c_valid)[1][:, :, ::dilation]
+
+
+def knn_graph(x: torch.Tensor, k: int = 9,
+              c_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain kNN edge list (reference ``KNNGraph``,
+    gcn_lib/graph_utils.py:65-87) as [B, N, k] indices."""
+    return knn(x, k=k, c_valid=c_valid)[1]
+
+
+def fixed_radius_graph(x: torch.Tensor, radius: float, k: int = 32,
+                       c_valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The radius-bounded neighbour list (reference ``FixedRadiusGraph``,
+    gcn_lib/graph_utils.py:39-62): [B, N, k] indices and the in-range mask;
+    ``torch.where(mask, idx, -1)`` gives the reference's -1 padding."""
+    _, idx, in_range = radius_mask_knn(x, x, k=k, radius=radius,
+                                       c_valid=c_valid)
+    return idx, in_range
+
+
 def fps(pos: torch.Tensor, npoint: int, valid: Optional[torch.Tensor] = None,
         start_idx: int = 0, start: Optional[torch.Tensor] = None
         ) -> torch.Tensor:

@@ -69,6 +69,13 @@ class Adam:
         self.sched_count += 1
 
 
+def param_count(module: nn.Module) -> int:
+    """The network's trainable parameter count (the flax ``params``
+    collection's size: running moments and spectral-norm vectors are
+    buffers)."""
+    return sum(p.numel() for p in module.parameters())
+
+
 @dataclasses.dataclass
 class NetState:
     """One network with its optimiser: params and buffers (BatchNorm

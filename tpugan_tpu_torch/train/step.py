@@ -67,7 +67,8 @@ the step on those rows equals the step on the global batch:
   and each rank takes its rows of the per-item ones (``rows``);
 * every train-mode batch norm pools its moments over the ranks
   (``cross_rank_stats``, at more than one rank; the pooled-MLP kernel
-  then gives way to the plain stack);
+  sums its layers' moment sums over the ranks between its passes, one
+  all-reduce a layer each way, as many as the plain stack's);
 * the masking-loss gate is decided on the all-reduced mean, so every rank
   takes the same branch;
 * each update's gradients are averaged in one flattened all-reduce (every
@@ -164,6 +165,36 @@ def rotate_items(pos: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bnd,bde->bne", pos, rots)
 
 
+def random_angles(gen: torch.Generator, *shape: int) -> torch.Tensor:
+    """Euler angles [*shape, 3], uniform on [0, 2 pi), drawn on the CPU
+    from ``gen`` (as the step's draws take them)."""
+    return torch.rand(shape + (3,), generator=gen) * (2 * math.pi)
+
+
+def get_rotation_matrix(gen: torch.Generator) -> torch.Tensor:
+    """A random Euler rotation Rz @ Ry @ Rx [3, 3] from ``gen`` (reference
+    train_step_final.py:10-30)."""
+    return rotation_matrix(random_angles(gen))
+
+
+def advect_particle(pos, vel, sign):
+    """pos + sign * vel * DT (reference train_step_final.py:33-35)."""
+    return pos + sign * vel * DT
+
+
+def rotate_lst(gen: torch.Generator, pos_frames: torch.Tensor,
+               vel_frames: Optional[torch.Tensor] = None):
+    """Every frame of [F, B, N, 3] rotated by its own random rotation from
+    ``gen`` (reference ``rotate_lst``, train_step_final.py:38-48); with
+    ``vel_frames``, (positions, velocities) under the same rotations."""
+    rots = rotation_matrix(random_angles(gen, pos_frames.shape[0])).to(
+        pos_frames)
+    rotated = rotate_frames(pos_frames, rots)
+    if vel_frames is not None:
+        return rotated, rotate_frames(vel_frames, rots)
+    return rotated
+
+
 # ---------------------------------------------------------------- draws
 
 @dataclasses.dataclass
@@ -212,7 +243,7 @@ class StepDraws:
         b, n = cfg.batch_size, cfg.lowres_size
         nr = n * cfg.upsample_ratio
         u = lambda *s: torch.rand(s, generator=gen)
-        angles = lambda k: u(k, 3) * (2 * math.pi)
+        angles = lambda k: random_angles(gen, k)
         return cls(
             labels=lsgan_labels(gen),
             sp_perm=torch.randperm(nr, generator=gen),
