@@ -177,14 +177,15 @@ Phases, one JSON line each (``phase`` names it):
            ptxas report, and a gradient above MAX_WIDTH and the batch-norm
            form above it refused; kNN at 128-point frames and the flow's
            k = 32 at B = 24, FPS on 72 rows of 2,048 and of 512, the ball
-           query at nsample 64 and 32, the general EdgeConv forward at
-           (1, 3, 64, 128); each against its plain version (run with the
-           kernel checks above);
+           query at nsample 64 and 32, the f32t EdgeConv forward at
+           EdgeConv_0's (1, 3, 64, 128) and the general forward at
+           GENERAL_EDGECONV (a class no path runs); each against its plain
+           version (run with the kernel checks above);
   action_serving with the launch counts reset: checkpoints/
            action_tempo_20k.ckpt's NoMaskSRNet through the action demo
            twin's upsample_clip, 24 frames of 128 -> 2,048 points of a
            synthetic clip (runs/chip_smoke_action/), launches against
-           ACTION_FRAME a frame (6 f32t, 1 general EdgeConv), the same
+           ACTION_FRAME a frame (7 f32t EdgeConvs, 0 general), the same
            model on the CPU with the card's graphs replayed, ms per frame;
   tempo_feat with the launch counts reset: ActionCls transferred from the
            checkpoint's temporal critic, one infer batch of 24 clips x 3
@@ -198,17 +199,18 @@ Phases, one JSON line each (``phase`` names it):
            at device sampling's 12 x 2,048 -> 128 and every critic stage,
            the ball query at the spatial critic's radii 0.3 / 0.6 / 1.0
            and the temporal critic's, nn1 at [4, 2,048]^2, EdgeConv_0's
-           (1, 3, 64, 128) on the general forward and the general f32
-           backward (12 frames of 128 points, random and exact ties); each
-           against its plain version (run with the kernel checks above);
+           (1, 3, 64, 128) on the f32t forward and the redesigned f32
+           backward, and the general f32 backward at GENERAL_EDGECONV (12
+           frames of 128 points, random and exact ties); each against its
+           plain version (run with the kernel checks above);
   train_action with the launch counts reset: the action train CLI twin
            (cli/train_action.main, called as a function) with
            TPUGAN_FUSED_EDGECONV_TRAIN=1, --preset train_dir
            --device_sampling --synthetic, resumed from
            checkpoints/action_tempo_20k.ckpt for iterations 20001-20004
            (runs/chip_smoke_train_action/): each step's launches against
-           ACTION_STEP_* (7 fused EdgeConv forwards and backwards, 6 on the
-           f32t forward and the redesigned backward, EdgeConv_0's on the
+           ACTION_STEP_* (7 fused EdgeConv forwards and backwards, all 7 on
+           the f32t forward and the redesigned backward, none on the
            general kernels; no pooled-MLP launch), the checkpoint
            iterations' test split against ACTION_CKPT_EVAL, every loss
            finite, the last checkpoint read back equal, ms per step (G only
@@ -219,6 +221,20 @@ Phases, one JSON line each (``phase`` names it):
            it; then one step on the card and on the CPU from the same state
            and draws, the updates by norm, and a card step without the
            generator's adversarial losses that must fail the comparison;
+  train_recipes with the launch counts and the native library's calls
+           reset before each: both train CLI twins as the recipe scripts
+           run them (--preset train_vel / train_dir, host sampling: no
+           --device_sampling, no fused switch) with --synthetic, resumed
+           from the checkpoints for iterations 20001-20004
+           (runs/chip_smoke_train_recipes/); each step's launches against
+           the device-sampling counts less its one FPS, every loss finite,
+           the native library's calls a batch (RECIPE_NATIVE), the loader's
+           ms a batch in the prefetch thread, each step's wait on the
+           queue and its ms; then the loader alone, native and plain in
+           turns on the same seeds (ms a batch; every library call held to
+           its plain version within LOADER_ROUNDING, the batch arrays that
+           differ counted), beside the host CPU and the card; a
+           native_library line before the kernels line;
   kernel   (fluid demo) kNN at the f32 dynamic forward's five graph shapes
            and the f32 EdgeConv forward at its six classes over 512 inputs,
            nn1 at 4,096 points both ways; each against its plain version
@@ -319,7 +335,8 @@ Phases, one JSON line each (``phase`` names it):
            at two (one rank's are the train phases' shapes), each against
            its plain version by the limits of its own rows above (the
            pooled-MLP rows made in the ranks, on the real two-rank sum).
-Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
+Then the ``native_library`` line, one ``{"kernels": [...]}`` line, the
+card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero before the ok line. Without a CUDA card, or outside the
 repository, it exits non-zero and prints no result.
@@ -335,6 +352,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3228,11 +3246,11 @@ TEMPO_FEAT_EPOCHS = 2
 
 # Launches per action_demo frame (NoMaskSRNet, width 128, r 16, f32 dynamic
 # graphs over a 128-point frame): EdgeConv_0's, the two IDGCN layers' and
-# the upsampler's two graphs; 7 EdgeConvs, of which EdgeConv_0's class (1,
-# 3, 64, 128) is in neither TC_CLASSES nor F32_TILED_CLASSES and takes the
-# general kernel, the other 6 the f32 register-tiled one.
+# the upsampler's two graphs; 7 EdgeConvs, all on the f32 register-tiled
+# kernel (EdgeConv_0's class (1, 3, 64, 128) among F32_TILED_CLASSES), none
+# on the general one.
 ACTION_FRAME = {"knn": 5, "edgeconv": 7}
-ACTION_FRAME_F32T = 6
+ACTION_FRAME_F32T = 7
 # Launches per ActionCls.infer call (3 frames): the two stacked FPS (sa1
 # over 3 x B rows, sa2), 3 ball queries each of sa1 and sa2, 3 flow kNN
 # (2 + 1 embeddings), and one affine pooled-MLP forward per SetConv call
@@ -3269,8 +3287,13 @@ ACTION_AFFINE_SHAPES = [
     ("ActionCls sa_pooling", (ACTION_CLIPS, 1, 256, 259), (512, 512), 1),
     ("ActionTempoDis sa_pooling", (ACTION_CLIPS, 1, 256, 259), (256, 512), 0),
 ]
-# the action demo's general-kernel EdgeConv class: (C, H, O, K, frame rows)
+# the action generator's EdgeConv_0 class: (C, H, O, K, frame rows)
 ACTION_EDGECONV = (3, 64, 128, 20, 128)
+# A class outside every f32 EdgeConv design (F32_TILED_CLASSES,
+# F32_TILED_BWD_CLASSES) that no path runs: the general f32 forward and
+# backward serve such classes, so the kernel rows keep holding them to
+# their plain versions here, at the action frames' shape. (mlp, C, H, O, K)
+GENERAL_EDGECONV = (True, 5, 32, 64, 20)
 
 
 def check_action_kernels(torch, dev):
@@ -3281,8 +3304,9 @@ def check_action_kernels(torch, dev):
     device time by kernel, bound and the forward instances' ptxas report;
     that a gradient through a layer above MAX_WIDTH and the batch-norm form
     above it are refused on the card; then kNN at Nc = 128 and the flow's
-    k = 32, FPS on 72 rows, the ball query at nsample 64 and the general
-    EdgeConv forward at (1, 3, 64, 128), each against its plain version by
+    k = 32, FPS on 72 rows, the ball query at nsample 64, the f32t EdgeConv
+    forward at EdgeConv_0's (1, 3, 64, 128) and the general forward at
+    GENERAL_EDGECONV's class (no path's), each against its plain version by
     the limits of its own rows. Its own generator keeps the other checks'
     data. Returns {kernel: rows}."""
     from tpugan_tpu_torch.ops.kernels import fps as F
@@ -3379,13 +3403,17 @@ def check_action_kernels(torch, dev):
               **out["ball_query"][-1]})
 
     c, h, o, k, n = ACTION_EDGECONV
-    row = _edgeconv_row(torch, dev, rng, "action EdgeConv_0", torch.float32,
-                        "f32", n, c, h, o, k, "max", True)
-    if row["variant"] != "simt":
-        raise AssertionError(f"edgeconv action EdgeConv_0: {row['variant']}")
-    out["edgeconv"].append(dict(config="action EdgeConv_0", N=n,
-                                per_forward=0, per_action_frame=1, **row))
-    emit({"phase": "kernel", "kernel": "edgeconv", **out["edgeconv"][-1]})
+    _, gc, gh, go, gk = GENERAL_EDGECONV
+    for config, cls, variant, per in (
+            ("action EdgeConv_0", (c, h, o, k), "f32t", 1),
+            ("general (no path's class)", (gc, gh, go, gk), "simt", 0)):
+        row = _edgeconv_row(torch, dev, rng, config, torch.float32, "f32", n,
+                            *cls, "max", True)
+        if row["variant"] != variant:
+            raise AssertionError(f"edgeconv {config}: {row['variant']}")
+        out["edgeconv"].append(dict(config=config, N=n, per_forward=0,
+                                    per_action_frame=per, **row))
+        emit({"phase": "kernel", "kernel": "edgeconv", **out["edgeconv"][-1]})
     return out
 
 
@@ -3395,7 +3423,7 @@ def action_serving(torch, dev, kernels):
     3,000 points, seed 0, written under runs/chip_smoke_action/) through
     ``cli/action_demo.upsample_clip`` with the trained NoMaskSRNet, 24
     frames of 128 points -> 2,048; each frame's launches against
-    ACTION_FRAME (6 on the f32 register-tiled EdgeConv, 1 on the general
+    ACTION_FRAME (all 7 on the f32 register-tiled EdgeConv, 0 on the general
     kernel); the same model on the CPU (plain versions) with the card's
     graphs replayed, positions to 1e-4; ms per frame (CUDA events) and its
     device time. Returns the phase's launches."""
@@ -3567,16 +3595,16 @@ ACTION_STEP_ALWAYS = {"fps": 1, "knn": 5, "nn1": 2}
 ACTION_STEP_G = {"fps": 5, "ball_query": 9, "knn": 3}
 ACTION_STEP_CRITICS = {"fps": 10, "ball_query": 18, "knn": 6}
 # With TPUGAN_FUSED_EDGECONV_TRAIN=1 the generator's 7 EdgeConvs run the
-# fused forward and backward kernels: 6 of each on the f32 register-tiled
-# forward and the redesigned backward, EdgeConv_0's class (1, 3, 64, 128) on
-# the general kernels (in neither F32_TILED_CLASSES nor
-# F32_TILED_BWD_CLASSES).
-ACTION_STEP_FUSED = {"edgeconv": 7, "edgeconv_bwd": 7, "edgeconv_f32t": 6,
-                     "edgeconv_bwd_tiled": 6}
+# fused forward and backward kernels: all 7 on the f32 register-tiled
+# forward and the redesigned backward (EdgeConv_0's class (1, 3, 64, 128)
+# among F32_TILED_CLASSES and F32_TILED_BWD_CLASSES), none on the general
+# kernels.
+ACTION_STEP_FUSED = {"edgeconv": 7, "edgeconv_bwd": 7, "edgeconv_f32t": 7,
+                     "edgeconv_bwd_tiled": 7}
 # After a checkpoint iteration (20001 and 20004 at the train_dir preset's
 # --ckpt_every 10000): the test split's 4 batches, one serving forward of
-# frame 0 each (5 kNN, 7 EdgeConvs, 6 of them f32t) and its Chamfer (2 nn1).
-ACTION_CKPT_EVAL = {"knn": 4 * 5, "edgeconv": 4 * 7, "edgeconv_f32t": 4 * 6,
+# frame 0 each (5 kNN, 7 EdgeConvs, all f32t) and its Chamfer (2 nn1).
+ACTION_CKPT_EVAL = {"knn": 4 * 5, "edgeconv": 4 * 7, "edgeconv_f32t": 4 * 7,
                     "nn1": 4 * 2}
 # Limit of the generator's gradients with the switch on against off (by
 # norm, as FUSED_GRAD_TOL; one state, one set of draws, the generator graphs
@@ -3614,8 +3642,9 @@ ACTION_TRAIN_BALL = [  # (stage, B, Nq, Nc, radius, nsample, per G+D step)
     ("tempo sa1 (per frame)", 4, 512, 2048, 0.8, 64, 9),
     ("tempo sa2 (per frame)", 4, 256, 512, 1.2, 32, 9),
 ]
-# the Chamfer (both directions) and EdgeConv_0's general forward and
-# backward at 12 frames of 128 points, k = 20 (random and exact ties)
+# the Chamfer (both directions) and EdgeConv_0's f32t forward and
+# redesigned backward at 12 frames of 128 points, k = 20 (random and exact
+# ties)
 ACTION_TRAIN_NN1 = ("action Chamfer", 4, 2048, 2048, 2)
 ACTION_TRAIN_EC0 = (3, 64, 128, 20, 12, 128)   # C, H, O, K, frames, points
 
@@ -3627,9 +3656,11 @@ def check_action_train_kernels(torch, dev):
     of 2,048 -> 128 and every critic stage, index for index; the ball query
     at the spatial critic's radii 0.3 / 0.6 / 1.0 and the temporal
     critic's, bit for bit; nn1 at [4, 2,048]^2; EdgeConv_0's (1, 3, 64,
-    128) on the general forward and the general f32 backward (random and
-    exact ties). Its own generator keeps the other checks' data. Returns
-    {kernel: rows}, each row with ``per_action_step``."""
+    128) on the f32t forward and the redesigned f32 backward (random and
+    exact ties), and the general f32 backward at GENERAL_EDGECONV's class
+    (no path's; random and exact ties). Its own generator keeps the other
+    checks' data. Returns {kernel: rows}, each row with
+    ``per_action_step``."""
     from tpugan_tpu_torch.ops.kernels import fps as F
 
     rng = np.random.default_rng(20)
@@ -3660,16 +3691,19 @@ def check_action_train_kernels(torch, dev):
     row = _edgeconv_row(torch, dev, rng, "action train EdgeConv_0",
                         torch.float32, "f32", n, c, h, o, k, "max", True,
                         b=frames)
-    if row["variant"] != "simt":
+    if row["variant"] != "f32t":
         raise AssertionError(f"edgeconv action EdgeConv_0: {row['variant']}")
     add("edgeconv", dict(config="action train EdgeConv_0", B=frames, N=n,
                          **row), 1)
-    for ties in (False, True):
-        add("edgeconv_bwd", _edgeconv_bwd_row(
-            torch, dev, rng, "action EdgeConv_0" + (" exact ties" if ties
-                                                    else ""),
-            c, h, o, k, "max", True, "f32", ties, frames, n, False),
-            0 if ties else 1)
+    _, gc, gh, go, gk = GENERAL_EDGECONV
+    for name, cls, tiled, per in (("action EdgeConv_0", (c, h, o, k), True, 1),
+                                  ("general (no path's class)",
+                                   (gc, gh, go, gk), False, 0)):
+        for ties in (False, True):
+            add("edgeconv_bwd", _edgeconv_bwd_row(
+                torch, dev, rng, name + (" exact ties" if ties else ""),
+                *cls, "max", True, "f32", ties, frames, n, tiled),
+                0 if ties else per)
     return out
 
 
@@ -3921,6 +3955,453 @@ def action_card_vs_cpu(torch, dev):
            "knn_tie_swaps": replay.swaps, "card_s": t1 - t0, "cpu_s": t2 - t1}
     hold_card_to_cpu(out, states, dev, m_card, m_cpu, before, mu_before,
                      ACTION_CARD_CPU_LOSS_TOL, ACTION_CARD_CPU_CHANGE_TOL)
+
+
+# --------------------------------------- the train recipes as scripts run them
+
+RECIPES_DIR = os.path.join(ROOT, "runs", "chip_smoke_train_recipes")  # gitignored
+RECIPE_ITERS = 20004
+# The scripts' CLI flags (scripts/train_vel_torch.sh, train_dir_torch.sh:
+# the preset) with --synthetic, resumed from the checkpoints; no
+# --device_sampling, no fused switch.
+RECIPE_ARGS = {
+    "fluid": ["--preset", "train_vel", "--synthetic", "--resume",
+              "--path_to_resume", CHECKPOINT],
+    "action": ["--preset", "train_dir", "--synthetic", "--resume",
+               "--path_to_resume", ACTION_CHECKPOINT]}
+# The native library's calls a batch of the recipes' host sampling
+# (data/fluid.py, data/msr.py): a fluid item's patch search and its FPS
+# downsample, 4 items a batch; an action clip's FPS downsample of each of
+# its 3 frames, 4 clips a batch. The test split's batches (at the
+# checkpoint iterations) sample the same way.
+RECIPE_NATIVE = {"fluid": {"fps": 4, "knn_patch": 4},
+                 "action": {"fps": 12, "knn_patch": 0}}
+# The loader alone, native against plain on the same seeds: turns of
+# LOADER_BATCHES batches each.
+LOADER_TURNS = ("native", "plain", "plain", "native")
+LOADER_BATCHES = 3
+# Where the native library and the plain versions part (data/sampling.py's
+# note): the library's f32 squared distances (fused multiply-adds under
+# -march=native) against the kd-tree's f64 ones and numpy's separately
+# rounded f32 ones. A patch must hold the kd-tree query's points but for
+# those within this share of the k-th distance of it, in an order whose f64
+# distances never fall by more than this share of the larger; each FPS pick
+# must lie within this share of the farthest remaining distance (f64). A
+# few ulps of f32 (2^-24 = 6e-8 a rounding).
+LOADER_ROUNDING = 1e-6
+
+
+def _host_cpu() -> dict:
+    """The host CPU's model as lscpu and /proc/cpuinfo name it (a virtual
+    machine's lscpu may say "unknown"), and the cores this process may
+    use."""
+    def field(text, key, sep=":"):
+        return next((line.split(sep, 1)[1].strip()
+                     for line in text.splitlines()
+                     if line.lower().startswith(key)), "unknown")
+
+    lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                           timeout=60).stdout
+    try:
+        with open("/proc/cpuinfo") as fh:
+            cpuinfo = fh.read()
+    except OSError:
+        cpuinfo = ""
+    return {"model": field(lscpu, "model name"),
+            "cpuinfo_model": field(cpuinfo, "model name"),
+            "vendor": field(lscpu, "vendor id"),
+            "family_model": [field(lscpu, "cpu family"),
+                             field(lscpu, "model:")],
+            "cores": len(os.sched_getaffinity(0))}
+
+
+class LoaderProbe:
+    """Times a train CLI's host loader where it runs: patches
+    ``data/prefetch.prefetch_iterator`` (the train batches' only user) so
+    that its producer thread makes the batches the recipe's own producer
+    makes while ``steps`` steps run, when the loader keeps up: the one each
+    step takes, the queue's ``size`` ready ones and the one it holds while
+    it waits for a slot (``limit`` = steps + size + 1). So every step runs
+    beside loader work. Each batch's making is timed there (``spans`` on
+    the host clock, ``loader_ms``; ``overlap_ms`` is the share inside a
+    step's window), and the consumer times each ``next`` the step waits
+    for (``wait_ms``). Patches the batch iterator ``name`` of ``module`` to
+    count every batch made (train and test splits). ``wait()`` returns
+    once the producer has made its last batch; the thread then blocks on
+    the full queue, as the recipe's does when its run ends, and what it
+    holds is dropped."""
+
+    def __init__(self, module, name, steps):
+        self.module, self.name, self.steps = module, name, steps
+        self.spans, self.wait_ms, self.made, self.limit = [], [], 0, None
+        self.done = threading.Event()
+
+    @property
+    def loader_ms(self):
+        return [(b - a) * 1e3 for a, b in self.spans]
+
+    def overlap_ms(self, start, end):
+        """The loader's work (ms) inside the host-clock window
+        [start, end]."""
+        return 1e3 * sum(max(0.0, min(b, end) - max(a, start))
+                         for a, b in self.spans)
+
+    def wait(self, timeout=600):
+        if not self.done.wait(timeout):
+            raise AssertionError(f"loader: {len(self.spans)} of {self.limit}"
+                                 f" batches after {timeout} s")
+
+    def __enter__(self):
+        import itertools
+
+        from tpugan_tpu_torch.data import prefetch as pf
+
+        self.pf, self.orig_pf = pf, pf.prefetch_iterator
+        self.orig_it = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            for batch in self.orig_it(*a, **kw):
+                self.made += 1
+                yield batch
+
+        def timed(it):          # runs in the producer thread
+            it = itertools.islice(it, self.limit)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it, None)
+                    if batch is None:
+                        return
+                    self.spans.append((t0, time.perf_counter()))
+                    if len(self.spans) == self.limit:
+                        self.done.set()
+                    yield batch
+            finally:
+                self.done.set()
+
+        def prefetch(it, size=2):
+            self.limit = self.steps + size + 1
+            inner = self.orig_pf(timed(it), size)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(inner, None)
+                if batch is None:
+                    return
+                self.wait_ms.append((time.perf_counter() - t0) * 1e3)
+                yield batch
+
+        pf.prefetch_iterator = prefetch
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        self.pf.prefetch_iterator = self.orig_pf
+        setattr(self.module, self.name, self.orig_it)
+
+
+class HostSampling:
+    """The loader's two library entry points (``data/native.py : fps,
+    knn_patch``) on the plain versions (``plain``) or on the library, every
+    call recorded with its inputs and output in ``calls``."""
+
+    def __init__(self, plain):
+        self.plain, self.calls = plain, []
+
+    def __enter__(self):
+        from tpugan_tpu_torch.data import native
+        from tpugan_tpu_torch.data import sampling as S
+
+        self.native = native
+        self.orig = {name: getattr(native, name) for name in S.PLAIN}
+
+        def recorded(name):
+            run = S.PLAIN[name] if self.plain else self.orig[name]
+
+            def call(*args):
+                out = run(*args)
+                self.calls.append((name, *args, out))
+                return out
+            return call
+
+        for name in S.PLAIN:
+            setattr(native, name, recorded(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.native, name, fn)
+
+
+def _library_call_vs_plain(call) -> dict:
+    """One recorded library call against its plain version on the same
+    inputs: equal, or apart only where LOADER_ROUNDING says they may be
+    (raises otherwise). Returns the positions that differ."""
+    from tpugan_tpu_torch.data import sampling as S
+
+    kind, pts, a, b, got = call
+    p64 = np.asarray(pts, np.float64)
+    if kind == "knn_patch":
+        seed, k = a, b
+        want = S.knn_patch_plain(pts, seed, k)
+        d = np.sum((p64 - p64[seed]) ** 2, -1)
+        kth = d[want[-1]]
+        extra = np.setxor1d(got, want)
+        far = extra[np.abs(d[extra] - kth) > LOADER_ROUNDING * kth]
+        dg = d[got]
+        falls = dg[:-1] - dg[1:]
+        if far.size or (falls > LOADER_ROUNDING * dg[:-1]).any():
+            raise AssertionError(f"native patch: {far.size} points off the "
+                                 f"kd-tree's set, order falls by "
+                                 f"{float(falls.max())}")
+        return {"kind": kind, "differ": int((got != want).sum()),
+                "set_differs": int(extra.size)}
+    k, start = a, b
+    want = S.fps_plain(pts, k, start)
+    if not np.array_equal(got, want):
+        if got[0] != start:
+            raise AssertionError("native FPS: wrong start")
+        min_d = np.sum((p64 - p64[start]) ** 2, -1)
+        for j in range(1, k):
+            best = min_d.max()
+            if min_d[got[j]] < best * (1.0 - LOADER_ROUNDING):
+                raise AssertionError(f"native FPS pick {j}: {min_d[got[j]]} "
+                                     f"of the farthest {best}")
+            np.minimum(min_d, np.sum((p64 - p64[got[j]]) ** 2, -1), out=min_d)
+    return {"kind": kind, "differ": int((got != want).sum()),
+            "set_differs": 0}
+
+
+def loader_turns(make_batches) -> dict:
+    """The loader alone, in LOADER_TURNS: each turn LOADER_BATCHES batches
+    from ``make_batches()`` (a fresh iterator on the same seeds), its host
+    sampling on the library or on the plain versions, ms a batch (host
+    clock). Every library call is then held to its plain version on the
+    same inputs (_library_call_vs_plain), and each native batch is
+    compared with the plain one, array for array."""
+    ms = {"native": [], "plain": []}
+    batches, calls = {}, []
+    for mode in LOADER_TURNS:
+        it = make_batches()
+        with HostSampling(plain=mode == "plain") as hs:
+            got = []
+            for _ in range(LOADER_BATCHES):
+                t0 = time.perf_counter()
+                got.append(next(it))
+                ms[mode].append((time.perf_counter() - t0) * 1e3)
+        it.close()
+        batches.setdefault(mode, got)
+        if mode == "native":
+            calls += hs.calls
+    checked = [_library_call_vs_plain(c) for c in calls]
+    arrays, equal, elements = 0, 0, 0
+    for a, b in zip(batches["native"], batches["plain"]):
+        if set(a) != set(b):
+            raise AssertionError(f"loader: keys {sorted(a)} vs {sorted(b)}")
+        for key in a:
+            if a[key].shape != b[key].shape or a[key].dtype != b[key].dtype:
+                raise AssertionError(f"loader {key}: {a[key].shape} "
+                                     f"{a[key].dtype} vs {b[key].shape} "
+                                     f"{b[key].dtype}")
+            arrays += 1
+            equal += bool(np.array_equal(a[key], b[key]))
+            elements += int((a[key] != b[key]).sum())
+    return {"turns": list(LOADER_TURNS), "batches_a_turn": LOADER_BATCHES,
+            "native_ms_per_batch": ms["native"],
+            "plain_ms_per_batch": ms["plain"],
+            "native_median_ms": statistics.median(ms["native"]),
+            "plain_median_ms": statistics.median(ms["plain"]),
+            "library_calls_checked": len(checked),
+            "library_calls_equal_to_plain": sum(c["differ"] == 0
+                                                for c in checked),
+            "library_positions_apart_within_rounding": sum(
+                c["differ"] for c in checked),
+            "patch_points_apart_at_kth_distance": sum(
+                c["set_differs"] for c in checked),
+            "batch_arrays_equal": [equal, arrays],
+            "batch_elements_apart": elements}
+
+
+def _recipe_spec(name):
+    """The recipe's CLI, argv (its script's preset, --synthetic, resumed
+    from the checkpoint for iterations 20001-20004, no --device_sampling,
+    no fused switch), the launches a step and between steps, and a maker of
+    its loader's batches on the data the CLI wrote."""
+    log_dir = os.path.join(RECIPES_DIR, name)
+    if name == "fluid":
+        from tpugan_tpu_torch.cli import train_fluid as cli
+        from tpugan_tpu_torch.data import fluid as data
+        from tpugan_tpu_torch.train.step import FluidTrainConfig
+
+        argv = RECIPE_ARGS[name]
+        opt = cli.get_arguments(argv + ["--log_dir", log_dir])
+        cfg = FluidTrainConfig()
+
+        def make_batches():     # as cli/train_fluid.main makes them
+            ds = data.SiamFluidDataset(
+                os.path.join(log_dir, "synthetic_data"), opt.synthetic_cases,
+                opt.synthetic_steps, sample_num=opt.patch_size or 9216,
+                fps_ratio=cfg.fps_ratio,
+                jitter=cfg.jitter, seed=opt.seed, emit_lowres=True)
+            return data.fluid_batch_iterator(ds, opt.batch_size, seed=opt.seed)
+
+        return dict(cli=cli, data=data, iterator="fluid_batch_iterator",
+                    argv=argv, log_dir=log_dir, make_batches=make_batches,
+                    always=STEP_ALWAYS, gate=STEP_GATE, critics=STEP_CRITICS,
+                    between=CKPT_EVAL)
+    from tpugan_tpu_torch.cli import train_action as cli
+    from tpugan_tpu_torch.config import ActionTrainConfig
+    from tpugan_tpu_torch.data import msr as data
+
+    argv = RECIPE_ARGS[name]
+    opt = cli.get_arguments(argv + ["--log_dir", log_dir])
+    cfg = ActionTrainConfig(num_points=opt.num_points, seed=opt.seed)
+
+    def make_batches():         # as cli/train_action.main makes them
+        ds = data.MSRAction3DDataset(
+            os.path.join(log_dir, "synthetic_msr"),
+            frames_per_clip=cfg.frames_per_clip, num_points=cfg.num_points,
+            fps_ratio=cfg.fps_ratio, seed=cfg.seed, return_lowres=True)
+        return data.action_batch_iterator(ds, opt.batch_size, seed=cfg.seed)
+
+    return dict(cli=cli, data=data, iterator="action_batch_iterator",
+                argv=argv, log_dir=log_dir, make_batches=make_batches,
+                always=ACTION_STEP_ALWAYS, gate=ACTION_STEP_G,
+                critics=ACTION_STEP_CRITICS, between=ACTION_CKPT_EVAL)
+
+
+def train_recipes(torch, dev, kernels, smi):
+    """Both train recipes as their scripts run them (scripts/train_vel_
+    torch.sh, scripts/train_dir_torch.sh: the preset, host sampling, no
+    fused switch), with --synthetic, resumed from the checkpoints for
+    iterations 20001-20004 (runs/chip_smoke_train_recipes/). Counts (and
+    the native library's calls) reset just before each CLI run: each step's
+    launches against the device-sampling counts less device sampling's one
+    FPS (no EdgeConv launch: the switch is off), the checkpoint iterations'
+    evals between steps, every loss finite; the native library's calls a
+    batch (RECIPE_NATIVE); the loader's ms a batch in the producer thread,
+    each step's wait on the prefetch queue and its ms (CUDA events). Then
+    the loader alone, native against plain in turns (loader_turns), beside
+    the host CPU and the card. Returns the runs' launches and the native
+    library's line."""
+    import shutil
+
+    from tpugan_tpu_torch.data import native
+
+    host, lines, launches = _host_cpu(), {}, {}
+    for name in ("fluid", "action"):
+        spec = _recipe_spec(name)
+        cli = spec["cli"]
+        shutil.rmtree(spec["log_dir"], ignore_errors=True)
+        if os.environ.get(cli.FUSED_SWITCH):
+            raise AssertionError("the fused switch is set; the scripts run "
+                                 "without it")
+        marks = []
+
+        def hook(event, n_iter, metrics):
+            if event in ("start", "end"):
+                torch.cuda.synchronize()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((event, n_iter, counts(kernels), ev, metrics,
+                          time.perf_counter()))
+
+        for k in kernels.values():
+            k.launches = 0
+        for k in native.CALLS:
+            native.CALLS[k] = 0
+        t0 = time.perf_counter()
+        with LoaderProbe(spec["data"], spec["iterator"],
+                         RECIPE_ITERS - 20000) as probe:
+            out = cli.main(spec["argv"] + ["--iters", str(RECIPE_ITERS),
+                                           "--log_dir", spec["log_dir"]],
+                           hook=hook)
+            probe.wait()
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches[name] = counts(kernels)
+        calls = dict(native.CALLS)
+        for k in kernels.values():
+            k.launches = 0
+
+        ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= RECIPE_ITERS
+        by, steps = {}, []
+        for event, n_iter, c, ev, metrics, wall in marks:
+            by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
+        prev_counts, prev_iter = {n: 0 for n in launches[name]}, None
+        for n_iter in sorted(by):
+            m = by[n_iter]
+            expect(delta(prev_counts, m["start"][0]),
+                   spec["between"] if prev_iter and ckpt_iter(prev_iter)
+                   else {}, f"{name} recipe before iteration {n_iter}")
+            metrics = m["end"][2]
+            gate = metrics.get("gate", True)
+            d_update = gate and n_iter % 2 == 0
+            want = dict(spec["always"])
+            want["fps"] -= 1                 # no device sampling
+            for part in ([spec["gate"]] if gate else []) + (
+                    [spec["critics"]] if d_update else []):
+                for k, v in part.items():
+                    want[k] = want.get(k, 0) + v
+            got = delta(m["start"][0], m["end"][0])
+            expect(got, want, f"{name} recipe step {n_iter}")
+            for k, v in metrics.items():
+                if not np.isfinite(v):
+                    raise AssertionError(f"{name} recipe {n_iter}: {k} = {v}")
+            start, crit = m["start"][1], m["critics"][1]
+            steps.append(dict(iteration=n_iter, **metrics,
+                              critic_update=d_update, launches=got,
+                              ms=start.elapsed_time(crit),
+                              wall_ms=(m["end"][3] - m["start"][3]) * 1e3,
+                              loader_ms_beside=probe.overlap_ms(
+                                  m["start"][3], m["end"][3])))
+            prev_counts, prev_iter = m["end"][0], n_iter
+        expect(delta(prev_counts, launches[name]), spec["between"],
+               f"{name} recipe after the last step")
+        if [s["iteration"] for s in steps] != list(range(20001,
+                                                         RECIPE_ITERS + 1)):
+            raise AssertionError(f"{name} recipe ran "
+                                 f"{[s['iteration'] for s in steps]}")
+        per_batch = {k: v / probe.made for k, v in calls.items()}
+        want_calls = dict(RECIPE_NATIVE[name], radius_count=0,
+                          voxel_downsample=0)
+        if (len(probe.spans) != probe.limit or probe.made <= probe.limit
+                or per_batch != want_calls):
+            raise AssertionError(f"{name} recipe: {probe.made} batches, "
+                                 f"{len(probe.spans)} of {probe.limit} from "
+                                 f"the producer, native calls a batch "
+                                 f"{per_batch}")
+        test_cd = out["test_chamfer"]
+        if len(test_cd) != 2 or not all(np.isfinite(test_cd)):
+            raise AssertionError(f"{name} recipe test Chamfer {test_cd}")
+        turns = loader_turns(spec["make_batches"])
+        lines[name] = {
+            "phase": "train_recipes", "recipe": name,
+            "argv": spec["argv"] + ["--iters", str(RECIPE_ITERS)],
+            "device_sampling": False, "steps": steps, "cli_s": cli_s,
+            "test_chamfer": test_cd, "launches": launches[name],
+            "native_calls": calls, "batches_sampled": probe.made,
+            "native_calls_per_batch": per_batch,
+            "loader_ms_per_batch": probe.loader_ms,
+            "loader_ms_beside_step": [s["loader_ms_beside"] for s in steps],
+            "queue_wait_ms_per_step": probe.wait_ms,
+            "ms_per_step": [s["ms"] for s in steps],
+            "wall_ms_per_step": [s["wall_ms"] for s in steps],
+            "loader_alone": turns, "host_cpu": host, "card": smi}
+        emit(lines[name])
+    library = {"phase": "native_library",
+               "source": "tpugan_tpu_torch/native/tpugan_native.cpp",
+               "counterpart": "native/tpugan_native.cpp (tpugan_tpu/data/"
+                              "native.py)",
+               "compiler": native.compiler(), "flags": list(native.CXXFLAGS),
+               "library": os.path.relpath(native.library_path(), ROOT),
+               "host_cpu": host, "card": smi,
+               **{f"{n}_loader": {
+                   "calls_per_batch": lines[n]["native_calls_per_batch"],
+                   "native_median_ms": lines[n]["loader_alone"][
+                       "native_median_ms"],
+                   "plain_median_ms": lines[n]["loader_alone"][
+                       "plain_median_ms"]} for n in lines}}
+    return launches, library
 
 
 # ------------------------------------- the stacked-critic train path (fast_d)
@@ -5693,7 +6174,7 @@ def data_parallel(torch, ranks):
         raise AssertionError("world 1: the DP checkpoint read back differs")
     fl = [o["dp"]["fluid_0_dp"] for o in two]
     first = max(_rel_errs(fl[0]["steps"][0]["metrics"], ref[0]["metrics"]))
-    outside = []
+    outside, worst = [], []
     for i, (a, b, r) in enumerate(zip(fl[0]["steps"], fl[1]["steps"], ref)):
         if a["digest"] != b["digest"] or a["metrics"] != b["metrics"]:
             raise AssertionError(f"world 2, iteration {a['iteration']}: the "
@@ -5704,13 +6185,18 @@ def data_parallel(torch, ranks):
         if a["metrics"]["gate"] != r["metrics"]["gate"]:
             raise AssertionError(f"world 2 iteration {a['iteration']}: gate")
         if i:
-            outside.append(max(
-                _outside_spread(v, [run["steps"][i]["metrics"][k]
-                                    for run in runs1])
-                for k, v in a["metrics"].items() if k != "gate"))
+            seen = {k: [run["steps"][i]["metrics"][k] for run in runs1]
+                    for k in a["metrics"] if k != "gate"}
+            k = max(seen, key=lambda k: _outside_spread(a["metrics"][k],
+                                                        seen[k]))
+            outside.append(_outside_spread(a["metrics"][k], seen[k]))
+            worst.append({"iteration": a["iteration"], "metric": k,
+                          "world2": a["metrics"][k],
+                          "world1": [min(seen[k]), max(seen[k])]})
     if not (first <= DP_LOSS_TOL_FIRST and max(outside) <= DP_SPREAD_WIDEN):
         raise AssertionError(f"world 2 vs 1: first step off by {first}, "
-                             f"later steps outside the spread by {outside}")
+                             f"later steps outside the spread by {outside}"
+                             f" (the farthest metric a step: {worst})")
     act = [o["dp"]["action_dp"] for o in two]
     for a, b in zip(act[0]["steps"], act[1]["steps"]):
         if a["digest"] != b["digest"] or not all(
@@ -5744,7 +6230,8 @@ def data_parallel(torch, ranks):
     emit({"phase": "data_parallel", "world": 2, "backend": "gloo",
           "ranks_equal_every_step": True, "first_step_rel_err": first,
           "first_step_tol": DP_LOSS_TOL_FIRST,
-          "outside_spread_by_step": outside, "spread_widen": DP_SPREAD_WIDEN,
+          "outside_spread_by_step": outside, "outside_spread_worst": worst,
+          "spread_widen": DP_SPREAD_WIDEN,
           "fluid": {**summary([fl[0]]),
                     "metrics": [s["metrics"] for s in fl[0]["steps"]],
                     "collective_share": [s["collective_share"]
@@ -6021,6 +6508,11 @@ def main(argv=None) -> int:
     action_fused_vs_grouped(torch, dev)
     action_card_vs_cpu(torch, dev)
 
+    # both train recipes as their scripts run them: host sampling through
+    # the native library, no fused switch (counts and the library's calls
+    # reset before each CLI run, read after it), then the loader alone
+    recipe_launches, native_line = train_recipes(torch, dev, kernels, smi)
+
     # the fluid serving and data surfaces: the rollout CLI, bench_metrics
     # and the fluid demo (counts reset before each, read inside)
     for k in kernels.values():
@@ -6062,6 +6554,8 @@ def main(argv=None) -> int:
                    "action_serving": action_launches[n],
                    "tempo_feat": tempo_launches[n],
                    "train_action": action_train_launches[n],
+                   "train_recipe_fluid": recipe_launches["fluid"][n],
+                   "train_recipe_action": recipe_launches["action"][n],
                    "rollout_cli": rollout_cli_launches[n],
                    "bench_metrics": bench_launches[n],
                    "fluid_demo": demo_launches[n],
@@ -6183,6 +6677,8 @@ def main(argv=None) -> int:
         "f32t": ACTION_FRAME_F32T * ACTION_FRAMES,
         "simt": by_path["edgeconv"]["action_serving"]
         - ACTION_FRAME_F32T * ACTION_FRAMES}
+    # the native host library is host code, not a TPU kernel: its own line
+    emit(native_line)
     emit(line)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

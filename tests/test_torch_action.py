@@ -26,8 +26,8 @@ import pytest
 import torch
 from flax import serialization
 
-import tpugan_tpu.data.native as jax_native
 from test_torch_srnet import GraphReplay
+from torch_host_sampling import MODES, host_sampling
 from tpugan_tpu.data.msr import MSRAction3DDataset as JDataset
 from tpugan_tpu.data.msr import action_batch_iterator as j_batches
 from tpugan_tpu.data.synthetic import make_synthetic_action_dataset as j_synth
@@ -88,11 +88,13 @@ def test_synthetic_action_files_equal_jax(synth, tmp_path):
                            os.path.join(str(tmp_path), name), shallow=False)
 
 
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("train", [True, False])
-def test_loader_clips_and_batches_equal_jax(synth, monkeypatch, train):
+def test_loader_clips_and_batches_equal_jax(synth, monkeypatch, train, mode):
     """Items (with the FPS downsample) and a threaded batch, bit for bit;
-    the JAX side on its numpy FPS, as the port has no native library."""
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+    like against like: the port's plain FPS against the JAX package's numpy
+    FPS, the port's library against the JAX package's."""
+    host_sampling(monkeypatch, mode)
     kw = dict(frames_per_clip=3, num_points=256, train=train, seed=4)
     ours, theirs = MSRAction3DDataset(synth, **kw), JDataset(synth, **kw)
     assert (len(ours), ours.num_classes) == (len(theirs), theirs.num_classes)

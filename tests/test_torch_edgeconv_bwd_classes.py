@@ -1,7 +1,8 @@
 """The redesigned f32 fused-EdgeConv backward at EdgeConv_0's (6, 64, 128),
-the IDGCN's (32, 16, 32) and the mask head's sum class (64, 128, 128, no
-SharedMLP): its oracle against the JAX package, its scheme emulated in
-numpy, and its launch plan.
+the action generator's EdgeConv_0 (3, 64, 128), the IDGCN's (32, 16, 32)
+and the mask head's sum class (64, 128, 128, no SharedMLP): its oracle
+against the JAX package, its scheme emulated in numpy, and its launch
+plan.
 
 * ``edgeconv_backward_plain`` (the card kernel's oracle) against the Pallas
   backward ``_bwd_pallas`` run in interpret mode at each class's widths,
@@ -11,9 +12,9 @@ numpy, and its launch plan.
 * The scheme (``csrc/edgeconv.cu`` : bwdt, rowf): the sign words that
   ``store_signs`` writes at 64- and 128-column tiles (a warp's ballot) read
   back each slope through ``slope_of`` and ``sign_at``, and the IDGCN's
-  16-bit masks theirs; C = 6 padded to an 8-deep slab with zeros leaves
-  every product as it is, and the narrow tail's threads own every gnbr,
-  dWn and dWe entry once; the tie pass without the SharedMLP (``bwd_ties_h1``: y = h1, slopes
+  16-bit masks theirs; C = 6 or 3 padded to an 8-deep slab with zeros
+  leaves every product as it is, and the narrow tail's threads own every
+  gnbr, dWn and dWe entry once; the tie pass without the SharedMLP (``bwd_ties_h1``: y = h1, slopes
   from the words) gives the plain version's gradients bit for bit; the
   row-fused kernel's lanes own every dW entry once, its blocks every tile
   once, and its row formulas give the plain version's gradients.
@@ -30,6 +31,7 @@ from tpugan_tpu.ops.pallas.edgeconv_kernel import _bwd_pallas
 from tpugan_tpu_torch.ops.kernels import edgeconv as E
 
 EC0, IDGCN, MSUM = (True, 6, 64, 128), (True, 32, 16, 32), (False, 64, 128, 128)
+EC0_ACTION = E.ACTION_EC0_CLASS   # (True, 3, 64, 128)
 
 
 def _inputs(rng, cls, b, k, n, ties):
@@ -46,6 +48,9 @@ def _inputs(rng, cls, b, k, n, ties):
 @pytest.mark.parametrize("cls,k,agg,ties", [
     (EC0, 20, "max", False), (EC0, 20, "min", False), (EC0, 20, "sum", False),
     (EC0, 20, "mean", False), (EC0, 20, "max", True),
+    (EC0_ACTION, 20, "max", False), (EC0_ACTION, 20, "min", False),
+    (EC0_ACTION, 20, "sum", False), (EC0_ACTION, 20, "mean", False),
+    (EC0_ACTION, 20, "max", True),
     (IDGCN, 20, "max", False), (IDGCN, 10, "max", False),
     (IDGCN, 10, "min", False), (IDGCN, 10, "sum", False),
     (IDGCN, 10, "mean", False), (IDGCN, 10, "max", True),
@@ -158,17 +163,19 @@ def _fma_chain(x, w):
     return acc
 
 
-def test_six_channels_padded_to_a_slab_are_exact(rng):
-    """EdgeConv_0: a slab zero-fills channels 6 and 7 of the rows and the
-    weight rows past 6 (Slab::copy), so z1a over depth 8 equals z1a over
-    depth 6 bit for bit; the narrow tail (bwd_narrow) writes gnbr's [nr, 6]
-    outputs of a tile once each, one thread an output (row, c)."""
-    x, w = rng.standard_normal((40, 6)).astype(np.float32), \
-        rng.standard_normal((6, 64)).astype(np.float32)
+@pytest.mark.parametrize("c", [6, 3])
+def test_six_channels_padded_to_a_slab_are_exact(rng, c):
+    """EdgeConv_0 (C = 6) and the action generator's (C = 3): a slab
+    zero-fills the channels past C of the rows and the weight rows past C
+    (Slab::copy), so z1a over depth 8 equals z1a over depth C bit for bit;
+    the narrow tail (bwd_narrow) writes gnbr's [nr, C] outputs of a tile
+    once each, one thread an output (row, c)."""
+    x, w = rng.standard_normal((40, c)).astype(np.float32), \
+        rng.standard_normal((c, 64)).astype(np.float32)
     xp, wp = np.zeros((40, 8), np.float32), np.zeros((8, 64), np.float32)
-    xp[:, :6], wp[:6] = x, w
+    xp[:, :c], wp[:c] = x, w
     np.testing.assert_array_equal(_fma_chain(xp, wp), _fma_chain(x, w))
-    c, rows = 6, 3080
+    rows = 3080
     seen = np.zeros(rows * c, int)
     for tile in range(-(-rows // E.NARROW_TILE)):
         r0 = tile * E.NARROW_TILE
@@ -325,7 +332,7 @@ def test_row_fused_formulas_give_plain_gradients(rng):
 
 # ---------------------------------------------------------------- the plan
 
-@pytest.mark.parametrize("cls", [EC0, MSUM])
+@pytest.mark.parametrize("cls", [EC0, EC0_ACTION, MSUM])
 @pytest.mark.parametrize("b,k,n", [(12, 20, 1152), (12, 8, 1152), (2, 20, 77),
                                    (1, 1, 1), (3, 5, 13)])
 def test_tiled_backward_plan_at_gemm_class(cls, b, k, n):
@@ -334,11 +341,12 @@ def test_tiled_backward_plan_at_gemm_class(cls, b, k, n):
     ranges of a multiple of 8 rows covering the R rows once, in order,
     about DW_BLOCKS blocks at the train shapes; the narrow tail's blocks;
     partials and scratch (without the SharedMLP no h2 / z3 and 8 sign
-    words, with it at H = 64 6 words) the formulas' sizes."""
+    words, with it at H = 64 6 words; the edges' R C floats rounded up to
+    the H / 32 words a sign move takes) the formulas' sizes."""
     mlp, c, h, o = cls
     plan = E.tiled_bwd_plan(b, k, n, cls)
     rows = b * k * n
-    narrow = c == 6
+    narrow = c % 4 != 0
     assert plan["design"] == "gemm" and plan["rows"] == rows
     assert plan["narrow"] is narrow
     assert plan["row_tiles"] * E.BWD_ROW_TILE >= rows
@@ -368,25 +376,32 @@ def test_tiled_backward_plan_at_gemm_class(cls, b, k, n):
     assert plan["part_floats"] == part
     words = E.sign_words(mlp, h)
     assert words == (6 if mlp else 8)
+    edges = -(-rows * c // (h // 32)) * (h // 32)
+    assert edges == rows * c + (rows * c) % 2 * (c == 3)
     assert plan["scratch_floats"] == rows * ((2 * h + o if mlp else 2 * h)
-                                             + c + words)
+                                             + words) + edges
     ints = E._tiled_ints(plan)
     assert ints[-1] == plan["blocks"]
     assert ints[:4] == ((plan["split_rows"] + (0, 0)) if narrow
                         else ((0, 0) if not mlp else ()) + plan["split_rows"])
 
 
-def test_narrow_tail_threads_own_every_dw_entry_once():
-    """bwd_narrow at EdgeConv_0 (C = 6, H = 64, 256 threads): thread t owns
-    column t % H of dWn or dWe ((t / H) % 2) for channels c0 .. c0 + NC,
-    c0 = (t / 2 H) NC; together every entry of both once."""
-    c, h, threads = 6, 64, 256
-    nc = 2 * c * h // threads
+@pytest.mark.parametrize("c", [6, 3])
+def test_narrow_tail_threads_own_every_dw_entry_once(c):
+    """bwd_narrow at EdgeConv_0 (C = 6) and the action generator's (C = 3),
+    H = 64, 256 threads: thread t owns column t % H of dWn or dWe
+    ((t / H) % 2) for the channels c0 .. c0 + NC below C, c0 = (t / 2 H) NC,
+    NC = ceil(C / (256 / 2 H)); together every entry of both once."""
+    h, threads = 64, 256
+    groups = threads // (2 * h)
+    nc = -(-c // groups)
+    assert (groups - 1) * nc < c
     seen = np.zeros(2 * c * h, int)
     for t in range(threads):
         col, p, c0 = t % h, t // h % 2, t // (2 * h) * nc
         for i in range(nc):
-            seen[p * c * h + (c0 + i) * h + col] += 1
+            if c0 + i < c:
+                seen[p * c * h + (c0 + i) * h + col] += 1
     assert (seen == 1).all()
 
 
@@ -406,7 +421,8 @@ def test_tiled_backward_plan_at_idgcn(b, k, n):
     assert E._tiled_ints(plan) == (0, 0, 0, 0, plan["blocks"])
 
 
-@pytest.mark.parametrize("cls,wide", [(EC0, 128), (MSUM, 128), (IDGCN, 32)])
+@pytest.mark.parametrize("cls,wide", [(EC0, 128), (EC0_ACTION, 128),
+                                      (MSUM, 128), (IDGCN, 32)])
 def test_tiled_backward_plan_refuses_32_bit_overflow_at_class(cls, wide):
     E.tiled_bwd_plan(1, 1, 2 ** 31 // wide - 1, cls)
     with pytest.raises(ValueError, match="plane-rows"):

@@ -61,6 +61,9 @@ def test_plain_backward_matches_pallas_at_tiled_class(rng, k, agg, ties):
     (torch.float32, False, (64, 128, 128), True),
     (torch.float32, False, (64, 128, 256), False),
     (torch.float32, True, (6, 64, 128), True),
+    (torch.float32, True, (3, 64, 128), True),
+    (torch.bfloat16, True, (3, 64, 128), False),
+    (torch.float32, False, (3, 64, 128), False),
     (torch.float32, True, (32, 16, 32), True),
     (torch.float32, True, (64, 128, 128), False),
     (torch.bfloat16, False, (64, 128, 128), False),
@@ -76,12 +79,13 @@ def test_plain_backward_matches_pallas_at_tiled_class(rng, k, agg, ties):
 def test_tiled_backward_dispatch(dtype, mlp, widths, tiled):
     """Only the f32 backward at a class of F32_TILED_BWD_CLASSES (every f32
     class of the fused train step: the upsampler's and mask head's, the
-    mask head's sum, EdgeConv_0's and the IDGCN's) takes the redesigned
-    kernel; bf16, another width or another SharedMLP setting does not; the
-    aggregate does not enter the choice."""
+    mask head's sum, EdgeConv_0's and the IDGCN's, and the action
+    generator's EdgeConv_0) takes the redesigned kernel; bf16, another
+    width or another SharedMLP setting does not; the aggregate does not
+    enter the choice."""
     assert E.F32_TILED_BWD_CLASSES == frozenset({
         (True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
-        (True, 32, 16, 32)})
+        (True, 32, 16, 32), (True, 3, 64, 128)})
     for _ in E.AGGREGATES:
         assert E.takes_f32_tiled_bwd(dtype, mlp, *widths) is tiled
 

@@ -2,11 +2,12 @@
 JAX package's, and the data path it reads: the host sampling copy
 (``data/sampling.py``) and ``SiamFluidDataset(emit_lowres=True)``.
 
-The JAX package takes its native C++ patch search and FPS when that library
-is built; the port has none. The item and CLI comparisons run the JAX side
-on its numpy / scipy path (the same kd-tree patch, the same numpy FPS);
-a separate test holds the port's FPS against the JAX FPS as it runs here
-(native when built).
+Both packages take their native C++ patch search and FPS (the port its own
+twin of the JAX package's library). The item and CLI comparisons run like
+against like, as two cases each (``torch_host_sampling``): the port's plain
+versions against the JAX package's numpy / scipy path, and the port's
+library against the JAX package's; a separate test holds the port's FPS
+against the JAX FPS as it runs here (native when built).
 
 CLI tolerances: the two SRNet forwards agree to f32 noise (about 1e-6 of
 the cloud's scale), which moves a Chamfer of nearest distances about 1e-2
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 
 import tpugan_tpu.cli.eval_fluid as jax_cli
-import tpugan_tpu.data.native as jax_native
+from torch_host_sampling import MODES, host_sampling
 from tpugan_tpu.data import sampling as jsampling
 from tpugan_tpu.data.fluid import SiamFluidDataset as JDataset
 from tpugan_tpu_torch.checkpoint import load_srnet
@@ -37,9 +38,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "checkpoints", "fluid_vel_20k.ckpt")
 
 
-@pytest.fixture
-def no_native(monkeypatch):
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+@pytest.fixture(params=MODES)
+def sampling_mode(request, monkeypatch):
+    host_sampling(monkeypatch, request.param)
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -51,8 +53,9 @@ def data_root(tmp_path_factory):
 
 
 def test_fps_matches_jax_as_built(rng):
-    """The port's numpy FPS against the JAX package's FPS as it runs here
-    (its native library when built): the same indices from the same start."""
+    """The port's FPS (its native library) against the JAX package's FPS
+    as it runs here (its native library when built): the same indices from
+    the same start."""
     pts = rng.standard_normal((3000, 3)).astype(np.float32)
     for start in (0, 1234):
         got, _ = tsampling.farthest_point_sampling(pts, 200, initial_idx=start)
@@ -60,7 +63,7 @@ def test_fps_matches_jax_as_built(rng):
         np.testing.assert_array_equal(got, want)
 
 
-def test_sample_patch_with_fps_matches_jax(rng, no_native):
+def test_sample_patch_with_fps_matches_jax(rng, sampling_mode):
     pos = rng.standard_normal((5000, 3)).astype(np.float32)
     for sample_num, fps in ((1024, True), (None, True), (6000, False)):
         got = tsampling.sample_patch_with_fps(
@@ -73,7 +76,7 @@ def test_sample_patch_with_fps_matches_jax(rng, no_native):
             np.testing.assert_array_equal(got[0][k], want[0][k])
 
 
-def test_dataset_lowres_items_match_jax(data_root, no_native):
+def test_dataset_lowres_items_match_jax(data_root, sampling_mode):
     """emit_lowres items, one after another from one seeded stream: the
     same keys, shapes and values (jitter 0.003 draws its noise too)."""
     kw = dict(sample_num=1024, fps_ratio=0.125, jitter=0.003, seed=3)
@@ -101,7 +104,8 @@ def _jax_cli(argv, monkeypatch, capsys):
     return json.loads(lines[-1])
 
 
-def test_eval_cli_matches_jax(data_root, monkeypatch, capsys, no_native):
+def test_eval_cli_matches_jax(data_root, monkeypatch, capsys,
+                              sampling_mode):
     """The trained checkpoint on 1,024-point patches (128 inputs), one
     sample, 50 auction rounds per phase."""
     argv = ["--ckpt", CKPT, "--in_node_feats", "6", "--use_vel",

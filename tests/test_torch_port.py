@@ -45,6 +45,7 @@ def test_port_imports_no_jax():
         "'eval.analysis', 'cli.eval_fluid', 'ops.kernels.binned_interp', "
         "'ops.metrics', 'cli.train_fluid', 'train.checkpoint', "
         "'utils.logging', 'config', 'data.prefetch', 'data.msr', "
+        "'data.native', "
         "'cli.action_demo', 'cli.eval_tempo_feat', 'cli.train_action', "
         "'data.bgeo', 'datagen', 'datagen.mesh', 'datagen.scene_gen', "
         "'datagen.process', 'datagen.splishsplash_config', 'cli.rollout', "
@@ -149,11 +150,12 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
     assert edgeconv.F32_TILED_BWD_LAUNCHES == 0
 
 
-# (mlp, C, H, O) of the classes the f32 register-tiled kernel takes, and
-# those the bf16 tensor-core kernel takes (the same)
-F32_TILED = [(True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
-             (True, 32, 16, 32)]
-TC = F32_TILED
+# (mlp, C, H, O) of the classes the bf16 tensor-core kernel takes, and
+# those the f32 register-tiled kernel takes (the same and the action
+# generator's EdgeConv_0, which no path runs in bf16)
+TC = [(True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
+      (True, 32, 16, 32)]
+F32_TILED = TC + [(True, 3, 64, 128)]
 
 
 @pytest.mark.parametrize("dtype,mlp,widths,tc,f32t", [
@@ -168,6 +170,9 @@ TC = F32_TILED
     (torch.float16, True, (64, 128, 256), False, False),
     (torch.float32, False, (64, 128, 128), False, True),
     (torch.float32, True, (6, 64, 128), False, True),
+    (torch.float32, True, (3, 64, 128), False, True),
+    (torch.bfloat16, True, (3, 64, 128), False, False),
+    (torch.float32, False, (3, 64, 128), False, False),
     (torch.float32, True, (32, 16, 32), False, True),
     (torch.float32, False, (64, 128, 256), False, False),
     (torch.float32, True, (32, 128, 256), False, False),
@@ -368,9 +373,10 @@ def _edgeconv_cases():
     cases.append(pytest.param(64, 128, 256, 4, "max", 2, 77, "offset",
                               id="tc-k4-max-n77-offset"))
     # the other classes of the f32 register-tiled kernel, each with the
-    # aggregate the serving forward gives it
+    # aggregate the serving forward gives it (the action generator's
+    # EdgeConv_0, C = 3, also at its own frames: 1 and 12 of 128 points)
     for c, h, o, agg in [(64, 128, None, "sum"), (6, 64, 128, "max"),
-                         (32, 16, 32, "max")]:
+                         (32, 16, 32, "max"), (3, 64, 128, "max")]:
         name = f"f32t-{c}-{h}-{o}"
         cases += [pytest.param(c, h, o, k, agg, 2, n, "random",
                                id=f"{name}-k{k}-n{n}")
@@ -384,6 +390,9 @@ def _edgeconv_cases():
         cases += [pytest.param(c, h, o, 12, a, 2, 9992, "exact",
                                id=f"{name}-exact-k12-{a}")
                   for a in ("max", "min", "sum", "mean")]
+    cases += [pytest.param(3, 64, 128, 20, agg, b, 128, "random",
+                           id=f"f32t-3-64-128-k20-{agg}-{b}x128")
+              for agg in ("max", "min", "sum", "mean") for b in (1, 12)]
     # the tensor-core kernel's narrow classes (bf16; in f32 the same rows
     # run the register-tiled kernel): every aggregate at ragged N with each
     # K the serving forward gives the class, a repeat bit for bit
@@ -510,9 +519,11 @@ def _tiled_bwd_args(gen, k, n, ties, dtype=torch.float32,
 
 
 # the classes the redesign added (EdgeConv_0, the IDGCN, the mask head's
-# sum) with the K of each at the fused train step
+# sum, the action generator's EdgeConv_0) with the K of each at the fused
+# train step
 NEW_BWD_CLASSES = [((True, 6, 64, 128), 20), ((True, 32, 16, 32), 20),
-                   ((True, 32, 16, 32), 10), ((False, 64, 128, 128), 8)]
+                   ((True, 32, 16, 32), 10), ((False, 64, 128, 128), 8),
+                   ((True, 3, 64, 128), 20)]
 
 
 @pytest.mark.gpu
@@ -655,14 +666,14 @@ def test_ball_query_kernel_matches_plain_on_card(card, gen):
 # points, 128 inputs; chip_smoke.py's action-train kernel rows)
 @pytest.mark.gpu
 @pytest.mark.parametrize("ties", [False, True])
-def test_edgeconv_general_backward_at_action_class_on_card(card, gen, ties):
+def test_edgeconv_tiled_backward_at_action_class_on_card(card, gen, ties):
     """EdgeConv_0 of the action generator under the fused switch, (mlp, C,
-    H, O) = (True, 3, 64, 128), 12 frames of 128 points, k = 20: not a
-    class of F32_TILED_BWD_CLASSES, so the general f32 backward (one BWD
-    launch, no redesigned one); every gradient to 1e-3 of its norm, as the
+    H, O) = (True, 3, 64, 128), 12 frames of 128 points, k = 20: a class
+    of F32_TILED_BWD_CLASSES, so the redesigned f32 backward (one BWD
+    launch, one redesigned); every gradient to 1e-3 of its norm, as the
     general kernel's test; duplicated planes split their cotangent
-    exactly."""
-    assert not edgeconv.takes_f32_tiled_bwd(torch.float32, True, 3, 64, 128)
+    exactly; a second call gives the first's bits."""
+    assert edgeconv.takes_f32_tiled_bwd(torch.float32, True, 3, 64, 128)
     t = lambda *s: torch.from_numpy(gen.standard_normal(s).astype(np.float32))
     nbr = t(12, 20, 128, 3) * 0.2
     if ties:
@@ -672,7 +683,9 @@ def test_edgeconv_general_backward_at_action_class_on_card(card, gen, ties):
     before = edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES
     got = edgeconv.edgeconv_backward(*[a.to(card) for a in args], "max")
     assert (edgeconv.BWD.launches, edgeconv.F32_TILED_BWD_LAUNCHES) == (
-        before[0] + 1, before[1])
+        before[0] + 1, before[1] + 1)
+    again = edgeconv.edgeconv_backward(*[a.to(card) for a in args], "max")
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     want = edgeconv.edgeconv_backward_plain(*args, "max")
     for a, w in zip(got, want):
         a = a.cpu()

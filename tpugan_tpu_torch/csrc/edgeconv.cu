@@ -36,12 +36,12 @@
 // the aggregate in registers (a thread keeps the same (point, column)
 // pairs for every plane), so they never touch shared memory either.
 //
-// The f32 forward at four classes (mlp, C, H, O) has a kernel of its own,
+// The f32 forward at five classes (mlp, C, H, O) has a kernel of its own,
 // edgeconv_f32t_kernel (entry point edgeconv_fwd_f32_tiled), with the same
 // contract. It replaces _edgeconv_kernel with cdt = float32 at the
 // upsampler's and mask head's (64, 128, 256), the mask head's sum without
-// the SharedMLP (64, 128, 128), EdgeConv_0's (6, 64, 128) and the IDGCN's
-// (32, 16, 32). TF32 stays off, so its bound is the card's 67 TFLOP/s of
+// the SharedMLP (64, 128, 128), EdgeConv_0's (6, 64, 128), the IDGCN's
+// (32, 16, 32) and the action generator's EdgeConv_0 (3, 64, 128). TF32 stays off, so its bound is the card's 67 TFLOP/s of
 // f32 FFMA; at 10,240 points a k=12 launch of (64, 128, 256) does 16.1
 // GFLOP (0.240 ms), a k=4 launch 5.4 (0.080 ms), the k=8 sum 2.7 (0.040
 // ms), EdgeConv_0 at k=20 5.3 (0.080 ms), the IDGCN at k=20 0.73 (0.011
@@ -59,10 +59,13 @@
 // W1 and W2 resident instead (192 KB) would leave Wn and We to L2 reads
 // in the layer that reads the most activations. The other classes hold
 // every weight: (64, 128, 128) 109,056 B, (6, 64, 128) (C padded to 8)
-// 73,984 B, (32, 16, 32) 51,200 B. The grid is persistent (resident blocks
-// an SM x 132, at most one a tile); a block strides over the point tiles
-// (40 points, 80 at (6, 64, 128), 64 at the IDGCN: at (64, 128, 256)
-// 10,240 points make 256 tiles, two rounds of 132 blocks filled to 97%),
+// 73,984 B, (32, 16, 32) 51,200 B, (3, 64, 128) (C padded to 4) 41,216 B.
+// The grid is persistent (resident blocks an SM x 132, at most one a
+// tile); a block strides over the point tiles (40 points, 80 at (6, 64,
+// 128), 64 at the IDGCN, 16 at (3, 64, 128), whose 128-point action
+// frames would fill only 2 blocks with 80-point tiles: one frame runs 8
+// blocks, a train step's 12 frames 96; at (64, 128, 256) 10,240 points
+// make 256 tiles, two rounds of 132 blocks filled to 97%),
 // and the next plane's rows (at a tile's last plane, the next tile's
 // centres too) arrive by cp.async while the current plane computes. Only
 // [N, O] is written.
@@ -1316,9 +1319,10 @@ int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
 // replaces _bwd_pallas / _edgeconv_bwd_kernel
 // (tpugan_tpu/ops/pallas/edgeconv_kernel.py:277) at (mlp, C, H, O) =
 // (1, 64, 128, 256), the upsampler's and the mask head's; (0, 64, 128,
-// 128), the mask head's sum; (1, 6, 64, 128), EdgeConv_0; and (1, 32, 16,
-// 32), the IDGCN's. The first three run layer-wise products on GEMM tiles
-// (bwdt, a template over its Shape), the IDGCN a row-fused kernel (rowf).
+// 128), the mask head's sum; (1, 6, 64, 128), EdgeConv_0; (1, 3, 64, 128),
+// the action generator's EdgeConv_0; and (1, 32, 16, 32), the IDGCN's.
+// The first four run layer-wise products on GEMM tiles (bwdt, a template
+// over its Shape), the IDGCN a row-fused kernel (rowf).
 //
 // What bounds it on the H100: operations. Over R = B K N plane-rows it does
 // three times the forward's multiply-adds a row (the forward once, then
@@ -1360,13 +1364,15 @@ int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
 //            [d1b | d1a] [We ; Wn]^T, one product of depth 2 H; bwd_gctr:
 //            gctr = -sum_j (d1b_j We^T), j ascending.
 // Only a slope is read of z1a, z1b and z2: their signs are kept as bits,
-// H / 32 words a layer and row (store_signs). EdgeConv_0's C = 6 ("narrow"):
-// z1a and z1b read their operands through 4-byte copies that zero-fill past
-// the 6 channels (depth 6 in one 8-deep slab) and run in one block
-// (bwd_rows<kH1>: one pass over h1); gnbr, dWn and dWe, which would fill 6
-// lanes of a 64-wide tile, take a tail kernel instead (bwd_narrow, after
-// kD1); its 24-byte rows are not 16-byte aligned, so edge, gnbr and gctr
-// move 4 bytes at a time there.
+// H / 32 words a layer and row (store_signs). EdgeConv_0's C = 6, and the
+// action generator's C = 3 alike ("narrow"): z1a and z1b read their
+// operands through 4-byte copies that zero-fill past the C channels (depth
+// C in one 8-deep slab) and run in one block (bwd_rows<kH1>: one pass over
+// h1); gnbr, dWn and dWe, which would fill C lanes of a 64-wide tile, take
+// a tail kernel instead (bwd_narrow, after kD1); its 24- or 12-byte rows
+// are not 16-byte aligned, so edge, gnbr and gctr move 4 bytes at a time
+// there, and the sign words after the edges start at R C rounded up to
+// H / 32 floats (R C is odd at C = 3 and odd R).
 //
 // rowf, the IDGCN (H = 16 would fill an eighth of a 128-column tile): a
 // thread runs one plane-row's whole backward, the weights (7 KB) in shared
@@ -1393,7 +1399,9 @@ int launch_agg(const void* nbr, const void* ctr, const void* wn, const void* we,
 // at the fused step: (64, 128, 256) k = 12 2.18 (the general kernel 37.5,
 // the plain version 3.9), 2.24x its bound, k = 4 0.84, 2.6x; EdgeConv_0
 // 1.09 (general 16.8), 3.4x; the sum 0.50 (3.9), 3.1x; the IDGCN k = 20
-// 0.33 (5.2), 7.4x, k = 10 0.18 (2.6). The wide products run at 32-38
+// 0.33 (5.2), 7.4x, k = 10 0.18 (2.6); the action generator's EdgeConv_0
+// at 12 x 128 points, k = 20, 0.157 (general 2.34), 4.5x. The wide
+// products run at 32-38
 // TFLOP/s, about half the FFMA peak; the tie pass, which reads z3 twice at
 // max / min, takes 0.17-0.18 ms. rowf runs at about a quarter of the peak:
 // a 16-byte weight broadcast feeds 4 FFMA a thread, so shared-memory loads
@@ -1620,14 +1628,16 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_rows(RowArgs P) {
 template <int C>
 __host__ __device__ constexpr int vec() { return C % 4 == 0 ? 4 : 1; }
 
-// The tail at a narrow C (EdgeConv_0's 6 channels, where gnbr, dWn and dWe
-// would fill 6 lanes of a 64-wide GEMM tile): blocks walk NTR-row tiles
-// (blockIdx.x, + gridDim.x, ...) with the tile's d1a, d1b, nb and edge rows
-// in shared memory. gnbr = d1a Wn^T + d1b We^T and gb = d1b We^T: one
-// thread an output (row, c), one fmaf chain each over h ascending. dWn =
-// nb^T d1a and dWe = edge^T d1b: thread t owns column t % H of one product
-// for NC channels, over its block's rows in order; part [gridDim.x, 2 C H]
-// (dWn, dWe) written once a block.
+// The tail at a narrow C (EdgeConv_0's 6 channels, or the action
+// generator's 3, where gnbr, dWn and dWe would fill C lanes of a 64-wide
+// GEMM tile): blocks walk NTR-row tiles (blockIdx.x, + gridDim.x, ...)
+// with the tile's d1a, d1b, nb and edge rows in shared memory. gnbr = d1a
+// Wn^T + d1b We^T and gb = d1b We^T: one thread an output (row, c), one
+// fmaf chain each over h ascending. dWn = nb^T d1a and dWe = edge^T d1b:
+// thread t owns column t % H of one product for the channels c0 .. c0 + NC
+// below C, c0 = (t / 2 H) NC (at C = 3 the second group holds one
+// channel), over its block's rows in order; part [gridDim.x, 2 C H] (dWn,
+// dWe) written once a block.
 constexpr int NTR = 64;
 
 template <class S>
@@ -1637,9 +1647,11 @@ bwd_narrow(const float* __restrict__ nb, const float* __restrict__ edge,
            const float* __restrict__ wn, const float* __restrict__ we, int R,
            float* __restrict__ gnbr, float* __restrict__ gb,
            float* __restrict__ part) {
-  constexpr int C = S::C, H = S::H, LD = H + 4, NC = 2 * C * H / THREADS;
-  static_assert(THREADS % (2 * H) == 0 && NC * THREADS / (2 * H) == C,
-                "threads own whole columns of dWn and dWe");
+  constexpr int C = S::C, H = S::H, LD = H + 4;
+  constexpr int GROUPS = THREADS / (2 * H), NC = (C + GROUPS - 1) / GROUPS;
+  static_assert(THREADS % (2 * H) == 0 && (GROUPS - 1) * NC < C,
+                "threads own whole columns of dWn and dWe, every group one "
+                "channel at least");
   __shared__ __align__(16) float w_s[2][C][LD];     // Wn, We
   __shared__ __align__(16) float d_s[2][NTR][LD];   // d1a, d1b rows
   __shared__ float x_s[2][NTR][C];                  // nb, edge rows
@@ -1689,12 +1701,14 @@ bwd_narrow(const float* __restrict__ nb, const float* __restrict__ edge,
     for (int row = 0; row < nr; ++row) {
       const float d = d_s[p][row][h];
 #pragma unroll
-      for (int i = 0; i < NC; ++i) acc[i] = fmaf(x_s[p][row][c0 + i], d, acc[i]);
+      for (int i = 0; i < NC; ++i)
+        if (c0 + i < C) acc[i] = fmaf(x_s[p][row][c0 + i], d, acc[i]);
     }
   }
   float* const out = part + (size_t)blockIdx.x * 2 * C * H + p * C * H;
 #pragma unroll
-  for (int i = 0; i < NC; ++i) out[(c0 + i) * H + h] = acc[i];
+  for (int i = 0; i < NC; ++i)
+    if (c0 + i < C) out[(c0 + i) * H + h] = acc[i];
 }
 
 // edge [R, C] = nb - its centre's row (thread i: vec<C>() columns of row
@@ -1932,7 +1946,7 @@ cudaError_t ties_go(float* x, float* d1b, const unsigned* sgn, const float* g,
 // The launches in order (the note above). split: the rows of a dW partial,
 // for dW2, dW1 (with the MLP), dWn, dWe (not at a narrow C, whose tail runs
 // on `blocks` blocks). Scratch: x1 [R, H], with the MLP x2 [R, H], x3
-// [R, O], xe [R, C], then R SW sign words.
+// [R, O], xe [R, C] (rounded up to HW floats), then R SW sign words.
 template <class S>
 cudaError_t backward(const void* nbr, const void* ctr, const void* wn,
                      const void* we, const void* w1, const void* w2,
@@ -1940,13 +1954,15 @@ cudaError_t backward(const void* nbr, const void* ctr, const void* wn,
                      float* scratch, float* part, int B, int K, int N, int agg,
                      const int (&split)[4], int blocks, cudaStream_t st) {
   constexpr int C = S::C, H = S::H, O = S::O, HW = S::HW;
-  constexpr bool NARROW = C % 4 != 0;   // EdgeConv_0's 6 channels
+  constexpr bool NARROW = C % 4 != 0;   // EdgeConv_0's 6 or 3 channels
   const int R = B * K * N;
   float* const x1 = scratch;                            // h1, then d1a
   float* const x2 = x1 + (size_t)R * H;                 // h2, d2, d1b We^T
   float* const x3 = x2 + (S::MLP ? (size_t)R * H : 0);  // z3, d3, d1b
   float* const xe = x3 + (size_t)R * O;                 // edge (no MLP: gb)
-  unsigned* const sgn = reinterpret_cast<unsigned*>(xe + (size_t)R * C);
+  // the sign words move HW at a time (uint2 or uint4): R C rounded up to HW
+  unsigned* const sgn = reinterpret_cast<unsigned*>(
+      xe + ((size_t)R * C + HW - 1) / HW * HW);
   float* const dwn = dw;
   float* const dwe = dwn + C * H;
   float* const dw1 = dwe + C * H;
@@ -2487,6 +2503,7 @@ extern "C" int edgeconv_fwd_f32_tiled(const void* nbr, const void* ctr,
   EDGECONV_F32T(64, 128, 256, true, 40);    // upsampler and mask head
   EDGECONV_F32T(64, 128, 128, false, 40);   // mask head's sum
   EDGECONV_F32T(6, 64, 128, true, 80);      // EdgeConv_0
+  EDGECONV_F32T(3, 64, 128, true, 16);      // the action generator's EdgeConv_0
   EDGECONV_F32T(32, 16, 32, true, 64);      // IDGCN
 #undef EDGECONV_F32T
   return static_cast<int>(cudaErrorInvalidValue);
@@ -2494,12 +2511,13 @@ extern "C" int edgeconv_fwd_f32_tiled(const void* nbr, const void* ctr,
 
 // The f32 backward at the classes below (mlp, C, H, O): edgeconv_bwd's
 // contract for bf16 = 0, without dw_part; any other class returns
-// cudaErrorInvalidValue. On GEMM tiles (bwdt): scratch R (H + O + C + SW)
-// floats, plus R H with the MLP (R = B K N; SW sign words a row: 12 at
-// (64, 128, 256), 8 at (64, 128, 128), 6 at (6, 64, 128)); part: max over
-// the dW products of splits M N floats, splits = ceil(R / split_rows), the
-// split rows a multiple of 8 for dW2, dW1 (0 without the MLP), dWn and dWe
-// (0 at C = 6, whose tail kernel runs on `blocks` >= 1 blocks, part also
+// cudaErrorInvalidValue. On GEMM tiles (bwdt): scratch R (H + O + SW)
+// floats and R C rounded up to a multiple of H / 32, plus R H with the MLP
+// (R = B K N; SW sign words a row: 12 at (64, 128, 256), 8 at (64, 128,
+// 128), 6 at (6, 64, 128) and (3, 64, 128)); part: max over the dW
+// products of splits M N floats, splits = ceil(R / split_rows), the split
+// rows a multiple of 8 for dW2, dW1 (0 without the MLP), dWn and dWe (0 at
+// C = 6 and 3, whose tail kernel runs on `blocks` >= 1 blocks, part also
 // at least blocks 2 C H floats).
 // On row tiles (rowf, the IDGCN): scratch R 32 floats, part blocks 1,792
 // (blocks >= 1). Every pointer 16-byte aligned; B * N >= 1, K >= 1, R
@@ -2529,6 +2547,7 @@ extern "C" int edgeconv_bwd_f32_tiled(const void* nbr, const void* ctr,
   EDGECONV_BWDT(64, 128, 256, true);    // upsampler and mask head
   EDGECONV_BWDT(64, 128, 128, false);   // mask head's sum
   EDGECONV_BWDT(6, 64, 128, true);      // EdgeConv_0
+  EDGECONV_BWDT(3, 64, 128, true);      // the action generator's EdgeConv_0
 #undef EDGECONV_BWDT
   if (mlp && C == rowf::C && H == rowf::H && O == rowf::O)   // IDGCN
     return static_cast<int>(rowf::backward(nbr, ctr, wn, we, w1, w2, g, fg, fc,

@@ -2,16 +2,18 @@
 (``tpugan_tpu/data/fluid.py``).
 
 An item loads three consecutive frames, shifts all by the centre frame's
-centroid, cuts one kd-tree patch of ``sample_num`` points around a random
-seed on the centre frame and takes the same particles from the side frames
-(particle identity is shared): ``highres_pos`` / ``highres_vel``
-[3, sample_num, 3] and ``h``. With ``emit_lowres`` the item also carries
-the patch's FPS downsample (``fps_ratio`` of it, the same indices in all
-three frames), its positions jittered by ``jitter``: ``lowres_pos`` /
-``lowres_vel`` [3, n, 3], as the eval path reads them. The train step
-samples its low-res inputs on the card and keeps ``emit_lowres=False`` (the
-default here; the JAX package's default is True). A batch stacks items
-frame-major, [3, B, sample_num, 3].
+centroid, cuts the patch of the ``sample_num`` points nearest to a random
+seed on the centre frame (the native library's search) and takes the same
+particles from the side frames (particle identity is shared):
+``highres_pos`` / ``highres_vel`` [3, sample_num, 3] and ``h``. With
+``emit_lowres`` the item also carries the patch's FPS downsample
+(``fps_ratio`` of it, the same indices in all three frames, FPS in the
+native library), its positions jittered by ``jitter``: ``lowres_pos`` /
+``lowres_vel`` [3, n, 3], as the eval path and the train CLI without
+``--device_sampling`` read them. With ``--device_sampling`` the train step
+samples its low-res inputs on the card and keeps ``emit_lowres=False``
+(the default here; the JAX package's default is True). A batch stacks
+items frame-major, [3, B, sample_num, 3].
 """
 
 from __future__ import annotations

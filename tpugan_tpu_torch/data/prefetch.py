@@ -1,7 +1,11 @@
 """Background-thread batch prefetching, the port's copy of
 ``tpugan_tpu/data/prefetch.py``: a daemon thread fills a bounded queue, so
-the host's patch sampling overlaps the card's step (numpy and scipy release
-the GIL for the heavy parts, so a thread suffices).
+the host's patch sampling overlaps the card's step. A thread suffices
+because the sampling's hot loops (FPS and the patch search) run in the
+native library (``data/native.py``), whose ctypes calls release the GIL;
+the rest of an item is a few large numpy operations. A Python loop of
+small numpy calls, such as the plain FPS, would hold the GIL between its
+calls and slow the step's own host work.
 """
 
 from __future__ import annotations

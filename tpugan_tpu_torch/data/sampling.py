@@ -1,13 +1,24 @@
-"""Host-side numpy sampling of the input pipeline: the port's own copy of
-``tpugan_tpu/data/sampling.py`` (numpy farthest point sampling, the kd-tree
+"""Host-side sampling of the input pipeline: the port's own copy of
+``tpugan_tpu/data/sampling.py`` (farthest point sampling, the nearest-point
 patch with its FPS downsample, voxel downsampling with and without
 features, the voxel-downsampled patch sampler, overlap filtering, bucket
 padding, a cloud's bounds, radius counts and free-surface particles).
 
-The JAX package takes its native C++ FPS and patch search when that library
-is built; the port has no native code. Its FPS is the numpy loop, which
-picks the same indices as the native one (f32 distances, first index of the
-maximum), and its patch is the scipy kd-tree query.
+As the JAX package's loader does when its library is built, the loader's
+two hot loops run in the port's native library (``data/native.py``):
+:func:`farthest_point_sampling` and the patch search of
+:func:`sample_patch_with_fps`. Their plain versions stay beside them, with
+the library entry points' signatures, for the tests and the card's
+comparisons (:data:`PLAIN` maps each entry point to its plain version),
+and nothing on the loader's path calls them: :func:`fps_plain`, the numpy
+loop of the JAX package's fallback, and :func:`knn_patch_plain`, its scipy
+kd-tree query. The library computes squared distances in f32 as its
+compiler contracts them (fused multiply-adds under ``-march=native``) and
+orders the patch by them, index breaking ties; the kd-tree orders by f64
+distances. So the two may order points whose distances lie within
+rounding of each other differently (and take a different last point where
+the patch's last and the next lie so), and FPS may take one of two
+near-equal farthest points where the other takes the other.
 """
 
 from __future__ import annotations
@@ -17,25 +28,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 from scipy.spatial import cKDTree
 
+from tpugan_tpu_torch.data import native
+
 BASE_RADIUS = 0.025   # the reference's particle radius
 
 
-def farthest_point_sampling(pts: np.ndarray, k: int,
-                            initial_idx: Optional[int] = None,
-                            rng: Optional[np.random.Generator] = None
-                            ) -> Tuple[np.ndarray, np.ndarray]:
-    """Greedy farthest point sampling: (indices [k] int64, running minimum
-    squared distance [N]). The first index is ``initial_idx``, or drawn from
-    ``rng`` when None."""
-    if pts.ndim != 2:
-        raise ValueError(f"farthest_point_sampling: pts of shape {pts.shape}")
-    n = pts.shape[0]
+def fps_plain(pts: np.ndarray, k: int, start: int = 0) -> np.ndarray:
+    """Greedy farthest point sampling in numpy from ``start``: indices [k]
+    int64, the JAX package's fallback loop."""
     indices = np.zeros((k,), dtype=np.int64)
-    if initial_idx is None:
-        rng = rng or np.random.default_rng()
-        indices[0] = rng.integers(n)
-    else:
-        indices[0] = initial_idx
+    indices[0] = start
     diff = pts - pts[indices[0]]
     min_d = np.einsum("nd,nd->n", diff, diff)
     for i in range(1, k):
@@ -43,7 +45,25 @@ def farthest_point_sampling(pts: np.ndarray, k: int,
         diff = pts - pts[indices[i]]
         d = np.einsum("nd,nd->n", diff, diff)
         np.minimum(min_d, d, out=min_d)
-    return indices, min_d
+    return indices
+
+
+def farthest_point_sampling(pts: np.ndarray, k: int,
+                            initial_idx: Optional[int] = None,
+                            rng: Optional[np.random.Generator] = None
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy farthest point sampling in the native library: (indices [k]
+    int64, an empty array where the plain loop returns its running
+    distances, which no caller reads). The first index is ``initial_idx``,
+    or drawn from ``rng`` when None."""
+    if pts.ndim != 2:
+        raise ValueError(f"farthest_point_sampling: pts of shape {pts.shape}")
+    if initial_idx is None:
+        rng = rng or np.random.default_rng()
+        start = int(rng.integers(pts.shape[0]))
+    else:
+        start = int(initial_idx)
+    return native.fps(pts, k, start), np.empty(0, np.float32)
 
 
 def normalize_point_cloud(pos: np.ndarray
@@ -55,6 +75,17 @@ def normalize_point_cloud(pos: np.ndarray
     return (pos - centroid) / furthest_distance, centroid, furthest_distance
 
 
+def knn_patch_plain(input_pos: np.ndarray, seed: int, k: int) -> np.ndarray:
+    """The ``k`` points nearest to point ``seed`` by the scipy kd-tree,
+    ascending by distance: indices int64 (the JAX package's fallback)."""
+    return cKDTree(input_pos).query(input_pos[seed], k)[1]
+
+
+# The plain version of each library entry point that the loader calls,
+# with that entry point's signature.
+PLAIN = {"fps": fps_plain, "knn_patch": knn_patch_plain}
+
+
 def sample_patch_with_fps(input_pos: np.ndarray,
                           sample_num: Optional[int] = None,
                           fps_ratio: float = 0.125,
@@ -62,10 +93,11 @@ def sample_patch_with_fps(input_pos: np.ndarray,
                           fps: bool = True
                           ) -> Tuple[Dict[str, np.ndarray], np.ndarray,
                                      Optional[np.ndarray]]:
-    """The kd-tree patch of ``sample_num`` nearest points around a random
-    seed point, and its FPS downsample to ``fps_ratio`` of the patch.
-    Returns ({patch_pos, ds_pos}, patch_idx, fps_idx); ``fps=False`` skips
-    the downsample (``ds_pos`` and ``fps_idx`` None)."""
+    """The patch of ``sample_num`` nearest points around a random seed
+    point (the native library's search), and its FPS downsample to
+    ``fps_ratio`` of the patch. Returns ({patch_pos, ds_pos}, patch_idx,
+    fps_idx); ``fps=False`` skips the downsample (``ds_pos`` and
+    ``fps_idx`` None)."""
     rng = rng or np.random.default_rng()
     total = input_pos.shape[0]
     if sample_num is None:
@@ -74,7 +106,7 @@ def sample_patch_with_fps(input_pos: np.ndarray,
         patch_num = sample_num if total > sample_num else 4096
     patch_num = min(patch_num, total)
     seed = int(rng.integers(total))
-    _, patch_idx = cKDTree(input_pos).query(input_pos[seed], patch_num)
+    patch_idx = native.knn_patch(input_pos, seed, patch_num)
     patch_pos = input_pos[patch_idx]
     if not fps:
         return {"patch_pos": patch_pos, "ds_pos": None}, patch_idx, None

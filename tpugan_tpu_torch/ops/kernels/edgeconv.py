@@ -49,29 +49,33 @@ TILE = 16         # points per block tile (csrc/edgeconv.cu : TP)
 TC_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
                         (True, 6, 64, 128), (True, 32, 16, 32)})
 TC_LAUNCHES = 0              # launches of the tensor-core kernel
-# (mlp, C, H, O) of the f32 register-tiled kernel
+# (mlp, C, H, O) of the f32 register-tiled kernel: the fluid generator's
+# four classes and the action generator's EdgeConv_0 (C = 3)
+ACTION_EC0_CLASS = (True, 3, 64, 128)
 F32_TILED_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
-                               (True, 6, 64, 128), (True, 32, 16, 32)})
+                               (True, 6, 64, 128), (True, 32, 16, 32),
+                               ACTION_EC0_CLASS})
 F32_TILED_LAUNCHES = 0       # launches of the f32 register-tiled kernel
 # (mlp, C, H, O) of the redesigned f32 backward (csrc/edgeconv.cu): the
-# upsampler's and mask head's, the mask head's sum and EdgeConv_0's on GEMM
-# tiles (bwdt), the IDGCN's one plane-row a thread (rowf, ROWF_CLASS)
+# upsampler's and mask head's, the mask head's sum, EdgeConv_0's and the
+# action generator's EdgeConv_0 on GEMM tiles (bwdt), the IDGCN's one
+# plane-row a thread (rowf, ROWF_CLASS)
 DEFAULT_TILED_BWD_CLASS = (True, 64, 128, 256)
 ROWF_CLASS = (True, 32, 16, 32)
 F32_TILED_BWD_CLASSES = frozenset({DEFAULT_TILED_BWD_CLASS,
                                    (False, 64, 128, 128), (True, 6, 64, 128),
-                                   ROWF_CLASS})
+                                   ROWF_CLASS, ACTION_EC0_CLASS})
 F32_TILED_BWD_LAUNCHES = 0   # launches of the redesigned f32 backward
 # Its row products take tiles of BWD_ROW_TILE plane-rows; each dW product
 # splits the rows into ranges of a multiple of DW_BK rows, so that about
 # DW_BLOCKS blocks run, each over at least DW_MIN_ROWS rows; each row keeps
 # sign_words(mlp, h) words of slopes (z1a, z1b, z2) beside h1, h2, z3 and
 # its edge (SIGN_WORDS at the default class). At a narrow C (C % 4 != 0:
-# EdgeConv_0) gnbr, dWn and dWe take a tail kernel over NARROW_TILE-row
-# tiles on at most NARROW_BLOCKS blocks, each keeping 2 C H partial sums. The
-# IDGCN's kernel walks tiles of ROWF_TILE plane-rows on at most
-# ROWF_BLOCKS blocks, each block keeping ROWF_PART partial dW sums (dWn,
-# dWe, dW1, dW2).
+# the two EdgeConv_0s, C = 6 and 3) gnbr, dWn and dWe take a tail kernel
+# over NARROW_TILE-row tiles on at most NARROW_BLOCKS blocks, each keeping
+# 2 C H partial sums. The IDGCN's kernel walks tiles of ROWF_TILE
+# plane-rows on at most ROWF_BLOCKS blocks, each block keeping ROWF_PART
+# partial dW sums (dWn, dWe, dW1, dW2).
 BWD_ROW_TILE, DW_BLOCKS, DW_MIN_ROWS, DW_BK, SIGN_WORDS = 128, 264, 64, 8, 12
 NARROW_TILE, NARROW_BLOCKS = 64, 528
 ROWF_TILE, ROWF_BLOCKS, ROWF_PART = 128, 264, 2 * 32 * 16 + 16 * 16 + 16 * 32
@@ -266,7 +270,8 @@ def tiled_bwd_plan(b: int, k: int, n: int,
     tail kernel's ``blocks`` partials of 2 C H over ``narrow_tiles`` tiles
     (else ``blocks`` 0); scratch h1 (and with the SharedMLP h2), z3 or d1b
     and the cotangents over them, R (2 H + O) or R 2 H, the edges nb - ctr,
-    R C, then R sign_words(mlp, H) words of slopes; part_floats the
+    R C rounded up to a multiple of H / 32 (the sign words move H / 32 at a
+    time), then R sign_words(mlp, H) words of slopes; part_floats the
     largest partials. ``"rows"`` (the IDGCN, one plane-row a thread):
     ``row_tiles`` (ROWF_TILE rows each), ``blocks`` (at most ROWF_BLOCKS,
     each walking tiles blockIdx, + blocks, ...); scratch z3, then d3, then
@@ -306,8 +311,9 @@ def tiled_bwd_plan(b: int, k: int, n: int,
                 row_tiles=_cdiv(rows, BWD_ROW_TILE), products=products, dw=dws,
                 split_rows=tuple(split_rows), splits=tuple(splits),
                 blocks=blocks, **extra,
-                scratch_floats=rows * ((2 * h + o if mlp else 2 * h) + c
-                                       + sign_words(mlp, h)),
+                scratch_floats=rows * ((2 * h + o if mlp else 2 * h)
+                                       + sign_words(mlp, h))
+                + _cdiv(rows * c, h // 32) * (h // 32),
                 part_floats=part)
 
 
