@@ -32,7 +32,8 @@ Phases, one JSON line each (``phase`` names it):
            the plain version; each EdgeConv row names its variant (the
            bf16 classes of TC_CLASSES run the tensor-core kernel, "tc",
            the f32 classes of F32_TILED_CLASSES the f32 register-tiled
-           one, "f32t", the rest the general one, "simt") and adds the
+           one, "f32t", the rest the general one, "simt"; EdgeConv_0 at
+           C = 3, the position-only models', is in both) and adds the
            device time of the wrapper's launches (torch.profiler), and
            every tc and f32t class on exact inputs at serving width
            equals the plain version bit for bit;
@@ -262,6 +263,25 @@ Phases, one JSON line each (``phase`` names it):
            synthetic particles, runs/chip_smoke_fluid_demo/), launches
            against FLUID_DEMO_FRAME a frame, the mean normalised Chamfer
            and the wall time;
+  position_only the position-only fluid model (in_feats 3, no velocities;
+           seeded weights, full width) with the launch counts reset before
+           each counted run and the kernels' shapes recorded: the rollout
+           CLI at its defaults over 25 synthetic frames of 10,240
+           particles, f32 dynamic and bf16 static (POS_ONLY_RUNS: every
+           EdgeConv on f32t or tc, none general), one frame of each against
+           the CPU with the card's graphs replayed (bf16: POS_ONLY_BF16_TOL),
+           the bf16 frames' Chamfer against the f32 ones (printed), ms a
+           frame in CUDA events and on the host clock; the eval CLI at its
+           defaults (POS_ONLY_EVAL: 2 f32 dynamic samples, 1 bf16 static),
+           s a sample, and the density phase with this model; the
+           train_novel recipe (host sampling, no fused switch) for
+           iterations 20001-20004 from a seeded state saved at 20,000, the
+           gate held open (gate_open), then 2 iterations with
+           --device_sampling and the fused switch (EdgeConv_0's C = 3
+           backward at the fluid shapes); each step's launches, ms; then
+           every kernel at every recorded shape against its plain version
+           (medians of POS_ONLY_REPS), and the tensor-core EdgeConv at C =
+           3 on 1 and 12 frames of 128 points; the phase's seconds;
   kernel   (fast_d) FPS, the ball query and the flow kNN at the shapes the
            critics' stacked applies give them (FAST_D_FPS, FAST_D_BALL,
            FAST_D_KNN: [2B] and frame-stacked rows, FPS mask-aware on the
@@ -303,7 +323,13 @@ Phases, one JSON line each (``phase`` names it):
            the host clock; past the counted runs, every graph of the f32
            dynamic rollout on each rank against the unsharded kNN of the
            same gathered cloud (indices may differ only between candidates
-           whose exact distances tie within f32 noise);
+           whose exact distances tie within f32 noise), and on rank 0 the
+           shift probe: the unsharded rollout of the same frames as the
+           rollout computes it (equal to the unsharded CLI's frames bit for
+           bit), centred on the sharded run's centroids, and with the
+           sharded run's whole graphs replayed, each one's largest error
+           against the sharded frames (the replayed one under
+           SHARD_REPLAY_GATE);
   data_parallel in the same ranks: the fluid train CLI twin with
            --data_parallel --preset train_vel --device_sampling
            --synthetic and the fused switch, resumed from the checkpoint
@@ -314,10 +340,17 @@ Phases, one JSON line each (``phase`` names it):
            ranks' parameters and buffers equal bit for bit after every
            step, every launch as at one rank (the pooled-MLP batch-norm
            kernel's too, 4 a G-only and 12 a G+D step, its moments summed
-           over the ranks), the gate's decisions equal, the first step's losses within
-           DP_LOSS_TOL_FIRST of one rank's and every later step's within
-           the one-rank runs' spread at that step widened by
-           DP_SPREAD_WIDEN times it on each side; then the action twin with
+           over the ranks), the gate's decisions equal, the first step's
+           losses within DP_LOSS_TOL_FIRST of one rank's; every step held
+           against the single-process step from the same state (the
+           ranks' state before it) on the global batch and draws: its
+           losses within DP_LOSS_TOL_FIRST relative and its update within
+           DP_UPDATE_TOL of each tensor's norm plus DP_UPDATE_FLOOR (the
+           CPU test's bound), with a second single-process step from that
+           state printed beside it (the one-rank noise), and the mask
+           head's update difference and its projection on the update; the
+           one-rank runs' spread at each step is printed, not gated; then
+           the action twin with
            --data_parallel --fast_d for iterations 20001-20002 at two
            ranks, ranks equal after every step; ms a step (G only and G+D),
            the collectives' share and count a step at two ranks (each
@@ -412,8 +445,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, torch, reps=REPS, warmup=2) -> float:
-    """Median over ``reps`` runs of CUDA-event time, after warm-up."""
+def time_ms(fn, torch, reps=None, warmup=2) -> float:
+    """Median over ``reps`` (default REPS) runs of CUDA-event time, after
+    warm-up."""
+    reps = reps or REPS
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -429,7 +464,7 @@ def time_ms(fn, torch, reps=REPS, warmup=2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, torch, reps=REPS, by_kernel=False, tries=3):
+def device_ms(fn, torch, reps=None, by_kernel=False, tries=3):
     """Device time of the kernels ``fn`` launches, per call (torch.profiler,
     after a warm-up): what the card spends, without the host's launch
     overhead that ``time_ms`` includes where the host is the slower side.
@@ -441,6 +476,7 @@ def device_ms(fn, torch, reps=REPS, by_kernel=False, tries=3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
+    reps = reps or REPS
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -2877,14 +2913,17 @@ def check_binned_interp(torch, dev, pred, grid, cutoff=DENSITY_CUTOFF):
     return rows
 
 
-def density_phase(torch, dev, kernels):
+def density_phase(torch, dev, kernels, position_only=False, shapes=None):
     """With the counts reset: the trained SRNet (f32 dynamic) on a whole
     12,000-particle synthetic frame with its velocities (96,000 slots), the
     exact density of its kept points and of a DENSITY_GRID^3 grid over its
     bounding box (cell-grid kernel), and the capped k = 64 density of an
     eval sample's 9,216-point ground truth; then each kernel of the phase
     against its plain version on the same inputs (check_binned_interp).
-    Returns (launches, the binned kernel's rows)."""
+    ``position_only``: the position-only model (in_feats 3, seeded as the
+    eval CLI seeds it without --ckpt) on the frame's positions; ``shapes``
+    (a Counter): the counted part's kernel shapes are added to it
+    (_record_shapes). Returns (launches, the binned kernel's rows)."""
     from tpugan_tpu_torch import DT
     from tpugan_tpu_torch.checkpoint import load_srnet
     from tpugan_tpu_torch.cli.eval_fluid import SYNTH_DIR
@@ -2898,26 +2937,42 @@ def density_phase(torch, dev, kernels):
             z["vel"].astype(np.float32)
     gt = SiamFluidDataset(SYNTH_DIR, 1, 8, sample_num=9216,
                           seed=0)[0]["highres_pos"][1]
-    model = load_srnet(CHECKPOINT, device=dev)
     pos = torch.from_numpy(frame)[None].to(dev)
-    feat = torch.cat([pos, torch.from_numpy(vel)[None].to(dev) * DT], -1)
+    if position_only:
+        from tpugan_tpu_torch.models.generator import SRNet
+
+        model = SRNet(in_feats=3, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+        feat = pos
+    else:
+        model = load_srnet(CHECKPOINT, device=dev)
+        feat = torch.cat([pos, torch.from_numpy(vel)[None].to(dev) * DT], -1)
     cutoff = DENSITY_CUTOFF
     torch.cuda.synchronize()
 
+    seen, undo = _record_shapes(torch) if shapes is not None else ({}, None)
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
-    with torch.no_grad():
-        _, _, padded, valid = model(feat, pos)
-    pred = padded[0][valid[0]].cpu().numpy()
-    dns = get_particle_density(pred, cutoff, device=dev)
-    grid = density_grid(pred)
-    gdns = particle_dns2grid_dns(grid, pred, cutoff, device=dev)
-    capped = get_particle_density(gt, cutoff, dense=False, device=dev)
+    try:
+        with torch.no_grad():
+            _, _, padded, valid = model(feat, pos)
+        pred = padded[0][valid[0]].cpu().numpy()
+        dns = get_particle_density(pred, cutoff, device=dev)
+        grid = density_grid(pred)
+        gdns = particle_dns2grid_dns(grid, pred, cutoff, device=dev)
+        capped = get_particle_density(gt, cutoff, dense=False, device=dev)
+    finally:
+        if undo is not None:
+            undo()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts(kernels)
     expect(launches, DENSITY_LAUNCHES, "density phase")
+    if shapes is not None:
+        _calls_match([[k, n] for k, n in seen.items()], launches,
+                     "position-only density")
+        shapes.update(seen)
     # a particle's own weight is 1: exactly in the exact form (direct
     # differences), and to within the spline's slope times the kNN's
     # rounding of a zero distance (2.4e-7 of |p|^2) in the capped form
@@ -2939,7 +2994,8 @@ def density_phase(torch, dev, kernels):
     n_max = int((torch.cdist(gq, gq) < cutoff).sum(-1).max())
     cap_tol = n_max * 6.0 / cutoff ** 2 * 2.4e-7 * float((gt ** 2).sum(-1).max())
     cap_err = float(np.abs(capped - plain_capped).max())
-    summary = {"phase": "density", "slots": int(padded.shape[1]),
+    summary = {"phase": "density", "position_only": position_only,
+               "slots": int(padded.shape[1]),
                "kept": int(pred.shape[0]), "grid_points": int(len(grid)),
                "cutoff": cutoff, "wall_s": wall, "launches": launches,
                "density_mean": float(dns.mean()),
@@ -5318,6 +5374,405 @@ def fluid_demo_phase(torch, kernels):
     return launches
 
 
+# ------------------------------------------ the position-only fluid model
+
+POS_ONLY_DIR = os.path.join(ROOT, "runs", "chip_smoke_position_only")  # gitignored
+POS_ONLY_FRAMES = 25
+# The rollout CLI at its defaults (no --ckpt: the seeded weights, in_feats
+# 3, width 128, r 8; no --use_vel) on its synthetic sequence of N_POINTS
+# particles: (name, flags, launches a frame, of which tensor-core and f32
+# register-tiled EdgeConvs): every EdgeConv on tc or f32t, none general.
+POS_ONLY_RUNS = [
+    ("f32_dynamic", [], {"knn": 7, "edgeconv": 9}, 0, 9),
+    ("bf16_static", ["--compute_dtype", "bf16", "--graph_mode", "static"],
+     {"knn": 1, "edgeconv": 9}, 9, 0),
+]
+# The card's bf16 static forward against the CPU's (plain versions) with
+# the card's graphs replayed: the kernels' bf16 limit (3e-2 of the scale:
+# a one-ulp rounding flip of a layer's value carried through the next
+# layers) on the raw mask and on the positions (of the frame's largest
+# |coordinate|); keep decisions may differ where the raw mask lies within
+# it of epsilon. The f32 forward keeps the serving phase's 1e-4.
+POS_ONLY_BF16_TOL = 3e-2
+# The eval CLI at its defaults (--patch_size 4096: 512 inputs; no --ckpt):
+# launches a sample, read off cli/eval_fluid.py (EVAL_SAMPLE's note); the
+# bf16 static mode without --agreement_vs_exact builds one graph a forward
+POS_ONLY_EVAL = [
+    ("f32 dynamic", ["--num_samples", "2"], EVAL_SAMPLE),
+    ("bf16 static", ["--num_samples", "1", "--compute_dtype", "bf16",
+                     "--graph_mode", "static"],
+     {"knn": 3 * 1 + 1, "edgeconv": 3 * 9, "nn1": 2 + 2}),
+]
+# The train_novel recipe as scripts/train_novel_torch.sh runs it (the
+# preset: in_feats 3, no --use_vel; host sampling, no fused switch) with
+# --synthetic, resumed for iterations 20001-20004 from a seeded trainer
+# state that the port's checkpoint writer saved at 20,000; then 2
+# iterations with --device_sampling and the fused switch. Without
+# velocities the gate's step runs no dense interp.
+POS_ONLY_ITERS, POS_ONLY_FUSED_ITERS = 20004, 20002
+POS_ONLY_GATE = {k: v for k, v in STEP_GATE.items() if k != "interp"}
+# repeats of the kernel rows at the recorded shapes (about 80 shapes)
+POS_ONLY_REPS = 3
+
+
+def _pos_only_frame_vs_cpu(torch, dev, opt, cli, frame, f32):
+    """The card's forward of one frame (the CLI's model of the flags) against
+    the CPU's with the card's graphs replayed (GraphReplay), the frame
+    centred as the rollout step centres it."""
+    model, _ = cli.build_model(opt, dev)
+    cpu, _ = cli.build_model(opt, torch.device("cpu"))
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pos = torch.from_numpy(frame)[None]
+    pos = pos - pos.mean(1, keepdim=True)
+    replay = GraphReplay(torch)
+    with torch.no_grad():
+        e_gpu, m_gpu, _, v_gpu = replay.record(model, pos.to(dev), pos.to(dev))
+        e_cpu, m_cpu, _, v_cpu = replay.replay(cpu, pos, pos)
+    e_gpu, m_gpu, v_gpu = (t.cpu().float() for t in (e_gpu, m_gpu, v_gpu))
+    tol_m, tol_p = ((1e-4, 1e-4) if f32 else
+                    (POS_ONLY_BF16_TOL,
+                     POS_ONLY_BF16_TOL * float(pos.abs().max())))
+    flipped = v_gpu.bool() != v_cpu
+    near = ((m_cpu.float() - model.epsilon).abs() < tol_m).repeat_interleave(
+        model.upsample_ratio, 1)
+    out = {"mask_err": float((m_gpu - m_cpu.float()).abs().max()),
+           "position_err": float((e_gpu - e_cpu.float()).abs().max()),
+           "knn_tie_swaps": replay.swaps, "keep_flips": int(flipped.sum()),
+           "tol_mask": tol_m, "tol_position": tol_p}
+    if not (bool(near[flipped].all()) and out["mask_err"] <= tol_m
+            and out["position_err"] <= tol_p):
+        raise AssertionError(f"position-only card vs CPU: {out}")
+    return out
+
+
+def _pos_only_state(torch, dev, path):
+    """A seeded trainer state of the train_novel model (the CLI's widths),
+    at iteration 20,000, written by the port's checkpoint writer."""
+    from tpugan_tpu_torch.train.checkpoint import save_checkpoint
+    from tpugan_tpu_torch.train.state import init_fluid_state
+    from tpugan_tpu_torch.train.step import FluidTrainConfig
+
+    cfg = FluidTrainConfig(in_node_feats=3, use_vel=False)
+    state = init_fluid_state(cfg, 1, dev)
+    state.n_iter = 20000
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_checkpoint(state, path)
+    return path
+
+
+class gate_open:
+    """FluidTrainConfig with ``ml_gate`` raised (tests/test_torch_train_cli.py
+    : gate_open): from seeded weights the masking loss need not fall under
+    0.1, and the critics would never run."""
+
+    def __enter__(self):
+        import functools
+
+        import tpugan_tpu_torch.train.step as step_mod
+
+        self.own = step_mod.FluidTrainConfig
+        step_mod.FluidTrainConfig = functools.partial(self.own, ml_gate=1e9)
+
+    def __exit__(self, *exc):
+        import tpugan_tpu_torch.train.step as step_mod
+
+        step_mod.FluidTrainConfig = self.own
+
+
+def _pos_only_train(torch, kernels, cli, argv, iters, fused, shapes):
+    """One train CLI run of the recipe (counts reset before it, read after
+    it; the kernels' shapes added to ``shapes``): each step's launches
+    against its counts (host sampling: one FPS fewer; the fused switch:
+    STEP_FUSED), CKPT_EVAL between steps at the checkpoint iterations,
+    every loss finite; ms a step (CUDA events, the generator's and the
+    critics' marks) and on the host clock. Returns (launches, steps)."""
+    from tpugan_tpu_torch.data import native
+
+    marks = []
+
+    def hook(event, n_iter, metrics):
+        if event in ("start", "end"):
+            torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((event, n_iter, counts(kernels), ev, metrics,
+                      time.perf_counter()))
+
+    seen, undo = _record_shapes(torch)
+    for k in kernels.values():
+        k.launches = 0
+    for k in native.CALLS:
+        native.CALLS[k] = 0
+    if fused:
+        os.environ[cli.FUSED_SWITCH] = "1"
+    try:
+        with gate_open():
+            cli.main(argv + ["--iters", str(iters)], hook=hook)
+    finally:
+        os.environ.pop(cli.FUSED_SWITCH, None)
+        undo()
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    _calls_match([[k, n] for k, n in seen.items()], launches,
+                 f"position-only train {argv[-1]}")
+    shapes.update(seen)
+    by = {}
+    for event, n_iter, c, ev, metrics, wall in marks:
+        by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
+    ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= iters
+    prev, prev_iter, steps = {n: 0 for n in launches}, None, []
+    for n_iter in sorted(by):
+        m = by[n_iter]
+        expect(delta(prev, m["start"][0]),
+               CKPT_EVAL if prev_iter and ckpt_iter(prev_iter) else {},
+               f"position-only train before {n_iter}")
+        metrics = m["end"][2]
+        want = dict(STEP_ALWAYS)
+        if fused:
+            want.update(STEP_FUSED)
+        else:
+            want["fps"] -= 1                 # no device sampling
+        for part in [POS_ONLY_GATE] + ([STEP_CRITICS] if n_iter % 2 == 0
+                                       else []):
+            for k, v in part.items():
+                want[k] = want.get(k, 0) + v
+        got = delta(m["start"][0], m["end"][0])
+        expect(got, want, f"position-only train step {n_iter}")
+        if not (metrics["gate"] and all(np.isfinite(v)
+                                        for v in metrics.values())):
+            raise AssertionError(f"position-only train {n_iter}: {metrics}")
+        start = m["start"][1]
+        steps.append(dict(iteration=n_iter, **metrics, launches=got,
+                          ms=start.elapsed_time(m["critics"][1]),
+                          generator_ms=start.elapsed_time(m["generator"][1]),
+                          wall_ms=(m["end"][3] - m["start"][3]) * 1e3))
+        prev, prev_iter = m["end"][0], n_iter
+    expect(delta(prev, launches), CKPT_EVAL,
+           "position-only train after the last step")
+    if [s["iteration"] for s in steps] != list(range(20001, iters + 1)):
+        raise AssertionError(f"position-only train ran {steps}")
+    return launches, steps, dict(native.CALLS)
+
+
+def position_only(torch, dev, kernels):
+    """The position-only fluid model (the fluid CLIs' default --in_node_feats
+    3, no --use_vel) at its full width on seeded weights, counts reset
+    before each counted run and read after it, the kernels' shapes recorded
+    (_record_shapes; each run's recorded calls add up to its launches):
+    (1) the rollout CLI at its defaults over 25 synthetic frames of N_POINTS
+    particles, f32 dynamic and bf16 static (POS_ONLY_RUNS: launches a frame
+    by kernel form, none general), one frame of each against the CPU with
+    the card's graphs replayed, the bf16 frames' normalised Chamfer against
+    the f32 ones (printed, not gated: with seeded weights GATE means
+    nothing), ms a frame in CUDA events and on the host clock; (2) the eval
+    CLI at its defaults, 2 f32 dynamic samples and 1 bf16 static
+    (POS_ONLY_EVAL), s a sample, then the density phase with this model;
+    (3) the train_novel recipe (POS_ONLY_ITERS; gate_open), then 2
+    iterations with --device_sampling and the fused switch; then every
+    kernel at every recorded shape against its plain version
+    (check_path_kernels, path "position_only"), and the tensor-core
+    EdgeConv at C = 3 on one and 12 action frames of 128 points. Returns
+    (launches by kernel, rows by kernel)."""
+    import collections
+    import shutil
+
+    import tpugan_tpu_torch.cli.eval_fluid as eval_fluid
+    from tpugan_tpu_torch.cli import rollout as cli
+    from tpugan_tpu_torch.cli import train_fluid
+    from tpugan_tpu_torch.ops.kernels import edgeconv as E
+    from tpugan_tpu_torch.ops.metrics import chamfer
+
+    t_phase = time.perf_counter()
+    shapes, total = collections.Counter(), {n: 0 for n in kernels}
+    line = {"phase": "position_only", "frames": POS_ONLY_FRAMES,
+            "points": N_POINTS, "weights": "seeded (no --ckpt)"}
+
+    def counted(what, call):
+        seen, undo = _record_shapes(torch)
+        for k in kernels.values():
+            k.launches = 0
+        tc0, ft0 = E.TC_LAUNCHES, E.F32_TILED_LAUNCHES
+        try:
+            out = call()
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        got = counts(kernels)
+        _calls_match([[k, n] for k, n in seen.items()], got, what)
+        shapes.update(seen)
+        for n, v in got.items():
+            total[n] += v
+        return out, got, (E.TC_LAUNCHES - tc0, E.F32_TILED_LAUNCHES - ft0)
+
+    # (1) serving
+    base = ["--synthetic", "--synthetic_particles", str(N_POINTS),
+            "--num_frames", str(POS_ONLY_FRAMES)]
+    preds = {}
+    for name, extra, per, tc, ft in POS_ONLY_RUNS:
+        out_dir = os.path.join(POS_ONLY_DIR, name)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        res, got, (tc_n, ft_n) = counted(
+            f"position-only rollout {name}",
+            lambda: cli.main(base + extra + ["--out_dir", out_dir]))
+        expect(got, {k: v * POS_ONLY_FRAMES for k, v in per.items()},
+               f"position-only rollout {name}")
+        forms = {"tc": tc_n, "f32t": ft_n,
+                 "general": got["edgeconv"] - tc_n - ft_n}
+        expect(forms, {"tc": tc * POS_ONLY_FRAMES, "f32t": ft * POS_ONLY_FRAMES,
+                       "general": 0}, f"position-only rollout {name} forms")
+        preds[name] = [np.load(os.path.join(out_dir, f"pred_{i}.npy"))
+                       for i in range(POS_ONLY_FRAMES)]
+        if not all(N_POINTS <= p.shape[0] <= 8 * N_POINTS
+                   and np.isfinite(p).all() for p in preds[name]):
+            raise AssertionError(f"position-only rollout {name}: frames")
+        opt = cli.parser().parse_args(base + extra)
+        model, _ = cli.build_model(opt, dev)
+        seq = cli.load_frames(opt)
+        run = lambda: cli.run_rollout(model, seq, opt)
+        ms = time_ms(run, torch, reps=2, warmup=1) / POS_ONLY_FRAMES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        line[name] = {
+            "launches_per_frame": {k: v / POS_ONLY_FRAMES
+                                   for k, v in got.items() if v},
+            "edgeconv_forms_per_frame": {k: v / POS_ONLY_FRAMES
+                                         for k, v in forms.items()},
+            "frames_per_s": res["frames_per_s"], "ms_per_frame": ms,
+            "wall_ms_per_frame": (time.perf_counter() - t0) * 1e3
+            / POS_ONLY_FRAMES,
+            "card_vs_cpu": _pos_only_frame_vs_cpu(
+                torch, dev, opt, cli, seq[0][0], name == "f32_dynamic")}
+    cds = []
+    for a, b in zip(preds["f32_dynamic"], preds["bf16_static"]):
+        ta, tb = (torch.from_numpy(x).to(dev)[None] for x in (a, b))
+        scale = float(((ta - ta.mean(1, keepdim=True)) ** 2).sum(-1).mean())
+        with torch.no_grad():
+            cds.append(float(chamfer(ta, tb)[0]) / (a.shape[0] * scale))
+    line["bf16_static_vs_f32_dynamic_chamfer_norm"] = {
+        "max": max(cds), "mean": float(np.mean(cds))}
+
+    # (2) evaluation, then the densities with this model
+    line["eval"] = {}
+    for mode, extra, per in POS_ONLY_EVAL:
+        marks = []
+
+        def mark(_=None):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), counts(kernels)))
+
+        res, got, _ = counted(
+            f"position-only eval {mode}", lambda: (mark(), eval_fluid.evaluate(
+                eval_fluid.parser().parse_args(extra), on_sample=mark))[1])
+        per_sample = [delta(a[1], b[1]) for a, b in zip(marks[1:], marks[2:])]
+        for i, g in enumerate(per_sample):
+            expect(g, per, f"position-only eval {mode} sample {i}")
+        bad = {k: v for k, v in res.items()
+               if k != "serving_mode" and not np.isfinite(v)}
+        if bad or res["samples"] != len(per_sample):
+            raise AssertionError(f"position-only eval {mode}: {res}")
+        line["eval"][mode] = {
+            "seconds_per_sample": [b[0] - a[0] for a, b in
+                                   zip(marks[1:], marks[2:])],
+            "launches_per_sample": per_sample, "result": res}
+    density_launches, bi_rows = density_phase(torch, dev, kernels,
+                                              position_only=True,
+                                              shapes=shapes)
+
+    # (3) the train_novel recipe, then device sampling and the fused switch
+    ckpt = _pos_only_state(torch, dev, os.path.join(POS_ONLY_DIR, "seeded",
+                                                    "tpugan_checkpoint20000.ckpt"))
+    line["train_novel"] = {"gate_opened": "ml_gate raised (gate_open)"}
+    for name, extra, iters, fused in (
+            ("host_sampling", [], POS_ONLY_ITERS, False),
+            ("device_sampling_fused", ["--device_sampling"],
+             POS_ONLY_FUSED_ITERS, True)):
+        log_dir = os.path.join(POS_ONLY_DIR, f"train_{name}")
+        shutil.rmtree(log_dir, ignore_errors=True)
+        argv = ["--preset", "train_novel", "--synthetic", "--resume",
+                "--path_to_resume", ckpt] + extra + ["--log_dir", log_dir]
+        got, steps, native_calls = _pos_only_train(
+            torch, kernels, train_fluid, argv, iters, fused, shapes)
+        for n, v in got.items():
+            total[n] += v
+        line["train_novel"][name] = {
+            "argv": argv + ["--iters", str(iters)], "steps": steps,
+            "masking_loss_under_0.1": [s["masking_loss"] < 0.1
+                                       for s in steps],
+            "ms_per_step": [s["ms"] for s in steps],
+            "wall_ms_per_step": [s["wall_ms"] for s in steps],
+            "native_calls": native_calls}
+    for n, v in density_launches.items():
+        total[n] += v
+    line["launches"] = total
+    line["seconds_without_kernel_rows"] = time.perf_counter() - t_phase
+
+    # every kernel at every shape these runs gave it (medians of
+    # POS_ONLY_REPS), and the tensor-core EdgeConv at C = 3 on action
+    # frames (no fluid path's shape)
+    global REPS
+    REPS, reps = POS_ONLY_REPS, REPS
+    try:
+        rows = check_path_kernels(torch, dev, {("position_only", 1, k): n
+                                               for k, n in shapes.items()})
+    finally:
+        REPS = reps
+    rows["binned_interp"] = [dict(r, path="position_only", world=1, calls=1)
+                             for r in bi_rows]
+    rng = np.random.default_rng(29)
+    for b in (1, 12):
+        row = _edgeconv_row(torch, dev, rng, f"EdgeConv_0 C=3 {b} x 128",
+                            torch.bfloat16, "bf16", 128, 3, 64, 128, 20,
+                            "max", True, b=b)
+        if row["variant"] != "tc":
+            raise AssertionError(f"bf16 (3, 64, 128): {row['variant']}")
+        rows["edgeconv"].append(dict(config=f"action frames {b} x 128", B=b,
+                                     N=128, path="tc C=3 check", world=1,
+                                     calls=0, **row))
+        emit({"phase": "kernel", "kernel": "edgeconv", **rows["edgeconv"][-1]})
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return total, rows
+
+
+def add_position_only_units(line, rows, launches):
+    """Into the kernel line's entries: the largest f32 error of the rows at
+    the position-only shapes (:func:`position_only`), their times summed
+    over the counted runs' calls under "position_only", and every entry's
+    launches on that path; the EdgeConv entry also each bf16 row of the
+    tensor-core class at C = 3 under "tc_c3"."""
+    what = ("the position_only phase's counted calls: 25 f32 dynamic and 25 "
+            "bf16 static rollout frames of 10,240 points, 3 eval samples, "
+            "the density, 4 train_novel steps and 2 fused device-sampling "
+            "steps with their checkpoint evals")
+    for entry in line["kernels"]:
+        prs = [r for r in rows.get(entry["name"], [])
+               if r.get("path") == "position_only"]
+        f32 = [r for r in prs if r.get("dtype", "f32") == "f32"]
+        if f32:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       max(r["max_abs_err"] for r in f32))
+        if prs:
+            keys = [k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "library_ms") if all(r.get(k) is not None
+                                                     for r in prs)]
+            entry["position_only"] = {"times_are": what, "shapes": len(prs),
+                                      **{k: sum(r[k] * r["calls"] for r in prs)
+                                         for k in keys}}
+        entry["launches_by_path"]["position_only"] = launches.get(
+            entry["name"], 0)
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["name"] == "edgeconv":
+            entry["tc_c3"] = [
+                {k: r.get(k) for k in ("config", "path", "B", "N", "K",
+                                       "variant", "calls", "max_abs_err",
+                                       "tol", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by")}
+                for r in rows["edgeconv"]
+                if r["C"] == 3 and r["dtype"] == "bf16"]
+
+
 def add_surface_units(line, rows, bench_row):
     """Into the kernel line's entries: each kernel's times per fluid demo
     frame (the rows of check_surface_kernels, weighted by per_demo_frame)
@@ -5430,6 +5885,14 @@ SHARD_RUNS = [  # (name, the rollout CLI's flags, launches a frame on a rank)
 # the frames were equal bit for bit (the measure's own f32 noise); the
 # limit lies about 30x above the largest reading.
 SHARD_GATE = 1e-5
+# Limit of the largest point error of the sharded f32 dynamic frames against
+# the unsharded rollout of the same frames with the sharded run's graphs
+# replayed (_shift_probe (ii)): what is left is the centroid's f32 sum in
+# another order. On an NVIDIA H100 80GB HBM3 at 700 W it read 1.19e-7 at
+# two ranks in each of three runs (0 at one rank), where the frames without
+# the replay differ by up to 4.9e-3 (PERF.md section 6, PR 26); the limit
+# lies about 34x above the reading.
+SHARD_REPLAY_GATE = 4e-6
 DP_ITERS = 20004          # the fluid DP runs: iterations 20001-20004
 DP_PLAIN_STACK_ITERS = 20002   # its plain-stack twin: 20001-20002
 DP_ACTION_ITERS = 20002   # the action DP run: iterations 20001-20002
@@ -5439,13 +5902,21 @@ DP_TURNS = ("dp", "plain") * 3   # world size 1, in turns
 # cross-rank sums at two (relative). Later steps differ from run to run:
 # the plain versions' atomic scatter-adds change the gradients' last bits
 # and the GAN steps amplify them (on an H100, two plain runs'
-# spatial_G_loss read 0.051 and 0.073 at the fourth step). So a two-rank step
-# after the first must lie within the one-rank runs' spread at that step
-# widened by DP_SPREAD_WIDEN times that spread on each side (six runs'
-# spread understates the run-to-run range; a two-rank step that lost or
-# doubled a rank's gradient moves the second step's losses by far more).
+# spatial_G_loss read 0.051 and 0.073 at the fourth step), so the runs'
+# spread at a later step is a thin sample of a chaotic quantity (it is
+# printed, outside_spread_by_step, and decides nothing). What decides:
+# every two-rank step against the single-process step from the same state
+# (the state the ranks hold before it, bit for bit) on the same global
+# batch and draws (_same_state_steps): its losses within DP_LOSS_TOL_FIRST
+# relative, and its update within tests/test_torch_data_parallel.py's
+# bound (_assert_close), DP_UPDATE_TOL of each tensor's norm plus
+# DP_UPDATE_FLOOR sqrt(n) times the largest RMS of its kind. A rank's
+# gradient lost or counted twice moves an update by about half of it or
+# more. A second single-process step from the same state is printed
+# beside it: the one-rank noise of that step.
 DP_LOSS_TOL_FIRST = 1e-4
-DP_SPREAD_WIDEN = 3.0
+DP_UPDATE_TOL = {"sr": 0.05, "tempo": 0.1, "spatial": 0.1}
+DP_UPDATE_FLOOR = 1e-3
 RANK_TIMEOUT_S = 600
 
 
@@ -5601,28 +6072,40 @@ def _graph_ties(torch, model, pos, vel) -> dict:
     distances tie within 1e-5 of 2 max |x|^2 over the valid rows (as
     tests/test_torch_sharded_serving.py holds the CPU's graphs). Returns
     the graphs, the slots that differ and the largest gap over its
-    limit."""
+    limit; on rank 0 also the shift probe (:func:`_shift_probe`) of this
+    rollout's frames, centroids and whole graphs (each graph's rows
+    gathered from the ranks)."""
     import tpugan_tpu_torch.models.generator as G
     import tpugan_tpu_torch.nn.edgeconv as EC
+    import tpugan_tpu_torch.parallel.sharded_serving as SS
     from tpugan_tpu_torch.ops.neighbors import _gather_points, graph_knn, knn
     from tpugan_tpu_torch.parallel import mesh
-    from tpugan_tpu_torch.parallel.sharded_serving import \
-        rollout_sequence_sharded
 
-    graphs = []
+    graphs, whole, sums = [], [], []
+    own_reduce = SS.all_reduce_
 
     def recording(x, k, c_valid=None):
         d2, idx = graph_knn(x, k, c_valid)
         graphs.append((_gather_points(x), idx, None if c_valid is None
                        else _gather_points(c_valid)))
+        whole.append(mesh.gather_cat(idx, 1))
         return d2, idx
 
+    def reduce(t, group=None):     # the centroid's sum (its only caller)
+        sums.append(own_reduce(t, group))
+        return sums[-1]
+
     G.graph_knn = EC.graph_knn = recording
+    SS.all_reduce_ = reduce
     try:
-        rollout_sequence_sharded(model, pos, vel, use_vel=True)
+        frames = SS.rollout_sequence_sharded(model, pos, vel, use_vel=True)
     finally:
         G.graph_knn = EC.graph_knn = graph_knn
+        SS.all_reduce_ = own_reduce
     world, r = mesh.world_size(), mesh.rank()
+    probe = (_shift_probe(torch, model, pos, vel, frames,
+                          [t / float(pos.shape[1]) for t in sums], whole)
+             if r == 0 else None)
     differ, ratio = 0, 0.0
     for x, idx, cv in graphs:
         rows = mesh.rows_of(x.shape[1], world, r)
@@ -5638,7 +6121,103 @@ def _graph_ties(torch, model, pos, vel) -> dict:
                    - ((xd[b, qi] - xd[b, own[b, q, s]]) ** 2).sum(-1))
             ratio = max(ratio, float(gap.abs().max()) / tol)
     return {"graphs": len(graphs), "differing_slots": differ,
-            "max_gap_over_limit": ratio}
+            "max_gap_over_limit": ratio, "shift_probe": probe}
+
+
+def _unsharded_frames(torch, model, pos, vel, centroids=None, graphs=None):
+    """The unsharded f32 dynamic rollout of frames pos / vel [T, N, 3] (N a
+    multiple of the rollout's ALIGN: no padding rows) by
+    eval/rollout.py : make_rollout_step's arithmetic, with each frame's
+    centroid taken from ``centroids`` ([1, 1, 3] each) where given, and
+    with ``graphs`` (every graph's whole [1, N, k] lists, in the order the
+    forwards build them) replayed where given. Returns (the frames' valid
+    points, the replayed slots that differ from this run's own kNN and
+    their largest exact-distance gap over GraphReplay's f32-noise
+    limit)."""
+    import tpugan_tpu_torch.models.generator as G
+    import tpugan_tpu_torch.nn.edgeconv as EC
+    from tpugan_tpu_torch import DT
+    from tpugan_tpu_torch.models.generator import (RolloutMaskState,
+                                                   expand_pos_with_masking,
+                                                   rollout_mask_update)
+    from tpugan_tpu_torch.ops.neighbors import graph_knn
+
+    dev = next(model.parameters()).device
+    t, n, _ = pos.shape
+    r = model.upsample_ratio
+    queue = list(graphs or [])
+    swaps = [0, 0.0]
+
+    def replaying(x, k, c_valid=None):
+        d2, own = graph_knn(x, k, c_valid)
+        rec = queue.pop(0).to(own.device)
+        xd = x.detach().double()
+        b, q, sl = (rec != own).nonzero(as_tuple=True)
+        if b.numel():
+            tol = 1e-5 * 2 * float((xd * xd).sum(-1).max())
+            gap = (((xd[b, q] - xd[b, rec[b, q, sl]]) ** 2).sum(-1)
+                   - ((xd[b, q] - xd[b, own[b, q, sl]]) ** 2).sum(-1))
+            swaps[0] += int(b.numel())
+            swaps[1] = max(swaps[1], float(gap.abs().max()) / tol)
+        return d2, rec
+
+    state = RolloutMaskState.create(1, n, 25, device=dev)
+    real = torch.ones((1, n, 1), dtype=torch.bool, device=dev)
+    outs = []
+    if graphs is not None:
+        G.graph_knn = EC.graph_knn = replaying
+    try:
+        with torch.no_grad():
+            for f in range(t):
+                p = torch.from_numpy(pos[f:f + 1]).to(dev)
+                v = torch.from_numpy(vel[f:f + 1]).to(dev)
+                centroid = (torch.where(real, p, 0.0).sum(1, keepdim=True)
+                            / float(n) if centroids is None else centroids[f])
+                pos_n = torch.where(real, p - centroid, p)
+                edge, mask = model.heads(torch.cat([pos_n, v * DT], -1), pos_n)
+                mean_mask, state = rollout_mask_update(state, mask,
+                                                       valid=real[..., 0])
+                _, padded, valid = expand_pos_with_masking(
+                    pos_n, edge, mean_mask, r, model.epsilon)
+                out = torch.where(valid[..., None], padded + centroid, padded)
+                outs.append(out[0][valid[0]].cpu().numpy())
+    finally:
+        G.graph_knn = EC.graph_knn = graph_knn
+    if queue:
+        raise AssertionError(f"{len(queue)} graphs left unreplayed")
+    return outs, {"differing_slots": swaps[0], "max_gap_over_limit": swaps[1]}
+
+
+def _shift_probe(torch, model, pos, vel, sharded, centroids, graphs) -> dict:
+    """The sharded f32 dynamic frames (rank 0's) against the unsharded
+    rollout of the same frames three ways: as the rollout computes it (its
+    own centroid and graphs), (i) centred on the sharded run's centroids,
+    (ii) with the sharded run's graphs replayed (its own centroid): the
+    largest error of each where the frame shapes agree, the frames of
+    another shape, and (ii)'s replayed slots apart from its own kNN."""
+    def errs(frames):
+        same = [(a, b) for a, b in zip(frames, sharded) if a.shape == b.shape]
+        return {"max_abs_err": max((float(np.abs(a - b).max())
+                                    for a, b in same), default=None),
+                "frames_other_shape": len(sharded) - len(same),
+                "bit_for_bit": len(same) == len(sharded) and all(
+                    np.array_equal(a, b) for a, b in same)}
+
+    own, _ = _unsharded_frames(torch, model, pos, vel)
+    centred, _ = _unsharded_frames(torch, model, pos, vel, centroids=centroids)
+    replayed, swaps = _unsharded_frames(torch, model, pos, vel, graphs=graphs)
+    return {"unsharded": {**errs(own), "digest": _frames_digest(own)},
+            "sharded_centroid": errs(centred),
+            "sharded_graphs": {**errs(replayed), "replay": swaps}}
+
+
+def _frames_digest(frames) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for f in frames:
+        h.update(np.ascontiguousarray(f).tobytes())
+    return h.hexdigest()
 
 
 def _worker_sharded(torch, kernels, spec, out_dir):
@@ -5708,20 +6287,42 @@ def _digest(torch, state) -> str:
 
 
 def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
-            record=False):
+            record=False, same_state=False):
     """One train CLI run called as a function: each step's launches, metrics,
     ms (G only and G+D, CUDA events), the state's digest after it, the
     seconds in collectives and their number (with ``timed_collectives``:
     every collective synchronised and timed on the host clock), the peak
     memory, and with ``record`` the kernels' shapes (:func:`_record_shapes`)
-    and the whole run's launches."""
+    and the whole run's launches. With ``same_state`` (a data-parallel
+    fluid run): the state before each step (copied at the hook's "start",
+    before the step's first event), this rank's rows and the step's global
+    draws are kept, and past the counted run each step is held against
+    one-rank steps from the same state (:func:`_same_state_steps`)."""
+    import copy
+
+    import tpugan_tpu_torch.checkpoint as ckpt_mod
+    from tpugan_tpu_torch.models.discriminator import dropout_widths
     from tpugan_tpu_torch.parallel import mesh
+    from tpugan_tpu_torch.train.step import StepDraws
 
     marks, digests, coll = [], [], [0.0, 0]
     own_call = step_cls.__call__
+    own_load = ckpt_mod.load_trainer_state
+    live, kept = {}, []       # the CLI's state; (state, rows, draws, cfg)
 
-    def call(self, state, *a, **k):
-        out = own_call(self, state, *a, **k)
+    def load(*a, **k):
+        live["state"] = own_load(*a, **k)
+        return live["state"]
+
+    def call(self, state, batch, draws=None, mark=None):
+        if same_state:
+            if draws is None:      # as the step draws them itself
+                draws = StepDraws.draw(self.generator, self.cfg,
+                                       batch["highres_pos"].shape[2],
+                                       dropout_widths(state.spatial.module))
+            kept[-1] += ({k: v.clone() for k, v in batch.items()}, draws,
+                         self.cfg)
+        out = own_call(self, state, batch, draws, mark)
         digests.append(_digest(torch, state))
         return out
 
@@ -5739,6 +6340,8 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
         return wrapped
 
     def hook(event, n_iter, metrics):
+        if event == "start" and same_state:
+            kept.append((copy.deepcopy(live["state"]),))
         if event in ("start", "end"):
             torch.cuda.synchronize()
         ev = torch.cuda.Event(enable_timing=True)
@@ -5747,6 +6350,7 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
                       tuple(coll)))
 
     step_cls.__call__ = call
+    ckpt_mod.load_trainer_state = load
     if timed_collectives:
         for f in own:
             setattr(mesh, f, timed(f))
@@ -5760,6 +6364,7 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
     finally:
         del os.environ["TPUGAN_FUSED_EDGECONV_TRAIN"]
         step_cls.__call__ = own_call
+        ckpt_mod.load_trainer_state = own_load
         for f, fn in own.items():
             setattr(mesh, f, fn)
         undo()
@@ -5780,10 +6385,145 @@ def _dp_cli(torch, kernels, cli, argv, step_cls, timed_collectives=False,
                                            else None),
                       "collectives": (end[3][1] - start[3][1]
                                       if timed_collectives else None)})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = (_same_state_steps(torch, kept, out["state"], steps)
+            if same_state else None)
     return {"steps": steps, "checkpoint": out["checkpoint"],
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "state": out["state"], "run_launches": run_launches,
+            "peak_gib": peak, "state": out["state"],
+            "run_launches": run_launches, "same_state": same,
             "shapes": [[list(k), n] for k, n in shapes.items()]}
+
+
+NETS = ("sr", "tempo", "spatial")
+
+
+def _net_dump(state) -> dict:
+    """Parameters and buffers, Adam's mu and nu of the three networks
+    (tests/torch_dist_worker.py : _state_tensors)."""
+    return {name: {"sd": dict(getattr(state, name).module.state_dict()),
+                   "mu": dict(getattr(state, name).opt.mu),
+                   "nu": dict(getattr(state, name).opt.nu)} for name in NETS}
+
+
+def _update_errors(got, want, before, apart=None) -> dict:
+    """A step's state dump ``got`` against ``want`` from the same state
+    (``before``: its parameters) by tests/test_torch_data_parallel.py :
+    _assert_close's measure: of each kind (the parameters' updates, Adam's
+    mu and nu - 1, the buffers) each tensor's error ||got - want|| against
+    DP_UPDATE_TOL[net] ||want|| + DP_UPDATE_FLOOR sqrt(n) r, r the kind's
+    largest RMS. The updates of the parameters in ``apart`` ({net: names}:
+    the Dense biases under a batch norm, held to a zero gradient apart by
+    :func:`_bias_grads_over_limit`) are left out of the "change"
+    kind. Returns the tensor with the largest error over that bound (net,
+    kind, name, the error as a share of ||want||, over_bound), the same
+    with ``apart`` in ("worst_with_apart"), and, over the mask head's
+    parameters (sr's filter_block.*), the update's relative difference and
+    its projection on the update ((got - want) . (want - before) / ||want -
+    before||^2: a systematic offset keeps its sign from step to step)."""
+    worst = _update_worst(got, want, before, apart or {})
+    with_apart = _update_worst(got, want, before, {}) if apart else worst
+    head = [k for k in before["sr"] if k.startswith("filter_block.")]
+    diff = sum(float(((got["sr"]["sd"][k] - want["sr"]["sd"][k]) ** 2).sum())
+               for k in head) ** 0.5
+    upd = [(want["sr"]["sd"][k] - before["sr"][k]).flatten() for k in head]
+    upd2 = sum(float((u ** 2).sum()) for u in upd)
+    proj = sum(float(((got["sr"]["sd"][k] - want["sr"]["sd"][k]).flatten()
+                      * u).sum()) for k, u in zip(head, upd))
+    return {"worst": worst, "worst_with_apart": with_apart,
+            "mask_head": {"rel": diff / max(upd2 ** 0.5, 1e-30),
+                          "projection": proj / max(upd2, 1e-30)}}
+
+
+def _update_worst(got, want, before, apart) -> dict:
+    worst = {"over_bound": -1.0}
+    for name in NETS:
+        g, w, b0 = got[name], want[name], before[name]
+        kinds = {
+            "change": [(k, g["sd"][k] - b0[k], w["sd"][k] - b0[k])
+                       for k in b0 if k not in apart.get(name, ())],
+            "stats": [(k, g["sd"][k], w["sd"][k]) for k in w["sd"]
+                      if k not in b0],
+            "mu": [(k, g["mu"][k], w["mu"][k]) for k in w["mu"]],
+            "nu": [(k, g["nu"][k] - 1, w["nu"][k] - 1) for k in w["nu"]]}
+        for kind, pairs in kinds.items():
+            if not pairs:
+                continue
+            r = max(float(b.float().norm()) / b.numel() ** 0.5
+                    for _, _, b in pairs)
+            for k, a, b in pairs:
+                err = float((a.float() - b.float()).norm())
+                norm = float(b.float().norm())
+                limit = (DP_UPDATE_TOL[name] * norm
+                         + DP_UPDATE_FLOOR * b.numel() ** 0.5 * r)
+                # a kind that is zero on the reference (a critic on a
+                # generator-only step) must be zero on the other side too
+                over = (err / limit if limit else
+                        0.0 if err == 0 else math.inf)
+                if over > worst["over_bound"]:
+                    worst = {"net": name, "kind": kind, "tensor": k,
+                             "share_of_norm": err / max(norm, 1e-30),
+                             "over_bound": over}
+    return worst
+
+
+def _same_state_steps(torch, kept, last, steps) -> dict:
+    """Each data-parallel step against one-rank steps from the same state:
+    every rank gathers each step's global batch from the ranks' rows (in
+    rank order, as batch_sharded cut it); rank 0 runs the single-process
+    step (FluidGanStep without data parallelism) twice from a copy of the
+    state before the step, on the global batch and draws, and holds the
+    data-parallel step (the state before the next step, ``last`` after the
+    last) against the first (losses relative, the gate equal, the update
+    by :func:`_update_errors`) and the second against the first (the
+    one-rank noise of the step: the plain versions' atomic adds). Rank 0
+    returns the figures by step, the other ranks None; every rank waits for
+    rank 0 before it returns."""
+    import copy
+
+    from tpugan_tpu_torch.parallel import mesh
+    from tpugan_tpu_torch.train.step import FluidGanStep
+
+    batches = [{k: mesh.gather_cat(v, 1) for k, v in rows.items()}
+               for _, rows, _, _ in kept]
+    out = None
+    if mesh.rank() == 0:
+        out = []
+        afters = [k[0] for k in kept[1:]] + [last]
+        for (state, _, draws, cfg), batch, after, two in zip(
+                kept, batches, afters, steps):
+            before = {n: {k: p.detach().clone() for k, p in
+                          getattr(state, n).module.named_parameters()}
+                      for n in NETS}
+            apart = {n: {k for k in before[n]
+                         if _bias_under_bn(getattr(state, n).module, k)}
+                     for n in NETS}
+            mu0 = {n: getattr(state, n).opt.mu for n in NETS}
+            one = []
+            for _ in range(2):
+                st = copy.deepcopy(state)
+                metrics = FluidGanStep(cfg)(st, batch, draws)
+                one.append((metrics, _net_dump(st)))
+            (m1, d1), (m2, d2) = one
+            rel = lambda a: max(_rel_errs(a, m1))
+            out.append({"iteration": two["iteration"],
+                        "gate_equal": (two["metrics"]["gate"] == m1["gate"]
+                                       == m2["gate"]),
+                        "loss_rel_err": rel(two["metrics"]),
+                        "repeat_loss_rel_err": rel(m2),
+                        "update": _update_errors(_net_dump(after), d1,
+                                                 before, apart),
+                        "repeat_update": _update_errors(d2, d1, before,
+                                                        apart),
+                        "bias_grads_over_limit": max(
+                            [_bias_grads_over_limit(getattr(after, n), mu0[n])
+                             for n in NETS if getattr(after, n).opt.count
+                             > getattr(state, n).opt.count], default=0.0),
+                        "one_rank_metrics": m1})
+        torch.cuda.synchronize()
+    # the other ranks wait for rank 0
+    mesh.all_reduce_(torch.zeros(1, device=next(last.sr.module.parameters())
+                                 .device))
+    return out
 
 
 def _worker_dp(torch, kernels, spec, out_dir):
@@ -5817,7 +6557,8 @@ def _worker_dp(torch, kernels, spec, out_dir):
         else:
             argv += ["--device", "cuda:0"]
         got = _dp_cli(torch, kernels, train_fluid, argv, FluidGanStep,
-                      timed_collectives=world > 1, record=world > 1)
+                      timed_collectives=world > 1, record=world > 1,
+                      same_state=world > 1)
         state = got.pop("state")
         if turn == "dp" and i == 0:
             from tpugan_tpu_torch.parallel import mesh
@@ -6031,7 +6772,14 @@ def check_path_kernels(torch, dev, shapes) -> dict:
                     b, n, E.takes_f32_tiled_bwd(cdt, mlp, c, h, o)),
                     path, world, calls)
         elif name == "pooled_mlp_fwd":
-            continue    # held in the ranks, on the real two-rank sum
+            b, m, ns, c0, widths, slope, w = shape
+            if w > 1:
+                continue    # held in the ranks, on the real two-rank sum
+            f, g = _pooled_row(torch, dev, rng, what, (b, m, ns, c0),
+                               tuple(int(x) for x in widths.split("x")),
+                               slope, 0, "positive")
+            add(name, f, path, world, calls)
+            add("pooled_mlp_bwd", g, path, world, calls)
         else:
             raise AssertionError(f"no kernel row for {key}")
     return out
@@ -6122,15 +6870,26 @@ def sharded_rollout(torch, dev, ranks):
                 "wall_ms_per_frame": [o["sharded"][name]["wall_ms_per_frame"]
                                       for o in outs]}
             ties = [o["sharded"][name].get("graph_ties") for o in outs]
+            replay_err = 0.0
             if ties[0] is not None:
+                probe = ties[0].pop("shift_probe")
+                probe["unsharded"]["equals_the_cli_frames"] = (
+                    probe["unsharded"].pop("digest") == _frames_digest(ref))
                 entry[f"world{world}"]["graph_ties"] = ties
+                entry[f"world{world}"]["shift_probe"] = probe
+                replay_err = probe["sharded_graphs"]["max_abs_err"]
+                if (replay_err is None
+                        or not probe["unsharded"]["equals_the_cli_frames"]):
+                    replay_err = math.inf
             if not (entry[f"world{world}"]["chamfer_norm_max"] < SHARD_GATE
+                    and replay_err <= SHARD_REPLAY_GATE
                     and all(t is None or t["max_gap_over_limit"] <= 1.0
                             for t in ties)):
                 raise AssertionError(f"sharded rollout {name}, world {world}: "
                                      f"{entry[f'world{world}']}")
         line[name] = entry
     line["gate"] = SHARD_GATE
+    line["replay_gate"] = SHARD_REPLAY_GATE
     emit(line)
     return launches
 
@@ -6174,6 +6933,15 @@ def data_parallel(torch, ranks):
         raise AssertionError("world 1: the DP checkpoint read back differs")
     fl = [o["dp"]["fluid_0_dp"] for o in two]
     first = max(_rel_errs(fl[0]["steps"][0]["metrics"], ref[0]["metrics"]))
+    same = fl[0]["same_state"]
+    if len(same) != len(fl[0]["steps"]):
+        raise AssertionError(f"world 2: {len(same)} same-state comparisons "
+                             f"for {len(fl[0]['steps'])} steps")
+    same_bad = [s for s in same
+                if not (s["gate_equal"]
+                        and s["loss_rel_err"] <= DP_LOSS_TOL_FIRST
+                        and s["update"]["worst"]["over_bound"] <= 1.0
+                        and s["bias_grads_over_limit"] <= 1.0)]
     outside, worst = [], []
     for i, (a, b, r) in enumerate(zip(fl[0]["steps"], fl[1]["steps"], ref)):
         if a["digest"] != b["digest"] or a["metrics"] != b["metrics"]:
@@ -6193,10 +6961,6 @@ def data_parallel(torch, ranks):
             worst.append({"iteration": a["iteration"], "metric": k,
                           "world2": a["metrics"][k],
                           "world1": [min(seen[k]), max(seen[k])]})
-    if not (first <= DP_LOSS_TOL_FIRST and max(outside) <= DP_SPREAD_WIDEN):
-        raise AssertionError(f"world 2 vs 1: first step off by {first}, "
-                             f"later steps outside the spread by {outside}"
-                             f" (the farthest metric a step: {worst})")
     act = [o["dp"]["action_dp"] for o in two]
     for a, b in zip(act[0]["steps"], act[1]["steps"]):
         if a["digest"] != b["digest"] or not all(
@@ -6230,8 +6994,13 @@ def data_parallel(torch, ranks):
     emit({"phase": "data_parallel", "world": 2, "backend": "gloo",
           "ranks_equal_every_step": True, "first_step_rel_err": first,
           "first_step_tol": DP_LOSS_TOL_FIRST,
+          "same_state_by_step": [
+              {k: v for k, v in st.items() if k != "one_rank_metrics"}
+              for st in same],
+          "same_state_tol": {"loss_rel": DP_LOSS_TOL_FIRST,
+                             "update": DP_UPDATE_TOL,
+                             "floor": DP_UPDATE_FLOOR},
           "outside_spread_by_step": outside, "outside_spread_worst": worst,
-          "spread_widen": DP_SPREAD_WIDEN,
           "fluid": {**summary([fl[0]]),
                     "metrics": [s["metrics"] for s in fl[0]["steps"]],
                     "collective_share": [s["collective_share"]
@@ -6251,6 +7020,10 @@ def data_parallel(torch, ranks):
                                                  for s in act[0]["steps"]],
                             "launches": [s["launches"] for s in act[0]["steps"]],
                             "peak_gib": [o["peak_gib"] for o in act]}})
+    if not (first <= DP_LOSS_TOL_FIRST and not same_bad):
+        raise AssertionError(f"world 2 vs 1: first step off by {first}; "
+                             f"steps off the one-rank step from the same "
+                             f"state: {same_bad}")
     launches = {}
     for run in dp_runs:
         for s in run["steps"]:
@@ -6525,6 +7298,11 @@ def main(argv=None) -> int:
         k.launches = 0
     demo_launches = fluid_demo_phase(torch, kernels)
 
+    # the position-only fluid model: the rollout and eval CLIs at their
+    # defaults, the density and the train_novel recipe (counts reset before
+    # each counted run, read after it), then its kernels at every shape
+    pos_only_launches, pos_only_rows = position_only(torch, dev, kernels)
+
     # the stacked-critic train path (--fast_d): the critics' stacked applies
     # against their sequential ones, then both CLI twins with --fast_d
     # (counts reset inside, read after each step and after the CLI returns)
@@ -6653,6 +7431,7 @@ def main(argv=None) -> int:
                      {"train_fast_d": fast_d_launches,
                       "train_action_fast_d": action_fast_d_launches})
     add_parallel_units(line, path_rows, parallel_launches)
+    add_position_only_units(line, pos_only_rows, pos_only_launches)
     # the EdgeConv forward's times per bf16 static forward beside the f32's
     ec_bf16 = [r for r in ec_rows if r["dtype"] == "bf16"]
     ec_entry = next(e for e in line["kernels"] if e["name"] == "edgeconv")

@@ -24,6 +24,11 @@ mu 0 and nu 1 (``tests/test_torch_train_step.py`` says why):
   ``make_fluid_gan_step(..., mesh=make_mesh(2))`` (GSPMD's data-parallel
   step on the two-device CPU mesh), to the tolerances of
   ``tests/test_torch_train_step.py``; the JAX step is compiled once;
+* two consecutive data-parallel fluid steps (an odd iteration, then an
+  even one), the second against the single-process step taken from the
+  state the ranks held after the first, on the same global batch and
+  draws (the card run's same-state gate, ``chip_smoke.py :
+  data_parallel``), by the same measure;
 * both ranks bit for bit;
 * at two ranks each rank calls the pooled-MLP batch-norm kernel as one
   rank does (12 calls in the fluid G+D step; its plain split here, which
@@ -87,6 +92,7 @@ NETS = ("sr", "tempo", "spatial")
 POOLED_TOL = 1e-5
 POOLED_WIDTHS = [16, 24]
 START_ITER = 101            # the step is the even iteration 102
+CHAIN_ITER = 100            # the chain's steps are iterations 101 and 102
 # a rank's step against the single process, by norm (see _assert_close)
 TOL = {"sr": 0.05, "tempo": 0.1, "spatial": 0.1}
 METRIC_RTOL = 1e-3
@@ -206,10 +212,20 @@ def steps(tmp_path_factory):
             dropout_layers(state.tempo.module))
         action.append(dict(state=state, cfg=acfg,
                            batch={"highres_pos": hp}, draws=draws))
+    chain = dict(cfg=cfg, state=_prepared(init_fluid_state(cfg, 2, "cpu"),
+                                          CHAIN_ITER),
+                 batches=[batch, {k: torch.from_numpy(
+                     (rng.standard_normal((3, 4, m, 3)) * s)
+                     .astype(np.float32)) for k, s in (
+                         ("highres_pos", 0.3), ("highres_vel", 1.0))}],
+                 draws=[StepDraws.draw(torch.Generator().manual_seed(g), cfg,
+                                       m, dropout_widths(
+                                           fluid[0]["state"].spatial.module))
+                        for g in (8, 9)])
     # the ranks run while this process compiles and runs the JAX step
     ranks = start_ranks("steps", {"fluid": {"runs": fluid},
                                   "action": {"runs": action},
-                                  "pooled": _pooled_case(),
+                                  "pooled": _pooled_case(), "chain": chain,
                                   "references": True}, work / "ranks")
     after, metrics = _jax_mesh_step(models, txs, jstate, batch, key)
     outs = ranks()
@@ -314,6 +330,24 @@ def test_dp_at_two_ranks_keeps_the_pooled_kernel_out(steps):
         assert stack["pooled_calls"] == 0
         assert kernel["collectives"] == stack["collectives"] > 0
         _hold(kernel, stack, before[0])
+
+
+def test_fluid_dp_step_matches_single_process_from_the_dp_state(steps):
+    """The card's same-state gate on the CPU: after a first data-parallel
+    step (odd iteration: the generator alone), the second (even: the
+    critics too) on both ranks bit for bit, and held by ``_hold`` against
+    the single-process step taken from the state the ranks held between
+    the two, on the same global batch and draws."""
+    _, _, outs, *_ = steps
+    a, b = (o["chain"] for o in outs)
+    _assert_same(a["mid"], b["mid"])
+    _assert_same(a["dp"]["state"], b["dp"]["state"])
+    assert a["dp"]["metrics"] == b["dp"]["metrics"]
+    assert a["dp"]["metrics"]["gate"] and a["mid"]["n_iter"] == CHAIN_ITER + 1
+    names = {n: [k for k, _ in getattr(steps[3], n).module.named_parameters()]
+             for n in NETS}
+    before = {n: {k: a["mid"][n]["sd"][k] for k in names[n]} for n in NETS}
+    _hold(a["dp"], a["plain"], before)
 
 
 @pytest.mark.parametrize("fast_d", [False, True])

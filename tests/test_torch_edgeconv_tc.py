@@ -1,9 +1,10 @@
 """The bf16 tensor-core EdgeConv forward's narrow classes and the serving
 path around them, on the CPU (plain versions).
 
-- EdgeConv_0's 6 channels pad to one k16 step on the card with zero
-  channels and zero weight rows: the padded function equals the unpadded
-  one bit for bit in bf16, at every aggregate.
+- EdgeConv_0's 6 channels (3 in the position-only models) pad to one k16
+  step on the card with zero channels and zero weight rows: the padded
+  function equals the unpadded one bit for bit in bf16, at every
+  aggregate.
 - The EdgeConv module hands the kernel weights made ready once while
   autograd is off (``EdgeConv._kernel_weights``): the same bits as the
   transposed views it passed before, remade when a parameter changes, and
@@ -33,9 +34,8 @@ def _t(rng, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("aggregate", AGGREGATES)
-def test_channel_padding_is_exact_in_bf16(rng, aggregate):
-    b, k, n, c, cp, h, o = 2, 5, 37, 6, 16, 64, 128
+def _padding_case(rng, aggregate, c):
+    b, k, n, cp, h, o = 2, 5, 37, 16, 64, 128
     nbr, ctr = _t(rng, b, k, n, c), _t(rng, b, n, c)
     wn, we = _t(rng, c, h) / c ** 0.5, _t(rng, c, h) / c ** 0.5
     w1, w2 = _t(rng, h, h) / h ** 0.5, _t(rng, h, o) / h ** 0.5
@@ -48,6 +48,16 @@ def test_channel_padding_is_exact_in_bf16(rng, aggregate):
                            pad_rows(we), w1, w2, aggregate, bf)
     assert got.dtype == bf
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("aggregate", AGGREGATES)
+def test_channel_padding_is_exact_in_bf16(rng, aggregate):
+    _padding_case(rng, aggregate, 6)
+
+
+@pytest.mark.parametrize("aggregate", AGGREGATES)
+def test_channel_padding_is_exact_in_bf16_at_three_channels(rng, aggregate):
+    _padding_case(rng, aggregate, 3)
 
 
 def _module(mlp, dtype, seed=0):

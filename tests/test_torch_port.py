@@ -150,12 +150,12 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu(wrapper):
     assert edgeconv.F32_TILED_BWD_LAUNCHES == 0
 
 
-# (mlp, C, H, O) of the classes the bf16 tensor-core kernel takes, and
-# those the f32 register-tiled kernel takes (the same and the action
-# generator's EdgeConv_0, which no path runs in bf16)
+# (mlp, C, H, O) of the classes the bf16 tensor-core kernel takes (the
+# fluid generator's four and EdgeConv_0 at C = 3, the position-only
+# models'), and those the f32 register-tiled kernel takes (the same)
 TC = [(True, 64, 128, 256), (False, 64, 128, 128), (True, 6, 64, 128),
-      (True, 32, 16, 32)]
-F32_TILED = TC + [(True, 3, 64, 128)]
+      (True, 32, 16, 32), (True, 3, 64, 128)]
+F32_TILED = list(TC)
 
 
 @pytest.mark.parametrize("dtype,mlp,widths,tc,f32t", [
@@ -171,7 +171,7 @@ F32_TILED = TC + [(True, 3, 64, 128)]
     (torch.float32, False, (64, 128, 128), False, True),
     (torch.float32, True, (6, 64, 128), False, True),
     (torch.float32, True, (3, 64, 128), False, True),
-    (torch.bfloat16, True, (3, 64, 128), False, False),
+    (torch.bfloat16, True, (3, 64, 128), True, False),
     (torch.float32, False, (3, 64, 128), False, False),
     (torch.float32, True, (32, 16, 32), False, True),
     (torch.float32, False, (64, 128, 256), False, False),
@@ -395,9 +395,10 @@ def _edgeconv_cases():
               for agg in ("max", "min", "sum", "mean") for b in (1, 12)]
     # the tensor-core kernel's narrow classes (bf16; in f32 the same rows
     # run the register-tiled kernel): every aggregate at ragged N with each
-    # K the serving forward gives the class, a repeat bit for bit
+    # K the serving forward gives the class, a repeat bit for bit (C = 3:
+    # an odd N starts most tiles off 16 bytes, each value moved alone)
     for c, h, o, ks in [(6, 64, 128, (20,)), (32, 16, 32, (20, 10)),
-                        (64, 128, None, (8,))]:
+                        (64, 128, None, (8,)), (3, 64, 128, (20,))]:
         name = f"tc-{c}-{h}-{o}"
         cases += [pytest.param(c, h, o, k, agg, 2, n, "random",
                                id=f"{name}-k{k}-{agg}-n{n}")

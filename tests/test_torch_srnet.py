@@ -142,3 +142,47 @@ def test_trained_checkpoint_dynamic_matches_jax(monkeypatch):
     replay.replay()
     out_t = tm(torch.from_numpy(feat), torch.from_numpy(pos))
     assert_forward_close(out_j, out_t, tm.epsilon, 8)
+
+
+
+# The position-only model's bf16 static forward against JAX's: both round
+# every EdgeConv layer to bf16 (the port through its kernel's plain version
+# on the CPU, JAX through its own), each summing in its own order, so a
+# value may round to the neighbouring bf16 and the flip carries forward
+# through the IDGCN and the heads. At these widths the masks read 1.1e-3
+# apart and the positions 3.7e-3 (a cloud of scale 0.3); the limits lie
+# about 10x and 5x above, and keep decisions may differ only where JAX's
+# raw mask lies within BF16_MASK_ATOL of epsilon.
+BF16_MASK_ATOL = 1e-2
+BF16_POS_ATOL = 2e-2
+
+
+def test_position_only_bf16_static_matches_jax(rng, monkeypatch):
+    import jax.numpy as jnp
+
+    r = 4
+    feat, pos = _frame(rng, 256, 3)
+    jm = JaxSRNet(in_feats=3, node_emb_dim=32, upsample_ratio=r,
+                  graph_mode="static", compute_dtype=jnp.bfloat16)
+    variables = jax.jit(lambda key: jm.init(key, feat, pos, False))(
+        jax.random.PRNGKey(1))
+    replay = GraphReplay(monkeypatch)
+    out_j = replay.jax_forward(jm, variables, feat, pos)
+    assert len(replay.lists) == 1
+    tm = SRNet(in_feats=3, node_emb_dim=32, upsample_ratio=r,
+               graph_mode="static", compute_dtype=torch.bfloat16,
+               device="cpu")
+    tm.load_state_dict(srnet_params_from_flax(variables["params"], tm))
+    replay.replay()
+    with torch.no_grad():
+        out_t = tm(torch.from_numpy(feat), torch.from_numpy(pos))
+    assert not replay.lists
+    e_j, m_j, p_j, v_j = (np.asarray(a) for a in out_j)
+    e_t, m_t, p_t, v_t = (a.numpy() for a in out_t)
+    np.testing.assert_allclose(m_t, m_j, rtol=0, atol=BF16_MASK_ATOL)
+    near = np.repeat(np.abs(m_j - tm.epsilon) < BF16_MASK_ATOL, r, axis=1)
+    assert np.all((v_t == v_j) | near)
+    np.testing.assert_allclose(e_t, e_j, rtol=0, atol=BF16_POS_ATOL)
+    same = v_t == v_j
+    np.testing.assert_allclose(p_t[same], p_j[same], rtol=0,
+                               atol=BF16_POS_ATOL)

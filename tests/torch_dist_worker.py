@@ -293,15 +293,40 @@ def _pooled_split(inp):
     return out
 
 
+def _chain(inp):
+    """Two consecutive data-parallel fluid steps from ``inp["state"]`` on
+    ``inp["batches"]`` and ``inp["draws"]``: the state between them (a
+    copy, and its tensors) and the second step's metrics and state."""
+    import copy
+
+    from tpugan_tpu_torch.parallel import mesh
+    from tpugan_tpu_torch.train.step import FluidGanStep
+
+    state = copy.deepcopy(inp["state"])
+    step = FluidGanStep(inp["cfg"], data_parallel=True)
+    rows = lambda b: {k: v.contiguous()
+                      for k, v in mesh.batch_sharded(b).items()}
+    step(state, rows(inp["batches"][0]), inp["draws"][0])
+    mid = copy.deepcopy(state)
+    metrics = step(state, rows(inp["batches"][1]), inp["draws"][1])
+    return mid, {"mid": _state_tensors(mid),
+                 "dp": {"metrics": metrics, "state": _state_tensors(state)}}
+
+
 def case_steps(inp):
     """The data-parallel fluid and action steps of ``inp["fluid"]`` and
     ``inp["action"]`` at the world's size (the fluid ones also with every
     SetConv on the plain stack); the pooled split of ``inp["pooled"]``
-    (:func:`_pooled_split`), where given; then, with
-    ``inp["references"]``, the single-process references on the whole
+    (:func:`_pooled_split`), where given; two consecutive data-parallel
+    fluid steps of ``inp["chain"]`` (:func:`_chain`), where given; then,
+    with ``inp["references"]``, the single-process references on the whole
     batch, shared out so the ranks work at once: rank 0 runs the fluid ones
     in a group of that rank alone (world size 1) and without data
-    parallelism, the last rank the action ones without it."""
+    parallelism, and the chain's second step without it from the state the
+    ranks held between the two; the last rank the action ones without
+    it."""
+    import copy
+
     import torch.distributed as dist
 
     from tpugan_tpu_torch.parallel import mesh
@@ -315,6 +340,9 @@ def case_steps(inp):
            "action": _steps(inp["action"], action, dp)}
     if "pooled" in inp:
         out["pooled"] = _pooled_split(inp["pooled"])
+    mid = None
+    if "chain" in inp:
+        mid, out["chain"] = _chain(inp["chain"])
     if inp.get("references"):
         world, r = mesh.world_size(), mesh.rank()
         alone = [dist.new_group([i]) for i in range(world)][0]
@@ -322,6 +350,12 @@ def case_steps(inp):
         if r == 0:
             refs.append(("fluid", fluid, [("alone", alone, True),
                                           ("plain", None, True)]))
+            if mid is not None:     # (mid's dump holds its Adam moments)
+                c, single = inp["chain"], copy.deepcopy(mid)
+                metrics = FluidGanStep(c["cfg"])(single, c["batches"][1],
+                                                 c["draws"][1])
+                out["chain"]["plain"] = {"metrics": metrics,
+                                         "state": _state_tensors(single)}
         if r == world - 1:
             refs.append(("action", action, [("plain", None, True)]))
         for name, make, groups in refs:

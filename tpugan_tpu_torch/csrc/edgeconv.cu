@@ -74,7 +74,8 @@
 // its own, edgeconv_tc_kernel (entry point edgeconv_fwd_bf16_tc), with the
 // same contract: (mlp, C, H, O) = (1, 64, 128, 256), the upsampler's and
 // mask head's; (0, 64, 128, 128), the mask head's sum; (1, 6, 64, 128),
-// EdgeConv_0; (1, 32, 16, 32), the IDGCN's. It replaces _edgeconv_kernel
+// EdgeConv_0; (1, 32, 16, 32), the IDGCN's; (1, 3, 64, 128), the
+// position-only model's EdgeConv_0. It replaces _edgeconv_kernel
 // with cdt = bfloat16 there. Its bound at 10,240 points: a k=12 launch of
 // (64, 128, 256) does 16.1 GFLOP, 16.3 us at the card's 989 TFLOP/s of
 // bf16 tensor-core products, against 15.7 MB of bf16 table, 4.7 us at 3.35
@@ -95,12 +96,18 @@
 // and zero weight rows (exact: zeros add nothing); its 16-row tile, 192
 // contiguous bytes, starts on 16 bytes only where (row * 6) % 8 == 0, so a
 // thread moves its 16 bytes at once where they are aligned and whole and
-// in four 4-byte moves otherwise. At (64, 128, 256) four groups of four
-// warps share one block an SM (the weights fill it); the sum and
-// EdgeConv_0 take one group a block, five blocks an SM; the IDGCN (H = 16,
+// in four 4-byte moves otherwise. The position-only EdgeConv_0's 3
+// channels pad the same way; its 16-row tile is 48 values, 6 units of 16
+// bytes, aligned at every tile where N % 8 == 0 (the serving frames'),
+// else moved 2 bytes at a time; at odd C a pair of values may straddle two
+// rows, so each value goes to shared memory alone. Its bound at 10,240
+// points and k=20: 5.1 GFLOP (5.2 us) against 1.2 MB of table. At (64,
+// 128, 256) four groups of four
+// warps share one block an SM (the weights fill it); the sum and both
+// EdgeConv_0s take one group a block, five blocks an SM; the IDGCN (H = 16,
 // two n8 tiles, which four warps cannot split) one warp a tile, meeting
 // only at __syncwarp, two tiles a block. 10,240 points (640 tiles) run in
-// one wave at each of the three.
+// one wave at each of the four.
 #include "gemm_tile.cuh"
 #include "reduce.cuh"
 
@@ -591,8 +598,7 @@ struct Shape {
   // owns units gt, gt + GT, ... (NU of them). WIDE: a unit lies in one row.
   static constexpr bool WIDE = C_ % 8 == 0;
   static constexpr int UNITS = TP * C_ / 8, NU = (UNITS + GT - 1) / GT;
-  static_assert(C_ % 2 == 0 && H % 16 == 0 && HW % 16 == 0 && OW % 16 == 0,
-                "widths");
+  static_assert(H % 16 == 0 && HW % 16 == 0 && OW % 16 == 0, "widths");
   static_assert(GROUPS <= 15 && SMEM <= 232448, "barriers and shared memory");
 };
 
@@ -694,10 +700,11 @@ __device__ __forceinline__ void stage(const bf16* __restrict__ src, int rows,
 
 // The thread's units of the TP-row tile of a [.., C] tensor whose first
 // row is at src; values of rows past np read as 0. A unit of a WIDE class
-// is one 16-byte move; otherwise (C = 6: a unit straddles rows, and the
-// tile starts on 16 bytes only where (row * C) % 8 == 0) one 16-byte move
-// where it is aligned and whole, else four 4-byte moves (C is even, so a
-// pair never straddles rows).
+// is one 16-byte move; otherwise (C = 6 or 3: a unit straddles rows, and
+// the tile starts on 16 bytes only where (row * C) % 8 == 0) one 16-byte
+// move where it is aligned and whole, else four 4-byte moves at an even C
+// (a pair never straddles rows, and starts on 4 bytes) or eight 2-byte
+// moves at an odd C.
 template <class SH>
 __device__ __forceinline__ void load_units(const bf16* __restrict__ src, int np,
                                            int gt, uint4 (&v)[SH::NU]) {
@@ -711,6 +718,16 @@ __device__ __forceinline__ void load_units(const bf16* __restrict__ src, int np,
     const bool aligned = (reinterpret_cast<size_t>(s) & 15) == 0;
     if (SH::WIDE || (aligned && 8 * q + 8 <= live)) {
       if (8 * q < live) v[u] = __ldg(reinterpret_cast<const uint4*>(s));
+    } else if constexpr (SH::C % 2 == 1) {
+      const unsigned short* sh = reinterpret_cast<const unsigned short*>(s);
+      unsigned w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned lo = 8 * q + 2 * k < live ? __ldg(sh + 2 * k) : 0u;
+        const unsigned hi = 8 * q + 2 * k + 1 < live ? __ldg(sh + 2 * k + 1) : 0u;
+        w[k] = lo | (hi << 16);
+      }
+      v[u] = make_uint4(w[0], w[1], w[2], w[3]);
     } else {
       const unsigned* sw = reinterpret_cast<const unsigned*>(s);
       v[u] = make_uint4(8 * q < live ? __ldg(sw) : 0u,
@@ -738,6 +755,20 @@ __device__ __forceinline__ void store_units(const uint4 (&nv)[SH::NU],
       *reinterpret_cast<uint4*>(ed + o) =
           make_uint4(sub_pair(n.x, c.x), sub_pair(n.y, c.y),
                      sub_pair(n.z, c.z), sub_pair(n.w, c.w));
+    } else if constexpr (SH::C % 2 == 1) {   // a pair may straddle rows
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned nw = word(n, k), ew = sub_pair(nw, word(c, k));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 8 * q + 2 * k + i;   // the value's place in the tile
+          const int o = (e / SH::C) * SH::LDC + e % SH::C;
+          *reinterpret_cast<unsigned short*>(nb + o) =
+              static_cast<unsigned short>(nw >> (16 * i));
+          *reinterpret_cast<unsigned short*>(ed + o) =
+              static_cast<unsigned short>(ew >> (16 * i));
+        }
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -2480,6 +2511,7 @@ extern "C" int edgeconv_fwd_bf16_tc(const void* nbr, const void* ctr,
   EDGECONV_TC(64, 128, 256, true, 4, 4, 1);    // upsampler and mask head
   EDGECONV_TC(64, 128, 128, false, 4, 1, 5);   // mask head's sum
   EDGECONV_TC(6, 64, 128, true, 4, 1, 5);      // EdgeConv_0
+  EDGECONV_TC(3, 64, 128, true, 4, 1, 5);      // position-only EdgeConv_0
   EDGECONV_TC(32, 16, 32, true, 1, 2, 8);      // IDGCN
 #undef EDGECONV_TC
   return static_cast<int>(cudaErrorInvalidValue);

@@ -45,13 +45,17 @@ AGGREGATES = {"max": 0, "min": 1, "sum": 2, "mean": 3}
 MAX_WIDTH = 256   # widest hidden / output layer (one thread per column)
 MAX_BLOCKS = 264  # blocks of the backward (2 per SM): bounds its scratch
 TILE = 16         # points per block tile (csrc/edgeconv.cu : TP)
-# (mlp, C, H, O) of the bf16 tensor-core kernel
+# EdgeConv_0 of the position-only generators (in_feats 3): the action
+# generator's and the position-only fluid model's
+ACTION_EC0_CLASS = (True, 3, 64, 128)
+# (mlp, C, H, O) of the bf16 tensor-core kernel: the fluid generator's four
+# classes and EdgeConv_0 at C = 3
 TC_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
-                        (True, 6, 64, 128), (True, 32, 16, 32)})
+                        (True, 6, 64, 128), (True, 32, 16, 32),
+                        ACTION_EC0_CLASS})
 TC_LAUNCHES = 0              # launches of the tensor-core kernel
 # (mlp, C, H, O) of the f32 register-tiled kernel: the fluid generator's
-# four classes and the action generator's EdgeConv_0 (C = 3)
-ACTION_EC0_CLASS = (True, 3, 64, 128)
+# four classes and EdgeConv_0 at C = 3
 F32_TILED_CLASSES = frozenset({(True, 64, 128, 256), (False, 64, 128, 128),
                                (True, 6, 64, 128), (True, 32, 16, 32),
                                ACTION_EC0_CLASS})
