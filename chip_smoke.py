@@ -279,9 +279,9 @@ Phases, one JSON line each (``phase`` names it):
            gate held open (gate_open), then 2 iterations with
            --device_sampling and the fused switch (EdgeConv_0's C = 3
            backward at the fluid shapes); each step's launches, ms; then
-           every kernel at every recorded shape against its plain version
-           (medians of POS_ONLY_REPS), and the tensor-core EdgeConv at C =
-           3 on 1 and 12 frames of 128 points; the phase's seconds;
+           every kernel at every recorded shape against its plain version,
+           and the tensor-core EdgeConv at C = 3 on 1 and 12 frames of 128
+           points; the phase's seconds;
   kernel   (fast_d) FPS, the ball query and the flow kNN at the shapes the
            critics' stacked applies give them (FAST_D_FPS, FAST_D_BALL,
            FAST_D_KNN: [2B] and frame-stacked rows, FPS mask-aware on the
@@ -445,10 +445,8 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, torch, reps=None, warmup=2) -> float:
-    """Median over ``reps`` (default REPS) runs of CUDA-event time, after
-    warm-up."""
-    reps = reps or REPS
+def time_ms(fn, torch, reps=REPS, warmup=2) -> float:
+    """Median over ``reps`` runs of CUDA-event time, after warm-up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -464,7 +462,7 @@ def time_ms(fn, torch, reps=None, warmup=2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, torch, reps=None, by_kernel=False, tries=3):
+def device_ms(fn, torch, reps=REPS, by_kernel=False, tries=3):
     """Device time of the kernels ``fn`` launches, per call (torch.profiler,
     after a warm-up): what the card spends, without the host's launch
     overhead that ``time_ms`` includes where the host is the slower side.
@@ -476,7 +474,6 @@ def device_ms(fn, torch, reps=None, by_kernel=False, tries=3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
-    reps = reps or REPS
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -4325,6 +4322,62 @@ def _recipe_spec(name):
                 critics=ACTION_STEP_CRITICS, between=ACTION_CKPT_EVAL)
 
 
+def _step_marks(torch, kernels):
+    """A train CLI hook marking each step's events (event, n_iter, the
+    launch counts, a CUDA event, the metrics, the host clock), the card
+    synchronised at "start" and "end". Returns (the marks, the hook)."""
+    marks = []
+
+    def hook(event, n_iter, metrics):
+        if event in ("start", "end"):
+            torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((event, n_iter, counts(kernels), ev, metrics,
+                      time.perf_counter()))
+    return marks, hook
+
+
+def _recipe_steps(marks, launches, iters, always, gate, critics, between,
+                  what):
+    """The steps of one train CLI run resumed at 20,000, from its
+    :func:`_step_marks` and the run's ``launches``: each step's launches
+    against ``always``, plus ``gate`` where the gate opened and
+    ``critics`` where it opened at an even iteration; ``between`` (the
+    checkpoint evals) after each checkpoint iteration and after the last
+    step, nothing else between steps; every loss finite; iterations 20001
+    to ``iters``. Returns (iteration, its marks by event as (counts, CUDA
+    event, metrics, host clock), its launches) a step."""
+    ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= iters
+    by = {}
+    for event, n_iter, c, ev, metrics, wall in marks:
+        by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
+    prev, prev_iter, out = {n: 0 for n in launches}, None, []
+    for n_iter in sorted(by):
+        m = by[n_iter]
+        expect(delta(prev, m["start"][0]),
+               between if prev_iter and ckpt_iter(prev_iter) else {},
+               f"{what} before iteration {n_iter}")
+        metrics = m["end"][2]
+        opened = metrics.get("gate", True)
+        want = dict(always)
+        for part in ([gate] if opened else []) + (
+                [critics] if opened and n_iter % 2 == 0 else []):
+            for k, v in part.items():
+                want[k] = want.get(k, 0) + v
+        got = delta(m["start"][0], m["end"][0])
+        expect(got, want, f"{what} step {n_iter}")
+        for k, v in metrics.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"{what} {n_iter}: {k} = {v}")
+        out.append((n_iter, m, got))
+        prev, prev_iter = m["end"][0], n_iter
+    expect(delta(prev, launches), between, f"{what} after the last step")
+    if [n for n, _, _ in out] != list(range(20001, iters + 1)):
+        raise AssertionError(f"{what} ran {[n for n, _, _ in out]}")
+    return out
+
+
 def train_recipes(torch, dev, kernels, smi):
     """Both train recipes as their scripts run them (scripts/train_vel_
     torch.sh, scripts/train_dir_torch.sh: the preset, host sampling, no
@@ -4351,16 +4404,7 @@ def train_recipes(torch, dev, kernels, smi):
         if os.environ.get(cli.FUSED_SWITCH):
             raise AssertionError("the fused switch is set; the scripts run "
                                  "without it")
-        marks = []
-
-        def hook(event, n_iter, metrics):
-            if event in ("start", "end"):
-                torch.cuda.synchronize()
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((event, n_iter, counts(kernels), ev, metrics,
-                          time.perf_counter()))
-
+        marks, hook = _step_marks(torch, kernels)
         for k in kernels.values():
             k.launches = 0
         for k in native.CALLS:
@@ -4379,44 +4423,21 @@ def train_recipes(torch, dev, kernels, smi):
         for k in kernels.values():
             k.launches = 0
 
-        ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= RECIPE_ITERS
-        by, steps = {}, []
-        for event, n_iter, c, ev, metrics, wall in marks:
-            by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
-        prev_counts, prev_iter = {n: 0 for n in launches[name]}, None
-        for n_iter in sorted(by):
-            m = by[n_iter]
-            expect(delta(prev_counts, m["start"][0]),
-                   spec["between"] if prev_iter and ckpt_iter(prev_iter)
-                   else {}, f"{name} recipe before iteration {n_iter}")
+        always = dict(spec["always"])
+        always["fps"] -= 1                   # no device sampling
+        steps = []
+        for n_iter, m, got in _recipe_steps(
+                marks, launches[name], RECIPE_ITERS, always, spec["gate"],
+                spec["critics"], spec["between"], f"{name} recipe"):
             metrics = m["end"][2]
-            gate = metrics.get("gate", True)
-            d_update = gate and n_iter % 2 == 0
-            want = dict(spec["always"])
-            want["fps"] -= 1                 # no device sampling
-            for part in ([spec["gate"]] if gate else []) + (
-                    [spec["critics"]] if d_update else []):
-                for k, v in part.items():
-                    want[k] = want.get(k, 0) + v
-            got = delta(m["start"][0], m["end"][0])
-            expect(got, want, f"{name} recipe step {n_iter}")
-            for k, v in metrics.items():
-                if not np.isfinite(v):
-                    raise AssertionError(f"{name} recipe {n_iter}: {k} = {v}")
-            start, crit = m["start"][1], m["critics"][1]
             steps.append(dict(iteration=n_iter, **metrics,
-                              critic_update=d_update, launches=got,
-                              ms=start.elapsed_time(crit),
+                              critic_update=(metrics.get("gate", True)
+                                             and n_iter % 2 == 0),
+                              launches=got,
+                              ms=m["start"][1].elapsed_time(m["critics"][1]),
                               wall_ms=(m["end"][3] - m["start"][3]) * 1e3,
                               loader_ms_beside=probe.overlap_ms(
                                   m["start"][3], m["end"][3])))
-            prev_counts, prev_iter = m["end"][0], n_iter
-        expect(delta(prev_counts, launches[name]), spec["between"],
-               f"{name} recipe after the last step")
-        if [s["iteration"] for s in steps] != list(range(20001,
-                                                         RECIPE_ITERS + 1)):
-            raise AssertionError(f"{name} recipe ran "
-                                 f"{[s['iteration'] for s in steps]}")
         per_batch = {k: v / probe.made for k, v in calls.items()}
         want_calls = dict(RECIPE_NATIVE[name], radius_count=0,
                           voxel_downsample=0)
@@ -5411,8 +5432,6 @@ POS_ONLY_EVAL = [
 # velocities the gate's step runs no dense interp.
 POS_ONLY_ITERS, POS_ONLY_FUSED_ITERS = 20004, 20002
 POS_ONLY_GATE = {k: v for k, v in STEP_GATE.items() if k != "interp"}
-# repeats of the kernel rows at the recorded shapes (about 80 shapes)
-POS_ONLY_REPS = 3
 
 
 def _pos_only_frame_vs_cpu(torch, dev, opt, cli, frame, f32):
@@ -5479,79 +5498,47 @@ class gate_open:
         step_mod.FluidTrainConfig = self.own
 
 
-def _pos_only_train(torch, kernels, cli, argv, iters, fused, shapes):
-    """One train CLI run of the recipe (counts reset before it, read after
-    it; the kernels' shapes added to ``shapes``): each step's launches
-    against its counts (host sampling: one FPS fewer; the fused switch:
-    STEP_FUSED), CKPT_EVAL between steps at the checkpoint iterations,
-    every loss finite; ms a step (CUDA events, the generator's and the
-    critics' marks) and on the host clock. Returns (launches, steps)."""
+def _pos_only_train(torch, kernels, counted, cli, argv, iters, fused):
+    """One train CLI run of the recipe, through ``counted`` (counts reset
+    before it, read after it, the kernels' shapes recorded): the steps by
+    :func:`_recipe_steps` (host sampling: one FPS fewer; the fused switch:
+    STEP_FUSED; the gate open at every step); ms a step (CUDA events, the
+    generator's and the critics' marks) and on the host clock. Returns
+    (the steps, the native library's calls)."""
     from tpugan_tpu_torch.data import native
 
-    marks = []
-
-    def hook(event, n_iter, metrics):
-        if event in ("start", "end"):
-            torch.cuda.synchronize()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((event, n_iter, counts(kernels), ev, metrics,
-                      time.perf_counter()))
-
-    seen, undo = _record_shapes(torch)
-    for k in kernels.values():
-        k.launches = 0
+    marks, hook = _step_marks(torch, kernels)
     for k in native.CALLS:
         native.CALLS[k] = 0
-    if fused:
-        os.environ[cli.FUSED_SWITCH] = "1"
-    try:
-        with gate_open():
-            cli.main(argv + ["--iters", str(iters)], hook=hook)
-    finally:
-        os.environ.pop(cli.FUSED_SWITCH, None)
-        undo()
-    torch.cuda.synchronize()
-    launches = counts(kernels)
-    _calls_match([[k, n] for k, n in seen.items()], launches,
-                 f"position-only train {argv[-1]}")
-    shapes.update(seen)
-    by = {}
-    for event, n_iter, c, ev, metrics, wall in marks:
-        by.setdefault(n_iter, {})[event] = (c, ev, metrics, wall)
-    ckpt_iter = lambda n: (n - 1) % 10000 == 0 or n >= iters
-    prev, prev_iter, steps = {n: 0 for n in launches}, None, []
-    for n_iter in sorted(by):
-        m = by[n_iter]
-        expect(delta(prev, m["start"][0]),
-               CKPT_EVAL if prev_iter and ckpt_iter(prev_iter) else {},
-               f"position-only train before {n_iter}")
-        metrics = m["end"][2]
-        want = dict(STEP_ALWAYS)
+
+    def run():
         if fused:
-            want.update(STEP_FUSED)
-        else:
-            want["fps"] -= 1                 # no device sampling
-        for part in [POS_ONLY_GATE] + ([STEP_CRITICS] if n_iter % 2 == 0
-                                       else []):
-            for k, v in part.items():
-                want[k] = want.get(k, 0) + v
-        got = delta(m["start"][0], m["end"][0])
-        expect(got, want, f"position-only train step {n_iter}")
-        if not (metrics["gate"] and all(np.isfinite(v)
-                                        for v in metrics.values())):
+            os.environ[cli.FUSED_SWITCH] = "1"
+        try:
+            with gate_open():
+                cli.main(argv + ["--iters", str(iters)], hook=hook)
+        finally:
+            os.environ.pop(cli.FUSED_SWITCH, None)
+
+    _, launches, _ = counted(f"position-only train {argv[-1]}", run)
+    always = dict(STEP_ALWAYS)
+    if fused:
+        always.update(STEP_FUSED)
+    else:
+        always["fps"] -= 1                   # no device sampling
+    steps = []
+    for n_iter, m, got in _recipe_steps(marks, launches, iters, always,
+                                        POS_ONLY_GATE, STEP_CRITICS,
+                                        CKPT_EVAL, "position-only train"):
+        metrics = m["end"][2]
+        if not metrics["gate"]:
             raise AssertionError(f"position-only train {n_iter}: {metrics}")
         start = m["start"][1]
         steps.append(dict(iteration=n_iter, **metrics, launches=got,
                           ms=start.elapsed_time(m["critics"][1]),
                           generator_ms=start.elapsed_time(m["generator"][1]),
                           wall_ms=(m["end"][3] - m["start"][3]) * 1e3))
-        prev, prev_iter = m["end"][0], n_iter
-    expect(delta(prev, launches), CKPT_EVAL,
-           "position-only train after the last step")
-    if [s["iteration"] for s in steps] != list(range(20001, iters + 1)):
-        raise AssertionError(f"position-only train ran {steps}")
-    return launches, steps, dict(native.CALLS)
+    return steps, dict(native.CALLS)
 
 
 def position_only(torch, dev, kernels):
@@ -5692,10 +5679,8 @@ def position_only(torch, dev, kernels):
         shutil.rmtree(log_dir, ignore_errors=True)
         argv = ["--preset", "train_novel", "--synthetic", "--resume",
                 "--path_to_resume", ckpt] + extra + ["--log_dir", log_dir]
-        got, steps, native_calls = _pos_only_train(
-            torch, kernels, train_fluid, argv, iters, fused, shapes)
-        for n, v in got.items():
-            total[n] += v
+        steps, native_calls = _pos_only_train(
+            torch, kernels, counted, train_fluid, argv, iters, fused)
         line["train_novel"][name] = {
             "argv": argv + ["--iters", str(iters)], "steps": steps,
             "masking_loss_under_0.1": [s["masking_loss"] < 0.1
@@ -5708,16 +5693,10 @@ def position_only(torch, dev, kernels):
     line["launches"] = total
     line["seconds_without_kernel_rows"] = time.perf_counter() - t_phase
 
-    # every kernel at every shape these runs gave it (medians of
-    # POS_ONLY_REPS), and the tensor-core EdgeConv at C = 3 on action
-    # frames (no fluid path's shape)
-    global REPS
-    REPS, reps = POS_ONLY_REPS, REPS
-    try:
-        rows = check_path_kernels(torch, dev, {("position_only", 1, k): n
-                                               for k, n in shapes.items()})
-    finally:
-        REPS = reps
+    # every kernel at every shape these runs gave it, and the tensor-core
+    # EdgeConv at C = 3 on action frames (no fluid path's shape)
+    rows = check_path_kernels(torch, dev, {("position_only", 1, k): n
+                                           for k, n in shapes.items()})
     rows["binned_interp"] = [dict(r, path="position_only", world=1, calls=1)
                              for r in bi_rows]
     rng = np.random.default_rng(29)
@@ -5754,12 +5733,14 @@ def add_position_only_units(line, rows, launches):
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        max(r["max_abs_err"] for r in f32))
         if prs:
+            # a sum only where every row has its time (a device time of 0:
+            # the profiler lost that row's records, see device_ms)
             keys = [k for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                "library_ms") if all(r.get(k) is not None
-                                                     for r in prs)]
-            entry["position_only"] = {"times_are": what, "shapes": len(prs),
-                                      **{k: sum(r[k] * r["calls"] for r in prs)
-                                         for k in keys}}
+                                "library_ms") if all(r.get(k) for r in prs)]
+            entry["position_only"] = {
+                "times_are": what, "shapes": len(prs),
+                "device_ms_lost": sum(r.get("device_ms") == 0 for r in prs),
+                **{k: sum(r[k] * r["calls"] for r in prs) for k in keys}}
         entry["launches_by_path"]["position_only"] = launches.get(
             entry["name"], 0)
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -5890,7 +5871,7 @@ SHARD_GATE = 1e-5
 # replayed (_shift_probe (ii)): what is left is the centroid's f32 sum in
 # another order. On an NVIDIA H100 80GB HBM3 at 700 W it read 1.19e-7 at
 # two ranks in each of three runs (0 at one rank), where the frames without
-# the replay differ by up to 4.9e-3 (PERF.md section 6, PR 26); the limit
+# the replay differ by up to 4.9e-3 (PERF.md section 6); the limit
 # lies about 34x above the reading.
 SHARD_REPLAY_GATE = 4e-6
 DP_ITERS = 20004          # the fluid DP runs: iterations 20001-20004
@@ -6130,43 +6111,23 @@ def _unsharded_frames(torch, model, pos, vel, centroids=None, graphs=None):
     eval/rollout.py : make_rollout_step's arithmetic, with each frame's
     centroid taken from ``centroids`` ([1, 1, 3] each) where given, and
     with ``graphs`` (every graph's whole [1, N, k] lists, in the order the
-    forwards build them) replayed where given. Returns (the frames' valid
-    points, the replayed slots that differ from this run's own kNN and
-    their largest exact-distance gap over GraphReplay's f32-noise
-    limit)."""
-    import tpugan_tpu_torch.models.generator as G
-    import tpugan_tpu_torch.nn.edgeconv as EC
+    forwards build them) replayed where given (GraphReplay: they may differ
+    from this run's own kNN only between near ties). Returns (the frames'
+    valid points, the replayed slots that differ from this run's own
+    kNN)."""
     from tpugan_tpu_torch import DT
     from tpugan_tpu_torch.models.generator import (RolloutMaskState,
                                                    expand_pos_with_masking,
                                                    rollout_mask_update)
-    from tpugan_tpu_torch.ops.neighbors import graph_knn
 
     dev = next(model.parameters()).device
     t, n, _ = pos.shape
     r = model.upsample_ratio
-    queue = list(graphs or [])
-    swaps = [0, 0.0]
 
-    def replaying(x, k, c_valid=None):
-        d2, own = graph_knn(x, k, c_valid)
-        rec = queue.pop(0).to(own.device)
-        xd = x.detach().double()
-        b, q, sl = (rec != own).nonzero(as_tuple=True)
-        if b.numel():
-            tol = 1e-5 * 2 * float((xd * xd).sum(-1).max())
-            gap = (((xd[b, q] - xd[b, rec[b, q, sl]]) ** 2).sum(-1)
-                   - ((xd[b, q] - xd[b, own[b, q, sl]]) ** 2).sum(-1))
-            swaps[0] += int(b.numel())
-            swaps[1] = max(swaps[1], float(gap.abs().max()) / tol)
-        return d2, rec
-
-    state = RolloutMaskState.create(1, n, 25, device=dev)
-    real = torch.ones((1, n, 1), dtype=torch.bool, device=dev)
-    outs = []
-    if graphs is not None:
-        G.graph_knn = EC.graph_knn = replaying
-    try:
+    def frames():
+        state = RolloutMaskState.create(1, n, 25, device=dev)
+        real = torch.ones((1, n, 1), dtype=torch.bool, device=dev)
+        outs = []
         with torch.no_grad():
             for f in range(t):
                 p = torch.from_numpy(pos[f:f + 1]).to(dev)
@@ -6181,11 +6142,16 @@ def _unsharded_frames(torch, model, pos, vel, centroids=None, graphs=None):
                     pos_n, edge, mean_mask, r, model.epsilon)
                 out = torch.where(valid[..., None], padded + centroid, padded)
                 outs.append(out[0][valid[0]].cpu().numpy())
-    finally:
-        G.graph_knn = EC.graph_knn = graph_knn
-    if queue:
-        raise AssertionError(f"{len(queue)} graphs left unreplayed")
-    return outs, {"differing_slots": swaps[0], "max_gap_over_limit": swaps[1]}
+        return outs
+
+    if graphs is None:
+        return frames(), 0
+    replay = GraphReplay(torch)
+    replay.restore(graphs)
+    outs = replay.replay(frames)
+    if replay.lists:
+        raise AssertionError(f"{len(replay.lists)} graphs left unreplayed")
+    return outs, replay.swaps
 
 
 def _shift_probe(torch, model, pos, vel, sharded, centroids, graphs) -> dict:
@@ -6208,7 +6174,7 @@ def _shift_probe(torch, model, pos, vel, sharded, centroids, graphs) -> dict:
     replayed, swaps = _unsharded_frames(torch, model, pos, vel, graphs=graphs)
     return {"unsharded": {**errs(own), "digest": _frames_digest(own)},
             "sharded_centroid": errs(centred),
-            "sharded_graphs": {**errs(replayed), "replay": swaps}}
+            "sharded_graphs": {**errs(replayed), "replayed_slots_apart": swaps}}
 
 
 def _frames_digest(frames) -> str:

@@ -164,18 +164,23 @@ def _jax_fluid_state(root):
 
 def _jax_mesh_step(models, txs, jstate, batch, key):
     """One step of ``make_fluid_gan_step`` on ``make_mesh(2)``, dropout
-    off: (state after, metrics)."""
+    off, compiled now; returns a function that runs it: (state after,
+    metrics)."""
     step = make_fluid_gan_step(models, txs, JAX_CFG, mesh=make_mesh(2))
+    # host inputs: the mesh step's executable takes uncommitted arrays
+    args = (jax.device_get(jstate), {k: v.numpy() for k, v in batch.items()},
+            np.asarray(key))
     mp = pytest.MonkeyPatch()
     mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
     try:
-        # host inputs: the mesh step's executable takes uncommitted arrays
-        after, jm = step(jax.device_get(jstate),
-                         {k: v.numpy() for k, v in batch.items()},
-                         np.asarray(key))
+        compiled = step.lower(*args).compile()
     finally:
         mp.undo()
-    return jax.device_get(after), {k: float(v) for k, v in jm.items()}
+
+    def run():
+        after, jm = compiled(*args)
+        return jax.device_get(after), {k: float(v) for k, v in jm.items()}
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -222,13 +227,17 @@ def steps(tmp_path_factory):
                                        m, dropout_widths(
                                            fluid[0]["state"].spatial.module))
                         for g in (8, 9)])
-    # the ranks run while this process compiles and runs the JAX step
+    # the ranks run while this process compiles the JAX step; the step runs
+    # once they are done (run beside them, it now and then aborted in
+    # XLA:CPU's in-process all-gather, at the collective's termination
+    # timeout)
     ranks = start_ranks("steps", {"fluid": {"runs": fluid},
                                   "action": {"runs": action},
                                   "pooled": _pooled_case(), "chain": chain,
                                   "references": True}, work / "ranks")
-    after, metrics = _jax_mesh_step(models, txs, jstate, batch, key)
+    jax_step = _jax_mesh_step(models, txs, jstate, batch, key)
     outs = ranks()
+    after, metrics = jax_step()
     jax_run = dict(before=jparams, after=after, metrics=metrics)
     before = lambda run: {n: {k: p.detach().clone() for k, p in
                               getattr(run["state"], n).module

@@ -144,7 +144,6 @@ def test_trained_checkpoint_dynamic_matches_jax(monkeypatch):
     assert_forward_close(out_j, out_t, tm.epsilon, 8)
 
 
-
 # The position-only model's bf16 static forward against JAX's: both round
 # every EdgeConv layer to bf16 (the port through its kernel's plain version
 # on the CPU, JAX through its own), each summing in its own order, so a
